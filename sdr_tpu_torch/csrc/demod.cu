@@ -1,0 +1,112 @@
+// Kernel C: rows-layout demod + per-channel bit-error count.
+//
+// Replaces sdr_tpu/kernels/demod_pallas.py::demod_count_pallas (the
+// fast engine's count terminal; its taps= and despread modes are not
+// ported yet). Per OFDM symbol (one row of the (B, S, N+cp) planes):
+//   CP strip; forward unscaled N-point FFT; p = conj(h) y,
+//   h2 = |h|^2, s = p / max(h2, 1e-12), inv_eff = h2 / nv; per-axis
+//   max-log LLR (level scan for L <= 4, Gray fold recursion for L >= 8;
+//   I bits then Q bits, MSB first); hard decision llr < 0 against
+//   (idx >> (bps-1-j)) & 1; integer error count per channel.
+// h is (B, 1, N) or (B, S, N). Counts are summed with integer atomics,
+// which give the same result in any order.
+//
+// The TPU kernel ran the DFT as a Gauss 3-multiplication matmul on the
+// MXU in bf16 passes. Here a block holds a few symbols in shared memory
+// and runs a radix-2 FFT on CUDA cores in f32; no LLR plane is written.
+//
+// Bound on the H100: reading the two f32 sample planes (8 bytes per
+// sample, plus the channel and index planes) — memory-bound; the
+// shared-memory butterflies and the LLR tail are the compute side.
+#include "common.cuh"
+
+template <typename IdxT, int M, bool BPSK>
+__global__ void __launch_bounds__(sdr::kThreads)
+demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                   const float* __restrict__ hr, const float* __restrict__ hi, int h_syms,
+                   const IdxT* __restrict__ idx, int32_t* __restrict__ out, long long n_rows,
+                   int S, int log_n, int cp, int log_spb, sdr::AxisTables tab, float inv_nv,
+                   const float* __restrict__ twr, const float* __restrict__ twi) {
+  extern __shared__ float smem[];
+  const int N = 1 << log_n;
+  const int spb = 1 << log_spb;
+  float* sre = smem;
+  float* sim = smem + (spb << log_n);
+  int* cnt = (int*)(sim + (spb << log_n));
+  const long long row0 = (long long)blockIdx.x << log_spb;
+  const int sym_len = N + cp;
+  constexpr int BPS = BPSK ? 1 : 2 * M;
+
+  if ((int)threadIdx.x < spb) cnt[threadIdx.x] = 0;
+  for (int e = threadIdx.x; e < (spb << log_n); e += blockDim.x) {
+    const int t = e >> log_n;
+    const int n = e & (N - 1);
+    const long long r = row0 + t;
+    float xr = 0.0f, xi = 0.0f;
+    if (r < n_rows) {
+      const long long o = r * sym_len + cp + n;
+      xr = re[o];
+      xi = im[o];
+    }
+    const int dst = (t << log_n) + sdr::bit_reverse(n, log_n);
+    sre[dst] = xr;
+    sim[dst] = xi;
+  }
+  __syncthreads();
+  sdr::smem_fft<false>(sre, sim, log_n, log_spb, N, 1, twr, twi, 1.0f);
+
+  for (int e = threadIdx.x; e < (spb << log_n); e += blockDim.x) {
+    const int t = e >> log_n;
+    const int k = e & (N - 1);
+    const long long r = row0 + t;
+    if (r >= n_rows) continue;
+    const long long b = r / S;
+    const int s = (int)(r - b * S);
+    const long long ho = ((b * h_syms + (h_syms > 1 ? s : 0)) << log_n) + k;
+    const float h_r = hr[ho], h_i = hi[ho];
+    const float yr = sre[e], yi = sim[e];
+    const float h2 = h_r * h_r + h_i * h_i;
+    const float inv_h2 = 1.0f / fmaxf(h2, 1e-12f);
+    const float inv_eff = h2 * inv_nv;
+    float llr[BPS];
+    const float sr = (h_r * yr + h_i * yi) * inv_h2;
+    const float si = (h_r * yi - h_i * yr) * inv_h2;
+    if constexpr (M <= 2) {
+      sdr::llr_axis_scan<M>(sr, inv_eff, tab, llr);
+      if constexpr (!BPSK) sdr::llr_axis_scan<M>(si, inv_eff, tab, llr + M);
+    } else {
+      sdr::llr_axis_fold<M>(sr, inv_eff, tab, llr);
+      sdr::llr_axis_fold<M>(si, inv_eff, tab, llr + M);
+    }
+    const int v = (int)idx[(r << log_n) + k];
+    int err = 0;
+#pragma unroll
+    for (int j = 0; j < BPS; ++j) err += (int)(llr[j] < 0.0f) != ((v >> (BPS - 1 - j)) & 1);
+    if (err) atomicAdd(cnt + t, err);
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < spb) {
+    const long long r = row0 + threadIdx.x;
+    if (r < n_rows && cnt[threadIdx.x]) atomicAdd(out + r / S, cnt[threadIdx.x]);
+  }
+}
+
+extern "C" int sdr_demod_count(const float* re, const float* im, const float* hr,
+                               const float* hi, int h_syms, const void* idx, int idx_bytes,
+                               int32_t* out, int B, int S, int log_n, int cp,
+                               int bits_per_axis, int bpsk, sdr::AxisTables tab, float inv_nv,
+                               const float* twr, const float* twi, void* stream) {
+  const long long n_rows = (long long)B * S;
+  if (n_rows == 0) return 0;
+  const int log_spb = log_n >= 9 ? 0 : 9 - log_n;
+  const long long blocks = (n_rows + (1 << log_spb) - 1) >> log_spb;
+  const size_t smem = (size_t)2 * sizeof(float) * ((size_t)1 << (log_spb + log_n)) +
+                      sizeof(int) * ((size_t)1 << log_spb);
+  cudaStream_t st = (cudaStream_t)stream;
+  SDR_DISPATCH_MOD(bits_per_axis, bpsk,
+    SDR_DISPATCH_IDX(idx_bytes,
+      demod_count_kernel<IdxT, M, BPSK><<<(unsigned)blocks, sdr::kThreads, smem, st>>>(
+          re, im, hr, hi, h_syms, (const IdxT*)idx, out, n_rows, S, log_n, cp, log_spb, tab,
+          inv_nv, twr, twi)))
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,197 @@
+"""Build, load and bind the port's CUDA kernels; launch counters.
+
+All kernels live in one shared library built from
+``sdr_tpu_torch/csrc/*.cu`` by ``nvcc`` for ``sm_90a`` (Hopper) at first
+use, with a plain C interface bound through ``ctypes`` — seconds to
+build, against minutes for an extension that includes PyTorch's
+headers. The library goes to ``sdr_tpu_torch/_build/<source hash>/``
+(git-ignored) and is rebuilt when a source or the flags change.
+
+Nothing is built or loaded at import: ``lib()`` does it on the first
+kernel launch. The module keeps the only global state of the package:
+the library handle and the per-kernel launch counters, which each
+wrapper bumps exactly where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from sdr_tpu_torch.core.config import Modulation
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# Launch counters, one per kernel wrapper.
+LAUNCHES = {"payload": 0, "tx": 0, "demod_count": 0, "demod_sum_cl": 0}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Where the library for the current sources is (or will be) built."""
+    return BUILD_ROOT / source_hash() / "libsdr_torch_kernels.so"
+
+
+def build() -> Path:
+    """Compile the library if this source hash has not been built yet;
+    returns its path. Concurrent builders race safely: each writes to a
+    temporary file and renames it into place."""
+    so = library_path()
+    if so.exists():
+        return so
+    out_dir = so.parent
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+class AxisTables(ctypes.Structure):
+    """Per-modulation constants passed by value (csrc/common.cuh)."""
+
+    _fields_ = [
+        ("lev", ctypes.c_float * 32),
+        ("lev2", ctypes.c_float * 32),
+        ("two_abs", ctypes.c_float * 32),
+        ("norm2", ctypes.c_float),
+        ("inorm", ctypes.c_float),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def axis_tables(mod: Modulation) -> AxisTables:
+    """Level tables in the JAX kernels' rounding order: each level is
+    pam·norm in float64 (norm itself float32), rounded once to float32."""
+    from sdr_tpu_torch.ops.modulation import _tables
+
+    _, pam, norm, inorm = _tables(mod)
+    t = AxisTables()
+    for g, a in enumerate(pam):
+        lev = float(a) * float(norm)
+        t.lev[g] = lev
+        t.lev2[g] = lev * lev
+        t.two_abs[g] = 2.0 * abs(lev)
+    t.norm2 = float(norm) * float(norm)
+    t.inorm = float(inorm)
+    return t
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+_SIGNATURES = {
+    "sdr_payload": [_P, _I, _P, _I, _I, _I, _I, _U, _U, _P],
+    "sdr_tx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P,
+               _I, _P, _P, _P, _U, _U, _F, _P],
+    "sdr_demod_count": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                        AxisTables, _F, _P, _P, _P],
+    "sdr_demod_sum_cl_partials": [_I, _I],
+    "sdr_demod_sum_cl": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         AxisTables, _F, _P, _P, _P],
+}
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error (cudaGetLastError)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def twiddles(n: int, device: torch.device):
+    """Forward twiddles e^{-2πik/n}, k < n/2, computed in float64 on the
+    device and rounded once, as (re, im) float32 tensors."""
+    ang = torch.arange(max(n // 2, 1), dtype=torch.float64, device=device) * (-2.0 * math.pi / n)
+    return torch.cos(ang).to(torch.float32), torch.sin(ang).to(torch.float32)
+
+
+def log2_exact(n: int) -> int:
+    lg = int(math.log2(n)) if n > 0 else -1
+    if n <= 0 or (1 << lg) != n:
+        raise ValueError(f"{n} is not a power of two")
+    return lg
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Every operand on one CUDA device and contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")

@@ -1,0 +1,117 @@
+"""Kernel C: rows-layout demod + per-channel error count (port of
+``sdr_tpu/kernels/demod_pallas.py::demod_count_pallas``; its ``taps=``
+and ``despread`` modes are not ported yet).
+
+Planar samples (B, S, N+cp) → CP strip → forward unscaled DFT →
+one-tap unbiased equalisation s = conj(h)·y / max(|h|², 1e-12) with
+LLRs scaled by |h|²/nv (so h → 0 fades LLRs to zero instead of
+dividing by ~0) → max-log LLR, I bits then Q bits, MSB first → hard
+decision (LLR < 0) against the transmitted indices → per-channel
+(B,) int32 bit-error count. Noise variance is clamped at 1e-12.
+
+This module also holds the plain LLR plane, ``demod_chain``, which the
+count's plain version, the channels-last sum's plain version
+(``kernels/demod_cl.py``) and the tests reuse.
+
+On a CPU tensor the plain version runs; on a CUDA tensor the CUDA
+kernel (``csrc/demod.cu``) runs, or the call raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sdr_tpu_torch.core.config import Modulation
+from sdr_tpu_torch.kernels import _lib
+from sdr_tpu_torch.ops.llr import axis_metric
+from sdr_tpu_torch.ops.modulation import _ints_to_bits
+from sdr_tpu_torch.ops.ofdm import ofdm_rx
+
+_IDX_DTYPES = (torch.int8, torch.int16, torch.int32)
+MAX_N_FFT = 4096  # two (symbols, N) f32 tiles in 48 KB of shared memory
+
+
+def inv_noise_var(noise_var: float) -> float:
+    """1/max(nv, 1e-12), the clamp every demod terminal applies."""
+    return 1.0 / max(float(noise_var), 1e-12)
+
+
+def demod_chain(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
+                reduce_sum: bool = False):
+    """Plain LLR plane over (..., S, N+cp) planar samples; hr/hi broadcast
+    against the post-FFT grid (..., S, N). Returns (..., S, N·bps)
+    float32 in the public order (per subcarrier, I bits then Q bits,
+    MSB first), or its float32 sum when ``reduce_sum``."""
+    y = ofdm_rx(torch.complex(re.to(torch.float32), im.to(torch.float32)), cp_len)
+    hr = hr.to(torch.float32)
+    hi = hi.to(torch.float32)
+    h2 = hr * hr + hi * hi
+    inv_h2 = 1.0 / torch.clamp(h2, min=1e-12)
+    sr = (hr * y.real + hi * y.imag) * inv_h2
+    si = (hr * y.imag - hi * y.real) * inv_h2
+    inv_eff = (h2 * inv_noise_var(noise_var))[..., None]
+    axes = [axis_metric(torch.broadcast_to(sr, y.shape), mod) * inv_eff]
+    if mod is not Modulation.BPSK:
+        axes.append(axis_metric(torch.broadcast_to(si, y.shape), mod) * inv_eff)
+    llr = torch.cat(axes, dim=-1)
+    llr = llr.reshape(*y.shape[:-1], y.shape[-1] * mod.bits_per_symbol)
+    if reduce_sum:
+        return llr.sum(dtype=torch.float32)
+    return llr
+
+
+def count_errors(llr: torch.Tensor, idx: torch.Tensor, bps: int) -> torch.Tensor:
+    """Per-channel (B,) int32 count of hard decisions (LLR < 0) that
+    differ from the bits of the transmitted indices (B, S, N)."""
+    bits = _ints_to_bits(idx, bps)
+    return ((llr < 0).to(torch.int8) != bits).sum(dim=(1, 2), dtype=torch.int32)
+
+
+def supported(shape, h_shape, idx_shape, cp_len: int) -> bool:
+    """(B, S, N+cp) samples, N a power of two in [2, 4096], h (B, 1|S, N),
+    idx (B, S, N)."""
+    if len(shape) != 3:
+        return False
+    B, S, sym_len = shape
+    n = sym_len - cp_len
+    if not (2 <= n <= MAX_N_FFT and (n & (n - 1)) == 0 and 0 <= cp_len):
+        return False
+    return tuple(h_shape) in ((B, 1, n), (B, S, n)) and tuple(idx_shape) == (B, S, n)
+
+
+def demod_count_plain(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: float):
+    """Plain torch version of the count."""
+    llr = demod_chain(re, im, hr, hi, cp_len, mod, noise_var)
+    return count_errors(llr, idx, mod.bits_per_symbol)
+
+
+def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: float):
+    """Per-channel (B,) int32 bit-error counts.
+
+    re/im (B, S, N+cp) float32; hr/hi (B, 1, N) or (B, S, N) float32;
+    idx (B, S, N) int8/int16/int32 transmitted symbol indices."""
+    if re.device.type == "cpu":
+        return demod_count_plain(re, im, hr, hi, idx, cp_len, mod, noise_var)
+    if not supported(re.shape, hr.shape, idx.shape, cp_len):
+        raise ValueError(
+            f"demod count kernel: unsupported shapes re {tuple(re.shape)}, "
+            f"h {tuple(hr.shape)}, idx {tuple(idx.shape)}, cp {cp_len}"
+        )
+    if any(t.dtype != torch.float32 for t in (re, im, hr, hi)) or hi.shape != hr.shape or im.shape != re.shape:
+        raise ValueError("demod count kernel: sample and channel planes must be float32 pairs")
+    if idx.dtype not in _IDX_DTYPES:
+        raise ValueError(f"demod count kernel: indices must be int8/16/32, got {idx.dtype}")
+    _lib.require_cuda("demod_count", re, im, hr, hi, idx)
+    B, S, sym_len = re.shape
+    N = sym_len - cp_len
+    out = torch.zeros((B,), dtype=torch.int32, device=re.device)
+    twr, twi = _lib.twiddles(N, re.device)
+    rc = _lib.lib().sdr_demod_count(
+        re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(), hr.shape[1],
+        idx.data_ptr(), idx.element_size(), out.data_ptr(), B, S, _lib.log2_exact(N),
+        cp_len, mod.bits_per_axis, int(mod is Modulation.BPSK), _lib.axis_tables(mod),
+        inv_noise_var(noise_var), twr.data_ptr(), twi.data_ptr(), _lib.stream(),
+    )
+    _lib.check(rc, "demod_count")
+    _lib.LAUNCHES["demod_count"] += 1
+    return out

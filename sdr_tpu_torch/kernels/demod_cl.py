@@ -1,0 +1,127 @@
+"""Kernel D: channels-last demod + LLR sum, the headline receive terminal
+(port of ``sdr_tpu/kernels/demod_cl_pallas.py::demod_sum_cl``).
+
+Layout contract (the JAX package's, demod_cl_pallas.py:37-45):
+
+  re_t/im_t : (S·(N+cp), B) float32 planar samples, time-major — symbol
+              s occupies rows [s·(N+cp), (s+1)·(N+cp)), its first cp
+              rows being the CP; the minor axis is the channel batch.
+  hr_t/hi_t : (N, B) per-link channel response, natural bin order.
+
+Returns the float32 sum of every max-log LLR over the grid. The TPU
+kernel's DIF bin order was a Mosaic artifact; this kernel works in
+natural order, and ``h_in_dif_order=True`` (h permuted by ``dif_perm``,
+as the JAX bench passes it) is un-permuted here before the launch.
+
+The kernel takes float32 only and raises on bfloat16: the bf16 sample
+planes of the JAX bench need a BER gate first. Its cross-block sum is a
+deterministic two-pass reduction, so repeated runs give the same bits.
+
+On a CPU tensor the plain version runs; on a CUDA tensor the CUDA
+kernel (``csrc/demod_cl.cu``) runs, or the call raises.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from sdr_tpu_torch.core.config import Modulation
+from sdr_tpu_torch.kernels import _lib
+from sdr_tpu_torch.kernels.demod import demod_chain, inv_noise_var
+
+_BASE = 128  # the TPU kernel's leaf DFT size, which fixes its DIF order
+MAX_N_FFT = 512  # a (N, 32-channel) complex f32 tile per block: 256·N bytes
+
+
+@functools.lru_cache(maxsize=None)
+def dif_perm(n_fft: int) -> np.ndarray:
+    """Kernel-row → natural-bin map of the JAX kernel's recursive DIF
+    split: perm(N) = concat(2·perm(N/2), 2·perm(N/2)+1), perm(128) =
+    arange. Defined for N = 128·2^k."""
+    if n_fft < _BASE or n_fft % _BASE or (n_fft // _BASE) & (n_fft // _BASE - 1):
+        raise ValueError(f"DIF order is defined for n_fft = 128·2^k, got {n_fft}")
+    if n_fft == _BASE:
+        return np.arange(_BASE)
+    half = dif_perm(n_fft // 2)
+    return np.concatenate([2 * half, 2 * half + 1])
+
+
+@functools.lru_cache(maxsize=None)
+def inv_dif_perm(n_fft: int) -> np.ndarray:
+    p = dif_perm(n_fft)
+    inv = np.empty_like(p)
+    inv[p] = np.arange(n_fft)
+    return inv
+
+
+def h_natural(hr_t, hi_t, h_in_dif_order: bool):
+    """Undo a caller-side DIF permutation of the (N, B) channel planes."""
+    if not h_in_dif_order:
+        return hr_t, hi_t
+    inv = torch.as_tensor(inv_dif_perm(hr_t.shape[0]), device=hr_t.device)
+    return hr_t[inv], hi_t[inv]
+
+
+def supported(shape, n_fft: int, cp_len: int) -> bool:
+    """(S·(N+cp), B) planes with N a power of two in [2, 512]."""
+    if len(shape) != 2 or not (2 <= n_fft <= MAX_N_FFT and (n_fft & (n_fft - 1)) == 0):
+        return False
+    return cp_len >= 0 and shape[0] % (n_fft + cp_len) == 0 and shape[0] > 0 and shape[1] > 0
+
+
+def demod_sum_cl_plain(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation,
+                       noise_var: float):
+    """Plain version: the plain LLR plane (``kernels.demod.demod_chain``)
+    summed symbol by symbol, as the JAX twin ``demod_cl_jnp`` loops."""
+    n_fft = hr_t.shape[0]
+    sym_len = n_fft + cp_len
+    n_syms = re_t.shape[0] // sym_len
+    hr = hr_t.T[:, None, :]
+    hi = hi_t.T[:, None, :]
+    acc = None
+    for s in range(n_syms):
+        o = s * sym_len + cp_len
+        xr = re_t[o:o + n_fft].T[:, None, :]
+        xi = im_t[o:o + n_fft].T[:, None, :]
+        r = demod_chain(xr, xi, hr, hi, 0, mod, noise_var, reduce_sum=True)
+        acc = r if acc is None else acc + r
+    return acc
+
+
+def demod_sum_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation, noise_var: float,
+                 h_in_dif_order: bool = False):
+    """Scalar float32 LLR sum over the channels-last grid (0-d tensor)."""
+    hr_t, hi_t = h_natural(hr_t, hi_t, h_in_dif_order)
+    if re_t.device.type == "cpu":
+        return demod_sum_cl_plain(re_t, im_t, hr_t, hi_t, cp_len, mod, noise_var)
+    if any(t.dtype != torch.float32 for t in (re_t, im_t, hr_t, hi_t)):
+        raise ValueError("demod_sum_cl kernel takes float32 planes only (bf16 needs a BER gate)")
+    n_fft = hr_t.shape[0]
+    if not supported(re_t.shape, n_fft, cp_len):
+        raise ValueError(
+            f"demod_sum_cl kernel: unsupported shape {tuple(re_t.shape)} n_fft={n_fft} cp={cp_len}"
+        )
+    B = re_t.shape[1]
+    if im_t.shape != re_t.shape or hr_t.shape != (n_fft, B) or hi_t.shape != (n_fft, B):
+        raise ValueError("demod_sum_cl kernel: plane shapes disagree")
+    hr_t = hr_t.contiguous()
+    hi_t = hi_t.contiguous()
+    _lib.require_cuda("demod_sum_cl", re_t, im_t, hr_t, hi_t)
+    n_syms = re_t.shape[0] // (n_fft + cp_len)
+    lib = _lib.lib()
+    partials = torch.empty((lib.sdr_demod_sum_cl_partials(B, n_syms),),
+                           dtype=torch.float32, device=re_t.device)
+    out = torch.empty((1,), dtype=torch.float32, device=re_t.device)
+    twr, twi = _lib.twiddles(n_fft, re_t.device)
+    rc = lib.sdr_demod_sum_cl(
+        re_t.data_ptr(), im_t.data_ptr(), hr_t.data_ptr(), hi_t.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), B, n_syms, _lib.log2_exact(n_fft), cp_len,
+        mod.bits_per_axis, int(mod is Modulation.BPSK), _lib.axis_tables(mod),
+        inv_noise_var(noise_var), twr.data_ptr(), twi.data_ptr(), _lib.stream(),
+    )
+    _lib.check(rc, "demod_sum_cl")
+    _lib.LAUNCHES["demod_sum_cl"] += 1
+    return out[0]

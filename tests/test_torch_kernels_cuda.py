@@ -1,0 +1,151 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Marked ``gpu``: each test skips (with its reason) when
+``torch.cuda.is_available()`` is false, which is decided inside the
+fixture, never at import. Run on a machine with an NVIDIA Hopper card:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m gpu -q
+
+Tolerances: indices and counts exact (counts: or within the number of
+bits whose plain |LLR| < 1e-3); sample planes 1e-4 absolute (injected
+noise) and 1e-5 of the plane's peak (keyed noise); LLR sums 1e-4
+relative.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sdr_tpu_torch.core.config import ChannelConfig, ChannelModel, LinkConfig, Modulation, OFDMConfig
+from sdr_tpu_torch.kernels import _lib
+from sdr_tpu_torch.kernels import demod as kc
+from sdr_tpu_torch.kernels import demod_cl as kd
+from sdr_tpu_torch.kernels import payload as ka
+from sdr_tpu_torch.kernels import tx as kb
+from sdr_tpu_torch.link import fast
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU form)")
+    return torch.device("cuda")
+
+
+def _counted(name, fn):
+    before = _lib.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("bps", [1, 4, 8, 10])
+def test_payload_kernel_bit_exact(dev, bps):
+    ids = torch.arange(1000, 1300, dtype=torch.int32, device=dev)
+    got = _counted("payload", lambda: ka.payload_idx(16, 64, bps, 2**33 + 5, ids))
+    want = ka.payload_idx_plain(16, 64, bps, 2**33 + 5, ids)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
+def test_tx_kernel_matches_plain(dev, mod):
+    B, S, N, cp = 40, 8, 256, 64
+    g = torch.Generator(device="cpu").manual_seed(1)
+    idx = torch.randint(0, 1 << mod.bits_per_symbol, (B, S, N), generator=g).to(dev, torch.int32)
+    hs_r = torch.randn(B, generator=g).to(dev)
+    hs_i = torch.randn(B, generator=g).to(dev)
+    noise = tuple(torch.randn((B, S, N + cp), generator=g).to(dev) for _ in range(2))
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    tvar = 1e-3
+    cases = [
+        dict(),
+        dict(hs_r=hs_r, hs_i=hs_i, noise_var=tvar, noise=noise),
+        dict(noise_var=tvar, seed=3, ch_ids=ids),
+        dict(hs_r=hs_r, hs_i=hs_i, noise_var=tvar, seed=3, ch_ids=ids),
+    ]
+    for kw in cases:
+        got = _counted("tx", lambda: kb.tx_channel(idx, cp, mod, **kw))
+        want = kb.tx_channel_plain(idx, cp, mod, **kw)
+        for a, b in zip(got, want):
+            if "seed" in kw:
+                assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+            else:
+                assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
+@pytest.mark.parametrize("h_syms", [1, 8])
+def test_demod_count_kernel_matches_plain(dev, mod, h_syms):
+    B, S, N, cp = 48, 8, 256, 64
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    idx = ka.payload_idx(S, N, mod.bits_per_symbol, 4, ids)
+    nv = 1.0 / (10 ** 0.8 * mod.bits_per_symbol)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    hr = torch.randn((B, h_syms, N), generator=g).to(dev)
+    hi = torch.randn((B, h_syms, N), generator=g).to(dev)
+    re, im = kb.tx_channel(idx, cp, mod, noise_var=nv / N, seed=4, ch_ids=ids)
+    got = _counted("demod_count", lambda: kc.demod_count(re, im, hr, hi, idx, cp, mod, nv))
+    llr = kc.demod_chain(re, im, hr, hi, cp, mod, nv)
+    want = kc.count_errors(llr, idx, mod.bits_per_symbol)
+    margin = (llr.abs() < 1e-3).sum(dim=(1, 2))
+    assert int(want.sum()) > 0
+    assert bool(((got - want).abs() <= margin).all())
+
+
+@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
+@pytest.mark.parametrize("n_fft", [64, 256, 512])
+def test_demod_sum_cl_kernel_matches_plain(dev, mod, n_fft):
+    B, S, cp = 200, 11, n_fft // 4
+    g = torch.Generator(device="cpu").manual_seed(3)
+    re = (torch.randn((S * (n_fft + cp), B), generator=g) / np.sqrt(2 * n_fft)).to(dev)
+    im = (torch.randn((S * (n_fft + cp), B), generator=g) / np.sqrt(2 * n_fft)).to(dev)
+    hr = (torch.randn((n_fft, B), generator=g) * np.sqrt(0.5)).to(dev)
+    hi = (torch.randn((n_fft, B), generator=g) * np.sqrt(0.5)).to(dev)
+    nv = 1.0 / (10 ** 1.2 * mod.bits_per_symbol)
+    got = _counted("demod_sum_cl", lambda: kd.demod_sum_cl(re, im, hr, hi, cp, mod, nv))
+    want = kd.demod_sum_cl_plain(re, im, hr, hi, cp, mod, nv)
+    assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))
+    again = kd.demod_sum_cl(re, im, hr, hi, cp, mod, nv)
+    assert float(again) == float(got)  # deterministic reduction
+
+
+@pytest.mark.parametrize("model", [ChannelModel.AWGN, ChannelModel.RICIAN], ids=lambda m: m.value)
+def test_fast_simulate_on_card_matches_cpu(dev, model):
+    """The whole keyed link on the card (kernels A, B, C) against the same
+    link on the CPU (plain versions): per-channel counts equal, or within
+    the bits whose plain |LLR| < 1e-3."""
+    cfg = LinkConfig(modulation=Modulation.QAM16, ofdm=OFDMConfig(256, 64),
+                     channel=ChannelConfig(model=model, ebno_db=6.0), n_symbols=16,
+                     n_channels=96)
+    got, counted = fast.fast_simulate(cfg, 31, device=dev)
+    want, _ = fast.fast_simulate(cfg, 31)
+    ids = torch.arange(96, dtype=torch.int32)
+    idx = fast.draw_idx(cfg, 31, ids)
+    h = fast.fade_state(cfg, 31, ids)
+    re, im = fast.tx_with_channel(cfg, 31, ids, idx, h=h)
+    hb = torch.ones((96, 1, 1), dtype=torch.complex64) if h is None else h
+    hr = hb.real.expand(96, 1, 256).contiguous()
+    hi = hb.imag.expand(96, 1, 256).contiguous()
+    llr = kc.demod_chain(re, im, hr, hi, 64, cfg.modulation, fast.noise_var(cfg))
+    margin = (llr.abs() < 1e-3).sum(dim=(1, 2))
+    assert int(want.sum()) > 0 and int(counted[0]) == 16 * 256 * 4
+    assert bool(((got.cpu() - want).abs() <= margin).all())
+
+
+def test_wrappers_raise_instead_of_falling_back(dev):
+    mod = Modulation.QAM16
+    with pytest.raises(ValueError):
+        kd.demod_sum_cl(*(torch.zeros((80, 128), device=dev, dtype=torch.bfloat16),) * 2,
+                        torch.zeros((64, 128), device=dev), torch.zeros((64, 128), device=dev),
+                        16, mod, 0.1)
+    with pytest.raises(ValueError):
+        kb.tx_chain(torch.zeros((2, 2, 96), dtype=torch.int32, device=dev), 8, mod)
+    with pytest.raises(ValueError):
+        kc.demod_count(*(torch.zeros((2, 2, 80), device=dev),) * 2,
+                       *(torch.zeros((2, 1, 64), device=dev),) * 2,
+                       torch.zeros((2, 2, 64), dtype=torch.int64, device=dev), 16, mod, 0.1)
