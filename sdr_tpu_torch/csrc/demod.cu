@@ -1,15 +1,22 @@
 // Kernel C: rows-layout demod + per-channel bit-error count.
 //
 // Replaces sdr_tpu/kernels/demod_pallas.py::demod_count_pallas (the
-// fast engine's count terminal; its taps= and despread modes are not
+// fast engine's count terminal, with its taps= mode; despread is not
 // ported yet). Per OFDM symbol (one row of the (B, S, N+cp) planes):
 //   CP strip; forward unscaled N-point FFT; p = conj(h) y,
 //   h2 = |h|^2, s = p / max(h2, 1e-12), inv_eff = h2 / nv; per-axis
 //   max-log LLR (level scan for L <= 4, Gray fold recursion for L >= 8;
 //   I bits then Q bits, MSB first); hard decision llr < 0 against
 //   (idx >> (bps-1-j)) & 1; integer error count per channel.
-// h is (B, 1, N) or (B, S, N). Counts are summed with integer atomics,
-// which give the same result in any order.
+// h is (B, 1, N) or (B, S, N), or, in the taps mode, built in the
+// kernel from per-symbol FIR taps (B, S, L <= 8):
+//   H[k] = sum_l t_l e^{-2 pi i k l / N},
+// with the twiddle of (k l) mod N from the forward table (k < N/2; the
+// upper half by e^{-2 pi i (m + N/2)/N} = -e^{-2 pi i m/N}), so the
+// (B, S, N) complex response never goes to device memory (the TPU kernel
+// built it with one HIGHEST-precision matmul against the DFT phase rows).
+// Counts are summed with integer atomics, which give the same result in
+// any order.
 //
 // The TPU kernel ran the DFT as a Gauss 3-multiplication matmul on the
 // MXU in bf16 passes. Here a block holds a few symbols in shared memory
@@ -20,12 +27,17 @@
 // shared-memory butterflies and the LLR tail are the compute side.
 #include "common.cuh"
 
+namespace {
+
+constexpr int kMaxTaps = 8;
+
 template <typename IdxT, int M, bool BPSK>
 __global__ void __launch_bounds__(sdr::kThreads)
 demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
                    const float* __restrict__ hr, const float* __restrict__ hi, int h_syms,
-                   const IdxT* __restrict__ idx, int32_t* __restrict__ out, long long n_rows,
-                   int S, int log_n, int cp, int log_spb, sdr::AxisTables tab, float inv_nv,
+                   const float* __restrict__ taps_r, const float* __restrict__ taps_i,
+                   int n_taps, const IdxT* __restrict__ idx, int32_t* __restrict__ out,
+                   long long n_rows, int S, int log_n, int cp, int log_spb, sdr::AxisTables tab, float inv_nv,
                    const float* __restrict__ twr, const float* __restrict__ twi) {
   extern __shared__ float smem[];
   const int N = 1 << log_n;
@@ -33,6 +45,8 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
   float* sre = smem;
   float* sim = smem + (spb << log_n);
   int* cnt = (int*)(sim + (spb << log_n));
+  float* tp_r = (float*)(cnt + spb);
+  float* tp_i = tp_r + spb * kMaxTaps;
   const long long row0 = (long long)blockIdx.x << log_spb;
   const int sym_len = N + cp;
   constexpr int BPS = BPSK ? 1 : 2 * M;
@@ -52,6 +66,15 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
     sre[dst] = xr;
     sim[dst] = xi;
   }
+  for (int e = threadIdx.x; e < spb * n_taps; e += blockDim.x) {
+    const int t = e / n_taps;
+    const int l = e - t * n_taps;
+    const long long r = row0 + t;
+    if (r < n_rows) {
+      tp_r[t * kMaxTaps + l] = taps_r[r * n_taps + l];
+      tp_i[t * kMaxTaps + l] = taps_i[r * n_taps + l];
+    }
+  }
   __syncthreads();
   sdr::smem_fft<false>(sre, sim, log_n, log_spb, N, 1, twr, twi, 1.0f);
 
@@ -62,8 +85,22 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
     if (r >= n_rows) continue;
     const long long b = r / S;
     const int s = (int)(r - b * S);
-    const long long ho = ((b * h_syms + (h_syms > 1 ? s : 0)) << log_n) + k;
-    const float h_r = hr[ho], h_i = hi[ho];
+    float h_r = 0.0f, h_i = 0.0f;
+    if (n_taps) {
+      const int half = N >> 1;
+      for (int l = 0; l < n_taps; ++l) {
+        const int m = (k * l) & (N - 1);
+        const float wr = m < half ? __ldg(twr + m) : -__ldg(twr + m - half);
+        const float wi = m < half ? __ldg(twi + m) : -__ldg(twi + m - half);
+        const float tr = tp_r[t * kMaxTaps + l], ti = tp_i[t * kMaxTaps + l];
+        h_r += tr * wr - ti * wi;
+        h_i += tr * wi + ti * wr;
+      }
+    } else {
+      const long long ho = ((b * h_syms + (h_syms > 1 ? s : 0)) << log_n) + k;
+      h_r = hr[ho];
+      h_i = hi[ho];
+    }
     const float yr = sre[e], yi = sim[e];
     const float h2 = h_r * h_r + h_i * h_i;
     const float inv_h2 = 1.0f / fmaxf(h2, 1e-12f);
@@ -91,22 +128,27 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
 }
 
+}  // namespace
+
 extern "C" int sdr_demod_count(const float* re, const float* im, const float* hr,
-                               const float* hi, int h_syms, const void* idx, int idx_bytes,
+                               const float* hi, int h_syms, const float* taps_r,
+                               const float* taps_i, int n_taps, const void* idx, int idx_bytes,
                                int32_t* out, int B, int S, int log_n, int cp,
                                int bits_per_axis, int bpsk, sdr::AxisTables tab, float inv_nv,
                                const float* twr, const float* twi, void* stream) {
   const long long n_rows = (long long)B * S;
   if (n_rows == 0) return 0;
+  if (n_taps < 0 || n_taps > kMaxTaps) return (int)cudaErrorInvalidValue;
   const int log_spb = log_n >= 9 ? 0 : 9 - log_n;
   const long long blocks = (n_rows + (1 << log_spb) - 1) >> log_spb;
   const size_t smem = (size_t)2 * sizeof(float) * ((size_t)1 << (log_spb + log_n)) +
-                      sizeof(int) * ((size_t)1 << log_spb);
+                      sizeof(int) * ((size_t)1 << log_spb) +
+                      (size_t)2 * sizeof(float) * kMaxTaps * ((size_t)1 << log_spb);
   cudaStream_t st = (cudaStream_t)stream;
   SDR_DISPATCH_MOD(bits_per_axis, bpsk,
     SDR_DISPATCH_IDX(idx_bytes,
       demod_count_kernel<IdxT, M, BPSK><<<(unsigned)blocks, sdr::kThreads, smem, st>>>(
-          re, im, hr, hi, h_syms, (const IdxT*)idx, out, n_rows, S, log_n, cp, log_spb, tab,
+          re, im, hr, hi, h_syms, taps_r, taps_i, n_taps, (const IdxT*)idx, out, n_rows, S, log_n, cp, log_spb, tab,
           inv_nv, twr, twi)))
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
-// Kernel D: channels-last demod + LLR sum (the headline receive terminal).
+// Kernel D: channels-last demod + LLR sum (the headline receive terminal),
+// and kernel F: channels-last demod + per-channel bit-error count.
 //
-// Replaces sdr_tpu/kernels/demod_cl_pallas.py::demod_sum_cl (through
-// _run_cl), the TPU's emit_pipeline kernel with DIF radix-2 levels down
-// to 128-point leaf DFT matmuls. Same math on the same layout:
+// D replaces sdr_tpu/kernels/demod_cl_pallas.py::demod_sum_cl and F
+// ::demod_count_cl (both through _run_cl), the TPU's emit_pipeline
+// kernel with DIF radix-2 levels down to 128-point leaf DFT matmuls.
+// Same math on the same layout:
 //   re_t, im_t (S*(N+cp), B) f32, symbol s in rows [s*(N+cp), (s+1)*(N+cp)),
 //   the first cp rows of each symbol being the CP; hr_t, hi_t (N, B) in
 //   natural bin order.
@@ -21,10 +23,22 @@
 // block adds the partials in a fixed order — no float atomics, so
 // repeated runs give the same bits.
 //
+// F shares D's tile, transform and LLR forms, and compares each bit's
+// hard decision (LLR < 0) with the transmitted index plane
+// idx_t (S*N, B) int8/int16 in natural bin order (the TPU kernel's DIF
+// permutation of it is not carried over). The count is per channel: a
+// thread always serves the same channel of its block (the element loop
+// strides by 256, a multiple of the 32-channel tile), so it keeps an
+// integer count in a register; at the end the eight threads of each
+// channel are summed in shared memory and added to out[b] with one
+// integer atomic per channel and block — exact, and the same in any
+// order.
+//
 // Bound on the H100: reading the two f32 sample planes (8 bytes per
-// sample). Shared memory per block is 256*N bytes (64 KB at N = 256),
-// which caps residency at three blocks per SM; that, and the f32 FFT on
-// CUDA cores, are what stand between this kernel and the copy roofline.
+// sample; F adds 1-2 bytes of index). Shared memory per block is 256*N
+// bytes (64 KB at N = 256), which caps residency at three blocks per SM;
+// that, and the f32 FFT on CUDA cores, are what stand between these
+// kernels and the copy roofline.
 #include "common.cuh"
 
 namespace {
@@ -32,6 +46,33 @@ namespace {
 constexpr int kCh = 32;      // channels per block
 constexpr int kLogCh = 5;
 constexpr int kSymsPerBlock = 8;
+
+// Gathers symbol s of the (N, 32-channel) tile into shared memory, bit-
+// reversed, and transforms it (forward, unscaled).
+__device__ __forceinline__ void load_fft_tile(const float* __restrict__ re_t,
+                                              const float* __restrict__ im_t, int B, int s,
+                                              int log_n, int cp, int c0, float* sre, float* sim,
+                                              const float* __restrict__ twr,
+                                              const float* __restrict__ twi) {
+  const int N = 1 << log_n;
+  const int sym_len = N + cp;
+  for (int e = threadIdx.x; e < (N << kLogCh); e += blockDim.x) {
+    const int c = e & (kCh - 1);
+    const int n = e >> kLogCh;
+    const int b = c0 + c;
+    float xr = 0.0f, xi = 0.0f;
+    if (b < B) {
+      const long long o = ((long long)s * sym_len + cp + n) * B + b;
+      xr = re_t[o];
+      xi = im_t[o];
+    }
+    const int dst = (sdr::bit_reverse(n, log_n) << kLogCh) + c;
+    sre[dst] = xr;
+    sim[dst] = xi;
+  }
+  __syncthreads();
+  sdr::smem_fft<true>(sre, sim, log_n, kLogCh, 1, kCh, twr, twi, 1.0f);
+}
 
 template <int M, bool BPSK>
 __global__ void __launch_bounds__(sdr::kThreads)
@@ -48,26 +89,10 @@ demod_sum_cl_kernel(const float* __restrict__ re_t, const float* __restrict__ im
   const int c0 = blockIdx.x * kCh;
   const int s0 = blockIdx.y * kSymsPerBlock;
   const int s1 = min(S, s0 + kSymsPerBlock);
-  const int sym_len = N + cp;
   float acc = 0.0f;
 
   for (int s = s0; s < s1; ++s) {
-    for (int e = threadIdx.x; e < (N << kLogCh); e += blockDim.x) {
-      const int c = e & (kCh - 1);
-      const int n = e >> kLogCh;
-      const int b = c0 + c;
-      float xr = 0.0f, xi = 0.0f;
-      if (b < B) {
-        const long long o = ((long long)s * sym_len + cp + n) * B + b;
-        xr = re_t[o];
-        xi = im_t[o];
-      }
-      const int dst = (sdr::bit_reverse(n, log_n) << kLogCh) + c;
-      sre[dst] = xr;
-      sim[dst] = xi;
-    }
-    __syncthreads();
-    sdr::smem_fft<true>(sre, sim, log_n, kLogCh, 1, kCh, twr, twi, 1.0f);
+    load_fft_tile(re_t, im_t, B, s, log_n, cp, c0, sre, sim, twr, twi);
 
     for (int e = threadIdx.x; e < (N << kLogCh); e += blockDim.x) {
       const int c = e & (kCh - 1);
@@ -134,6 +159,82 @@ int launch_sum_cl(const float* re_t, const float* im_t, const float* hr_t, const
   return (int)cudaGetLastError();
 }
 
+template <typename IdxT, int M, bool BPSK>
+__global__ void __launch_bounds__(sdr::kThreads)
+demod_count_cl_kernel(const float* __restrict__ re_t, const float* __restrict__ im_t,
+                      const float* __restrict__ hr_t, const float* __restrict__ hi_t,
+                      const IdxT* __restrict__ idx_t, int32_t* __restrict__ out, int B, int S,
+                      int log_n, int cp, sdr::AxisTables tab, float inv_nv,
+                      const float* __restrict__ twr, const float* __restrict__ twi) {
+  extern __shared__ float smem[];
+  __shared__ int partial[sdr::kThreads];
+  constexpr int BPS = BPSK ? 1 : 2 * M;
+  const int N = 1 << log_n;
+  float* sre = smem;
+  float* sim = smem + (N << kLogCh);
+  const int c0 = blockIdx.x * kCh;
+  const int s0 = blockIdx.y * kSymsPerBlock;
+  const int s1 = min(S, s0 + kSymsPerBlock);
+  int err = 0;
+
+  for (int s = s0; s < s1; ++s) {
+    load_fft_tile(re_t, im_t, B, s, log_n, cp, c0, sre, sim, twr, twi);
+    for (int e = threadIdx.x; e < (N << kLogCh); e += blockDim.x) {
+      const int c = e & (kCh - 1);
+      const int k = e >> kLogCh;
+      const int b = c0 + c;
+      if (b >= B) continue;
+      const long long ho = (long long)k * B + b;
+      const float h_r = hr_t[ho], h_i = hi_t[ho];
+      const float yr = sre[e], yi = sim[e];
+      const float h2 = h_r * h_r + h_i * h_i;
+      const float pr = h_r * yr + h_i * yi;
+      const float pi = h_r * yi - h_i * yr;
+      float llr[BPS];
+      if constexpr (M <= 2) {
+        sdr::llr_axis_dfree<M>(pr, h2, inv_nv, tab, llr);
+        if constexpr (!BPSK) sdr::llr_axis_dfree<M>(pi, h2, inv_nv, tab, llr + M);
+      } else {
+        const float inv_h2 = 1.0f / fmaxf(h2, 1e-12f);
+        const float inv_eff = h2 * inv_nv;
+        sdr::llr_axis_fold<M>(pr * inv_h2, inv_eff, tab, llr);
+        sdr::llr_axis_fold<M>(pi * inv_h2, inv_eff, tab, llr + M);
+      }
+      const int v = (int)idx_t[((long long)s * N + k) * B + b];
+#pragma unroll
+      for (int j = 0; j < BPS; ++j) err += (int)(llr[j] < 0.0f) != ((v >> (BPS - 1 - j)) & 1);
+    }
+    __syncthreads();
+  }
+  partial[threadIdx.x] = err;
+  __syncthreads();
+  if ((int)threadIdx.x < kCh) {
+    int sum = 0;
+    for (int w = threadIdx.x; w < (int)blockDim.x; w += kCh) sum += partial[w];
+    const int b = c0 + threadIdx.x;
+    if (b < B && sum) atomicAdd(out + b, sum);
+  }
+}
+
+template <int M, bool BPSK>
+int launch_count_cl(const float* re_t, const float* im_t, const float* hr_t, const float* hi_t,
+                    const void* idx_t, int idx_bytes, int32_t* out, int B, int S, int log_n,
+                    int cp, const sdr::AxisTables& tab, float inv_nv, const float* twr,
+                    const float* twi, cudaStream_t st) {
+  const dim3 grid((B + kCh - 1) / kCh, (S + kSymsPerBlock - 1) / kSymsPerBlock);
+  const size_t smem = (size_t)2 * sizeof(float) * ((size_t)kCh << log_n);
+  SDR_DISPATCH_IDX(idx_bytes, {
+    cudaError_t err = cudaFuncSetAttribute(demod_count_cl_kernel<IdxT, M, BPSK>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    demod_count_cl_kernel<IdxT, M, BPSK><<<grid, sdr::kThreads, smem, st>>>(
+        re_t, im_t, hr_t, hi_t, (const IdxT*)idx_t, out, B, S, log_n, cp, tab, inv_nv, twr,
+        twi);
+  })
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Number of per-block partials the wrapper must allocate.
@@ -151,5 +252,19 @@ extern "C" int sdr_demod_sum_cl(const float* re_t, const float* im_t, const floa
   SDR_DISPATCH_MOD(bits_per_axis, bpsk,
     return launch_sum_cl<M, BPSK>(re_t, im_t, hr_t, hi_t, partials, out, B, S, log_n, cp, tab,
                                   inv_nv, twr, twi, st))
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int sdr_demod_count_cl(const float* re_t, const float* im_t, const float* hr_t,
+                                  const float* hi_t, const void* idx_t, int idx_bytes,
+                                  int32_t* out, int B, int S, int log_n, int cp,
+                                  int bits_per_axis, int bpsk, sdr::AxisTables tab,
+                                  float inv_nv, const float* twr, const float* twi,
+                                  void* stream) {
+  if (B == 0 || S == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  SDR_DISPATCH_MOD(bits_per_axis, bpsk,
+    return launch_count_cl<M, BPSK>(re_t, im_t, hr_t, hi_t, idx_t, idx_bytes, out, B, S, log_n,
+                                    cp, tab, inv_nv, twr, twi, st))
   return (int)cudaErrorInvalidValue;
 }

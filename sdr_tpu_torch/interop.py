@@ -6,7 +6,9 @@
   package never imports JAX itself) and the port's
   ``link_config_from_dict``; validation runs again on the way in.
 - numpy → tensor helpers for the channel state the parity tests feed
-  both packages: symbol indices, flat gains and injected noise planes.
+  both packages: symbol indices, flat gains and injected noise planes
+  (``channel_state``), and the JAX engine's fading state — FIR taps,
+  per-symbol gains, Jakes (θ, φ) — (``fading_state``).
 """
 
 from __future__ import annotations
@@ -45,4 +47,24 @@ def channel_state(idx=None, h=None, noise=None, device="cpu"):
         )
     if noise is not None:
         out["noise"] = planes(*noise, device=device)
+    return out
+
+
+def fading_state(taps=None, gains=None, jakes=None, device="cpu"):
+    """The JAX engine's fading state (numpy) → the port's tensors.
+
+    ``taps``: FIR taps (B, L) static or (B, S, L) per symbol → complex64,
+    as ``link.fast.fade_state`` returns them; ``gains``: per-symbol flat
+    gains (B, S) → (B, S, 1) complex64, ``fade_state``'s h for
+    RAYLEIGH_TIME; ``jakes``: (θ, φ) of ``jakes_params`` /
+    ``multipath_time_params``, (..., n_paths) → float32, for
+    ``ops.channel.jakes_eval``."""
+    out = {}
+    if taps is not None:
+        out["taps"] = torch.as_tensor(np.asarray(taps, np.complex64), device=device)
+    if gains is not None:
+        g = np.asarray(gains, np.complex64)
+        out["h"] = torch.as_tensor(g.reshape(g.shape[0], -1, 1), device=device)
+    if jakes is not None:
+        out["jakes"] = planes(*jakes, device=device)
     return out

@@ -4,8 +4,10 @@ All kernels live in one shared library built from
 ``sdr_tpu_torch/csrc/*.cu`` by ``nvcc`` for ``sm_90a`` (Hopper) at first
 use, with a plain C interface bound through ``ctypes`` — seconds to
 build, against minutes for an extension that includes PyTorch's
-headers. The library goes to ``sdr_tpu_torch/_build/<source hash>/``
-(git-ignored) and is rebuilt when a source or the flags change.
+headers. Each source compiles in its own ``nvcc`` process, all started
+together, and one more links the objects. The library goes to
+``sdr_tpu_torch/_build/<source hash>/`` (git-ignored) and is rebuilt
+when a source or the flags change.
 
 Nothing is built or loaded at import: ``lib()`` does it on the first
 kernel launch. The module keeps the only global state of the package:
@@ -34,11 +36,13 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-# Launch counters, one per kernel wrapper.
-LAUNCHES = {"payload": 0, "tx": 0, "demod_count": 0, "demod_sum_cl": 0}
+# Launch counters, one per kernel and mode: "tx_taps" is kernel B's FIR
+# mode, "demod_count_taps" kernel C's taps= mode.
+LAUNCHES = {"payload": 0, "tx": 0, "tx_taps": 0, "demod_count": 0, "demod_count_taps": 0,
+            "demod_sum_cl": 0, "fade_awgn": 0, "demod_count_cl": 0}
 
 _lib = None
 
@@ -76,25 +80,42 @@ def library_path() -> Path:
     return BUILD_ROOT / source_hash() / "libsdr_torch_kernels.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the output of each that
+    failed. Every process has ended when this returns or raises."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"({proc.returncode}) {' '.join(cmd)}\n{out}\n{err}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile the library if this source hash has not been built yet;
-    returns its path. Concurrent builders race safely: each writes to a
-    temporary file and renames it into place."""
+    returns its path. Concurrent builds race safely: each works in its
+    own temporary directory and renames the library into place."""
     so = library_path()
     if so.exists():
         return so
-    out_dir = so.parent
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, so)
+    so.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for obj, src in zip(objs, srcs)])
+        lib_tmp = os.path.join(tmp, so.name)
+        _run_all([[nvcc, "-shared", "-o", lib_tmp, *objs]])
+        os.replace(lib_tmp, so)
     return so
 
 
@@ -134,13 +155,19 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
     "sdr_payload": [_P, _I, _P, _I, _I, _I, _I, _U, _U, _P],
-    "sdr_tx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P,
+    "sdr_tx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I,
                _I, _P, _P, _P, _U, _U, _F, _P],
-    "sdr_demod_count": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                        AxisTables, _F, _P, _P, _P],
+    "sdr_tx_fir": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I, _I,
+                   _I, _P, _P, _P, _U, _U, _F, _P],
+    "sdr_fade_awgn": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _U, _U, _F,
+                      _P],
+    "sdr_demod_count": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                        _I, AxisTables, _F, _P, _P, _P],
     "sdr_demod_sum_cl_partials": [_I, _I],
     "sdr_demod_sum_cl": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          AxisTables, _F, _P, _P, _P],
+    "sdr_demod_count_cl": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                           AxisTables, _F, _P, _P, _P],
 }
 
 

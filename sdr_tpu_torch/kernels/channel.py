@@ -1,0 +1,101 @@
+"""Kernel E: fading gain + AWGN over an externally built waveform (port
+of ``sdr_tpu/kernels/channel_pallas.py::fade_awgn_pallas``).
+
+(B, S, L) planar float32 samples → x·h + σ·n, σ = sqrt(noise_var/2)
+with ``noise_var`` the time-domain complex variance, h an optional
+complex gain per link (``hr_s``/``hi_s`` of shape (B, 1)) or per symbol
+((B, S)).
+
+Noise modes, as kernel B's (``kernels/tx.py``):
+
+- ``noise=(n_re, n_im)``: injected N(0, 1) planes of shape (B, S, L),
+  for exact comparison with the plain version and the JAX kernel;
+- ``seed`` and ``ch_ids``: keyed Philox, counter (ch_ids[b], s, sample,
+  0) on ``seed ^ ROLE_NOISE`` — kernel B's stream, so the staged and the
+  fused channel routes of ``link.fast`` draw the same noise (the TPU
+  kernel's per-128-block seeding is not carried over);
+- neither: the gain alone.
+
+On a CPU tensor the plain version (``fade_awgn_plain``) runs; on a CUDA
+tensor the CUDA kernel (``csrc/channel.cu``) runs, or the call raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sdr_tpu_torch.core import prng
+from sdr_tpu_torch.kernels import _lib
+from sdr_tpu_torch.kernels.tx import _noise_mode, _sigma
+
+
+def _check_gains(hr_s, hi_s, B: int, S: int) -> int:
+    """h_syms of a (B, 1 | S) gain pair (0 without gains); raises otherwise."""
+    if hr_s is None:
+        return 0
+    if (hr_s.ndim != 2 or hr_s.shape[0] != B or hr_s.shape[1] not in (1, S)
+            or hi_s.shape != hr_s.shape):
+        raise ValueError(f"fade_awgn: gains must be (B, 1) or (B, S), got {tuple(hr_s.shape)}")
+    return hr_s.shape[1]
+
+
+def fade_awgn_plain(re, im, hr_s=None, hi_s=None, noise_var: float = 0.0, noise=None,
+                    seed=None, ch_ids=None):
+    """Plain torch version (same arguments and modes as ``fade_awgn``)."""
+    mode = _noise_mode(noise, seed, ch_ids)
+    B, S, L = re.shape
+    _check_gains(hr_s, hi_s, B, S)
+    yr, yi = re, im
+    if hr_s is not None:
+        fr = hr_s[:, :, None]
+        fi = hi_s[:, :, None]
+        yr, yi = re * fr - im * fi, re * fi + im * fr
+    if mode == 0:
+        return yr.contiguous(), yi.contiguous()
+    if mode == 1:
+        n_re, n_im = noise
+    else:
+        n_re, n_im = prng.normal_pair(seed, prng.ROLE_NOISE, ch_ids, (S, L))
+    sigma = _sigma(noise_var)
+    return yr + sigma * n_re, yi + sigma * n_im
+
+
+def fade_awgn(re, im, hr_s=None, hi_s=None, noise_var: float = 0.0, noise=None, seed=None,
+              ch_ids=None):
+    """Faded, noisy planes (out_re, out_im), each (B, S, L) float32."""
+    mode = _noise_mode(noise, seed, ch_ids)
+    if re.device.type == "cpu":
+        return fade_awgn_plain(re, im, hr_s, hi_s, noise_var, noise, seed, ch_ids)
+    if re.ndim != 3 or im.shape != re.shape:
+        raise ValueError(
+            f"fade_awgn kernel: samples must be a (B, S, L) pair, got {tuple(re.shape)}")
+    B, S, L = re.shape
+    h_syms = _check_gains(hr_s, hi_s, B, S)
+    operands = [re, im]
+    if h_syms:
+        operands += [hr_s, hi_s]
+    if mode == 1:
+        if any(n.shape != re.shape for n in noise):
+            raise ValueError(f"fade_awgn kernel: noise planes must be {tuple(re.shape)}")
+        operands += list(noise)
+    if mode == 2:
+        if ch_ids.shape != (B,) or ch_ids.dtype != torch.int32:
+            raise ValueError("fade_awgn kernel: ch_ids must be int32 (B,)")
+        operands.append(ch_ids)
+    if any(t.dtype != torch.float32 for t in operands if t is not ch_ids):
+        raise ValueError("fade_awgn kernel: samples, gains and noise must be float32")
+    _lib.require_cuda("fade_awgn", *operands)
+    out_re = torch.empty_like(re)
+    out_im = torch.empty_like(im)
+    k0, k1 = prng.split_key(seed, prng.ROLE_NOISE) if mode == 2 else (0, 0)
+    rc = _lib.lib().sdr_fade_awgn(
+        re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(), B, S, L,
+        _lib.ptr(hr_s), _lib.ptr(hi_s), h_syms, mode,
+        _lib.ptr(noise[0]) if mode == 1 else None,
+        _lib.ptr(noise[1]) if mode == 1 else None,
+        _lib.ptr(ch_ids) if mode == 2 else None,
+        k0, k1, _sigma(noise_var), _lib.stream(),
+    )
+    _lib.check(rc, "fade_awgn")
+    _lib.LAUNCHES["fade_awgn"] += 1
+    return out_re, out_im

@@ -1,6 +1,6 @@
 """Kernel C: rows-layout demod + per-channel error count (port of
-``sdr_tpu/kernels/demod_pallas.py::demod_count_pallas``; its ``taps=``
-and ``despread`` modes are not ported yet).
+``sdr_tpu/kernels/demod_pallas.py::demod_count_pallas`` with its
+``taps=`` mode; ``despread`` is not ported yet).
 
 Planar samples (B, S, N+cp) → CP strip → forward unscaled DFT →
 one-tap unbiased equalisation s = conj(h)·y / max(|h|², 1e-12) with
@@ -8,6 +8,12 @@ LLRs scaled by |h|²/nv (so h → 0 fades LLRs to zero instead of
 dividing by ~0) → max-log LLR, I bits then Q bits, MSB first → hard
 decision (LLR < 0) against the transmitted indices → per-channel
 (B,) int32 bit-error count. Noise variance is clamped at 1e-12.
+
+The channel is a plane h (B, 1 | S, N), or, with ``taps=(taps_r,
+taps_i)``, per-symbol FIR taps (B, S, L ≤ 8) whose response
+H[k] = Σ_l t_l·e^{−2πikl/N} the kernel builds per bin, so the (B, S, N)
+plane never exists in device memory; that mode counts its launches
+under ``demod_count_taps``.
 
 This module also holds the plain LLR plane, ``demod_chain``, which the
 count's plain version, the channels-last sum's plain version
@@ -23,12 +29,14 @@ import torch
 
 from sdr_tpu_torch.core.config import Modulation
 from sdr_tpu_torch.kernels import _lib
+from sdr_tpu_torch.ops.channel import freq_response
 from sdr_tpu_torch.ops.llr import axis_metric
 from sdr_tpu_torch.ops.modulation import _ints_to_bits
 from sdr_tpu_torch.ops.ofdm import ofdm_rx
 
 _IDX_DTYPES = (torch.int8, torch.int16, torch.int32)
 MAX_N_FFT = 4096  # two (symbols, N) f32 tiles in 48 KB of shared memory
+MAX_TAPS = 8  # the taps= mode's budget (demod_pallas.py:541)
 
 
 def inv_noise_var(noise_var: float) -> float:
@@ -68,50 +76,75 @@ def count_errors(llr: torch.Tensor, idx: torch.Tensor, bps: int) -> torch.Tensor
 
 
 def supported(shape, h_shape, idx_shape, cp_len: int) -> bool:
-    """(B, S, N+cp) samples, N a power of two in [2, 4096], h (B, 1|S, N),
-    idx (B, S, N)."""
+    """(B, S, N+cp) samples, N a power of two in [2, 4096], h (B, 1|S, N)
+    or taps (B, S, L ≤ 8), idx (B, S, N)."""
     if len(shape) != 3:
         return False
     B, S, sym_len = shape
     n = sym_len - cp_len
     if not (2 <= n <= MAX_N_FFT and (n & (n - 1)) == 0 and 0 <= cp_len):
         return False
-    return tuple(h_shape) in ((B, 1, n), (B, S, n)) and tuple(idx_shape) == (B, S, n)
+    h_shape = tuple(h_shape)
+    h_ok = h_shape in ((B, 1, n), (B, S, n)) or (
+        len(h_shape) == 3 and h_shape[:2] == (B, S) and 1 <= h_shape[2] <= MAX_TAPS
+    )
+    return h_ok and tuple(idx_shape) == (B, S, n)
 
 
-def demod_count_plain(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: float):
+def taps_plane(taps, n_fft: int):
+    """(taps_r, taps_i) (B, S, L) → the (hr, hi) planes (B, S, N) they
+    stand for: the plain version of the taps= mode's in-kernel H."""
+    h = freq_response(torch.complex(taps[0].to(torch.float32), taps[1].to(torch.float32)), n_fft)
+    return h.real.contiguous(), h.imag.contiguous()
+
+
+def demod_count_plain(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: float,
+                      taps=None):
     """Plain torch version of the count."""
+    if taps is not None:
+        hr, hi = taps_plane(taps, idx.shape[-1])
     llr = demod_chain(re, im, hr, hi, cp_len, mod, noise_var)
     return count_errors(llr, idx, mod.bits_per_symbol)
 
 
-def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: float):
+def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: float,
+                taps=None):
     """Per-channel (B,) int32 bit-error counts.
 
-    re/im (B, S, N+cp) float32; hr/hi (B, 1, N) or (B, S, N) float32;
-    idx (B, S, N) int8/int16/int32 transmitted symbol indices."""
+    re/im (B, S, N+cp) float32; hr/hi (B, 1, N) or (B, S, N) float32, or
+    None with ``taps=(taps_r, taps_i)`` float32 (B, S, L ≤ 8); idx
+    (B, S, N) int8/int16/int32 transmitted symbol indices."""
     if re.device.type == "cpu":
-        return demod_count_plain(re, im, hr, hi, idx, cp_len, mod, noise_var)
-    if not supported(re.shape, hr.shape, idx.shape, cp_len):
+        return demod_count_plain(re, im, hr, hi, idx, cp_len, mod, noise_var, taps)
+    chan = (hr, hi) if taps is None else tuple(taps)
+    if not supported(re.shape, chan[0].shape, idx.shape, cp_len):
         raise ValueError(
             f"demod count kernel: unsupported shapes re {tuple(re.shape)}, "
-            f"h {tuple(hr.shape)}, idx {tuple(idx.shape)}, cp {cp_len}"
+            f"channel {tuple(chan[0].shape)}, idx {tuple(idx.shape)}, cp {cp_len}"
         )
-    if any(t.dtype != torch.float32 for t in (re, im, hr, hi)) or hi.shape != hr.shape or im.shape != re.shape:
+    if taps is None and hr.shape[-1] != re.shape[-1] - cp_len:
+        raise ValueError("demod count kernel: h must be (B, 1 | S, N) without taps=")
+    if (any(t.dtype != torch.float32 for t in (re, im, *chan))
+            or chan[1].shape != chan[0].shape or im.shape != re.shape):
         raise ValueError("demod count kernel: sample and channel planes must be float32 pairs")
     if idx.dtype not in _IDX_DTYPES:
         raise ValueError(f"demod count kernel: indices must be int8/16/32, got {idx.dtype}")
-    _lib.require_cuda("demod_count", re, im, hr, hi, idx)
+    _lib.require_cuda("demod_count", re, im, *chan, idx)
     B, S, sym_len = re.shape
     N = sym_len - cp_len
     out = torch.zeros((B,), dtype=torch.int32, device=re.device)
     twr, twi = _lib.twiddles(N, re.device)
+    if taps is None:
+        h_args = (hr.data_ptr(), hi.data_ptr(), hr.shape[1], None, None, 0)
+    else:
+        h_args = (None, None, 0, chan[0].data_ptr(), chan[1].data_ptr(), chan[0].shape[2])
     rc = _lib.lib().sdr_demod_count(
-        re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(), hr.shape[1],
+        re.data_ptr(), im.data_ptr(), *h_args,
         idx.data_ptr(), idx.element_size(), out.data_ptr(), B, S, _lib.log2_exact(N),
         cp_len, mod.bits_per_axis, int(mod is Modulation.BPSK), _lib.axis_tables(mod),
         inv_noise_var(noise_var), twr.data_ptr(), twi.data_ptr(), _lib.stream(),
     )
-    _lib.check(rc, "demod_count")
-    _lib.LAUNCHES["demod_count"] += 1
+    name = "demod_count" if taps is None else "demod_count_taps"
+    _lib.check(rc, name)
+    _lib.LAUNCHES[name] += 1
     return out

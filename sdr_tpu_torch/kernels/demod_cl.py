@@ -1,21 +1,28 @@
-"""Kernel D: channels-last demod + LLR sum, the headline receive terminal
-(port of ``sdr_tpu/kernels/demod_cl_pallas.py::demod_sum_cl``).
+"""Kernels D and F: channels-last demod + LLR sum, the headline receive
+terminal, and channels-last demod + per-channel error count (ports of
+``sdr_tpu/kernels/demod_cl_pallas.py::demod_sum_cl`` and
+``::demod_count_cl``).
 
 Layout contract (the JAX package's, demod_cl_pallas.py:37-45):
 
   re_t/im_t : (S·(N+cp), B) float32 planar samples, time-major — symbol
               s occupies rows [s·(N+cp), (s+1)·(N+cp)), its first cp
               rows being the CP; the minor axis is the channel batch.
-  hr_t/hi_t : (N, B) per-link channel response, natural bin order.
+  hr_t/hi_t : (N, B) per-link channel response, natural bin order;
+  idx_t     : (S·N, B) transmitted symbol indices (count only), int8 for
+              bps ≤ 7 and int16 above, natural bin order.
 
-Returns the float32 sum of every max-log LLR over the grid. The TPU
-kernel's DIF bin order was a Mosaic artifact; this kernel works in
-natural order, and ``h_in_dif_order=True`` (h permuted by ``dif_perm``,
-as the JAX bench passes it) is un-permuted here before the launch.
+D returns the float32 sum of every max-log LLR over the grid, F the
+(B,) int32 count of hard decisions (LLR < 0) that differ from the bits
+of ``idx_t``. The TPU kernel's DIF bin order was a Mosaic artifact;
+these kernels work in natural order, and ``h_in_dif_order=True`` (h
+permuted by ``dif_perm``, as the JAX bench passes it) is un-permuted
+here before the launch.
 
-The kernel takes float32 only and raises on bfloat16: the bf16 sample
-planes of the JAX bench need a BER gate first. Its cross-block sum is a
-deterministic two-pass reduction, so repeated runs give the same bits.
+The kernels take float32 only and raise on bfloat16: the bf16 sample
+planes of the JAX bench need a BER gate first. D's cross-block sum is a
+deterministic two-pass reduction, so repeated runs give the same bits;
+F's counts are integer atomics, exact in any order.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the CUDA
 kernel (``csrc/demod_cl.cu``) runs, or the call raises.
@@ -30,7 +37,7 @@ import torch
 
 from sdr_tpu_torch.core.config import Modulation
 from sdr_tpu_torch.kernels import _lib
-from sdr_tpu_torch.kernels.demod import demod_chain, inv_noise_var
+from sdr_tpu_torch.kernels.demod import count_errors, demod_chain, inv_noise_var
 
 _BASE = 128  # the TPU kernel's leaf DFT size, which fixes its DIF order
 MAX_N_FFT = 512  # a (N, 32-channel) complex f32 tile per block: 256·N bytes
@@ -72,6 +79,12 @@ def supported(shape, n_fft: int, cp_len: int) -> bool:
     return cp_len >= 0 and shape[0] % (n_fft + cp_len) == 0 and shape[0] > 0 and shape[1] > 0
 
 
+def _symbol_rows(x_t, s: int, sym_len: int, cp_len: int, n_fft: int):
+    """Symbol s of a channels-last plane, CP stripped, as (B, 1, N) rows."""
+    o = s * sym_len + cp_len
+    return x_t[o:o + n_fft].T[:, None, :]
+
+
 def demod_sum_cl_plain(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation,
                        noise_var: float):
     """Plain version: the plain LLR plane (``kernels.demod.demod_chain``)
@@ -83,9 +96,8 @@ def demod_sum_cl_plain(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation,
     hi = hi_t.T[:, None, :]
     acc = None
     for s in range(n_syms):
-        o = s * sym_len + cp_len
-        xr = re_t[o:o + n_fft].T[:, None, :]
-        xi = im_t[o:o + n_fft].T[:, None, :]
+        xr = _symbol_rows(re_t, s, sym_len, cp_len, n_fft)
+        xi = _symbol_rows(im_t, s, sym_len, cp_len, n_fft)
         r = demod_chain(xr, xi, hr, hi, 0, mod, noise_var, reduce_sum=True)
         acc = r if acc is None else acc + r
     return acc
@@ -125,3 +137,59 @@ def demod_sum_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation, noise_var
     _lib.check(rc, "demod_sum_cl")
     _lib.LAUNCHES["demod_sum_cl"] += 1
     return out[0]
+
+
+def demod_count_cl_plain(re_t, im_t, hr_t, hi_t, idx_t, cp_len: int, mod: Modulation,
+                         noise_var: float):
+    """Plain version: the plain LLR plane (``kernels.demod.demod_chain``)
+    counted symbol by symbol, as the JAX twin ``demod_cl_jnp`` loops."""
+    n_fft = hr_t.shape[0]
+    sym_len = n_fft + cp_len
+    n_syms = re_t.shape[0] // sym_len
+    hr = hr_t.T[:, None, :]
+    hi = hi_t.T[:, None, :]
+    acc = torch.zeros((re_t.shape[1],), dtype=torch.int32, device=re_t.device)
+    for s in range(n_syms):
+        llr = demod_chain(_symbol_rows(re_t, s, sym_len, cp_len, n_fft),
+                          _symbol_rows(im_t, s, sym_len, cp_len, n_fft), hr, hi, 0, mod,
+                          noise_var)
+        acc += count_errors(llr, idx_t[s * n_fft:(s + 1) * n_fft].T[:, None, :],
+                            mod.bits_per_symbol)
+    return acc
+
+
+def demod_count_cl(re_t, im_t, hr_t, hi_t, idx_t, cp_len: int, mod: Modulation,
+                   noise_var: float, h_in_dif_order: bool = False):
+    """Per-channel (B,) int32 bit-error counts over the channels-last grid."""
+    hr_t, hi_t = h_natural(hr_t, hi_t, h_in_dif_order)
+    if re_t.device.type == "cpu":
+        return demod_count_cl_plain(re_t, im_t, hr_t, hi_t, idx_t, cp_len, mod, noise_var)
+    if any(t.dtype != torch.float32 for t in (re_t, im_t, hr_t, hi_t)):
+        raise ValueError("demod_count_cl kernel takes float32 planes only (bf16 needs a BER gate)")
+    n_fft = hr_t.shape[0]
+    if not supported(re_t.shape, n_fft, cp_len):
+        raise ValueError(
+            f"demod_count_cl kernel: unsupported shape {tuple(re_t.shape)} "
+            f"n_fft={n_fft} cp={cp_len}"
+        )
+    B = re_t.shape[1]
+    n_syms = re_t.shape[0] // (n_fft + cp_len)
+    if (im_t.shape != re_t.shape or hr_t.shape != (n_fft, B) or hi_t.shape != (n_fft, B)
+            or idx_t.shape != (n_syms * n_fft, B)):
+        raise ValueError("demod_count_cl kernel: plane shapes disagree")
+    if idx_t.dtype not in (torch.int8, torch.int16):
+        raise ValueError(f"demod_count_cl kernel: indices must be int8/int16, got {idx_t.dtype}")
+    hr_t = hr_t.contiguous()
+    hi_t = hi_t.contiguous()
+    _lib.require_cuda("demod_count_cl", re_t, im_t, hr_t, hi_t, idx_t)
+    out = torch.zeros((B,), dtype=torch.int32, device=re_t.device)
+    twr, twi = _lib.twiddles(n_fft, re_t.device)
+    rc = _lib.lib().sdr_demod_count_cl(
+        re_t.data_ptr(), im_t.data_ptr(), hr_t.data_ptr(), hi_t.data_ptr(), idx_t.data_ptr(),
+        idx_t.element_size(), out.data_ptr(), B, n_syms, _lib.log2_exact(n_fft), cp_len,
+        mod.bits_per_axis, int(mod is Modulation.BPSK), _lib.axis_tables(mod),
+        inv_noise_var(noise_var), twr.data_ptr(), twi.data_ptr(), _lib.stream(),
+    )
+    _lib.check(rc, "demod_count_cl")
+    _lib.LAUNCHES["demod_count_cl"] += 1
+    return out

@@ -1,13 +1,22 @@
-"""Kernel B: fused TX + flat channel (port of
-``sdr_tpu/kernels/tx_pallas.py::tx_channel_chain_pallas`` in its
-flat-gain and AWGN-only modes, and of ``tx_chain_pallas``).
+"""Kernel B: fused TX + channel (port of
+``sdr_tpu/kernels/tx_pallas.py::tx_channel_chain_pallas`` and of
+``tx_chain_pallas``).
 
 Symbol indices (B, S, N) → Gray map → N-point inverse DFT (1/N and the
-unit-energy norm folded in) → cyclic prefix → optional per-channel
-complex gain ``hs`` → optional noise σ·n on every sample of the CP'd
-symbol, σ = sqrt(noise_var/2), where ``noise_var`` is the TIME-domain
-complex variance (the fast link's ``tvar = nv/N``). Returns planar
-float32 (re, im), each (B, S, N+cp).
+unit-energy norm folded in) → cyclic prefix → the channel → optional
+noise σ·n on every sample of the CP'd symbol, σ = sqrt(noise_var/2),
+where ``noise_var`` is the TIME-domain complex variance (the fast link's
+``tvar = nv/N``). Returns planar float32 (re, im), each (B, S, N+cp).
+
+Channel modes (mutually exclusive, as in the TPU kernel):
+
+- ``hs_r``/``hs_i``: complex scalar gains, per link ((B,) or (B, 1)) or
+  per symbol ((B, S));
+- ``taps_r``/``taps_i``: a causal FIR, y[u] = Σ_l tap_l·x[u−l], with at
+  most 16 taps: static (B, L), the zero-history convolution of each
+  channel's whole CP'd stream (``ops.channel.apply_multipath``), or per
+  symbol (B, S, L), each symbol through its own taps with the previous
+  symbol's tail as history (``ops.channel.symbol_history``).
 
 Noise modes:
 
@@ -20,6 +29,8 @@ Noise modes:
 
 On a CPU tensor the plain version (``tx_channel_plain``) runs; on a
 CUDA tensor the CUDA kernel (``csrc/tx.cu``) runs, or the call raises.
+The FIR mode counts its launches under ``tx_taps``, the others under
+``tx``.
 """
 
 from __future__ import annotations
@@ -31,11 +42,13 @@ import torch
 from sdr_tpu_torch.core import prng
 from sdr_tpu_torch.core.config import Modulation
 from sdr_tpu_torch.kernels import _lib
+from sdr_tpu_torch.ops.channel import grid_fir
 from sdr_tpu_torch.ops.modulation import constellation
 from sdr_tpu_torch.ops.ofdm import ofdm_tx
 
 _IDX_DTYPES = (torch.int8, torch.int16, torch.int32)
 MAX_N_FFT = 4096  # two (symbols, N) f32 tiles in 48 KB of shared memory
+MAX_TAPS = 16  # the FIR's tap budget (the TPU kernel's, fast.py:283-291)
 
 
 def supported(shape, cp_len: int, mod: Modulation) -> bool:
@@ -58,51 +71,90 @@ def _noise_mode(noise, seed, ch_ids) -> int:
     return 1 if noise is not None else (2 if seed is not None else 0)
 
 
+def _gain_syms(hs_r, B: int, S: int) -> int:
+    """1 for per-link gains ((B,) or (B, 1)), S for per-symbol (B, S)."""
+    if hs_r.numel() == B and (hs_r.ndim == 1 or hs_r.shape == (B, 1)):
+        return 1
+    if hs_r.shape == (B, S):
+        return S
+    raise ValueError(f"tx: gains must be (B,), (B, 1) or (B, S), got {tuple(hs_r.shape)}")
+
+
+def _taps_shape(taps_r, B: int, S: int) -> bool:
+    """Whether (B, L) static or (B, S, L) per-symbol taps; raises otherwise."""
+    if taps_r.ndim == 2 and taps_r.shape[0] == B:
+        return False
+    if taps_r.ndim == 3 and taps_r.shape[:2] == (B, S):
+        return True
+    raise ValueError(f"tx: taps must be (B, L) or (B, S, L), got {tuple(taps_r.shape)}")
+
+
 def tx_channel_plain(idx, cp_len: int, mod: Modulation, hs_r=None, hs_i=None,
-                     noise_var: float = 0.0, noise=None, seed=None, ch_ids=None):
+                     noise_var: float = 0.0, noise=None, seed=None, ch_ids=None,
+                     taps_r=None, taps_i=None):
     """Plain torch version (same arguments and modes as ``tx_channel``)."""
     mode = _noise_mode(noise, seed, ch_ids)
+    if hs_r is not None and taps_r is not None:
+        raise ValueError("tx: taps and scalar gains are mutually exclusive")
+    B, S, N = idx.shape
     pts = constellation(mod, idx.device)[idx.to(torch.int64)]
     x = ofdm_tx(pts, cp_len)
+    if taps_r is not None:
+        _taps_shape(taps_r, B, S)
+        x = grid_fir(x, torch.complex(taps_r.to(torch.float32), taps_i.to(torch.float32)))
     yr, yi = x.real, x.imag
     if hs_r is not None:
-        fr = hs_r.reshape(-1, 1, 1)
-        fi = hs_i.reshape(-1, 1, 1)
+        h_syms = _gain_syms(hs_r, B, S)
+        fr = hs_r.reshape(B, h_syms, 1)
+        fi = hs_i.reshape(B, h_syms, 1)
         yr, yi = yr * fr - yi * fi, yr * fi + yi * fr
     if mode == 0:
         return yr.contiguous(), yi.contiguous()
     if mode == 1:
         n_re, n_im = noise
     else:
-        B, S, L = yr.shape
-        n_re, n_im = prng.normal_pair(seed, prng.ROLE_NOISE, ch_ids, (S, L))
+        n_re, n_im = prng.normal_pair(seed, prng.ROLE_NOISE, ch_ids, (S, yr.shape[-1]))
     sigma = _sigma(noise_var)
     return yr + sigma * n_re, yi + sigma * n_im
 
 
 def tx_channel(idx, cp_len: int, mod: Modulation, hs_r=None, hs_i=None,
-               noise_var: float = 0.0, noise=None, seed=None, ch_ids=None):
-    """Fused TX + flat channel over explicit indices.
+               noise_var: float = 0.0, noise=None, seed=None, ch_ids=None,
+               taps_r=None, taps_i=None):
+    """Fused TX + channel over explicit indices.
 
-    idx (B, S, N) int8/int16/int32; hs_r/hs_i (B,) or (B, 1) float32
-    per-channel gain, or None; see the module docstring for the noise
+    idx (B, S, N) int8/int16/int32; hs_r/hs_i float32 gains (B,), (B, 1)
+    or (B, S), or None; taps_r/taps_i float32 FIR taps (B, L) or
+    (B, S, L), L ≤ 16, or None; see the module docstring for the noise
     modes. Returns (re, im) (B, S, N+cp) float32."""
     mode = _noise_mode(noise, seed, ch_ids)
     if idx.device.type == "cpu":
-        return tx_channel_plain(idx, cp_len, mod, hs_r, hs_i, noise_var, noise, seed, ch_ids)
+        return tx_channel_plain(idx, cp_len, mod, hs_r, hs_i, noise_var, noise, seed, ch_ids,
+                                taps_r, taps_i)
     if not supported(idx.shape, cp_len, mod):
         raise ValueError(f"tx kernel: unsupported shape {tuple(idx.shape)} cp={cp_len}")
     if idx.dtype not in _IDX_DTYPES:
         raise ValueError(f"tx kernel: indices must be int8/16/32, got {idx.dtype}")
+    if hs_r is not None and taps_r is not None:
+        raise ValueError("tx: taps and scalar gains are mutually exclusive")
     B, S, N = idx.shape
     L = N + cp_len
     operands = [idx]
+    h_syms = 0
     if hs_r is not None:
-        if hs_r.numel() != B or hs_i.numel() != B:
-            raise ValueError("tx kernel: hs_r/hs_i must hold one gain per channel")
-        if hs_r.dtype != torch.float32 or hs_i.dtype != torch.float32:
-            raise ValueError("tx kernel: gains must be float32")
+        h_syms = _gain_syms(hs_r, B, S)
+        if hs_i.shape != hs_r.shape:
+            raise ValueError("tx kernel: hs_r and hs_i shapes differ")
         operands += [hs_r, hs_i]
+    if taps_r is not None:
+        per_sym = _taps_shape(taps_r, B, S)
+        n_taps = taps_r.shape[-1]
+        if taps_i.shape != taps_r.shape or not 1 <= n_taps <= MAX_TAPS or n_taps - 1 > L:
+            raise ValueError(f"tx kernel: unsupported taps {tuple(taps_r.shape)} (at most "
+                             f"{MAX_TAPS} taps)")
+        operands += [taps_r, taps_i]
+    if any(t.dtype != torch.float32 for t in operands[1:]):
+        raise ValueError("tx kernel: gains and taps must be float32")
     if mode == 1:
         for n in noise:
             if n.shape != (B, S, L) or n.dtype != torch.float32:
@@ -117,18 +169,24 @@ def tx_channel(idx, cp_len: int, mod: Modulation, hs_r=None, hs_i=None,
     out_im = torch.empty_like(out_re)
     twr, twi = _lib.twiddles(N, idx.device)
     k0, k1 = prng.split_key(seed, prng.ROLE_NOISE) if mode == 2 else (0, 0)
-    rc = _lib.lib().sdr_tx(
-        idx.data_ptr(), idx.element_size(), out_re.data_ptr(), out_im.data_ptr(),
-        B, S, _lib.log2_exact(N), cp_len, mod.bits_per_axis,
-        int(mod is Modulation.BPSK), mod.unit_energy_scale / N,
-        twr.data_ptr(), twi.data_ptr(), _lib.ptr(hs_r), _lib.ptr(hs_i), mode,
-        _lib.ptr(noise[0]) if mode == 1 else None,
-        _lib.ptr(noise[1]) if mode == 1 else None,
-        _lib.ptr(ch_ids) if mode == 2 else None,
-        k0, k1, _sigma(noise_var), _lib.stream(),
-    )
-    _lib.check(rc, "tx")
-    _lib.LAUNCHES["tx"] += 1
+    common = (idx.data_ptr(), idx.element_size(), out_re.data_ptr(), out_im.data_ptr(),
+              B, S, _lib.log2_exact(N), cp_len, mod.bits_per_axis,
+              int(mod is Modulation.BPSK), mod.unit_energy_scale / N,
+              twr.data_ptr(), twi.data_ptr())
+    noise_args = (mode,
+                  _lib.ptr(noise[0]) if mode == 1 else None,
+                  _lib.ptr(noise[1]) if mode == 1 else None,
+                  _lib.ptr(ch_ids) if mode == 2 else None,
+                  k0, k1, _sigma(noise_var), _lib.stream())
+    if taps_r is None:
+        rc = _lib.lib().sdr_tx(*common, _lib.ptr(hs_r), _lib.ptr(hs_i), h_syms, *noise_args)
+        _lib.check(rc, "tx")
+        _lib.LAUNCHES["tx"] += 1
+    else:
+        rc = _lib.lib().sdr_tx_fir(*common, taps_r.data_ptr(), taps_i.data_ptr(), n_taps,
+                                   int(per_sym), *noise_args)
+        _lib.check(rc, "tx_taps")
+        _lib.LAUNCHES["tx_taps"] += 1
     return out_re, out_im
 
 

@@ -1,12 +1,11 @@
-"""Fast batched link: keyed payload → fused TX + channel → fused RX count.
+"""Fast batched link: keyed payload → TX + channel → RX count.
 
-Port of ``sdr_tpu/link/fast.py`` (the keyed fast engine) for the
-flat-channel rows path. The whole link runs at batch level on
-(n_channels, n_symbols, ·) planes:
+Port of ``sdr_tpu/link/fast.py`` (the keyed fast engine). The whole link
+runs at batch level on (n_channels, n_symbols, ·) planes:
 
-    payload draw (kernel A) → Gray map, IDFT, CP, flat gain, AWGN
+    payload draw (kernel A) → Gray map, IDFT, CP, channel, AWGN
     (kernel B) → CP strip, DFT, equalize, max-log LLR, error count
-    (kernel C)
+    (kernel C in the rows layout, kernel F channels-last)
 
 Every random draw is keyed Philox (``core/prng.py``), a pure function of
 (seed, role, global channel id, position): the TX side and the RX
@@ -14,13 +13,32 @@ side's recompute draw the same payload and fading independently, and
 the result for a channel does not depend on the batch it runs in
 (channels [0, k) alone give the same counts as in the full run).
 
-The BER is validated statistically against the exact theory
-(``link/ber.py``), as the JAX engine's is; it is a different stream
-from the JAX engine's threefry and on-core draws.
+Channel routes (JAX fast.py:250-411), the same on the CPU (plain
+versions) and on the card (kernels):
 
-Covered: channel models IDENTITY, AWGN, RAYLEIGH_FLAT and RICIAN, in the
-rows layout. The rest raise ``NotImplementedError`` naming the ROADMAP
-entry that ports them.
+- fused: every model whose FIR has at most 16 taps runs in kernel B —
+  flat gains per link (RAYLEIGH_FLAT, RICIAN) or per symbol
+  (RAYLEIGH_TIME), static taps (MULTIPATH) or per-symbol taps
+  (MULTIPATH_TIME), then the noise;
+- staged (``apply_channel_fast``): MULTIPATH and MULTIPATH_TIME with 17
+  to cp+1 taps — kernel B with the channel off, the FIR in plain torch
+  (as it is XLA in the JAX route), then kernel E for the noise. Both
+  routes draw the noise with one counter, so they agree sample for
+  sample.
+
+Receive routes (fast.py:414-511): MULTIPATH_TIME with at most 8 taps
+hands its per-symbol taps to kernel C, which builds the response in the
+kernel; otherwise kernel C takes h (B, 1, N) (flat models, MULTIPATH
+through ``freq_response``) or (B, S, N) (RAYLEIGH_TIME, MULTIPATH_TIME);
+``layout="cl"`` relayouts the samples to (S·(N+cp), B) and counts with
+kernel F on h (N, B) — per-link channels only, as in the JAX engine.
+
+The BER is validated statistically against theory (``link/ber.py``,
+and the BER over the drawn channel), as the JAX engine's is; it is a
+different stream from the JAX engine's threefry and on-core draws.
+
+Not covered: SC-FDMA (``dft_spread``), pilots and MIMO raise
+``NotImplementedError`` naming the ROADMAP entry that ports them.
 """
 
 from __future__ import annotations
@@ -30,17 +48,23 @@ import functools
 import torch
 
 from sdr_tpu_torch.core.config import ChannelModel, LinkConfig
-from sdr_tpu_torch.kernels.payload import payload_idx
-from sdr_tpu_torch.kernels.tx import tx_channel
+from sdr_tpu_torch.kernels import demod as _kc
+from sdr_tpu_torch.kernels import demod_cl as _kd
+from sdr_tpu_torch.kernels import tx as _kb
+from sdr_tpu_torch.kernels.channel import fade_awgn
+from sdr_tpu_torch.kernels.payload import out_dtype, payload_idx
 from sdr_tpu_torch.ops import channel as chan
-from sdr_tpu_torch.ops.demod import demod_count_chain
+from sdr_tpu_torch.ops.demod import demod_count_chain, demod_count_chain_cl
 
-_FLAT = (ChannelModel.IDENTITY, ChannelModel.AWGN, ChannelModel.RAYLEIGH_FLAT,
-         ChannelModel.RICIAN)
+_PER_SYMBOL = (ChannelModel.RAYLEIGH_TIME, ChannelModel.MULTIPATH_TIME)
+_SELECTIVE = (ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME)
+LAYOUTS = ("auto", "rows", "cl")
 
 
-def check_supported(cfg: LinkConfig, layout: str = "rows") -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
+def check_supported(cfg: LinkConfig, layout: str = "auto") -> None:
+    """Raise for what this engine does not run: ``NotImplementedError``
+    naming the ROADMAP entry for what is still to port, and for
+    per-symbol fading under ``layout="cl"`` (as the JAX engine does)."""
     if cfg.pilot_spacing:
         raise NotImplementedError(
             "fast_simulate is the full-grid throughput path; pilot-based "
@@ -56,21 +80,50 @@ def check_supported(cfg: LinkConfig, layout: str = "rows") -> None:
             "SC-FDMA (dft_spread) is ported with the wideband and SC-FDE "
             "routes (ROADMAP queue 1, item 10)"
         )
-    if cfg.channel.model not in _FLAT:
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if layout == "cl" and cfg.channel.model in _PER_SYMBOL:
         raise NotImplementedError(
-            f"channel model {cfg.channel.model.value} needs the FIR-taps TX mode "
-            "and the taps= count mode (ROADMAP queue 1, item 7; queue 2)"
-        )
-    if layout not in ("auto", "rows"):
-        raise NotImplementedError(
-            "the channels-last fast engine (layout='cl') needs the count kernel "
-            "demod_count_cl (ROADMAP queue 2)"
+            "channels-last demod takes a per-link channel plane; "
+            "per-symbol fading models run in the rows layout"
         )
 
 
 def noise_var(cfg: LinkConfig) -> float:
     """Subcarrier noise variance nv = 1/(Eb/N0 · bps), a host float."""
     return 1.0 / (10.0 ** (cfg.channel.ebno_db / 10.0) * cfg.modulation.bits_per_symbol)
+
+
+def _n_taps(cfg: LinkConfig) -> int:
+    """FIR taps of a selective model (len(pdp)); 0 for the others."""
+    return len(cfg.channel.pdp) if cfg.channel.model in _SELECTIVE else 0
+
+
+def select_layout(cfg: LinkConfig, n_ch: int, platform: str | None = None) -> str:
+    """Auto rule for the demod layout: "rows", as in the JAX engine
+    (fast.py:187-201), whose TX, channel and index planes are rows-major
+    and whose relayout cost more than the channels-last demod won on the
+    TPU. ``layout="cl"`` stays an explicit choice; ``chip_smoke.py``
+    times both layouts on the H100."""
+    del cfg, n_ch, platform
+    return "rows"
+
+
+def layout_supported_cl(cfg: LinkConfig, n_ch: int) -> bool:
+    """Whether ``layout="cl"`` applies: plain OFDM, a per-link channel
+    plane, and shapes kernel F takes (N a power of two ≤ 512)."""
+    if cfg.dft_spread or cfg.channel.model in _PER_SYMBOL:
+        return False
+    shape = (cfg.n_symbols * (cfg.ofdm.n_fft + cfg.ofdm.cp_len), n_ch)
+    return _kd.supported(shape, cfg.ofdm.n_fft, cfg.ofdm.cp_len)
+
+
+def _to_cl(re: torch.Tensor, im: torch.Tensor):
+    """(B, S, L) planar → channels-last (S·L, B): a torch relayout (the
+    JAX engine's is an XLA relayout fused into the channel stage)."""
+    B, S, L = re.shape
+    return (re.permute(1, 2, 0).reshape(S * L, B).contiguous(),
+            im.permute(1, 2, 0).reshape(S * L, B).contiguous())
 
 
 def draw_idx(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor) -> torch.Tensor:
@@ -80,74 +133,164 @@ def draw_idx(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor) -> torch.Tensor:
                        seed, ch_ids)
 
 
-def fade_state(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor):
-    """Per-channel flat gain h (B, 1, 1) complex64, or None (no fading)."""
+def fade_state(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, plane: bool = True):
+    """Per-channel fading state from the keys: (h, taps), either None.
+
+    h: (B, 1, 1) flat gain (RAYLEIGH_FLAT, RICIAN); (B, S, 1) per-symbol
+    Jakes gain (RAYLEIGH_TIME); (B, 1, N) or (B, S, N) frequency response
+    (MULTIPATH, MULTIPATH_TIME). taps: (B, L) static or (B, S, L)
+    per-symbol TDL taps. ``plane=False`` leaves the selective models' h
+    out (None): the engine derives it (``rx_plane``) only where its
+    receive route reads it."""
     model = cfg.channel.model
+    S, N = cfg.n_symbols, cfg.ofdm.n_fft
+    h = taps = None
     if model == ChannelModel.RAYLEIGH_FLAT:
-        return chan.rayleigh_flat(seed, ch_ids)
-    if model == ChannelModel.RICIAN:
-        return chan.rician_flat(seed, ch_ids, cfg.channel.k_factor)
-    return None
+        h = chan.rayleigh_flat(seed, ch_ids)
+    elif model == ChannelModel.RICIAN:
+        h = chan.rician_flat(seed, ch_ids, cfg.channel.k_factor)
+    elif model == ChannelModel.RAYLEIGH_TIME:
+        h = chan.jakes_gains(seed, ch_ids, S, cfg.channel.doppler_norm)[:, :, None]
+    elif model == ChannelModel.MULTIPATH:
+        taps = chan.multipath_taps(seed, ch_ids, cfg.channel.pdp)
+    elif model == ChannelModel.MULTIPATH_TIME:
+        taps = chan.multipath_time_taps(seed, ch_ids, cfg.channel.pdp, S,
+                                        cfg.channel.doppler_norm)
+    if plane and taps is not None:
+        h = rx_plane(taps, N)
+    return h, taps
+
+
+def rx_plane(taps: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """The channel plane of FIR taps: (B, L) → (B, 1, N), (B, S, L) →
+    (B, S, N) complex64."""
+    h = chan.freq_response(taps, n_fft)
+    return h[:, None, :] if taps.ndim == 2 else h
+
+
+def _planar(z: torch.Tensor):
+    """complex → contiguous float32 (real, imag)."""
+    return z.real.to(torch.float32).contiguous(), z.imag.to(torch.float32).contiguous()
+
+
+def _gains(h: torch.Tensor):
+    """(B, 1 | S, 1) complex gains → (B, 1 | S) float32 planes."""
+    return _planar(h[:, :, 0])
+
+
+def _noise_kw(seed, ch_ids, noise):
+    return dict(noise=noise) if noise is not None else dict(seed=seed, ch_ids=ch_ids)
+
+
+def _laid_out(re, im, layout: str):
+    return _to_cl(re, im) if layout == "cl" else (re, im)
 
 
 def tx_with_channel(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, idx: torch.Tensor,
-                    h: torch.Tensor | None = None, noise=None):
+                    h: torch.Tensor | None = None, taps: torch.Tensor | None = None,
+                    noise=None, layout: str = "rows"):
     """TX + channel over explicit indices → impaired planar (re, im),
-    each (B, S, N+cp) float32, in one fused pass (kernel B).
+    each (B, S, N+cp) float32, or channels-last (S·(N+cp), B) when
+    ``layout == "cl"``. The fused route (kernel B alone) for every model
+    with at most 16 taps; the staged one (``apply_channel_fast``) above.
 
-    ``h`` overrides the keyed fade state with explicit per-channel gains
-    (B, 1, 1) complex; ``noise`` injects (n_re, n_im) N(0, 1) planes in
-    place of the keyed noise — the injection form the parity tests use.
-    """
-    check_supported(cfg)
+    ``h``/``taps`` override the keyed fade state (``fade_state``'s pair;
+    the selective models read only the taps); ``noise`` injects (n_re,
+    n_im) N(0, 1) planes in place of the keyed noise — the injection form
+    the parity tests use."""
+    check_supported(cfg, layout)
     model = cfg.channel.model
-    if h is None:
-        h = fade_state(cfg, seed, ch_ids)
-    hs_r = hs_i = None
-    if h is not None:
-        hs_r = h.real.reshape(-1).to(torch.float32).contiguous()
-        hs_i = h.imag.reshape(-1).to(torch.float32).contiguous()
+    cp, mod = cfg.ofdm.cp_len, cfg.modulation
     if model == ChannelModel.IDENTITY:
-        return tx_channel(idx, cfg.ofdm.cp_len, cfg.modulation, hs_r, hs_i)
+        return _laid_out(*_kb.tx_chain(idx, cp, mod), layout)
+    if _n_taps(cfg) > _kb.MAX_TAPS:
+        re, im = _kb.tx_chain(idx, cp, mod)
+        return apply_channel_fast(cfg, seed, ch_ids, re, im, h=h, taps=taps, noise=noise,
+                                  layout=layout)
+    if h is None and taps is None:
+        h, taps = fade_state(cfg, seed, ch_ids, plane=False)
     tvar = noise_var(cfg) / cfg.ofdm.n_fft
-    if noise is not None:
-        return tx_channel(idx, cfg.ofdm.cp_len, cfg.modulation, hs_r, hs_i, tvar, noise=noise)
-    return tx_channel(idx, cfg.ofdm.cp_len, cfg.modulation, hs_r, hs_i, tvar,
-                      seed=seed, ch_ids=ch_ids)
+    kw = _noise_kw(seed, ch_ids, noise)
+    if model in _SELECTIVE:
+        tr, ti = _planar(taps)
+        re, im = _kb.tx_channel(idx, cp, mod, noise_var=tvar, taps_r=tr, taps_i=ti, **kw)
+    else:
+        hs_r, hs_i = (None, None) if h is None else _gains(h)
+        re, im = _kb.tx_channel(idx, cp, mod, hs_r, hs_i, tvar, **kw)
+    return _laid_out(re, im, layout)
 
 
-def tx_channel_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor):
+def apply_channel_fast(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, re: torch.Tensor,
+                       im: torch.Tensor, h: torch.Tensor | None = None,
+                       taps: torch.Tensor | None = None, noise=None, layout: str = "rows"):
+    """The staged channel over an externally built waveform (B, S, N+cp):
+    the FIR of a selective model in plain torch (over the whole CP'd
+    stream for static taps, per symbol with the previous symbol's tail as
+    history for per-symbol taps), then kernel E for the gains and the
+    keyed noise. The route the engine takes for 17 to cp+1 taps, and the
+    channel stage a coded engine calls. Arguments as ``tx_with_channel``."""
+    check_supported(cfg, layout)
+    model = cfg.channel.model
+    if model == ChannelModel.IDENTITY:
+        return _laid_out(re, im, layout)
+    if h is None and taps is None:
+        h, taps = fade_state(cfg, seed, ch_ids, plane=False)
+    hs_r = hs_i = None
+    if model in _SELECTIVE:
+        re, im = _planar(chan.grid_fir(torch.complex(re, im), taps))
+    elif h is not None:
+        hs_r, hs_i = _gains(h)
+    tvar = noise_var(cfg) / cfg.ofdm.n_fft
+    re, im = fade_awgn(re, im, hs_r, hs_i, tvar, **_noise_kw(seed, ch_ids, noise))
+    return _laid_out(re, im, layout)
+
+
+def tx_channel_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, layout: str = "rows"):
     """Payload draw + TX + channel for explicit global channel ids."""
-    return tx_with_channel(cfg, seed, ch_ids, draw_idx(cfg, seed, ch_ids))
+    return tx_with_channel(cfg, seed, ch_ids, draw_idx(cfg, seed, ch_ids), layout=layout)
 
 
 def rx_count_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, re: torch.Tensor,
                   im: torch.Tensor, h: torch.Tensor | None = None,
-                  idx: torch.Tensor | None = None):
-    """Demod + error count over impaired planar samples.
+                  taps: torch.Tensor | None = None, idx: torch.Tensor | None = None,
+                  layout: str = "rows"):
+    """Demod + error count over impaired planar samples ((B, S, N+cp),
+    or (S·(N+cp), B) under ``layout="cl"``).
 
-    Recomputes the channel gains and the transmitted indices from the
-    keys (both pure functions of them) unless given explicitly, so the
+    Recomputes the channel and the transmitted indices from the keys
+    (both pure functions of them) unless given explicitly, so the
     samples are the only data taken from the TX side. Returns
     per-channel (bit_errors, bits_counted), both (B,) int32."""
-    check_supported(cfg)
+    check_supported(cfg, layout)
     B = ch_ids.shape[0]
-    S, N = cfg.n_symbols, cfg.ofdm.n_fft
-    bps = cfg.modulation.bits_per_symbol
-    if h is None:
-        h = fade_state(cfg, seed, ch_ids)
+    S, N, cp = cfg.n_symbols, cfg.ofdm.n_fft, cfg.ofdm.cp_len
+    mod = cfg.modulation
+    nv = max(noise_var(cfg), 1e-12)
+    if h is None and taps is None:
+        h, taps = fade_state(cfg, seed, ch_ids, plane=False)
     if idx is None:
         idx = draw_idx(cfg, seed, ch_ids)
+    counted = torch.full((B,), S * N * mod.bits_per_symbol, dtype=torch.int32, device=re.device)
+    if (layout == "rows" and cfg.channel.model == ChannelModel.MULTIPATH_TIME
+            and taps is not None and taps.shape[-1] <= _kc.MAX_TAPS):
+        # TDL taps route: the response is built in kernel C.
+        errors = demod_count_chain(re, im, None, None, idx, cp, mod, nv, taps=_planar(taps))
+        return errors, counted
+    if h is None and taps is not None:
+        h = rx_plane(taps, N)
+    if layout == "cl":
+        hb = torch.ones((B, N), dtype=torch.complex64, device=re.device) if h is None else (
+            h[:, 0, :].to(torch.complex64).expand(B, N))
+        hr_t, hi_t = _planar(hb.T)
+        idx_t = idx.permute(1, 2, 0).reshape(S * N, B).to(out_dtype(mod.bits_per_symbol))
+        errors = demod_count_chain_cl(re, im, hr_t, hi_t, idx_t.contiguous(), cp, mod, nv)
+        return errors, counted
     if h is None:
         hr = torch.ones((B, 1, N), dtype=torch.float32, device=re.device)
         hi = torch.zeros((B, 1, N), dtype=torch.float32, device=re.device)
     else:
-        hb = h.reshape(B, 1, 1).to(torch.complex64)
-        hr = hb.real.expand(B, 1, N).contiguous()
-        hi = hb.imag.expand(B, 1, N).contiguous()
-    errors = demod_count_chain(re, im, hr, hi, idx, cfg.ofdm.cp_len, cfg.modulation,
-                               max(noise_var(cfg), 1e-12))
-    counted = torch.full((B,), S * N * bps, dtype=torch.int32, device=re.device)
+        hr, hi = _planar(h.to(torch.complex64).expand(B, h.shape[1], N))
+    errors = demod_count_chain(re, im, hr, hi, idx, cp, mod, nv)
     return errors, counted
 
 
@@ -157,12 +300,15 @@ def fast_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, layout: str = "a
 
     The payload and the fading are drawn once and handed to both sides;
     ``rx_count_core``'s own recompute (the same bits) serves callers
-    that run the two sides apart."""
+    that run the two sides apart. Both layouts draw the same per-channel
+    randomness, so their BER statistics agree."""
+    if layout == "auto":
+        layout = select_layout(cfg, ch_ids.shape[0])
     check_supported(cfg, layout)
     idx = draw_idx(cfg, seed, ch_ids)
-    h = fade_state(cfg, seed, ch_ids)
-    re, im = tx_with_channel(cfg, seed, ch_ids, idx, h=h)
-    return rx_count_core(cfg, seed, ch_ids, re, im, h=h, idx=idx)
+    h, taps = fade_state(cfg, seed, ch_ids, plane=False)
+    re, im = tx_with_channel(cfg, seed, ch_ids, idx, h=h, taps=taps, layout=layout)
+    return rx_count_core(cfg, seed, ch_ids, re, im, h=h, taps=taps, idx=idx, layout=layout)
 
 
 def fast_simulate(cfg: LinkConfig, seed: int, device="cpu", layout: str = "auto"):

@@ -1,10 +1,20 @@
-"""Channel models the fast link uses: AWGN, flat Rayleigh, flat Rician.
+"""Channel models the fast link uses: AWGN, flat Rayleigh and Rician,
+Jakes block fading, static multipath and the per-tap-Jakes TDL.
 
-Port of the subset of ``sdr_tpu/ops/channel.py`` on the slice's path.
-The JAX functions take a ``jax.random`` key per channel; here every
-draw is keyed Philox (``sdr_tpu_torch.core.prng``): a pure function of
-(seed, role, global channel id, position), so a channel's fading and
-noise do not depend on the batch it is computed in.
+Port of ``sdr_tpu/ops/channel.py`` (channel.py:31-371, the subset on the
+fast engine's path). The JAX functions take a ``jax.random`` key per
+channel; here every draw is keyed Philox (``sdr_tpu_torch.core.prng``):
+a pure function of (seed, role, global channel id, position), so a
+channel's fading and noise do not depend on the batch it is computed
+in. Lanes of the fading stream (``ROLE_FADING``), one per draw of a
+model: 0 the complex Gaussians (flat Rayleigh gain, Rician diffuse
+part, multipath taps), 1 the Rician LOS phase, 2 the Jakes state
+(θ on word 0, φ on word 1; counter (channel, tap, path)).
+
+The deterministic halves — ``jakes_eval``, ``multipath_time_taps_at``,
+``symbol_history``, ``apply_multipath``, ``freq_response`` — follow the
+JAX functions operation for operation, so the same (θ, φ) or taps give
+the same gains and waveforms in both packages.
 
 Noise calibration (as in the JAX package): constellations have unit
 average power per subcarrier. With the unscaled forward / 1/N inverse
@@ -20,6 +30,10 @@ import math
 import torch
 
 from sdr_tpu_torch.core import prng
+from sdr_tpu_torch.ops.fft import fft
+
+JAKES_LANE = 2  # the fading-stream lane of the Jakes (θ, φ) draws
+JAKES_PATHS = 16  # sum-of-sinusoids paths, the JAX default
 
 
 def ebno_db_to_noise_var(ebno_db, bits_per_symbol: int) -> torch.Tensor:
@@ -67,3 +81,134 @@ def rician_flat(seed: int, ch_ids: torch.Tensor, k_factor: float) -> torch.Tenso
     phase = phase * (2.0 * math.pi)
     los = math.sqrt(K / (K + 1.0)) * torch.complex(torch.cos(phase), torch.sin(phase))
     return los + cgauss(seed, prng.ROLE_FADING, ch_ids, (1, 1), var=1.0 / (K + 1.0))
+
+
+def jakes_params(seed: int, ch_ids: torch.Tensor, n_paths: int = JAKES_PATHS,
+                 n_taps: int | None = None):
+    """The Jakes sum-of-sinusoids state (θ, φ), each uniform on (0, 2π]:
+    (B, n_paths) float32, or (B, n_taps, n_paths) for a TDL with one
+    independent process per tap. Words 0 and 1 of the fading stream's
+    lane ``JAKES_LANE`` at counter (channel, tap, path).
+
+    The state is the whole realisation: ``jakes_eval`` gives the gains at
+    any time index, so a run over symbols [t0, t1) evaluates the same
+    sum as a run over the whole frame."""
+    rows = 1 if n_taps is None else n_taps
+    w0, w1, _, _ = prng.keyed_words(seed, prng.ROLE_FADING, ch_ids, (rows, n_paths),
+                                    lane=JAKES_LANE)
+    theta = prng.uniform_01(w0) * prng.TWO_PI_F32
+    phi = prng.uniform_01(w1) * prng.TWO_PI_F32
+    if n_taps is None:
+        return theta[:, 0], phi[:, 0]
+    return theta, phi
+
+
+def jakes_eval(theta: torch.Tensor, phi: torch.Tensor, t, doppler_norm: float) -> torch.Tensor:
+    """g[t] = (1/√P) Σ_p exp(i(2π·fd·t·cosθ_p + φ_p)) at time indices
+    ``t`` (n_steps,). θ, φ (..., P) → (..., n_steps) complex64, E|g|² = 1."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=theta.device)
+    n_paths = theta.shape[-1]
+    ang = (
+        2.0 * math.pi * doppler_norm * t[..., :, None] * torch.cos(theta)[..., None, :]
+        + phi[..., None, :]
+    )
+    g = torch.complex(torch.cos(ang).sum(dim=-1), torch.sin(ang).sum(dim=-1))
+    return (g / math.sqrt(n_paths)).to(torch.complex64)
+
+
+def jakes_gains(seed: int, ch_ids: torch.Tensor, n_steps: int, doppler_norm: float,
+                n_paths: int = JAKES_PATHS) -> torch.Tensor:
+    """Per-channel time-varying Rayleigh gains (B, n_steps) complex64 by
+    the Jakes model; ``doppler_norm`` = fd·T_step (steps = OFDM symbols
+    for block fading per symbol). The autocorrelation approaches
+    J₀(2π·fd·Δt) as n_paths grows."""
+    theta, phi = jakes_params(seed, ch_ids, n_paths)
+    t = torch.arange(n_steps, dtype=torch.float32, device=ch_ids.device)
+    return jakes_eval(theta, phi, t, doppler_norm)
+
+
+def _pdp_amps(pdp, device) -> torch.Tensor:
+    """√(p/Σp) per tap, float32, normalised in float32 as the JAX code does."""
+    p = torch.as_tensor(pdp, dtype=torch.float32, device=device)
+    return torch.sqrt(p / torch.sum(p))
+
+
+def multipath_taps(seed: int, ch_ids: torch.Tensor, pdp) -> torch.Tensor:
+    """Static Rayleigh taps for a power-delay profile (normalised to
+    total power 1): (B, L) complex64 from lane 0 of the fading stream."""
+    amps = _pdp_amps(pdp, ch_ids.device)
+    taps = cgauss(seed, prng.ROLE_FADING, ch_ids, (1, amps.shape[0]))[:, 0, :]
+    return taps * amps
+
+
+def multipath_time_params(seed: int, ch_ids: torch.Tensor, pdp, n_paths: int = JAKES_PATHS):
+    """State of the time-varying TDL: per-tap Jakes (θ, φ), each
+    (B, L, n_paths), and the static tap amplitudes √(p/Σp) (L,)."""
+    amps = _pdp_amps(pdp, ch_ids.device)
+    theta, phi = jakes_params(seed, ch_ids, n_paths, n_taps=amps.shape[0])
+    return theta, phi, amps
+
+
+def multipath_time_taps_at(theta, phi, amps, t, doppler_norm: float) -> torch.Tensor:
+    """TDL taps c_l[t] = √p_l·g_l[t] at step indices ``t``: (..., n_steps, L)."""
+    g = jakes_eval(theta, phi, t, doppler_norm)  # (..., L, n_steps)
+    return g.transpose(-1, -2) * amps
+
+
+def multipath_time_taps(seed: int, ch_ids: torch.Tensor, pdp, n_steps: int,
+                        doppler_norm: float, n_paths: int = JAKES_PATHS) -> torch.Tensor:
+    """Per-tap-Jakes TDL taps for steps 0..n_steps-1: (B, n_steps, L)."""
+    theta, phi, amps = multipath_time_params(seed, ch_ids, pdp, n_paths)
+    t = torch.arange(n_steps, dtype=torch.float32, device=ch_ids.device)
+    return multipath_time_taps_at(theta, phi, amps, t, doppler_norm)
+
+
+def symbol_history(x: torch.Tensor, L: int) -> torch.Tensor | None:
+    """Per-symbol FIR history for a (..., n_symbols, sym_len) grid: row s
+    gets the last L−1 samples of row s−1, zeros for s = 0."""
+    if L <= 1:
+        return None
+    tails = x[..., :-1, -(L - 1):]
+    zeros = torch.zeros(x.shape[:-2] + (1, L - 1), dtype=x.dtype, device=x.device)
+    return torch.cat([zeros, tails], dim=-2)
+
+
+def apply_multipath(samples: torch.Tensor, taps: torch.Tensor,
+                    history: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal FIR along the last axis: y[n] = Σ_l taps[..., l]·x[n−l],
+    x[n<0] taken from ``history`` (the last L−1 samples of the preceding
+    block) or zeros. An L-term shift-and-add, as in the JAX function."""
+    L = taps.shape[-1]
+    n = samples.shape[-1]
+    if L == 1:
+        return samples * taps[..., 0:1]
+    if history is None:
+        history = torch.zeros(samples.shape[:-1] + (L - 1,), dtype=samples.dtype,
+                              device=samples.device)
+    else:
+        history = history[..., -(L - 1):]
+    ext = torch.cat([history, samples], dim=-1)  # (..., L-1+n)
+    y = torch.zeros_like(samples)
+    for l in range(L):
+        y = y + taps[..., l:l + 1] * ext[..., L - 1 - l:L - 1 - l + n]
+    return y
+
+
+def grid_fir(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """The fast engine's FIR over a (B, S, sym_len) grid of CP'd symbols.
+    Static taps (B, L): each channel's whole stream through one FIR from
+    zero history. Per-symbol taps (B, S, L): each symbol through its own
+    taps, the previous symbol's tail as history (zeros before symbol 0)."""
+    if taps.ndim == 2:
+        return apply_multipath(x.reshape(x.shape[0], -1), taps).reshape(x.shape)
+    return apply_multipath(x, taps, history=symbol_history(x, taps.shape[-1]))
+
+
+def freq_response(taps: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """Per-subcarrier response H = FFT_N(taps zero-padded): (..., n_fft)
+    complex64. With CP ≥ L−1 the FIR is circulant per OFDM symbol, so
+    Y = H·X + N on the subcarriers."""
+    L = taps.shape[-1]
+    pad = torch.zeros(taps.shape[:-1] + (n_fft - L,), dtype=torch.complex64,
+                      device=taps.device)
+    return fft(torch.cat([taps.to(torch.complex64), pad], dim=-1))

@@ -1,8 +1,10 @@
 """Receive chain: CP strip → FFT → one-tap equalize → max-log LLR.
 
 Port of ``sdr_tpu/ops/demod.py`` for the slice on the H100: the plain
-LLR plane ``demod_chain``, the fast engine's count terminal
-``demod_count_chain`` (kernel C) and the channels-last sum terminal
+LLR plane ``demod_chain``, the fast engine's count terminals
+``demod_count_chain`` (kernel C, rows; with ``taps=`` the per-symbol
+TDL response is built in the kernel) and ``demod_count_chain_cl``
+(kernel F, channels-last), and the channels-last sum terminal
 ``demod_sum_chain_cl`` (kernel D) that the headline benchmark measures.
 
 Dispatch is by device, through the port's own shape predicates (the
@@ -12,7 +14,8 @@ takes the plain torch version; a CUDA tensor takes the kernel, or the
 call raises ``ValueError`` — nothing falls back.
 
 Layouts: rows (B, S, N+cp) planar samples with h (B, 1|S, N); channels-
-last (S·(N+cp), B) samples with h (N, B) in natural bin order.
+last (S·(N+cp), B) samples with h (N, B) in natural bin order and, for
+the count, indices (S·N, B).
 """
 
 from __future__ import annotations
@@ -38,23 +41,33 @@ def select_backend(re_shape, hr_shape, idx_shape, cp_len: int, device) -> str:
     )
 
 
-def select_backend_cl(re_t_shape, n_fft: int, cp_len: int, device) -> str:
-    """Channels-last twin of ``select_backend`` for kernel D."""
+def select_backend_cl(re_t_shape, n_fft: int, cp_len: int, device,
+                      idx_t_shape=None) -> str:
+    """Channels-last twin of ``select_backend`` for kernels D (sum) and F
+    (count: ``idx_t_shape`` given, which must be (S·N, B))."""
     if torch.device(device).type == "cpu":
         return "plain"
-    if _kd.supported(re_t_shape, n_fft, cp_len):
+    ok = _kd.supported(re_t_shape, n_fft, cp_len)
+    if ok and idx_t_shape is not None:
+        n_syms = re_t_shape[0] // (n_fft + cp_len)
+        ok = tuple(idx_t_shape) == (n_syms * n_fft, re_t_shape[1])
+    if ok:
         return "cuda"
     raise ValueError(
         f"no CUDA channels-last kernel for {tuple(re_t_shape)}, n_fft {n_fft}, cp {cp_len}"
+        + ("" if idx_t_shape is None else f", idx {tuple(idx_t_shape)}")
     )
 
 
 def demod_count_chain(re, im, hr, hi, idx, cp_len: int, mod: Modulation,
-                      noise_var: float) -> torch.Tensor:
+                      noise_var: float, taps=None) -> torch.Tensor:
     """Demod + hard-decision bit-error count vs transmitted indices:
-    per-channel (B,) int32. No LLR plane is materialised on the card."""
-    select_backend(re.shape, hr.shape, idx.shape, cp_len, re.device)
-    return _kc.demod_count(re, im, hr, hi, idx, cp_len, mod, noise_var)
+    per-channel (B,) int32. No LLR plane is materialised on the card.
+    ``taps=(taps_r, taps_i)`` (B, S, L ≤ 8) stands for the channel plane
+    (hr/hi may then be None)."""
+    chan_shape = hr.shape if taps is None else taps[0].shape
+    select_backend(re.shape, chan_shape, idx.shape, cp_len, re.device)
+    return _kc.demod_count(re, im, hr, hi, idx, cp_len, mod, noise_var, taps=taps)
 
 
 def demod_sum_chain_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation,
@@ -65,3 +78,12 @@ def demod_sum_chain_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation,
     select_backend_cl(re_t.shape, hr_t.shape[0], cp_len, re_t.device)
     return _kd.demod_sum_cl(re_t, im_t, hr_t, hi_t, cp_len, mod, noise_var,
                             h_in_dif_order=h_in_dif_order)
+
+
+def demod_count_chain_cl(re_t, im_t, hr_t, hi_t, idx_t, cp_len: int, mod: Modulation,
+                         noise_var: float, h_in_dif_order: bool = False) -> torch.Tensor:
+    """Per-channel (B,) int32 hard-decision bit-error counts over a
+    channels-last grid — the fast engine's terminal under ``layout="cl"``."""
+    select_backend_cl(re_t.shape, hr_t.shape[0], cp_len, re_t.device, idx_t.shape)
+    return _kd.demod_count_cl(re_t, im_t, hr_t, hi_t, idx_t, cp_len, mod, noise_var,
+                              h_in_dif_order=h_in_dif_order)

@@ -4,8 +4,14 @@
   the port's tx_with_channel → rx_count_core, against the JAX
   interpret-mode composition of the same three kernels: counts equal,
   or differing by no more than the bits whose plain |LLR| < 1e-3.
-- The keyed engine's BER against exact theory, and split == full.
-- The package never imports JAX; unported models raise.
+- The same for the selective and time-varying models, with the fading
+  state (taps, per-symbol gains) carried across through ``interop``.
+- The keyed engine's BER against exact theory (flat models) and against
+  the semi-analytic BER of the channel each run drew (selective and
+  time-varying models); split == full for every model and layout; the
+  staged channel route equals the fused one; the channels-last layout
+  counts as the rows layout.
+- The package never imports JAX; SC-FDMA, pilots and MIMO raise.
 """
 
 import subprocess
@@ -22,6 +28,7 @@ from sdr_tpu.kernels.channel_pallas import fade_awgn_pallas
 from sdr_tpu.kernels.demod_pallas import demod_count_pallas
 from sdr_tpu.kernels.tx_pallas import tx_chain_pallas
 from sdr_tpu.link import ber as jber
+from sdr_tpu.ops import channel as jchan
 from sdr_tpu_torch import interop
 from sdr_tpu_torch.core.config import (
     ChannelConfig,
@@ -34,6 +41,7 @@ from sdr_tpu_torch.core.config import (
     link_config_to_dict,
 )
 from sdr_tpu_torch.kernels.demod import demod_chain
+from sdr_tpu_torch.kernels.tx import tx_chain
 from sdr_tpu_torch.link import fast
 from sdr_tpu_torch.link.ber import ber_awgn_exact, ber_rayleigh_exact, ber_rician_exact
 
@@ -155,25 +163,236 @@ def test_package_imports_no_jax():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(model=ChannelModel.MULTIPATH),
-        dict(model=ChannelModel.MULTIPATH_TIME),
-        dict(model=ChannelModel.RAYLEIGH_TIME),
         dict(dft_spread=True),
         dict(pilot_spacing=4, equalizer=Equalizer.MMSE),
         dict(mimo=True),
-        dict(layout="cl"),
     ],
-    ids=["multipath", "multipath_time", "rayleigh_time", "dft_spread", "pilots", "mimo", "cl"],
+    ids=["dft_spread", "pilots", "mimo"],
 )
 def test_unported_paths_raise(kw):
     kw = dict(kw)
-    layout = kw.pop("layout", "auto")
     model = kw.pop("model", ChannelModel.RAYLEIGH_FLAT)
     if kw.pop("mimo", False):
         kw["mimo"] = MIMOConfig()
     cfg = _cfg(model, n_fft=64, cp=16, n_symbols=4, n_channels=4, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fast.fast_simulate(cfg, seed=0, layout=layout)
+        fast.fast_simulate(cfg, seed=0)
+
+
+PDP4 = (1.0, 0.5, 0.25, 0.125)  # BASELINE config 4's power-delay profile
+PDP3 = (1.0, 0.5, 0.25)  # scripts/bench_link.py's TDL profile
+PDP24 = tuple(0.8 ** l for l in range(24))  # beyond the fused FIR: the staged route
+
+
+def _sel_cfg(model, pdp=PDP3, ebno_db=14.0, mod=Modulation.QAM16, n_fft=64, cp=32, n_symbols=8,
+             n_channels=48, doppler_norm=0.02):
+    return LinkConfig(
+        modulation=mod, ofdm=OFDMConfig(n_fft=n_fft, cp_len=cp),
+        channel=ChannelConfig(model=model, ebno_db=ebno_db, pdp=pdp, doppler_norm=doppler_norm),
+        n_symbols=n_symbols, n_channels=n_channels,
+    )
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(model=ChannelModel.MULTIPATH),
+        dict(model=ChannelModel.MULTIPATH_TIME),
+        dict(model=ChannelModel.RAYLEIGH_TIME),
+        dict(layout="cl"),
+        dict(model=ChannelModel.MULTIPATH, layout="cl"),
+        dict(model=ChannelModel.MULTIPATH, pdp=PDP24),
+        dict(model=ChannelModel.MULTIPATH_TIME, pdp=PDP24),
+        dict(model=ChannelModel.MULTIPATH_TIME, pdp=tuple(0.7 ** l for l in range(12))),
+    ],
+    ids=["multipath", "multipath_time", "rayleigh_time", "cl", "multipath_cl",
+         "multipath_staged", "multipath_time_staged", "multipath_time_12taps"],
+)
+def test_selective_and_cl_paths_split_equals_full(kw):
+    """Every channel model and layout runs, and channels [0, k) alone give
+    the same counts as in the full run."""
+    kw = dict(kw)
+    layout = kw.pop("layout", "auto")
+    model = kw.pop("model", ChannelModel.RAYLEIGH_FLAT)
+    cfg = _sel_cfg(model, ebno_db=8.0, **kw)
+    full, counted = fast.fast_simulate(cfg, seed=9, layout=layout)
+    part, _ = fast.fast_core(cfg, 9, torch.arange(0, 20, dtype=torch.int32), layout=layout)
+    rest, _ = fast.fast_core(cfg, 9, torch.arange(20, 48, dtype=torch.int32), layout=layout)
+    torch.testing.assert_close(torch.cat([part, rest]), full, rtol=0, atol=0)
+    assert int(full.sum()) > 0 and int(counted[0]) == 8 * 64 * 4
+
+
+@pytest.mark.parametrize("model", [ChannelModel.RAYLEIGH_TIME, ChannelModel.MULTIPATH_TIME],
+                         ids=lambda m: m.value)
+def test_per_symbol_models_raise_under_cl(model):
+    with pytest.raises(NotImplementedError, match="per-link channel plane"):
+        fast.fast_simulate(_sel_cfg(model), seed=0, layout="cl")
+    assert not fast.layout_supported_cl(_sel_cfg(model), 48)
+    assert fast.layout_supported_cl(_sel_cfg(ChannelModel.MULTIPATH), 48)
+    assert fast.select_layout(_sel_cfg(ChannelModel.MULTIPATH), 48) == "rows"
+
+
+def _ber_given_gain(mod, ebno_db, g2):
+    """Exact Gray-QAM AWGN BER at Eb/N0·|H|², averaged over the gains
+    ``g2`` — the BER of the drawn channel (with CP ≥ L−1 every subcarrier
+    is an AWGN channel at its own |H|², and the one-tap equaliser with
+    max-log decisions is exact per axis)."""
+    from scipy.special import erfc
+
+    L, m = mod.levels_per_axis, mod.bits_per_axis
+    arg = mod.unit_energy_scale * np.sqrt(2.0 * mod.bits_per_symbol * 10 ** (ebno_db / 10)
+                                          * np.asarray(g2, np.float64))
+    total = 0.0
+    for k in range(1, m + 1):
+        half = 1 << (k - 1)
+        for i in range(int((1.0 - 2.0 ** (-k)) * L)):
+            sign = -1.0 if ((i * half) // L) % 2 else 1.0
+            weight = half - np.floor(i * half / L + 0.5)
+            total = total + sign * weight * erfc((2 * i + 1) * arg / np.sqrt(2.0)) / L
+    return float(np.mean(total) / m)
+
+
+def test_ber_given_gain_reduces_to_awgn_theory():
+    for mod in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64):
+        np.testing.assert_allclose(_ber_given_gain(mod, 7.0, np.ones(3)),
+                                   ber_awgn_exact(mod, 7.0), rtol=1e-12)
+
+
+@pytest.mark.parametrize(
+    "model,pdp",
+    [(ChannelModel.MULTIPATH, PDP4), (ChannelModel.RAYLEIGH_TIME, PDP3),
+     (ChannelModel.MULTIPATH_TIME, PDP3), (ChannelModel.MULTIPATH, PDP24)],
+    ids=["multipath", "rayleigh_time", "multipath_time", "multipath_staged"],
+)
+def test_selective_ber_matches_ber_of_the_drawn_channel(model, pdp):
+    """BER over ~1e6 bits against the semi-analytic BER of the channel the
+    run drew (fade_state recomputes it from the keys). The errors are
+    ~1e4, so the noise-only spread is ~1 %: the gate is 5 %."""
+    cfg = _sel_cfg(model, pdp, ebno_db=12.0, n_symbols=16, n_channels=256, cp=32)
+    errors, counted = fast.fast_simulate(cfg, seed=21)
+    ber = int(errors.sum()) / int(counted.sum())
+    h, _ = fast.fade_state(cfg, 21, torch.arange(256, dtype=torch.int32))
+    g2 = torch.broadcast_to(h.abs() ** 2, (256, 16, 64)).numpy()
+    want = _ber_given_gain(cfg.modulation, 12.0, g2)
+    assert abs(ber / want - 1.0) < 0.05, (ber, want)
+    # Averaged over the fading, MULTIPATH and RAYLEIGH_TIME are Rayleigh per
+    # subcarrier; the drawn channel's BER sits near that theory.
+    assert abs(want / ber_rayleigh_exact(cfg.modulation, 12.0) - 1.0) < 0.3
+
+
+def test_staged_route_equals_fused_route():
+    """apply_channel_fast over kernel B's clean waveform (plain FIR, then
+    kernel E) equals the fused FIR of kernel B: both draw the noise from
+    one counter."""
+    for model in (ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME,
+                  ChannelModel.RAYLEIGH_TIME):
+        cfg = _sel_cfg(model, PDP4, n_channels=6)
+        ids = torch.arange(100, 106, dtype=torch.int32)
+        idx = fast.draw_idx(cfg, 5, ids)
+        fused = fast.tx_with_channel(cfg, 5, ids, idx)
+        staged = fast.apply_channel_fast(cfg, 5, ids, *tx_chain(idx, cfg.ofdm.cp_len,
+                                                                 cfg.modulation))
+        for a, b in zip(fused, staged):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("model", [ChannelModel.AWGN, ChannelModel.RAYLEIGH_FLAT,
+                                   ChannelModel.MULTIPATH], ids=lambda m: m.value)
+def test_cl_layout_counts_equal_rows(model):
+    """Both layouts see the same samples and channel; per-channel counts
+    are equal, or differ by no more than the bits whose |LLR| < 1e-3."""
+    cfg = _sel_cfg(model, PDP4, ebno_db=6.0, n_channels=40)
+    rows, _ = fast.fast_simulate(cfg, seed=3, layout="rows")
+    cl, _ = fast.fast_simulate(cfg, seed=3, layout="cl")
+    assert int(rows.sum()) > 0
+    torch.testing.assert_close(cl, rows, rtol=0, atol=0)
+    re_t, im_t = fast.tx_channel_core(cfg, 3, torch.arange(40, dtype=torch.int32), layout="cl")
+    assert re_t.shape == (8 * (64 + 32), 40) and re_t.is_contiguous()
+
+
+@pytest.mark.parametrize(
+    "model,pdp,jax_taps",
+    [(ChannelModel.MULTIPATH, PDP4, False), (ChannelModel.MULTIPATH_TIME, PDP3, True),
+     (ChannelModel.RAYLEIGH_TIME, None, False)],
+    ids=["multipath", "multipath_time", "rayleigh_time"],
+)
+def test_selective_slice_on_explicit_inputs_matches_jax_kernels(rng, model, pdp, jax_taps):
+    """The same indices, fading state and noise through the JAX staged
+    composition (TX kernel → apply_multipath → channel kernel → count
+    kernel, with taps= for the TDL) and through the port's
+    tx_with_channel → rx_count_core."""
+    B, S, N, cp, ebno = 128, 8, 128, 32, 8.0
+    mod = Modulation.QAM16
+    jm = jcfg.Modulation(mod.value)
+    idx = rng.integers(0, 16, (B, S, N)).astype(np.int32)
+    n_re = rng.standard_normal((B, S, N + cp)).astype(np.float32)
+    n_im = rng.standard_normal((B, S, N + cp)).astype(np.float32)
+    nv = 1.0 / (10 ** (ebno / 10) * mod.bits_per_symbol)
+    cfg = _sel_cfg(model, pdp or (1.0,), ebno, mod, N, cp, S, B)
+    cplx = lambda *sh: ((rng.standard_normal(sh) + 1j * rng.standard_normal(sh))  # noqa: E731
+                        / np.sqrt(2)).astype(np.complex64)
+    jre, jim = tx_chain_pallas(jnp.asarray(idx), cp, jm, interpret=True)
+    x = jre + 1j * jim
+    hs = None
+    if model == ChannelModel.MULTIPATH:
+        taps = cplx(B, len(pdp)) * np.sqrt(np.asarray(pdp, np.float32) / sum(pdp))
+        x = jchan.apply_multipath(x.reshape(B, -1), jnp.asarray(taps)).reshape(x.shape)
+        state = interop.fading_state(taps=taps)
+        h_plane = np.asarray(jchan.freq_response(jnp.asarray(taps), N))[:, None, :]
+    elif model == ChannelModel.MULTIPATH_TIME:
+        taps = cplx(B, S, len(pdp)) * np.sqrt(np.asarray(pdp, np.float32) / sum(pdp))
+        x = jchan.apply_multipath(x, jnp.asarray(taps),
+                                  history=jchan.symbol_history(x, len(pdp)))
+        state = interop.fading_state(taps=taps)
+        h_plane = np.asarray(jchan.freq_response(jnp.asarray(taps), N))
+    else:
+        gains = cplx(B, S)
+        hs = (jnp.asarray(np.real(gains)), jnp.asarray(np.imag(gains)))
+        state = interop.fading_state(gains=gains)
+        h_plane = np.broadcast_to(gains[:, :, None], (B, S, N))
+    jre, jim = fade_awgn_pallas(jnp.real(x), jnp.imag(x), *(hs or (None, None)), 0, nv / N,
+                                noise=(jnp.asarray(n_re), jnp.asarray(n_im)), interpret=True)
+    if jax_taps:
+        ref = demod_count_pallas(jre, jim, None, None, jnp.asarray(idx), cp, jm, nv,
+                                 taps=(jnp.asarray(np.real(taps)), jnp.asarray(np.imag(taps))),
+                                 interpret=True)
+    else:
+        hb = np.ascontiguousarray(h_plane)
+        ref = demod_count_pallas(jre, jim, jnp.asarray(np.real(hb).astype(np.float32)),
+                                 jnp.asarray(np.imag(hb).astype(np.float32)), jnp.asarray(idx),
+                                 cp, jm, nv, interpret=True)
+
+    st = interop.channel_state(idx=idx, noise=(n_re, n_im))
+    ids = torch.arange(B, dtype=torch.int32)
+    re, im = fast.tx_with_channel(cfg, 0, ids, st["idx"], h=state.get("h"),
+                                  taps=state.get("taps"), noise=st["noise"])
+    np.testing.assert_allclose(re.numpy(), np.asarray(jre), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(im.numpy(), np.asarray(jim), atol=2e-5, rtol=0)
+    errors, _ = fast.rx_count_core(cfg, 0, ids, re, im, h=state.get("h"),
+                                   taps=state.get("taps"), idx=st["idx"])
+    assert int(errors.sum()) > 0
+    hp = np.ascontiguousarray(h_plane)
+    llr = demod_chain(re, im, *interop.planes(np.real(hp), np.imag(hp)), cp, mod, nv)
+    margin = (llr.abs() < 1e-3).sum(dim=(1, 2)).numpy()
+    assert (np.abs(errors.numpy() - np.asarray(ref)) <= margin).all()
+
+
+def test_fade_state_shapes():
+    ids = torch.arange(5, dtype=torch.int32)
+    cases = {
+        ChannelModel.AWGN: (None, None),
+        ChannelModel.RAYLEIGH_TIME: ((5, 8, 1), None),
+        ChannelModel.MULTIPATH: ((5, 1, 64), (5, 3)),
+        ChannelModel.MULTIPATH_TIME: ((5, 8, 64), (5, 8, 3)),
+    }
+    for model, (h_shape, t_shape) in cases.items():
+        h, taps = fast.fade_state(_sel_cfg(model), 2, ids)
+        assert (None if h is None else tuple(h.shape)) == h_shape
+        assert (None if taps is None else tuple(taps.shape)) == t_shape
+        h2, taps2 = fast.fade_state(_sel_cfg(model), 2, ids, plane=False)
+        if taps is not None:
+            assert h2 is None
+            torch.testing.assert_close(fast.rx_plane(taps2, 64), h, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize(

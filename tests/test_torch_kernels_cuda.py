@@ -8,8 +8,8 @@ fixture, never at import. Run on a machine with an NVIDIA Hopper card:
 
 Tolerances: indices and counts exact (counts: or within the number of
 bits whose plain |LLR| < 1e-3); sample planes 1e-4 absolute (injected
-noise) and 1e-5 of the plane's peak (keyed noise); LLR sums 1e-4
-relative.
+noise) and 1e-5 of the plane's peak (keyed noise; kernel B's FIR and
+kernel E in both modes); LLR sums 1e-4 relative.
 """
 
 import numpy as np
@@ -18,6 +18,7 @@ import torch
 
 from sdr_tpu_torch.core.config import ChannelConfig, ChannelModel, LinkConfig, Modulation, OFDMConfig
 from sdr_tpu_torch.kernels import _lib
+from sdr_tpu_torch.kernels import channel as ke
 from sdr_tpu_torch.kernels import demod as kc
 from sdr_tpu_torch.kernels import demod_cl as kd
 from sdr_tpu_torch.kernels import payload as ka
@@ -126,7 +127,7 @@ def test_fast_simulate_on_card_matches_cpu(dev, model):
     want, _ = fast.fast_simulate(cfg, 31)
     ids = torch.arange(96, dtype=torch.int32)
     idx = fast.draw_idx(cfg, 31, ids)
-    h = fast.fade_state(cfg, 31, ids)
+    h, _ = fast.fade_state(cfg, 31, ids)
     re, im = fast.tx_with_channel(cfg, 31, ids, idx, h=h)
     hb = torch.ones((96, 1, 1), dtype=torch.complex64) if h is None else h
     hr = hb.real.expand(96, 1, 256).contiguous()
@@ -134,6 +135,123 @@ def test_fast_simulate_on_card_matches_cpu(dev, model):
     llr = kc.demod_chain(re, im, hr, hi, 64, cfg.modulation, fast.noise_var(cfg))
     margin = (llr.abs() < 1e-3).sum(dim=(1, 2))
     assert int(want.sum()) > 0 and int(counted[0]) == 16 * 256 * 4
+    assert bool(((got.cpu() - want).abs() <= margin).all())
+
+
+def _close_planes(got, want, keyed):
+    for a, b in zip(got, want):
+        err = float((a - b).abs().max())
+        assert err <= (1e-5 * float(b.abs().max()) if keyed else 1e-4), err
+
+
+@pytest.mark.parametrize("mod", [Modulation.QPSK, Modulation.QAM16, Modulation.QAM1024],
+                         ids=lambda m: m.value)
+@pytest.mark.parametrize("kind", ["gains_per_symbol", "taps_static", "taps_per_symbol"])
+def test_tx_channel_modes_match_plain(dev, mod, kind):
+    """Kernel B's per-symbol gains and FIR modes, injected then keyed
+    noise; S = 13 is not a multiple of the symbols per chunk."""
+    B, S, N, cp = 24, 13, 256, 64
+    g = torch.Generator(device="cpu").manual_seed(5)
+    idx = torch.randint(0, 1 << mod.bits_per_symbol, (B, S, N), generator=g).to(dev, torch.int16)
+    ids = torch.arange(B, dtype=torch.int32, device=dev) * 3
+    noise = tuple(torch.randn((B, S, N + cp), generator=g).to(dev) for _ in range(2))
+    if kind == "gains_per_symbol":
+        ch = dict(hs_r=torch.randn((B, S), generator=g).to(dev),
+                  hs_i=torch.randn((B, S), generator=g).to(dev))
+        counter = "tx"
+    else:
+        shape = (B, 16) if kind == "taps_static" else (B, S, 16)
+        ch = dict(taps_r=(torch.randn(shape, generator=g) * 0.3).to(dev),
+                  taps_i=(torch.randn(shape, generator=g) * 0.3).to(dev))
+        counter = "tx_taps"
+    for kw in (dict(noise=noise), dict(seed=8, ch_ids=ids)):
+        got = _counted(counter, lambda: kb.tx_channel(idx, cp, mod, noise_var=1e-3, **ch, **kw))
+        want = kb.tx_channel_plain(idx, cp, mod, noise_var=1e-3, **ch, **kw)
+        _close_planes(got, want, "seed" in kw)
+
+
+@pytest.mark.parametrize("h_syms", [0, 1, 7])
+def test_fade_awgn_kernel_matches_plain(dev, h_syms):
+    B, S, L = 50, 7, 320
+    g = torch.Generator(device="cpu").manual_seed(6)
+    re, im = (torch.randn((B, S, L), generator=g).to(dev) for _ in range(2))
+    hs = (None, None)
+    if h_syms:
+        hs = tuple(torch.randn((B, h_syms), generator=g).to(dev) for _ in range(2))
+    noise = tuple(torch.randn((B, S, L), generator=g).to(dev) for _ in range(2))
+    ids = torch.arange(1000, 1000 + B, dtype=torch.int32, device=dev)
+    for kw in (dict(noise=noise), dict(seed=12, ch_ids=ids)):
+        got = _counted("fade_awgn", lambda: ke.fade_awgn(re, im, *hs, 0.02, **kw))
+        want = ke.fade_awgn_plain(re, im, *hs, 0.02, **kw)
+        _close_planes(got, want, "seed" in kw)
+
+
+@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
+@pytest.mark.parametrize("L", [1, 3, 8])
+def test_demod_count_taps_kernel_matches_plain(dev, mod, L):
+    B, S, N, cp = 40, 8, 256, 64
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    idx = ka.payload_idx(S, N, mod.bits_per_symbol, 4, ids)
+    nv = 1.0 / (10 ** 1.0 * mod.bits_per_symbol)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    taps = tuple((torch.randn((B, S, L), generator=g) / np.sqrt(2 * L)).to(dev) for _ in range(2))
+    re, im = kb.tx_channel(idx, cp, mod, noise_var=nv / N, seed=4, ch_ids=ids, taps_r=taps[0],
+                           taps_i=taps[1])
+    got = _counted("demod_count_taps",
+                   lambda: kc.demod_count(re, im, None, None, idx, cp, mod, nv, taps=taps))
+    hr, hi = kc.taps_plane(taps, N)
+    llr = kc.demod_chain(re, im, hr, hi, cp, mod, nv)
+    want = kc.count_errors(llr, idx, mod.bits_per_symbol)
+    margin = (llr.abs() < 1e-3).sum(dim=(1, 2))
+    assert int(want.sum()) > 0
+    assert bool(((got - want).abs() <= margin).all())
+
+
+@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
+@pytest.mark.parametrize("n_fft", [64, 256, 512])
+def test_demod_count_cl_kernel_matches_plain(dev, mod, n_fft):
+    B, S, cp = 200, 11, n_fft // 4
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    idx = ka.payload_idx(S, n_fft, mod.bits_per_symbol, 9, ids)
+    nv = 1.0 / (10 ** 0.8 * mod.bits_per_symbol)
+    re, im = kb.tx_channel(idx, cp, mod, noise_var=nv / n_fft, seed=9, ch_ids=ids)
+    re_t, im_t = fast._to_cl(re, im)
+    idx_t = idx.permute(1, 2, 0).reshape(S * n_fft, B).contiguous()
+    hr_t = torch.ones((n_fft, B), device=dev)
+    hi_t = torch.zeros((n_fft, B), device=dev)
+    got = _counted("demod_count_cl",
+                   lambda: kd.demod_count_cl(re_t, im_t, hr_t, hi_t, idx_t, cp, mod, nv))
+    want = kd.demod_count_cl_plain(re_t, im_t, hr_t, hi_t, idx_t, cp, mod, nv)
+    llr = kc.demod_chain(re, im, torch.ones((B, 1, n_fft), device=dev),
+                         torch.zeros((B, 1, n_fft), device=dev), cp, mod, nv)
+    margin = (llr.abs() < 1e-3).sum(dim=(1, 2))
+    assert int(want.sum()) > 0
+    assert bool(((got - want).abs() <= margin).all())
+
+
+@pytest.mark.parametrize(
+    "model,layout",
+    [(ChannelModel.MULTIPATH, "rows"), (ChannelModel.MULTIPATH_TIME, "rows"),
+     (ChannelModel.RAYLEIGH_TIME, "rows"), (ChannelModel.MULTIPATH, "cl")],
+    ids=["multipath", "multipath_time", "rayleigh_time", "multipath_cl"],
+)
+def test_selective_fast_simulate_on_card_matches_cpu(dev, model, layout):
+    """The selective and time-varying links on the card against the same
+    links on the CPU: counts equal, or within the bits whose plain
+    |LLR| < 1e-3 (the keyed fading draws are the same bits on both)."""
+    cfg = LinkConfig(modulation=Modulation.QAM16, ofdm=OFDMConfig(256, 64),
+                     channel=ChannelConfig(model=model, ebno_db=10.0, pdp=(1.0, 0.5, 0.25),
+                                           doppler_norm=0.02),
+                     n_symbols=16, n_channels=64)
+    got, _ = fast.fast_simulate(cfg, 17, device=dev, layout=layout)
+    want, _ = fast.fast_simulate(cfg, 17, layout=layout)
+    ids = torch.arange(64, dtype=torch.int32)
+    h, _ = fast.fade_state(cfg, 17, ids)
+    re, im = fast.tx_channel_core(cfg, 17, ids)
+    hb = h.expand(64, h.shape[1], 256)
+    llr = kc.demod_chain(re, im, hb.real, hb.imag, 64, cfg.modulation, fast.noise_var(cfg))
+    margin = (llr.abs() < 1e-3).sum(dim=(1, 2))
+    assert int(want.sum()) > 0
     assert bool(((got.cpu() - want).abs() <= margin).all())
 
 
@@ -149,3 +267,11 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         kc.demod_count(*(torch.zeros((2, 2, 80), device=dev),) * 2,
                        *(torch.zeros((2, 1, 64), device=dev),) * 2,
                        torch.zeros((2, 2, 64), dtype=torch.int64, device=dev), 16, mod, 0.1)
+    with pytest.raises(ValueError):
+        kb.tx_channel(torch.zeros((2, 2, 64), dtype=torch.int32, device=dev), 16, mod,
+                      taps_r=torch.zeros((2, 17), device=dev),
+                      taps_i=torch.zeros((2, 17), device=dev))
+    with pytest.raises(ValueError):
+        kd.demod_count_cl(*(torch.zeros((80, 32), device=dev),) * 2,
+                          *(torch.zeros((64, 32), device=dev),) * 2,
+                          torch.zeros((64, 32), dtype=torch.int32, device=dev), 16, mod, 0.1)

@@ -6,7 +6,9 @@ kernel has no interpret lowering (the channels-last kernel). Inputs are
 made with numpy from a seed and handed to both.
 
 Tolerances (stated before the comparison, from the JAX suite):
-- sample planes atol = 2e-5 (tests/test_tx_pallas.py);
+- sample planes atol = 2e-5 (tests/test_tx_pallas.py), for kernel B's
+  gain and FIR modes against the JAX staged composition (TX kernel →
+  apply_multipath → channel kernel) and for kernel E;
 - error counts: equal, or differing by no more than the number of bits
   whose plain |LLR| < 1e-3 (decisions that float rounding may flip);
 - LLR sums rtol = 1e-4 (float32 sums over ~1e4 terms in another order).
@@ -22,7 +24,9 @@ from sdr_tpu.kernels.channel_pallas import fade_awgn_pallas
 from sdr_tpu.kernels.demod_cl_pallas import demod_cl_jnp, dif_perm as j_dif_perm
 from sdr_tpu.kernels.demod_pallas import demod_count_pallas
 from sdr_tpu.kernels.tx_pallas import tx_chain_pallas
+from sdr_tpu.ops import channel as jchan
 from sdr_tpu_torch.core.config import Modulation
+from sdr_tpu_torch.kernels import channel as ke
 from sdr_tpu_torch.kernels import demod as kc
 from sdr_tpu_torch.kernels import demod_cl as kd
 from sdr_tpu_torch.kernels import tx as kb
@@ -191,3 +195,170 @@ def test_demod_sum_cl_plain_equals_rows_plane_sum(rng):
     plane = kc.demod_chain(*_t(rows(re), rows(im), hr.T[:, None, :], hi.T[:, None, :]), cp, mod, nv)
     got = kd.demod_sum_cl(*_t(re, im, hr, hi), cp, mod, nv)
     np.testing.assert_allclose(float(got), float(plane.double().sum()), rtol=1e-5)
+
+
+def _tx_channel_state(rng, mod, B, S, N, cp):
+    idx = _idx(rng, mod, (B, S, N))
+    n_re = rng.standard_normal((B, S, N + cp)).astype(np.float32)
+    n_im = rng.standard_normal((B, S, N + cp)).astype(np.float32)
+    tvar = 1.0 / (10 ** 0.6 * mod.bits_per_symbol) / N
+    return idx, n_re, n_im, tvar
+
+
+@pytest.mark.parametrize("kind", ["static", "per_symbol"])
+@pytest.mark.parametrize("L", [1, 4, 16])
+def test_tx_plain_fir_matches_jax_staged_composition(rng, kind, L):
+    """Kernel B's FIR mode (plain version, injected noise) against the JAX
+    staged route: tx_chain_pallas → apply_multipath (over the stream for
+    static taps; per symbol with symbol_history otherwise) →
+    fade_awgn_pallas(noise=…)."""
+    mod = Modulation.QAM16
+    B, S, N, cp = 128, 8, 128, 32
+    idx, n_re, n_im, tvar = _tx_channel_state(rng, mod, B, S, N, cp)
+    shape = (B, L) if kind == "static" else (B, S, L)
+    taps = ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * 0.4).astype(
+        np.complex64)
+
+    jre, jim = tx_chain_pallas(jnp.asarray(idx), cp, _jmod(mod), interpret=True)
+    x = jre + 1j * jim
+    if kind == "static":
+        x = jchan.apply_multipath(x.reshape(B, -1), jnp.asarray(taps)).reshape(x.shape)
+    else:
+        x = jchan.apply_multipath(x, jnp.asarray(taps), history=jchan.symbol_history(x, L))
+    jre, jim = fade_awgn_pallas(jnp.real(x), jnp.imag(x), None, None, 0, tvar,
+                                noise=(jnp.asarray(n_re), jnp.asarray(n_im)), interpret=True)
+    tr, ti = _t(np.real(taps).astype(np.float32), np.imag(taps).astype(np.float32))
+    gre, gim = kb.tx_channel_plain(*_t(idx), cp, mod, noise_var=tvar, noise=_t(n_re, n_im),
+                                   taps_r=tr, taps_i=ti)
+    np.testing.assert_allclose(gre.numpy(), np.asarray(jre), atol=SAMPLE_ATOL, rtol=0)
+    np.testing.assert_allclose(gim.numpy(), np.asarray(jim), atol=SAMPLE_ATOL, rtol=0)
+
+
+def test_tx_plain_per_symbol_gains_match_jax_staged_composition(rng):
+    """Kernel B's per-symbol gains (B, S) against tx_chain_pallas →
+    fade_awgn_pallas with a (B, S) gain plane."""
+    mod = Modulation.QPSK
+    B, S, N, cp = 128, 8, 128, 16
+    idx, n_re, n_im, tvar = _tx_channel_state(rng, mod, B, S, N, cp)
+    hs = ((rng.standard_normal((B, S)) + 1j * rng.standard_normal((B, S))) / np.sqrt(2)).astype(
+        np.complex64)
+    hr, hi = np.real(hs).astype(np.float32), np.imag(hs).astype(np.float32)
+    jre, jim = tx_chain_pallas(jnp.asarray(idx), cp, _jmod(mod), interpret=True)
+    jre, jim = fade_awgn_pallas(jre, jim, jnp.asarray(hr), jnp.asarray(hi), 0, tvar,
+                                noise=(jnp.asarray(n_re), jnp.asarray(n_im)), interpret=True)
+    gre, gim = kb.tx_channel_plain(*_t(idx), cp, mod, *_t(hr, hi), tvar, noise=_t(n_re, n_im))
+    np.testing.assert_allclose(gre.numpy(), np.asarray(jre), atol=SAMPLE_ATOL, rtol=0)
+    np.testing.assert_allclose(gim.numpy(), np.asarray(jim), atol=SAMPLE_ATOL, rtol=0)
+
+
+def test_tx_plain_fir_keyed_noise_is_the_flat_stream():
+    """The FIR mode adds the same keyed noise as the other modes: with a
+    single unit tap it is the AWGN-only waveform, bit for bit."""
+    B, S, N, cp = 6, 4, 64, 16
+    idx = torch.randint(0, 16, (B, S, N), generator=torch.Generator().manual_seed(3),
+                        dtype=torch.int32)
+    ids = torch.arange(50, 50 + B, dtype=torch.int32)
+    one = (torch.ones((B, 1)), torch.zeros((B, 1)))
+    a = kb.tx_channel(idx, cp, Modulation.QAM16, noise_var=0.01, seed=4, ch_ids=ids,
+                      taps_r=one[0], taps_i=one[1])
+    b = kb.tx_channel(idx, cp, Modulation.QAM16, noise_var=0.01, seed=4, ch_ids=ids)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("h_syms", [0, 1, 8], ids=["noise_only", "per_link", "per_symbol"])
+def test_fade_awgn_plain_matches_jax_channel_kernel(rng, h_syms):
+    B, S, L = 128, 8, 96
+    re = rng.standard_normal((B, S, L)).astype(np.float32)
+    im = rng.standard_normal((B, S, L)).astype(np.float32)
+    n_re = rng.standard_normal((B, S, L)).astype(np.float32)
+    n_im = rng.standard_normal((B, S, L)).astype(np.float32)
+    hr = hi = None
+    if h_syms:
+        hr = rng.standard_normal((B, h_syms)).astype(np.float32)
+        hi = rng.standard_normal((B, h_syms)).astype(np.float32)
+    jre, jim = fade_awgn_pallas(
+        jnp.asarray(re), jnp.asarray(im), None if hr is None else jnp.asarray(hr),
+        None if hi is None else jnp.asarray(hi), 0, 0.02,
+        noise=(jnp.asarray(n_re), jnp.asarray(n_im)), interpret=True)
+    gains = (None, None) if hr is None else _t(hr, hi)
+    gre, gim = ke.fade_awgn(*_t(re, im), *gains, 0.02, noise=_t(n_re, n_im))
+    np.testing.assert_allclose(gre.numpy(), np.asarray(jre), atol=SAMPLE_ATOL, rtol=0)
+    np.testing.assert_allclose(gim.numpy(), np.asarray(jim), atol=SAMPLE_ATOL, rtol=0)
+
+
+def test_fade_awgn_plain_keyed_noise_is_kernel_b_stream():
+    """Kernel E's keyed noise is kernel B's: the staged channel over the
+    clean waveform equals the fused one, bit for bit, on the CPU."""
+    B, S, N, cp = 5, 4, 64, 16
+    idx = torch.randint(0, 4, (B, S, N), generator=torch.Generator().manual_seed(1),
+                        dtype=torch.int32)
+    ids = torch.arange(7, 7 + B, dtype=torch.int32)
+    hs = (torch.randn(B, S), torch.randn(B, S))
+    fused = kb.tx_channel(idx, cp, Modulation.QPSK, *hs, 0.03, seed=11, ch_ids=ids)
+    staged = ke.fade_awgn(*kb.tx_chain(idx, cp, Modulation.QPSK), *hs, 0.03, seed=11,
+                          ch_ids=ids)
+    for x, y in zip(fused, staged):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("L", [1, 3, 8])
+@pytest.mark.parametrize("mod", [Modulation.QAM16, Modulation.QAM256], ids=lambda m: m.value)
+def test_demod_count_plain_taps_matches_jax_count_kernel(rng, mod, L):
+    """Kernel C's taps= mode (per-symbol TDL taps, response built in the
+    kernel) against demod_count_pallas(taps=…) in interpret mode."""
+    B, S, N, cp = 4, 8, 128, 32
+    idx = _idx(rng, mod, (B, S, N))
+    re, im = kb.tx_chain(*_t(idx), cp, mod)
+    taps = ((rng.standard_normal((B, S, L)) + 1j * rng.standard_normal((B, S, L)))
+            / np.sqrt(2 * L)).astype(np.complex64)
+    x = re.numpy() + 1j * im.numpy()
+    y = np.asarray(jchan.apply_multipath(jnp.asarray(x), jnp.asarray(taps),
+                                         history=jchan.symbol_history(jnp.asarray(x), L)))
+    nv = 1.0 / (10 ** 1.0 * mod.bits_per_symbol)
+    y = y + np.sqrt(nv / N / 2) * (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape))
+    yr, yi = np.real(y).astype(np.float32), np.imag(y).astype(np.float32)
+    tr, ti = np.real(taps).astype(np.float32), np.imag(taps).astype(np.float32)
+    ref = demod_count_pallas(jnp.asarray(yr), jnp.asarray(yi), None, None, jnp.asarray(idx), cp,
+                             _jmod(mod), nv, taps=(jnp.asarray(tr), jnp.asarray(ti)),
+                             interpret=True)
+    got = kc.demod_count(*_t(yr, yi), None, None, *_t(idx), cp, mod, nv, taps=_t(tr, ti))
+    assert got.dtype == torch.int32 and got.shape == (B,) and int(got.sum()) > 0
+    hr, hi = kc.taps_plane(_t(tr, ti), N)
+    _assert_counts_agree(got, ref, kc.demod_chain(*_t(yr, yi), hr, hi, cp, mod, nv))
+
+
+@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
+def test_demod_count_cl_plain_matches_jax_cl_twin(rng, mod):
+    """Kernel F's plain version against demod_cl_jnp(out_mode="count")."""
+    B, S, N, cp = 32, 4, 128, 32
+    rows = lambda x: x.reshape(S, N + cp, B).transpose(2, 0, 1)  # noqa: E731
+    idx = _idx(rng, mod, (B, S, N))
+    re, im = kb.tx_chain(*_t(idx), cp, mod)
+    nv = 1.0 / (10 ** 0.8 * mod.bits_per_symbol)
+    h = (rng.standard_normal((N, B)) + 1j * rng.standard_normal((N, B))) / np.sqrt(2)
+    hr, hi = np.real(h).astype(np.float32), np.imag(h).astype(np.float32)
+    # Channels-last samples: y = ifft(h · fft(x)) per symbol, plus noise.
+    x = (re.numpy() + 1j * im.numpy())[..., cp:]
+    y = np.fft.ifft(np.fft.fft(x, axis=-1) * h.T[:, None, :], axis=-1)
+    y = np.concatenate([y[..., N - cp:], y], axis=-1)
+    y = y + np.sqrt(nv / N / 2) * (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape))
+    cl = lambda a: np.ascontiguousarray(a.transpose(1, 2, 0).reshape(S * (N + cp), B))  # noqa: E731
+    yr, yi = cl(np.real(y)).astype(np.float32), cl(np.imag(y)).astype(np.float32)
+    idx_t = np.ascontiguousarray(idx.transpose(1, 2, 0).reshape(S * N, B))
+    ref = demod_cl_jnp(*map(jnp.asarray, (yr, yi, hr, hi)), cp, _jmod(mod), nv,
+                       out_mode="count", idx_t=jnp.asarray(idx_t))
+    narrow = idx_t.astype(np.int8 if mod.bits_per_symbol <= 7 else np.int16)
+    got = kd.demod_count_cl(*_t(yr, yi, hr, hi, narrow), cp, mod, nv)
+    assert got.dtype == torch.int32 and got.shape == (B,) and int(got.sum()) > 0
+    llr = kc.demod_chain(*_t(rows(yr), rows(yi)), *_t(hr.T[:, None, :], hi.T[:, None, :]), cp,
+                         mod, nv)
+    _assert_counts_agree(got, ref, llr)
+    # The plain count equals the rows count of the transposed grid.
+    rows_cnt = kc.count_errors(llr, torch.from_numpy(idx), mod.bits_per_symbol)
+    torch.testing.assert_close(got, rows_cnt, rtol=0, atol=0)
+    # h pre-permuted into the JAX kernel's DIF order gives the same counts.
+    perm = j_dif_perm(N)
+    got_dif = kd.demod_count_cl(*_t(yr, yi, hr[perm], hi[perm], narrow), cp, mod, nv,
+                                h_in_dif_order=True)
+    torch.testing.assert_close(got_dif, got, rtol=0, atol=0)
