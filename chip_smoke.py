@@ -9,11 +9,14 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch's
    version and the kernels' build time;
-2. runs each kernel A–F and each mode (B's per-symbol gains and FIR,
-   C's taps=) against its plain torch version on the card at the
-   slice's shapes and prints both times (CUDA events, after a warm-up,
-   in turns plain, kernel, kernel, plain); then holds the staged channel
-   route (plain FIR + kernel E) against the fused one (kernel B's FIR);
+2. runs each kernel A–G and each mode (B's per-symbol gains, FIR and
+   channel-off TX, C's taps= and despread) against its plain torch
+   version on the card at the slice's shapes and prints both times (CUDA
+   events, after a warm-up, in turns plain, kernel, kernel, plain); then
+   holds the staged channel route (plain FIR + kernel E) against the
+   fused one (kernel B's FIR); kernel G in its injected and keyed modes
+   (five channels and SC-FDMA) with its bound and its share of it; C's
+   despread at config 2 and at config 5's shape;
 3. drives the keyed fast link (``fast_simulate``) at BASELINE config-2
    numerology (16-QAM, N = 256, CP = 64) with 8192 channels × 64
    symbols: AWGN at 10 dB against exact theory (within 5 %), flat
@@ -29,10 +32,29 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    gates, and both layouts' end-to-end times;
 4. times the channels-last demod-sum terminal at the headline bench's
    shape (32768 channels × 64 symbols) through ``demod_sum_chain_cl``;
-5. checks that phases 3–4 launched every kernel and mode (the launch
-   counters are zeroed just before phase 3) and prints one JSON line
-   per kernel set, then ``{"ok": true, "device": {...}}`` as the last
-   line.
+   3d. the Monte-Carlo engine (``mc_simulate``, kernel G, 4 passes) at
+   config 2, 8192 × 64: time and GS/s (CP excluded), AWGN 8 dB within
+   1 % of exact theory, four fading models within 2 % of the BER over
+   the channels the passes drew, pass 0 against ``fast_simulate`` on the
+   same seed (per channel equal but for bits with plain |LLR| < 1e-3;
+   totals within 1e-5 relative), and one call at 32768 channels;
+   3e. wideband and SC-FDMA: ``mc_simulate`` at config 5 (N = 4096,
+   MULTIPATH 5 taps, 14 dB) and with ``dft_spread`` at N = 4096 (the
+   staged route through C's despread), ``fast_simulate`` with
+   ``dft_spread`` at config 2;
+   3f. ``ebno_sweep(engine="mc")`` over BASELINE config 2's grid (every
+   point with ≥ 1e4 errors within 3 % of theory), resumed from its
+   checkpoint with no launch of G, and one point each of config 3
+   (engine "mc") and config 2 (engine "fast");
+5. checks that each path launched every kernel and mode of its slice
+   (the counters are zeroed just before phase 3 and read after phase 4
+   for kernels A–F, zeroed again before phase 3d and read after 3f for
+   G and C's despread) and prints one JSON line per kernel set, with
+   each kernel's bound (bytes over 3.35 TB/s or f32 operations over
+   67 TFLOP/s, the H100 SXM data sheet) and its launches in each window
+   (``launches_fast``, ``launches_mc``; ``launches`` is the window of
+   its own path, the one checked), then ``{"ok": true, "device":
+   {...}}`` as the last line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. It imports nothing of JAX.
@@ -42,13 +64,44 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+
+
+# The H100 SXM's published peaks (NVIDIA data sheet, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def _fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def bound(n_bytes: float, n_flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory rate
+    and the f32 operations over the f32 peak. Integer work (Philox) and
+    the transcendentals are not counted, so this is a lower bound."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def fft_flops(n: int) -> float:
+    """Real operations of one radix-2 complex FFT of n points."""
+    return 5.0 * n * math.log2(n)
+
+
+def tail_flops(mod) -> float:
+    """Per tone: the one-tap equalisation (12) and the max-log LLRs (per
+    axis 3 per level and 2 per bit for the level scan, L ≤ 4; 12 per bit
+    for the Gray fold)."""
+    L, m = mod.levels_per_axis, mod.bits_per_axis
+    axes = 1 if mod.bits_per_symbol == 1 else 2
+    return 12.0 + axes * (3 * L + 2 * m if L <= 4 else 12 * m)
 
 
 def _check(ok: bool, msg: str) -> None:
@@ -105,10 +158,12 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     from sdr_tpu_torch.kernels import channel as ke
     from sdr_tpu_torch.kernels import demod as kc
     from sdr_tpu_torch.kernels import demod_cl as kd
+    from sdr_tpu_torch.kernels import mc as kg
     from sdr_tpu_torch.kernels import payload as ka
     from sdr_tpu_torch.kernels import tx as kb
-    from sdr_tpu_torch.link import fast
+    from sdr_tpu_torch.link import fast, mc
     from sdr_tpu_torch.link.ber import ber_awgn_exact, ber_rayleigh_exact
+    from sdr_tpu_torch.obs.sweep import ebno_sweep
     from sdr_tpu_torch.ops import channel as chan
     from sdr_tpu_torch.ops.demod import demod_sum_chain_cl
 
@@ -158,6 +213,12 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     ids = torch.arange(B, dtype=torch.int32, device=dev)
     report = {}
 
+    def plane_err(got, want):
+        return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+    def plane_peak(planes):
+        return max(float(b.abs().max()) for b in planes)
+
     # ---- phase 2: each kernel against its plain version ------------------
     # A: payload draw, exact.
     idx = ka.payload_idx(S, N, bps, seed, ids)
@@ -166,8 +227,15 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     del idx_plain
     ms, pms = compare_times(lambda: ka.payload_idx(S, N, bps, seed, ids),
                             lambda: ka.payload_idx_plain(S, N, bps, seed, ids))
-    report["payload"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms)
-    print(f"phase 2 A payload ({B}x{S}x{N} int8): exact; kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    def randint():
+        return torch.randint(0, 1 << bps, (B, S, N), dtype=torch.int8, device=dev)
+
+    randint()
+    lib_ms = timed(randint, 3)
+    report["payload"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
+                             **bound(B * S * N + 4 * B, 0))
+    print(f"phase 2 A payload ({B}x{S}x{N} int8): exact; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+          f"torch.randint {lib_ms:.3f} ms")
 
     # B: fused TX + flat channel.
     nv10 = 1.0 / (10.0 ** 1.0 * bps)
@@ -191,10 +259,22 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         lambda: kb.tx_channel(idx, CP, mod, hs_r, hs_i, tvar, seed=seed, ch_ids=ids),
         lambda: kb.tx_channel_plain(idx, CP, mod, hs_r, hs_i, tvar, seed=seed, ch_ids=ids),
     )
-    report["tx"] = dict(max_abs_err=key_err, ms=ms, plain_ms=pms)
+    nrow = B * S  # OFDM symbols in the phase-2 planes
+    report["tx"] = dict(max_abs_err=key_err, ms=ms, plain_ms=pms,
+                        **bound(nrow * N + 8 * nrow * (N + CP) + 12 * B,
+                                nrow * (fft_flops(N) + 10 * (N + CP))))
     print(f"phase 2 B tx+channel ({B}x{S}x{N + CP}): injected-noise max abs diff {inj_err:.3g}, "
           f"keyed-noise max abs diff {key_err:.3g} (peak {peak:.3g}); "
           f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    got = kb.tx_chain(idx, CP, mod)
+    off_err = plane_err(got, kb.tx_channel_plain(idx, CP, mod))
+    _check(off_err <= 1e-5 * plane_peak(got), f"kernel B (channel off) max abs diff {off_err:g}")
+    del got
+    ms, pms = compare_times(lambda: kb.tx_chain(idx, CP, mod),
+                            lambda: kb.tx_channel_plain(idx, CP, mod), reps=1)
+    print(f"phase 2 B tx channel off ({B}x{S}x{N + CP}): max abs diff {off_err:.3g}; kernel "
+          f"{ms:.3f} ms, plain {pms:.3f} ms, bound "
+          f"{bound(nrow * N + 8 * nrow * (N + CP), nrow * fft_flops(N))['bound_ms']:.4f} ms")
 
     # C: rows demod + error count on the AWGN 10 dB waveform.
     re, im = kb.tx_channel(idx, CP, mod, noise_var=tvar, seed=seed, ch_ids=ids)
@@ -211,17 +291,13 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         lambda: kc.demod_count(re, im, hr, hi, idx, CP, mod, nv10),
         lambda: kc.demod_count_plain(re, im, hr, hi, idx, CP, mod, nv10),
     )
-    report["demod_count"] = dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=pms)
+    report["demod_count"] = dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=pms,
+                                 **bound(8 * nrow * (N + CP) + 8 * B * N + nrow * N + 4 * B,
+                                         nrow * (fft_flops(N) + N * tail_flops(mod))))
     print(f"phase 2 C demod+count ({B}x{S}x{N + CP}): {int(cnt.sum())} errors, plain "
           f"{int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} "
           f"(allowed {int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
     del re, im, hr, hi, cnt, cnt_plain
-
-    def plane_err(got, want):
-        return max(float((a - b).abs().max()) for a, b in zip(got, want))
-
-    def plane_peak(planes):
-        return max(float(b.abs().max()) for b in planes)
 
     def check_modes(label, kernel_fn, plain_fn, noise_shape):
         """Injected noise, then keyed: max abs diff ≤ 1e-5 of the peak;
@@ -249,6 +325,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     # B: per-symbol gains, static 4 taps, per-symbol 3 taps.
     pdp4 = (1.0, 0.5, 0.25, 0.125)
     pdp3 = (1.0, 0.5, 0.25)
+    pdp5 = (1.0, 0.6, 0.3, 0.1, 0.05)  # config 5's profile
     tx_shape = (B, S, N + CP)
     g_sym = chan.jakes_gains(seed, ids, S, 0.02)
     gs_r, gs_i = g_sym.real.contiguous(), g_sym.imag.contiguous()
@@ -269,6 +346,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         lambda **kw: kb.tx_channel(idx, CP, mod, noise_var=tvar, taps_r=t3_r, taps_i=t3_i, **kw),
         lambda **kw: kb.tx_channel_plain(idx, CP, mod, noise_var=tvar, taps_r=t3_r, taps_i=t3_i,
                                          **kw), tx_shape)
+    report["tx_taps"].update(bound(nrow * N + 8 * nrow * (N + CP) + 24 * nrow + 4 * B,
+                                   nrow * (fft_flops(N) + (N + CP) * (8 * 3 + 4))))
 
     # C: taps= (3 taps per symbol) on the TDL waveform at 12 dB.
     nv12 = 1.0 / (10.0 ** 1.2 * bps)
@@ -287,7 +366,10 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         lambda: kc.demod_count(re, im, None, None, idx, CP, mod, nv12, taps=taps_pair),
         lambda: kc.demod_count_plain(re, im, None, None, idx, CP, mod, nv12, taps=taps_pair),
         reps=1)
-    report["demod_count_taps"] = dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=pms)
+    report["demod_count_taps"] = dict(
+        max_abs_err=float(diff.max()), ms=ms, plain_ms=pms,
+        **bound(8 * nrow * (N + CP) + 24 * nrow + nrow * N + 4 * B,
+                nrow * (fft_flops(N) + N * (tail_flops(mod) + 8 * 3))))
     print(f"phase 2 C demod+count taps= (3 per symbol): {int(cnt.sum())} errors, plain "
           f"{int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} (allowed "
           f"{int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
@@ -301,7 +383,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                           lambda **kw: ke.fade_awgn(*clean, *gains, tvar, **kw),
                           lambda **kw: ke.fade_awgn_plain(*clean, *gains, tvar, **kw), tx_shape)
         if label == "per-symbol gains":
-            report["fade_awgn"] = rep
+            report["fade_awgn"] = dict(rep, **bound(16 * nrow * (N + CP) + 8 * nrow + 4 * B,
+                                                    10 * nrow * (N + CP)))
     del clean
 
     # Route cross-check: staged (plain FIR + E) against fused (B's FIR).
@@ -339,7 +422,9 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     ms, pms = compare_times(
         lambda: kd.demod_count_cl(re_t, im_t, hr_c, hi_c, idx_t, CP, mod, nv14),
         lambda: kd.demod_count_cl_plain(re_t, im_t, hr_c, hi_c, idx_t, CP, mod, nv14), reps=1)
-    report["demod_count_cl"] = dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=pms)
+    report["demod_count_cl"] = dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=pms,
+                                    **bound(8 * nrow * (N + CP) + 8 * N * B + nrow * N + 4 * B,
+                                            nrow * (fft_flops(N) + N * tail_flops(mod))))
     print(f"phase 2 F demod+count channels-last ({S * (N + CP)}x{B}): {int(cnt.sum())} errors, "
           f"plain {int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} (allowed "
           f"{int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
@@ -365,18 +450,131 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         lambda: kd.demod_sum_cl_plain(re_t, im_t, hr_t, hi_t, CP, mod, nv12),
         reps=2,
     )
-    report["demod_sum_cl"] = dict(max_abs_err=d_err, ms=ms, plain_ms=pms)
+    report["demod_sum_cl"] = dict(max_abs_err=d_err, ms=ms, plain_ms=pms,
+                                  **bound(8 * BD * S * (N + CP) + 8 * N * BD + 4,
+                                          BD * S * (fft_flops(N) + N * tail_flops(mod))))
     print(f"phase 2 D demod-sum channels-last ({S * (N + CP)}x{BD}): sum {float(tot):.9g}, "
           f"plain {float(tot_plain):.9g}, rel diff {d_err / abs(float(tot_plain)):.3g}; "
           f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
 
+    # G: the one-kernel Monte-Carlo pass against its plain twin, injected
+    # then keyed; counts may differ only on bits whose plain |LLR| < 1e-3.
+    def link_cfg(model, ebno_db, n_channels=B, n_fft=N, cp=CP, n_symbols=S, modulation=mod,
+                 dft_spread=False, **channel):
+        return LinkConfig(modulation=modulation, ofdm=OFDMConfig(n_fft=n_fft, cp_len=cp),
+                          channel=ChannelConfig(model=model, ebno_db=ebno_db, **channel),
+                          n_symbols=n_symbols, n_channels=n_channels, dft_spread=dft_spread)
+
+    def g_bound(cfg, inject):
+        """Kernel G's bound for one pass: channel ids in and counts out
+        (plus the injected planes); two transforms (three with SC-FDMA),
+        the channel, noise and LLR tail per tone, and 8·L per tone to
+        build H once from L taps: once per channel for static taps, once
+        per symbol for time-varying ones (injected H is read, not built)."""
+        n, rows_g = cfg.ofdm.n_fft, cfg.n_channels * cfg.n_symbols
+        model = cfg.channel.model
+        taps = len(cfg.channel.pdp) if model in (ChannelModel.MULTIPATH,
+                                                 ChannelModel.MULTIPATH_TIME) else 0
+        n_bytes = 8 * cfg.n_channels
+        if inject:
+            taps = 0
+            n_bytes += 12 * rows_g * n + 8 * cfg.n_channels * kg.h_syms(cfg) * n
+        h_builds = rows_g if model == ChannelModel.MULTIPATH_TIME else cfg.n_channels
+        flops = (rows_g * ((3 if cfg.dft_spread else 2) * fft_flops(n)
+                           + n * (10 + tail_flops(cfg.modulation)))
+                 + h_builds * 8 * taps * n)
+        return bound(n_bytes, flops)
+
+    for label, cfg_g, inject in (
+        ("injected RAYLEIGH_FLAT", link_cfg(ChannelModel.RAYLEIGH_FLAT, 12.0), True),
+        ("injected MULTIPATH_TIME 3 taps fd 0.02",
+         link_cfg(ChannelModel.MULTIPATH_TIME, 12.0, pdp=pdp3, doppler_norm=0.02), True),
+        ("keyed AWGN", link_cfg(ChannelModel.AWGN, 10.0), False),
+        ("keyed RAYLEIGH_FLAT", link_cfg(ChannelModel.RAYLEIGH_FLAT, 12.0), False),
+        ("keyed MULTIPATH 4 taps", link_cfg(ChannelModel.MULTIPATH, 14.0, pdp=pdp4), False),
+        ("keyed MULTIPATH_TIME 3 taps fd 0.02",
+         link_cfg(ChannelModel.MULTIPATH_TIME, 12.0, pdp=pdp3, doppler_norm=0.02), False),
+        ("keyed SC-FDMA AWGN", link_cfg(ChannelModel.AWGN, 10.0, dft_spread=True), False),
+        ("keyed config 5 MULTIPATH 5 taps 14 dB (N 4096, CP 512)",
+         link_cfg(ChannelModel.MULTIPATH, 14.0, n_channels=B // 4, n_fft=4096, cp=512,
+                  n_symbols=16, pdp=pdp5), False),
+    ):
+        rand = None
+        ids_g = ids[:cfg_g.n_channels]
+        shape_g = (cfg_g.n_channels, cfg_g.n_symbols, cfg_g.ofdm.n_fft)
+        if inject:
+            hs = kg.h_syms(cfg_g)
+            rand = (torch.randint(0, 1 << bps, (B, S, N), dtype=torch.int32, device=dev),
+                    torch.randn((B, S, N), device=dev), torch.randn((B, S, N), device=dev),
+                    torch.randn((B, hs, N), device=dev) * 0.5 ** 0.5,
+                    torch.randn((B, hs, N), device=dev) * 0.5 ** 0.5)
+        cnt = kg.mc_count(cfg_g, seed, ids_g, rand_inputs=rand)
+        llr, idx_g = kg.mc_llr_plain(cfg_g, seed, ids_g, rand_inputs=rand)
+        cnt_plain = kc.count_errors(llr, idx_g, bps)
+        margin = count_margin(llr)
+        del llr, idx_g
+        diff = (cnt - cnt_plain).abs()
+        _check(int(cnt_plain.sum()) > 0, f"kernel G {label}: no errors")
+        _check(bool((diff <= margin).all()),
+               f"kernel G {label}: counts differ beyond the |LLR| < 1e-3 bits")
+        ms, pms = compare_times(lambda: kg.mc_count(cfg_g, seed, ids_g, rand_inputs=rand),
+                                lambda: kg.mc_count_plain(cfg_g, seed, ids_g, rand_inputs=rand),
+                                reps=1)
+        bnd = g_bound(cfg_g, inject)
+        if label == "keyed AWGN":
+            report["mc_count"] = dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=pms, **bnd)
+        print(f"phase 2 G mc_count {label} ({'x'.join(map(str, shape_g))}): {int(cnt.sum())} errors, plain "
+              f"{int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} (allowed "
+              f"{int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), {bnd['bound_ms'] / ms:.3f} of it")
+        del cnt, cnt_plain, rand
+    torch.cuda.empty_cache()
+
+    # C despread: SC-FDE receive of an SC-FDMA waveform through 4-tap
+    # MULTIPATH at config 2, then at config 5's shape (N = 4096, 5 taps).
+    for label, cfg_d in (
+        (f"config 2 MULTIPATH 4 taps ({B}x{S}x{N + CP})",
+         link_cfg(ChannelModel.MULTIPATH, 14.0, pdp=pdp4, dft_spread=True)),
+        ("config 5 shape MULTIPATH 5 taps (256x16x4608)",
+         link_cfg(ChannelModel.MULTIPATH, 14.0, n_channels=min(256, B), n_fft=4096, cp=512,
+                  n_symbols=16, pdp=pdp5, dft_spread=True)),
+    ):
+        ids_d = ids[:cfg_d.n_channels]
+        n_d, cp_d, s_d = cfg_d.ofdm.n_fft, cfg_d.ofdm.cp_len, cfg_d.n_symbols
+        nv_d = fast.noise_var(cfg_d)
+        idx_d = fast.draw_idx(cfg_d, seed, ids_d)
+        re, im = fast.tx_with_channel(cfg_d, seed, ids_d, idx_d)
+        h_d, _ = fast.fade_state(cfg_d, seed, ids_d)
+        hr_d, hi_d = h_d.real.contiguous(), h_d.imag.contiguous()
+        cnt = kc.demod_count(re, im, hr_d, hi_d, idx_d, cp_d, mod, nv_d, despread=True)
+        llr = kc.demod_chain(re, im, hr_d, hi_d, cp_d, mod, nv_d, despread=True)
+        cnt_plain = kc.count_errors(llr, idx_d, bps)
+        margin = count_margin(llr)
+        del llr
+        diff = (cnt - cnt_plain).abs()
+        _check(int(cnt_plain.sum()) > 0, f"kernel C despread {label}: no errors")
+        _check(bool((diff <= margin).all()),
+               f"kernel C despread {label}: counts differ beyond the |LLR| < 1e-3 bits")
+        ms, pms = compare_times(
+            lambda: kc.demod_count(re, im, hr_d, hi_d, idx_d, cp_d, mod, nv_d, despread=True),
+            lambda: kc.demod_count_plain(re, im, hr_d, hi_d, idx_d, cp_d, mod, nv_d,
+                                         despread=True), reps=1)
+        rows_d = cfg_d.n_channels * s_d
+        bnd = bound(8 * rows_d * (n_d + cp_d) + 8 * cfg_d.n_channels * n_d + rows_d * n_d
+                    + 4 * cfg_d.n_channels,
+                    rows_d * (2 * fft_flops(n_d) + n_d * (tail_flops(mod) + 20)))
+        if n_d == N:
+            report["demod_count_despread"] = dict(max_abs_err=float(diff.max()), ms=ms,
+                                                  plain_ms=pms, **bnd)
+        print(f"phase 2 C demod+count despread {label}: {int(cnt.sum())} errors, plain "
+              f"{int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} (allowed "
+              f"{int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        del re, im, cnt, cnt_plain, idx_d, h_d, hr_d, hi_d
+    torch.cuda.empty_cache()
+
     # ---- phase 3: the slice, counters zeroed just before ------------------
     _lib.reset_launches()
-
-    def link_cfg(model, ebno_db, n_channels=B, **channel):
-        return LinkConfig(modulation=mod, ofdm=OFDMConfig(n_fft=N, cp_len=CP),
-                          channel=ChannelConfig(model=model, ebno_db=ebno_db, **channel),
-                          n_symbols=S, n_channels=n_channels)
 
     def run_link(model, ebno_db, n_channels=B, ch=None, layout="auto", **channel):
         cfg = link_cfg(model, ebno_db, n_channels, **channel)
@@ -482,9 +680,180 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     print(f"phase 4 demod_sum_chain_cl {BD}x{S} f32: {ms_term:.3f} ms per call, "
           f"{rate / 1e9:.3f} GS/s ({rate:.6g} samples/s) on {card}")
 
+    launches = dict(_lib.LAUNCHES)  # phases 3-4: the fast engine and the terminal
+    del re_t, im_t, hr_t, hi_t, hr_d, hi_d
+    torch.cuda.empty_cache()
+
+    # ---- phase 3d: the Monte-Carlo engine, counters zeroed just before -------
+    _lib.reset_launches()
+    n_pass = 4
+
+    def run_mc(cfg, iters=n_pass):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        errors, counted = mc.mc_simulate(cfg, seed, iters=iters, device=dev)
+        torch.cuda.synchronize()
+        return errors, counted, time.perf_counter() - t
+
+    def ber_of(errors, counted):
+        return int(errors.sum(dtype=torch.int64)) / int(counted.sum(dtype=torch.int64))
+
+    def drawn_ber(cfg, iters=n_pass):
+        """Exact BER over the channels the passes drew (fade_state on each
+        pass's seed: kernel G keys its fading as the fast engine does)."""
+        ids_c = ids[:cfg.n_channels] if cfg.n_channels <= B else torch.arange(
+            cfg.n_channels, dtype=torch.int32, device=dev)
+        total = 0.0
+        for i in range(iters):
+            h_i, _ = fast.fade_state(cfg, mc.pass_seed(seed, i), ids_c)
+            total += ber_given_gain(mod, cfg.channel.ebno_db, (h_i.abs() ** 2).to(torch.float64))
+            del h_i
+        return total / iters
+
+    run_mc(link_cfg(ChannelModel.AWGN, 8.0), iters=1)  # warm-up
+    mc_rate = None
+    for label, cfg_m, exact in (
+        ("AWGN 8 dB", link_cfg(ChannelModel.AWGN, 8.0), True),
+        ("RAYLEIGH_FLAT 20 dB", link_cfg(ChannelModel.RAYLEIGH_FLAT, 20.0), False),
+        ("RAYLEIGH_TIME 15 dB fd 0.02",
+         link_cfg(ChannelModel.RAYLEIGH_TIME, 15.0, doppler_norm=0.02), False),
+        ("MULTIPATH 4 taps 14 dB", link_cfg(ChannelModel.MULTIPATH, 14.0, pdp=pdp4), False),
+        ("MULTIPATH_TIME 3 taps fd 0.02 12 dB",
+         link_cfg(ChannelModel.MULTIPATH_TIME, 12.0, pdp=pdp3, doppler_norm=0.02), False),
+    ):
+        errors, counted, t_m = run_mc(cfg_m)
+        ber_m = ber_of(errors, counted)
+        want = ber_awgn_exact(mod, cfg_m.channel.ebno_db) if exact else drawn_ber(cfg_m)
+        tol = 0.01 if exact else 0.02
+        _check(abs(ber_m / want - 1) <= tol,
+               f"mc_simulate {label}: BER {ber_m:g} vs {want:g} ({'theory' if exact else 'drawn'})")
+        rate_m = B * S * N * n_pass / t_m
+        mc_rate = mc_rate or rate_m
+        extra = ""
+        if cfg_m.channel.model != ChannelModel.RAYLEIGH_TIME:
+            # Pass 0 is fast_simulate on the same seed, through other float
+            # paths: per channel equal but for bits with plain |LLR| < 1e-3,
+            # over the whole batch; totals within 1e-5 relative. Below 8192
+            # channels (the CPU rehearsal) 1e-5 of the total is less than
+            # one bit, so there the total may differ by the batch's count
+            # of such bits.
+            e0, _, _ = run_mc(cfg_m, iters=1)
+            ef, _ = fast.fast_simulate(cfg_m, seed, device=dev)
+            tot0, totf = int(e0.sum(dtype=torch.int64)), int(ef.sum(dtype=torch.int64))
+            llr, _ = kg.mc_llr_plain(cfg_m, seed, ids)
+            margin = count_margin(llr)
+            del llr
+            d0 = (e0 - ef).abs()
+            allowed = 1e-5 * totf
+            if B < 8192:
+                allowed = max(allowed, int(margin.sum(dtype=torch.int64)))
+            _check(abs(tot0 - totf) <= allowed,
+                   f"mc_simulate {label}: pass 0 total {tot0} vs fast_simulate {totf}")
+            _check(bool((d0 <= margin).all()),
+                   f"mc_simulate {label}: pass 0 differs from fast_simulate beyond the margin")
+            extra = (f"; pass 0 vs fast_simulate: totals {tot0} / {totf} (rel diff "
+                     f"{abs(tot0 - totf) / totf:.3g}, allowed {allowed:g}), per channel max diff "
+                     f"{int(d0.max())} (allowed {int(margin.max())})")
+            del e0, ef, margin
+        bnd_m = g_bound(cfg_m, False)["bound_ms"] * n_pass
+        print(f"phase 3d mc_simulate {B}x{S}x{n_pass} passes config 2 {label}: BER {ber_m:.6g}, "
+              f"{'exact theory' if exact else 'over the drawn channel'} {want:.6g} (ratio "
+              f"{ber_m / want:.5f}) in {t_m * 1e3:.3f} ms = {rate_m / 1e9:.3f} GS/s (CP excluded),"
+              f" bound {bnd_m:.4f} ms ({bnd_m / (t_m * 1e3):.3f} of it){extra} on {card}")
+    fast_rate = B * S * N / t_awgn
+    print(f"phase 3d MC vs fast engine at {B}x{S} config 2: mc_simulate {mc_rate / 1e9:.3f} GS/s, "
+          f"fast_simulate (phase 3 AWGN) {fast_rate / 1e9:.3f} GS/s, both counting N samples "
+          f"per symbol; ratio {mc_rate / fast_rate:.3f}")
+    cfg_big = link_cfg(ChannelModel.AWGN, 8.0, n_channels=4 * B)
+    run_mc(cfg_big, iters=1)
+    errors, counted, t_big = run_mc(cfg_big)
+    ber_big = ber_of(errors, counted)
+    _check(abs(ber_big / ber_awgn_exact(mod, 8.0) - 1) <= 0.01,
+           f"mc_simulate at {4 * B} channels: BER {ber_big:g}")
+    print(f"phase 3d mc_simulate {4 * B}x{S}x{n_pass} passes AWGN 8 dB: BER {ber_big:.6g} in "
+          f"{t_big * 1e3:.3f} ms = {4 * B * S * N * n_pass / t_big / 1e9:.3f} GS/s on {card}")
+
+    # ---- phase 3e: wideband and SC-FDMA ------------------------------------------
+    # Config 5 at 4096 channels (B/2: the CPU rehearsal runs smaller).
+    cfg5 = link_cfg(ChannelModel.MULTIPATH, 14.0, n_channels=B // 2, n_fft=4096, cp=512,
+                    n_symbols=16, pdp=pdp5)
+    run_mc(cfg5, iters=1)
+    errors, counted, t5 = run_mc(cfg5)
+    ber5, want5 = ber_of(errors, counted), drawn_ber(cfg5)
+    _check(abs(ber5 / want5 - 1) <= 0.02, f"mc_simulate config 5: BER {ber5:g} vs {want5:g}")
+    bnd5 = g_bound(cfg5, False)["bound_ms"] * n_pass
+    print(f"phase 3e mc_simulate config 5 (N 4096, CP 512, MULTIPATH 5 taps, 14 dB) "
+          f"{B // 2}x16x{n_pass} passes: BER {ber5:.6g}, over the drawn channel {want5:.6g} "
+          f"(ratio {ber5 / want5:.5f}) in {t5 * 1e3:.3f} ms = "
+          f"{B // 2 * 16 * 4096 * n_pass / t5 / 1e9:.3f} GS/s, bound {bnd5:.4f} ms "
+          f"({bnd5 / (t5 * 1e3):.3f} of it) on {card}")
+    cfg5s = link_cfg(ChannelModel.AWGN, 8.0, n_channels=B // 2, n_fft=4096, cp=512, n_symbols=16,
+                     dft_spread=True)
+    errors, counted, t5s = run_mc(cfg5s, iters=2)
+    ber5s, th8 = ber_of(errors, counted), ber_awgn_exact(mod, 8.0)
+    _check(abs(ber5s / th8 - 1) <= 0.02, f"mc_simulate SC-FDMA N 4096: BER {ber5s:g} vs {th8:g}")
+    print(f"phase 3e mc_simulate SC-FDMA N 4096 AWGN 8 dB {B // 2}x16x2 passes (fast engine + C "
+          f"despread): BER {ber5s:.6g}, theory {th8:.6g} (ratio {ber5s / th8:.5f}) in "
+          f"{t5s * 1e3:.3f} ms")
+    cfg_sc = link_cfg(ChannelModel.AWGN, 10.0, dft_spread=True)
+    fast.fast_simulate(cfg_sc, seed, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    errors, counted = fast.fast_simulate(cfg_sc, seed, device=dev)
+    torch.cuda.synchronize()
+    t_sc = time.perf_counter() - t
+    ber_sc = ber_of(errors, counted)
+    _check(abs(ber_sc / th - 1) <= 0.02, f"fast_simulate SC-FDMA: BER {ber_sc:g} vs {th:g}")
+    print(f"phase 3e fast_simulate SC-FDMA {B}x{S} config 2 AWGN 10 dB: BER {ber_sc:.6g}, theory "
+          f"{th:.6g} (ratio {ber_sc / th:.5f}) in {t_sc * 1e3:.3f} ms")
+    del errors, counted
+    torch.cuda.empty_cache()
+
+    # ---- phase 3f: the Eb/N0 sweep on the MC engine --------------------------------
+    grid = [float(e) for e in range(0, 21, 2)]
+    # max_bits 2e9 at B = 8192 (scaled with B for the CPU rehearsal).
+    sweep_kw = dict(seed=seed, target_errors=100_000, max_bits=2_000_000_000 * B // 8192,
+                    device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "sweep.json")
+        n_before = _lib.LAUNCHES["mc_count"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = ebno_sweep(link_cfg(ChannelModel.AWGN, 0.0), grid, checkpoint_path=ck,
+                         engine="mc", mc_iters=1, **sweep_kw)
+        t_sw = time.perf_counter() - t
+        for pt, th_pt in zip(res.points, res.theory(mod)):
+            gated = pt.bit_errors >= 10_000
+            _check(not gated or abs(pt.ber / th_pt - 1) <= 0.03,
+                   f"sweep {pt.ebno_db} dB: BER {pt.ber:g} vs theory {th_pt:g}")
+            print(f"phase 3f sweep mc {pt.ebno_db:4.1f} dB: BER {pt.ber:.6g} theory {th_pt:.6g} "
+                  f"({pt.bit_errors} errors / {pt.bits_counted} bits, {pt.batches} invocations"
+                  f"{'' if gated else ', not gated: < 1e4 errors'})")
+        n_g = _lib.LAUNCHES["mc_count"]
+        again = ebno_sweep(link_cfg(ChannelModel.AWGN, 0.0), grid, checkpoint_path=ck,
+                           engine="mc", mc_iters=1, **sweep_kw)
+        _check(again.points == res.points and _lib.LAUNCHES["mc_count"] == n_g,
+               "the resumed sweep differs or launched kernel G")
+    print(f"phase 3f sweep config 2 grid 0-20 dB step 2, {B}x{S} per invocation: "
+          f"{n_g - n_before} launches of G in {t_sw:.3f} s; resumed from its checkpoint: same "
+          f"points, 0 launches")
+    for label, cfg_p, engine, th_p in (
+        (f"config 3 (64-QAM, N 1024, CP 128) 12 dB {B // 4}x32",
+         link_cfg(ChannelModel.AWGN, 12.0, n_channels=B // 4, n_fft=1024, cp=128, n_symbols=32,
+                  modulation=Modulation.QAM64), "mc", ber_awgn_exact(Modulation.QAM64, 12.0)),
+        (f"config 2 10 dB {B}x{S}", link_cfg(ChannelModel.AWGN, 10.0), "fast", th),
+    ):
+        pt = ebno_sweep(cfg_p, [cfg_p.channel.ebno_db], engine=engine, mc_iters=1,
+                        **sweep_kw).points[0]
+        _check(abs(pt.ber / th_p - 1) <= 0.03, f"sweep {label}: BER {pt.ber:g} vs {th_p:g}")
+        print(f"phase 3f sweep {engine} {label}: BER {pt.ber:.6g}, theory {th_p:.6g} "
+              f"({pt.bit_errors} errors, {pt.batches} invocations)")
+
     # ---- counters and result ------------------------------------------------
-    launches = dict(_lib.LAUNCHES)
-    for name, n in launches.items():
+    launches_mc = dict(_lib.LAUNCHES)  # phases 3d-3f: the Monte-Carlo engine and the sweep
+    mc_path = ("mc_count", "demod_count_despread")
+    own = {name: launches_mc[name] if name in mc_path else launches[name] for name in launches}
+    for name, n in own.items():
         _check(n > 0, f"kernel {name} was not launched on the main path")
     sources = {
         "payload": ("sdr_tpu_torch/csrc/payload.cu", "sdr_tpu/kernels/channel_pallas.py:233"),
@@ -493,15 +862,19 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         "demod_count": ("sdr_tpu_torch/csrc/demod.cu", "sdr_tpu/kernels/demod_pallas.py:500"),
         "demod_count_taps": ("sdr_tpu_torch/csrc/demod.cu",
                              "sdr_tpu/kernels/demod_pallas.py:500"),
+        "demod_count_despread": ("sdr_tpu_torch/csrc/demod.cu",
+                                 "sdr_tpu/kernels/demod_pallas.py:500"),
         "demod_sum_cl": ("sdr_tpu_torch/csrc/demod_cl.cu",
                          "sdr_tpu/kernels/demod_cl_pallas.py:727"),
         "fade_awgn": ("sdr_tpu_torch/csrc/channel.cu", "sdr_tpu/kernels/channel_pallas.py:80"),
         "demod_count_cl": ("sdr_tpu_torch/csrc/demod_cl.cu",
                            "sdr_tpu/kernels/demod_cl_pallas.py:741"),
+        "mc_count": ("sdr_tpu_torch/csrc/mc.cu", "sdr_tpu/kernels/mc_pallas.py:229"),
     }
     kernels = [
         dict(name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],
-             launches=launches[name], **report[name])
+             launches=own[name], launches_fast=launches[name], launches_mc=launches_mc[name],
+             **{"library_ms": None, **report[name]})
         for name in sources
     ]
     print(smi)
@@ -510,7 +883,6 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

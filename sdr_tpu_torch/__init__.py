@@ -12,7 +12,9 @@ reference each part of the port is held against. Its layout mirrors
 - ``sdr_tpu_torch.kernels`` — hand-written CUDA C++ kernels for Hopper
   (sources in ``sdr_tpu_torch/csrc``), each with its plain torch
   version beside it;
-- ``sdr_tpu_torch.link``    — the keyed fast link engine and BER theory;
+- ``sdr_tpu_torch.link``    — the keyed fast link engine, the
+  Monte-Carlo engine and BER theory;
+- ``sdr_tpu_torch.obs``     — the Eb/N0 sweep;
 - ``sdr_tpu_torch.interop`` — configs and numpy state carried across
   from the JAX package.
 

@@ -1,6 +1,7 @@
 // Shared device code of the port's kernels: the shared-memory radix-2
-// FFT, the Gray decode, the per-axis max-log LLR forms and a
-// deterministic block reduction.
+// FFT and its bit-reversal pass, the Gray map, the per-axis max-log LLR
+// forms, the OFDM and SC-FDE receive tails with their error counts, and
+// a deterministic block reduction.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -163,6 +164,139 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   }
   return v;
+}
+
+// Un-normalised PAM point of symbol index v: per axis 2*gray_to_binary(g)
+// - (L-1), I from the high m bits, Q from the low m bits (BPSK: I only).
+template <int M, bool BPSK>
+__device__ __forceinline__ void pam_point(int v, float& xr, float& xi) {
+  constexpr int L = 1 << M;
+  if (BPSK) {
+    xr = (float)(2 * gray_to_binary<M>(v) - (L - 1));
+    xi = 0.0f;
+  } else {
+    xr = (float)(2 * gray_to_binary<M>(v >> M) - (L - 1));
+    xi = (float)(2 * gray_to_binary<M>(v & (L - 1)) - (L - 1));
+  }
+}
+
+// Hard-decision bit errors of one equalised point (sr, si) against index
+// v: max-log LLRs scaled by inv_eff (level scan for L <= 4, Gray fold
+// recursion for L >= 8; I bits then Q bits, MSB first), bit = LLR < 0.
+template <int M, bool BPSK>
+__device__ __forceinline__ int scaled_bit_errors(float sr, float si, float inv_eff,
+                                                 const AxisTables& tab, int v) {
+  constexpr int BPS = BPSK ? 1 : 2 * M;
+  float llr[BPS];
+  if constexpr (M <= 2) {
+    llr_axis_scan<M>(sr, inv_eff, tab, llr);
+    if constexpr (!BPSK) llr_axis_scan<M>(si, inv_eff, tab, llr + M);
+  } else {
+    llr_axis_fold<M>(sr, inv_eff, tab, llr);
+    llr_axis_fold<M>(si, inv_eff, tab, llr + M);
+  }
+  int err = 0;
+#pragma unroll
+  for (int j = 0; j < BPS; ++j) err += (int)(llr[j] < 0.0f) != ((v >> (BPS - 1 - j)) & 1);
+  return err;
+}
+
+// The OFDM tone tail: unbiased one-tap equalisation s = conj(h) y /
+// max(|h|^2, 1e-12), LLRs scaled by |h|^2 / nv, bit errors against v.
+template <int M, bool BPSK>
+__device__ __forceinline__ int mmse_bit_errors(float yr, float yi, float h_r, float h_i,
+                                               float inv_nv, const AxisTables& tab, int v) {
+  const float h2 = h_r * h_r + h_i * h_i;
+  const float inv_h2 = 1.0f / fmaxf(h2, 1e-12f);
+  const float sr = (h_r * yr + h_i * yi) * inv_h2;
+  const float si = (h_r * yi - h_i * yr) * inv_h2;
+  return scaled_bit_errors<M, BPSK>(sr, si, h2 * inv_nv, tab, v);
+}
+
+// Elementwise f(t, n, re, im) over n_tr = 2^log_tr rows of N = 2^log_n
+// points in shared memory, each row left in bit-reversed order (the
+// input order of smem_fft). Each pair (n, bitrev(n)) is handled by one
+// thread, so the pass is race-free; the caller synchronises before and
+// after.
+template <class F>
+__device__ __forceinline__ void bitrev_rows(float* re, float* im, int log_n, int log_tr, F f) {
+  const int N = 1 << log_n;
+  for (int e = threadIdx.x; e < (N << log_tr); e += blockDim.x) {
+    const int t = e >> log_n;
+    const int n = e & (N - 1);
+    const int r = bit_reverse(n, log_n);
+    if (r < n) continue;
+    float ar = re[e], ai = im[e];
+    f(t, n, ar, ai);
+    if (r == n) {
+      re[e] = ar;
+      im[e] = ai;
+      continue;
+    }
+    const int o = (t << log_n) + r;
+    float br = re[o], bi = im[o];
+    f(t, r, br, bi);
+    re[e] = br;
+    im[e] = bi;
+    re[o] = ar;
+    im[o] = ai;
+  }
+}
+
+// The SC-FDE (full-grid SC-FDMA) receive tail over n_tr = 2^log_tr
+// post-FFT rows of N = 2^log_n tones held in shared memory in natural
+// order (the port of demod_pallas.py::equalize_despread_llr_bits):
+//   per tone the biased MMSE conj(H) Y / (|H|^2 + nv);
+//   per row the tone mean b = max(mean(|H|^2 / (|H|^2 + nv)), 1e-9),
+//   reduced in a fixed order (block_sum);
+//   the N-point inverse DFT scaled by 1/sqrt(N) (the despread), then 1/b;
+//   max-log LLRs with SINR b / max(1 - b, 1e-9), counted against the
+//   TIME-domain indices.
+// hfn(t, k, hr, hi) gives the channel of tone k of row t; idxfn(t, n) the
+// transmitted index of time symbol n of row t, or -1 for a row that is
+// not counted. Each row's errors are added to cnt[t] (shared, integer
+// atomics: exact in any order). red: kThreads/32 floats; bias: n_tr floats.
+template <int M, bool BPSK, class HFn, class IdxFn>
+__device__ __forceinline__ void despread_count_tail(float* sre, float* sim, int log_n, int log_tr,
+                                                    float nv, const float* __restrict__ twr,
+                                                    const float* __restrict__ twi,
+                                                    const AxisTables& tab, float* red,
+                                                    float* bias, int* cnt, HFn hfn,
+                                                    IdxFn idxfn) {
+  const int N = 1 << log_n;
+  for (int t = 0; t < (1 << log_tr); ++t) {
+    float acc = 0.0f;
+    for (int k = threadIdx.x; k < N; k += blockDim.x) {
+      float h_r, h_i;
+      hfn(t, k, h_r, h_i);
+      const float h2 = h_r * h_r + h_i * h_i;
+      acc += h2 / (h2 + nv);
+    }
+    const float tot = block_sum(acc, red);
+    if (threadIdx.x == 0) bias[t] = fmaxf(tot / (float)N, 1e-9f);
+    __syncthreads();
+  }
+  bitrev_rows(sre, sim, log_n, log_tr, [&](int t, int k, float& yr, float& yi) {
+    float h_r, h_i;
+    hfn(t, k, h_r, h_i);
+    const float inv_d = 1.0f / (h_r * h_r + h_i * h_i + nv);
+    const float sr = (h_r * yr + h_i * yi) * inv_d;
+    yi = (h_r * yi - h_i * yr) * inv_d;
+    yr = sr;
+  });
+  __syncthreads();
+  smem_fft<false>(sre, sim, log_n, log_tr, N, 1, twr, twi, -1.0f);
+  const float inv_sqrt_n = 1.0f / sqrtf((float)N);
+  for (int e = threadIdx.x; e < (N << log_tr); e += blockDim.x) {
+    const int t = e >> log_n;
+    const int v = idxfn(t, e & (N - 1));
+    if (v < 0) continue;
+    const float b = bias[t];
+    const float scale = inv_sqrt_n / b;
+    const float sinr = b / fmaxf(1.0f - b, 1e-9f);
+    const int err = scaled_bit_errors<M, BPSK>(sre[e] * scale, sim[e] * scale, sinr, tab, v);
+    if (err) atomicAdd(cnt + t, err);
+  }
 }
 
 }  // namespace sdr

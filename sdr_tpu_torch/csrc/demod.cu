@@ -1,8 +1,8 @@
 // Kernel C: rows-layout demod + per-channel bit-error count.
 //
 // Replaces sdr_tpu/kernels/demod_pallas.py::demod_count_pallas (the
-// fast engine's count terminal, with its taps= mode; despread is not
-// ported yet). Per OFDM symbol (one row of the (B, S, N+cp) planes):
+// fast engine's count terminal) with its taps= and despread modes. Per
+// OFDM symbol (one row of the (B, S, N+cp) planes):
 //   CP strip; forward unscaled N-point FFT; p = conj(h) y,
 //   h2 = |h|^2, s = p / max(h2, 1e-12), inv_eff = h2 / nv; per-axis
 //   max-log LLR (level scan for L <= 4, Gray fold recursion for L >= 8;
@@ -15,30 +15,40 @@
 // upper half by e^{-2 pi i (m + N/2)/N} = -e^{-2 pi i m/N}), so the
 // (B, S, N) complex response never goes to device memory (the TPU kernel
 // built it with one HIGHEST-precision matmul against the DFT phase rows).
-// Counts are summed with integer atomics, which give the same result in
-// any order.
+// The despread mode (full-grid SC-FDMA, SC-FDE receive) replaces the
+// per-tone tail with common.cuh's despread_count_tail: biased MMSE per
+// tone, the row's tone-mean gain b (a fixed-order block reduction over
+// the whole row), an inverse FFT on the same tile (the despread), 1/b,
+// LLRs at SINR b/(1-b), counted against the time-domain indices. A row
+// is whole in one block at every N (a block holds 2^(9 - log N) rows
+// below N = 512 and one row above), so the reduction never crosses
+// blocks. Counts are summed with integer atomics, which give the same
+// result in any order.
 //
 // The TPU kernel ran the DFT as a Gauss 3-multiplication matmul on the
-// MXU in bf16 passes. Here a block holds a few symbols in shared memory
-// and runs a radix-2 FFT on CUDA cores in f32; no LLR plane is written.
+// MXU in bf16 passes (and the despread as a second matmul). Here a block
+// holds a few symbols in shared memory and runs radix-2 FFTs on CUDA
+// cores in f32; no LLR plane is written.
 //
 // Bound on the H100: reading the two f32 sample planes (8 bytes per
 // sample, plus the channel and index planes) — memory-bound; the
-// shared-memory butterflies and the LLR tail are the compute side.
+// shared-memory butterflies and the LLR tail are the compute side, and
+// the despread mode doubles the butterflies.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxTaps = 8;
 
-template <typename IdxT, int M, bool BPSK>
+template <typename IdxT, int M, bool BPSK, bool DESPREAD>
 __global__ void __launch_bounds__(sdr::kThreads)
 demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
                    const float* __restrict__ hr, const float* __restrict__ hi, int h_syms,
                    const float* __restrict__ taps_r, const float* __restrict__ taps_i,
                    int n_taps, const IdxT* __restrict__ idx, int32_t* __restrict__ out,
-                   long long n_rows, int S, int log_n, int cp, int log_spb, sdr::AxisTables tab, float inv_nv,
-                   const float* __restrict__ twr, const float* __restrict__ twi) {
+                   long long n_rows, int S, int log_n, int cp, int log_spb, sdr::AxisTables tab,
+                   float inv_nv, float nv, const float* __restrict__ twr,
+                   const float* __restrict__ twi) {
   extern __shared__ float smem[];
   const int N = 1 << log_n;
   const int spb = 1 << log_spb;
@@ -47,9 +57,10 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
   int* cnt = (int*)(sim + (spb << log_n));
   float* tp_r = (float*)(cnt + spb);
   float* tp_i = tp_r + spb * kMaxTaps;
+  float* red = tp_i + spb * kMaxTaps;
+  float* bias = red + sdr::kThreads / 32;
   const long long row0 = (long long)blockIdx.x << log_spb;
   const int sym_len = N + cp;
-  constexpr int BPS = BPSK ? 1 : 2 * M;
 
   if ((int)threadIdx.x < spb) cnt[threadIdx.x] = 0;
   for (int e = threadIdx.x; e < (spb << log_n); e += blockDim.x) {
@@ -78,16 +89,15 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
   __syncthreads();
   sdr::smem_fft<false>(sre, sim, log_n, log_spb, N, 1, twr, twi, 1.0f);
 
-  for (int e = threadIdx.x; e < (spb << log_n); e += blockDim.x) {
-    const int t = e >> log_n;
-    const int k = e & (N - 1);
+  // Channel of tone k of block row t ((1, 0) past the last row).
+  auto channel = [&](int t, int k, float& h_r, float& h_i) {
     const long long r = row0 + t;
-    if (r >= n_rows) continue;
-    const long long b = r / S;
-    const int s = (int)(r - b * S);
-    float h_r = 0.0f, h_i = 0.0f;
+    h_r = 1.0f;
+    h_i = 0.0f;
+    if (r >= n_rows) return;
     if (n_taps) {
       const int half = N >> 1;
+      h_r = h_i = 0.0f;
       for (int l = 0; l < n_taps; ++l) {
         const int m = (k * l) & (N - 1);
         const float wr = m < half ? __ldg(twr + m) : -__ldg(twr + m - half);
@@ -97,29 +107,33 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
         h_i += tr * wi + ti * wr;
       }
     } else {
+      const long long b = r / S;
+      const int s = (int)(r - b * S);
       const long long ho = ((b * h_syms + (h_syms > 1 ? s : 0)) << log_n) + k;
       h_r = hr[ho];
       h_i = hi[ho];
     }
-    const float yr = sre[e], yi = sim[e];
-    const float h2 = h_r * h_r + h_i * h_i;
-    const float inv_h2 = 1.0f / fmaxf(h2, 1e-12f);
-    const float inv_eff = h2 * inv_nv;
-    float llr[BPS];
-    const float sr = (h_r * yr + h_i * yi) * inv_h2;
-    const float si = (h_r * yi - h_i * yr) * inv_h2;
-    if constexpr (M <= 2) {
-      sdr::llr_axis_scan<M>(sr, inv_eff, tab, llr);
-      if constexpr (!BPSK) sdr::llr_axis_scan<M>(si, inv_eff, tab, llr + M);
-    } else {
-      sdr::llr_axis_fold<M>(sr, inv_eff, tab, llr);
-      sdr::llr_axis_fold<M>(si, inv_eff, tab, llr + M);
+  };
+  // Transmitted index of position n of block row t (-1 past the last row).
+  auto index = [&](int t, int n) {
+    const long long r = row0 + t;
+    return r < n_rows ? (int)idx[(r << log_n) + n] : -1;
+  };
+
+  if constexpr (DESPREAD) {
+    sdr::despread_count_tail<M, BPSK>(sre, sim, log_n, log_spb, nv, twr, twi, tab, red, bias, cnt,
+                                      channel, index);
+  } else {
+    for (int e = threadIdx.x; e < (spb << log_n); e += blockDim.x) {
+      const int t = e >> log_n;
+      const int k = e & (N - 1);
+      const int v = index(t, k);
+      if (v < 0) continue;
+      float h_r, h_i;
+      channel(t, k, h_r, h_i);
+      const int err = sdr::mmse_bit_errors<M, BPSK>(sre[e], sim[e], h_r, h_i, inv_nv, tab, v);
+      if (err) atomicAdd(cnt + t, err);
     }
-    const int v = (int)idx[(r << log_n) + k];
-    int err = 0;
-#pragma unroll
-    for (int j = 0; j < BPS; ++j) err += (int)(llr[j] < 0.0f) != ((v >> (BPS - 1 - j)) & 1);
-    if (err) atomicAdd(cnt + t, err);
   }
   __syncthreads();
   if ((int)threadIdx.x < spb) {
@@ -135,20 +149,28 @@ extern "C" int sdr_demod_count(const float* re, const float* im, const float* hr
                                const float* taps_i, int n_taps, const void* idx, int idx_bytes,
                                int32_t* out, int B, int S, int log_n, int cp,
                                int bits_per_axis, int bpsk, sdr::AxisTables tab, float inv_nv,
-                               const float* twr, const float* twi, void* stream) {
+                               float nv, int despread, const float* twr, const float* twi,
+                               void* stream) {
   const long long n_rows = (long long)B * S;
   if (n_rows == 0) return 0;
-  if (n_taps < 0 || n_taps > kMaxTaps) return (int)cudaErrorInvalidValue;
+  if (n_taps < 0 || n_taps > kMaxTaps || (despread && n_taps)) return (int)cudaErrorInvalidValue;
   const int log_spb = log_n >= 9 ? 0 : 9 - log_n;
   const long long blocks = (n_rows + (1 << log_spb) - 1) >> log_spb;
   const size_t smem = (size_t)2 * sizeof(float) * ((size_t)1 << (log_spb + log_n)) +
                       sizeof(int) * ((size_t)1 << log_spb) +
-                      (size_t)2 * sizeof(float) * kMaxTaps * ((size_t)1 << log_spb);
+                      (size_t)2 * sizeof(float) * kMaxTaps * ((size_t)1 << log_spb) +
+                      sizeof(float) * (sdr::kThreads / 32 + ((size_t)1 << log_spb));
   cudaStream_t st = (cudaStream_t)stream;
   SDR_DISPATCH_MOD(bits_per_axis, bpsk,
     SDR_DISPATCH_IDX(idx_bytes,
-      demod_count_kernel<IdxT, M, BPSK><<<(unsigned)blocks, sdr::kThreads, smem, st>>>(
-          re, im, hr, hi, h_syms, taps_r, taps_i, n_taps, (const IdxT*)idx, out, n_rows, S, log_n, cp, log_spb, tab,
-          inv_nv, twr, twi)))
+      if (despread) {
+        demod_count_kernel<IdxT, M, BPSK, true><<<(unsigned)blocks, sdr::kThreads, smem, st>>>(
+            re, im, hr, hi, h_syms, taps_r, taps_i, n_taps, (const IdxT*)idx, out, n_rows, S,
+            log_n, cp, log_spb, tab, inv_nv, nv, twr, twi);
+      } else {
+        demod_count_kernel<IdxT, M, BPSK, false><<<(unsigned)blocks, sdr::kThreads, smem, st>>>(
+            re, im, hr, hi, h_syms, taps_r, taps_i, n_taps, (const IdxT*)idx, out, n_rows, S,
+            log_n, cp, log_spb, tab, inv_nv, nv, twr, twi);
+      }))
   return (int)cudaGetLastError();
 }

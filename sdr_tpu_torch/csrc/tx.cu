@@ -51,21 +51,12 @@ template <typename IdxT, int M, bool BPSK>
 __device__ __forceinline__ void load_symbols(const IdxT* __restrict__ idx, long long row0,
                                              int n_valid, int log_n, int log_tr, float* sre,
                                              float* sim) {
-  constexpr int L = 1 << M;
   const int N = 1 << log_n;
   for (int e = threadIdx.x; e < (1 << (log_tr + log_n)); e += blockDim.x) {
     const int t = e >> log_n;
     const int n = e & (N - 1);
     float xr = 0.0f, xi = 0.0f;
-    if (t < n_valid) {
-      const int v = (int)idx[((row0 + t) << log_n) + n];
-      if (BPSK) {
-        xr = (float)(2 * sdr::gray_to_binary<M>(v) - (L - 1));
-      } else {
-        xr = (float)(2 * sdr::gray_to_binary<M>(v >> M) - (L - 1));
-        xi = (float)(2 * sdr::gray_to_binary<M>(v & (L - 1)) - (L - 1));
-      }
-    }
+    if (t < n_valid) sdr::pam_point<M, BPSK>((int)idx[((row0 + t) << log_n) + n], xr, xi);
     const int dst = (t << log_n) + sdr::bit_reverse(n, log_n);
     sre[dst] = xr;
     sim[dst] = xi;

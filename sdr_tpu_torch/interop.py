@@ -8,7 +8,8 @@
 - numpy → tensor helpers for the channel state the parity tests feed
   both packages: symbol indices, flat gains and injected noise planes
   (``channel_state``), and the JAX engine's fading state — FIR taps,
-  per-symbol gains, Jakes (θ, φ) — (``fading_state``).
+  per-symbol gains, Jakes (θ, φ) — (``fading_state``), and the
+  Monte-Carlo kernel's injected draws (``mc_rand_inputs_from_reference``).
 """
 
 from __future__ import annotations
@@ -68,3 +69,12 @@ def fading_state(taps=None, gains=None, jakes=None, device="cpu"):
     if jakes is not None:
         out["jakes"] = planes(*jakes, device=device)
     return out
+
+
+def mc_rand_inputs_from_reference(idx, nr, ni, hr, hi, device="cpu"):
+    """The JAX MC kernel's ``rand_inputs`` (numpy: idx (B, S, N), nr/ni
+    (B, S, N) N(0, 1) planes, hr/hi (B, 1 | S, N) responses) → the port's
+    ``rand_inputs`` for ``kernels.mc.mc_count``: int32 indices and
+    contiguous float32 planes on ``device``."""
+    idx_t = torch.as_tensor(np.ascontiguousarray(idx, np.int32), device=device)
+    return (idx_t, *planes(nr, ni, hr, hi, device=device))

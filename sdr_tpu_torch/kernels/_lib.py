@@ -40,9 +40,11 @@ NVCC_FLAGS = (
 )
 
 # Launch counters, one per kernel and mode: "tx_taps" is kernel B's FIR
-# mode, "demod_count_taps" kernel C's taps= mode.
+# mode, "demod_count_taps" and "demod_count_despread" kernel C's taps=
+# and despread modes, "mc_count" kernel G.
 LAUNCHES = {"payload": 0, "tx": 0, "tx_taps": 0, "demod_count": 0, "demod_count_taps": 0,
-            "demod_sum_cl": 0, "fade_awgn": 0, "demod_count_cl": 0}
+            "demod_count_despread": 0, "demod_sum_cl": 0, "fade_awgn": 0,
+            "demod_count_cl": 0, "mc_count": 0}
 
 _lib = None
 
@@ -153,6 +155,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+
+
+class McParams(ctypes.Structure):
+    """Kernel G's launch parameters, passed by value (csrc/mc.cu)."""
+
+    _fields_ = [
+        *((name, _P) for name in ("ch_ids", "out", "idx_in", "n_re", "n_im", "h_re", "h_im",
+                                  "amps", "twr", "twi")),
+        *((name, _I) for name in ("B", "S", "log_n", "cp", "log_spb", "n_chunks", "kind",
+                                  "n_taps", "h_syms", "noise")),
+        *((name, _U) for name in ("kp0", "kp1", "kn0", "kn1", "kf0", "kf1")),
+        ("idx_mask", _I),
+        *((name, _F) for name in ("sigma", "nv", "inv_nv", "tx_scale", "spread_scale", "a_los",
+                                  "s_dif", "jakes_w")),
+    ]
+
 _SIGNATURES = {
     "sdr_payload": [_P, _I, _P, _I, _I, _I, _I, _U, _U, _P],
     "sdr_tx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I,
@@ -162,12 +180,13 @@ _SIGNATURES = {
     "sdr_fade_awgn": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _U, _U, _F,
                       _P],
     "sdr_demod_count": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                        _I, AxisTables, _F, _P, _P, _P],
+                        _I, AxisTables, _F, _F, _I, _P, _P, _P],
     "sdr_demod_sum_cl_partials": [_I, _I],
     "sdr_demod_sum_cl": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          AxisTables, _F, _P, _P, _P],
     "sdr_demod_count_cl": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                            AxisTables, _F, _P, _P, _P],
+    "sdr_mc_count": [McParams, _I, _I, _I, AxisTables, _P],
 }
 
 

@@ -1,6 +1,6 @@
 """Kernel C: rows-layout demod + per-channel error count (port of
 ``sdr_tpu/kernels/demod_pallas.py::demod_count_pallas`` with its
-``taps=`` mode; ``despread`` is not ported yet).
+``taps=`` and ``despread`` modes).
 
 Planar samples (B, S, N+cp) → CP strip → forward unscaled DFT →
 one-tap unbiased equalisation s = conj(h)·y / max(|h|², 1e-12) with
@@ -14,6 +14,14 @@ taps_i)``, per-symbol FIR taps (B, S, L ≤ 8) whose response
 H[k] = Σ_l t_l·e^{−2πikl/N} the kernel builds per bin, so the (B, S, N)
 plane never exists in device memory; that mode counts its launches
 under ``demod_count_taps``.
+
+``despread=True`` is the SC-FDE receive of full-grid SC-FDMA
+(``ops.equalize.equalize_mmse_fde``): per tone the biased MMSE
+conj(h)·y/(|h|² + nv), per symbol the tone mean b = max(mean(|h|²/(|h|² +
+nv)), 1e-9), an N-point inverse DFT scaled by 1/√N, division by b, LLRs
+at SINR b/(1 − b), counted against the TIME-domain indices. It takes the
+h plane (not taps) and counts its launches under
+``demod_count_despread``.
 
 This module also holds the plain LLR plane, ``demod_chain``, which the
 count's plain version, the channels-last sum's plain version
@@ -30,6 +38,7 @@ import torch
 from sdr_tpu_torch.core.config import Modulation
 from sdr_tpu_torch.kernels import _lib
 from sdr_tpu_torch.ops.channel import freq_response
+from sdr_tpu_torch.ops.equalize import equalize_mmse_fde
 from sdr_tpu_torch.ops.llr import axis_metric
 from sdr_tpu_torch.ops.modulation import _ints_to_bits
 from sdr_tpu_torch.ops.ofdm import ofdm_rx
@@ -45,19 +54,25 @@ def inv_noise_var(noise_var: float) -> float:
 
 
 def demod_chain(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
-                reduce_sum: bool = False):
+                reduce_sum: bool = False, despread: bool = False):
     """Plain LLR plane over (..., S, N+cp) planar samples; hr/hi broadcast
     against the post-FFT grid (..., S, N). Returns (..., S, N·bps)
-    float32 in the public order (per subcarrier, I bits then Q bits,
-    MSB first), or its float32 sum when ``reduce_sum``."""
+    float32 in the public order (per subcarrier, or per time symbol with
+    ``despread``; I bits then Q bits, MSB first), or its float32 sum when
+    ``reduce_sum``. ``despread``: the SC-FDE receive
+    (``equalize_mmse_fde``), as the JAX package's ``demod_chain_jnp``."""
     y = ofdm_rx(torch.complex(re.to(torch.float32), im.to(torch.float32)), cp_len)
     hr = hr.to(torch.float32)
     hi = hi.to(torch.float32)
-    h2 = hr * hr + hi * hi
-    inv_h2 = 1.0 / torch.clamp(h2, min=1e-12)
-    sr = (hr * y.real + hi * y.imag) * inv_h2
-    si = (hr * y.imag - hi * y.real) * inv_h2
-    inv_eff = (h2 * inv_noise_var(noise_var))[..., None]
+    if despread:
+        s, eff = equalize_mmse_fde(y, torch.complex(hr, hi), max(float(noise_var), 1e-12))
+        sr, si, inv_eff = s.real, s.imag, (1.0 / eff)[..., None]
+    else:
+        h2 = hr * hr + hi * hi
+        inv_h2 = 1.0 / torch.clamp(h2, min=1e-12)
+        sr = (hr * y.real + hi * y.imag) * inv_h2
+        si = (hr * y.imag - hi * y.real) * inv_h2
+        inv_eff = (h2 * inv_noise_var(noise_var))[..., None]
     axes = [axis_metric(torch.broadcast_to(sr, y.shape), mod) * inv_eff]
     if mod is not Modulation.BPSK:
         axes.append(axis_metric(torch.broadcast_to(si, y.shape), mod) * inv_eff)
@@ -99,23 +114,26 @@ def taps_plane(taps, n_fft: int):
 
 
 def demod_count_plain(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: float,
-                      taps=None):
+                      taps=None, despread: bool = False):
     """Plain torch version of the count."""
     if taps is not None:
         hr, hi = taps_plane(taps, idx.shape[-1])
-    llr = demod_chain(re, im, hr, hi, cp_len, mod, noise_var)
+    llr = demod_chain(re, im, hr, hi, cp_len, mod, noise_var, despread=despread)
     return count_errors(llr, idx, mod.bits_per_symbol)
 
 
 def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: float,
-                taps=None):
+                taps=None, despread: bool = False):
     """Per-channel (B,) int32 bit-error counts.
 
     re/im (B, S, N+cp) float32; hr/hi (B, 1, N) or (B, S, N) float32, or
     None with ``taps=(taps_r, taps_i)`` float32 (B, S, L ≤ 8); idx
-    (B, S, N) int8/int16/int32 transmitted symbol indices."""
+    (B, S, N) int8/int16/int32 transmitted symbol indices (time-domain
+    symbols with ``despread``, which takes the h plane, not taps)."""
+    if despread and taps is not None:
+        raise ValueError("demod count: despread takes the h plane, not taps=")
     if re.device.type == "cpu":
-        return demod_count_plain(re, im, hr, hi, idx, cp_len, mod, noise_var, taps)
+        return demod_count_plain(re, im, hr, hi, idx, cp_len, mod, noise_var, taps, despread)
     chan = (hr, hi) if taps is None else tuple(taps)
     if not supported(re.shape, chan[0].shape, idx.shape, cp_len):
         raise ValueError(
@@ -142,9 +160,11 @@ def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: fl
         re.data_ptr(), im.data_ptr(), *h_args,
         idx.data_ptr(), idx.element_size(), out.data_ptr(), B, S, _lib.log2_exact(N),
         cp_len, mod.bits_per_axis, int(mod is Modulation.BPSK), _lib.axis_tables(mod),
-        inv_noise_var(noise_var), twr.data_ptr(), twi.data_ptr(), _lib.stream(),
+        inv_noise_var(noise_var), max(float(noise_var), 1e-12), int(despread),
+        twr.data_ptr(), twi.data_ptr(), _lib.stream(),
     )
-    name = "demod_count" if taps is None else "demod_count_taps"
+    name = "demod_count_taps" if taps is not None else (
+        "demod_count_despread" if despread else "demod_count")
     _lib.check(rc, name)
     _lib.LAUNCHES[name] += 1
     return out

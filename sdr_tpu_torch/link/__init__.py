@@ -1,1 +1,1 @@
-"""Link engines of the port: the keyed fast engine and BER theory."""
+"""Link engines of the port: the keyed fast engine, the Monte-Carlo engine and BER theory."""

@@ -33,12 +33,21 @@ through ``freq_response``) or (B, S, N) (RAYLEIGH_TIME, MULTIPATH_TIME);
 ``layout="cl"`` relayouts the samples to (S·(N+cp), B) and counts with
 kernel F on h (N, B) — per-link channels only, as in the JAX engine.
 
+SC-FDMA (``dft_spread``, full grid, fast.py:53-65 and :508): the DFT
+precode and the IFFT cancel, so the TX is the constellation scaled by
+N^-1/2 with the CP, plain torch on the card (XLA outside any kernel in
+the JAX engine); the channel always takes the staged route, and kernel
+C's ``despread`` mode receives (SC-FDE), at any N up to 4096.
+
 The BER is validated statistically against theory (``link/ber.py``,
 and the BER over the drawn channel), as the JAX engine's is; it is a
 different stream from the JAX engine's threefry and on-core draws.
 
-Not covered: SC-FDMA (``dft_spread``), pilots and MIMO raise
-``NotImplementedError`` naming the ROADMAP entry that ports them.
+Not covered: pilots and MIMO raise ``NotImplementedError`` naming the
+ROADMAP entry that ports them.
+
+The entry points run on the card (``device="cuda"``) unless the caller
+asks for the CPU; without a card they raise, nothing moves to the CPU.
 """
 
 from __future__ import annotations
@@ -55,6 +64,8 @@ from sdr_tpu_torch.kernels.channel import fade_awgn
 from sdr_tpu_torch.kernels.payload import out_dtype, payload_idx
 from sdr_tpu_torch.ops import channel as chan
 from sdr_tpu_torch.ops.demod import demod_count_chain, demod_count_chain_cl
+from sdr_tpu_torch.ops.modulation import constellation
+from sdr_tpu_torch.ops.ofdm import cp_insert
 
 _PER_SYMBOL = (ChannelModel.RAYLEIGH_TIME, ChannelModel.MULTIPATH_TIME)
 _SELECTIVE = (ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME)
@@ -64,7 +75,8 @@ LAYOUTS = ("auto", "rows", "cl")
 def check_supported(cfg: LinkConfig, layout: str = "auto") -> None:
     """Raise for what this engine does not run: ``NotImplementedError``
     naming the ROADMAP entry for what is still to port, and for
-    per-symbol fading under ``layout="cl"`` (as the JAX engine does)."""
+    per-symbol fading or SC-FDMA under ``layout="cl"`` (the JAX engine
+    refuses the first and never routes the second there)."""
     if cfg.pilot_spacing:
         raise NotImplementedError(
             "fast_simulate is the full-grid throughput path; pilot-based "
@@ -75,17 +87,17 @@ def check_supported(cfg: LinkConfig, layout: str = "auto") -> None:
             "fast_simulate is SISO; MIMO is ported with link.pipeline "
             "(ROADMAP queue 1, item 11)"
         )
-    if cfg.dft_spread:
-        raise NotImplementedError(
-            "SC-FDMA (dft_spread) is ported with the wideband and SC-FDE "
-            "routes (ROADMAP queue 1, item 10)"
-        )
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     if layout == "cl" and cfg.channel.model in _PER_SYMBOL:
         raise NotImplementedError(
             "channels-last demod takes a per-link channel plane; "
             "per-symbol fading models run in the rows layout"
+        )
+    if layout == "cl" and cfg.dft_spread:
+        raise NotImplementedError(
+            "SC-FDMA (dft_spread) receives through kernel C's despread mode "
+            "in the rows layout"
         )
 
 
@@ -168,6 +180,14 @@ def rx_plane(taps: torch.Tensor, n_fft: int) -> torch.Tensor:
     return h[:, None, :] if taps.ndim == 2 else h
 
 
+def scfdma_tx(cfg: LinkConfig, idx: torch.Tensor):
+    """Full-grid SC-FDMA TX (fast.py:53-65): the time waveform is the
+    constellation sequence scaled by N^-1/2, with the CP. Planar
+    (B, S, N+cp) float32."""
+    pts = constellation(cfg.modulation, idx.device)[idx.to(torch.int64)] * cfg.ofdm.n_fft ** -0.5
+    return _planar(cp_insert(pts, cfg.ofdm.cp_len))
+
+
 def _planar(z: torch.Tensor):
     """complex → contiguous float32 (real, imag)."""
     return z.real.to(torch.float32).contiguous(), z.imag.to(torch.float32).contiguous()
@@ -197,10 +217,15 @@ def tx_with_channel(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, idx: torch
     ``h``/``taps`` override the keyed fade state (``fade_state``'s pair;
     the selective models read only the taps); ``noise`` injects (n_re,
     n_im) N(0, 1) planes in place of the keyed noise — the injection form
-    the parity tests use."""
+    the parity tests use. SC-FDMA takes ``scfdma_tx`` and the staged
+    channel, as the JAX engine does (its ``want_fused`` excludes
+    ``dft_spread``)."""
     check_supported(cfg, layout)
     model = cfg.channel.model
     cp, mod = cfg.ofdm.cp_len, cfg.modulation
+    if cfg.dft_spread:
+        return apply_channel_fast(cfg, seed, ch_ids, *scfdma_tx(cfg, idx), h=h, taps=taps,
+                                  noise=noise, layout=layout)
     if model == ChannelModel.IDENTITY:
         return _laid_out(*_kb.tx_chain(idx, cp, mod), layout)
     if _n_taps(cfg) > _kb.MAX_TAPS:
@@ -259,7 +284,8 @@ def rx_count_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, re: torch.Te
 
     Recomputes the channel and the transmitted indices from the keys
     (both pure functions of them) unless given explicitly, so the
-    samples are the only data taken from the TX side. Returns
+    samples are the only data taken from the TX side. SC-FDMA receives
+    through kernel C's ``despread`` mode on the h plane. Returns
     per-channel (bit_errors, bits_counted), both (B,) int32."""
     check_supported(cfg, layout)
     B = ch_ids.shape[0]
@@ -272,7 +298,7 @@ def rx_count_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, re: torch.Te
         idx = draw_idx(cfg, seed, ch_ids)
     counted = torch.full((B,), S * N * mod.bits_per_symbol, dtype=torch.int32, device=re.device)
     if (layout == "rows" and cfg.channel.model == ChannelModel.MULTIPATH_TIME
-            and taps is not None and taps.shape[-1] <= _kc.MAX_TAPS):
+            and not cfg.dft_spread and taps is not None and taps.shape[-1] <= _kc.MAX_TAPS):
         # TDL taps route: the response is built in kernel C.
         errors = demod_count_chain(re, im, None, None, idx, cp, mod, nv, taps=_planar(taps))
         return errors, counted
@@ -290,7 +316,7 @@ def rx_count_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, re: torch.Te
         hi = torch.zeros((B, 1, N), dtype=torch.float32, device=re.device)
     else:
         hr, hi = _planar(h.to(torch.complex64).expand(B, h.shape[1], N))
-    errors = demod_count_chain(re, im, hr, hi, idx, cp, mod, nv)
+    errors = demod_count_chain(re, im, hr, hi, idx, cp, mod, nv, despread=cfg.dft_spread)
     return errors, counted
 
 
@@ -311,15 +337,16 @@ def fast_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, layout: str = "a
     return rx_count_core(cfg, seed, ch_ids, re, im, h=h, taps=taps, idx=idx, layout=layout)
 
 
-def fast_simulate(cfg: LinkConfig, seed: int, device="cpu", layout: str = "auto"):
+def fast_simulate(cfg: LinkConfig, seed: int, device="cuda", layout: str = "auto"):
     """Full link over (n_channels, n_symbols) as one batched program on
-    ``device``. Returns (bit_errors (n_channels,) int32, bits_counted)."""
+    ``device`` (the card unless the caller asks for the CPU). Returns
+    (bit_errors (n_channels,) int32, bits_counted)."""
     check_supported(cfg, layout)
     ch_ids = torch.arange(cfg.n_channels, dtype=torch.int32, device=device)
     return fast_core(cfg, seed, ch_ids, layout=layout)
 
 
-def make_fast_fn(cfg: LinkConfig, device="cpu", layout: str = "auto"):
+def make_fast_fn(cfg: LinkConfig, device="cuda", layout: str = "auto"):
     """fast_simulate with cfg and device bound: fn(seed)."""
     check_supported(cfg, layout)
     return functools.partial(fast_simulate, cfg, device=device, layout=layout)

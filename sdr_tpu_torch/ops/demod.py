@@ -1,9 +1,13 @@
 """Receive chain: CP strip → FFT → one-tap equalize → max-log LLR.
 
 Port of ``sdr_tpu/ops/demod.py`` for the slice on the H100: the plain
-LLR plane ``demod_chain``, the fast engine's count terminals
-``demod_count_chain`` (kernel C, rows; with ``taps=`` the per-symbol
-TDL response is built in the kernel) and ``demod_count_chain_cl``
+LLR plane ``demod_chain`` (with ``despread=True`` the SC-FDE receive of
+full-grid SC-FDMA, ``demod_chain_jnp(despread=True)``), the fast
+engine's count terminals ``demod_count_chain`` (kernel C, rows; with
+``taps=`` the per-symbol TDL response is built in the kernel, with
+``despread=True`` the SC-FDE receive at any N up to 4096 — the narrow
+route and the wideband count the JAX package ran in two kernels) and
+``demod_count_chain_cl``
 (kernel F, channels-last), and the channels-last sum terminal
 ``demod_sum_chain_cl`` (kernel D) that the headline benchmark measures.
 
@@ -60,14 +64,16 @@ def select_backend_cl(re_t_shape, n_fft: int, cp_len: int, device,
 
 
 def demod_count_chain(re, im, hr, hi, idx, cp_len: int, mod: Modulation,
-                      noise_var: float, taps=None) -> torch.Tensor:
+                      noise_var: float, taps=None, despread: bool = False) -> torch.Tensor:
     """Demod + hard-decision bit-error count vs transmitted indices:
     per-channel (B,) int32. No LLR plane is materialised on the card.
     ``taps=(taps_r, taps_i)`` (B, S, L ≤ 8) stands for the channel plane
-    (hr/hi may then be None)."""
+    (hr/hi may then be None). ``despread``: SC-FDE receive, ``idx`` the
+    time-domain symbols."""
     chan_shape = hr.shape if taps is None else taps[0].shape
     select_backend(re.shape, chan_shape, idx.shape, cp_len, re.device)
-    return _kc.demod_count(re, im, hr, hi, idx, cp_len, mod, noise_var, taps=taps)
+    return _kc.demod_count(re, im, hr, hi, idx, cp_len, mod, noise_var, taps=taps,
+                           despread=despread)
 
 
 def demod_sum_chain_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation,

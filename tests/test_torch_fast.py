@@ -11,9 +11,13 @@
   time-varying models); split == full for every model and layout; the
   staged channel route equals the fused one; the channels-last layout
   counts as the rows layout.
-- The package never imports JAX; SC-FDMA, pilots and MIMO raise.
+- Full-grid SC-FDMA (``dft_spread``): split == full, BER against exact
+  theory, the slice on explicit inputs against the JAX count kernel's
+  despread mode; the entry points default to the card.
+- The package never imports JAX; pilots and MIMO raise.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -114,7 +118,7 @@ def test_ber_theory_matches_reference(mod):
 
 def test_fast_simulate_awgn_ber_matches_theory():
     cfg = _cfg(ChannelModel.AWGN, 6.0, n_channels=16, n_symbols=64)
-    errors, counted = fast.fast_simulate(cfg, seed=2024)
+    errors, counted = fast.fast_simulate(cfg, seed=2024, device="cpu")
     ber = int(errors.sum()) / int(counted.sum())
     theory = ber_awgn_exact(Modulation.QAM16, 6.0)
     assert abs(ber / theory - 1.0) < 0.15, (ber, theory)
@@ -123,7 +127,7 @@ def test_fast_simulate_awgn_ber_matches_theory():
 def test_fast_simulate_rayleigh_ber_matches_theory():
     """Many short links, so that fade realisations average out."""
     cfg = _cfg(ChannelModel.RAYLEIGH_FLAT, 10.0, Modulation.QPSK, 16, 4, 4, 16384)
-    errors, counted = fast.make_fast_fn(cfg)(5)
+    errors, counted = fast.make_fast_fn(cfg, device="cpu")(5)
     ber = int(errors.sum()) / int(counted.sum())
     theory = ber_rayleigh_exact(Modulation.QPSK, 10.0)
     assert abs(ber / theory - 1.0) < 0.15, (ber, theory)
@@ -132,7 +136,7 @@ def test_fast_simulate_rayleigh_ber_matches_theory():
 def test_identity_channel_is_error_free():
     cfg = _cfg(ChannelModel.IDENTITY, mod=Modulation.QAM1024, n_fft=64, cp=16, n_symbols=4,
                n_channels=8)
-    errors, counted = fast.fast_simulate(cfg, seed=1)
+    errors, counted = fast.fast_simulate(cfg, seed=1, device="cpu")
     assert int(errors.sum()) == 0 and int(counted.sum()) == 8 * 4 * 64 * 10
 
 
@@ -141,7 +145,7 @@ def test_identity_channel_is_error_free():
 def test_split_equals_full(model):
     """Channels [0, k) alone give the same counts as in the full run."""
     cfg = _cfg(model, 4.0, n_fft=64, cp=16, n_symbols=8, n_channels=48)
-    full, _ = fast.fast_simulate(cfg, seed=9)
+    full, _ = fast.fast_simulate(cfg, seed=9, device="cpu")
     part, _ = fast.fast_core(cfg, 9, torch.arange(0, 20, dtype=torch.int32))
     rest, _ = fast.fast_core(cfg, 9, torch.arange(20, 48, dtype=torch.int32))
     torch.testing.assert_close(torch.cat([part, rest]), full, rtol=0, atol=0)
@@ -151,7 +155,8 @@ def test_split_equals_full(model):
 def test_package_imports_no_jax():
     code = (
         "import sys; import sdr_tpu_torch, sdr_tpu_torch.link.fast, sdr_tpu_torch.interop, "
-        "sdr_tpu_torch.ops.demod, sdr_tpu_torch.kernels.demod_cl; "
+        "sdr_tpu_torch.ops.demod, sdr_tpu_torch.kernels.demod_cl, sdr_tpu_torch.link.mc, "
+        "sdr_tpu_torch.obs.sweep; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m == 'sdr_tpu' or m.startswith('sdr_tpu.') for m in sys.modules)"
     )
@@ -170,13 +175,87 @@ def test_package_imports_no_jax():
     ids=["dft_spread", "pilots", "mimo"],
 )
 def test_unported_paths_raise(kw):
+    """Pilots and MIMO raise, naming their ROADMAP item. SC-FDMA raised
+    until this engine ported it; its case now runs: channels [0, 2) alone
+    give the counts of the full run."""
     kw = dict(kw)
     model = kw.pop("model", ChannelModel.RAYLEIGH_FLAT)
     if kw.pop("mimo", False):
         kw["mimo"] = MIMOConfig()
     cfg = _cfg(model, n_fft=64, cp=16, n_symbols=4, n_channels=4, **kw)
+    if cfg.dft_spread:
+        full, counted = fast.fast_simulate(cfg, seed=0, device="cpu")
+        part, _ = fast.fast_core(cfg, 0, torch.arange(2, dtype=torch.int32))
+        torch.testing.assert_close(part, full[:2], rtol=0, atol=0)
+        assert int(counted[0]) == 4 * 64 * 4
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fast.fast_simulate(cfg, seed=0)
+        fast.fast_simulate(cfg, seed=0, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "model,theory",
+    [(ChannelModel.AWGN, ber_awgn_exact), (ChannelModel.RAYLEIGH_FLAT, ber_rayleigh_exact)],
+    ids=["awgn", "rayleigh_flat"],
+)
+def test_scfdma_ber_matches_theory(model, theory):
+    """Full-grid SC-FDMA over a flat channel: the post-despread SINR is
+    |h|²/nv, as for OFDM, so the BER sits on the same exact curve."""
+    cfg = _cfg(model, 8.0, Modulation.QPSK, n_fft=64, cp=16, n_symbols=4, n_channels=4096,
+               dft_spread=True)
+    errors, counted = fast.fast_simulate(cfg, seed=13, device="cpu")
+    ber = int(errors.sum()) / int(counted.sum())
+    assert abs(ber / theory(Modulation.QPSK, 8.0) - 1.0) < 0.15, ber
+
+
+def test_scfdma_slice_on_explicit_inputs_matches_jax_kernels(rng):
+    """SC-FDMA with the same indices, taps and noise through the JAX
+    composition (SC-FDMA TX → apply_multipath → channel kernel → count
+    kernel with despread) and through the port's tx_with_channel →
+    rx_count_core (kernel E, kernel C's despread mode)."""
+    B, S, N, cp, ebno = 128, 4, 128, 32, 10.0
+    mod = Modulation.QAM16
+    jm = jcfg.Modulation(mod.value)
+    cfg = dataclasses.replace(_sel_cfg(ChannelModel.MULTIPATH, PDP4, ebno, mod, N, cp, S, B),
+                              dft_spread=True)
+    idx = rng.integers(0, 16, (B, S, N)).astype(np.int32)
+    n_re = rng.standard_normal((B, S, N + cp)).astype(np.float32)
+    n_im = rng.standard_normal((B, S, N + cp)).astype(np.float32)
+    taps = ((rng.standard_normal((B, 4)) + 1j * rng.standard_normal((B, 4))) / np.sqrt(2)
+            * np.sqrt(np.asarray(PDP4) / sum(PDP4))).astype(np.complex64)
+    nv = 1.0 / (10 ** (ebno / 10) * mod.bits_per_symbol)
+    x = fast.scfdma_tx(cfg, torch.from_numpy(idx))
+    x = jnp.asarray(x[0].numpy()) + 1j * jnp.asarray(x[1].numpy())
+    x = jchan.apply_multipath(x.reshape(B, -1), jnp.asarray(taps)).reshape(x.shape)
+    jre, jim = fade_awgn_pallas(jnp.real(x), jnp.imag(x), None, None, 0, nv / N,
+                                noise=(jnp.asarray(n_re), jnp.asarray(n_im)), interpret=True)
+    h_plane = np.asarray(jchan.freq_response(jnp.asarray(taps), N))[:, None, :]
+    ref = demod_count_pallas(jre, jim, jnp.asarray(np.real(h_plane).astype(np.float32)),
+                             jnp.asarray(np.imag(h_plane).astype(np.float32)), jnp.asarray(idx),
+                             cp, jm, nv, interpret=True, despread=True)
+
+    st = interop.channel_state(idx=idx, noise=(n_re, n_im))
+    state = interop.fading_state(taps=taps)
+    ids = torch.arange(B, dtype=torch.int32)
+    re, im = fast.tx_with_channel(cfg, 0, ids, st["idx"], taps=state["taps"], noise=st["noise"])
+    np.testing.assert_allclose(re.numpy(), np.asarray(jre), atol=2e-5, rtol=0)
+    errors, _ = fast.rx_count_core(cfg, 0, ids, re, im, taps=state["taps"], idx=st["idx"])
+    assert int(errors.sum()) > 0
+    llr = demod_chain(re, im, *interop.planes(np.real(h_plane), np.imag(h_plane)), cp, mod, nv,
+                      despread=True)
+    margin = (llr.abs() < 1e-3).sum(dim=(1, 2)).numpy()
+    assert (np.abs(errors.numpy() - np.asarray(ref)) <= margin).all()
+
+
+def test_entry_points_default_to_the_card():
+    import inspect
+
+    for fn in (fast.fast_simulate, fast.make_fast_fn):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    with pytest.raises(NotImplementedError, match="rows layout"):
+        fast.fast_simulate(_cfg(n_fft=64, cp=16, n_symbols=4, n_channels=4, dft_spread=True),
+                           seed=0, device="cpu", layout="cl")
+    assert not fast.layout_supported_cl(_cfg(dft_spread=True), 16)
 
 
 PDP4 = (1.0, 0.5, 0.25, 0.125)  # BASELINE config 4's power-delay profile
@@ -215,7 +294,7 @@ def test_selective_and_cl_paths_split_equals_full(kw):
     layout = kw.pop("layout", "auto")
     model = kw.pop("model", ChannelModel.RAYLEIGH_FLAT)
     cfg = _sel_cfg(model, ebno_db=8.0, **kw)
-    full, counted = fast.fast_simulate(cfg, seed=9, layout=layout)
+    full, counted = fast.fast_simulate(cfg, seed=9, device="cpu", layout=layout)
     part, _ = fast.fast_core(cfg, 9, torch.arange(0, 20, dtype=torch.int32), layout=layout)
     rest, _ = fast.fast_core(cfg, 9, torch.arange(20, 48, dtype=torch.int32), layout=layout)
     torch.testing.assert_close(torch.cat([part, rest]), full, rtol=0, atol=0)
@@ -226,7 +305,7 @@ def test_selective_and_cl_paths_split_equals_full(kw):
                          ids=lambda m: m.value)
 def test_per_symbol_models_raise_under_cl(model):
     with pytest.raises(NotImplementedError, match="per-link channel plane"):
-        fast.fast_simulate(_sel_cfg(model), seed=0, layout="cl")
+        fast.fast_simulate(_sel_cfg(model), seed=0, device="cpu", layout="cl")
     assert not fast.layout_supported_cl(_sel_cfg(model), 48)
     assert fast.layout_supported_cl(_sel_cfg(ChannelModel.MULTIPATH), 48)
     assert fast.select_layout(_sel_cfg(ChannelModel.MULTIPATH), 48) == "rows"
@@ -269,7 +348,7 @@ def test_selective_ber_matches_ber_of_the_drawn_channel(model, pdp):
     run drew (fade_state recomputes it from the keys). The errors are
     ~1e4, so the noise-only spread is ~1 %: the gate is 5 %."""
     cfg = _sel_cfg(model, pdp, ebno_db=12.0, n_symbols=16, n_channels=256, cp=32)
-    errors, counted = fast.fast_simulate(cfg, seed=21)
+    errors, counted = fast.fast_simulate(cfg, seed=21, device="cpu")
     ber = int(errors.sum()) / int(counted.sum())
     h, _ = fast.fade_state(cfg, 21, torch.arange(256, dtype=torch.int32))
     g2 = torch.broadcast_to(h.abs() ** 2, (256, 16, 64)).numpy()
@@ -302,8 +381,8 @@ def test_cl_layout_counts_equal_rows(model):
     """Both layouts see the same samples and channel; per-channel counts
     are equal, or differ by no more than the bits whose |LLR| < 1e-3."""
     cfg = _sel_cfg(model, PDP4, ebno_db=6.0, n_channels=40)
-    rows, _ = fast.fast_simulate(cfg, seed=3, layout="rows")
-    cl, _ = fast.fast_simulate(cfg, seed=3, layout="cl")
+    rows, _ = fast.fast_simulate(cfg, seed=3, device="cpu", layout="rows")
+    cl, _ = fast.fast_simulate(cfg, seed=3, device="cpu", layout="cl")
     assert int(rows.sum()) > 0
     torch.testing.assert_close(cl, rows, rtol=0, atol=0)
     re_t, im_t = fast.tx_channel_core(cfg, 3, torch.arange(40, dtype=torch.int32), layout="cl")

@@ -9,7 +9,8 @@ fixture, never at import. Run on a machine with an NVIDIA Hopper card:
 Tolerances: indices and counts exact (counts: or within the number of
 bits whose plain |LLR| < 1e-3); sample planes 1e-4 absolute (injected
 noise) and 1e-5 of the plane's peak (keyed noise; kernel B's FIR and
-kernel E in both modes); LLR sums 1e-4 relative.
+kernel E in both modes); LLR sums 1e-4 relative. Kernel G and kernel
+C's despread mode follow the count rule.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ from sdr_tpu_torch.kernels import _lib
 from sdr_tpu_torch.kernels import channel as ke
 from sdr_tpu_torch.kernels import demod as kc
 from sdr_tpu_torch.kernels import demod_cl as kd
+from sdr_tpu_torch.kernels import mc as kg
 from sdr_tpu_torch.kernels import payload as ka
 from sdr_tpu_torch.kernels import tx as kb
 from sdr_tpu_torch.link import fast
@@ -124,7 +126,7 @@ def test_fast_simulate_on_card_matches_cpu(dev, model):
                      channel=ChannelConfig(model=model, ebno_db=6.0), n_symbols=16,
                      n_channels=96)
     got, counted = fast.fast_simulate(cfg, 31, device=dev)
-    want, _ = fast.fast_simulate(cfg, 31)
+    want, _ = fast.fast_simulate(cfg, 31, device="cpu")
     ids = torch.arange(96, dtype=torch.int32)
     idx = fast.draw_idx(cfg, 31, ids)
     h, _ = fast.fade_state(cfg, 31, ids)
@@ -244,7 +246,7 @@ def test_selective_fast_simulate_on_card_matches_cpu(dev, model, layout):
                                            doppler_norm=0.02),
                      n_symbols=16, n_channels=64)
     got, _ = fast.fast_simulate(cfg, 17, device=dev, layout=layout)
-    want, _ = fast.fast_simulate(cfg, 17, layout=layout)
+    want, _ = fast.fast_simulate(cfg, 17, device="cpu", layout=layout)
     ids = torch.arange(64, dtype=torch.int32)
     h, _ = fast.fade_state(cfg, 17, ids)
     re, im = fast.tx_channel_core(cfg, 17, ids)
@@ -275,3 +277,133 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         kd.demod_count_cl(*(torch.zeros((80, 32), device=dev),) * 2,
                           *(torch.zeros((64, 32), device=dev),) * 2,
                           torch.zeros((64, 32), dtype=torch.int32, device=dev), 16, mod, 0.1)
+
+
+def _within_margin(got, llr, want):
+    margin = (llr.abs() < 1e-3).sum(dim=(1, 2))
+    assert bool(((got - want).abs() <= margin).all()), (got, want, margin)
+
+
+@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
+@pytest.mark.parametrize("n_fft,h_syms", [(64, 1), (256, 8), (4096, 1)])
+def test_demod_count_despread_kernel_matches_plain(dev, mod, n_fft, h_syms):
+    """Kernel C's despread mode (SC-FDE) against its plain version on an
+    SC-FDMA waveform through a per-subcarrier channel."""
+    B, S, cp = 24, 8, n_fft // 8
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    idx = ka.payload_idx(S, n_fft, mod.bits_per_symbol, 5, ids)
+    nv = 1.0 / (10 ** 1.0 * mod.bits_per_symbol)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    hr = (torch.randn((B, h_syms, n_fft), generator=g) * np.sqrt(0.5)).to(dev)
+    hi = (torch.randn((B, h_syms, n_fft), generator=g) * np.sqrt(0.5)).to(dev)
+    cfg = LinkConfig(modulation=mod, ofdm=OFDMConfig(n_fft, cp), n_symbols=S, n_channels=B,
+                     dft_spread=True)
+    x = torch.complex(*fast.scfdma_tx(cfg, idx))
+    y = torch.fft.ifft(torch.fft.fft(x[..., cp:]) * torch.complex(hr, hi))
+    y = torch.cat([y[..., -cp:], y], dim=-1) + 0.2 * torch.randn(y.shape[:-1] + (n_fft + cp,),
+                                                                  dtype=torch.complex64,
+                                                                  device=dev) * nv ** 0.5
+    re, im = y.real.contiguous(), y.imag.contiguous()
+    got = _counted("demod_count_despread",
+                   lambda: kc.demod_count(re, im, hr, hi, idx, cp, mod, nv, despread=True))
+    llr = kc.demod_chain(re, im, hr, hi, cp, mod, nv, despread=True)
+    want = kc.count_errors(llr, idx, mod.bits_per_symbol)
+    assert int(want.sum()) > 0
+    _within_margin(got, llr, want)
+
+
+_MC_MODELS = [
+    (ChannelModel.IDENTITY, {}), (ChannelModel.AWGN, {}), (ChannelModel.RAYLEIGH_FLAT, {}),
+    (ChannelModel.RICIAN, {}), (ChannelModel.RAYLEIGH_TIME, dict(doppler_norm=0.02)),
+    (ChannelModel.MULTIPATH, dict(pdp=(1.0, 0.5, 0.25, 0.125))),
+    (ChannelModel.MULTIPATH_TIME, dict(pdp=(1.0, 0.5, 0.25), doppler_norm=0.02)),
+]
+
+
+def _mc_cfg(model, channel, n_fft=256, mod=Modulation.QAM16, S=8, B=40, spread=False):
+    return LinkConfig(modulation=mod, ofdm=OFDMConfig(n_fft, n_fft // 4),
+                      channel=ChannelConfig(model=model, ebno_db=8.0, **channel), n_symbols=S,
+                      n_channels=B, dft_spread=spread)
+
+
+@pytest.mark.parametrize("model,channel", _MC_MODELS, ids=lambda v: getattr(v, "value", ""))
+@pytest.mark.parametrize("n_fft,spread", [(128, False), (256, True), (1024, False),
+                                          (4096, False)])
+def test_mc_kernel_keyed_matches_plain(dev, model, channel, n_fft, spread):
+    """Kernel G (keyed) against its plain twin on the same keys; S = 7
+    is not a multiple of the symbols per block."""
+    cfg = _mc_cfg(model, channel, n_fft, S=7, B=24, spread=spread)
+    ids = torch.arange(100, 124, dtype=torch.int32, device=dev)
+    got = _counted("mc_count", lambda: kg.mc_count(cfg, 2**31 + 77, ids))
+    llr, idx = kg.mc_llr_plain(cfg, 2**31 + 77, ids)
+    want = kg.count_errors(llr, idx, cfg.modulation.bits_per_symbol)
+    if model != ChannelModel.IDENTITY:
+        assert int(want.sum()) > 0
+    _within_margin(got, llr, want)
+
+
+@pytest.mark.parametrize("model,channel", _MC_MODELS, ids=lambda v: getattr(v, "value", ""))
+@pytest.mark.parametrize("mod", [Modulation.BPSK, Modulation.QAM64, Modulation.QAM1024],
+                         ids=lambda m: m.value)
+def test_mc_kernel_injected_matches_plain(dev, model, channel, mod):
+    cfg = _mc_cfg(model, channel, mod=mod, spread=model == ChannelModel.RAYLEIGH_FLAT)
+    B, S, N = 40, 8, 256
+    g = torch.Generator(device="cpu").manual_seed(9)
+    hs = kg.h_syms(cfg)
+    rand = (torch.randint(0, 1 << mod.bits_per_symbol, (B, S, N), generator=g,
+                          dtype=torch.int32),
+            torch.randn((B, S, N), generator=g), torch.randn((B, S, N), generator=g),
+            torch.randn((B, hs, N), generator=g), torch.randn((B, hs, N), generator=g))
+    rand = tuple(t.to(dev) for t in rand)
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    got = _counted("mc_count", lambda: kg.mc_count(cfg, 0, ids, rand_inputs=rand))
+    llr, idx = kg.mc_llr_plain(cfg, 0, ids, rand_inputs=rand)
+    _within_margin(got, llr, kg.count_errors(llr, idx, mod.bits_per_symbol))
+
+
+@pytest.mark.parametrize("model,channel", _MC_MODELS[1:], ids=lambda v: getattr(v, "value", ""))
+def test_mc_kernel_keyed_equals_fast_engine_on_card(dev, model, channel):
+    """A keyed pass of kernel G is the fast engine's link for the same
+    seed: per-channel counts equal but for near-zero LLRs."""
+    cfg = _mc_cfg(model, channel, B=64, S=16)
+    ids = torch.arange(64, dtype=torch.int32, device=dev)
+    got = kg.mc_count(cfg, 41, ids)
+    want, _ = fast.fast_simulate(cfg, 41, device=dev)
+    llr, _ = kg.mc_llr_plain(cfg, 41, ids)
+    assert int(want.sum()) > 0
+    _within_margin(got, llr, want)
+
+
+def test_mc_kernel_raises_on_unsupported(dev):
+    ids = torch.arange(4, dtype=torch.int32, device=dev)
+    for cfg in (_mc_cfg(ChannelModel.AWGN, {}, n_fft=64, B=4),
+                _mc_cfg(ChannelModel.AWGN, {}, n_fft=512, B=4, spread=True)):
+        with pytest.raises(ValueError):
+            kg.mc_count(cfg, 0, ids)
+    with pytest.raises(ValueError):
+        kg.mc_count(_mc_cfg(ChannelModel.AWGN, {}, B=4), 0, ids.to(torch.int64))
+
+
+@pytest.mark.parametrize("n_fft", [256, 1024])
+@pytest.mark.parametrize("model", [ChannelModel.AWGN, ChannelModel.MULTIPATH_TIME],
+                         ids=lambda m: m.value)
+def test_scfdma_fast_simulate_on_card_matches_cpu(dev, model, n_fft):
+    """Full-grid SC-FDMA through the fast engine on the card (plain TX,
+    kernel E, kernel C's despread) against the CPU run."""
+    cfg = LinkConfig(modulation=Modulation.QAM16, ofdm=OFDMConfig(n_fft, n_fft // 4),
+                     channel=ChannelConfig(model=model, ebno_db=10.0, pdp=(1.0, 0.5, 0.25),
+                                           doppler_norm=0.02),
+                     n_symbols=8, n_channels=32, dft_spread=True)
+    before = _lib.LAUNCHES["demod_count_despread"]
+    got, _ = fast.fast_simulate(cfg, 23, device=dev)
+    assert _lib.LAUNCHES["demod_count_despread"] == before + 1
+    want, _ = fast.fast_simulate(cfg, 23, device="cpu")
+    ids = torch.arange(32, dtype=torch.int32)
+    h, _ = fast.fade_state(cfg, 23, ids)
+    hb = (torch.ones((32, 1, 1), dtype=torch.complex64) if h is None else h).expand(
+        32, 1 if h is None else h.shape[1], n_fft)
+    re, im = fast.tx_channel_core(cfg, 23, ids)
+    llr = kc.demod_chain(re, im, hb.real, hb.imag, n_fft // 4, cfg.modulation,
+                         fast.noise_var(cfg), despread=True)
+    assert int(want.sum()) > 0
+    _within_margin(got.cpu(), llr, want)

@@ -11,7 +11,9 @@ Tolerances (stated before the comparison, from the JAX suite):
   apply_multipath → channel kernel) and for kernel E;
 - error counts: equal, or differing by no more than the number of bits
   whose plain |LLR| < 1e-3 (decisions that float rounding may flip);
-- LLR sums rtol = 1e-4 (float32 sums over ~1e4 terms in another order).
+- LLR sums rtol = 1e-4 (float32 sums over ~1e4 terms in another order);
+- the SC-FDE equalizer's symbols atol = 1e-5, rtol = 1e-6 (float32
+  transforms of unit-power symbols in another order).
 """
 
 import jax.numpy as jnp
@@ -25,11 +27,13 @@ from sdr_tpu.kernels.demod_cl_pallas import demod_cl_jnp, dif_perm as j_dif_perm
 from sdr_tpu.kernels.demod_pallas import demod_count_pallas
 from sdr_tpu.kernels.tx_pallas import tx_chain_pallas
 from sdr_tpu.ops import channel as jchan
+from sdr_tpu.ops.equalize import equalize_mmse_fde as j_equalize_mmse_fde
 from sdr_tpu_torch.core.config import Modulation
 from sdr_tpu_torch.kernels import channel as ke
 from sdr_tpu_torch.kernels import demod as kc
 from sdr_tpu_torch.kernels import demod_cl as kd
 from sdr_tpu_torch.kernels import tx as kb
+from sdr_tpu_torch.ops.equalize import equalize_mmse_fde
 
 torch.set_num_threads(1)
 
@@ -157,6 +161,54 @@ def test_demod_count_plain_per_symbol_channel_matches_jax(rng):
                              interpret=True)
     got = kc.demod_count(*_t(re, im, hr, hi, idx), cp, mod, nv)
     _assert_counts_agree(got, ref, kc.demod_chain(*_t(re, im, hr, hi), cp, mod, nv))
+
+
+def _scfdma_rx(rng, mod, B, S, N, cp, ebno_db, h_syms=1):
+    """A full-grid SC-FDMA waveform (the constellation sequence scaled by
+    N^-1/2, with the CP) through a per-subcarrier channel and noise."""
+    idx = _idx(rng, mod, (B, S, N))
+    from sdr_tpu_torch.ops.modulation import constellation
+
+    x = constellation(mod).numpy()[idx] / np.sqrt(N)
+    h = (rng.standard_normal((B, h_syms, N)) + 1j * rng.standard_normal((B, h_syms, N))) / np.sqrt(2)
+    y = np.fft.ifft(np.fft.fft(x, axis=-1) * h, axis=-1)
+    y = np.concatenate([y[..., N - cp:], y], axis=-1)
+    nv = 1.0 / (10 ** (ebno_db / 10) * mod.bits_per_symbol)
+    y = y + np.sqrt(nv / N / 2) * (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape))
+    return (np.real(y).astype(np.float32), np.imag(y).astype(np.float32),
+            np.real(h).astype(np.float32), np.imag(h).astype(np.float32), idx, nv)
+
+
+@pytest.mark.parametrize("h_syms", [1, 4])
+@pytest.mark.parametrize("mod", [Modulation.QPSK, Modulation.QAM16, Modulation.QAM64],
+                         ids=lambda m: m.value)
+def test_demod_count_despread_plain_matches_jax_count_kernel(rng, mod, h_syms):
+    """Kernel C's despread mode, plain version, against the JAX count
+    kernel with despread=True (interpret mode): the SC-FDE receive."""
+    B, S, N, cp = 128, 4, 128, 32
+    re, im, hr, hi, idx, nv = _scfdma_rx(rng, mod, B, S, N, cp, 8.0, h_syms)
+    ref = demod_count_pallas(*map(jnp.asarray, (re, im, hr, hi, idx)), cp, _jmod(mod), nv,
+                             interpret=True, despread=True)
+    got = kc.demod_count(*_t(re, im, hr, hi, idx), cp, mod, nv, despread=True)
+    assert got.dtype == torch.int32 and got.shape == (B,) and int(got.sum()) > 0
+    _assert_counts_agree(got, ref, kc.demod_chain(*_t(re, im, hr, hi), cp, mod, nv,
+                                                  despread=True))
+    with pytest.raises(ValueError, match="despread"):
+        kc.demod_count(*_t(re, im), None, None, *_t(idx), cp, mod, nv, despread=True,
+                       taps=_t(hr[:, :, :3], hi[:, :, :3]))
+
+
+@pytest.mark.parametrize("h_syms", [1, 8])
+def test_equalize_mmse_fde_matches_jax(rng, h_syms):
+    B, S, N = 3, 8, 64
+    y = (rng.standard_normal((B, S, N)) + 1j * rng.standard_normal((B, S, N))).astype(np.complex64)
+    h = ((rng.standard_normal((B, h_syms, N)) + 1j * rng.standard_normal((B, h_syms, N)))
+         / np.sqrt(2)).astype(np.complex64)
+    s_ref, eff_ref = j_equalize_mmse_fde(jnp.asarray(y), jnp.asarray(h), 0.05)
+    s, eff = equalize_mmse_fde(torch.from_numpy(y), torch.from_numpy(h), 0.05)
+    assert s.dtype == torch.complex64 and eff.shape == (B, S, 1)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), atol=1e-5, rtol=1e-6)
+    np.testing.assert_allclose(eff.numpy(), np.asarray(eff_ref), atol=1e-5, rtol=1e-6)
 
 
 def _cl_inputs(rng, B, S, N, cp):
