@@ -9,14 +9,18 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch's
    version and the kernels' build time;
-2. runs each kernel A–G and each mode (B's per-symbol gains, FIR and
-   channel-off TX, C's taps= and despread) against its plain torch
-   version on the card at the slice's shapes and prints both times (CUDA
-   events, after a warm-up, in turns plain, kernel, kernel, plain); then
-   holds the staged channel route (plain FIR + kernel E) against the
-   fused one (kernel B's FIR); kernel G in its injected and keyed modes
-   (five channels and SC-FDMA) with its bound and its share of it; C's
-   despread at config 2 and at config 5's shape;
+2. runs each kernel A–H and each mode (B's per-symbol gains, FIR and
+   channel-off TX, C's taps=, despread, LLR-plane and sum modes, F's LLR
+   mode in f32 and bf16) against its plain torch version on the card at
+   the slice's shapes and prints both times (CUDA events, after a
+   warm-up, in turns plain, kernel, kernel, plain); then holds the staged
+   channel route (plain FIR + kernel E) against the fused one (kernel B's
+   FIR); kernel G in its injected and keyed modes (five channels and
+   SC-FDMA) with its bound and its share of it; C's despread at config 2
+   and at config 5's shape; kernel H (min-sum decode, flooding 25 and
+   layered 13 iterations, rows and transposed layouts) on the coded
+   link's LLRs at config 2, 8192 × 64 (172,032 codewords of the rate-1/2
+   code): identical hard bits to the plain version;
 3. drives the keyed fast link (``fast_simulate``) at BASELINE config-2
    numerology (16-QAM, N = 256, CP = 64) with 8192 channels × 64
    symbols: AWGN at 10 dB against exact theory (within 5 %), flat
@@ -46,15 +50,32 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    point with ≥ 1e4 errors within 3 % of theory), resumed from its
    checkpoint with no launch of G, and one point each of config 3
    (engine "mc") and config 2 (engine "fast");
+   3g. the coded engine (``ldpc_fast_simulate``) at config 2, 8192 × 64,
+   rate 1/2: ms per call and info Mb/s of the staged and fused seams,
+   flooding 25 and layered 13 iterations, at RAYLEIGH_FLAT 6 dB, and
+   rates 2/3 and 3/4; gates: layered 13 within 30 % of flooding 25 in
+   info-bit errors, the seams within max(8, 1 %) at 9 dB, coded BER below
+   a third of the uncoded at AWGN 6 dB, channels [0, B/2) alone equal to
+   the full run, and the engine with every kernel swapped for its plain
+   version on 512 channels, held at the decoder: its input LLRs within
+   1e-4 of their peak, H equal to the plain decoder on them, info bits
+   decoded differently only in codewords holding a plain |LLR| < 1e-3,
+   totals within max(8, 0.1 %);
+   3h. the LLR-plane terminals a user calls (``demod_llr_chain_cl`` f32
+   and bf16, ``demod_chain`` plane, sum and despread) at 8192 × 64;
 5. checks that each path launched every kernel and mode of its slice
    (the counters are zeroed just before phase 3 and read after phase 4
    for kernels A–F, zeroed again before phase 3d and read after 3f for
-   G and C's despread) and prints one JSON line per kernel set, with
-   each kernel's bound (bytes over 3.35 TB/s or f32 operations over
-   67 TFLOP/s, the H100 SXM data sheet) and its launches in each window
-   (``launches_fast``, ``launches_mc``; ``launches`` is the window of
-   its own path, the one checked), then ``{"ok": true, "device":
-   {...}}`` as the last line.
+   G and C's despread, again before 3g and read after it for H and the
+   LLR modes the coded engine runs (C's plane, F's f32), and again
+   before 3h and read after it for the modes only the terminals run
+   (C's sum and despread, F's bf16)) and prints one JSON line per kernel
+   set, with each kernel's bound (bytes over 3.35 TB/s or f32 operations
+   over 67 TFLOP/s, the H100 SXM data sheet) and its launches in each
+   window (``launches_fast``, ``launches_mc``, ``launches_coded``,
+   ``launches_terminals``; ``launches`` is the window of its own path,
+   the one checked), then ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. It imports nothing of JAX.
@@ -62,6 +83,7 @@ device it exits 1 before printing any result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -74,6 +96,30 @@ import time
 # The H100 SXM's published peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+
+SEED = 20261016
+
+# The coded cell's seam × schedule variants (phase 3g times them,
+# ``profile_coded.py`` profiles them).
+CODED_VARIANTS = (("staged", "flooding", 25), ("fused", "flooding", 25),
+                  ("staged", "layered", 13), ("fused", "layered", 13))
+
+
+def coded_cell(n_channels: int = 8192):
+    """The coded cell's link (root PERF.md §4, coded-config2): BASELINE
+    config 2 (16-QAM, N = 256, CP 64), 64 symbols, RAYLEIGH_FLAT 6 dB;
+    the engine runs it at rate 1/2."""
+    from sdr_tpu_torch.core.config import (
+        ChannelConfig,
+        ChannelModel,
+        LinkConfig,
+        Modulation,
+        OFDMConfig,
+    )
+
+    return LinkConfig(modulation=Modulation.QAM16, ofdm=OFDMConfig(n_fft=256, cp_len=64),
+                      channel=ChannelConfig(model=ChannelModel.RAYLEIGH_FLAT, ebno_db=6.0),
+                      n_symbols=64, n_channels=n_channels)
 
 
 def _fail(msg: str):
@@ -158,14 +204,19 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     from sdr_tpu_torch.kernels import channel as ke
     from sdr_tpu_torch.kernels import demod as kc
     from sdr_tpu_torch.kernels import demod_cl as kd
+    from sdr_tpu_torch.kernels import ldpc as kh
     from sdr_tpu_torch.kernels import mc as kg
     from sdr_tpu_torch.kernels import payload as ka
     from sdr_tpu_torch.kernels import tx as kb
-    from sdr_tpu_torch.link import fast, mc
+    from sdr_tpu_torch.core import prng
+    from sdr_tpu_torch.link import fast, fast_coded, mc
+    from sdr_tpu_torch.link.coded import ldpc_code_for, ldpc_codewords_per_channel
     from sdr_tpu_torch.link.ber import ber_awgn_exact, ber_rayleigh_exact
     from sdr_tpu_torch.obs.sweep import ebno_sweep
     from sdr_tpu_torch.ops import channel as chan
-    from sdr_tpu_torch.ops.demod import demod_sum_chain_cl
+    from sdr_tpu_torch.ops.demod import demod_chain, demod_llr_chain_cl, demod_sum_chain_cl
+    from sdr_tpu_torch.ops.interleave import deinterleave, interleave
+    from sdr_tpu_torch.ops.ldpc import ldpc_encode
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -209,7 +260,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     mod = Modulation.QAM16
     N, CP, S = 256, 64, 64
     bps = mod.bits_per_symbol
-    seed = 20261016
+    seed = SEED
     ids = torch.arange(B, dtype=torch.int32, device=dev)
     report = {}
 
@@ -297,7 +348,54 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     print(f"phase 2 C demod+count ({B}x{S}x{N + CP}): {int(cnt.sum())} errors, plain "
           f"{int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} "
           f"(allowed {int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
+
+    # C's LLR-plane mode on the same waveform: within 1e-4 of the plane's peak.
+    def llr_check(label, got, want):
+        err, peak = float((got.float() - want).abs().max()), float(want.abs().max())
+        _check(err <= 1e-4 * peak, f"{label}: max abs diff {err:g} > 1e-4 of the peak {peak:g}")
+        return err, peak
+
+    c_err, c_peak = llr_check("kernel C llr", kc.demod_llr(re, im, hr, hi, CP, mod, nv10),
+                              kc.demod_chain(re, im, hr, hi, CP, mod, nv10))
+    ms, pms = compare_times(lambda: kc.demod_llr(re, im, hr, hi, CP, mod, nv10),
+                            lambda: kc.demod_chain(re, im, hr, hi, CP, mod, nv10), reps=1)
+    c_flops = nrow * (fft_flops(N) + N * tail_flops(mod))
+    report["demod_llr"] = dict(max_abs_err=c_err, ms=ms, plain_ms=pms,
+                               **bound(8 * nrow * (N + CP) + 8 * B * N + 4 * nrow * N * bps,
+                                       c_flops))
+    print(f"phase 2 C llr plane ({B}x{S}x{N * bps} f32): max abs diff {c_err:.3g} (peak "
+          f"{c_peak:.3g}, allowed 1e-4 of it); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
+          f"{report['demod_llr']['bound_ms']:.4f} ms ({report['demod_llr']['bound_by']})")
     del re, im, hr, hi, cnt, cnt_plain
+
+    # C's sum mode, and its despread form, on bench.py-style rows inputs
+    # (noise-like samples, Rayleigh h per link), whose LLR sum does not
+    # cancel: within 1e-5 relative of the plain sum, the same bits twice.
+    gen_c = torch.Generator(device=dev).manual_seed(seed + 1)
+    sr, si = (torch.randn((B, S, N + CP), device=dev, generator=gen_c) * (1.0 / (2 * N) ** 0.5)
+              for _ in range(2))
+    shr, shi = (torch.randn((B, 1, N), device=dev, generator=gen_c) * 0.5 ** 0.5 for _ in range(2))
+    for name, desp in (("demod_sum", False), ("demod_sum_despread", True)):
+        tot_c = float(kc.demod_llr(sr, si, shr, shi, CP, mod, nv10, reduce_sum=True,
+                                   despread=desp))
+        tot_p = float(kc.demod_chain(sr, si, shr, shi, CP, mod, nv10, reduce_sum=True,
+                                     despread=desp))
+        s_err = abs(tot_c - tot_p)
+        _check(s_err <= 1e-5 * abs(tot_p), f"kernel C {name} {tot_c!r} vs plain {tot_p!r}")
+        _check(float(kc.demod_llr(sr, si, shr, shi, CP, mod, nv10, reduce_sum=True,
+                                  despread=desp)) == tot_c, f"kernel C {name} is not deterministic")
+        ms, pms = compare_times(
+            lambda: kc.demod_llr(sr, si, shr, shi, CP, mod, nv10, reduce_sum=True, despread=desp),
+            lambda: kc.demod_chain(sr, si, shr, shi, CP, mod, nv10, reduce_sum=True,
+                                   despread=desp), reps=1)
+        flops = c_flops + (nrow * (fft_flops(N) + 20 * N) if desp else 0)
+        report[name] = dict(max_abs_err=s_err, ms=ms, plain_ms=pms,
+                            **bound(8 * nrow * (N + CP) + 8 * B * N + 4, flops))
+        print(f"phase 2 C {'despread ' if desp else ''}sum ({B}x{S}x{N + CP}): {tot_c:.9g}, "
+              f"plain {tot_p:.9g}, rel diff {s_err / abs(tot_p):.3g} (allowed 1e-5), "
+              f"deterministic; kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
+              f"{report[name]['bound_ms']:.4f} ms ({report[name]['bound_by']})")
+    del sr, si, shr, shi
 
     def check_modes(label, kernel_fn, plain_fn, noise_shape):
         """Injected noise, then keyed: max abs diff ≤ 1e-5 of the peak;
@@ -428,7 +526,38 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     print(f"phase 2 F demod+count channels-last ({S * (N + CP)}x{B}): {int(cnt.sum())} errors, "
           f"plain {int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} (allowed "
           f"{int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    del re_t, im_t, idx_t, cnt, cnt_plain, llr, idx, h, hs_r, hs_i, g_sym, gs_r, gs_i, taps3
+    del llr
+
+    # F's LLR mode (kernel order) on the same waveform: f32 within 1e-4 of
+    # the peak; bf16 sign-identical to f32 wherever |LLR| >= 1e-3 and
+    # within bf16's rounding (2^-8 relative) of it.
+    got = kd.demod_llr_cl(re_t, im_t, hr_c, hi_c, CP, mod, nv14)
+    f_err, f_peak = llr_check("kernel F llr", got,
+                              kd.demod_llr_cl_plain(re_t, im_t, hr_c, hi_c, CP, mod, nv14))
+    half = kd.demod_llr_cl(re_t, im_t, hr_c, hi_c, CP, mod, nv14, out_dtype=torch.bfloat16)
+    big = got.abs() >= 1e-3
+    _check(torch.equal((half.float() < 0)[big], (got < 0)[big]),
+           "kernel F bf16 LLR signs differ from f32 where |LLR| >= 1e-3")
+    h_err = float((half.float() - got).abs().max())
+    _check(float(((half.float() - got).abs() - got.abs() * 2.0 ** -8).max()) <= 0.0,
+           "kernel F bf16 LLRs are not the f32 plane rounded")
+    del got, half, big
+    f_bytes = 8 * nrow * (N + CP) + 8 * N * B
+    f_flops = nrow * (fft_flops(N) + N * tail_flops(mod))
+    for name, dt, err in (("demod_llr_cl", torch.float32, f_err),
+                          ("demod_llr_cl_bf16", torch.bfloat16, h_err)):
+        ms, pms = compare_times(
+            lambda: kd.demod_llr_cl(re_t, im_t, hr_c, hi_c, CP, mod, nv14, out_dtype=dt),
+            lambda: kd.demod_llr_cl_plain(re_t, im_t, hr_c, hi_c, CP, mod, nv14, out_dtype=dt),
+            reps=1)
+        report[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                            **bound(f_bytes + (4 if dt == torch.float32 else 2) * nrow * N * bps,
+                                    f_flops))
+        print(f"phase 2 F llr channels-last {str(dt)[6:]} ({S * bps * N}x{B}): max abs diff "
+              f"{err:.3g} ({'vs plain, peak ' + format(f_peak, '.3g') if dt == torch.float32 else 'vs the f32 kernel plane'}); "
+              f"kernel {ms:.3f} ms, plain {pms:.3f} ms; bound {report[name]['bound_ms']:.4f} ms "
+              f"({report[name]['bound_by']})")
+    del re_t, im_t, idx_t, cnt, cnt_plain, idx, h, hs_r, hs_i, g_sym, gs_r, gs_i, taps3
     torch.cuda.empty_cache()
 
     # D: channels-last demod-sum at the headline bench's shape (bench.py's
@@ -484,6 +613,30 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                            + n * (10 + tail_flops(cfg.modulation)))
                  + h_builds * 8 * taps * n)
         return bound(n_bytes, flops)
+
+    def coded_llrs(cfg, code, n_cw):
+        """The coded link's deinterleaved LLRs (B·n_cw, n) and its info
+        bits (B, n_cw, k), built as the engine's staged seam builds them
+        (the plain demod on the keyed waveform)."""
+        b = cfg.n_channels
+        ids_c = ids[:b]
+        info = prng.info_bits(seed, ids_c, n_cw, code.k)
+        frame = torch.zeros((b, S * N * bps), dtype=torch.int8, device=dev)
+        frame[:, :n_cw * code.n] = ldpc_encode(code, info).reshape(b, -1)
+        idx_c = fast_coded._frame_to_idx(interleave(frame), bps).reshape(b, S, N)
+        del frame
+        h_c, _ = fast.fade_state(cfg, seed, ids_c)
+        re_c, im_c = fast.tx_with_channel(cfg, seed, ids_c, idx_c, h=h_c)
+        hb = h_c.expand(b, 1, N)
+        llr = kc.demod_chain(re_c, im_c, hb.real.contiguous(), hb.imag.contiguous(), CP, mod,
+                             fast.noise_var(cfg)).reshape(b, -1)
+        return deinterleave(llr)[:, :n_cw * code.n].reshape(-1, code.n).contiguous(), info
+
+    def h_bound(code, n_cws, iters):
+        """Kernel H's bound: n·4 bytes read and n bytes written per
+        codeword; 10 operations per edge per lifted row per iteration."""
+        n_e = len(kh.edge_lists(code)[0])
+        return bound(n_cws * code.n * 5, n_cws * n_e * code.z * iters * 10.0)
 
     for label, cfg_g, inject in (
         ("injected RAYLEIGH_FLAT", link_cfg(ChannelModel.RAYLEIGH_FLAT, 12.0), True),
@@ -550,6 +703,24 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         llr = kc.demod_chain(re, im, hr_d, hi_d, cp_d, mod, nv_d, despread=True)
         cnt_plain = kc.count_errors(llr, idx_d, bps)
         margin = count_margin(llr)
+        if n_d == N:
+            # C's despread LLR plane on the same waveform.
+            rows_d = cfg_d.n_channels * s_d
+            d_err, d_peak = llr_check(
+                "kernel C despread llr",
+                kc.demod_llr(re, im, hr_d, hi_d, cp_d, mod, nv_d, despread=True), llr)
+            ms, pms = compare_times(
+                lambda: kc.demod_llr(re, im, hr_d, hi_d, cp_d, mod, nv_d, despread=True),
+                lambda: kc.demod_chain(re, im, hr_d, hi_d, cp_d, mod, nv_d, despread=True),
+                reps=1)
+            report["demod_llr_despread"] = dict(
+                max_abs_err=d_err, ms=ms, plain_ms=pms,
+                **bound(8 * rows_d * (n_d + cp_d) + 8 * cfg_d.n_channels * n_d
+                        + 4 * rows_d * n_d * bps,
+                        rows_d * (2 * fft_flops(n_d) + n_d * (tail_flops(mod) + 20))))
+            print(f"phase 2 C despread llr plane {label}: max abs diff {d_err:.3g} (peak "
+                  f"{d_peak:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
+                  f"{report['demod_llr_despread']['bound_ms']:.4f} ms")
         del llr
         diff = (cnt - cnt_plain).abs()
         _check(int(cnt_plain.sum()) > 0, f"kernel C despread {label}: no errors")
@@ -571,6 +742,46 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
               f"{int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
               f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         del re, im, cnt, cnt_plain, idx_d, h_d, hr_d, hi_d
+    torch.cuda.empty_cache()
+
+    # H: min-sum decode of the coded link's LLRs (config 2, RAYLEIGH_FLAT
+    # 6 dB, rate 1/2: 21 codewords per channel), both schedules and both
+    # layouts: identical hard bits to the plain version.
+    code = ldpc_code_for("1/2")
+    cfg_h = coded_cell(B)
+    n_cw = ldpc_codewords_per_channel(cfg_h, code)
+    llr_h, info_h = coded_llrs(cfg_h, code, n_cw)
+    n_cws = B * n_cw
+    for schedule, iters in (("flooding", 25), ("layered", 13)):
+        want = kh.ldpc_decode_plain(code, llr_h, iters, 0.5, schedule)
+        got = kh.ldpc_decode(code, llr_h, iters, 0.5, schedule)
+        n_diff = int((got != want).sum())
+        llr_t = llr_h.T.contiguous()
+        got_t = kh.ldpc_decode(code, llr_t, iters, 0.5, schedule, transposed=True)
+        n_diff_t = int((got_t.T != want).sum())
+        _check(n_diff == 0 and n_diff_t == 0,
+               f"kernel H {schedule}: {n_diff} (rows) / {n_diff_t} (transposed) hard bits differ")
+        info_err = int((want[:, :code.k].reshape(B, n_cw, code.k) != info_h).sum())
+        del want, got, got_t
+        ms, pms = compare_times(lambda: kh.ldpc_decode(code, llr_h, iters, 0.5, schedule),
+                                lambda: kh.ldpc_decode_plain(code, llr_h, iters, 0.5, schedule),
+                                reps=1)
+        ms_t, pms_t = compare_times(
+            lambda: kh.ldpc_decode(code, llr_t, iters, 0.5, schedule, transposed=True),
+            lambda: kh.ldpc_decode_plain(code, llr_t, iters, 0.5, schedule, transposed=True),
+            reps=1)
+        del llr_t
+        bnd = h_bound(code, n_cws, iters)
+        report[kh.counter_name(schedule, False)] = dict(max_abs_err=float(n_diff), ms=ms,
+                                                        plain_ms=pms, **bnd)
+        report[kh.counter_name(schedule, True)] = dict(max_abs_err=float(n_diff_t), ms=ms_t,
+                                                       plain_ms=pms_t, **bnd)
+        print(f"phase 2 H ldpc_minsum {schedule} {iters} iterations ({n_cws} codewords of "
+              f"n {code.n}, {len(kh.edge_lists(code)[0])} edges): hard bits identical to plain "
+              f"in both layouts ({info_err} info-bit errors); rows kernel {ms:.3f} ms, plain "
+              f"{pms:.3f} ms; transposed kernel {ms_t:.3f} ms, plain {pms_t:.3f} ms; bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), {bnd['bound_ms'] / ms:.3f} of it")
+    del llr_h, info_h
     torch.cuda.empty_cache()
 
     # ---- phase 3: the slice, counters zeroed just before ------------------
@@ -849,12 +1060,220 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         print(f"phase 3f sweep {engine} {label}: BER {pt.ber:.6g}, theory {th_p:.6g} "
               f"({pt.bit_errors} errors, {pt.batches} invocations)")
 
-    # ---- counters and result ------------------------------------------------
     launches_mc = dict(_lib.LAUNCHES)  # phases 3d-3f: the Monte-Carlo engine and the sweep
+
+    # ---- phase 3g: the coded engine, counters zeroed just before -------------
+    _lib.reset_launches()
+
+    def run_coded(cfg, ch=None, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if ch is None:
+            errors, counted = fast_coded.ldpc_fast_simulate(cfg, seed, device=dev, **kw)
+        else:
+            errors, counted = fast_coded.ldpc_fast_core(cfg, seed, ch, **kw)
+        torch.cuda.synchronize()
+        return errors, counted, time.perf_counter() - t
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        """Every kernel wrapper on the coded engine's path swapped for its
+        plain version (the module attributes the engine calls through),
+        restored on exit."""
+        def llr_cl_plain(re_t, im_t, hr_t, hi_t, cp_len, mod_, nv, out_dtype=torch.float32,
+                         h_in_dif_order=False):
+            return kd.demod_llr_cl_plain(re_t, im_t, *kd.h_natural(hr_t, hi_t, h_in_dif_order),
+                                         cp_len, mod_, nv, out_dtype)
+
+        swaps = [(kb, "tx_channel", kb.tx_channel_plain),
+                 (kb, "tx_chain", lambda idx_, cp_len, mod_: kb.tx_channel_plain(idx_, cp_len,
+                                                                                  mod_)),
+                 (fast, "fade_awgn", ke.fade_awgn_plain), (kc, "demod_llr", kc.demod_chain),
+                 (kd, "demod_llr_cl", llr_cl_plain), (kh, "ldpc_decode", kh.ldpc_decode_plain)]
+        saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+        for m, name, fn in swaps:
+            setattr(m, name, fn)
+        try:
+            yield
+        finally:
+            for m, name, fn in saved:
+                setattr(m, name, fn)
+
+    @contextlib.contextmanager
+    def decoder_io(calls):
+        """Record each call of the decoder wrapper the engine calls
+        through (kernel H, or its plain version inside plain_kernels): its
+        input LLRs, its hard bits and its arguments, in the decoder's
+        layout; restored on exit."""
+        inner = kh.ldpc_decode
+
+        def recording(code_, llr, *args, **kwargs):
+            out = inner(code_, llr, *args, **kwargs)
+            calls.append((llr.clone(), out, args, kwargs))
+            return out
+
+        kh.ldpc_decode = recording
+        try:
+            yield
+        finally:
+            kh.ldpc_decode = inner
+
+    def ber_of_run(errors, counted):
+        return int(errors.sum(dtype=torch.int64)) / int(counted.sum(dtype=torch.int64))
+
+    code = ldpc_code_for("1/2")
+    info_per_call = B * n_cw * code.k
+    fast_coded.ldpc_fast_simulate(coded_cell(128), seed, device=dev)  # warm-up
+    cfg_c6 = coded_cell(B)
+    variants = list(CODED_VARIANTS)
+    for seam, schedule, iters in variants:  # warm-up at full size: the times below are warm
+        run_coded(cfg_c6, seam=seam, schedule=schedule, iters=iters)
+    coded_runs = {v: [] for v in variants}
+    for rep in range(3):
+        for v in (variants if rep % 2 == 0 else variants[::-1]):
+            coded_runs[v].append(run_coded(cfg_c6, seam=v[0], schedule=v[1], iters=v[2]))
+    coded_ms = {}
+    for v in variants:
+        errors, counted, _ = coded_runs[v][0]
+        for e2, _, _ in coded_runs[v][1:]:
+            _check(torch.equal(e2, errors), f"coded {v}: repeated runs differ")
+        t_c = sorted(r[2] for r in coded_runs[v])[1]
+        coded_ms[v] = t_c * 1e3
+        print(f"phase 3g ldpc_fast_simulate {B}x{S} config 2 rate 1/2 RAYLEIGH_FLAT 6 dB "
+              f"seam={v[0]} {v[1]} {v[2]} iterations: {t_c * 1e3:.3f} ms per call (median of 3, "
+              f"in turns), {info_per_call / t_c / 1e6:.3f} Mb/s info; info BER "
+              f"{ber_of_run(errors, counted):.6g} ({int(errors.sum())} errors of "
+              f"{int(counted.sum(dtype=torch.int64))}) on {card}")
+    e_f = int(coded_runs[("staged", "flooding", 25)][0][0].sum())
+    e_l = int(coded_runs[("staged", "layered", 13)][0][0].sum())
+    _check(e_f > 0 and abs(e_l - e_f) <= 0.3 * e_f,
+           f"layered 13 iterations {e_l} info-bit errors vs flooding 25 {e_f} (> 30 %)")
+    # The same gate in AWGN at 1.8 dB, on the code's waterfall (where the
+    # schedules, not the deep fades, decide which codewords fail).
+    cfg_w = link_cfg(ChannelModel.AWGN, 1.8)
+    e_wf = int(run_coded(cfg_w, seam="staged")[0].sum())
+    e_wl = int(run_coded(cfg_w, seam="staged", schedule="layered", iters=13)[0].sum())
+    _check(e_wf > 0 and abs(e_wl - e_wf) <= 0.3 * e_wf,
+           f"AWGN 1.8 dB: layered 13 iterations {e_wl} info-bit errors vs flooding 25 {e_wf}")
+    print(f"phase 3g gate: layered 13 iterations vs flooding 25, info-bit errors: RAYLEIGH_FLAT "
+          f"6 dB {e_l} / {e_f} (ratio {e_l / e_f:.4f}), AWGN 1.8 dB {e_wl} / {e_wf} (ratio "
+          f"{e_wl / e_wf:.4f}); allowed 0.7-1.3")
+    for rate in ("2/3", "3/4"):
+        run_coded(cfg_c6, rate=rate, seam="staged")
+        errors, counted, t_r = run_coded(cfg_c6, rate=rate, seam="staged")
+        k_r = ldpc_code_for(rate).k
+        n_r = ldpc_codewords_per_channel(cfg_c6, ldpc_code_for(rate))
+        print(f"phase 3g ldpc_fast_simulate rate {rate} seam=staged flooding 25: "
+              f"{t_r * 1e3:.3f} ms per call, {B * n_r * k_r / t_r / 1e6:.3f} Mb/s info; info BER "
+              f"{ber_of_run(errors, counted):.6g}")
+    cfg_c9 = link_cfg(ChannelModel.RAYLEIGH_FLAT, 9.0)
+    e_s9, c9, _ = run_coded(cfg_c9, seam="staged")
+    e_f9, _, _ = run_coded(cfg_c9, seam="fused")
+    ds, dfu = int(e_s9.sum()), int(e_f9.sum())
+    _check(0 < ds and abs(ds - dfu) <= max(8, ds // 100),
+           f"seams disagree at RAYLEIGH_FLAT 9 dB: staged {ds}, fused {dfu}")
+    cfg_a6 = link_cfg(ChannelModel.AWGN, 6.0)
+    e_c, c_c, _ = run_coded(cfg_a6)
+    e_u, c_u = fast.fast_simulate(cfg_a6, seed, device=dev)
+    ber_c, ber_u = ber_of_run(e_c, c_c), ber_of_run(e_u, c_u)
+    _check(ber_c < ber_u / 3, f"coded BER {ber_c:g} not below uncoded {ber_u:g} / 3 at AWGN 6 dB")
+    half = B // 2
+    e_full, _, _ = run_coded(cfg_c6)
+    e_part, _, _ = run_coded(cfg_c6, ch=ids[:half])
+    _check(torch.equal(e_part, e_full[:half]), "coded: channels [0, B/2) alone differ from full")
+    print(f"phase 3g gates: seams at RAYLEIGH_FLAT 9 dB staged {ds} / fused {dfu} info-bit errors "
+          f"(allowed diff {max(8, ds // 100)}); AWGN 6 dB coded BER {ber_c:.6g} vs uncoded "
+          f"{ber_u:.6g} (< 1/3 of it); split [0, {half}) == full (seam auto)")
+    # The engine against itself with every kernel swapped for its plain
+    # version, held at the decoder's seam: its input LLRs within C's / F's
+    # tolerance (every kernel before H, the gathers and the encoder); H's
+    # hard bits equal to the plain decoder's on that same input; then,
+    # codeword by codeword, info bits decoded differently only in
+    # codewords that hold a plain |LLR| < 1e-3; totals within max(8, 0.1 %).
+    n_p = min(512, B)
+    cfg_p = coded_cell(n_p)
+    for seam in ("staged", "fused"):
+        io_k, io_p = [], []
+        with decoder_io(io_k):
+            e_k, _ = fast_coded.ldpc_fast_simulate(cfg_p, seed, seam=seam, device=dev)
+        before = dict(_lib.LAUNCHES)
+        with plain_kernels(), decoder_io(io_p):
+            e_p, _ = fast_coded.ldpc_fast_simulate(cfg_p, seed, seam=seam, device=dev)
+        _check(dict(_lib.LAUNCHES) == before, "the plain engine launched a kernel")
+        _check(len(io_k) == 1 and len(io_p) == 1, f"coded {seam}: one decoder call expected")
+        (llr_k, hard_k, args, kwargs), (llr_p, hard_p, _, _) = io_k[0], io_p[0]
+        peak = float(llr_p.abs().max())
+        llr_err = float((llr_k - llr_p).abs().max())
+        _check(llr_err <= 1e-4 * peak,
+               f"coded {seam}: decoder input {llr_err:g} from plain (peak {peak:g})")
+        _check(torch.equal(hard_k, kh.ldpc_decode_plain(code, llr_k, *args, **kwargs)),
+               f"coded {seam}: kernel H differs from the plain decoder on the engine's LLRs")
+        pos = 0 if kwargs.get("transposed", False) else 1  # the axis of a codeword's n bits
+        info_k, info_p = (h.narrow(pos, 0, code.k) for h in (hard_k, hard_p))
+        differs = (info_k != info_p).any(dim=pos)
+        near = (llr_p.abs() < 1e-3).any(dim=pos)
+        n_far = int((differs & ~near).sum())
+        _check(n_far == 0, f"coded {seam}: {n_far} codewords with no near-zero LLR decode "
+                           f"differently from plain")
+        tot_k, tot_p = int(e_k.sum()), int(e_p.sum())
+        _check(abs(tot_k - tot_p) <= max(8, tot_p // 1000),
+               f"coded {seam}: info-bit errors {tot_k} vs plain {tot_p}")
+        print(f"phase 3g gate: the engine with every kernel swapped for its plain version, "
+              f"{n_p} channels, seam={seam}: decoder input max abs diff {llr_err:.3g} (peak "
+              f"{peak:.4g}, allowed 1e-4 of it); H on it equal to plain; {int(differs.sum())} of "
+              f"{differs.numel()} codewords decode differently, each holding a plain |LLR| < 1e-3 "
+              f"({int(near.sum())} hold one); totals {tot_k} / {tot_p} info-bit errors (allowed "
+              f"diff {max(8, tot_p // 1000)})")
+        del io_k, io_p, llr_k, llr_p, hard_k, hard_p, info_k, info_p
+    del e_full, e_part, e_c, e_u
+    torch.cuda.empty_cache()
+    launches_coded = dict(_lib.LAUNCHES)  # phase 3g: the coded engine
+
+    # ---- phase 3h: the LLR-plane terminals a user calls, counters zeroed -----
+    _lib.reset_launches()
+    gen_t = torch.Generator(device=dev).manual_seed(seed + 2)
+    tr, ti = (torch.randn((B, S, N + CP), device=dev, generator=gen_t) * (1.0 / (2 * N) ** 0.5)
+              for _ in range(2))
+    thr, thi = (torch.randn((B, 1, N), device=dev, generator=gen_t) * 0.5 ** 0.5 for _ in range(2))
+    tr_t, ti_t = fast._to_cl(tr, ti)
+    thr_t, thi_t = thr[:, 0, :].T.contiguous(), thi[:, 0, :].T.contiguous()
+    terminals = [
+        ("demod_llr_chain_cl f32, kernel order",
+         lambda: demod_llr_chain_cl(tr_t, ti_t, thr_t, thi_t, CP, mod, nv10, kernel_order=True)),
+        ("demod_llr_chain_cl bf16, kernel order",
+         lambda: demod_llr_chain_cl(tr_t, ti_t, thr_t, thi_t, CP, mod, nv10,
+                                    out_dtype=torch.bfloat16, kernel_order=True)),
+        ("demod_chain llr plane", lambda: demod_chain(tr, ti, thr, thi, CP, mod, nv10)),
+        ("demod_chain sum", lambda: demod_chain(tr, ti, thr, thi, CP, mod, nv10, reduce_sum=True)),
+        ("demod_chain despread llr plane",
+         lambda: demod_chain(tr, ti, thr, thi, CP, mod, nv10, despread=True)),
+        ("demod_chain despread sum",
+         lambda: demod_chain(tr, ti, thr, thi, CP, mod, nv10, reduce_sum=True, despread=True)),
+    ]
+    for label, fn in terminals:
+        out = fn()
+        _check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite output")
+        del out
+        ms_t = timed(fn, 5)
+        print(f"phase 3h {label} ({B}x{S}x{N + CP} f32 in): {ms_t:.3f} ms per call, "
+              f"{B * S * (N + CP) / (ms_t * 1e-3) / 1e9:.3f} GS/s on {card}")
+    del tr, ti, thr, thi, tr_t, ti_t, thr_t, thi_t
+    torch.cuda.empty_cache()
+
+    # ---- counters and result ------------------------------------------------
+    launches_terminals = dict(_lib.LAUNCHES)  # phase 3h: the LLR-plane terminals
     mc_path = ("mc_count", "demod_count_despread")
-    own = {name: launches_mc[name] if name in mc_path else launches[name] for name in launches}
+    coded_path = ("demod_llr", "demod_llr_cl", "ldpc_minsum", "ldpc_minsum_layered",
+                  "ldpc_minsum_t", "ldpc_minsum_t_layered")
+    terminal_path = ("demod_sum", "demod_llr_despread", "demod_sum_despread",
+                     "demod_llr_cl_bf16")
+    windows = ((coded_path, launches_coded), (terminal_path, launches_terminals),
+               (mc_path, launches_mc))
+    own = {name: next((w[name] for path, w in windows if name in path), launches[name])
+           for name in launches}
     for name, n in own.items():
         _check(n > 0, f"kernel {name} was not launched on the main path")
+    c_rows = "sdr_tpu/kernels/demod_pallas.py:398"
     sources = {
         "payload": ("sdr_tpu_torch/csrc/payload.cu", "sdr_tpu/kernels/channel_pallas.py:233"),
         "tx": ("sdr_tpu_torch/csrc/tx.cu", "sdr_tpu/kernels/tx_pallas.py:329"),
@@ -870,10 +1289,25 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         "demod_count_cl": ("sdr_tpu_torch/csrc/demod_cl.cu",
                            "sdr_tpu/kernels/demod_cl_pallas.py:741"),
         "mc_count": ("sdr_tpu_torch/csrc/mc.cu", "sdr_tpu/kernels/mc_pallas.py:229"),
+        "demod_llr": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
+        "demod_sum": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
+        "demod_llr_despread": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
+        "demod_sum_despread": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
+        "demod_llr_cl": ("sdr_tpu_torch/csrc/demod_cl.cu",
+                         "sdr_tpu/kernels/demod_cl_pallas.py:753"),
+        "demod_llr_cl_bf16": ("sdr_tpu_torch/csrc/demod_cl.cu",
+                              "sdr_tpu/kernels/demod_cl_pallas.py:753"),
+        "ldpc_minsum": ("sdr_tpu_torch/csrc/ldpc.cu", "sdr_tpu/kernels/ldpc_pallas.py:49"),
+        "ldpc_minsum_layered": ("sdr_tpu_torch/csrc/ldpc.cu",
+                                "sdr_tpu/kernels/ldpc_pallas.py:197"),
+        "ldpc_minsum_t": ("sdr_tpu_torch/csrc/ldpc.cu", "sdr_tpu/kernels/ldpc_pallas.py:370"),
+        "ldpc_minsum_t_layered": ("sdr_tpu_torch/csrc/ldpc.cu",
+                                  "sdr_tpu/kernels/ldpc_pallas.py:370"),
     }
     kernels = [
         dict(name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],
              launches=own[name], launches_fast=launches[name], launches_mc=launches_mc[name],
+             launches_coded=launches_coded[name], launches_terminals=launches_terminals[name],
              **{"library_ms": None, **report[name]})
         for name in sources
     ]

@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Where the time of the coded engine goes, on one NVIDIA GPU.
+
+Run from the root of the repository on a machine with a Hopper card:
+
+    python3 profile_coded.py
+
+For ``ldpc_fast_simulate`` on the coded cell ``chip_smoke.py`` phase 3g
+times (``chip_smoke.coded_cell``: config 2, 8192 channels × 64 symbols,
+RAYLEIGH_FLAT 6 dB, rate 1/2), in each of its seam × schedule variants
+(``chip_smoke.CODED_VARIANTS``): one warm-up call, then
+``torch.profiler`` over three calls. Prints, per call, the
+host-clock time, the device time (kernels summed), the device's idle
+share (1 − device / host time) and the device time of the largest
+kernels by name, then the card's name and power limit. It exits
+non-zero without a CUDA device, or when the trace holds no device time.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+
+def _short(name: str) -> str:
+    """The port's kernels by their own names; torch's by what they do."""
+    for key in ("ldpc_minsum", "demod_llr_cl", "demod_llr", "tx_kernel", "fade_awgn"):
+        if key in name:
+            return key
+    for key, label in (("index_elementwise", "torch gather"), ("CatArray", "torch cat"),
+                       ("reduce_kernel", "torch reduce"), ("elementwise", "torch elementwise")):
+        if key in name:
+            return label
+    return name[:40]
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_coded: no CUDA device; nothing run", file=sys.stderr)
+        return 1
+    from chip_smoke import CODED_VARIANTS, SEED, coded_cell
+    from sdr_tpu_torch.link.fast_coded import ldpc_fast_simulate
+
+    dev = torch.device("cuda")
+    cfg = coded_cell()
+    reps = 3
+    for seam, schedule, iters in CODED_VARIANTS:
+        def call():
+            return ldpc_fast_simulate(cfg, SEED, iters=iters, schedule=schedule, seam=seam,
+                                      device=dev)
+
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps * 1e3
+        by_name: dict[str, float] = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+                key = _short(ev.key)
+                by_name[key] = by_name.get(key, 0.0) + us / 1e3 / reps
+        device = sum(by_name.values())
+        if device <= 0:
+            print("profile_coded: the trace holds no device time", file=sys.stderr)
+            return 1
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"seam={seam} {schedule} {iters}: host {wall:.3f} ms per call, device "
+              f"{device:.3f} ms, idle share {1.0 - device / wall:.4f}; by kernel (ms per call): "
+              + "; ".join(f"{k} {v:.3f}" for k, v in top))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -129,8 +129,27 @@ def uniform_plane(seed: int, role: int, ch_ids: torch.Tensor, shape, lane: int =
     return uniform_01(w0)
 
 
+INFO_LANE = 1  # ROLE_PAYLOAD lane of the coded engine's info bits (symbol indices: lane 0)
+
+
+def info_bits(seed: int, ch_ids: torch.Tensor, n_cw: int, k: int) -> torch.Tensor:
+    """Bernoulli(0.5) information bits (B, n_cw, k) int8 on ``ch_ids``'
+    device: bit t of word w of Philox(seed ^ ROLE_PAYLOAD, (ch_ids[b], cw,
+    i, INFO_LANE)) is bit i·128 + w·32 + t of codeword cw — one 128-bit
+    draw per 128 bits, a pure function of (seed, global channel id,
+    codeword, bit). Plain torch on every device (the JAX engine's draw is
+    XLA ``bernoulli`` outside any kernel)."""
+    n_blk = -(-k // 128)
+    words = keyed_words(seed, ROLE_PAYLOAD, ch_ids, (n_cw, n_blk), INFO_LANE)
+    w = torch.stack(words, dim=-1)
+    w = (w - ((w >> 31) << 32)).to(torch.int32)  # the same 32 bits, in int32's range
+    shifts = torch.arange(32, dtype=torch.int32, device=ch_ids.device)
+    bits = (w[..., None] >> shifts) & 1
+    return bits.reshape(ch_ids.shape[0], n_cw, n_blk * 128)[:, :, :k].to(torch.int8)
+
+
 __all__ = [
     "ROLE_PAYLOAD", "ROLE_NOISE", "ROLE_FADING", "ROLE_MISC", "ROLE_PHASE",
     "split_key", "philox4x32", "keyed_words", "uniform_01", "box_muller",
-    "normal_pair", "uniform_plane", "TWO_PI_F32",
+    "normal_pair", "uniform_plane", "TWO_PI_F32", "INFO_LANE", "info_bits",
 ]

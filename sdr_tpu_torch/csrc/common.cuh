@@ -180,14 +180,12 @@ __device__ __forceinline__ void pam_point(int v, float& xr, float& xi) {
   }
 }
 
-// Hard-decision bit errors of one equalised point (sr, si) against index
-// v: max-log LLRs scaled by inv_eff (level scan for L <= 4, Gray fold
-// recursion for L >= 8; I bits then Q bits, MSB first), bit = LLR < 0.
+// Max-log LLRs of one equalised point (sr, si) scaled by inv_eff (level
+// scan for L <= 4, Gray fold recursion for L >= 8; I bits then Q bits, MSB
+// first): llr[0 .. BPS-1].
 template <int M, bool BPSK>
-__device__ __forceinline__ int scaled_bit_errors(float sr, float si, float inv_eff,
-                                                 const AxisTables& tab, int v) {
-  constexpr int BPS = BPSK ? 1 : 2 * M;
-  float llr[BPS];
+__device__ __forceinline__ void scaled_llrs(float sr, float si, float inv_eff,
+                                            const AxisTables& tab, float* llr) {
   if constexpr (M <= 2) {
     llr_axis_scan<M>(sr, inv_eff, tab, llr);
     if constexpr (!BPSK) llr_axis_scan<M>(si, inv_eff, tab, llr + M);
@@ -195,6 +193,16 @@ __device__ __forceinline__ int scaled_bit_errors(float sr, float si, float inv_e
     llr_axis_fold<M>(sr, inv_eff, tab, llr);
     llr_axis_fold<M>(si, inv_eff, tab, llr + M);
   }
+}
+
+// Hard-decision bit errors of one equalised point (sr, si) against index
+// v: the scaled max-log LLRs, bit = LLR < 0.
+template <int M, bool BPSK>
+__device__ __forceinline__ int scaled_bit_errors(float sr, float si, float inv_eff,
+                                                 const AxisTables& tab, int v) {
+  constexpr int BPS = BPSK ? 1 : 2 * M;
+  float llr[BPS];
+  scaled_llrs<M, BPSK>(sr, si, inv_eff, tab, llr);
   int err = 0;
 #pragma unroll
   for (int j = 0; j < BPS; ++j) err += (int)(llr[j] < 0.0f) != ((v >> (BPS - 1 - j)) & 1);
@@ -202,15 +210,46 @@ __device__ __forceinline__ int scaled_bit_errors(float sr, float si, float inv_e
 }
 
 // The OFDM tone tail: unbiased one-tap equalisation s = conj(h) y /
-// max(|h|^2, 1e-12), LLRs scaled by |h|^2 / nv, bit errors against v.
+// max(|h|^2, 1e-12), LLRs scaled by |h|^2 / nv into llr[0 .. BPS-1].
 template <int M, bool BPSK>
-__device__ __forceinline__ int mmse_bit_errors(float yr, float yi, float h_r, float h_i,
-                                               float inv_nv, const AxisTables& tab, int v) {
+__device__ __forceinline__ void mmse_llrs(float yr, float yi, float h_r, float h_i, float inv_nv,
+                                          const AxisTables& tab, float* llr) {
   const float h2 = h_r * h_r + h_i * h_i;
   const float inv_h2 = 1.0f / fmaxf(h2, 1e-12f);
   const float sr = (h_r * yr + h_i * yi) * inv_h2;
   const float si = (h_r * yi - h_i * yr) * inv_h2;
-  return scaled_bit_errors<M, BPSK>(sr, si, h2 * inv_nv, tab, v);
+  scaled_llrs<M, BPSK>(sr, si, h2 * inv_nv, tab, llr);
+}
+
+// The OFDM tone tail's bit errors against v.
+template <int M, bool BPSK>
+__device__ __forceinline__ int mmse_bit_errors(float yr, float yi, float h_r, float h_i,
+                                               float inv_nv, const AxisTables& tab, int v) {
+  constexpr int BPS = BPSK ? 1 : 2 * M;
+  float llr[BPS];
+  mmse_llrs<M, BPSK>(yr, yi, h_r, h_i, inv_nv, tab, llr);
+  int err = 0;
+#pragma unroll
+  for (int j = 0; j < BPS; ++j) err += (int)(llr[j] < 0.0f) != ((v >> (BPS - 1 - j)) & 1);
+  return err;
+}
+
+// Stores n consecutive floats at dst (n a compile-time count), as 16-byte
+// stores where n is a multiple of 4 and 8-byte ones where it is even; the
+// caller guarantees dst is aligned to that width.
+template <int NV>
+__device__ __forceinline__ void store_run(float* __restrict__ dst, const float* v) {
+  if constexpr (NV % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < NV; j += 4)
+      *reinterpret_cast<float4*>(dst + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  } else if constexpr (NV % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < NV; j += 2) *reinterpret_cast<float2*>(dst + j) = make_float2(v[j], v[j + 1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) dst[j] = v[j];
+  }
 }
 
 // Elementwise f(t, n, re, im) over n_tr = 2^log_tr rows of N = 2^log_n
@@ -243,26 +282,21 @@ __device__ __forceinline__ void bitrev_rows(float* re, float* im, int log_n, int
   }
 }
 
-// The SC-FDE (full-grid SC-FDMA) receive tail over n_tr = 2^log_tr
-// post-FFT rows of N = 2^log_n tones held in shared memory in natural
-// order (the port of demod_pallas.py::equalize_despread_llr_bits):
+// The SC-FDE (full-grid SC-FDMA) equaliser over n_tr = 2^log_tr post-FFT
+// rows of N = 2^log_n tones held in shared memory in natural order (the
+// port of demod_pallas.py::equalize_despread_llr_bits, up to the LLRs):
 //   per tone the biased MMSE conj(H) Y / (|H|^2 + nv);
 //   per row the tone mean b = max(mean(|H|^2 / (|H|^2 + nv)), 1e-9),
-//   reduced in a fixed order (block_sum);
-//   the N-point inverse DFT scaled by 1/sqrt(N) (the despread), then 1/b;
-//   max-log LLRs with SINR b / max(1 - b, 1e-9), counted against the
-//   TIME-domain indices.
-// hfn(t, k, hr, hi) gives the channel of tone k of row t; idxfn(t, n) the
-// transmitted index of time symbol n of row t, or -1 for a row that is
-// not counted. Each row's errors are added to cnt[t] (shared, integer
-// atomics: exact in any order). red: kThreads/32 floats; bias: n_tr floats.
-template <int M, bool BPSK, class HFn, class IdxFn>
-__device__ __forceinline__ void despread_count_tail(float* sre, float* sim, int log_n, int log_tr,
-                                                    float nv, const float* __restrict__ twr,
-                                                    const float* __restrict__ twi,
-                                                    const AxisTables& tab, float* red,
-                                                    float* bias, int* cnt, HFn hfn,
-                                                    IdxFn idxfn) {
+//   reduced in a fixed order (block_sum), left in bias[t];
+//   the N-point inverse DFT, unscaled (the despread), left in sre/sim in
+//   natural order.
+// hfn(t, k, hr, hi) gives the channel of tone k of row t. red: kThreads/32
+// floats; bias: n_tr floats.
+template <class HFn>
+__device__ __forceinline__ void despread_equalize(float* sre, float* sim, int log_n, int log_tr,
+                                                  float nv, const float* __restrict__ twr,
+                                                  const float* __restrict__ twi, float* red,
+                                                  float* bias, HFn hfn) {
   const int N = 1 << log_n;
   for (int t = 0; t < (1 << log_tr); ++t) {
     float acc = 0.0f;
@@ -286,17 +320,56 @@ __device__ __forceinline__ void despread_count_tail(float* sre, float* sim, int 
   });
   __syncthreads();
   smem_fft<false>(sre, sim, log_n, log_tr, N, 1, twr, twi, -1.0f);
+}
+
+// After despread_equalize: f(t, n, sr, si, sinr) for time symbol n of every
+// row t, with the symbol scaled by 1/(sqrt(N) b) and the SINR
+// b / max(1 - b, 1e-9) at which its max-log LLRs are taken.
+template <class F>
+__device__ __forceinline__ void despread_for_each(const float* sre, const float* sim, int log_n,
+                                                  int log_tr, const float* bias, F f) {
+  const int N = 1 << log_n;
   const float inv_sqrt_n = 1.0f / sqrtf((float)N);
   for (int e = threadIdx.x; e < (N << log_tr); e += blockDim.x) {
     const int t = e >> log_n;
-    const int v = idxfn(t, e & (N - 1));
-    if (v < 0) continue;
     const float b = bias[t];
     const float scale = inv_sqrt_n / b;
     const float sinr = b / fmaxf(1.0f - b, 1e-9f);
-    const int err = scaled_bit_errors<M, BPSK>(sre[e] * scale, sim[e] * scale, sinr, tab, v);
-    if (err) atomicAdd(cnt + t, err);
+    f(t, e & (N - 1), sre[e] * scale, sim[e] * scale, sinr);
   }
+}
+
+// The SC-FDE receive tail with its error count: despread_equalize, then
+// max-log LLRs counted against the TIME-domain indices. idxfn(t, n) gives
+// the transmitted index of time symbol n of row t, or -1 for a row that is
+// not counted. Each row's errors are added to cnt[t] (shared, integer
+// atomics: exact in any order).
+template <int M, bool BPSK, class HFn, class IdxFn>
+__device__ __forceinline__ void despread_count_tail(float* sre, float* sim, int log_n, int log_tr,
+                                                    float nv, const float* __restrict__ twr,
+                                                    const float* __restrict__ twi,
+                                                    const AxisTables& tab, float* red,
+                                                    float* bias, int* cnt, HFn hfn,
+                                                    IdxFn idxfn) {
+  despread_equalize(sre, sim, log_n, log_tr, nv, twr, twi, red, bias, hfn);
+  despread_for_each(sre, sim, log_n, log_tr, bias,
+                    [&](int t, int n, float sr, float si, float sinr) {
+                      const int v = idxfn(t, n);
+                      if (v < 0) return;
+                      const int err = scaled_bit_errors<M, BPSK>(sr, si, sinr, tab, v);
+                      if (err) atomicAdd(cnt + t, err);
+                    });
+}
+
+// Sums n per-block partials in a fixed order into out[0] (one block of
+// 1024 threads): the second pass of the deterministic LLR sums.
+static __global__ void __launch_bounds__(1024)
+sum_partials_kernel(const float* __restrict__ partials, int n, float* __restrict__ out) {
+  __shared__ float scratch[32];
+  float acc = 0.0f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) acc += partials[i];
+  const float v = block_sum(acc, scratch);
+  if (threadIdx.x == 0) out[0] = v;
 }
 
 }  // namespace sdr

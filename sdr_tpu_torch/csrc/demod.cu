@@ -1,7 +1,11 @@
-// Kernel C: rows-layout demod + per-channel bit-error count.
+// Kernel C: rows-layout demod + per-channel bit-error count, and the
+// rows LLR plane or its sum.
 //
 // Replaces sdr_tpu/kernels/demod_pallas.py::demod_count_pallas (the
-// fast engine's count terminal) with its taps= and despread modes. Per
+// fast engine's count terminal) with its taps= and despread modes, and
+// ::demod_chain_pallas (the LLR plane in the public order, or its sum,
+// with despread; demod_llr_kernel below: the same load, transform and
+// tails with a store or a deterministic sum in place of the count). Per
 // OFDM symbol (one row of the (B, S, N+cp) planes):
 //   CP strip; forward unscaled N-point FFT; p = conj(h) y,
 //   h2 = |h|^2, s = p / max(h2, 1e-12), inv_eff = h2 / nv; per-axis
@@ -28,10 +32,11 @@
 // The TPU kernel ran the DFT as a Gauss 3-multiplication matmul on the
 // MXU in bf16 passes (and the despread as a second matmul). Here a block
 // holds a few symbols in shared memory and runs radix-2 FFTs on CUDA
-// cores in f32; no LLR plane is written.
+// cores in f32; the count mode writes no LLR plane.
 //
 // Bound on the H100: reading the two f32 sample planes (8 bytes per
-// sample, plus the channel and index planes) — memory-bound; the
+// sample, plus the channel and index planes; the LLR plane adds 4 bytes
+// per bit written) — memory-bound; the
 // shared-memory butterflies and the LLR tail are the compute side, and
 // the despread mode doubles the butterflies.
 #include "common.cuh"
@@ -142,7 +147,145 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
 }
 
+// The LLR-plane and sum modes (demod_pallas.py::demod_chain_pallas): the
+// count kernel's load, transform and tone (or SC-FDE) tail over an h plane
+// (B, 1 | S, N), with a store of each tone's BPS LLRs in the public order
+// out[(row * N + k) * BPS + j] (per time symbol with DESPREAD) in place of
+// the count, or (SUM) each thread's running sum of its LLRs, reduced per
+// block in a fixed order into partials[block] (sum_partials_kernel adds
+// those), so repeated runs give the same bits.
+template <int M, bool BPSK, bool DESPREAD, bool SUM>
+__global__ void __launch_bounds__(sdr::kThreads)
+demod_llr_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                 const float* __restrict__ hr, const float* __restrict__ hi, int h_syms,
+                 float* __restrict__ out, long long n_rows, int S, int log_n, int cp,
+                 int log_spb, sdr::AxisTables tab, float inv_nv, float nv,
+                 const float* __restrict__ twr, const float* __restrict__ twi) {
+  constexpr int BPS = BPSK ? 1 : 2 * M;
+  extern __shared__ float smem[];
+  const int N = 1 << log_n;
+  const int spb = 1 << log_spb;
+  float* sre = smem;
+  float* sim = smem + (spb << log_n);
+  float* red = sim + (spb << log_n);
+  float* bias = red + sdr::kThreads / 32;
+  const long long row0 = (long long)blockIdx.x << log_spb;
+  const int sym_len = N + cp;
+
+  for (int e = threadIdx.x; e < (spb << log_n); e += blockDim.x) {
+    const int t = e >> log_n;
+    const int n = e & (N - 1);
+    const long long r = row0 + t;
+    float xr = 0.0f, xi = 0.0f;
+    if (r < n_rows) {
+      const long long o = r * sym_len + cp + n;
+      xr = re[o];
+      xi = im[o];
+    }
+    const int dst = (t << log_n) + sdr::bit_reverse(n, log_n);
+    sre[dst] = xr;
+    sim[dst] = xi;
+  }
+  __syncthreads();
+  sdr::smem_fft<false>(sre, sim, log_n, log_spb, N, 1, twr, twi, 1.0f);
+
+  auto channel = [&](int t, int k, float& h_r, float& h_i) {
+    const long long r = row0 + t;
+    h_r = 1.0f;
+    h_i = 0.0f;
+    if (r >= n_rows) return;
+    const long long b = r / S;
+    const int s = (int)(r - b * S);
+    const long long ho = ((b * h_syms + (h_syms > 1 ? s : 0)) << log_n) + k;
+    h_r = hr[ho];
+    h_i = hi[ho];
+  };
+  float acc = 0.0f;
+  auto sink = [&](int t, int k, const float* llr) {
+    if constexpr (SUM) {
+#pragma unroll
+      for (int j = 0; j < BPS; ++j) acc += llr[j];
+    } else {
+      sdr::store_run<BPS>(out + (((row0 + t) << log_n) + k) * BPS, llr);
+    }
+  };
+
+  if constexpr (DESPREAD) {
+    sdr::despread_equalize(sre, sim, log_n, log_spb, nv, twr, twi, red, bias, channel);
+    sdr::despread_for_each(sre, sim, log_n, log_spb, bias,
+                           [&](int t, int n, float sr, float si, float sinr) {
+                             if (row0 + t >= n_rows) return;
+                             float llr[BPS];
+                             sdr::scaled_llrs<M, BPSK>(sr, si, sinr, tab, llr);
+                             sink(t, n, llr);
+                           });
+  } else {
+    for (int e = threadIdx.x; e < (spb << log_n); e += blockDim.x) {
+      const int t = e >> log_n;
+      const int k = e & (N - 1);
+      if (row0 + t >= n_rows) continue;
+      float h_r, h_i;
+      channel(t, k, h_r, h_i);
+      float llr[BPS];
+      sdr::mmse_llrs<M, BPSK>(sre[e], sim[e], h_r, h_i, inv_nv, tab, llr);
+      sink(t, k, llr);
+    }
+  }
+  if constexpr (SUM) {
+    __syncthreads();
+    const float v = sdr::block_sum(acc, red);
+    if (threadIdx.x == 0) out[blockIdx.x] = v;
+  }
+}
+
+template <int M, bool BPSK, bool DESPREAD, bool SUM>
+int launch_llr(const float* re, const float* im, const float* hr, const float* hi, int h_syms,
+               float* out, float* partials, long long n_rows, int S, int log_n, int cp,
+               int log_spb, const sdr::AxisTables& tab, float inv_nv, float nv, const float* twr,
+               const float* twi, cudaStream_t st) {
+  const long long blocks = (n_rows + (1 << log_spb) - 1) >> log_spb;
+  const size_t smem = (size_t)2 * sizeof(float) * ((size_t)1 << (log_spb + log_n)) +
+                      sizeof(float) * (sdr::kThreads / 32 + ((size_t)1 << log_spb));
+  demod_llr_kernel<M, BPSK, DESPREAD, SUM><<<(unsigned)blocks, sdr::kThreads, smem, st>>>(
+      re, im, hr, hi, h_syms, SUM ? partials : out, n_rows, S, log_n, cp, log_spb, tab, inv_nv,
+      nv, twr, twi);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !SUM) return (int)err;
+  sdr::sum_partials_kernel<<<1, 1024, 0, st>>>(partials, (int)blocks, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Number of per-block partials the sum mode's wrapper must allocate.
+extern "C" int sdr_demod_llr_partials(int B, int S, int log_n) {
+  const int log_spb = log_n >= 9 ? 0 : 9 - log_n;
+  return (int)((((long long)B * S) + (1 << log_spb) - 1) >> log_spb);
+}
+
+extern "C" int sdr_demod_llr(const float* re, const float* im, const float* hr, const float* hi,
+                             int h_syms, float* out, float* partials, int B, int S, int log_n,
+                             int cp, int bits_per_axis, int bpsk, sdr::AxisTables tab,
+                             float inv_nv, float nv, int despread, int reduce_sum,
+                             const float* twr, const float* twi, void* stream) {
+  const long long n_rows = (long long)B * S;
+  if (n_rows == 0) return (int)cudaErrorInvalidValue;
+  const int log_spb = log_n >= 9 ? 0 : 9 - log_n;
+  cudaStream_t st = (cudaStream_t)stream;
+  SDR_DISPATCH_MOD(bits_per_axis, bpsk,
+    if (despread && reduce_sum)
+      return launch_llr<M, BPSK, true, true>(re, im, hr, hi, h_syms, out, partials, n_rows, S,
+                                             log_n, cp, log_spb, tab, inv_nv, nv, twr, twi, st);
+    if (despread)
+      return launch_llr<M, BPSK, true, false>(re, im, hr, hi, h_syms, out, partials, n_rows, S,
+                                              log_n, cp, log_spb, tab, inv_nv, nv, twr, twi, st);
+    if (reduce_sum)
+      return launch_llr<M, BPSK, false, true>(re, im, hr, hi, h_syms, out, partials, n_rows, S,
+                                              log_n, cp, log_spb, tab, inv_nv, nv, twr, twi, st);
+    return launch_llr<M, BPSK, false, false>(re, im, hr, hi, h_syms, out, partials, n_rows, S,
+                                             log_n, cp, log_spb, tab, inv_nv, nv, twr, twi, st))
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int sdr_demod_count(const float* re, const float* im, const float* hr,
                                const float* hi, int h_syms, const float* taps_r,

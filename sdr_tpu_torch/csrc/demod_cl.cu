@@ -1,8 +1,9 @@
 // Kernel D: channels-last demod + LLR sum (the headline receive terminal),
-// and kernel F: channels-last demod + per-channel bit-error count.
+// and kernel F: channels-last demod + per-channel bit-error count, or the
+// channels-last LLR plane.
 //
-// D replaces sdr_tpu/kernels/demod_cl_pallas.py::demod_sum_cl and F
-// ::demod_count_cl (both through _run_cl), the TPU's emit_pipeline
+// D replaces sdr_tpu/kernels/demod_cl_pallas.py::demod_sum_cl, F
+// ::demod_count_cl and ::demod_llr_cl (all through _run_cl), the TPU's emit_pipeline
 // kernel with DIF radix-2 levels down to 128-point leaf DFT matmuls.
 // Same math on the same layout:
 //   re_t, im_t (S*(N+cp), B) f32, symbol s in rows [s*(N+cp), (s+1)*(N+cp)),
@@ -39,6 +40,8 @@
 // bytes (64 KB at N = 256), which caps residency at three blocks per SM;
 // that, and the f32 FFT on CUDA cores, are what stand between these
 // kernels and the copy roofline.
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
@@ -132,15 +135,6 @@ demod_sum_cl_kernel(const float* __restrict__ re_t, const float* __restrict__ im
   if (threadIdx.x == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = v;
 }
 
-__global__ void __launch_bounds__(1024)
-sum_partials_kernel(const float* __restrict__ partials, int n, float* __restrict__ out) {
-  __shared__ float scratch[32];
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) acc += partials[i];
-  const float v = sdr::block_sum(acc, scratch);
-  if (threadIdx.x == 0) out[0] = v;
-}
-
 template <int M, bool BPSK>
 int launch_sum_cl(const float* re_t, const float* im_t, const float* hr_t, const float* hi_t,
                   float* partials, float* out, int B, int S, int log_n, int cp,
@@ -155,7 +149,7 @@ int launch_sum_cl(const float* re_t, const float* im_t, const float* hr_t, const
       re_t, im_t, hr_t, hi_t, partials, B, S, log_n, cp, tab, inv_nv, twr, twi);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<<<1, 1024, 0, st>>>(partials, (int)(grid.x * grid.y), out);
+  sdr::sum_partials_kernel<<<1, 1024, 0, st>>>(partials, (int)(grid.x * grid.y), out);
   return (int)cudaGetLastError();
 }
 
@@ -235,7 +229,93 @@ int launch_count_cl(const float* re_t, const float* im_t, const float* hr_t, con
   return (int)cudaGetLastError();
 }
 
+// The LLR-plane mode (demod_cl_pallas.py::demod_llr_cl): D's tile, transform
+// and LLR forms, each LLR stored in the kernel order
+//   out[((s * BPS + j) * N + k) * B + b]
+// (per symbol, bit-major planes of natural-order bins, channels minor), so
+// a warp's 32 channels store one contiguous 128-byte (f32) or 64-byte (bf16)
+// run. OutT is float or __nv_bfloat16 (round to nearest even, as torch's
+// conversion).
+template <typename OutT, int M, bool BPSK>
+__global__ void __launch_bounds__(sdr::kThreads)
+demod_llr_cl_kernel(const float* __restrict__ re_t, const float* __restrict__ im_t,
+                    const float* __restrict__ hr_t, const float* __restrict__ hi_t,
+                    OutT* __restrict__ out, int B, int S, int log_n, int cp, sdr::AxisTables tab,
+                    float inv_nv, const float* __restrict__ twr, const float* __restrict__ twi) {
+  extern __shared__ float smem[];
+  constexpr int BPS = BPSK ? 1 : 2 * M;
+  const int N = 1 << log_n;
+  float* sre = smem;
+  float* sim = smem + (N << kLogCh);
+  const int c0 = blockIdx.x * kCh;
+  const int s0 = blockIdx.y * kSymsPerBlock;
+  const int s1 = min(S, s0 + kSymsPerBlock);
+
+  for (int s = s0; s < s1; ++s) {
+    load_fft_tile(re_t, im_t, B, s, log_n, cp, c0, sre, sim, twr, twi);
+    for (int e = threadIdx.x; e < (N << kLogCh); e += blockDim.x) {
+      const int c = e & (kCh - 1);
+      const int k = e >> kLogCh;
+      const int b = c0 + c;
+      if (b >= B) continue;
+      const long long ho = (long long)k * B + b;
+      const float h_r = hr_t[ho], h_i = hi_t[ho];
+      const float yr = sre[e], yi = sim[e];
+      const float h2 = h_r * h_r + h_i * h_i;
+      const float pr = h_r * yr + h_i * yi;
+      const float pi = h_r * yi - h_i * yr;
+      float llr[BPS];
+      if constexpr (M <= 2) {
+        sdr::llr_axis_dfree<M>(pr, h2, inv_nv, tab, llr);
+        if constexpr (!BPSK) sdr::llr_axis_dfree<M>(pi, h2, inv_nv, tab, llr + M);
+      } else {
+        const float inv_h2 = 1.0f / fmaxf(h2, 1e-12f);
+        const float inv_eff = h2 * inv_nv;
+        sdr::llr_axis_fold<M>(pr * inv_h2, inv_eff, tab, llr);
+        sdr::llr_axis_fold<M>(pi * inv_h2, inv_eff, tab, llr + M);
+      }
+#pragma unroll
+      for (int j = 0; j < BPS; ++j) {
+        const long long o = (((long long)s * BPS + j) * N + k) * B + b;
+        if constexpr (sizeof(OutT) == 2) out[o] = __float2bfloat16(llr[j]);
+        else out[o] = llr[j];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename OutT, int M, bool BPSK>
+int launch_llr_cl(const float* re_t, const float* im_t, const float* hr_t, const float* hi_t,
+                  void* out, int B, int S, int log_n, int cp, const sdr::AxisTables& tab,
+                  float inv_nv, const float* twr, const float* twi, cudaStream_t st) {
+  const dim3 grid((B + kCh - 1) / kCh, (S + kSymsPerBlock - 1) / kSymsPerBlock);
+  const size_t smem = (size_t)2 * sizeof(float) * ((size_t)kCh << log_n);
+  cudaError_t err = cudaFuncSetAttribute(demod_llr_cl_kernel<OutT, M, BPSK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  demod_llr_cl_kernel<OutT, M, BPSK><<<grid, sdr::kThreads, smem, st>>>(
+      re_t, im_t, hr_t, hi_t, (OutT*)out, B, S, log_n, cp, tab, inv_nv, twr, twi);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int sdr_demod_llr_cl(const float* re_t, const float* im_t, const float* hr_t,
+                                const float* hi_t, void* out, int out_bf16, int B, int S,
+                                int log_n, int cp, int bits_per_axis, int bpsk,
+                                sdr::AxisTables tab, float inv_nv, const float* twr,
+                                const float* twi, void* stream) {
+  if (B == 0 || S == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  SDR_DISPATCH_MOD(bits_per_axis, bpsk,
+    if (out_bf16)
+      return launch_llr_cl<__nv_bfloat16, M, BPSK>(re_t, im_t, hr_t, hi_t, out, B, S, log_n, cp,
+                                                   tab, inv_nv, twr, twi, st);
+    return launch_llr_cl<float, M, BPSK>(re_t, im_t, hr_t, hi_t, out, B, S, log_n, cp, tab,
+                                         inv_nv, twr, twi, st))
+  return (int)cudaErrorInvalidValue;
+}
 
 // Number of per-block partials the wrapper must allocate.
 extern "C" int sdr_demod_sum_cl_partials(int B, int S) {

@@ -9,7 +9,9 @@
   both packages: symbol indices, flat gains and injected noise planes
   (``channel_state``), and the JAX engine's fading state — FIR taps,
   per-symbol gains, Jakes (θ, φ) — (``fading_state``), and the
-  Monte-Carlo kernel's injected draws (``mc_rand_inputs_from_reference``).
+  Monte-Carlo kernel's injected draws (``mc_rand_inputs_from_reference``);
+- ``ldpc_code_from_reference``: a ``sdr_tpu`` ``QcLdpcCode`` → the
+  port's (its base matrix and Z are a code's only state).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.core.config import LinkConfig, link_config_from_dict
+from sdr_tpu_torch.ops.ldpc import QcLdpcCode
 
 
 def link_config_from_reference(cfg) -> LinkConfig:
@@ -78,3 +81,9 @@ def mc_rand_inputs_from_reference(idx, nr, ni, hr, hi, device="cpu"):
     contiguous float32 planes on ``device``."""
     idx_t = torch.as_tensor(np.ascontiguousarray(idx, np.int32), device=device)
     return (idx_t, *planes(nr, ni, hr, hi, device=device))
+
+
+def ldpc_code_from_reference(code) -> QcLdpcCode:
+    """Carry a reference-package ``QcLdpcCode`` across (duck-typed: its
+    ``base`` rows and ``z``)."""
+    return QcLdpcCode(tuple(tuple(int(x) for x in row) for row in code.base), int(code.z))

@@ -41,10 +41,16 @@ NVCC_FLAGS = (
 
 # Launch counters, one per kernel and mode: "tx_taps" is kernel B's FIR
 # mode, "demod_count_taps" and "demod_count_despread" kernel C's taps=
-# and despread modes, "mc_count" kernel G.
+# and despread modes, "demod_llr"/"demod_sum" (and their "_despread"
+# forms) C's LLR-plane and sum modes, "demod_llr_cl"/"demod_llr_cl_bf16"
+# F's LLR mode, "mc_count" kernel G, "ldpc_minsum" kernel H (rows layout,
+# flooding; "_t" transposed, "_layered" the layered schedule).
 LAUNCHES = {"payload": 0, "tx": 0, "tx_taps": 0, "demod_count": 0, "demod_count_taps": 0,
             "demod_count_despread": 0, "demod_sum_cl": 0, "fade_awgn": 0,
-            "demod_count_cl": 0, "mc_count": 0}
+            "demod_count_cl": 0, "mc_count": 0, "demod_llr": 0, "demod_sum": 0,
+            "demod_llr_despread": 0, "demod_sum_despread": 0, "demod_llr_cl": 0,
+            "demod_llr_cl_bf16": 0, "ldpc_minsum": 0, "ldpc_minsum_layered": 0,
+            "ldpc_minsum_t": 0, "ldpc_minsum_t_layered": 0}
 
 _lib = None
 
@@ -155,6 +161,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 
 
 class McParams(ctypes.Structure):
@@ -187,6 +194,12 @@ _SIGNATURES = {
     "sdr_demod_count_cl": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                            AxisTables, _F, _P, _P, _P],
     "sdr_mc_count": [McParams, _I, _I, _I, AxisTables, _P],
+    "sdr_demod_llr_partials": [_I, _I, _I],
+    "sdr_demod_llr": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, AxisTables, _F, _F,
+                      _I, _I, _P, _P, _P],
+    "sdr_demod_llr_cl": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, AxisTables, _F, _P,
+                         _P, _P],
+    "sdr_ldpc_minsum": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _LL, _LL, _LL, _P],
 }
 
 

@@ -23,9 +23,14 @@ at SINR b/(1 − b), counted against the TIME-domain indices. It takes the
 h plane (not taps) and counts its launches under
 ``demod_count_despread``.
 
-This module also holds the plain LLR plane, ``demod_chain``, which the
-count's plain version, the channels-last sum's plain version
-(``kernels/demod_cl.py``) and the tests reuse.
+The LLR-plane and sum modes (``demod_llr``, port of
+``demod_pallas.py::demod_chain_pallas``, with ``despread``) run the same
+transform and tail over an h plane and store the (B, S, N·bps) float32
+plane in the public order, or sum it deterministically; they count their
+launches under ``demod_llr``, ``demod_sum``, ``demod_llr_despread`` and
+``demod_sum_despread``. Their plain version is the plain LLR plane,
+``demod_chain``, which the count's plain version, the channels-last plain
+versions (``kernels/demod_cl.py``) and the tests reuse.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the CUDA
 kernel (``csrc/demod.cu``) runs, or the call raises.
@@ -168,3 +173,55 @@ def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: fl
     _lib.check(rc, name)
     _lib.LAUNCHES[name] += 1
     return out
+
+
+def llr_counter(reduce_sum: bool, despread: bool) -> str:
+    return ("demod_sum" if reduce_sum else "demod_llr") + ("_despread" if despread else "")
+
+
+def demod_llr(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
+              reduce_sum: bool = False, despread: bool = False):
+    """The LLR plane (B, S, N·bps) float32 in the public order, or its
+    float32 sum (0-d) with ``reduce_sum`` (port of ``demod_chain_pallas``).
+
+    re/im (B, S, N+cp) float32; hr/hi (B, 1, N) or (B, S, N) float32.
+    ``despread``: the SC-FDE receive (LLRs per time symbol). The plain
+    version is ``demod_chain``; on a CUDA tensor kernel C's LLR or sum
+    mode runs (the sum deterministic: per-block partials added in a fixed
+    order), or the call raises."""
+    if re.device.type == "cpu":
+        return demod_chain(re, im, hr, hi, cp_len, mod, noise_var, reduce_sum, despread)
+    if re.ndim != 3 or hr is None or hr.ndim != 3:
+        raise ValueError("demod llr kernel: samples (B, S, N+cp) and h (B, 1 | S, N) planes")
+    B, S, sym_len = re.shape
+    N = sym_len - cp_len
+    if not supported(re.shape, hr.shape, (B, S, N), cp_len) or hr.shape[-1] != N:
+        raise ValueError(
+            f"demod llr kernel: unsupported shapes re {tuple(re.shape)}, h {tuple(hr.shape)}, "
+            f"cp {cp_len}"
+        )
+    if (any(t.dtype != torch.float32 for t in (re, im, hr, hi))
+            or hi.shape != hr.shape or im.shape != re.shape):
+        raise ValueError("demod llr kernel: sample and channel planes must be float32 pairs")
+    _lib.require_cuda("demod_llr", re, im, hr, hi)
+    lib = _lib.lib()
+    log_n = _lib.log2_exact(N)
+    bps = mod.bits_per_symbol
+    if reduce_sum:
+        partials = torch.empty((lib.sdr_demod_llr_partials(B, S, log_n),), dtype=torch.float32,
+                               device=re.device)
+        out = torch.empty((1,), dtype=torch.float32, device=re.device)
+    else:
+        partials = None
+        out = torch.empty((B, S, N * bps), dtype=torch.float32, device=re.device)
+    twr, twi = _lib.twiddles(N, re.device)
+    rc = lib.sdr_demod_llr(
+        re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(), hr.shape[1], out.data_ptr(),
+        _lib.ptr(partials), B, S, log_n, cp_len, mod.bits_per_axis, int(mod is Modulation.BPSK),
+        _lib.axis_tables(mod), inv_noise_var(noise_var), max(float(noise_var), 1e-12),
+        int(despread), int(reduce_sum), twr.data_ptr(), twi.data_ptr(), _lib.stream(),
+    )
+    name = llr_counter(reduce_sum, despread)
+    _lib.check(rc, name)
+    _lib.LAUNCHES[name] += 1
+    return out[0] if reduce_sum else out

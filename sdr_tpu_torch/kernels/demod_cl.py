@@ -1,7 +1,8 @@
 """Kernels D and F: channels-last demod + LLR sum, the headline receive
-terminal, and channels-last demod + per-channel error count (ports of
-``sdr_tpu/kernels/demod_cl_pallas.py::demod_sum_cl`` and
-``::demod_count_cl``).
+terminal, channels-last demod + per-channel error count, and the
+channels-last LLR plane (ports of
+``sdr_tpu/kernels/demod_cl_pallas.py::demod_sum_cl``, ``::demod_count_cl``
+and ``::demod_llr_cl``).
 
 Layout contract (the JAX package's, demod_cl_pallas.py:37-45):
 
@@ -14,8 +15,13 @@ Layout contract (the JAX package's, demod_cl_pallas.py:37-45):
 
 D returns the float32 sum of every max-log LLR over the grid, F the
 (B,) int32 count of hard decisions (LLR < 0) that differ from the bits
-of ``idx_t``. The TPU kernel's DIF bin order was a Mosaic artifact;
-these kernels work in natural order, and ``h_in_dif_order=True`` (h
+of ``idx_t``, and F's LLR mode (``demod_llr_cl``) the plane itself in
+the kernel order (S·bps·N, B) — row (s·bps + j)·N + k holds bit j of
+subcarrier k of symbol s — as float32 or bfloat16 (counters
+``demod_llr_cl``, ``demod_llr_cl_bf16``). The TPU kernel's DIF bin order
+was a Mosaic artifact; these kernels work in natural order (so the
+kernel-order plane's rows are natural bins, and ``kernel_to_public``
+gives the public (B, S, N·bps) form), and ``h_in_dif_order=True`` (h
 permuted by ``dif_perm``, as the JAX bench passes it) is un-permuted
 here before the launch.
 
@@ -137,6 +143,76 @@ def demod_sum_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation, noise_var
     _lib.check(rc, "demod_sum_cl")
     _lib.LAUNCHES["demod_sum_cl"] += 1
     return out[0]
+
+
+_LLR_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_to_public(plane, n_syms: int, bps: int, n_fft: int):
+    """Kernel-order (S·bps·N, B) plane → the public (B, S, N·bps) order:
+    row (s·bps + j)·N + k holds bit j of subcarrier k of symbol s."""
+    B = plane.shape[1]
+    return plane.reshape(n_syms, bps, n_fft, B).permute(3, 0, 2, 1).reshape(B, n_syms, n_fft * bps)
+
+
+def demod_llr_cl_plain(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation, noise_var: float,
+                       out_dtype=torch.float32):
+    """Plain version: the plain LLR plane (``kernels.demod.demod_chain``)
+    of each symbol, laid out in the kernel order (S·bps·N, B)."""
+    n_fft = hr_t.shape[0]
+    sym_len = n_fft + cp_len
+    n_syms = re_t.shape[0] // sym_len
+    bps = mod.bits_per_symbol
+    hr = hr_t.T[:, None, :]
+    hi = hi_t.T[:, None, :]
+    planes = []
+    for s in range(n_syms):
+        llr = demod_chain(_symbol_rows(re_t, s, sym_len, cp_len, n_fft),
+                          _symbol_rows(im_t, s, sym_len, cp_len, n_fft), hr, hi, 0, mod,
+                          noise_var)  # (B, 1, N·bps)
+        planes.append(llr.reshape(-1, n_fft, bps).permute(2, 1, 0).reshape(bps * n_fft, -1))
+    return torch.cat(planes, dim=0).to(out_dtype)
+
+
+def demod_llr_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation, noise_var: float,
+                 out_dtype=torch.float32, h_in_dif_order: bool = False):
+    """The LLR plane over the channels-last grid in the kernel order
+    (S·bps·N, B): per symbol, bit-major planes of natural-order bins,
+    channels minor; float32 or bfloat16."""
+    hr_t, hi_t = h_natural(hr_t, hi_t, h_in_dif_order)
+    if out_dtype not in _LLR_DTYPES:
+        raise ValueError(f"demod_llr_cl: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if re_t.device.type == "cpu":
+        return demod_llr_cl_plain(re_t, im_t, hr_t, hi_t, cp_len, mod, noise_var, out_dtype)
+    if any(t.dtype != torch.float32 for t in (re_t, im_t, hr_t, hi_t)):
+        raise ValueError("demod_llr_cl kernel takes float32 planes only (bf16 needs a BER gate)")
+    n_fft = hr_t.shape[0]
+    if not supported(re_t.shape, n_fft, cp_len):
+        raise ValueError(
+            f"demod_llr_cl kernel: unsupported shape {tuple(re_t.shape)} n_fft={n_fft} "
+            f"cp={cp_len}"
+        )
+    B = re_t.shape[1]
+    if im_t.shape != re_t.shape or hr_t.shape != (n_fft, B) or hi_t.shape != (n_fft, B):
+        raise ValueError("demod_llr_cl kernel: plane shapes disagree")
+    hr_t = hr_t.contiguous()
+    hi_t = hi_t.contiguous()
+    _lib.require_cuda("demod_llr_cl", re_t, im_t, hr_t, hi_t)
+    n_syms = re_t.shape[0] // (n_fft + cp_len)
+    bf16 = out_dtype == torch.bfloat16
+    out = torch.empty((n_syms * mod.bits_per_symbol * n_fft, B), dtype=out_dtype,
+                      device=re_t.device)
+    twr, twi = _lib.twiddles(n_fft, re_t.device)
+    rc = _lib.lib().sdr_demod_llr_cl(
+        re_t.data_ptr(), im_t.data_ptr(), hr_t.data_ptr(), hi_t.data_ptr(), out.data_ptr(),
+        int(bf16), B, n_syms, _lib.log2_exact(n_fft), cp_len, mod.bits_per_axis,
+        int(mod is Modulation.BPSK), _lib.axis_tables(mod), inv_noise_var(noise_var),
+        twr.data_ptr(), twi.data_ptr(), _lib.stream(),
+    )
+    name = "demod_llr_cl_bf16" if bf16 else "demod_llr_cl"
+    _lib.check(rc, name)
+    _lib.LAUNCHES[name] += 1
+    return out
 
 
 def demod_count_cl_plain(re_t, im_t, hr_t, hi_t, idx_t, cp_len: int, mod: Modulation,

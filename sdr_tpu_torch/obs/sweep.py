@@ -181,7 +181,8 @@ def ebno_sweep(
     if engine == "pipeline":
         if code is not None:
             raise NotImplementedError(
-                "coded sweeps are ported with the coded engine (ROADMAP queue 1, item 9)"
+                "coded sweeps run link.coded on the pipeline engine, ported with "
+                "link.pipeline (ROADMAP queue 1, item 11)"
             )
         raise NotImplementedError(
             "the pipeline sweep engine is ported with link.pipeline (ROADMAP queue 1, item 11)"

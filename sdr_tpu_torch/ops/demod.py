@@ -1,8 +1,11 @@
 """Receive chain: CP strip → FFT → one-tap equalize → max-log LLR.
 
-Port of ``sdr_tpu/ops/demod.py`` for the slice on the H100: the plain
-LLR plane ``demod_chain`` (with ``despread=True`` the SC-FDE receive of
-full-grid SC-FDMA, ``demod_chain_jnp(despread=True)``), the fast
+Port of ``sdr_tpu/ops/demod.py`` for the slice on the H100: the LLR
+plane ``demod_chain`` (kernel C's LLR and sum modes; with
+``despread=True`` the SC-FDE receive of full-grid SC-FDMA,
+``demod_chain_jnp(despread=True)``), the channels-last LLR plane
+``demod_llr_chain_cl`` (kernel F's LLR mode, float32 or bfloat16, in the
+kernel order or the public one) that a coded receiver consumes, the fast
 engine's count terminals ``demod_count_chain`` (kernel C, rows; with
 ``taps=`` the per-symbol TDL response is built in the kernel, with
 ``despread=True`` the SC-FDE receive at any N up to 4096 — the narrow
@@ -29,7 +32,6 @@ import torch
 from sdr_tpu_torch.core.config import Modulation
 from sdr_tpu_torch.kernels import demod as _kc
 from sdr_tpu_torch.kernels import demod_cl as _kd
-from sdr_tpu_torch.kernels.demod import demod_chain  # noqa: F401  (plain LLR plane)
 
 
 def select_backend(re_shape, hr_shape, idx_shape, cp_len: int, device) -> str:
@@ -93,3 +95,34 @@ def demod_count_chain_cl(re_t, im_t, hr_t, hi_t, idx_t, cp_len: int, mod: Modula
     select_backend_cl(re_t.shape, hr_t.shape[0], cp_len, re_t.device, idx_t.shape)
     return _kd.demod_count_cl(re_t, im_t, hr_t, hi_t, idx_t, cp_len, mod, noise_var,
                               h_in_dif_order=h_in_dif_order)
+
+
+def demod_chain(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
+                reduce_sum: bool = False, despread: bool = False) -> torch.Tensor:
+    """LLR plane (B, S, N·bps) float32 in the public order (per
+    subcarrier, or per time symbol with ``despread``; I bits then Q bits,
+    MSB first), or its float32 sum with ``reduce_sum``. re/im (B, S,
+    N+cp); hr/hi (B, 1 | S, N). Plain torch on a CPU tensor, kernel C on a
+    CUDA tensor (or ``ValueError``)."""
+    return _kc.demod_llr(re, im, hr, hi, cp_len, mod, noise_var, reduce_sum=reduce_sum,
+                         despread=despread)
+
+
+def demod_llr_chain_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation,
+                       noise_var: float, out_dtype=torch.float32, kernel_order: bool = False,
+                       h_in_dif_order: bool = False) -> torch.Tensor:
+    """LLR-materialising channels-last terminal — what a coded receiver
+    consumes. ``kernel_order=True`` returns the plane as kernel F writes
+    it, (S·bps·N, B): row (s·bps + j)·N + k holds bit j of subcarrier k of
+    symbol s, natural bin order (not the TPU kernel's DIF order; compose
+    any (de)interleaver with this order, as ``link.fast_coded`` does);
+    ``kernel_order=False`` the public (B, S, N·bps) form (a torch
+    relayout). ``out_dtype=torch.bfloat16`` halves the plane's write."""
+    select_backend_cl(re_t.shape, hr_t.shape[0], cp_len, re_t.device)
+    plane = _kd.demod_llr_cl(re_t, im_t, hr_t, hi_t, cp_len, mod, noise_var,
+                             out_dtype=out_dtype, h_in_dif_order=h_in_dif_order)
+    if kernel_order:
+        return plane
+    n_fft = hr_t.shape[0]
+    return _kd.kernel_to_public(plane, re_t.shape[0] // (n_fft + cp_len), mod.bits_per_symbol,
+                                n_fft)

@@ -10,7 +10,12 @@ Tolerances: indices and counts exact (counts: or within the number of
 bits whose plain |LLR| < 1e-3); sample planes 1e-4 absolute (injected
 noise) and 1e-5 of the plane's peak (keyed noise; kernel B's FIR and
 kernel E in both modes); LLR sums 1e-4 relative. Kernel G and kernel
-C's despread mode follow the count rule.
+C's despread mode follow the count rule. Kernel C's LLR-plane mode and
+F's LLR mode: 1e-4 of the plane's peak |LLR|; bf16 sign-identical
+wherever |LLR| ≥ 1e-3 and within 2^-8 relative; C's sums 1e-5 of the sum
+of |LLR|, and the same bits on a second run. Kernel H: identical hard
+bits in both schedules and layouts; the coded engine on the card equals
+the CPU run but in channels holding an LLR with |LLR| < 1e-3.
 """
 
 import numpy as np
@@ -407,3 +412,151 @@ def test_scfdma_fast_simulate_on_card_matches_cpu(dev, model, n_fft):
                          fast.noise_var(cfg), despread=True)
     assert int(want.sum()) > 0
     _within_margin(got.cpu(), llr, want)
+
+
+def _llr_close(got, want):
+    """Kernel LLRs against the plain plane: 1e-4 of the plane's peak."""
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
+@pytest.mark.parametrize("n_fft,h_syms,despread", [(64, 1, False), (256, 7, False),
+                                                   (1024, 1, False), (256, 1, True),
+                                                   (4096, 7, True)])
+def test_demod_llr_and_sum_kernels_match_plain(dev, mod, n_fft, h_syms, despread):
+    """Kernel C's LLR-plane and sum modes (and their despread forms)
+    against the plain plane; S = 7 rows is not a multiple of the rows per
+    block; the sum is deterministic."""
+    B, S, cp = 20, 7, n_fft // 4
+    g = torch.Generator(device="cpu").manual_seed(10)
+    re, im = ((torch.randn((B, S, n_fft + cp), generator=g) / np.sqrt(2 * n_fft)).to(dev)
+              for _ in range(2))
+    hr, hi = ((torch.randn((B, h_syms, n_fft), generator=g) * np.sqrt(0.5)).to(dev)
+              for _ in range(2))
+    nv = 1.0 / (10 ** 1.2 * mod.bits_per_symbol)
+    want = kc.demod_chain(re, im, hr, hi, cp, mod, nv, despread=despread)
+    got = _counted(kc.llr_counter(False, despread),
+                   lambda: kc.demod_llr(re, im, hr, hi, cp, mod, nv, despread=despread))
+    assert got.shape == (B, S, n_fft * mod.bits_per_symbol) and got.dtype == torch.float32
+    _llr_close(got, want)
+    tot = _counted(kc.llr_counter(True, despread),
+                   lambda: kc.demod_llr(re, im, hr, hi, cp, mod, nv, reduce_sum=True,
+                                        despread=despread))
+    assert tot.ndim == 0
+    assert abs(float(tot) - float(want.double().sum())) <= 1e-5 * float(want.abs().double().sum())
+    again = kc.demod_llr(re, im, hr, hi, cp, mod, nv, reduce_sum=True, despread=despread)
+    assert float(again) == float(tot)
+
+
+@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
+@pytest.mark.parametrize("n_fft", [64, 256, 512])
+def test_demod_llr_cl_kernel_matches_plain(dev, mod, n_fft):
+    """Kernel F's LLR mode, f32 and bf16, against the plain plane in the
+    kernel order; bf16 is the f32 plane rounded (sign-identical wherever
+    |LLR| ≥ 1e-3)."""
+    from sdr_tpu_torch.ops.demod import demod_llr_chain_cl
+
+    B, S, cp = 200, 11, n_fft // 4
+    g = torch.Generator(device="cpu").manual_seed(11)
+    re, im = ((torch.randn((S * (n_fft + cp), B), generator=g) / np.sqrt(2 * n_fft)).to(dev)
+              for _ in range(2))
+    hr, hi = ((torch.randn((n_fft, B), generator=g) * np.sqrt(0.5)).to(dev) for _ in range(2))
+    nv = 1.0 / (10 ** 1.2 * mod.bits_per_symbol)
+    want = kd.demod_llr_cl_plain(re, im, hr, hi, cp, mod, nv)
+    got = _counted("demod_llr_cl", lambda: kd.demod_llr_cl(re, im, hr, hi, cp, mod, nv))
+    assert got.shape == (S * mod.bits_per_symbol * n_fft, B)
+    _llr_close(got, want)
+    half = _counted("demod_llr_cl_bf16",
+                    lambda: kd.demod_llr_cl(re, im, hr, hi, cp, mod, nv,
+                                            out_dtype=torch.bfloat16))
+    assert half.dtype == torch.bfloat16
+    big = got.abs() >= 1e-3
+    assert torch.equal((half.float() < 0)[big], (got < 0)[big])
+    assert float(((half.float() - got).abs() - got.abs() * 2.0 ** -8).max()) <= 0.0
+    pub = demod_llr_chain_cl(re, im, hr, hi, cp, mod, nv)
+    assert torch.equal(pub, kd.kernel_to_public(got, S, mod.bits_per_symbol, n_fft))
+
+
+def _ldpc_llrs(code, n_cw, sigma, seed, dev):
+    from sdr_tpu_torch.ops.ldpc import ldpc_encode
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    info = torch.randint(0, 2, (n_cw, code.k), generator=g, dtype=torch.int8)
+    x = 1.0 - 2.0 * ldpc_encode(code, info).float()
+    llr = 2.0 * (x + sigma * torch.randn(x.shape, generator=g)) / sigma ** 2
+    return llr.to(dev)
+
+
+@pytest.mark.parametrize("rate", ["1/2", "2/3", "3/4", "8,4"])
+@pytest.mark.parametrize("schedule,iters", [("flooding", 25), ("layered", 13)])
+def test_ldpc_kernel_decisions_equal_plain(dev, rate, schedule, iters):
+    """Kernel H, both layouts, against its plain version: identical hard
+    bits, at an operating point with residual errors; any batch."""
+    from sdr_tpu_torch.link.coded import ldpc_code_for
+    from sdr_tpu_torch.ops.ldpc import make_qc_ldpc
+
+    from sdr_tpu_torch.kernels import ldpc as kh
+
+    code = make_qc_ldpc(8, 4, 128) if rate == "8,4" else ldpc_code_for(rate)
+    llr = _ldpc_llrs(code, 203, 0.85, 12, dev)
+    want = kh.ldpc_decode_plain(code, llr, iters, 0.5, schedule)
+    got = _counted(kh.counter_name(schedule, False),
+                   lambda: kh.ldpc_decode(code, llr, iters, 0.5, schedule))
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    got_t = _counted(kh.counter_name(schedule, True),
+                     lambda: kh.ldpc_decode(code, llr.T.contiguous(), iters, 0.5, schedule,
+                                            transposed=True))
+    assert torch.equal(got_t.T, want)
+
+
+@pytest.mark.parametrize("seam", ["staged", "fused"])
+@pytest.mark.parametrize("schedule,iters", [("flooding", 25), ("layered", 13)])
+def test_coded_engine_on_card_matches_cpu(dev, seam, schedule, iters):
+    """The coded link on the card (kernels B, C or F, H) against the same
+    link on the CPU (plain versions): info-bit errors equal but in
+    codewords holding an LLR with plain |LLR| < 1e-3."""
+    from sdr_tpu_torch.link import fast_coded as fc
+
+    cfg = LinkConfig(modulation=Modulation.QAM16, ofdm=OFDMConfig(256, 64),
+                     channel=ChannelConfig(model=ChannelModel.RAYLEIGH_FLAT, ebno_db=7.0),
+                     n_symbols=12, n_channels=48)
+    before = dict(_lib.LAUNCHES)
+    got, counted = fc.ldpc_fast_simulate(cfg, 29, iters=iters, schedule=schedule, seam=seam,
+                                         device=dev)
+    demod = "demod_llr_cl" if seam == "fused" else "demod_llr"
+    from sdr_tpu_torch.kernels import ldpc as kh
+
+    for name in (demod, kh.counter_name(schedule, seam == "fused"), "tx"):
+        assert _lib.LAUNCHES[name] == before[name] + 1, name
+    want, _ = fc.ldpc_fast_simulate(cfg, 29, iters=iters, schedule=schedule, seam="staged",
+                                    device="cpu")
+    assert int(want.sum()) > 0 and int(counted[0]) == 4 * 1536
+    differ = (got.cpu() != want)
+    if bool(differ.any()):
+        ids = torch.arange(48, dtype=torch.int32)
+        re, im = fast.tx_channel_core(cfg, 29, ids)
+        h, _ = fast.fade_state(cfg, 29, ids)
+        hb = h.expand(48, 1, 256)
+        llr = kc.demod_chain(re, im, hb.real, hb.imag, 64, cfg.modulation, fast.noise_var(cfg))
+        near = (llr.abs() < 1e-3).any(dim=2).any(dim=1)
+        assert bool(near[differ].all())
+
+
+def test_coded_kernels_raise_instead_of_falling_back(dev):
+    from sdr_tpu_torch.kernels import ldpc as kh
+    from sdr_tpu_torch.link.coded import ldpc_code_for
+
+    code = ldpc_code_for("1/2")
+    with pytest.raises(ValueError):
+        kh.ldpc_decode(code, torch.zeros((4, code.n), device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        kh.ldpc_decode(code, torch.zeros((4, code.n - 1), device=dev))
+    mod = Modulation.QAM16
+    with pytest.raises(ValueError):
+        kc.demod_llr(*(torch.zeros((2, 2, 96), device=dev),) * 2,
+                     *(torch.zeros((2, 1, 64), device=dev),) * 2, 16, mod, 0.1)
+    with pytest.raises(ValueError):
+        kd.demod_llr_cl(*(torch.zeros((80, 32), device=dev),) * 2,
+                        *(torch.zeros((64, 32), device=dev),) * 2, 16, mod, 0.1,
+                        out_dtype=torch.float16)

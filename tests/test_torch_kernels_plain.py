@@ -13,7 +13,14 @@ Tolerances (stated before the comparison, from the JAX suite):
   whose plain |LLR| < 1e-3 (decisions that float rounding may flip);
 - LLR sums rtol = 1e-4 (float32 sums over ~1e4 terms in another order);
 - the SC-FDE equalizer's symbols atol = 1e-5, rtol = 1e-6 (float32
-  transforms of unit-power symbols in another order).
+  transforms of unit-power symbols in another order);
+- LLR planes atol = 1e-5, rtol = 1e-6 of the plane divided by its peak
+  |LLR| (BASELINE.md:13-16's float tolerance, on the scale of the plane:
+  an LLR is a sample error scaled by up to 4|h|²/nv, so raw LLRs of
+  magnitude ~500 carry the transforms' float32 error times that scale;
+  the JAX suite compares its planes the same way, at 2e-5,
+  tests/test_demod_cl.py:105-107), with the JAX kernels' DFT matmuls at
+  full float32 (SDR_TPU_MXU_PRECISION=highest); LLR-plane sums rtol 1e-5.
 """
 
 import jax.numpy as jnp
@@ -24,7 +31,7 @@ import torch
 from sdr_tpu.core.config import Modulation as JMod
 from sdr_tpu.kernels.channel_pallas import fade_awgn_pallas
 from sdr_tpu.kernels.demod_cl_pallas import demod_cl_jnp, dif_perm as j_dif_perm
-from sdr_tpu.kernels.demod_pallas import demod_count_pallas
+from sdr_tpu.kernels.demod_pallas import demod_chain_pallas, demod_count_pallas
 from sdr_tpu.kernels.tx_pallas import tx_chain_pallas
 from sdr_tpu.ops import channel as jchan
 from sdr_tpu.ops.equalize import equalize_mmse_fde as j_equalize_mmse_fde
@@ -414,3 +421,76 @@ def test_demod_count_cl_plain_matches_jax_cl_twin(rng, mod):
     got_dif = kd.demod_count_cl(*_t(yr, yi, hr[perm], hi[perm], narrow), cp, mod, nv,
                                 h_in_dif_order=True)
     torch.testing.assert_close(got_dif, got, rtol=0, atol=0)
+
+
+def _assert_planes_close(got, ref):
+    """LLR planes within atol 1e-5 / rtol 1e-6 on the scale of the peak."""
+    peak = float(np.abs(ref).max())
+    np.testing.assert_allclose(np.asarray(got, np.float32) / peak, np.asarray(ref) / peak,
+                               atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("h_syms,despread", [(1, False), (8, False), (1, True), (8, True)],
+                         ids=["per_link", "per_symbol", "despread", "despread_per_symbol"])
+@pytest.mark.parametrize("mod", [Modulation.BPSK, Modulation.QAM16, Modulation.QAM256],
+                         ids=lambda m: m.value)
+def test_demod_llr_plain_matches_jax_chain_kernel(rng, monkeypatch, mod, h_syms, despread):
+    """Kernel C's LLR-plane and sum modes (plain version) against
+    demod_chain_pallas in interpret mode: per-link and per-symbol h, and
+    the despread (SC-FDE) variant."""
+    monkeypatch.setenv("SDR_TPU_MXU_PRECISION", "highest")
+    B, S, N, cp = 4, 8, 128, 32
+    re, im, hr, hi = (
+        (rng.standard_normal((B, S, N + cp)) / np.sqrt(2 * N)).astype(np.float32),
+        (rng.standard_normal((B, S, N + cp)) / np.sqrt(2 * N)).astype(np.float32),
+        (rng.standard_normal((B, h_syms, N)) * np.sqrt(0.5)).astype(np.float32),
+        (rng.standard_normal((B, h_syms, N)) * np.sqrt(0.5)).astype(np.float32),
+    )
+    nv = 1.0 / (10 ** 1.2 * mod.bits_per_symbol)
+    args = tuple(map(jnp.asarray, (re, im, hr, hi)))
+    ref = demod_chain_pallas(*args, cp, _jmod(mod), nv, interpret=True, despread=despread)
+    got = kc.demod_llr(*_t(re, im, hr, hi), cp, mod, nv, despread=despread)
+    assert got.shape == (B, S, N * mod.bits_per_symbol) and got.dtype == torch.float32
+    _assert_planes_close(got.numpy(), ref)
+    ref_sum = demod_chain_pallas(*args, cp, _jmod(mod), nv, reduce_sum=True, interpret=True,
+                                 despread=despread)
+    got_sum = kc.demod_llr(*_t(re, im, hr, hi), cp, mod, nv, reduce_sum=True, despread=despread)
+    assert got_sum.ndim == 0
+    np.testing.assert_allclose(float(got_sum), float(ref_sum), rtol=1e-5)
+
+
+@pytest.mark.parametrize("mod", [Modulation.QPSK, Modulation.QAM16, Modulation.QAM64],
+                         ids=lambda m: m.value)
+def test_demod_llr_cl_plain_matches_jax_cl_twin(rng, monkeypatch, mod):
+    """Kernel F's LLR mode (plain version) against demod_cl_jnp
+    (out_mode="llr") in the public form; the port's kernel-order plane,
+    mapped through its documented order (row (s·bps + j)·N + k), equals
+    its public form exactly; bf16 output is sign-identical to f32
+    wherever |LLR| ≥ 1e-3."""
+    from sdr_tpu_torch.ops.demod import demod_llr_chain_cl
+
+    monkeypatch.setenv("SDR_TPU_MXU_PRECISION", "highest")
+    B, S, N, cp = 16, 3, 128, 32
+    re, im, hr, hi = _cl_inputs(rng, B, S, N, cp)
+    nv = 1.0 / (10 ** 1.2 * mod.bits_per_symbol)
+    bps = mod.bits_per_symbol
+    ref = demod_cl_jnp(*map(jnp.asarray, (re, im, hr, hi)), cp, _jmod(mod), nv, out_mode="llr")
+    pub = demod_llr_chain_cl(*_t(re, im, hr, hi), cp, mod, nv)
+    assert pub.shape == (B, S, N * bps)
+    _assert_planes_close(pub.numpy(), ref)
+    kern = demod_llr_chain_cl(*_t(re, im, hr, hi), cp, mod, nv, kernel_order=True)
+    assert kern.shape == (S * bps * N, B)
+    k4 = kern.reshape(S, bps, N, B)
+    for s, j, k, b in ((0, 0, 0, 0), (2, bps - 1, N - 1, B - 1), (1, 1, 37, 5)):
+        assert float(k4[s, j, k, b]) == float(pub[b, s, k * bps + j])
+    torch.testing.assert_close(kd.kernel_to_public(kern, S, bps, N), pub, rtol=0, atol=0)
+    half = demod_llr_chain_cl(*_t(re, im, hr, hi), cp, mod, nv, out_dtype=torch.bfloat16)
+    assert half.dtype == torch.bfloat16
+    big = pub.abs() >= 1e-3
+    assert torch.equal((half.float() < 0)[big], (pub < 0)[big])
+    # The rows plane of the transposed grid is the same plane (torch's
+    # FFT batches it another way: equal to float rounding).
+    rows = lambda x: x.reshape(S, N + cp, B).transpose(2, 0, 1)  # noqa: E731
+    plane = kc.demod_chain(*_t(rows(re), rows(im)), *_t(hr.T[:, None, :], hi.T[:, None, :]), cp,
+                           mod, nv)
+    _assert_planes_close(pub.numpy(), plane.numpy())

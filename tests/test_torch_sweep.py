@@ -98,7 +98,7 @@ def test_theory_matches_reference(model, k_factor, mod):
 def test_unported_engines_and_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
         sweep.ebno_sweep(_cfg(), GRID, engine="pipeline", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="link.coded .*item 11"):
         sweep.ebno_sweep(_cfg(), GRID, engine="pipeline", code="ldpc", device="cpu")
     with pytest.raises(ValueError, match="pipeline engine"):
         sweep.ebno_sweep(_cfg(), GRID, engine="mc", code="ldpc", device="cpu")
