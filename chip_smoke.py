@@ -13,7 +13,12 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    channel-off TX, C's taps=, despread, LLR-plane and sum modes, F's LLR
    mode in f32 and bf16) against its plain torch version on the card at
    the slice's shapes and prints both times (CUDA events, after a
-   warm-up, in turns plain, kernel, kernel, plain); then holds the staged
+   warm-up, in turns plain, kernel, kernel, plain); phase 2w does the same
+   at phase 3i's shapes — config 3 (N 1024) at B × 64 (B's modes and C's
+   plane at B/4 × 64, the coded batch), N 2048 and config 5's shape
+   (N 4096) at B/2 × 16 — for B in every channel mode, C's count, plane
+   and sums, D and F in their wideband mode and C's post-FFT mode
+   (``llr_chain``); then holds the staged
    channel route (plain FIR + kernel E) against the fused one (kernel B's
    FIR); kernel G in its injected and keyed modes (five channels and
    SC-FDMA) with its bound and its share of it; C's despread at config 2
@@ -63,19 +68,38 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    totals within max(8, 0.1 %);
    3h. the LLR-plane terminals a user calls (``demod_llr_chain_cl`` f32
    and bf16, ``demod_chain`` plane, sum and despread) at 8192 × 64;
+   3i. the wideband link: ``fast_simulate`` at config 3 (64-QAM, N 1024,
+   CP 128, 8192 × 64; AWGN 12 dB and RAYLEIGH_FLAT 15 dB against exact
+   theory within 5 % / 10 %, MULTIPATH with config 4's PDP at 14 dB
+   within 2 % of the BER over the drawn channel; channels [0, B/2) alone
+   equal to the full run), at config 5's shape (N 4096, CP 512, 5 taps,
+   14 dB, 4096 × 16; drawn-channel gate) and at N 2048 (the same
+   channel, 4096 × 16), each in both layouts (cl counts equal to rows but
+   for the near-zero bits; ms per call and GS/s); ``ldpc_fast_simulate``
+   at config 3 (2048 × 64, rate 1/2, RAYLEIGH_FLAT 9 dB) and at N 2048
+   and 4096, staged and fused seams within max(8, 1 %); the terminals
+   ``demod_sum_chain_cl``, ``demod_count_chain_cl``,
+   ``demod_llr_chain_cl``, ``demod_chain`` (sum) and
+   ``demod_chain_hybrid`` at N 1024, 2048 and 4096, every sum within 1e-5
+   of the plain sum (CUDA events);
 5. checks that each path launched every kernel and mode of its slice
    (the counters are zeroed just before phase 3 and read after phase 4
    for kernels A–F, zeroed again before phase 3d and read after 3f for
    G and C's despread, again before 3g and read after it for H and the
    LLR modes the coded engine runs (C's plane, F's f32), and again
    before 3h and read after it for the modes only the terminals run
-   (C's sum and despread, F's bf16)) and prints one JSON line per kernel
-   set, with each kernel's bound (bytes over 3.35 TB/s or f32 operations
-   over 67 TFLOP/s, the H100 SXM data sheet) and its launches in each
-   window (``launches_fast``, ``launches_mc``, ``launches_coded``,
-   ``launches_terminals``; ``launches`` is the window of its own path,
-   the one checked), then ``{"ok": true, "device": {...}}`` as the last
-   line.
+   (C's sum and despread, F's bf16), and in 3i around each main-path call
+   of the wideband link, into one window per N: C's post-FFT mode there,
+   and every kernel and mode phase 2w held at an N, in that N's window)
+   and prints one JSON line per kernel set, with each kernel's bound (bytes over 3.35 TB/s or f32
+   operations over 67 TFLOP/s, the H100 SXM data sheet) and its launches
+   in each window (``launches_fast``, ``launches_mc``, ``launches_coded``,
+   ``launches_terminals``, ``launches_wide`` — the sum of 3i's N
+   windows; ``launches`` is the window of its own path, the one checked;
+   the entries named ``<counter>@N1024``, ``@N2048`` and ``@N4096`` carry
+   phase 2w's numbers, the launches in that N's window and the TPU
+   four-step, post-FFT or channels-last kernel they replace there), then
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. It imports nothing of JAX.
@@ -214,7 +238,13 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     from sdr_tpu_torch.link.ber import ber_awgn_exact, ber_rayleigh_exact
     from sdr_tpu_torch.obs.sweep import ebno_sweep
     from sdr_tpu_torch.ops import channel as chan
-    from sdr_tpu_torch.ops.demod import demod_chain, demod_llr_chain_cl, demod_sum_chain_cl
+    from sdr_tpu_torch.ops.demod import (
+        demod_chain,
+        demod_chain_hybrid,
+        demod_count_chain_cl,
+        demod_llr_chain_cl,
+        demod_sum_chain_cl,
+    )
     from sdr_tpu_torch.ops.interleave import deinterleave, interleave
     from sdr_tpu_torch.ops.ldpc import ldpc_encode
 
@@ -398,21 +428,22 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     del sr, si, shr, shi
 
     def check_modes(label, kernel_fn, plain_fn, noise_shape):
-        """Injected noise, then keyed: max abs diff ≤ 1e-5 of the peak;
-        times in the keyed mode."""
+        """Injected noise, then keyed (channels [0, noise_shape[0])): max
+        abs diff ≤ 1e-5 of the peak; times in the keyed mode."""
+        ch = ids[:noise_shape[0]]
         noise_i = (torch.randn(noise_shape, device=dev), torch.randn(noise_shape, device=dev))
         want = plain_fn(noise=noise_i)
         e_inj = plane_err(kernel_fn(noise=noise_i), want)
         p_inj = plane_peak(want)
         del noise_i, want
-        want = plain_fn(seed=seed, ch_ids=ids)
-        e_key = plane_err(kernel_fn(seed=seed, ch_ids=ids), want)
+        want = plain_fn(seed=seed, ch_ids=ch)
+        e_key = plane_err(kernel_fn(seed=seed, ch_ids=ch), want)
         p_key = plane_peak(want)
         del want
         _check(e_inj <= 1e-5 * p_inj, f"{label} (injected noise) max abs diff {e_inj:g}")
         _check(e_key <= 1e-5 * p_key, f"{label} (keyed noise) max abs diff {e_key:g}")
-        ms, pms = compare_times(lambda: kernel_fn(seed=seed, ch_ids=ids),
-                                lambda: plain_fn(seed=seed, ch_ids=ids), reps=1)
+        ms, pms = compare_times(lambda: kernel_fn(seed=seed, ch_ids=ch),
+                                lambda: plain_fn(seed=seed, ch_ids=ch), reps=1)
         print(f"phase 2 {label}: max abs diff injected {e_inj:.3g}, keyed {e_key:.3g} "
               f"(peak {p_key:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
         return dict(max_abs_err=max(e_inj, e_key), ms=ms, plain_ms=pms)
@@ -783,6 +814,257 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
               f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), {bnd['bound_ms'] / ms:.3f} of it")
     del llr_h, info_h
     torch.cuda.empty_cache()
+
+    # ---- phase 2w: the wideband kernels and modes against their plain versions
+    # At phase 3i's shapes: config 3 (64-QAM, N 1024, CP 128) at B × 64, the
+    # batch of its links and terminals, with B's modes and C's plane at
+    # B/4 × 64, the coded link's; N 2048 (16-QAM, CP 256) and config 5's
+    # shape (16-QAM, N 4096, CP 512) at B/2 × 16. Kernel B in every channel
+    # mode, C's count, plane and sum (and despread sum at N 4096), the
+    # channels-last kernels D and F in their wideband mode (f32 and bf16
+    # planes), and C's post-FFT mode. The plain versions that build a whole
+    # LLR plane run b_p channels at a time: at B × 64 their temporaries
+    # would not fit beside the kernels' outputs.
+    wide_report = {}
+
+    def parts_check(label, got, plain, parts, cols=False):
+        """``llr_check`` of ``got`` against ``plain(sl)`` over the channel
+        slices ``parts`` (rows, or the columns of a channels-last plane)."""
+        err = peak = 0.0
+        for sl in parts:
+            want = plain(sl)
+            part = got[:, sl] if cols else got[sl]
+            err = max(err, float((part.float() - want).abs().max()))
+            peak = max(peak, float(want.abs().max()))
+            del want, part
+        _check(err <= 1e-4 * peak, f"{label}: max abs diff {err:g} > 1e-4 of the peak {peak:g}")
+        return err, peak
+
+    def each(fn, parts):
+        """A plain version over the channel slices, outputs dropped (timing)."""
+        for sl in parts:
+            fn(sl)
+
+    for cfg_name, mod_w, n_w, cp_w, b_w, s_w, b_p in (
+        ("config 3", Modulation.QAM64, 1024, 128, B, 64, B // 4),
+        ("N 2048", Modulation.QAM16, 2048, 256, B // 2, 16, B // 2),
+        ("config 5", Modulation.QAM16, 4096, 512, B // 2, 16, B // 2),
+    ):
+        bps_w = mod_w.bits_per_symbol
+        parts = [slice(c, c + b_p) for c in range(0, b_w, b_p)]
+        ids_w = ids[:b_w]
+        rows_w, rows_p = b_w * s_w, b_p * s_w
+        tag = f"{cfg_name} ({b_w}x{s_w}x{n_w + cp_w})"
+        tag_p = f"{cfg_name} ({b_p}x{s_w}x{n_w + cp_w})"
+        nv_w = 1.0 / (10.0 ** 1.4 * bps_w)  # 14 dB
+        tvar_w = nv_w / n_w
+        idx_w = ka.payload_idx(s_w, n_w, bps_w, seed, ids_w)
+        idx_p = idx_w[:b_p]
+        shape_p = (b_p, s_w, n_w + cp_w)
+        g_w = chan.rayleigh_flat(seed, ids_w[:b_p])[:, 0, 0]
+        gw_r, gw_i = g_w.real.contiguous(), g_w.imag.contiguous()
+        gs_w = chan.jakes_gains(seed, ids_w[:b_p], s_w, 0.02)
+        taps_w = chan.multipath_taps(seed, ids_w, pdp5)  # (b_w, 5)
+        tw_r, tw_i = taps_w.real.contiguous(), taps_w.imag.contiguous()
+        got = kb.tx_chain(idx_p, cp_w, mod_w)
+        off_err = plane_err(got, kb.tx_channel_plain(idx_p, cp_w, mod_w))
+        _check(off_err <= 1e-5 * plane_peak(got), f"kernel B {tag_p} channel off: {off_err:g}")
+        del got
+        ms, pms = compare_times(lambda: kb.tx_chain(idx_p, cp_w, mod_w),
+                                lambda: kb.tx_channel_plain(idx_p, cp_w, mod_w), reps=1)
+        tx_bytes = rows_p * n_w + 8 * rows_p * (n_w + cp_w)
+        off_bound = bound(tx_bytes, rows_p * fft_flops(n_w))["bound_ms"]
+        print(f"phase 2w B tx channel off {tag_p}: max abs diff {off_err:.3g}; kernel {ms:.3f} ms, "
+              f"plain {pms:.3f} ms, bound {off_bound:.4f} ms")
+        for label, kw, name in (
+            ("flat gains", dict(hs_r=gw_r, hs_i=gw_i), "tx"),
+            ("per-symbol gains", dict(hs_r=gs_w.real.contiguous(), hs_i=gs_w.imag.contiguous()),
+             None),
+            ("FIR 5 taps (config 5's PDP)", dict(taps_r=tw_r[:b_p], taps_i=tw_i[:b_p]), "tx_taps"),
+        ):
+            rep = check_modes(f"B tx+{label} {tag_p}",
+                              lambda **k: kb.tx_channel(idx_p, cp_w, mod_w, noise_var=tvar_w,
+                                                        **kw, **k),
+                              lambda **k: kb.tx_channel_plain(idx_p, cp_w, mod_w,
+                                                              noise_var=tvar_w, **kw, **k),
+                              shape_p)
+            if name:
+                # the channel (5 complex taps or one gain) and the channel ids
+                chan_bytes = (40 if name == "tx_taps" else 8) * b_p + 4 * b_p
+                fir = (n_w + cp_w) * 8 * 5 if name == "tx_taps" else 10 * (n_w + cp_w)
+                wide_report[(name, n_w)] = dict(rep, **bound(tx_bytes + chan_bytes,
+                                                             rows_p * (fft_flops(n_w) + fir)))
+        # The FIR waveform (keyed noise) at b_w channels through C, F and the
+        # post-FFT mode.
+        re, im = kb.tx_channel(idx_w, cp_w, mod_w, noise_var=tvar_w, seed=seed, ch_ids=ids_w,
+                               taps_r=tw_r, taps_i=tw_i)
+        h_w = fast.rx_plane(taps_w, n_w)  # (b_w, 1, N)
+        hr_w, hi_w = h_w.real.contiguous(), h_w.imag.contiguous()
+        del h_w
+        cnt = kc.demod_count(re, im, hr_w, hi_w, idx_w, cp_w, mod_w, nv_w)
+        cnt_plain, margin, llr_p = [], [], None
+        for sl in parts:
+            llr = kc.demod_chain(re[sl], im[sl], hr_w[sl], hi_w[sl], cp_w, mod_w, nv_w)
+            cnt_plain.append(kc.count_errors(llr, idx_w[sl], bps_w))
+            margin.append(count_margin(llr))
+            if llr_p is None:
+                llr_p = llr  # the first b_p channels, for C's plane below
+            del llr
+        cnt_plain, margin = torch.cat(cnt_plain), torch.cat(margin)
+        diff = (cnt - cnt_plain).abs()
+        _check(int(cnt_plain.sum()) > 0 and bool((diff <= margin).all()),
+               f"kernel C {tag}: counts differ beyond the |LLR| < 1e-3 bits")
+        ms, pms = compare_times(
+            lambda: kc.demod_count(re, im, hr_w, hi_w, idx_w, cp_w, mod_w, nv_w),
+            lambda: each(lambda sl: kc.demod_count_plain(re[sl], im[sl], hr_w[sl], hi_w[sl],
+                                                         idx_w[sl], cp_w, mod_w, nv_w), parts),
+            reps=1)
+        c_in = 8 * rows_w * (n_w + cp_w) + 8 * b_w * n_w
+        c_flops_w = rows_w * (fft_flops(n_w) + n_w * tail_flops(mod_w))
+        wide_report[("demod_count", n_w)] = dict(
+            max_abs_err=float(diff.max()), ms=ms, plain_ms=pms,
+            **bound(c_in + rows_w * n_w + 4 * b_w, c_flops_w))
+        print(f"phase 2w C demod+count {tag} (MULTIPATH 5 taps, 14 dB): {int(cnt.sum())} errors, "
+              f"plain {int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} (allowed "
+              f"{int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        # C's plane on the first b_p channels (the coded link's batch).
+        re_p, im_p, hr_p, hi_p = re[:b_p], im[:b_p], hr_w[:b_p], hi_w[:b_p]
+        c_err, c_peak = llr_check(f"kernel C llr {tag_p}",
+                                  kc.demod_llr(re_p, im_p, hr_p, hi_p, cp_w, mod_w, nv_w), llr_p)
+        del llr_p
+        ms, pms = compare_times(lambda: kc.demod_llr(re_p, im_p, hr_p, hi_p, cp_w, mod_w, nv_w),
+                                lambda: kc.demod_chain(re_p, im_p, hr_p, hi_p, cp_w, mod_w, nv_w),
+                                reps=1)
+        wide_report[("demod_llr", n_w)] = dict(
+            max_abs_err=c_err, ms=ms, plain_ms=pms,
+            **bound(8 * rows_p * (n_w + cp_w) + 8 * b_p * n_w + 4 * rows_p * n_w * bps_w,
+                    rows_p * (fft_flops(n_w) + n_w * tail_flops(mod_w))))
+        print(f"phase 2w C llr plane {tag_p}: max abs diff {c_err:.3g} (peak {c_peak:.3g}); "
+              f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        # C's post-FFT mode on the same waveform's frequency-domain grid.
+        y_w = torch.fft.fft(torch.complex(re, im)[..., cp_w:])
+        yr_w, yi_w = y_w.real.contiguous(), y_w.imag.contiguous()
+        del y_w
+
+        def llr_chain_part(sl, **kw):
+            return kc.llr_chain_plain(yr_w[sl], yi_w[sl], hr_w[sl], hi_w[sl], mod_w, nv_w, **kw)
+
+        got = kc.llr_chain(yr_w, yi_w, hr_w, hi_w, mod_w, nv_w)
+        l_err, l_peak = parts_check(f"kernel C llr_chain {tag}", got, llr_chain_part, parts)
+        del got
+        ms, pms = compare_times(lambda: kc.llr_chain(yr_w, yi_w, hr_w, hi_w, mod_w, nv_w),
+                                lambda: each(llr_chain_part, parts), reps=1)
+        y_bytes = 8 * rows_w * n_w + 8 * b_w * n_w
+        plane_bytes = 4 * rows_w * n_w * bps_w
+        wide_report[("llr_chain", n_w)] = dict(
+            max_abs_err=l_err, ms=ms, plain_ms=pms,
+            **bound(y_bytes + plane_bytes, rows_w * n_w * tail_flops(mod_w)))
+        print(f"phase 2w C llr_chain (post-FFT) {tag}: max abs diff {l_err:.3g} (peak "
+              f"{l_peak:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        # F (count, LLR plane f32 / bf16) on the same waveform, channels-last.
+        wre_t, wim_t = fast._to_cl(re, im)
+        del re, im, re_p, im_p, yr_w, yi_w
+        torch.cuda.empty_cache()
+        whr_t, whi_t = hr_w[:, 0, :].T.contiguous(), hi_w[:, 0, :].T.contiguous()
+        widx_t = idx_w.permute(1, 2, 0).reshape(s_w * n_w, b_w).contiguous()
+        planes = (wre_t, wim_t, whr_t, whi_t)
+        cnt_f = kd.demod_count_cl(*planes, widx_t, cp_w, mod_w, nv_w)
+        diff = (cnt_f - cnt_plain).abs()
+        _check(bool((diff <= margin).all()),
+               f"kernel F {tag}: counts differ beyond the |LLR| < 1e-3 bits")
+        ms, pms = compare_times(
+            lambda: kd.demod_count_cl(*planes, widx_t, cp_w, mod_w, nv_w),
+            lambda: kd.demod_count_cl_plain(*planes, widx_t, cp_w, mod_w, nv_w), reps=1)
+        wide_report[("demod_count_cl", n_w)] = dict(
+            max_abs_err=float(diff.max()), ms=ms, plain_ms=pms,
+            **bound(c_in + rows_w * n_w + 4 * b_w, c_flops_w))
+        print(f"phase 2w F demod+count channels-last {tag}: {int(cnt_f.sum())} errors, plain "
+              f"{int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} (allowed "
+              f"{int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        del cnt, cnt_f, cnt_plain, margin
+
+        def llr_cl_part(sl, out_dtype=torch.float32):
+            return kd.demod_llr_cl_plain(*(p[:, sl] for p in planes), cp_w, mod_w, nv_w,
+                                         out_dtype=out_dtype)
+
+        got = kd.demod_llr_cl(*planes, cp_w, mod_w, nv_w)
+        f_err, f_peak = parts_check(f"kernel F llr {tag}", got, llr_cl_part, parts, cols=True)
+        half = kd.demod_llr_cl(*planes, cp_w, mod_w, nv_w, out_dtype=torch.bfloat16)
+        h_err = 0.0
+        for sl in parts:
+            g, h = got[:, sl], half[:, sl].float()
+            big = g.abs() >= 1e-3
+            _check(torch.equal((h < 0)[big], (g < 0)[big]),
+                   f"kernel F bf16 {tag}: signs differ from f32 where |LLR| >= 1e-3")
+            h_err = max(h_err, float((h - g).abs().max()))
+            del g, h, big
+        del got, half
+        for name, dt, err in (("demod_llr_cl", torch.float32, f_err),
+                              ("demod_llr_cl_bf16", torch.bfloat16, h_err)):
+            ms, pms = compare_times(
+                lambda: kd.demod_llr_cl(*planes, cp_w, mod_w, nv_w, out_dtype=dt),
+                lambda: each(lambda sl: llr_cl_part(sl, dt), parts), reps=1)
+            wide_report[(name, n_w)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms,
+                **bound(c_in + plane_bytes // (1 if dt == torch.float32 else 2), c_flops_w))
+            vs = f"vs plain, peak {f_peak:.3g}" if dt == torch.float32 else "vs the f32 plane"
+            print(f"phase 2w F llr channels-last {str(dt)[6:]} {tag}: max abs diff {err:.3g} "
+                  f"({vs}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        del planes, wre_t, wim_t, widx_t, idx_w, idx_p
+        torch.cuda.empty_cache()
+        # Sums on bench.py-style inputs (noise-like samples, Rayleigh h per
+        # link), whose LLR sum does not cancel: C's sum (and its despread
+        # form at N 4096), D's channels-last sum and the post-FFT sum,
+        # within 1e-5 relative of the plain sums and the same bits twice.
+        gen_w = torch.Generator(device=dev).manual_seed(seed + n_w)
+        br, bi = (torch.randn((b_w, s_w, n_w + cp_w), device=dev, generator=gen_w)
+                  * (1.0 / (2 * n_w) ** 0.5) for _ in range(2))
+        bhr, bhi = (torch.randn((b_w, 1, n_w), device=dev, generator=gen_w) * 0.5 ** 0.5
+                    for _ in range(2))
+        br_t, bi_t = fast._to_cl(br, bi)
+        bhr_t, bhi_t = bhr[:, 0, :].T.contiguous(), bhi[:, 0, :].T.contiguous()
+        by = torch.fft.fft(torch.complex(br, bi)[..., cp_w:])
+        byr, byi = by.real.contiguous(), by.imag.contiguous()
+        del by
+
+        def plain_sum(fn):
+            return lambda: sum(float(fn(sl)) for sl in parts)
+
+        def c_sum_part(sl, despread=False):
+            return kc.demod_chain(br[sl], bi[sl], bhr[sl], bhi[sl], cp_w, mod_w, nv_w,
+                                  reduce_sum=True, despread=despread)
+
+        sums = [
+            ("demod_sum", lambda: kc.demod_llr(br, bi, bhr, bhi, cp_w, mod_w, nv_w,
+                                               reduce_sum=True),
+             plain_sum(c_sum_part), bound(c_in + 4, c_flops_w)),
+            ("demod_sum_cl", lambda: kd.demod_sum_cl(br_t, bi_t, bhr_t, bhi_t, cp_w, mod_w, nv_w),
+             lambda: kd.demod_sum_cl_plain(br_t, bi_t, bhr_t, bhi_t, cp_w, mod_w, nv_w),
+             bound(c_in + 4, c_flops_w)),
+            ("llr_chain_sum", lambda: kc.llr_chain(byr, byi, bhr, bhi, mod_w, nv_w,
+                                                   reduce_sum=True),
+             plain_sum(lambda sl: kc.llr_chain_plain(byr[sl], byi[sl], bhr[sl], bhi[sl], mod_w,
+                                                     nv_w, reduce_sum=True)),
+             bound(y_bytes + 4, rows_w * n_w * tail_flops(mod_w))),
+        ]
+        if n_w == 4096:
+            sums.append(("demod_sum_despread",
+                         lambda: kc.demod_llr(br, bi, bhr, bhi, cp_w, mod_w, nv_w,
+                                              reduce_sum=True, despread=True),
+                         plain_sum(lambda sl: c_sum_part(sl, despread=True)),
+                         bound(c_in + 4, c_flops_w + rows_w * (fft_flops(n_w) + 20 * n_w))))
+        for name, kfn, pfn, bnd in sums:
+            tot_k, tot_p = float(kfn()), float(pfn())
+            s_err = abs(tot_k - tot_p)
+            _check(s_err <= 1e-5 * abs(tot_p), f"{name} {tag}: {tot_k!r} vs plain {tot_p!r}")
+            _check(float(kfn()) == tot_k, f"{name} {tag} is not deterministic")
+            ms, pms = compare_times(kfn, pfn, reps=1)
+            wide_report[(name, n_w)] = dict(max_abs_err=s_err, ms=ms, plain_ms=pms, **bnd)
+            print(f"phase 2w {name} {tag}: {tot_k:.9g}, plain {tot_p:.9g}, rel diff "
+                  f"{s_err / abs(tot_p):.3g} (allowed 1e-5), deterministic; kernel {ms:.3f} ms, "
+                  f"plain {pms:.3f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        del br, bi, bhr, bhi, br_t, bi_t, bhr_t, bhi_t, byr, byi
+        torch.cuda.empty_cache()
 
     # ---- phase 3: the slice, counters zeroed just before ------------------
     _lib.reset_launches()
@@ -1262,17 +1544,211 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
 
     # ---- counters and result ------------------------------------------------
     launches_terminals = dict(_lib.LAUNCHES)  # phase 3h: the LLR-plane terminals
+
+    # ---- phase 3i: the wideband link (configs 3 and 5), counters zeroed ------
+    # Each main-path call runs inside ``at_n(N)``: the counters are zeroed
+    # on entry and added to N's window on exit. The reference work between
+    # those calls (the plain margins and sums) is in no window.
+    launches_at = {n: dict.fromkeys(_lib.LAUNCHES, 0) for n in (1024, 2048, 4096)}
+
+    @contextlib.contextmanager
+    def at_n(n):
+        _lib.reset_launches()
+        yield
+        for k, v in _lib.LAUNCHES.items():
+            launches_at[n][k] += v
+
+    mod3 = Modulation.QAM64
+    w3 = dict(n_fft=1024, cp=128, modulation=mod3)  # config 3, 64 symbols
+    w5 = dict(n_fft=4096, cp=512, n_symbols=16, modulation=mod)  # config 5's shape
+
+    def rows_margin(cfg, ch, chunk=1024):
+        """Per-channel count of bits whose plain |LLR| < 1e-3 on the rows
+        waveform of ``cfg`` (plain demod in chunks of channels)."""
+        re_m, im_m = fast.tx_channel_core(cfg, seed, ch)
+        h_m, _ = fast.fade_state(cfg, seed, ch)
+        n_m = cfg.ofdm.n_fft
+        h_m = (torch.ones((ch.shape[0], 1, n_m), dtype=torch.complex64, device=dev) if h_m is None
+               else h_m.to(torch.complex64).expand(ch.shape[0], 1, n_m))
+        parts = []
+        for c in range(0, ch.shape[0], chunk):
+            sl = slice(c, c + chunk)
+            llr = kc.demod_chain(re_m[sl], im_m[sl], h_m[sl].real, h_m[sl].imag, cfg.ofdm.cp_len,
+                                 cfg.modulation, fast.noise_var(cfg))
+            parts.append(count_margin(llr))
+            del llr
+        return torch.cat(parts)
+
+    def wide_link(label, model, ebno_db, gate, n_channels=B, **kw):
+        """Both layouts of one wideband cell: warm, then timed in turns
+        (rows, cl, cl, rows, rows, cl; median of 3 each); BER within the
+        gate of ``gate`` (exact theory, or the BER of the drawn channel);
+        cl counts equal to rows but for the near-zero bits."""
+        cfg = link_cfg(model, ebno_db, n_channels, **kw)
+        runs = {"rows": [], "cl": []}
+        with at_n(cfg.ofdm.n_fft):
+            run_link(model, ebno_db, n_channels, **kw)
+            run_link(model, ebno_db, n_channels, layout="cl", **kw)
+            for layout in ("rows", "cl", "cl", "rows", "rows", "cl"):
+                runs[layout].append(run_link(model, ebno_db, n_channels, layout=layout, **kw))
+        for layout in ("cl", "rows"):
+            for e2, _, _ in runs[layout][1:]:
+                _check(torch.equal(e2, runs[layout][0][0]), f"{label} {layout}: runs differ")
+        (e_r, c_r, _), (e_c, _, _) = runs["rows"][0], runs["cl"][0]
+        want, tol, what = gate(cfg)
+        ber_r = ber_of(e_r, c_r)
+        ber_c = ber_of(e_c, c_r)
+        for lay, b_ in (("rows", ber_r), ("cl", ber_c)):
+            _check(abs(b_ / want - 1) <= tol, f"{label} {lay}: BER {b_:g} vs {what} {want:g}")
+        margin = rows_margin(cfg, ids[:n_channels])
+        diff = (e_c - e_r).abs()
+        _check(bool((diff <= margin).all()), f"{label}: cl counts differ from rows beyond margin")
+        t_rows = sorted(r[2] for r in runs["rows"])[1]
+        t_cl = sorted(r[2] for r in runs["cl"])[1]
+        samples = n_channels * cfg.n_symbols * (cfg.ofdm.n_fft + cfg.ofdm.cp_len)
+        print(f"phase 3i fast_simulate {label} {n_channels}x{cfg.n_symbols}: BER rows {ber_r:.6g}, "
+              f"cl {ber_c:.6g}, {what} {want:.6g} (ratio {ber_r / want:.5f}, allowed {tol:g}); "
+              f"cl vs rows per-channel max diff {int(diff.max())} (allowed {int(margin.max())}); "
+              f"rows {t_rows * 1e3:.3f} ms = {samples / t_rows / 1e9:.3f} GS/s, cl "
+              f"{t_cl * 1e3:.3f} ms = {samples / t_cl / 1e9:.3f} GS/s (median of 3 each, in turns)"
+              f" on {card}")
+        return e_r
+
+    def theory(fn, tol):
+        return lambda cfg: (fn(cfg.modulation, cfg.channel.ebno_db), tol, "exact theory")
+
+    def drawn(cfg):
+        h_d, _ = fast.fade_state(cfg, seed, ids[:cfg.n_channels])
+        return (ber_given_gain(cfg.modulation, cfg.channel.ebno_db,
+                               (h_d.abs() ** 2).to(torch.float64)), 0.02, "drawn-channel BER")
+
+    with at_n(1024):
+        run_link(ChannelModel.AWGN, 12.0, 128, **w3)  # warm-up
+    e3 = wide_link("config 3 AWGN 12 dB", ChannelModel.AWGN, 12.0,
+                   theory(ber_awgn_exact, 0.05), **w3)
+    with at_n(1024):
+        part, _, _ = run_link(ChannelModel.AWGN, 12.0, ch=ids[:half], **w3)
+    _check(torch.equal(part, e3[:half]), "config 3: channels [0, B/2) alone differ from full")
+    print(f"phase 3i config 3 AWGN: split [0, {half}) == full")
+    del part, e3
+    wide_link("config 3 RAYLEIGH_FLAT 15 dB", ChannelModel.RAYLEIGH_FLAT, 15.0,
+              theory(ber_rayleigh_exact, 0.10), **w3)
+    wide_link("config 3 MULTIPATH config-4 PDP 14 dB", ChannelModel.MULTIPATH, 14.0, drawn,
+              pdp=pdp4, **w3)
+    torch.cuda.empty_cache()
+    wide_link("config 5 shape (N 4096, CP 512) MULTIPATH 5 taps 14 dB", ChannelModel.MULTIPATH,
+              14.0, drawn, n_channels=B // 2, pdp=pdp5, **w5)
+    wide_link("N 2048, CP 256, 16-QAM MULTIPATH 5 taps 14 dB", ChannelModel.MULTIPATH, 14.0,
+              drawn, n_channels=B // 2, pdp=pdp5,
+              **dict(n_fft=2048, cp=256, n_symbols=16, modulation=mod))
+    torch.cuda.empty_cache()
+
+    # The coded engine at config 3 (B/4 × 64: the plane is six times wider
+    # per channel than at config 2), both seams — the fused one through F's
+    # wideband LLR mode; then both seams at N 2048 and 4096 on 512 channels.
+    for label, cfg_l, n_ch in (
+        ("config 3 (64-QAM, N 1024, CP 128)",
+         link_cfg(ChannelModel.RAYLEIGH_FLAT, 9.0, B // 4, **w3), B // 4),
+        ("N 2048, CP 256, 16-QAM, 16 symbols",
+         link_cfg(ChannelModel.RAYLEIGH_FLAT, 9.0, min(512, B), n_fft=2048, cp=256,
+                  n_symbols=16), min(512, B)),
+        ("config 5 shape (N 4096, CP 512), 16 symbols",
+         link_cfg(ChannelModel.RAYLEIGH_FLAT, 9.0, min(512, B), **w5), min(512, B)),
+    ):
+        code_l = ldpc_code_for("1/2")
+        info_l = n_ch * ldpc_codewords_per_channel(cfg_l, code_l) * code_l.k
+        res = {}
+        with at_n(cfg_l.ofdm.n_fft):
+            for seam in ("staged", "fused"):
+                run_coded(cfg_l, seam=seam)
+                res[seam] = run_coded(cfg_l, seam=seam)
+        es, ef = int(res["staged"][0].sum()), int(res["fused"][0].sum())
+        _check(0 < es and abs(es - ef) <= max(8, es // 100),
+               f"coded {label}: seams disagree, staged {es}, fused {ef}")
+        t_s, t_f = res["staged"][2], res["fused"][2]
+        print(f"phase 3i ldpc_fast_simulate {label} {n_ch} channels rate 1/2 RAYLEIGH_FLAT 9 dB "
+              f"flooding 25: staged {es} / fused {ef} info-bit errors (allowed diff "
+              f"{max(8, es // 100)}); staged {t_s * 1e3:.3f} ms ({info_l / t_s / 1e6:.3f} Mb/s "
+              f"info), fused {t_f * 1e3:.3f} ms ({info_l / t_f / 1e6:.3f} Mb/s) on {card}")
+        del res
+    torch.cuda.empty_cache()
+
+    # The terminals a user calls at N 1024, 2048 and 4096 (bench.py-style
+    # inputs, the link cells' batches): the channels-last sum, count and LLR
+    # plane (kernels D and F in their wideband mode), kernel C's sum through
+    # ``demod_chain`` and the hybrid route; every sum within 1e-5 relative
+    # of the plain sum on the same grid (taken B/4 channels at a time).
+    for label, n_t, cp_t, s_t, b_t, mod_t in (
+        ("config 3", 1024, 128, 64, B, mod3), ("N 2048", 2048, 256, 16, B // 2, mod),
+        ("config 5 shape", 4096, 512, 16, B // 2, mod),
+    ):
+        gen_i = torch.Generator(device=dev).manual_seed(seed + 3 + n_t)
+        xr, xi = (torch.randn((b_t, s_t, n_t + cp_t), device=dev, generator=gen_i)
+                  * (1.0 / (2 * n_t) ** 0.5) for _ in range(2))
+        hr_i, hi_i = (torch.randn((b_t, 1, n_t), device=dev, generator=gen_i) * 0.5 ** 0.5
+                      for _ in range(2))
+        xr_t, xi_t = fast._to_cl(xr, xi)
+        hr_it, hi_it = hr_i[:, 0, :].T.contiguous(), hi_i[:, 0, :].T.contiguous()
+        idx_i = torch.randint(0, 1 << mod_t.bits_per_symbol, (s_t * n_t, b_t), dtype=torch.int8,
+                              device=dev, generator=gen_i)
+        nv_t = 1.0 / (10.0 ** 1.2 * mod_t.bits_per_symbol)
+        ref_sum = sum(float(kc.demod_chain(xr[c:c + B // 4], xi[c:c + B // 4],
+                                           hr_i[c:c + B // 4], hi_i[c:c + B // 4], cp_t, mod_t,
+                                           nv_t, reduce_sum=True))
+                      for c in range(0, b_t, B // 4))
+        calls = [
+            ("demod_sum_chain_cl", lambda: demod_sum_chain_cl(xr_t, xi_t, hr_it, hi_it, cp_t, mod_t,
+                                                              nv_t)),
+            ("demod_count_chain_cl", lambda: demod_count_chain_cl(xr_t, xi_t, hr_it, hi_it, idx_i,
+                                                                  cp_t, mod_t, nv_t)),
+            ("demod_llr_chain_cl f32 kernel order",
+             lambda: demod_llr_chain_cl(xr_t, xi_t, hr_it, hi_it, cp_t, mod_t, nv_t,
+                                        kernel_order=True)),
+            ("demod_llr_chain_cl bf16 kernel order",
+             lambda: demod_llr_chain_cl(xr_t, xi_t, hr_it, hi_it, cp_t, mod_t, nv_t,
+                                        out_dtype=torch.bfloat16, kernel_order=True)),
+            ("demod_chain_hybrid plane", lambda: demod_chain_hybrid(xr, xi, hr_i, hi_i, cp_t, mod_t,
+                                                                    nv_t)),
+            ("demod_chain_hybrid sum", lambda: demod_chain_hybrid(xr, xi, hr_i, hi_i, cp_t, mod_t,
+                                                                  nv_t, reduce_sum=True)),
+            ("demod_chain sum", lambda: demod_chain(xr, xi, hr_i, hi_i, cp_t, mod_t, nv_t,
+                                                    reduce_sum=True)),
+        ]
+        if n_t == 4096:  # the SC-FDE sum (kernel C's despread mode; row #15)
+            calls.append(("demod_chain despread sum",
+                          lambda: demod_chain(xr, xi, hr_i, hi_i, cp_t, mod_t, nv_t,
+                                              reduce_sum=True, despread=True)))
+        for name, fn in calls:
+            with at_n(n_t):
+                out = fn()
+                ms_t = timed(fn, 3)
+            _check(bool(torch.isfinite(out.float()).all()), f"{name} {label}: non-finite output")
+            if out.ndim == 0 and "despread" not in name:
+                _check(abs(float(out) - ref_sum) <= 1e-5 * abs(ref_sum),
+                       f"{name} {label}: sum {float(out)!r} vs plain {ref_sum!r}")
+            del out
+            print(f"phase 3i {name} {label} ({b_t}x{s_t}x{n_t + cp_t} f32 in): {ms_t:.3f} ms per "
+                  f"call, {b_t * s_t * (n_t + cp_t) / (ms_t * 1e-3) / 1e9:.3f} GS/s on {card}")
+        del xr, xi, hr_i, hi_i, xr_t, xi_t, hr_it, hi_it, idx_i
+        torch.cuda.empty_cache()
+    # phase 3i: the wideband link and terminals, the sum of the N windows
+    launches_wide = {k: sum(w[k] for w in launches_at.values()) for k in _lib.LAUNCHES}
     mc_path = ("mc_count", "demod_count_despread")
     coded_path = ("demod_llr", "demod_llr_cl", "ldpc_minsum", "ldpc_minsum_layered",
                   "ldpc_minsum_t", "ldpc_minsum_t_layered")
     terminal_path = ("demod_sum", "demod_llr_despread", "demod_sum_despread",
                      "demod_llr_cl_bf16")
+    wide_path = ("llr_chain", "llr_chain_sum")
     windows = ((coded_path, launches_coded), (terminal_path, launches_terminals),
-               (mc_path, launches_mc))
+               (mc_path, launches_mc), (wide_path, launches_wide))
     own = {name: next((w[name] for path, w in windows if name in path), launches[name])
            for name in launches}
     for name, n in own.items():
         _check(n > 0, f"kernel {name} was not launched on the main path")
+    # Each kernel and mode held in phase 2w at an N must have launched in
+    # phase 3i's window of that N (the wideband mode of D and F included).
+    for name, n_w in wide_report:
+        _check(launches_at[n_w][name] > 0, f"kernel {name} was not launched at N {n_w} in 3i")
     c_rows = "sdr_tpu/kernels/demod_pallas.py:398"
     sources = {
         "payload": ("sdr_tpu_torch/csrc/payload.cu", "sdr_tpu/kernels/channel_pallas.py:233"),
@@ -1304,12 +1780,42 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         "ldpc_minsum_t_layered": ("sdr_tpu_torch/csrc/ldpc.cu",
                                   "sdr_tpu/kernels/ldpc_pallas.py:370"),
     }
+    # The wideband entries: each counter at N 1024, 2048 and 4096, with its
+    # launches in that N's window of phase 3i, against the TPU kernel it
+    # replaces there (the split four-step form; the single-kernel form it
+    # also replaces in "also_replaces").
+    tx4 = ("sdr_tpu/kernels/fourstep_tx_split_pallas.py:86",
+           "sdr_tpu/kernels/fourstep_tx_pallas.py:149")
+    demod4 = ("sdr_tpu/kernels/fourstep_split_pallas.py:175",
+              "sdr_tpu/kernels/fourstep_pallas.py:277")
+    cl_rows = {"demod_sum_cl": "sdr_tpu/kernels/demod_cl_pallas.py:727",
+               "demod_count_cl": "sdr_tpu/kernels/demod_cl_pallas.py:741",
+               "demod_llr_cl": "sdr_tpu/kernels/demod_cl_pallas.py:753",
+               "demod_llr_cl_bf16": "sdr_tpu/kernels/demod_cl_pallas.py:753"}
+    wide_sources = {
+        "tx": tx4, "tx_taps": tx4, "demod_llr": demod4, "demod_sum": demod4,
+        "demod_count": (demod4[0],),
+        "demod_sum_despread": ("sdr_tpu/kernels/fourstep_split_pallas.py:376",),
+        "llr_chain": ("sdr_tpu/kernels/llr_pallas.py:54",),
+        "llr_chain_sum": ("sdr_tpu/kernels/llr_pallas.py:54",),
+        **{k: (v,) for k, v in cl_rows.items()},
+    }
     kernels = [
         dict(name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],
              launches=own[name], launches_fast=launches[name], launches_mc=launches_mc[name],
              launches_coded=launches_coded[name], launches_terminals=launches_terminals[name],
-             **{"library_ms": None, **report[name]})
+             launches_wide=launches_wide[name], **{"library_ms": None, **report[name]})
         for name in sources
+    ] + [
+        dict(name=f"{name}@N{n_w}", route="cuda",
+             source="sdr_tpu_torch/csrc/" + ("demod_cl.cu" if name in cl_rows else
+                                             "tx.cu" if name.startswith("tx") else "demod.cu"),
+             replaces=wide_sources[name][0], also_replaces=list(wide_sources[name][1:]),
+             launches=launches_at[n_w][name], launches_fast=launches[name],
+             launches_mc=launches_mc[name], launches_coded=launches_coded[name],
+             launches_terminals=launches_terminals[name], launches_wide=launches_wide[name],
+             **{"library_ms": None, **rep})
+        for (name, n_w), rep in wide_report.items()
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

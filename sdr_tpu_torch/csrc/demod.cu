@@ -1,5 +1,5 @@
-// Kernel C: rows-layout demod + per-channel bit-error count, and the
-// rows LLR plane or its sum.
+// Kernel C: rows-layout demod + per-channel bit-error count, the rows LLR
+// plane or its sum, and the post-FFT equalize + LLR mode (llr_chain).
 //
 // Replaces sdr_tpu/kernels/demod_pallas.py::demod_count_pallas (the
 // fast engine's count terminal) with its taps= and despread modes, and
@@ -33,6 +33,15 @@
 // MXU in bf16 passes (and the despread as a second matmul). Here a block
 // holds a few symbols in shared memory and runs radix-2 FFTs on CUDA
 // cores in f32; the count mode writes no LLR plane.
+//
+// At N = 1024 to 4096 (BASELINE configs 3 and 5) the same kernel serves
+// the TPU's wideband family: fourstep_split_pallas.py::
+// demod_chain_fourstep2 (plane, sum, count), ::demod_chain_fourstep2_fde
+// (the despread sum and count) and fourstep_pallas.py::
+// demod_chain_fourstep. Those split the DFT into N1·N2 matmul steps, some
+// staged through HBM in bf16 or f32, because dense DFT operands outgrew
+// VMEM; here one symbol's two f32 tiles are 32 KB at N = 4096, so a block
+// holds the whole transform and the stage precision is not a question.
 //
 // Bound on the H100: reading the two f32 sample planes (8 bytes per
 // sample, plus the channel and index planes; the LLR plane adds 4 bytes
@@ -255,7 +264,88 @@ int launch_llr(const float* re, const float* im, const float* hr, const float* h
   return (int)cudaGetLastError();
 }
 
+// The post-FFT mode (llr_pallas.py::llr_chain_pallas, the hybrid route's
+// equalize + LLR kernel): the frequency-domain grid y (B, S, N) comes in
+// transformed, and each tone runs C's one-tap tail (mmse_llrs) against h
+// (B, 1 | S, N), storing its BPS LLRs in the public order
+// out[(row * N + k) * BPS + j], or (SUM) adding them to the thread's sum,
+// reduced per block in a fixed order into partials[block]. No shared
+// tile: consecutive threads take consecutive tones, each reading 8 bytes
+// of y and 8 of h and writing 4·BPS bytes, so the mode is bound by those
+// bytes. The grid is fixed by the tone count (llr_chain_blocks) and every
+// thread strides over it, so the sum's partials are the same for a shape
+// on every run.
+int llr_chain_blocks(long long n_tones) {
+  const long long want = (n_tones + sdr::kThreads - 1) / sdr::kThreads;
+  return (int)(want < 2112 ? want : 2112);  // 16 blocks for each of 132 SMs
+}
+
+template <int M, bool BPSK, bool SUM>
+__global__ void __launch_bounds__(sdr::kThreads)
+llr_chain_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
+                 const float* __restrict__ hr, const float* __restrict__ hi, int h_syms,
+                 float* __restrict__ out, long long n_tones, int S, int log_n,
+                 sdr::AxisTables tab, float inv_nv) {
+  constexpr int BPS = BPSK ? 1 : 2 * M;
+  __shared__ float red[sdr::kThreads / 32];
+  const int N = 1 << log_n;
+  float acc = 0.0f;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n_tones;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long r = e >> log_n;
+    const int k = (int)(e & (N - 1));
+    const long long b = r / S;
+    const long long ho = ((b * h_syms + (h_syms > 1 ? r - b * S : 0)) << log_n) + k;
+    float llr[BPS];
+    sdr::mmse_llrs<M, BPSK>(yr[e], yi[e], hr[ho], hi[ho], inv_nv, tab, llr);
+    if constexpr (SUM) {
+#pragma unroll
+      for (int j = 0; j < BPS; ++j) acc += llr[j];
+    } else {
+      sdr::store_run<BPS>(out + e * BPS, llr);
+    }
+  }
+  if constexpr (SUM) {
+    const float v = sdr::block_sum(acc, red);
+    if (threadIdx.x == 0) out[blockIdx.x] = v;
+  }
+}
+
+template <int M, bool BPSK, bool SUM>
+int launch_llr_chain(const float* yr, const float* yi, const float* hr, const float* hi,
+                     int h_syms, float* out, float* partials, long long n_tones, int S, int log_n,
+                     const sdr::AxisTables& tab, float inv_nv, cudaStream_t st) {
+  const int blocks = llr_chain_blocks(n_tones);
+  llr_chain_kernel<M, BPSK, SUM><<<blocks, sdr::kThreads, 0, st>>>(
+      yr, yi, hr, hi, h_syms, SUM ? partials : out, n_tones, S, log_n, tab, inv_nv);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !SUM) return (int)err;
+  sdr::sum_partials_kernel<<<1, 1024, 0, st>>>(partials, blocks, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Number of per-block partials the post-FFT sum's wrapper must allocate.
+extern "C" int sdr_llr_chain_partials(int B, int S, int log_n) {
+  return llr_chain_blocks(((long long)B * S) << log_n);
+}
+
+extern "C" int sdr_llr_chain(const float* yr, const float* yi, const float* hr, const float* hi,
+                             int h_syms, float* out, float* partials, int B, int S, int log_n,
+                             int bits_per_axis, int bpsk, sdr::AxisTables tab, float inv_nv,
+                             int reduce_sum, void* stream) {
+  const long long n_tones = ((long long)B * S) << log_n;
+  if (n_tones <= 0 || h_syms < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  SDR_DISPATCH_MOD(bits_per_axis, bpsk,
+    if (reduce_sum)
+      return launch_llr_chain<M, BPSK, true>(yr, yi, hr, hi, h_syms, out, partials, n_tones, S,
+                                             log_n, tab, inv_nv, st);
+    return launch_llr_chain<M, BPSK, false>(yr, yi, hr, hi, h_syms, out, partials, n_tones, S,
+                                            log_n, tab, inv_nv, st))
+  return (int)cudaErrorInvalidValue;
+}
 
 // Number of per-block partials the sum mode's wrapper must allocate.
 extern "C" int sdr_demod_llr_partials(int B, int S, int log_n) {

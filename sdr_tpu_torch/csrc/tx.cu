@@ -21,6 +21,12 @@
 // never goes to device memory: the kernel reads the narrow index plane
 // and writes the two impaired sample planes once.
 //
+// At N = 1024 to 4096 the same kernel serves the TPU's wideband TX:
+// fourstep_tx_split_pallas.py::tx_chain_fourstep2 and fourstep_tx_pallas.py
+// ::tx_chain_fourstep, which factored the inverse DFT into N1·N2 matmul
+// steps because a dense N x N operand outgrew VMEM. One symbol's tile is
+// 32 KB here at N = 4096, so a block runs the whole radix-2 transform.
+//
 // The FIR (tx_fir_kernel) needs, for symbol s, the last L-1 samples of
 // symbol s-1's CP'd waveform (zeros before symbol 0). A block therefore
 // takes one channel and walks its symbols in order, a few at a time,

@@ -32,6 +32,19 @@ launches under ``demod_llr``, ``demod_sum``, ``demod_llr_despread`` and
 ``demod_chain``, which the count's plain version, the channels-last plain
 versions (``kernels/demod_cl.py``) and the tests reuse.
 
+The post-FFT mode (``llr_chain``, port of
+``sdr_tpu/kernels/llr_pallas.py::llr_chain_pallas``) takes the
+frequency-domain grid (B, S, N), transformed outside the kernel, and
+runs the same equaliser and LLR tail, storing the plane or summing it
+(counters ``llr_chain`` and ``llr_chain_sum``); its plain version is
+``demod_chain`` minus the FFT.
+
+At N = 1024 to 4096 every mode here also serves the JAX package's
+wideband four-step kernels (``fourstep_split_pallas.py``,
+``fourstep_pallas.py``): one radix-2 transform per block replaces their
+N1·N2 matmul split, which existed because dense DFT operands outgrew
+VMEM.
+
 On a CPU tensor the plain version runs; on a CUDA tensor the CUDA
 kernel (``csrc/demod.cu``) runs, or the call raises.
 """
@@ -67,6 +80,13 @@ def demod_chain(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
     ``reduce_sum``. ``despread``: the SC-FDE receive
     (``equalize_mmse_fde``), as the JAX package's ``demod_chain_jnp``."""
     y = ofdm_rx(torch.complex(re.to(torch.float32), im.to(torch.float32)), cp_len)
+    return post_fft_llr(y, hr, hi, mod, noise_var, reduce_sum, despread)
+
+
+def post_fft_llr(y, hr, hi, mod: Modulation, noise_var: float, reduce_sum: bool = False,
+                 despread: bool = False):
+    """``demod_chain`` after its FFT: the complex post-FFT grid (..., S, N)
+    through the equaliser and the max-log LLRs."""
     hr = hr.to(torch.float32)
     hi = hi.to(torch.float32)
     if despread:
@@ -173,6 +193,53 @@ def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: fl
     _lib.check(rc, name)
     _lib.LAUNCHES[name] += 1
     return out
+
+
+def llr_chain_plain(yr, yi, hr, hi, mod: Modulation, noise_var: float,
+                    reduce_sum: bool = False):
+    """Plain version of the post-FFT mode: ``demod_chain`` minus the FFT."""
+    y = torch.complex(yr.to(torch.float32), yi.to(torch.float32))
+    return post_fft_llr(y, hr, hi, mod, noise_var, reduce_sum)
+
+
+def llr_chain(yr, yi, hr, hi, mod: Modulation, noise_var: float, reduce_sum: bool = False):
+    """The post-FFT mode (port of ``llr_pallas.py::llr_chain_pallas``):
+    equalise + max-log LLRs over a frequency-domain grid.
+
+    yr/yi (B, S, N) float32, N a power of two; hr/hi (B, 1 | S, N)
+    float32. Returns the (B, S, N·bps) float32 plane in the public order,
+    or its float32 sum (0-d, deterministic) with ``reduce_sum``. Counters
+    ``llr_chain`` and ``llr_chain_sum``."""
+    if yr.device.type == "cpu":
+        return llr_chain_plain(yr, yi, hr, hi, mod, noise_var, reduce_sum)
+    if yr.ndim != 3 or hr is None or hr.ndim != 3:
+        raise ValueError("llr_chain kernel: y (B, S, N) and h (B, 1 | S, N) planes")
+    B, S, N = yr.shape
+    if (N < 2 or N & (N - 1) or tuple(hr.shape) not in ((B, 1, N), (B, S, N))
+            or yi.shape != yr.shape or hi.shape != hr.shape):
+        raise ValueError(f"llr_chain kernel: unsupported shapes y {tuple(yr.shape)}, "
+                         f"h {tuple(hr.shape)}")
+    if any(t.dtype != torch.float32 for t in (yr, yi, hr, hi)):
+        raise ValueError("llr_chain kernel: y and h planes must be float32")
+    _lib.require_cuda("llr_chain", yr, yi, hr, hi)
+    lib = _lib.lib()
+    log_n = _lib.log2_exact(N)
+    if reduce_sum:
+        partials = torch.empty((lib.sdr_llr_chain_partials(B, S, log_n),), dtype=torch.float32,
+                               device=yr.device)
+        out = torch.empty((1,), dtype=torch.float32, device=yr.device)
+    else:
+        partials = None
+        out = torch.empty((B, S, N * mod.bits_per_symbol), dtype=torch.float32, device=yr.device)
+    rc = lib.sdr_llr_chain(
+        yr.data_ptr(), yi.data_ptr(), hr.data_ptr(), hi.data_ptr(), hr.shape[1], out.data_ptr(),
+        _lib.ptr(partials), B, S, log_n, mod.bits_per_axis, int(mod is Modulation.BPSK),
+        _lib.axis_tables(mod), inv_noise_var(noise_var), int(reduce_sum), _lib.stream(),
+    )
+    name = "llr_chain_sum" if reduce_sum else "llr_chain"
+    _lib.check(rc, name)
+    _lib.LAUNCHES[name] += 1
+    return out[0] if reduce_sum else out
 
 
 def llr_counter(reduce_sum: bool, despread: bool) -> str:

@@ -25,8 +25,12 @@ gives the public (B, S, N·bps) form), and ``h_in_dif_order=True`` (h
 permuted by ``dif_perm``, as the JAX bench passes it) is un-permuted
 here before the launch.
 
-The kernels take float32 only and raise on bfloat16: the bf16 sample
-planes of the JAX bench need a BER gate first. D's cross-block sum is a
+The kernels take N a power of two up to 4096 (the JAX kernel's range,
+N = 128·2^k ≤ 4096, and below it): a block holds an (N, channels) tile
+of 128 KB at most, 32 channels up to N = 512 and 2^14/N above (the
+wideband mode, ``csrc/demod_cl.cu``). They take float32 only and
+raise on bfloat16: the bf16 sample planes of the JAX bench need a BER
+gate first. D's cross-block sum is a
 deterministic two-pass reduction, so repeated runs give the same bits;
 F's counts are integer atomics, exact in any order.
 
@@ -46,7 +50,7 @@ from sdr_tpu_torch.kernels import _lib
 from sdr_tpu_torch.kernels.demod import count_errors, demod_chain, inv_noise_var
 
 _BASE = 128  # the TPU kernel's leaf DFT size, which fixes its DIF order
-MAX_N_FFT = 512  # a (N, 32-channel) complex f32 tile per block: 256·N bytes
+MAX_N_FFT = 4096  # a block's (N, channels) complex f32 tile stays ≤ 128 KB
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,7 +83,7 @@ def h_natural(hr_t, hi_t, h_in_dif_order: bool):
 
 
 def supported(shape, n_fft: int, cp_len: int) -> bool:
-    """(S·(N+cp), B) planes with N a power of two in [2, 512]."""
+    """(S·(N+cp), B) planes with N a power of two in [2, 4096]."""
     if len(shape) != 2 or not (2 <= n_fft <= MAX_N_FFT and (n_fft & (n_fft - 1)) == 0):
         return False
     return cp_len >= 0 and shape[0] % (n_fft + cp_len) == 0 and shape[0] > 0 and shape[1] > 0
@@ -130,7 +134,7 @@ def demod_sum_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation, noise_var
     _lib.require_cuda("demod_sum_cl", re_t, im_t, hr_t, hi_t)
     n_syms = re_t.shape[0] // (n_fft + cp_len)
     lib = _lib.lib()
-    partials = torch.empty((lib.sdr_demod_sum_cl_partials(B, n_syms),),
+    partials = torch.empty((lib.sdr_demod_sum_cl_partials(B, n_syms, _lib.log2_exact(n_fft)),),
                            dtype=torch.float32, device=re_t.device)
     out = torch.empty((1,), dtype=torch.float32, device=re_t.device)
     twr, twi = _lib.twiddles(n_fft, re_t.device)

@@ -27,6 +27,11 @@ Noise modes:
   0) on ``seed ^ ROLE_NOISE``, Box–Muller on words 0 and 1;
 - neither: channel off (``tx_chain``), the waveform alone.
 
+At N = 1024 to 4096 the kernel also serves the JAX package's wideband
+TX (``fourstep_tx_split_pallas.py::tx_chain_fourstep2``,
+``fourstep_tx_pallas.py::tx_chain_fourstep``): one radix-2 transform per
+block replaces their N1·N2 matmul split.
+
 On a CPU tensor the plain version (``tx_channel_plain``) runs; on a
 CUDA tensor the CUDA kernel (``csrc/tx.cu``) runs, or the call raises.
 The FIR mode counts its launches under ``tx_taps``, the others under

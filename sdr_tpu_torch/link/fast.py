@@ -123,7 +123,8 @@ def select_layout(cfg: LinkConfig, n_ch: int, platform: str | None = None) -> st
 
 def layout_supported_cl(cfg: LinkConfig, n_ch: int) -> bool:
     """Whether ``layout="cl"`` applies: plain OFDM, a per-link channel
-    plane, and shapes kernel F takes (N a power of two ≤ 512)."""
+    plane, and shapes kernel F takes (N a power of two ≤ 4096: configs 3
+    and 5 run it in F's wideband mode)."""
     if cfg.dft_spread or cfg.channel.model in _PER_SYMBOL:
         return False
     shape = (cfg.n_symbols * (cfg.ofdm.n_fft + cfg.ofdm.cp_len), n_ch)

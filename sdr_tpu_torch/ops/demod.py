@@ -11,8 +11,11 @@ engine's count terminals ``demod_count_chain`` (kernel C, rows; with
 ``despread=True`` the SC-FDE receive at any N up to 4096 — the narrow
 route and the wideband count the JAX package ran in two kernels) and
 ``demod_count_chain_cl``
-(kernel F, channels-last), and the channels-last sum terminal
-``demod_sum_chain_cl`` (kernel D) that the headline benchmark measures.
+(kernel F, channels-last), the channels-last sum terminal
+``demod_sum_chain_cl`` (kernel D) that the headline benchmark measures,
+and the hybrid route ``demod_chain_hybrid`` (torch's FFT, then kernel C's
+post-FFT mode ``llr_chain``). The channels-last kernels take N up to
+4096: above N = 512 a block holds fewer channels (their wideband mode).
 
 Dispatch is by device, through the port's own shape predicates (the
 JAX package's ``select_backend`` / ``select_backend_cl`` chose among
@@ -32,6 +35,7 @@ import torch
 from sdr_tpu_torch.core.config import Modulation
 from sdr_tpu_torch.kernels import demod as _kc
 from sdr_tpu_torch.kernels import demod_cl as _kd
+from sdr_tpu_torch.ops.ofdm import ofdm_rx
 
 
 def select_backend(re_shape, hr_shape, idx_shape, cp_len: int, device) -> str:
@@ -106,6 +110,18 @@ def demod_chain(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
     CUDA tensor (or ``ValueError``)."""
     return _kc.demod_llr(re, im, hr, hi, cp_len, mod, noise_var, reduce_sum=reduce_sum,
                          despread=despread)
+
+
+def demod_chain_hybrid(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
+                       reduce_sum: bool = False) -> torch.Tensor:
+    """The hybrid route of the JAX package (``ops.demod.demod_chain_hybrid``):
+    CP strip and FFT in torch (``ops.ofdm.ofdm_rx``, outside any kernel,
+    as XLA's FFT is outside Pallas there), then kernel C's post-FFT mode
+    ``llr_chain``. re/im (B, S, N+cp); hr/hi (B, 1 | S, N). Returns the
+    (B, S, N·bps) LLR plane in the public order, or its float32 sum."""
+    y = ofdm_rx(torch.complex(re, im), cp_len)
+    return _kc.llr_chain(y.real.contiguous(), y.imag.contiguous(), hr, hi, mod, noise_var,
+                         reduce_sum=reduce_sum)
 
 
 def demod_llr_chain_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation,

@@ -7,6 +7,8 @@ into two PAM problems (I bits from Re, Q bits from Im):
 
 Positive LLR ⇒ bit 0 more likely; hard bit = (LLR < 0). Bit order
 matches ``modulate``: per symbol, MSB first, I-axis bits then Q-axis.
+``llr_exact`` gives the true-MAP LLRs (log-sum-exp over each level set)
+with the same signature and order.
 """
 
 from __future__ import annotations
@@ -65,6 +67,47 @@ def llr_maxlog(points: torch.Tensor, mod: Modulation, noise_var) -> torch.Tensor
         return _axis_llr(points.real, mod, nv).reshape(points.shape)
     llr = torch.cat(
         [_axis_llr(points.real, mod, nv), _axis_llr(points.imag, mod, nv)], dim=-1
+    )
+    return llr.reshape(*points.shape[:-1], points.shape[-1] * mod.bits_per_symbol)
+
+
+def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """log Σ exp over the last axis, as ``jax.nn.logsumexp`` forms it:
+    the max, plus the log of the sum of exp(x − max)."""
+    m = x.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return (torch.log(torch.exp(x - m).sum(dim=-1, keepdim=True)) + m)[..., 0]
+
+
+def _axis_llr_exact(y: torch.Tensor, mod: Modulation, noise_var: torch.Tensor) -> torch.Tensor:
+    """Exact per-axis LLRs by log-sum-exp over each bit's level set:
+    y (...,) real normalised → (..., m), MSB first."""
+    _, pam, norm, _ = _tables(mod)
+    levels = torch.as_tensor(pam, device=y.device) * float(norm)
+    ll = -((y[..., None] - levels) ** 2) / noise_var[..., None]
+    masks = torch.as_tensor(_axis_bit_masks(mod), device=y.device)
+    neg = torch.tensor(-3.4e38, dtype=torch.float32, device=y.device)
+    outs = []
+    for j in range(mod.bits_per_axis):
+        lse0 = _logsumexp(torch.where(masks[j], neg, ll))
+        lse1 = _logsumexp(torch.where(masks[j], ll, neg))
+        outs.append(lse0 - lse1)
+    return torch.stack(outs, dim=-1)
+
+
+def llr_exact(points: torch.Tensor, mod: Modulation, noise_var) -> torch.Tensor:
+    """Exact (true-MAP) LLRs, port of ``sdr_tpu/ops/llr.py::llr_exact``:
+    the signature and bit order of ``llr_maxlog``, with a log-sum-exp
+    over each bit's level set in place of the max-log min. Both agree as
+    noise_var → 0."""
+    nv = torch.broadcast_to(
+        torch.as_tensor(noise_var, dtype=torch.float32, device=points.device),
+        points.shape,
+    )
+    if mod is Modulation.BPSK:
+        return _axis_llr_exact(points.real, mod, nv).reshape(points.shape)
+    llr = torch.cat(
+        [_axis_llr_exact(points.real, mod, nv), _axis_llr_exact(points.imag, mod, nv)], dim=-1
     )
     return llr.reshape(*points.shape[:-1], points.shape[-1] * mod.bits_per_symbol)
 

@@ -15,7 +15,10 @@ F's LLR mode: 1e-4 of the plane's peak |LLR|; bf16 sign-identical
 wherever |LLR| ≥ 1e-3 and within 2^-8 relative; C's sums 1e-5 of the sum
 of |LLR|, and the same bits on a second run. Kernel H: identical hard
 bits in both schedules and layouts; the coded engine on the card equals
-the CPU run but in channels holding an LLR with |LLR| < 1e-3.
+the CPU run but in channels holding an LLR with |LLR| < 1e-3. The
+channels-last kernels run at N up to 4096 (their wideband mode, fewer
+channels a block above N = 512), B and C at configs 3 and 5's N, and C's
+post-FFT mode (``llr_chain``) as C's LLR and sum modes.
 """
 
 import numpy as np
@@ -105,8 +108,11 @@ def test_demod_count_kernel_matches_plain(dev, mod, h_syms):
     assert bool(((got - want).abs() <= margin).all())
 
 
+CL_N_FFT = [64, 256, 512, 1024, 2048, 4096]  # 32 channels a block up to 512, then 16, 8, 4
+
+
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
-@pytest.mark.parametrize("n_fft", [64, 256, 512])
+@pytest.mark.parametrize("n_fft", CL_N_FFT)
 def test_demod_sum_cl_kernel_matches_plain(dev, mod, n_fft):
     B, S, cp = 200, 11, n_fft // 4
     g = torch.Generator(device="cpu").manual_seed(3)
@@ -215,7 +221,7 @@ def test_demod_count_taps_kernel_matches_plain(dev, mod, L):
 
 
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
-@pytest.mark.parametrize("n_fft", [64, 256, 512])
+@pytest.mark.parametrize("n_fft", CL_N_FFT)
 def test_demod_count_cl_kernel_matches_plain(dev, mod, n_fft):
     B, S, cp = 200, 11, n_fft // 4
     ids = torch.arange(B, dtype=torch.int32, device=dev)
@@ -282,6 +288,12 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         kd.demod_count_cl(*(torch.zeros((80, 32), device=dev),) * 2,
                           *(torch.zeros((64, 32), device=dev),) * 2,
                           torch.zeros((64, 32), dtype=torch.int32, device=dev), 16, mod, 0.1)
+    with pytest.raises(ValueError):  # above the channels-last kernels' N = 4096
+        kd.demod_sum_cl(*(torch.zeros((8192 + 16, 8), device=dev),) * 2,
+                        *(torch.zeros((8192, 8), device=dev),) * 2, 16, mod, 0.1)
+    with pytest.raises(ValueError):
+        kc.llr_chain(*(torch.zeros((2, 2, 96), device=dev),) * 2,
+                     *(torch.zeros((2, 1, 96), device=dev),) * 2, mod, 0.1)
 
 
 def _within_margin(got, llr, want):
@@ -450,7 +462,7 @@ def test_demod_llr_and_sum_kernels_match_plain(dev, mod, n_fft, h_syms, despread
 
 
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
-@pytest.mark.parametrize("n_fft", [64, 256, 512])
+@pytest.mark.parametrize("n_fft", CL_N_FFT)
 def test_demod_llr_cl_kernel_matches_plain(dev, mod, n_fft):
     """Kernel F's LLR mode, f32 and bf16, against the plain plane in the
     kernel order; bf16 is the f32 plane rounded (sign-identical wherever
@@ -560,3 +572,61 @@ def test_coded_kernels_raise_instead_of_falling_back(dev):
         kd.demod_llr_cl(*(torch.zeros((80, 32), device=dev),) * 2,
                         *(torch.zeros((64, 32), device=dev),) * 2, 16, mod, 0.1,
                         out_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
+@pytest.mark.parametrize("n_fft,h_syms", [(256, 1), (1024, 1), (4096, 5)])
+def test_llr_chain_kernel_matches_plain(dev, mod, n_fft, h_syms):
+    """Kernel C's post-FFT mode against its plain version: the plane
+    within 1e-4 of its peak, the sum within 1e-5 of the sum of |LLR| and
+    the same bits twice; demod_chain_hybrid runs it after torch's FFT."""
+    from sdr_tpu_torch.ops.demod import demod_chain_hybrid
+
+    B, S, cp = 20, 5, n_fft // 8
+    g = torch.Generator(device="cpu").manual_seed(12)
+    yr, yi = (torch.randn((B, S, n_fft), generator=g).to(dev) * 0.7 for _ in range(2))
+    hr, hi = ((torch.randn((B, h_syms, n_fft), generator=g) * np.sqrt(0.5)).to(dev)
+              for _ in range(2))
+    nv = 1.0 / (10 ** 1.2 * mod.bits_per_symbol)
+    want = kc.llr_chain_plain(yr, yi, hr, hi, mod, nv)
+    got = _counted("llr_chain", lambda: kc.llr_chain(yr, yi, hr, hi, mod, nv))
+    assert got.shape == (B, S, n_fft * mod.bits_per_symbol)
+    _llr_close(got, want)
+    tot = _counted("llr_chain_sum", lambda: kc.llr_chain(yr, yi, hr, hi, mod, nv,
+                                                         reduce_sum=True))
+    assert abs(float(tot) - float(want.double().sum())) <= 1e-5 * float(want.abs().double().sum())
+    assert float(kc.llr_chain(yr, yi, hr, hi, mod, nv, reduce_sum=True)) == float(tot)
+    re, im = ((torch.randn((B, S, n_fft + cp), generator=g) / np.sqrt(2 * n_fft)).to(dev)
+              for _ in range(2))
+    hyb = _counted("llr_chain", lambda: demod_chain_hybrid(re, im, hr, hi, cp, mod, nv))
+    _llr_close(hyb, kc.demod_chain(re, im, hr, hi, cp, mod, nv))
+
+
+@pytest.mark.parametrize("n_fft,cp,mod", [(1024, 128, Modulation.QAM64),
+                                          (4096, 512, Modulation.QAM16)],
+                         ids=["config3", "config5"])
+def test_wideband_tx_and_count_kernels_match_plain(dev, n_fft, cp, mod):
+    """Kernels B (every channel mode) and C (count) at configs 3 and 5's
+    N, against their plain versions; the FIR has config 5's 5 taps."""
+    B, S = 24, 6
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    idx = ka.payload_idx(S, n_fft, mod.bits_per_symbol, 13, ids)
+    nv = 1.0 / (10 ** 1.2 * mod.bits_per_symbol)
+    g = torch.Generator(device="cpu").manual_seed(13)
+    flat = tuple(torch.randn(B, generator=g).to(dev) for _ in range(2))
+    per_sym = tuple(torch.randn((B, S), generator=g).to(dev) for _ in range(2))
+    taps = tuple((torch.randn((B, 5), generator=g) * 0.4).to(dev) for _ in range(2))
+    for name, kw in (("tx", {}), ("tx", dict(hs_r=flat[0], hs_i=flat[1])),
+                     ("tx", dict(hs_r=per_sym[0], hs_i=per_sym[1])),
+                     ("tx_taps", dict(taps_r=taps[0], taps_i=taps[1]))):
+        got = _counted(name, lambda: kb.tx_channel(idx, cp, mod, noise_var=nv / n_fft, seed=13,
+                                                   ch_ids=ids, **kw))
+        want = kb.tx_channel_plain(idx, cp, mod, noise_var=nv / n_fft, seed=13, ch_ids=ids, **kw)
+        peak = max(float(w.abs().max()) for w in want)
+        assert max(float((a - b).abs().max()) for a, b in zip(got, want)) <= 1e-5 * peak
+    re, im = got
+    hr, hi = (torch.ones((B, 1, n_fft), device=dev), torch.zeros((B, 1, n_fft), device=dev))
+    got_c = _counted("demod_count", lambda: kc.demod_count(re, im, hr, hi, idx, cp, mod, nv))
+    llr = kc.demod_chain(re, im, hr, hi, cp, mod, nv)
+    assert int(kc.count_errors(llr, idx, mod.bits_per_symbol).sum()) > 0
+    _within_margin(got_c, llr, kc.count_errors(llr, idx, mod.bits_per_symbol))

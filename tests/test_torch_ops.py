@@ -17,7 +17,7 @@ from sdr_tpu.ops import modulation as jmodu
 from sdr_tpu.ops.demod import demod_chain_jnp
 from sdr_tpu.ops.equalize import equalize_mmse as j_mmse, equalize_zf as j_zf
 from sdr_tpu.ops.fft import fft as jfft, ifft as jifft
-from sdr_tpu.ops.llr import llr_maxlog as j_llr
+from sdr_tpu.ops.llr import llr_exact as j_llr_exact, llr_maxlog as j_llr
 from sdr_tpu.ops.ofdm import ofdm_rx as j_ofdm_rx, ofdm_tx as j_ofdm_tx
 from sdr_tpu_torch.core.config import Modulation
 from sdr_tpu_torch.ops import channel as tchan
@@ -25,7 +25,7 @@ from sdr_tpu_torch.ops import modulation as tmodu
 from sdr_tpu_torch.ops.demod import demod_chain
 from sdr_tpu_torch.ops.equalize import equalize_mmse, equalize_zf
 from sdr_tpu_torch.ops.fft import fft, ifft
-from sdr_tpu_torch.ops.llr import llr_maxlog, llr_to_hard_bits
+from sdr_tpu_torch.ops.llr import llr_exact, llr_maxlog, llr_to_hard_bits
 from sdr_tpu_torch.ops.ofdm import ofdm_rx, ofdm_tx
 
 torch.set_num_threads(1)
@@ -145,6 +145,29 @@ def test_llr_maxlog_matches_jax(rng, mod):
         llr_to_hard_bits(torch.from_numpy(got)).numpy(),
         tmodu.demodulate_hard(torch.from_numpy(pts), mod).numpy(),
     )
+
+
+@pytest.mark.parametrize("nv", ["moderate", "near_zero"])
+@pytest.mark.parametrize("mod", MODS, ids=lambda m: m.value)
+def test_llr_exact_matches_jax(rng, mod, nv):
+    """The true-MAP LLRs against the JAX op, within BASELINE.md's float
+    bound (abs 1e-5 / rel 1e-6), at per-point noise variances in
+    [0.01, 0.2] and at a near-zero one (1e-6), where the log-sum-exp
+    meets its max-log limit."""
+    pts = _cplx(rng, (3, 4, 32), 0.6)
+    if nv == "moderate":
+        var = rng.uniform(0.01, 0.2, (3, 4, 32)).astype(np.float32)
+    else:
+        var = np.float32(1e-6)
+    got = llr_exact(torch.from_numpy(pts), mod, torch.from_numpy(np.asarray(var))).numpy()
+    ref = np.asarray(j_llr_exact(jnp.asarray(pts), _jmod(mod), jnp.asarray(var)))
+    assert got.shape == ref.shape == (3, 4, 32 * mod.bits_per_symbol)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-6)
+    if nv == "near_zero":
+        # The max-log LLRs are its limit: the same hard decisions.
+        ml = llr_maxlog(torch.from_numpy(pts), mod, torch.from_numpy(np.asarray(var)))
+        np.testing.assert_array_equal(got < 0, ml.numpy() < 0)
 
 
 @pytest.mark.parametrize("mod", MODS, ids=lambda m: m.value)
