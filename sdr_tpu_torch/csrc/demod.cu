@@ -1,5 +1,6 @@
 // Kernel C: rows-layout demod + per-channel bit-error count, the rows LLR
-// plane or its sum, and the post-FFT equalize + LLR mode (llr_chain).
+// plane or its sum, the post-FFT equalize + LLR mode (llr_chain), and the
+// tensor-parallel stage-2 mode (tp_stage2_llr).
 //
 // Replaces sdr_tpu/kernels/demod_pallas.py::demod_count_pallas (the
 // fast engine's count terminal) with its taps= and despread modes, and
@@ -163,14 +164,29 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
 // the count, or (SUM) each thread's running sum of its LLRs, reduced per
 // block in a fixed order into partials[block] (sum_partials_kernel adds
 // those), so repeated runs give the same bits.
-template <int M, bool BPSK, bool DESPREAD, bool SUM>
+//
+// TP: the tensor-parallel stage-2 mode (parallel/tp.py::_stage2_llr_pallas,
+// the four-step's phase B on one device's digit block). Rows are
+// (b, s, k1) of the twiddled stage-1 output (B, S, n1d, N = n2), with no
+// CP; the h row is (b, h_sym, k1) of the digit-major channel
+// (B, h_syms, n1d, n2); the noise variance is read from device memory
+// (nv_dev, one f32), so one launch sequence serves any Eb/N0 with no host
+// sync, as the TPU kernel's SMEM scalar did. The store is the public
+// order above: per row, subcarrier-major [k·BPS + j] (the TPU kernel
+// wrote bit-major lanes and transposed them after the call). The TPU
+// kernel ran the n2-point DFT as a Gauss complex matmul on the MXU; here
+// it is the same shared-memory radix-2 f32 FFT as every other mode.
+template <int M, bool BPSK, bool DESPREAD, bool SUM, bool TP = false>
 __global__ void __launch_bounds__(sdr::kThreads)
 demod_llr_kernel(const float* __restrict__ re, const float* __restrict__ im,
                  const float* __restrict__ hr, const float* __restrict__ hi, int h_syms,
                  float* __restrict__ out, long long n_rows, int S, int log_n, int cp,
                  int log_spb, sdr::AxisTables tab, float inv_nv, float nv,
-                 const float* __restrict__ twr, const float* __restrict__ twi) {
+                 const float* __restrict__ twr, const float* __restrict__ twi, int n1d = 1,
+                 const float* __restrict__ nv_dev = nullptr) {
   constexpr int BPS = BPSK ? 1 : 2 * M;
+  static_assert(!TP || (!DESPREAD && !SUM), "the TP mode stores the plane");
+  if constexpr (TP) inv_nv = 1.0f / fmaxf(__ldg(nv_dev), 1e-12f);
   extern __shared__ float smem[];
   const int N = 1 << log_n;
   const int spb = 1 << log_spb;
@@ -203,9 +219,19 @@ demod_llr_kernel(const float* __restrict__ re, const float* __restrict__ im,
     h_r = 1.0f;
     h_i = 0.0f;
     if (r >= n_rows) return;
-    const long long b = r / S;
-    const int s = (int)(r - b * S);
-    const long long ho = ((b * h_syms + (h_syms > 1 ? s : 0)) << log_n) + k;
+    long long ho;
+    if constexpr (TP) {
+      const long long per_b = (long long)S * n1d;
+      const long long b = r / per_b;
+      const long long rem = r - b * per_b;
+      const int s = (int)(rem / n1d);
+      const int k1 = (int)(rem - (long long)s * n1d);
+      ho = (((b * h_syms + (h_syms > 1 ? s : 0)) * n1d + k1) << log_n) + k;
+    } else {
+      const long long b = r / S;
+      const int s = (int)(r - b * S);
+      ho = ((b * h_syms + (h_syms > 1 ? s : 0)) << log_n) + k;
+    }
     h_r = hr[ho];
     h_i = hi[ho];
   };
@@ -247,20 +273,45 @@ demod_llr_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
 }
 
+// demod_llr_kernel's grid and dynamic shared memory: 2^log_spb rows of
+// 2^log_n points a block.
+struct LlrLaunch {
+  long long blocks;
+  size_t smem;
+};
+
+LlrLaunch llr_launch(long long n_rows, int log_n, int log_spb) {
+  return LlrLaunch{(n_rows + (1 << log_spb) - 1) >> log_spb,
+                   (size_t)2 * sizeof(float) * ((size_t)1 << (log_spb + log_n)) +
+                       sizeof(float) * (sdr::kThreads / 32 + ((size_t)1 << log_spb))};
+}
+
 template <int M, bool BPSK, bool DESPREAD, bool SUM>
 int launch_llr(const float* re, const float* im, const float* hr, const float* hi, int h_syms,
                float* out, float* partials, long long n_rows, int S, int log_n, int cp,
                int log_spb, const sdr::AxisTables& tab, float inv_nv, float nv, const float* twr,
                const float* twi, cudaStream_t st) {
-  const long long blocks = (n_rows + (1 << log_spb) - 1) >> log_spb;
-  const size_t smem = (size_t)2 * sizeof(float) * ((size_t)1 << (log_spb + log_n)) +
-                      sizeof(float) * (sdr::kThreads / 32 + ((size_t)1 << log_spb));
-  demod_llr_kernel<M, BPSK, DESPREAD, SUM><<<(unsigned)blocks, sdr::kThreads, smem, st>>>(
+  const LlrLaunch l = llr_launch(n_rows, log_n, log_spb);
+  demod_llr_kernel<M, BPSK, DESPREAD, SUM><<<(unsigned)l.blocks, sdr::kThreads, l.smem, st>>>(
       re, im, hr, hi, h_syms, SUM ? partials : out, n_rows, S, log_n, cp, log_spb, tab, inv_nv,
       nv, twr, twi);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !SUM) return (int)err;
-  sdr::sum_partials_kernel<<<1, 1024, 0, st>>>(partials, (int)blocks, out);
+  sdr::sum_partials_kernel<<<1, 1024, 0, st>>>(partials, (int)l.blocks, out);
+  return (int)cudaGetLastError();
+}
+
+template <int M, bool BPSK>
+int launch_tp_stage2(const float* tr, const float* ti, const float* hr, const float* hi,
+                     int h_syms, const float* nv_dev, float* out, long long n_rows, int S,
+                     int n1d, int log_n, const sdr::AxisTables& tab, const float* twr,
+                     const float* twi, cudaStream_t st) {
+  const int log_spb = log_n >= 9 ? 0 : 9 - log_n;
+  const LlrLaunch l = llr_launch(n_rows, log_n, log_spb);
+  demod_llr_kernel<M, BPSK, false, false, true><<<(unsigned)l.blocks, sdr::kThreads, l.smem,
+                                                  st>>>(
+      tr, ti, hr, hi, h_syms, out, n_rows, S, log_n, 0, log_spb, tab, 0.0f, 0.0f, twr, twi, n1d,
+      nv_dev);
   return (int)cudaGetLastError();
 }
 
@@ -344,6 +395,23 @@ extern "C" int sdr_llr_chain(const float* yr, const float* yi, const float* hr, 
                                              log_n, tab, inv_nv, st);
     return launch_llr_chain<M, BPSK, false>(yr, yi, hr, hi, h_syms, out, partials, n_tones, S,
                                             log_n, tab, inv_nv, st))
+  return (int)cudaErrorInvalidValue;
+}
+
+// The TP stage-2 mode: t (B, S, n1d, n2) twiddled stage-1 output, h
+// (B, h_syms, n1d, n2) digit-major, nv one f32 on the device; out
+// (B, S, n1d, n2·BPS) subcarrier-major. n2 = 2^log_n, 2 to 4096.
+extern "C" int sdr_tp_stage2_llr(const float* tr, const float* ti, const float* hr,
+                                 const float* hi, int h_syms, const float* nv, float* out, int B,
+                                 int S, int n1d, int log_n, int bits_per_axis, int bpsk,
+                                 sdr::AxisTables tab, const float* twr, const float* twi,
+                                 void* stream) {
+  const long long n_rows = (long long)B * S * n1d;
+  if (n_rows <= 0 || h_syms < 1 || log_n < 1 || log_n > 12) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  SDR_DISPATCH_MOD(bits_per_axis, bpsk,
+    return launch_tp_stage2<M, BPSK>(tr, ti, hr, hi, h_syms, nv, out, n_rows, S, n1d, log_n, tab,
+                                     twr, twi, st))
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,6 +9,10 @@
 //   re_t, im_t (S*(N+cp), B) f32, symbol s in rows [s*(N+cp), (s+1)*(N+cp)),
 //   the first cp rows of each symbol being the CP; hr_t, hi_t (N, B) in
 //   natural bin order.
+// The sample planes may also come as bfloat16 (the JAX bench's default
+// input, demod_cl_pallas.py:145): each sample is widened with
+// __bfloat162float on load and everything after runs in f32, as for f32
+// input; that halves the bytes the kernels must read.
 // Per (channel, symbol): CP strip; forward unscaled N-point FFT;
 // p = conj(h) y; max-log LLRs — division-free for L <= 4 (the common
 // p^2/|h|^2 term cancels), one reciprocal and the Gray fold recursion
@@ -45,12 +49,13 @@
 // are summed in shared memory and added to out[b] with one integer
 // atomic per channel and block — exact, and the same in any order.
 //
-// Bound on the H100: reading the two f32 sample planes (8 bytes per
-// sample; F adds 1-2 bytes of index). Shared memory per block is 8·N·ch
-// bytes (64 KB at N = 256, 128 KB from N = 512 on), which caps residency
-// at three blocks per SM at N = 256 and one from N = 512 on; that, and
-// the f32 FFT on CUDA cores, are what stand between these kernels and
-// the copy roofline.
+// Bound on the H100: reading the two sample planes (8 bytes per sample
+// in f32, 4 in bf16; F adds 1-2 bytes of index). Shared memory per block
+// is 8·N·ch bytes (64 KB at N = 256, 128 KB from N = 512 on), which caps
+// residency at three blocks per SM at N = 256 and one from N = 512 on;
+// that, and the f32 FFT on CUDA cores, are what stand between these
+// kernels and the copy roofline (bf16 input halves the bound, not the
+// time: chip_smoke.py phase 2b).
 #include <cuda_bf16.h>
 
 #include <type_traits>
@@ -81,12 +86,24 @@ __host__ int with_log_ch(int log_ch, F f) {
   return f(std::integral_constant<int, 0>{});
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Calls f(InT{}) with the sample planes' element type: float, or
+// __nv_bfloat16 when in_bf16.
+template <class F>
+__host__ int with_in_type(int in_bf16, F f) {
+  if (in_bf16) return f(__nv_bfloat16{});
+  return f(float{});
+}
+
 // Gathers symbol s of the (N, ch-channel) tile into shared memory, bit-
 // reversed, and transforms it (forward, unscaled). Element m of a column
 // holds sample bitrev(m); the loop runs over m, so the threads of a warp
 // store adjacent words.
-__device__ __forceinline__ void load_fft_tile(const float* __restrict__ re_t,
-                                              const float* __restrict__ im_t, int B, int s,
+template <typename InT>
+__device__ __forceinline__ void load_fft_tile(const InT* __restrict__ re_t,
+                                              const InT* __restrict__ im_t, int B, int s,
                                               int log_n, int log_ch, int cp, int c0, float* sre,
                                               float* sim, const float* __restrict__ twr,
                                               const float* __restrict__ twi) {
@@ -101,8 +118,8 @@ __device__ __forceinline__ void load_fft_tile(const float* __restrict__ re_t,
     float xr = 0.0f, xi = 0.0f;
     if (b < B) {
       const long long o = ((long long)s * sym_len + cp + n) * B + b;
-      xr = re_t[o];
-      xi = im_t[o];
+      xr = to_f32(re_t[o]);
+      xi = to_f32(im_t[o]);
     }
     sre[e] = xr;
     sim[e] = xi;
@@ -149,9 +166,9 @@ __device__ __forceinline__ void tone_llrs(float yr, float yi, float h_r, float h
 // The body every kernel here shares: for each symbol of the block's run,
 // the tile's load and transform, then f(s, k, b, llr) for each valid
 // (bin k, channel b) of the tile, then a barrier before the next load.
-template <int M, bool BPSK, class F>
-__device__ __forceinline__ void for_each_tone(const float* __restrict__ re_t,
-                                              const float* __restrict__ im_t,
+template <int M, bool BPSK, typename InT, class F>
+__device__ __forceinline__ void for_each_tone(const InT* __restrict__ re_t,
+                                              const InT* __restrict__ im_t,
                                               const float* __restrict__ hr_t,
                                               const float* __restrict__ hi_t, int B, int S,
                                               int log_n, int log_ch, int cp,
@@ -182,9 +199,9 @@ __device__ __forceinline__ void for_each_tone(const float* __restrict__ re_t,
   }
 }
 
-template <int M, bool BPSK, int LC>
+template <typename InT, int M, bool BPSK, int LC>
 __global__ void __launch_bounds__(sdr::kThreads)
-demod_sum_cl_kernel(const float* __restrict__ re_t, const float* __restrict__ im_t,
+demod_sum_cl_kernel(const InT* __restrict__ re_t, const InT* __restrict__ im_t,
                     const float* __restrict__ hr_t, const float* __restrict__ hi_t,
                     float* __restrict__ partials, int B, int S, int log_n, int log_ch, int cp,
                     sdr::AxisTables tab, float inv_nv, const float* __restrict__ twr,
@@ -207,18 +224,19 @@ cudaError_t opt_in(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int M, bool BPSK>
-int launch_sum_cl(const float* re_t, const float* im_t, const float* hr_t, const float* hi_t,
+template <typename InT, int M, bool BPSK>
+int launch_sum_cl(const void* re_t, const void* im_t, const float* hr_t, const float* hi_t,
                   float* partials, float* out, int B, int S, int log_n, int cp,
                   const sdr::AxisTables& tab, float inv_nv, const float* twr, const float* twi,
                   cudaStream_t st) {
   const ClLaunch l = cl_launch(B, S, log_n);
   const int rc = with_log_ch(l.log_ch, [&](auto lc) {
     constexpr int LC = decltype(lc)::value;
-    cudaError_t err = opt_in(demod_sum_cl_kernel<M, BPSK, LC>, l.smem);
+    cudaError_t err = opt_in(demod_sum_cl_kernel<InT, M, BPSK, LC>, l.smem);
     if (err != cudaSuccess) return (int)err;
-    demod_sum_cl_kernel<M, BPSK, LC><<<l.grid, sdr::kThreads, l.smem, st>>>(
-        re_t, im_t, hr_t, hi_t, partials, B, S, log_n, l.log_ch, cp, tab, inv_nv, twr, twi);
+    demod_sum_cl_kernel<InT, M, BPSK, LC><<<l.grid, sdr::kThreads, l.smem, st>>>(
+        (const InT*)re_t, (const InT*)im_t, hr_t, hi_t, partials, B, S, log_n, l.log_ch, cp,
+        tab, inv_nv, twr, twi);
     return (int)cudaGetLastError();
   });
   if (rc != 0) return rc;
@@ -226,9 +244,9 @@ int launch_sum_cl(const float* re_t, const float* im_t, const float* hr_t, const
   return (int)cudaGetLastError();
 }
 
-template <typename IdxT, int M, bool BPSK, int LC>
+template <typename IdxT, typename InT, int M, bool BPSK, int LC>
 __global__ void __launch_bounds__(sdr::kThreads)
-demod_count_cl_kernel(const float* __restrict__ re_t, const float* __restrict__ im_t,
+demod_count_cl_kernel(const InT* __restrict__ re_t, const InT* __restrict__ im_t,
                       const float* __restrict__ hr_t, const float* __restrict__ hi_t,
                       const IdxT* __restrict__ idx_t, int32_t* __restrict__ out, int B, int S,
                       int log_n, int log_ch, int cp, sdr::AxisTables tab, float inv_nv,
@@ -256,8 +274,8 @@ demod_count_cl_kernel(const float* __restrict__ re_t, const float* __restrict__ 
   }
 }
 
-template <int M, bool BPSK>
-int launch_count_cl(const float* re_t, const float* im_t, const float* hr_t, const float* hi_t,
+template <typename InT, int M, bool BPSK>
+int launch_count_cl(const void* re_t, const void* im_t, const float* hr_t, const float* hi_t,
                     const void* idx_t, int idx_bytes, int32_t* out, int B, int S, int log_n,
                     int cp, const sdr::AxisTables& tab, float inv_nv, const float* twr,
                     const float* twi, cudaStream_t st) {
@@ -265,11 +283,11 @@ int launch_count_cl(const float* re_t, const float* im_t, const float* hr_t, con
   SDR_DISPATCH_IDX(idx_bytes, {
     return with_log_ch(l.log_ch, [&](auto lc) {
       constexpr int LC = decltype(lc)::value;
-      cudaError_t err = opt_in(demod_count_cl_kernel<IdxT, M, BPSK, LC>, l.smem);
+      cudaError_t err = opt_in(demod_count_cl_kernel<IdxT, InT, M, BPSK, LC>, l.smem);
       if (err != cudaSuccess) return (int)err;
-      demod_count_cl_kernel<IdxT, M, BPSK, LC><<<l.grid, sdr::kThreads, l.smem, st>>>(
-          re_t, im_t, hr_t, hi_t, (const IdxT*)idx_t, out, B, S, log_n, l.log_ch, cp, tab,
-          inv_nv, twr, twi);
+      demod_count_cl_kernel<IdxT, InT, M, BPSK, LC><<<l.grid, sdr::kThreads, l.smem, st>>>(
+          (const InT*)re_t, (const InT*)im_t, hr_t, hi_t, (const IdxT*)idx_t, out, B, S, log_n,
+          l.log_ch, cp, tab, inv_nv, twr, twi);
       return (int)cudaGetLastError();
     });
   })
@@ -283,9 +301,9 @@ int launch_count_cl(const float* re_t, const float* im_t, const float* hr_t, con
 // a warp's channels store contiguous runs of 4·ch (f32) or 2·ch (bf16)
 // bytes. OutT is float or __nv_bfloat16 (round to nearest even, as torch's
 // conversion).
-template <typename OutT, int M, bool BPSK, int LC>
+template <typename OutT, typename InT, int M, bool BPSK, int LC>
 __global__ void __launch_bounds__(sdr::kThreads)
-demod_llr_cl_kernel(const float* __restrict__ re_t, const float* __restrict__ im_t,
+demod_llr_cl_kernel(const InT* __restrict__ re_t, const InT* __restrict__ im_t,
                     const float* __restrict__ hr_t, const float* __restrict__ hi_t,
                     OutT* __restrict__ out, int B, int S, int log_n, int log_ch, int cp,
                     sdr::AxisTables tab, float inv_nv, const float* __restrict__ twr,
@@ -304,17 +322,18 @@ demod_llr_cl_kernel(const float* __restrict__ re_t, const float* __restrict__ im
                          });
 }
 
-template <typename OutT, int M, bool BPSK>
-int launch_llr_cl(const float* re_t, const float* im_t, const float* hr_t, const float* hi_t,
+template <typename OutT, typename InT, int M, bool BPSK>
+int launch_llr_cl(const void* re_t, const void* im_t, const float* hr_t, const float* hi_t,
                   void* out, int B, int S, int log_n, int cp, const sdr::AxisTables& tab,
                   float inv_nv, const float* twr, const float* twi, cudaStream_t st) {
   const ClLaunch l = cl_launch(B, S, log_n);
   return with_log_ch(l.log_ch, [&](auto lc) {
     constexpr int LC = decltype(lc)::value;
-    cudaError_t err = opt_in(demod_llr_cl_kernel<OutT, M, BPSK, LC>, l.smem);
+    cudaError_t err = opt_in(demod_llr_cl_kernel<OutT, InT, M, BPSK, LC>, l.smem);
     if (err != cudaSuccess) return (int)err;
-    demod_llr_cl_kernel<OutT, M, BPSK, LC><<<l.grid, sdr::kThreads, l.smem, st>>>(
-        re_t, im_t, hr_t, hi_t, (OutT*)out, B, S, log_n, l.log_ch, cp, tab, inv_nv, twr, twi);
+    demod_llr_cl_kernel<OutT, InT, M, BPSK, LC><<<l.grid, sdr::kThreads, l.smem, st>>>(
+        (const InT*)re_t, (const InT*)im_t, hr_t, hi_t, (OutT*)out, B, S, log_n, l.log_ch, cp,
+        tab, inv_nv, twr, twi);
     return (int)cudaGetLastError();
   });
 }
@@ -325,19 +344,23 @@ bool bad_shape(int B, int S, int log_n) {
 
 }  // namespace
 
-extern "C" int sdr_demod_llr_cl(const float* re_t, const float* im_t, const float* hr_t,
-                                const float* hi_t, void* out, int out_bf16, int B, int S,
-                                int log_n, int cp, int bits_per_axis, int bpsk,
+// re_t/im_t are float32, or bfloat16 when in_bf16, in every entry point.
+extern "C" int sdr_demod_llr_cl(const void* re_t, const void* im_t, int in_bf16,
+                                const float* hr_t, const float* hi_t, void* out, int out_bf16,
+                                int B, int S, int log_n, int cp, int bits_per_axis, int bpsk,
                                 sdr::AxisTables tab, float inv_nv, const float* twr,
                                 const float* twi, void* stream) {
   if (bad_shape(B, S, log_n)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   SDR_DISPATCH_MOD(bits_per_axis, bpsk,
-    if (out_bf16)
-      return launch_llr_cl<__nv_bfloat16, M, BPSK>(re_t, im_t, hr_t, hi_t, out, B, S, log_n, cp,
-                                                   tab, inv_nv, twr, twi, st);
-    return launch_llr_cl<float, M, BPSK>(re_t, im_t, hr_t, hi_t, out, B, S, log_n, cp, tab,
-                                         inv_nv, twr, twi, st))
+    return with_in_type(in_bf16, [&](auto in) {
+      using InT = decltype(in);
+      if (out_bf16)
+        return launch_llr_cl<__nv_bfloat16, InT, M, BPSK>(re_t, im_t, hr_t, hi_t, out, B, S,
+                                                          log_n, cp, tab, inv_nv, twr, twi, st);
+      return launch_llr_cl<float, InT, M, BPSK>(re_t, im_t, hr_t, hi_t, out, B, S, log_n, cp,
+                                                tab, inv_nv, twr, twi, st);
+    }))
   return (int)cudaErrorInvalidValue;
 }
 
@@ -348,29 +371,34 @@ extern "C" int sdr_demod_sum_cl_partials(int B, int S, int log_n) {
   return (int)(l.grid.x * l.grid.y);
 }
 
-extern "C" int sdr_demod_sum_cl(const float* re_t, const float* im_t, const float* hr_t,
-                                const float* hi_t, float* partials, float* out, int B, int S,
-                                int log_n, int cp, int bits_per_axis, int bpsk,
-                                sdr::AxisTables tab, float inv_nv, const float* twr,
+extern "C" int sdr_demod_sum_cl(const void* re_t, const void* im_t, int in_bf16,
+                                const float* hr_t, const float* hi_t, float* partials,
+                                float* out, int B, int S, int log_n, int cp, int bits_per_axis,
+                                int bpsk, sdr::AxisTables tab, float inv_nv, const float* twr,
                                 const float* twi, void* stream) {
   if (bad_shape(B, S, log_n)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   SDR_DISPATCH_MOD(bits_per_axis, bpsk,
-    return launch_sum_cl<M, BPSK>(re_t, im_t, hr_t, hi_t, partials, out, B, S, log_n, cp, tab,
-                                  inv_nv, twr, twi, st))
+    return with_in_type(in_bf16, [&](auto in) {
+      return launch_sum_cl<decltype(in), M, BPSK>(re_t, im_t, hr_t, hi_t, partials, out, B, S,
+                                                  log_n, cp, tab, inv_nv, twr, twi, st);
+    }))
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int sdr_demod_count_cl(const float* re_t, const float* im_t, const float* hr_t,
-                                  const float* hi_t, const void* idx_t, int idx_bytes,
-                                  int32_t* out, int B, int S, int log_n, int cp,
+extern "C" int sdr_demod_count_cl(const void* re_t, const void* im_t, int in_bf16,
+                                  const float* hr_t, const float* hi_t, const void* idx_t,
+                                  int idx_bytes, int32_t* out, int B, int S, int log_n, int cp,
                                   int bits_per_axis, int bpsk, sdr::AxisTables tab,
                                   float inv_nv, const float* twr, const float* twi,
                                   void* stream) {
   if (bad_shape(B, S, log_n)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   SDR_DISPATCH_MOD(bits_per_axis, bpsk,
-    return launch_count_cl<M, BPSK>(re_t, im_t, hr_t, hi_t, idx_t, idx_bytes, out, B, S, log_n,
-                                    cp, tab, inv_nv, twr, twi, st))
+    return with_in_type(in_bf16, [&](auto in) {
+      return launch_count_cl<decltype(in), M, BPSK>(re_t, im_t, hr_t, hi_t, idx_t, idx_bytes,
+                                                    out, B, S, log_n, cp, tab, inv_nv, twr,
+                                                    twi, st);
+    }))
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,11 @@
   per-symbol gains, Jakes (θ, φ) — (``fading_state``), and the
   Monte-Carlo kernel's injected draws (``mc_rand_inputs_from_reference``);
 - ``ldpc_code_from_reference``: a ``sdr_tpu`` ``QcLdpcCode`` → the
-  port's (its base matrix and Z are a code's only state).
+  port's (its base matrix and Z are a code's only state);
+- ``mesh_shape_from_reference``: a JAX ``Mesh`` over the ("time",
+  "channel") axes → the port's (n_time, n_channel) rank layout;
+- ``tp_inputs``: the numpy inputs of the tensor-parallel demod that both
+  packages are fed (planar samples and the natural-order channel plane).
 """
 
 from __future__ import annotations
@@ -87,3 +91,19 @@ def ldpc_code_from_reference(code) -> QcLdpcCode:
     """Carry a reference-package ``QcLdpcCode`` across (duck-typed: its
     ``base`` rows and ``z``)."""
     return QcLdpcCode(tuple(tuple(int(x) for x in row) for row in code.base), int(code.z))
+
+
+def mesh_shape_from_reference(mesh) -> tuple[int, int]:
+    """A reference ``Mesh`` (axes "time" and "channel", duck-typed: its
+    ``shape`` mapping) → the port's (n_time, n_channel), the arguments of
+    ``parallel.make_link_mesh``."""
+    return int(mesh.shape["time"]), int(mesh.shape["channel"])
+
+
+def tp_inputs(seed: int, batch: int, n_syms: int, n_fft: int, cp_len: int, h_syms: int = 1):
+    """numpy float32 inputs of the TP demod: samples re/im (batch,
+    n_syms, n_fft + cp_len) and channel hr/hi (batch, h_syms, n_fft),
+    all N(0, 1) as the reference's TP tests draw them."""
+    rng = np.random.default_rng(seed)
+    shapes = [(batch, n_syms, n_fft + cp_len)] * 2 + [(batch, h_syms, n_fft)] * 2
+    return tuple(rng.standard_normal(shape).astype(np.float32) for shape in shapes)

@@ -43,16 +43,19 @@ NVCC_FLAGS = (
 # mode, "demod_count_taps" and "demod_count_despread" kernel C's taps=
 # and despread modes, "demod_llr"/"demod_sum" (and their "_despread"
 # forms) C's LLR-plane and sum modes, "demod_llr_cl"/"demod_llr_cl_bf16"
-# F's LLR mode, "mc_count" kernel G, "ldpc_minsum" kernel H (rows layout,
-# flooding; "_t" transposed, "_layered" the layered schedule),
-# "llr_chain"/"llr_chain_sum" C's post-FFT mode.
+# F's LLR mode, "*_in_bf16" D's and F's modes on bf16 sample planes
+# (one per output type of F's plane), "mc_count" kernel G, "ldpc_minsum"
+# kernel H (rows layout, flooding; "_t" transposed, "_layered" the layered
+# schedule), "llr_chain"/"llr_chain_sum" C's post-FFT mode,
+# "tp_stage2_llr" C's tensor-parallel stage-2 mode.
 LAUNCHES = {"payload": 0, "tx": 0, "tx_taps": 0, "demod_count": 0, "demod_count_taps": 0,
             "demod_count_despread": 0, "demod_sum_cl": 0, "fade_awgn": 0,
             "demod_count_cl": 0, "mc_count": 0, "demod_llr": 0, "demod_sum": 0,
             "demod_llr_despread": 0, "demod_sum_despread": 0, "demod_llr_cl": 0,
             "demod_llr_cl_bf16": 0, "ldpc_minsum": 0, "ldpc_minsum_layered": 0,
             "ldpc_minsum_t": 0, "ldpc_minsum_t_layered": 0, "llr_chain": 0,
-            "llr_chain_sum": 0}
+            "llr_chain_sum": 0, "demod_sum_cl_in_bf16": 0, "demod_count_cl_in_bf16": 0,
+            "demod_llr_cl_in_bf16": 0, "demod_llr_cl_bf16_in_bf16": 0, "tp_stage2_llr": 0}
 
 _lib = None
 
@@ -191,19 +194,21 @@ _SIGNATURES = {
     "sdr_demod_count": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                         _I, AxisTables, _F, _F, _I, _P, _P, _P],
     "sdr_demod_sum_cl_partials": [_I, _I, _I],
-    "sdr_demod_sum_cl": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "sdr_demod_sum_cl": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          AxisTables, _F, _P, _P, _P],
-    "sdr_demod_count_cl": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+    "sdr_demod_count_cl": [_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                            AxisTables, _F, _P, _P, _P],
     "sdr_mc_count": [McParams, _I, _I, _I, AxisTables, _P],
     "sdr_demod_llr_partials": [_I, _I, _I],
     "sdr_demod_llr": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, AxisTables, _F, _F,
                       _I, _I, _P, _P, _P],
-    "sdr_demod_llr_cl": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, AxisTables, _F, _P,
-                         _P, _P],
+    "sdr_demod_llr_cl": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, AxisTables, _F,
+                         _P, _P, _P],
     "sdr_ldpc_minsum": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _LL, _LL, _LL, _P],
     "sdr_llr_chain_partials": [_I, _I, _I],
     "sdr_llr_chain": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, AxisTables, _F, _I, _P],
+    "sdr_tp_stage2_llr": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, AxisTables, _P,
+                          _P, _P],
 }
 
 

@@ -45,6 +45,16 @@ wideband four-step kernels (``fourstep_split_pallas.py``,
 N1·N2 matmul split, which existed because dense DFT operands outgrew
 VMEM.
 
+The tensor-parallel stage-2 mode (``tp_stage2_llr``, port of
+``sdr_tpu/parallel/tp.py::_stage2_llr_pallas``) takes one rank's digit
+block of the distributed four-step transform: the twiddled stage-1
+output t (B, S, n1d, n2) after the all_to_all and the digit-major
+channel (B, 1 | S, n1d, n2), runs the n2-point forward DFT, the
+equaliser and the LLR tail, and stores (B, S, n1d, n2·bps)
+subcarrier-major; the noise variance is a 0-d float32 tensor on the
+card, read by the kernel (counter ``tp_stage2_llr``). Its plain version
+is ``stage2_llr_plain``: torch's FFT, then ``post_fft_llr``.
+
 On a CPU tensor the plain version runs; on a CUDA tensor the CUDA
 kernel (``csrc/demod.cu``) runs, or the call raises.
 """
@@ -57,6 +67,7 @@ from sdr_tpu_torch.core.config import Modulation
 from sdr_tpu_torch.kernels import _lib
 from sdr_tpu_torch.ops.channel import freq_response
 from sdr_tpu_torch.ops.equalize import equalize_mmse_fde
+from sdr_tpu_torch.ops.fft import fft
 from sdr_tpu_torch.ops.llr import axis_metric
 from sdr_tpu_torch.ops.modulation import _ints_to_bits
 from sdr_tpu_torch.ops.ofdm import ofdm_rx
@@ -292,3 +303,53 @@ def demod_llr(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
     _lib.check(rc, name)
     _lib.LAUNCHES[name] += 1
     return out[0] if reduce_sum else out
+
+
+def stage2_llr_plain(t_r, t_i, hr4, hi4, noise_var, mod: Modulation):
+    """Plain version of the TP stage-2 mode: the n2-point forward DFT of
+    each (b, s, k1) row of t (torch's FFT), then ``post_fft_llr`` against
+    h (B, 1 | S, n1d, n2). ``noise_var`` a float or a 0-d tensor."""
+    y = fft(torch.complex(t_r.to(torch.float32), t_i.to(torch.float32)))
+    return post_fft_llr(y, hr4, hi4, mod, float(noise_var))
+
+
+def _stage2_shapes_ok(t_shape, h_shape) -> bool:
+    if len(t_shape) != 4 or len(h_shape) != 4:
+        return False
+    B, S, n1d, n2 = t_shape
+    return (2 <= n2 <= MAX_N_FFT and n2 & (n2 - 1) == 0 and min(B, S, n1d) > 0
+            and tuple(h_shape) in ((B, 1, n1d, n2), (B, S, n1d, n2)))
+
+
+def tp_stage2_llr(t_r, t_i, hr4, hi4, noise_var, mod: Modulation):
+    """The TP stage-2 mode: t_r/t_i (B, S, n1d, n2) float32, n2 a power
+    of two in [2, 4096]; hr4/hi4 (B, 1 | S, n1d, n2) float32;
+    ``noise_var`` a 0-d float32 tensor on the card (a float is moved
+    there). Returns (B, S, n1d, n2·bps) float32 LLRs, subcarrier-major
+    ([k·bps + j], I bits then Q bits, MSB first)."""
+    if t_r.device.type == "cpu":
+        return stage2_llr_plain(t_r, t_i, hr4, hi4, noise_var, mod)
+    if not _stage2_shapes_ok(t_r.shape, hr4.shape) or t_i.shape != t_r.shape or (
+            hi4.shape != hr4.shape):
+        raise ValueError(f"tp_stage2_llr kernel: unsupported shapes t {tuple(t_r.shape)}, "
+                         f"h {tuple(hr4.shape)}")
+    if any(t.dtype != torch.float32 for t in (t_r, t_i, hr4, hi4)):
+        raise ValueError("tp_stage2_llr kernel: t and h planes must be float32")
+    if not isinstance(noise_var, torch.Tensor):
+        noise_var = torch.tensor(float(noise_var), dtype=torch.float32, device=t_r.device)
+    if noise_var.numel() != 1 or noise_var.dtype != torch.float32:
+        raise ValueError("tp_stage2_llr kernel: noise_var must be one float32")
+    _lib.require_cuda("tp_stage2_llr", t_r, t_i, hr4, hi4, noise_var)
+    B, S, n1d, n2 = t_r.shape
+    out = torch.empty((B, S, n1d, n2 * mod.bits_per_symbol), dtype=torch.float32,
+                      device=t_r.device)
+    twr, twi = _lib.twiddles(n2, t_r.device)
+    rc = _lib.lib().sdr_tp_stage2_llr(
+        t_r.data_ptr(), t_i.data_ptr(), hr4.data_ptr(), hi4.data_ptr(), hr4.shape[1],
+        noise_var.data_ptr(), out.data_ptr(), B, S, n1d, _lib.log2_exact(n2), mod.bits_per_axis,
+        int(mod is Modulation.BPSK), _lib.axis_tables(mod), twr.data_ptr(), twi.data_ptr(),
+        _lib.stream(),
+    )
+    _lib.check(rc, "tp_stage2_llr")
+    _lib.LAUNCHES["tp_stage2_llr"] += 1
+    return out

@@ -28,10 +28,16 @@ here before the launch.
 The kernels take N a power of two up to 4096 (the JAX kernel's range,
 N = 128·2^k ≤ 4096, and below it): a block holds an (N, channels) tile
 of 128 KB at most, 32 channels up to N = 512 and 2^14/N above (the
-wideband mode, ``csrc/demod_cl.cu``). They take float32 only and
-raise on bfloat16: the bf16 sample planes of the JAX bench need a BER
-gate first. D's cross-block sum is a
-deterministic two-pass reduction, so repeated runs give the same bits;
+wideband mode, ``csrc/demod_cl.cu``). The sample planes re_t/im_t may be
+float32 or bfloat16, both of one type (the JAX bench feeds bf16 by
+default, ``demod_cl_pallas.py:145``); the kernels widen bf16 samples on
+load and compute in float32, and the plain versions cast to float32
+first. h stays float32. bf16 input has its own counters
+(``demod_sum_cl_in_bf16``, ``demod_count_cl_in_bf16``,
+``demod_llr_cl_in_bf16``, ``demod_llr_cl_bf16_in_bf16``: one counter per
+input and output type); it passes the JAX
+package's BER gate (``chip_smoke.py`` phase 2b). D's cross-block sum is
+a deterministic two-pass reduction, so repeated runs give the same bits;
 F's counts are integer atomics, exact in any order.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the CUDA
@@ -82,6 +88,26 @@ def h_natural(hr_t, hi_t, h_in_dif_order: bool):
     return hr_t[inv], hi_t[inv]
 
 
+_IN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_dtypes(name: str, re_t, im_t, hr_t, hi_t) -> bool:
+    """Raise unless re_t/im_t are both float32 or both bfloat16 and h is
+    float32 (the plain versions hold the kernels' contract too); True for
+    bf16 samples."""
+    if re_t.dtype not in _IN_DTYPES or im_t.dtype != re_t.dtype:
+        raise ValueError(f"{name}: re_t/im_t must both be float32 or both bfloat16, "
+                         f"got {re_t.dtype} and {im_t.dtype}")
+    if hr_t.dtype != torch.float32 or hi_t.dtype != torch.float32:
+        raise ValueError(f"{name}: hr_t/hi_t must be float32")
+    return re_t.dtype == torch.bfloat16
+
+
+def _counter(name: str, in_bf16: bool) -> str:
+    """Launch counter of a channels-last kernel for its sample type."""
+    return name + "_in_bf16" if in_bf16 else name
+
+
 def supported(shape, n_fft: int, cp_len: int) -> bool:
     """(S·(N+cp), B) planes with N a power of two in [2, 4096]."""
     if len(shape) != 2 or not (2 <= n_fft <= MAX_N_FFT and (n_fft & (n_fft - 1)) == 0):
@@ -117,10 +143,9 @@ def demod_sum_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation, noise_var
                  h_in_dif_order: bool = False):
     """Scalar float32 LLR sum over the channels-last grid (0-d tensor)."""
     hr_t, hi_t = h_natural(hr_t, hi_t, h_in_dif_order)
+    in_bf16 = _check_dtypes("demod_sum_cl", re_t, im_t, hr_t, hi_t)
     if re_t.device.type == "cpu":
         return demod_sum_cl_plain(re_t, im_t, hr_t, hi_t, cp_len, mod, noise_var)
-    if any(t.dtype != torch.float32 for t in (re_t, im_t, hr_t, hi_t)):
-        raise ValueError("demod_sum_cl kernel takes float32 planes only (bf16 needs a BER gate)")
     n_fft = hr_t.shape[0]
     if not supported(re_t.shape, n_fft, cp_len):
         raise ValueError(
@@ -139,13 +164,14 @@ def demod_sum_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation, noise_var
     out = torch.empty((1,), dtype=torch.float32, device=re_t.device)
     twr, twi = _lib.twiddles(n_fft, re_t.device)
     rc = lib.sdr_demod_sum_cl(
-        re_t.data_ptr(), im_t.data_ptr(), hr_t.data_ptr(), hi_t.data_ptr(),
+        re_t.data_ptr(), im_t.data_ptr(), int(in_bf16), hr_t.data_ptr(), hi_t.data_ptr(),
         partials.data_ptr(), out.data_ptr(), B, n_syms, _lib.log2_exact(n_fft), cp_len,
         mod.bits_per_axis, int(mod is Modulation.BPSK), _lib.axis_tables(mod),
         inv_noise_var(noise_var), twr.data_ptr(), twi.data_ptr(), _lib.stream(),
     )
-    _lib.check(rc, "demod_sum_cl")
-    _lib.LAUNCHES["demod_sum_cl"] += 1
+    name = _counter("demod_sum_cl", in_bf16)
+    _lib.check(rc, name)
+    _lib.LAUNCHES[name] += 1
     return out[0]
 
 
@@ -186,10 +212,9 @@ def demod_llr_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation, noise_var
     hr_t, hi_t = h_natural(hr_t, hi_t, h_in_dif_order)
     if out_dtype not in _LLR_DTYPES:
         raise ValueError(f"demod_llr_cl: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    in_bf16 = _check_dtypes("demod_llr_cl", re_t, im_t, hr_t, hi_t)
     if re_t.device.type == "cpu":
         return demod_llr_cl_plain(re_t, im_t, hr_t, hi_t, cp_len, mod, noise_var, out_dtype)
-    if any(t.dtype != torch.float32 for t in (re_t, im_t, hr_t, hi_t)):
-        raise ValueError("demod_llr_cl kernel takes float32 planes only (bf16 needs a BER gate)")
     n_fft = hr_t.shape[0]
     if not supported(re_t.shape, n_fft, cp_len):
         raise ValueError(
@@ -208,12 +233,12 @@ def demod_llr_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation, noise_var
                       device=re_t.device)
     twr, twi = _lib.twiddles(n_fft, re_t.device)
     rc = _lib.lib().sdr_demod_llr_cl(
-        re_t.data_ptr(), im_t.data_ptr(), hr_t.data_ptr(), hi_t.data_ptr(), out.data_ptr(),
-        int(bf16), B, n_syms, _lib.log2_exact(n_fft), cp_len, mod.bits_per_axis,
+        re_t.data_ptr(), im_t.data_ptr(), int(in_bf16), hr_t.data_ptr(), hi_t.data_ptr(),
+        out.data_ptr(), int(bf16), B, n_syms, _lib.log2_exact(n_fft), cp_len, mod.bits_per_axis,
         int(mod is Modulation.BPSK), _lib.axis_tables(mod), inv_noise_var(noise_var),
         twr.data_ptr(), twi.data_ptr(), _lib.stream(),
     )
-    name = "demod_llr_cl_bf16" if bf16 else "demod_llr_cl"
+    name = _counter("demod_llr_cl_bf16" if bf16 else "demod_llr_cl", in_bf16)
     _lib.check(rc, name)
     _lib.LAUNCHES[name] += 1
     return out
@@ -242,10 +267,9 @@ def demod_count_cl(re_t, im_t, hr_t, hi_t, idx_t, cp_len: int, mod: Modulation,
                    noise_var: float, h_in_dif_order: bool = False):
     """Per-channel (B,) int32 bit-error counts over the channels-last grid."""
     hr_t, hi_t = h_natural(hr_t, hi_t, h_in_dif_order)
+    in_bf16 = _check_dtypes("demod_count_cl", re_t, im_t, hr_t, hi_t)
     if re_t.device.type == "cpu":
         return demod_count_cl_plain(re_t, im_t, hr_t, hi_t, idx_t, cp_len, mod, noise_var)
-    if any(t.dtype != torch.float32 for t in (re_t, im_t, hr_t, hi_t)):
-        raise ValueError("demod_count_cl kernel takes float32 planes only (bf16 needs a BER gate)")
     n_fft = hr_t.shape[0]
     if not supported(re_t.shape, n_fft, cp_len):
         raise ValueError(
@@ -265,11 +289,13 @@ def demod_count_cl(re_t, im_t, hr_t, hi_t, idx_t, cp_len: int, mod: Modulation,
     out = torch.zeros((B,), dtype=torch.int32, device=re_t.device)
     twr, twi = _lib.twiddles(n_fft, re_t.device)
     rc = _lib.lib().sdr_demod_count_cl(
-        re_t.data_ptr(), im_t.data_ptr(), hr_t.data_ptr(), hi_t.data_ptr(), idx_t.data_ptr(),
-        idx_t.element_size(), out.data_ptr(), B, n_syms, _lib.log2_exact(n_fft), cp_len,
-        mod.bits_per_axis, int(mod is Modulation.BPSK), _lib.axis_tables(mod),
-        inv_noise_var(noise_var), twr.data_ptr(), twi.data_ptr(), _lib.stream(),
+        re_t.data_ptr(), im_t.data_ptr(), int(in_bf16), hr_t.data_ptr(), hi_t.data_ptr(),
+        idx_t.data_ptr(), idx_t.element_size(), out.data_ptr(), B, n_syms,
+        _lib.log2_exact(n_fft), cp_len, mod.bits_per_axis, int(mod is Modulation.BPSK),
+        _lib.axis_tables(mod), inv_noise_var(noise_var), twr.data_ptr(), twi.data_ptr(),
+        _lib.stream(),
     )
-    _lib.check(rc, "demod_count_cl")
-    _lib.LAUNCHES["demod_count_cl"] += 1
+    name = _counter("demod_count_cl", in_bf16)
+    _lib.check(rc, name)
+    _lib.LAUNCHES[name] += 1
     return out

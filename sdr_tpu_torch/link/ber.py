@@ -8,7 +8,9 @@ decomposition the LLR demapper exploits), implemented host-side in
 numpy for test oracles and plot overlays.
 
 A numpy copy of the AWGN, flat-Rayleigh and flat-Rician curves of
-``sdr_tpu/link/ber.py`` (importing that package pulls in JAX).
+``sdr_tpu/link/ber.py`` (importing that package pulls in JAX), and
+``ber_given_gain``: the exact BER over a channel a run drew, the gate of
+the selective and time-varying links.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from sdr_tpu_torch.core.config import Modulation
 
@@ -126,3 +129,26 @@ def ber_rician_exact(mod: Modulation, ebno_db: float, k_factor: float) -> float:
         for k in range(1, m + 1)
     ]
     return float(np.mean(per_axis_bits))
+
+
+def ber_given_gain(mod, ebno_db: float, g2) -> float:
+    """Exact Gray-QAM AWGN BER at Eb/N0·|H|², averaged over the channel
+    gains ``g2`` (a float64 tensor, one element per equally weighted
+    subcarrier group): the BER of the channel a run drew. With CP ≥ L−1
+    each subcarrier is an AWGN channel at its own |H|², and the one-tap
+    equaliser's max-log decisions are exact per axis (the Cho–Yoon
+    weights of ``_pam_bit_error``)."""
+    L, m = mod.levels_per_axis, mod.bits_per_axis
+    gamma = 2.0 * mod.bits_per_symbol * 10.0 ** (ebno_db / 10.0)
+    total = 0.0
+    for part in torch.split(g2.reshape(-1), 1 << 24):
+        arg = mod.unit_energy_scale * torch.sqrt(gamma * part) / math.sqrt(2.0)
+        acc = torch.zeros_like(arg)
+        for k in range(1, m + 1):
+            half = 1 << (k - 1)
+            for i in range(int((1.0 - 2.0 ** (-k)) * L)):
+                sign = -1.0 if ((i * half) // L) % 2 else 1.0
+                weight = half - math.floor(i * half / L + 0.5)
+                acc += (sign * weight / L) * torch.special.erfc((2 * i + 1) * arg)
+        total += float(acc.sum())
+    return total / g2.numel() / m

@@ -1,0 +1,153 @@
+"""Channel-batch data parallelism (port of ``sdr_tpu/parallel/shard.py``).
+
+Every entry point is SPMD over a ``LinkMesh``: each rank runs the
+unsharded engine on its block of GLOBAL channel ids, and one
+``all_gather`` gives every rank the (n_channels,) result. Because every
+draw of the fast, coded and injected Monte-Carlo links is keyed by
+(seed, global channel id), the result equals the unsharded run bit for
+bit, for any mesh (any slice of channels reproduces the full run).
+
+The fast and coded links have no time-axis structure, so every rank is
+a DP worker over the flattened mesh (rank r owns block r, as the JAX
+module's ``time·n_channel + channel``); the Monte-Carlo builders shard
+over "channel" and repeat the work along "time", as in JAX.
+
+``make_sharded_simulate_fn``, ``make_sharded_stream_fn`` (with its
+halo exchange) and ``make_sharded_coded_fn`` need ``link.pipeline``,
+``link.stream`` and the conv/polar families, which are not ported:
+they raise ``NotImplementedError`` naming ROADMAP queue 1, item 11.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from sdr_tpu_torch.core.config import LinkConfig
+from sdr_tpu_torch.link import fast, fast_coded
+from sdr_tpu_torch.link.mc import _wrap_i32, mc_simulate
+from sdr_tpu_torch.parallel import _comm
+from sdr_tpu_torch.parallel.mesh import LinkMesh
+from sdr_tpu_torch.parallel.distributed import resolve_device
+
+_SHARD_STRIDE = 0x5BD1E995 & 0x7FFFFFFF  # the JAX module's per-shard seed step (shard.py:246)
+
+
+def _item11(what: str):
+    raise NotImplementedError(
+        f"{what} needs link.pipeline / link.stream and the conv and polar families, which are "
+        "not ported yet (ROADMAP queue 1, item 11)"
+    )
+
+
+def make_sharded_simulate_fn(cfg: LinkConfig, mesh: LinkMesh, *args, **kwargs):
+    _item11("make_sharded_simulate_fn")
+
+
+def make_sharded_stream_fn(cfg: LinkConfig, mesh: LinkMesh, *args, **kwargs):
+    _item11("make_sharded_stream_fn (time-block SP with its halo exchange)")
+
+
+def make_sharded_coded_fn(cfg: LinkConfig, mesh: LinkMesh, *args, **kwargs):
+    _item11("make_sharded_coded_fn")
+
+
+def _local_ids(cfg: LinkConfig, n_shards: int, shard: int, dev):
+    if cfg.n_channels % n_shards != 0:
+        raise ValueError(
+            f"n_channels={cfg.n_channels} not divisible by device count {n_shards}"
+        )
+    local = cfg.n_channels // n_shards
+    return torch.arange(shard * local, (shard + 1) * local, dtype=torch.int32, device=dev)
+
+
+def _gather_pair(errors, counted, group):
+    """One all_gather of the stacked (2, local) counts → global (n,) pair."""
+    both = _comm.all_gather(torch.stack([errors, counted]), group)  # (D, 2, local)
+    both = both.permute(1, 0, 2).reshape(2, -1)
+    return both[0], both[1]
+
+
+def make_sharded_fast_fn(cfg: LinkConfig, mesh: LinkMesh, layout: str = "auto",
+                         device="cuda"):
+    """DP for the keyed fast link (``link.fast.fast_core``). Returns
+    ``fn(seed) -> (bit_errors, bits_counted)``, both (n_channels,) int32
+    on every rank, equal to ``fast_simulate(cfg, seed)``. ``layout="auto"``
+    resolves once against the per-rank batch."""
+    dev = resolve_device(device)
+    fast.check_supported(cfg, layout)
+    ids = _local_ids(cfg, mesh.size, mesh.rank, dev)
+    if layout == "auto":
+        layout = fast.select_layout(cfg, ids.shape[0])
+
+    def fn(seed: int):
+        errors, counted = fast.fast_core(cfg, seed, ids, layout=layout)
+        return _gather_pair(errors, counted, mesh.world_group)
+
+    return fn
+
+
+def _channel_shard(cfg: LinkConfig, mesh: LinkMesh):
+    n_shards = mesh.shape["channel"]
+    if cfg.n_channels % n_shards != 0:
+        raise ValueError(
+            f"n_channels={cfg.n_channels} not divisible by channel-axis size {n_shards}"
+        )
+    return dataclasses.replace(cfg, n_channels=cfg.n_channels // n_shards)
+
+
+def make_sharded_mc_fn(cfg: LinkConfig, mesh: LinkMesh, iters: int = 1, device="cuda"):
+    """DP for the Monte-Carlo engine over "channel": each shard runs
+    ``mc_simulate`` on n_channels / shards links with the seed
+    seed + shard·(0x5BD1E995 & 0x7FFFFFFF), wrapped to int32. Statistics,
+    not draws, are the contract (the result depends on the mesh).
+    Returns ``fn(seed) -> (bit_errors, bits_counted)`` (n_channels,)."""
+    dev = resolve_device(device)
+    local_cfg = _channel_shard(cfg, mesh)
+    me = mesh.coord("channel")
+
+    def fn(seed: int):
+        errors, counted = mc_simulate(local_cfg, _wrap_i32(int(seed) + me * _SHARD_STRIDE),
+                                      iters=iters, device=dev)
+        return _gather_pair(errors, counted, mesh.group("channel"))
+
+    return fn
+
+
+def make_sharded_mc_inject_fn(cfg: LinkConfig, mesh: LinkMesh, device="cuda"):
+    """Inject-mode twin of ``make_sharded_mc_fn``: ``fn(idx, nr, ni, hr,
+    hi)`` takes the GLOBAL draws (``mc_simulate``'s ``rand_inputs``,
+    leading axis n_channels), each shard runs its channel block, and the
+    result equals the unsharded inject run bit for bit."""
+    dev = resolve_device(device)
+    local_cfg = _channel_shard(cfg, mesh)
+    me = mesh.coord("channel")
+    block = slice(me * local_cfg.n_channels, (me + 1) * local_cfg.n_channels)
+
+    def fn(idx, nr, ni, hr, hi):
+        rand = tuple(torch.as_tensor(a, device=dev)[block].contiguous()
+                     for a in (idx, nr, ni, hr, hi))
+        errors, counted = mc_simulate(local_cfg, 0, iters=1, device=dev, rand_inputs=rand)
+        return _gather_pair(errors, counted, mesh.group("channel"))
+
+    return fn
+
+
+def make_sharded_coded_fast_fn(cfg: LinkConfig, mesh: LinkMesh, rate: str = "1/2",
+                               ldpc_iters: int = 25, schedule: str = "flooding",
+                               seam: str = "auto", device="cuda"):
+    """DP for the coded fast engine (``link.fast_coded.ldpc_fast_core``):
+    ``fn(seed) -> (info_bit_errors, info_bits_counted)`` (n_channels,),
+    equal to ``ldpc_fast_simulate``. ``seam="auto"`` is "staged", as in
+    the engine."""
+    dev = resolve_device(device)
+    fast_coded.check_supported(cfg, seam, schedule)
+    ids = _local_ids(cfg, mesh.size, mesh.rank, dev)
+
+    def fn(seed: int):
+        errors, counted = fast_coded.ldpc_fast_core(cfg, seed, ids, rate=rate, iters=ldpc_iters,
+                                                    schedule=schedule, seam=seam)
+        return _gather_pair(errors, counted, mesh.world_group)
+
+    return fn

@@ -18,7 +18,9 @@ bits in both schedules and layouts; the coded engine on the card equals
 the CPU run but in channels holding an LLR with |LLR| < 1e-3. The
 channels-last kernels run at N up to 4096 (their wideband mode, fewer
 channels a block above N = 512), B and C at configs 3 and 5's N, and C's
-post-FFT mode (``llr_chain``) as C's LLR and sum modes.
+post-FFT mode (``llr_chain``) as C's LLR and sum modes, C's TP stage-2
+mode (``tp_stage2_llr``, #20) as C's LLR mode; D and F on bfloat16 sample
+planes as on float32 ones.
 """
 
 import numpy as np
@@ -630,3 +632,69 @@ def test_wideband_tx_and_count_kernels_match_plain(dev, n_fft, cp, mod):
     llr = kc.demod_chain(re, im, hr, hi, cp, mod, nv)
     assert int(kc.count_errors(llr, idx, mod.bits_per_symbol).sum()) > 0
     _within_margin(got_c, llr, kc.count_errors(llr, idx, mod.bits_per_symbol))
+
+
+@pytest.mark.parametrize("mod", [Modulation.BPSK, Modulation.QPSK, Modulation.QAM16,
+                                 Modulation.QAM64], ids=lambda m: m.value)
+@pytest.mark.parametrize("n2,n1d,h_syms", [(64, 1, 1), (64, 2, 3), (1024, 1, 3), (1024, 4, 1),
+                                           (4096, 1, 1), (4096, 1, 3)])
+def test_tp_stage2_kernel_matches_plain(dev, mod, n2, n1d, h_syms):
+    """Kernel C's TP stage-2 mode (#20): LLRs within 1e-4 of the plain
+    version's peak, equal signs where |LLR| ≥ 1e-3, the noise variance a
+    0-d tensor on the card (two values through the same inputs). The rows
+    have the TP path's scale (variance 1/n2: a unit-energy grid after the
+    transform)."""
+    B, S = 3, 3
+    g = torch.Generator(device=dev).manual_seed(n2 + n1d)
+    tr, ti = (torch.randn((B, S, n1d, n2), device=dev, generator=g) * (0.5 / n2) ** 0.5
+              for _ in range(2))
+    hr, hi = (torch.randn((B, h_syms, n1d, n2), device=dev, generator=g) * 0.7 for _ in range(2))
+    for nv in (0.05, 0.5):
+        nv_t = torch.tensor(nv, dtype=torch.float32, device=dev)
+        got = _counted("tp_stage2_llr", lambda: kc.tp_stage2_llr(tr, ti, hr, hi, nv_t, mod))
+        want = kc.stage2_llr_plain(tr, ti, hr, hi, nv_t, mod)
+        assert got.shape == (B, S, n1d, n2 * mod.bits_per_symbol)
+        peak = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * peak
+        big = want.abs() >= 1e-3
+        assert torch.equal((got < 0)[big], (want < 0)[big])
+
+
+def test_tp_stage2_kernel_raises_instead_of_falling_back(dev):
+    t = torch.zeros((2, 2, 1, 64), device=dev)
+    h = torch.ones((2, 1, 1, 64), device=dev)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        kc.tp_stage2_llr(t, t, h[..., :32], h[..., :32], 0.1, Modulation.QPSK)
+    with pytest.raises(ValueError, match="float32"):
+        kc.tp_stage2_llr(t.double(), t.double(), h, h, 0.1, Modulation.QPSK)
+
+
+@pytest.mark.parametrize("n_fft", [256, 1024, 4096])
+def test_cl_kernels_on_bf16_samples_match_plain(dev, n_fft):
+    """D's sum, F's count and F's plane on bfloat16 sample planes against
+    their plain versions on the same planes, with their own counters."""
+    mod, B, S, cp = Modulation.QAM16, 37, 3, n_fft // 8
+    g = torch.Generator(device=dev).manual_seed(n_fft)
+    re, im = (torch.randn((S * (n_fft + cp), B), device=dev, generator=g) / (2 * n_fft) ** 0.5
+              for _ in range(2))
+    rb, ib = re.to(torch.bfloat16), im.to(torch.bfloat16)
+    hr, hi = (torch.randn((n_fft, B), device=dev, generator=g) * 0.5 ** 0.5 for _ in range(2))
+    idx = torch.randint(0, 16, (S * n_fft, B), device=dev, generator=g, dtype=torch.int8)
+    nv = 0.05
+    tot = _counted("demod_sum_cl_in_bf16", lambda: kd.demod_sum_cl(rb, ib, hr, hi, cp, mod, nv))
+    want = kd.demod_sum_cl_plain(rb, ib, hr, hi, cp, mod, nv)
+    assert abs(float(tot) - float(want)) <= 1e-4 * abs(float(want))
+    cnt = _counted("demod_count_cl_in_bf16",
+                   lambda: kd.demod_count_cl(rb, ib, hr, hi, idx, cp, mod, nv))
+    plane = kd.demod_llr_cl_plain(rb, ib, hr, hi, cp, mod, nv)
+    margin = (plane.abs() < 1e-3).sum(dim=0)
+    assert bool(((cnt - kd.demod_count_cl_plain(rb, ib, hr, hi, idx, cp, mod, nv)).abs()
+                 <= margin).all())
+    f32 = _counted("demod_llr_cl_in_bf16", lambda: kd.demod_llr_cl(rb, ib, hr, hi, cp, mod, nv))
+    assert float((f32 - plane).abs().max()) <= 1e-4 * float(plane.abs().max())
+    half = _counted("demod_llr_cl_bf16_in_bf16",
+                    lambda: kd.demod_llr_cl(rb, ib, hr, hi, cp, mod, nv, out_dtype=torch.bfloat16))
+    assert half.dtype == torch.bfloat16
+    assert float(((half.float() - f32).abs() - f32.abs() * 2.0 ** -8).max()) <= 0.0
+    big = plane.abs() >= 1e-3
+    assert torch.equal((half.float() < 0)[big], (plane < 0)[big])

@@ -494,3 +494,54 @@ def test_demod_llr_cl_plain_matches_jax_cl_twin(rng, monkeypatch, mod):
     plane = kc.demod_chain(*_t(rows(re), rows(im)), *_t(hr.T[:, None, :], hi.T[:, None, :]), cp,
                            mod, nv)
     _assert_planes_close(pub.numpy(), plane.numpy())
+
+
+@pytest.mark.parametrize("out_mode", ["sum", "count", "llr"])
+def test_cl_plain_on_bf16_samples_matches_jax_cl_twin(rng, monkeypatch, out_mode):
+    """Kernels D and F on bfloat16 sample planes (the JAX bench's input):
+    the plain versions cast to float32 first and match demod_cl_jnp fed
+    the same bf16 planes. At N = 128 the JAX twin's transform takes the
+    bf16 samples exactly (no DIF level, a HIGHEST matmul); from N = 256 on
+    it rounds the transform's intermediate to bf16 (its leaf downcast),
+    which the port does not copy: it computes in float32 throughout."""
+    monkeypatch.setenv("SDR_TPU_MXU_PRECISION", "highest")
+    mod, B, S, n_fft, cp = Modulation.QAM16, 16, 3, 128, 32
+    re, im, hr, hi = _cl_inputs(rng, B, S, n_fft, cp)
+    rb, ib = (torch.from_numpy(a).to(torch.bfloat16) for a in (re, im))
+    jb = tuple(jnp.asarray(a, jnp.bfloat16) for a in (re, im))
+    nv = 1.0 / (10 ** 1.2 * mod.bits_per_symbol)
+    hrt, hit = _t(hr, hi)
+    if out_mode == "sum":
+        ref = float(demod_cl_jnp(*jb, *map(jnp.asarray, (hr, hi)), cp, _jmod(mod), nv,
+                                 out_mode="sum"))
+        got = kd.demod_sum_cl(rb, ib, hrt, hit, cp, mod, nv)
+        np.testing.assert_allclose(float(got), ref, rtol=1e-4)
+    elif out_mode == "count":
+        idx_t = _idx(rng, mod, (S * n_fft, B))
+        ref = demod_cl_jnp(*jb, *map(jnp.asarray, (hr, hi)), cp, _jmod(mod), nv,
+                           out_mode="count", idx_t=jnp.asarray(idx_t))
+        got = kd.demod_count_cl(rb, ib, hrt, hit, torch.from_numpy(idx_t.astype(np.int8)), cp,
+                                mod, nv)
+        plane = kd.demod_llr_cl_plain(rb, ib, hrt, hit, cp, mod, nv)
+        margin = (plane.abs() < 1e-3).sum(dim=0).numpy()
+        assert int(got.sum()) > 0 and np.all(np.abs(got.numpy() - np.asarray(ref)) <= margin)
+    else:
+        ref = demod_cl_jnp(*jb, *map(jnp.asarray, (hr, hi)), cp, _jmod(mod), nv, out_mode="llr")
+        got = kd.kernel_to_public(kd.demod_llr_cl(rb, ib, hrt, hit, cp, mod, nv), S,
+                                  mod.bits_per_symbol, n_fft)
+        _assert_planes_close(got.numpy(), ref)
+    # The plain version is the float32 path on the widened samples.
+    f32 = (rb.float(), ib.float(), hrt, hit)
+    if out_mode == "sum":
+        assert float(got) == float(kd.demod_sum_cl(*f32, cp, mod, nv))
+
+
+def test_cl_sample_dtypes_are_checked(rng):
+    re, im, hr, hi = _t(*_cl_inputs(rng, 8, 2, 64, 16))
+    with pytest.raises(ValueError, match="must both be float32 or both bfloat16"):
+        kd.demod_sum_cl(re, im.to(torch.bfloat16), hr, hi, 16, Modulation.QPSK, 0.1)
+    with pytest.raises(ValueError, match="must both be float32 or both bfloat16"):
+        kd.demod_llr_cl(re.half(), im.half(), hr, hi, 16, Modulation.QPSK, 0.1)
+    with pytest.raises(ValueError, match="hr_t/hi_t must be float32"):
+        kd.demod_count_cl(re, im, hr.to(torch.bfloat16), hi, torch.zeros((128, 8), dtype=torch.int8),
+                          16, Modulation.QPSK, 0.1)

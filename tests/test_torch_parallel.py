@@ -1,0 +1,218 @@
+"""The port's data- and pipeline-parallel layer (sdr_tpu_torch.parallel)
+on the CPU, over 4 gloo ranks spawned once for the module.
+
+- Sharded fast links (rows and cl; AWGN, MULTIPATH, MULTIPATH_TIME;
+  SC-FDMA), the coded fast engine (staged seam), the Monte-Carlo inject
+  mode and the 2-stage pipeline (n_micro 1 and 2) are bit-exact against
+  the port's unsharded runs, on every rank, for several meshes.
+- The keyed sharded Monte-Carlo run equals the unsharded engine run
+  shard by shard with the per-shard seeds (seed + shard·0x5BD1E995,
+  wrapped to int32, as the JAX module).
+- The sharded MC inject run against JAX ``make_sharded_mc_inject_fn`` on
+  4 virtual CPU devices: equal per-channel counts but for bits whose
+  plain |LLR| < 1e-3 (port and JAX draw from different streams, so the
+  comparison injects the same numpy draws into both).
+- What the layer refuses: shapes that do not divide, a pipeline mesh
+  without two stages, and the builders that wait for ROADMAP item 11.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sdr_tpu.core import config as jcfg
+from sdr_tpu.parallel import make_link_mesh as j_make_link_mesh
+from sdr_tpu.parallel.shard import make_sharded_mc_inject_fn as j_sharded_mc_inject
+from sdr_tpu_torch import interop
+from sdr_tpu_torch.core.config import ChannelModel, Equalizer
+from sdr_tpu_torch.kernels.mc import mc_llr_plain
+from sdr_tpu_torch.link import mc
+from sdr_tpu_torch.link.mc import _wrap_i32
+from sdr_tpu_torch.parallel import (
+    dryrun,
+    make_link_mesh,
+    make_pipelined_fast_fn,
+    make_sharded_coded_fast_fn,
+    make_sharded_coded_fn,
+    make_sharded_fast_fn,
+    make_sharded_simulate_fn,
+    make_sharded_stream_fn,
+)
+from sdr_tpu_torch.parallel.shard import make_sharded_mc_fn
+
+torch.set_num_threads(1)
+
+WORLD = 4
+SEED = 11
+_cfg = dryrun._cfg
+PDP3 = (1.0, 0.5, 0.25)
+
+
+def _small(model, n_channels=16, n_fft=64, cp=16, n_symbols=4, **kw):
+    return _cfg(model, 8.0, n_channels, n_symbols, n_fft=n_fft, cp=cp, **kw)
+
+
+def _mc_jcfg():
+    """The inject cell in both packages (JAX tests/test_mc.py's shape)."""
+    ref = jcfg.LinkConfig(modulation=jcfg.Modulation.QAM16, ofdm=jcfg.OFDMConfig(256, 64),
+                          channel=jcfg.ChannelConfig(model=jcfg.ChannelModel.MULTIPATH,
+                                                     ebno_db=6.0, pdp=PDP3),
+                          n_symbols=4, n_channels=8)
+    return ref, interop.link_config_from_reference(ref)
+
+
+def _mc_draw(cfg):
+    rng = np.random.default_rng(5)
+    B, S, N = cfg.n_channels, cfg.n_symbols, cfg.ofdm.n_fft
+    return (rng.integers(0, 1 << cfg.modulation.bits_per_symbol, (B, S, N)).astype(np.int32),
+            *(rng.standard_normal(shape).astype(np.float32)
+              for shape in ((B, S, N), (B, S, N), (B, 1, N), (B, 1, N))))
+
+
+# name → case (kind, mesh, config, inputs); rank 0 holds each against the
+# unsharded port (``exact``).
+CASES = {
+    "fast_rows_awgn": dict(kind="fast", mesh=(1, 4), cfg=_small(ChannelModel.AWGN),
+                           layout="rows"),
+    "fast_rows_multipath": dict(kind="fast", mesh=(1, 4),
+                                cfg=_small(ChannelModel.MULTIPATH, pdp=PDP3), layout="rows"),
+    "fast_rows_multipath_time": dict(kind="fast", mesh=(1, 4),
+                                     cfg=_small(ChannelModel.MULTIPATH_TIME, pdp=PDP3,
+                                                doppler_norm=0.02), layout="rows"),
+    "fast_rows_multipath_mesh2x2": dict(kind="fast", mesh=(2, 2),
+                                        cfg=_small(ChannelModel.MULTIPATH, pdp=PDP3),
+                                        layout="rows"),
+    "fast_cl_awgn": dict(kind="fast", mesh=(1, 4), cfg=_small(ChannelModel.AWGN), layout="cl"),
+    "fast_cl_multipath": dict(kind="fast", mesh=(2, 2),
+                              cfg=_small(ChannelModel.MULTIPATH, pdp=PDP3), layout="cl"),
+    "fast_scfdma": dict(kind="fast", mesh=(1, 4),
+                        cfg=_small(ChannelModel.RAYLEIGH_FLAT, dft_spread=True)),
+    "coded_fast_staged": dict(kind="coded_fast", mesh=(1, 4), seam="staged", iters=8,
+                              cfg=_cfg(ChannelModel.RAYLEIGH_FLAT, 6.0, 8, 8)),
+    "mc_inject": dict(kind="mc_inject", mesh=(1, 4), cfg=_mc_jcfg()[1],
+                      rand=_mc_draw(_mc_jcfg()[1])),
+    "mc_inject_mesh2x2": dict(kind="mc_inject", mesh=(2, 2), cfg=_mc_jcfg()[1],
+                              rand=_mc_draw(_mc_jcfg()[1])),
+    "pp_n_micro_1": dict(kind="pp", mesh=(2, 2), n_micro=1, cfg=_small(ChannelModel.AWGN)),
+    "pp_n_micro_2": dict(kind="pp", mesh=(2, 2), n_micro=2,
+                         cfg=_small(ChannelModel.MULTIPATH, pdp=PDP3)),
+    "mc_keyed": dict(kind="mc", mesh=(2, 2), iters=2,
+                     cfg=_small(ChannelModel.AWGN, n_channels=8, n_fft=128)),
+}
+EXACT = [name for name, c in CASES.items() if c["kind"] != "mc"]
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    """Every case once on 4 gloo ranks; name → per-rank results."""
+    cases = [dict(name=name, seed=SEED, **case) for name, case in CASES.items()]
+    per_rank = dryrun.spawn(WORLD, dryrun.run_cases, ("cpu", cases), timeout=240)
+    return {c["name"]: [r[i] for r in per_rank] for i, c in enumerate(cases)}
+
+
+@pytest.mark.parametrize("name", EXACT)
+def test_sharded_equals_unsharded_on_every_rank(ranks, name):
+    res = ranks[name]
+    assert res[0]["exact"] is True
+    cfg = CASES[name]["cfg"]
+    assert res[0]["errors"].shape == (cfg.n_channels,) and res[0]["errors"].sum() > 0
+    for r in res[1:]:
+        np.testing.assert_array_equal(r["errors"], res[0]["errors"])
+        np.testing.assert_array_equal(r["counted"], res[0]["counted"])
+
+
+def test_sharded_mc_keyed_uses_the_per_shard_seeds(ranks):
+    """Shard c runs ``mc_simulate`` on its n_channels / shards links with
+    seed + c·(0x5BD1E995 & 0x7FFFFFFF) wrapped to int32; the "time" rows
+    repeat the work."""
+    case = CASES["mc_keyed"]
+    cfg, n_c = case["cfg"], case["mesh"][1]
+    local = dataclasses.replace(cfg, n_channels=cfg.n_channels // n_c)
+    want = np.concatenate([
+        mc.mc_simulate(local, _wrap_i32(SEED + c * (0x5BD1E995 & 0x7FFFFFFF)),
+                       iters=case["iters"], device="cpu")[0].numpy()
+        for c in range(n_c)])
+    for r in ranks["mc_keyed"]:
+        np.testing.assert_array_equal(r["errors"], want)
+        assert int(r["counted"][0]) == case["iters"] * mc.bits_per_pass(cfg)
+
+
+def test_sharded_mc_inject_matches_jax(ranks):
+    """Equal per-channel counts with JAX's sharded inject run on 4 CPU
+    devices, but for bits whose plain |LLR| < 1e-3."""
+    ref_cfg, cfg = _mc_jcfg()
+    draw = _mc_draw(cfg)
+    jmesh = j_make_link_mesh(1, WORLD, devices=jax.devices()[:WORLD])
+    assert interop.mesh_shape_from_reference(jmesh) == CASES["mc_inject"]["mesh"]
+    want, counted = j_sharded_mc_inject(ref_cfg, jmesh)(*map(jnp.asarray, draw))
+    got = ranks["mc_inject"][0]["errors"]
+    llr, _ = mc_llr_plain(cfg, 0, torch.arange(cfg.n_channels, dtype=torch.int32),
+                          interop.mc_rand_inputs_from_reference(*draw))
+    margin = (llr.abs() < 1e-3).sum(dim=(1, 2)).numpy()
+    assert np.all(np.abs(got - np.asarray(want)) <= margin)
+    np.testing.assert_array_equal(ranks["mc_inject"][0]["counted"], np.asarray(counted))
+
+
+def test_layer_refuses_what_it_does_not_run():
+    mesh = make_link_mesh()  # one process: 1 × 1
+    with pytest.raises(ValueError, match='"time" axis == 2'):
+        make_pipelined_fast_fn(_small(ChannelModel.AWGN), mesh, device="cpu")
+    for builder in (make_sharded_simulate_fn, make_sharded_stream_fn, make_sharded_coded_fn):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            builder(_small(ChannelModel.AWGN), mesh)
+    with pytest.raises(NotImplementedError):
+        make_sharded_fast_fn(_small(ChannelModel.AWGN, pilot_spacing=4, equalizer=Equalizer.MMSE),
+                             mesh, device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_sharded_coded_fast_fn(_small(ChannelModel.AWGN, dft_spread=True), mesh,
+                                   device="cpu")
+
+
+def test_shard_divisibility_raises_on_every_rank_count():
+    """The checks the builders make from the mesh shape alone: a 3-rank
+    mesh does not divide 16 channels, a 2 × 3 pipeline does not divide
+    16 into 3 shards × 2 microbatches."""
+    from sdr_tpu_torch.parallel.mesh import LinkMesh
+
+    groups = {"time": None, "channel": None}
+    with pytest.raises(ValueError, match="not divisible by device count 3"):
+        make_sharded_fast_fn(_small(ChannelModel.AWGN), LinkMesh(1, 3, 0, groups),
+                             device="cpu")
+    with pytest.raises(ValueError, match="channel-axis size 3"):
+        make_sharded_mc_fn(_small(ChannelModel.AWGN, n_fft=128), LinkMesh(1, 3, 0, groups),
+                           device="cpu")
+    with pytest.raises(ValueError, match="3×2"):
+        make_pipelined_fast_fn(_small(ChannelModel.AWGN), LinkMesh(2, 3, 0, groups),
+                               device="cpu")
+
+
+def test_one_process_dp_equals_the_engine():
+    """Without a process group the layer runs on a 1 × 1 mesh."""
+    from sdr_tpu_torch.link.fast import fast_simulate
+
+    cfg = _small(ChannelModel.MULTIPATH, pdp=PDP3)
+    got = make_sharded_fast_fn(cfg, make_link_mesh(), device="cpu")(SEED)
+    want = fast_simulate(cfg, SEED, device="cpu")
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_entry_points_default_to_the_card():
+    import inspect
+
+    for builder in (make_sharded_fast_fn, make_sharded_coded_fast_fn, make_pipelined_fast_fn,
+                    make_sharded_mc_fn):
+        assert inspect.signature(builder).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_sharded_fast_fn(_small(ChannelModel.AWGN), make_link_mesh())
+
+
+def test_spawn_reports_a_failing_rank():
+    with pytest.raises(RuntimeError, match=r"rank \d failed"):
+        dryrun.spawn(2, dryrun.run_cases, ("cpu", [dict(kind="fast", mesh=(3, 1))]),
+                     timeout=120)
