@@ -25,7 +25,10 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    and at config 5's shape; kernel H (min-sum decode, flooding 25 and
    layered 13 iterations, rows and transposed layouts) on the coded
    link's LLRs at config 2, 8192 × 64 (172,032 codewords of the rate-1/2
-   code): identical hard bits to the plain version;
+   code): identical hard bits to the plain version, each layout and
+   schedule timed beside its bound; kernel A at 8192 × 64 × 256
+   int8 (bps 4) and int16 (bps 10) bit for bit, timed beside
+   ``torch.randint``;
    2t. kernel C's tensor-parallel stage-2 mode (``tp_stage2_llr``, #20)
    against ``stage2_llr_plain`` at the shapes the TP path runs — rows of
    n2 = 1024 (config 5 split over 4 ranks, 256 × 64 per rank) and
@@ -148,6 +151,11 @@ import time
 # The H100 SXM's published peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# 32-bit integer multiplies: 64 per clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0), 132 SMs at the
+# 1.98 GHz boost clock.
+IMUL_PER_S = 132 * 64 * 1.98e9
+PHILOX_IMUL = 40  # ten rounds of two multiply-high/low pairs per Philox-4x32-10 call
 
 SEED = 20261016
 
@@ -178,15 +186,18 @@ def _fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def bound(n_bytes: float, n_flops: float) -> dict:
+def bound(n_bytes: float, n_flops: float, n_imul: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes moved
-    (each input read once, each output written once) over the memory rate
-    and the f32 operations over the f32 peak. Integer work (Philox) and
-    the transcendentals are not counted, so this is a lower bound. The
-    demodulating kernels (C, D, F, #20) never load a cyclic prefix, so
-    their bounds count the S·N sample rows they read, not S·(N+CP)."""
+    (each input read once, each output written once) over the memory rate,
+    the f32 operations over the f32 peak and the 32-bit integer multiplies
+    over the integer-multiply rate. Only kernel A counts its integer work
+    (40 multiplies per Philox call); the other kernels' integer work
+    (Philox in B, E and G) and the transcendentals are not counted, so
+    theirs are lower bounds. The demodulating kernels (C, D, F, #20) never
+    load a cyclic prefix, so their bounds count the S·N sample rows they
+    read, not S·(N+CP)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS * 1e3
+    t_ops = max(n_flops / F32_FLOPS, n_imul / IMUL_PER_S) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -307,22 +318,40 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         return max(float(b.abs().max()) for b in planes)
 
     # ---- phase 2: each kernel against its plain version ------------------
-    # A: payload draw, exact.
-    idx = ka.payload_idx(S, N, bps, seed, ids)
-    idx_plain = ka.payload_idx_plain(S, N, bps, seed, ids)
-    _check(torch.equal(idx, idx_plain), "kernel A differs from its plain version")
-    del idx_plain
-    ms, pms = compare_times(lambda: ka.payload_idx(S, N, bps, seed, ids),
-                            lambda: ka.payload_idx_plain(S, N, bps, seed, ids))
+    # A: payload draw, exact, in int8 (bps 4) and int16 (bps 10); four
+    # indices per Philox call.
+    for bps_a in (10, bps):
+        idx = ka.payload_idx(S, N, bps_a, seed, ids)
+        idx_plain = ka.payload_idx_plain(S, N, bps_a, seed, ids)
+        _check(idx.dtype == ka.out_dtype(bps_a) and torch.equal(idx, idx_plain),
+               f"kernel A differs from its plain version at bps {bps_a}")
+        del idx_plain
+
+    def plain_a():
+        return ka.payload_idx_plain(S, N, bps, seed, ids)
+
     def randint():
         return torch.randint(0, 1 << bps, (B, S, N), dtype=torch.int8, device=dev)
 
+    plain_a()
+    pms = timed(plain_a, 3)
+    # The kernel beside torch.randint: 20 calls each, in turns.
     randint()
-    lib_ms = timed(randint, 3)
+    r1 = timed(randint, 20)
+    k1 = timed(lambda: ka.payload_idx(S, N, bps, seed, ids), 20)
+    k2 = timed(lambda: ka.payload_idx(S, N, bps, seed, ids), 20)
+    r2 = timed(randint, 20)
+    ms, lib_ms = (k1 + k2) / 2, (r1 + r2) / 2
+    n_calls = B * S * (-(-N // 4))
     report["payload"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
-                             **bound(B * S * N + 4 * B, 0))
-    print(f"phase 2 A payload ({B}x{S}x{N} int8): exact; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-          f"torch.randint {lib_ms:.3f} ms")
+                             **bound(B * S * N + 4 * B, 0, n_calls * PHILOX_IMUL))
+    a_bytes = bound(B * S * N + 4 * B, 0)["bound_ms"]
+    print(f"phase 2 A payload ({B}x{S}x{N} int8, bps {bps}; int16 bps 10 exact too): exact; "
+          f"kernel {ms:.4f} ms, torch.randint {lib_ms:.4f} ms (20 calls each, in turns; "
+          f"kernel/randint {ms / lib_ms:.3f}), plain {pms:.3f} ms; bound "
+          f"{report['payload']['bound_ms']:.4f} ms ({report['payload']['bound_by']}: {n_calls} "
+          f"Philox calls x {PHILOX_IMUL} multiplies; bytes {a_bytes:.4f} ms), "
+          f"{report['payload']['bound_ms'] / ms:.3f} of it")
 
     # B: fused TX + flat channel.
     nv10 = 1.0 / (10.0 ** 1.0 * bps)
@@ -789,17 +818,18 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     n_cw = ldpc_codewords_per_channel(cfg_h, code)
     llr_h, info_h = coded_llrs(cfg_h, code, n_cw)
     n_cws = B * n_cw
+    llr_t = llr_h.T.contiguous()
     for schedule, iters in (("flooding", 25), ("layered", 13)):
         want = kh.ldpc_decode_plain(code, llr_h, iters, 0.5, schedule)
         got = kh.ldpc_decode(code, llr_h, iters, 0.5, schedule)
         n_diff = int((got != want).sum())
-        llr_t = llr_h.T.contiguous()
         got_t = kh.ldpc_decode(code, llr_t, iters, 0.5, schedule, transposed=True)
         n_diff_t = int((got_t.T != want).sum())
+        del got, got_t
         _check(n_diff == 0 and n_diff_t == 0,
                f"kernel H {schedule}: {n_diff} (rows) / {n_diff_t} (transposed) hard bits differ")
         info_err = int((want[:, :code.k].reshape(B, n_cw, code.k) != info_h).sum())
-        del want, got, got_t
+        del want
         ms, pms = compare_times(lambda: kh.ldpc_decode(code, llr_h, iters, 0.5, schedule),
                                 lambda: kh.ldpc_decode_plain(code, llr_h, iters, 0.5, schedule),
                                 reps=1)
@@ -807,7 +837,6 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
             lambda: kh.ldpc_decode(code, llr_t, iters, 0.5, schedule, transposed=True),
             lambda: kh.ldpc_decode_plain(code, llr_t, iters, 0.5, schedule, transposed=True),
             reps=1)
-        del llr_t
         bnd = h_bound(code, n_cws, iters)
         report[kh.counter_name(schedule, False)] = dict(max_abs_err=float(n_diff), ms=ms,
                                                         plain_ms=pms, **bnd)
@@ -815,9 +844,12 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                                        plain_ms=pms_t, **bnd)
         print(f"phase 2 H ldpc_minsum {schedule} {iters} iterations ({n_cws} codewords of "
               f"n {code.n}, {len(kh.edge_lists(code)[0])} edges): hard bits identical to plain "
-              f"in both layouts ({info_err} info-bit errors); rows kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms; transposed kernel {ms_t:.3f} ms, plain {pms_t:.3f} ms; bound "
-              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), {bnd['bound_ms'] / ms:.3f} of it")
+              f"in both layouts ({info_err} info-bit errors); rows "
+              f"kernel {ms:.3f} ms, plain {pms:.3f} ms; transposed kernel {ms_t:.3f} ms, plain "
+              f"{pms_t:.3f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+              f"{bnd['bound_ms'] / ms:.4f} (rows) / {bnd['bound_ms'] / ms_t:.4f} (transposed) "
+              f"of it")
+    del llr_t
     del llr_h, info_h
     torch.cuda.empty_cache()
 

@@ -26,6 +26,15 @@ k1); counter = (global channel id, symbol, position, lane). The stream
 is not the JAX package's threefry stream, nor its TPU kernels' on-core
 stream; each engine is validated against BER theory, and the port's
 kernels against the plain versions here, bit for bit.
+
+The payload (``ROLE_PAYLOAD``, lane 0) takes all four words of a call:
+symbol index n of (channel, symbol s) is word n mod 4 of counter
+(channel, s, n div 4, 0) (``kernels/payload.py``). It took word 0 of
+counter (channel, s, n, 0) before, one call per index; payloads, and so
+the BER figures of the fast, MC and coded engines, drawn before and
+after that change are different draws of the same distribution. The
+coded engine's info bits stay on lane 1 (``info_bits``), so their
+counters never meet the payload's.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@
 //
 // A block takes one channel b and a run of spb of its symbols (spb =
 // 2^(9 - log N) below N = 512, one symbol above), and per symbol:
-//   indices (keyed: kernel A's Philox word, counter (ch, s, k, 0));
+//   indices (keyed: kernel A's layout, word k mod 4 of counter (ch, s, k div 4, 0));
 //   Gray map to PAM levels; [SC-FDMA: forward FFT, x norm/sqrt(N)];
 //   x H[k] per subcarrier; inverse FFT (x norm/N, or 1/N after the
 //   spread); + sigma n on the N payload samples only, sigma =
@@ -37,7 +37,8 @@
 // Bound on the H100: operations. Only the seed, the channel ids and the
 // (B,) counts touch device memory; per sample the kernel runs two (three
 // with SC-FDMA) radix-2 FFT stages' butterflies through shared memory,
-// two Philox-4x32-10 blocks (index and noise), a Box-Muller pair and
+// a quarter of a Philox-4x32-10 block for the index (four indices per
+// call) and one for the noise, a Box-Muller pair and
 // the LLR tail. The TPU kernel ran its transforms as matmuls on the MXU;
 // here they are f32 on CUDA cores.
 #include "common.cuh"
@@ -131,19 +132,30 @@ __global__ void __launch_bounds__(sdr::kThreads) mc_kernel(McParams p, sdr::Axis
 
   // Indices and channel state.
   if ((int)threadIdx.x < spb) cnt[threadIdx.x] = 0;
-  for (int e = threadIdx.x; e < (spb << log_n); e += blockDim.x) {
+  // Four indices per thread: kernel A's layout, one Philox call per quad of
+  // subcarriers (N >= 128, so a quad never straddles a symbol).
+  for (int q = threadIdx.x; q < (spb << (log_n - 2)); q += blockDim.x) {
+    const int e = q << 2;
     const int t = e >> log_n;
     const int k = e & (N - 1);
-    int v = 0;
+    int v[4] = {0, 0, 0, 0};
     if (t < n_sym) {
       if (p.idx_in != nullptr) {
-        v = p.idx_in[((row0 + t) << log_n) + k];
+        const int* src = p.idx_in + ((row0 + t) << log_n) + k;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = src[i];
       } else {
-        v = (int)(sdr::philox4x32_10(make_uint4(ch, (uint32_t)(s0 + t), (uint32_t)k, 0u), p.kp0,
-                                     p.kp1).x & (uint32_t)p.idx_mask);
+        const uint4 w = sdr::philox4x32_10(
+            make_uint4(ch, (uint32_t)(s0 + t), (uint32_t)(k >> 2), 0u), p.kp0, p.kp1);
+        const uint32_t m = (uint32_t)p.idx_mask;
+        v[0] = (int)(w.x & m);
+        v[1] = (int)(w.y & m);
+        v[2] = (int)(w.z & m);
+        v[3] = (int)(w.w & m);
       }
     }
-    sidx[e] = (int16_t)v;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sidx[e + i] = (int16_t)v[i];
   }
   if (p.kind == kFlat || p.kind == kRician) {
     if (threadIdx.x == 0) {
@@ -321,7 +333,9 @@ int launch(const McParams& p, const sdr::AxisTables& tab, size_t smem, cudaStrea
 extern "C" int sdr_mc_count(McParams p, int bits_per_axis, int bpsk, int spread,
                             sdr::AxisTables tab, void* stream) {
   if ((long long)p.B * p.S == 0) return 0;
-  if (p.log_n < 1 || p.log_n > 12 || p.n_taps < 0 || p.idx_mask > 0x7FFF)
+  // log_n >= 7 (N >= 128, kernels/mc.py's MIN_N_FFT): the keyed draw takes
+  // whole quads of subcarriers within one symbol.
+  if (p.log_n < 7 || p.log_n > 12 || p.n_taps < 0 || p.idx_mask > 0x7FFF)
     return (int)cudaErrorInvalidValue;
   // No more symbols per block than the channel has.
   p.log_spb = p.log_n >= 9 ? 0 : 9 - p.log_n;

@@ -204,7 +204,7 @@ _SIGNATURES = {
                       _I, _I, _P, _P, _P],
     "sdr_demod_llr_cl": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, AxisTables, _F,
                          _P, _P, _P],
-    "sdr_ldpc_minsum": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _LL, _LL, _LL, _P],
+    "sdr_ldpc_minsum": [_P, _P, _P, _I, _I, _F, _I, _LL, _LL, _LL, _P],
     "sdr_llr_chain_partials": [_I, _I, _I],
     "sdr_llr_chain": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, AxisTables, _F, _I, _P],
     "sdr_tp_stage2_llr": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, AxisTables, _P,

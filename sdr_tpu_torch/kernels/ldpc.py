@@ -25,8 +25,11 @@ decision reads.
 
 The JAX package had two kernels (lane-major Z and sublane-major Z) only
 because Mosaic lowered lane rotates and sublane concatenations so
-differently; on the GPU the two layouts differ only in strides, and one
-kernel serves both, with the base matrix taken at run time.
+differently; on the GPU the two layouts differ only in how a block stages
+its codewords, and one kernel serves both, with the base matrix taken at
+run time: its tables (``code_tables``) are a by-value kernel parameter,
+read from the constant bank. A block decodes one codeword, a thread
+per lifted row.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the CUDA kernel
 (``csrc/ldpc.cu``) runs, or the call raises.
@@ -34,6 +37,7 @@ On a CPU tensor the plain version runs; on a CUDA tensor the CUDA kernel
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -41,8 +45,11 @@ import torch
 from sdr_tpu_torch.kernels import _lib
 
 SCHEDULES = ("flooding", "layered")
-MAX_NB = 32  # base columns the kernel holds in registers (csrc/ldpc.cu kMaxNb)
-MAX_Z = 1024  # one thread per lifted row
+# The kernel's limits (csrc/ldpc.cu): base columns held in registers, base
+# rows and edges in its by-value tables, the unrolled row and column loops,
+# lifted rows (one thread each).
+MAX_NB, MAX_MB, MAX_E, MAX_ROW_DEG, MAX_COL_DEG = 32, 32, 128, 16, 3
+MAX_Z = 1024
 SMEM_BYTES = 232448  # what one block may use on Hopper (227 KB)
 _SIGNBIT = -0x80000000  # int32 bit pattern 0x80000000
 _MAGMASK = 0x7FFFFFFF
@@ -166,35 +173,70 @@ def ldpc_decode_plain(code, llr: torch.Tensor, iters: int = 25, offset: float = 
 
 
 def smem_bytes(code) -> int:
-    """Shared memory of one block: the messages (E·Z), the totals (nb·Z)
-    and the edge tables, 4 bytes each."""
+    """Shared memory of a block (one codeword): the messages (E·Z) and
+    the totals (nb·Z), 4 bytes each."""
     n_e = len(edge_lists(code)[0])
-    return 4 * ((n_e + code.nb) * code.z + 3 * n_e + code.mb + code.nb + 2)
+    return 4 * (n_e + code.nb) * code.z
+
+
+def unsupported(code) -> str | None:
+    """Why the kernel does not take ``code``, or None when it does. The
+    limits are the sizes of the kernel's by-value tables and of the unrolled
+    loops (csrc/ldpc.cu) and one codeword's state within a block's shared
+    memory (any code ``make_qc_ldpc`` builds at Z = 128 fits)."""
+    edges, e_by_row, e_by_col = edge_lists(code)
+    checks = (
+        (1 <= code.z <= MAX_Z, f"Z = {code.z} outside 1..{MAX_Z}"),
+        (code.nb <= MAX_NB, f"nb = {code.nb} > {MAX_NB} base columns"),
+        (code.mb <= MAX_MB, f"mb = {code.mb} > {MAX_MB} base rows"),
+        (len(edges) <= MAX_E, f"{len(edges)} edges > {MAX_E}"),
+        (max(map(len, e_by_row)) <= MAX_ROW_DEG,
+         f"row degree {max(map(len, e_by_row))} > {MAX_ROW_DEG}"),
+        (max(map(len, e_by_col)) <= MAX_COL_DEG,
+         f"column degree {max(map(len, e_by_col))} > {MAX_COL_DEG}"),
+        (smem_bytes(code) <= SMEM_BYTES,
+         f"{smem_bytes(code)} bytes of state per codeword > {SMEM_BYTES}"),
+    )
+    return next((why for ok, why in checks if not ok), None)
 
 
 def supported(code) -> bool:
-    """Codes the kernel takes: Z ≤ 1024 (one thread per lifted row),
-    nb ≤ 32, and the block's state within Hopper's shared memory (any code
-    ``make_qc_ldpc`` builds at Z = 128; E ≤ 65 at the stock rates)."""
-    return 1 <= code.z <= MAX_Z and code.nb <= MAX_NB and smem_bytes(code) <= SMEM_BYTES
+    """Codes the kernel takes (``unsupported`` says why not)."""
+    return unsupported(code) is None
 
 
 @functools.lru_cache(maxsize=None)
-def edge_tables(code, device: str) -> torch.Tensor:
-    """The int32 edge tables the kernel loads into shared memory, in
-    order: column of each edge, shift of each edge, each base row's first
-    edge (mb + 1), each base column's first entry in the column list
-    (nb + 1), the column list (edges in ``e_by_col`` order)."""
+def code_tables(code) -> tuple[int, ...]:
+    """The int32 tables the kernel takes as a by-value parameter, in
+    ``csrc/ldpc.cu``'s ``LdpcCode`` layout. Offsets are bytes into the
+    block's shared memory, which holds E message planes and then nb total
+    planes of Z floats: nb, mb, E, Z; per base row (degree, first edge);
+    per edge in row order (s·4, its total plane, its message plane, 0);
+    per base column (total plane, degree); per column, its edges' message
+    planes in ``e_by_col`` order. Unused entries are 0."""
     edges, e_by_row, e_by_col = edge_lists(code)
-    row_start = [0]
-    for row in e_by_row:
-        row_start.append(row_start[-1] + len(row))
-    col_start = [0]
-    for col in e_by_col:
-        col_start.append(col_start[-1] + len(col))
-    flat = ([j for _, j, _ in edges] + [s % code.z for _, _, s in edges] + row_start + col_start
-            + [e for col in e_by_col for e in col])
-    return torch.tensor(flat, dtype=torch.int32, device=device)
+    z, n_e = code.z, len(edges)
+    plane = 4 * z
+
+    def padded(items, size):
+        vals = [v for item in items for v in item]
+        return vals + [0] * (size - len(vals))
+
+    out = [code.nb, code.mb, n_e, z]
+    out += padded([(len(row), row[0] if row else 0) for row in e_by_row], 2 * MAX_MB)
+    out += padded([(4 * (s % z), (n_e + j) * plane, e * plane, 0)
+                   for e, (_, j, s) in enumerate(edges)], 4 * MAX_E)
+    out += padded([((n_e + j) * plane, len(col)) for j, col in enumerate(e_by_col)], 2 * MAX_NB)
+    out += padded([padded([(e * plane,) for e in col], MAX_COL_DEG) for col in e_by_col],
+                  MAX_NB * MAX_COL_DEG)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _c_tables(code):
+    """``code_tables`` as a C int array, kept for the process."""
+    t = code_tables(code)
+    return (ctypes.c_int * len(t))(*t)
 
 
 def counter_name(schedule: str, transposed: bool) -> str:
@@ -215,8 +257,10 @@ def ldpc_decode(code, llr: torch.Tensor, iters: int = 25, offset: float = 0.5,
         return ldpc_decode_plain(code, llr, iters, offset, schedule, transposed)
     if llr.dtype != torch.float32:
         raise ValueError(f"ldpc kernel takes float32 LLRs, got {llr.dtype}")
-    if not supported(code):
-        raise ValueError(f"ldpc kernel: unsupported code nb={code.nb} mb={code.mb} z={code.z}")
+    why = unsupported(code)
+    if why is not None:
+        raise ValueError(f"ldpc kernel: unsupported code nb={code.nb} mb={code.mb} "
+                         f"z={code.z}: {why}")
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
     _lib.require_cuda("ldpc_decode", llr)
@@ -225,12 +269,13 @@ def ldpc_decode(code, llr: torch.Tensor, iters: int = 25, offset: float = 0.5,
     if batch == 0:
         return out
     cw_stride, pos_stride = (1, batch) if transposed else (code.n, 1)
-    tables = edge_tables(code, str(llr.device))
-    rc = _lib.lib().sdr_ldpc_minsum(
-        llr.data_ptr(), out.data_ptr(), tables.data_ptr(), len(edge_lists(code)[0]), code.nb,
-        code.mb, code.z, iters, float(offset), int(schedule == "layered"), batch, cw_stride,
-        pos_stride, _lib.stream(),
-    )
+    tables = _c_tables(code)
+    with torch.cuda.device(llr.device):
+        rc = _lib.lib().sdr_ldpc_minsum(
+            llr.data_ptr(), out.data_ptr(), ctypes.addressof(tables), len(tables), iters,
+            float(offset), int(schedule == "layered"), batch, cw_stride, pos_stride,
+            _lib.stream(),
+        )
     name = counter_name(schedule, transposed)
     _lib.check(rc, name)
     _lib.LAUNCHES[name] += 1

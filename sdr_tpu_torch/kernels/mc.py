@@ -11,8 +11,10 @@ unbiased one-tap MMSE (OFDM) or the SC-FDE despread
 errors against the indices → per-channel (B,) int32 counts.
 
 Keyed mode: nothing but the seed and the global channel ids goes in.
-Every draw is the fast engine's (``link/fast.py``): the payload on
-kernel A's counter, the fading on ``ops/channel.py``'s ``ROLE_FADING``
+Every draw is the fast engine's (``link/fast.py``): the payload in
+kernel A's layout (four indices per Philox call, word n mod 4 of
+counter (ch, s, n div 4, 0); the stream changed with that layout, so
+BER figures before and after it are different draws), the fading on ``ops/channel.py``'s ``ROLE_FADING``
 lanes, the noise of time sample n on kernel B's counter at sample
 cp + n. With CP ≥ L−1 the per-subcarrier channel here and the fast
 engine's time-domain channel are the same map, so a keyed pass equals

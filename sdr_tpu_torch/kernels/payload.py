@@ -3,12 +3,19 @@
 
 ``payload_idx`` returns (B, S, N) uniform symbol indices,
 
-    idx[b, s, n] = Philox4x32-10(seed ^ ROLE_PAYLOAD, (ch_ids[b], s, n, 0)).x
-                   & (2^bps − 1),
+    idx[b, s, n] = word (n mod 4) of Philox4x32-10(seed ^ ROLE_PAYLOAD,
+                   (ch_ids[b], s, n div 4, 0)) & (2^bps − 1),
 
-int8 for bps ≤ 7 and int16 otherwise (the JAX rule). The counter is per
-(global channel, symbol, subcarrier), so any slice of channels
-reproduces the full run bit for bit.
+words in the order (x, y, z, w), the last call's extra words dropped
+when N is not a multiple of 4; int8 for bps ≤ 7 and int16 otherwise (the
+JAX rule). One Philox call gives four indices. Each index is a pure
+function of (seed, role, global channel id, s, n), so any slice of
+channels reproduces the full run bit for bit.
+
+The layout changed from one call per index (word x of counter
+(ch_ids[b], s, n, 0)) to four indices per call: payloads, and so the
+BER figures of every engine, drawn before and after that change are
+different draws of the same distribution.
 
 On a CPU tensor the plain version (``payload_idx_plain``) runs; on a
 CUDA tensor the CUDA kernel (``csrc/payload.cu``) runs, or the call
@@ -34,9 +41,11 @@ def supported(N: int, bps: int) -> bool:
 
 
 def payload_idx_plain(S: int, N: int, bps: int, seed: int, ch_ids: torch.Tensor) -> torch.Tensor:
-    """Plain torch version: the same bits as the kernel."""
-    w0, _, _, _ = prng.keyed_words(seed, prng.ROLE_PAYLOAD, ch_ids, (S, N))
-    return (w0 & ((1 << bps) - 1)).to(out_dtype(bps))
+    """Plain torch version: the same bits as the kernel, all four words of
+    each keyed Philox call over (S, ceil(N/4)) quads."""
+    words = prng.keyed_words(seed, prng.ROLE_PAYLOAD, ch_ids, (S, -(-N // 4)))
+    w = torch.stack(words, dim=-1).reshape(ch_ids.shape[0], S, -1)[..., :N]
+    return (w & ((1 << bps) - 1)).to(out_dtype(bps))
 
 
 def payload_idx(S: int, N: int, bps: int, seed: int, ch_ids: torch.Tensor) -> torch.Tensor:

@@ -14,8 +14,8 @@ C's despread mode follow the count rule. Kernel C's LLR-plane mode and
 F's LLR mode: 1e-4 of the plane's peak |LLR|; bf16 sign-identical
 wherever |LLR| ≥ 1e-3 and within 2^-8 relative; C's sums 1e-5 of the sum
 of |LLR|, and the same bits on a second run. Kernel H: identical hard
-bits in both schedules and layouts; the coded engine on the card equals
-the CPU run but in channels holding an LLR with |LLR| < 1e-3. The
+bits in both schedules and layouts at any batch; the coded engine on the
+card equals the CPU run but in channels holding an LLR with |LLR| < 1e-3. The
 channels-last kernels run at N up to 4096 (their wideband mode, fewer
 channels a block above N = 512), B and C at configs 3 and 5's N, and C's
 post-FFT mode (``llr_chain``) as C's LLR and sum modes, C's TP stage-2
@@ -62,6 +62,20 @@ def test_payload_kernel_bit_exact(dev, bps):
     got = _counted("payload", lambda: ka.payload_idx(16, 64, bps, 2**33 + 5, ids))
     want = ka.payload_idx_plain(16, 64, bps, 2**33 + 5, ids)
     assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bps", [4, 10])
+@pytest.mark.parametrize("shape", [(3, 5, 4), (7, 3, 2), (5, 2, 1), (9, 17, 64), (2, 1, 8),
+                                   (4, 3, 2048)])
+def test_payload_kernel_partial_blocks(dev, shape, bps):
+    """Four indices per Philox call: bit-exact where the quads of a channel
+    do not fill a block, below one quad (N 1, 2), and in int16."""
+    B, S, N = shape
+    ids = torch.arange(50, 50 + B, dtype=torch.int32, device=dev)
+    got = _counted("payload", lambda: ka.payload_idx(S, N, bps, 77, ids))
+    want = ka.payload_idx_plain(S, N, bps, 77, ids)
+    assert got.dtype == want.dtype == ka.out_dtype(bps)
     assert torch.equal(got, want)
 
 
@@ -272,8 +286,9 @@ def test_selective_fast_simulate_on_card_matches_cpu(dev, model, layout):
 
 def test_wrappers_raise_instead_of_falling_back(dev):
     mod = Modulation.QAM16
-    with pytest.raises(ValueError):
-        kd.demod_sum_cl(*(torch.zeros((80, 128), device=dev, dtype=torch.bfloat16),) * 2,
+    with pytest.raises(ValueError):  # samples of two types (bf16 and f32 alone are taken)
+        kd.demod_sum_cl(torch.zeros((80, 128), device=dev, dtype=torch.bfloat16),
+                        torch.zeros((80, 128), device=dev),
                         torch.zeros((64, 128), device=dev), torch.zeros((64, 128), device=dev),
                         16, mod, 0.1)
     with pytest.raises(ValueError):
@@ -522,6 +537,53 @@ def test_ldpc_kernel_decisions_equal_plain(dev, rate, schedule, iters):
                      lambda: kh.ldpc_decode(code, llr.T.contiguous(), iters, 0.5, schedule,
                                             transposed=True))
     assert torch.equal(got_t.T, want)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 203, 4097])
+@pytest.mark.parametrize("rate", ["1/2", "2/3", "3/4", "8,4", "8,4,z100"])
+@pytest.mark.parametrize("schedule,iters", [("flooding", 25), ("layered", 13)])
+def test_ldpc_kernel_every_batch_and_configuration(dev, batch, rate, schedule, iters):
+    """Kernel H against its plain version at batches from 1 to 4097, in
+    both layouts, at every stock rate and with a code whose Z (100) is
+    not a multiple of 32."""
+    from sdr_tpu_torch.link.coded import ldpc_code_for
+    from sdr_tpu_torch.ops.ldpc import make_qc_ldpc
+
+    from sdr_tpu_torch.kernels import ldpc as kh
+
+    code = (make_qc_ldpc(8, 4, 100) if rate == "8,4,z100" else
+            make_qc_ldpc(8, 4, 128) if rate == "8,4" else ldpc_code_for(rate))
+    llr = _ldpc_llrs(code, batch, 0.85, 21, dev)
+    want = kh.ldpc_decode_plain(code, llr, iters, 0.5, schedule)
+    llr_t = llr.T.contiguous()
+    got = _counted(kh.counter_name(schedule, False),
+                   lambda: kh.ldpc_decode(code, llr, iters, 0.5, schedule))
+    assert torch.equal(got, want)
+    got_t = _counted(kh.counter_name(schedule, True),
+                     lambda: kh.ldpc_decode(code, llr_t, iters, 0.5, schedule, transposed=True))
+    assert torch.equal(got_t.T, want)
+
+
+def test_ldpc_kernel_raises_by_name_beyond_its_limits(dev):
+    """Codes beyond the kernel's tables or loops raise ValueError naming
+    the limit; nothing falls back."""
+    from sdr_tpu_torch.ops.ldpc import QcLdpcCode, make_qc_ldpc
+
+    from sdr_tpu_torch.kernels import ldpc as kh
+
+    col4 = QcLdpcCode(((0, 0, -1), (1, -1, 0), (2, 0, -1), (3, -1, 0)), 8)
+    with pytest.raises(ValueError, match="column degree 4 > 3"):
+        kh.ldpc_decode(col4, torch.zeros((2, col4.n), device=dev))
+    row17 = QcLdpcCode((tuple([0] * 17 + [-1]), tuple([-1] * 17 + [0])), 8)
+    with pytest.raises(ValueError, match="row degree 17 > 16"):
+        kh.ldpc_decode(row17, torch.zeros((2, row17.n), device=dev))
+    z2048 = make_qc_ldpc(8, 4, 2048)
+    with pytest.raises(ValueError, match="Z = 2048 outside 1..1024"):
+        kh.ldpc_decode(z2048, torch.zeros((2, z2048.n), device=dev))
+    wide = make_qc_ldpc(8, 4, 1024)
+    llr = _ldpc_llrs(wide, 5, 0.85, 3, dev)
+    got = kh.ldpc_decode(wide, llr, 5, 0.5)  # Z > 512: the wide form, 1024 threads
+    assert torch.equal(got, kh.ldpc_decode_plain(wide, llr, 5, 0.5))
 
 
 @pytest.mark.parametrize("seam", ["staged", "fused"])

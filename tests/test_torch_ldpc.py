@@ -174,16 +174,69 @@ def test_decode_rejects_bad_inputs(rng):
 
 
 def test_edge_tables_describe_the_code():
-    """The kernel's run-time edge tables: per-edge column and shift, row
-    and column ranges, and the column list in e_by_col order."""
+    """The kernel's by-value tables (``code_tables``, byte offsets into a
+    block's shared memory): each base row's degree and first edge, each
+    edge's shift and its total and message planes, each column's plane,
+    degree and edges in e_by_col order."""
     tc = tl.make_qc_ldpc(8, 4, 128)
     edges, e_by_row, e_by_col = kh.edge_lists(tc)
-    t = kh.edge_tables(tc, "cpu").tolist()
-    n_e = len(edges)
-    assert t[:n_e] == [j for _, j, _ in edges]
-    assert t[n_e:2 * n_e] == [s for _, _, s in edges]
-    row_start = t[2 * n_e:2 * n_e + tc.mb + 1]
-    assert [row_start[i + 1] - row_start[i] for i in range(tc.mb)] == [len(r) for r in e_by_row]
-    col_start = t[2 * n_e + tc.mb + 1:2 * n_e + tc.mb + tc.nb + 2]
-    col_list = t[2 * n_e + tc.mb + tc.nb + 2:]
-    assert [col_list[col_start[j]:col_start[j + 1]] for j in range(tc.nb)] == e_by_col
+    n_e, z = len(edges), tc.z
+    t = list(kh.code_tables(tc))
+    plane = 4 * z
+    assert t[:4] == [tc.nb, tc.mb, n_e, z]
+    rows, t = t[4:4 + 2 * kh.MAX_MB], t[4 + 2 * kh.MAX_MB:]
+    assert [tuple(rows[2 * i:2 * i + 2]) for i in range(tc.mb)] == [
+        (len(r), r[0]) for r in e_by_row]
+    etab, t = t[:4 * kh.MAX_E], t[4 * kh.MAX_E:]
+    for e, (_, j, s) in enumerate(edges):
+        assert etab[4 * e:4 * e + 4] == [4 * s, (n_e + j) * plane, e * plane, 0]
+    ctab, t = t[:2 * kh.MAX_NB], t[2 * kh.MAX_NB:]
+    assert [tuple(ctab[2 * j:2 * j + 2]) for j in range(tc.nb)] == [
+        ((n_e + j) * plane, len(col)) for j, col in enumerate(e_by_col)]
+    assert len(t) == kh.MAX_NB * kh.MAX_COL_DEG
+    assert [[v // plane for v in t[3 * j:3 * j + len(col)]] for j, col in
+            enumerate(e_by_col)] == e_by_col
+    assert 4 * len(kh.code_tables(tc)) == 2960  # sizeof(LdpcCode) in csrc/ldpc.cu
+
+
+def _code_with(base, z=8):
+    return tl.QcLdpcCode(tuple(tuple(r) for r in base), z)
+
+
+@pytest.mark.parametrize("case,limit", [
+    ("column degree", "column degree 4 > 3"),
+    ("row degree", "row degree 17 > 16"),
+    ("z", "Z = 2048 outside 1..1024"),
+    ("nb", "nb = 33 > 32 base columns"),
+    ("state", "bytes of state per codeword"),
+])
+def test_kernel_limits_are_named(case, limit):
+    """Codes beyond kernel H's tables, unrolled loops or shared memory are
+    refused by name (``unsupported``); the plain decoder takes them all."""
+    if case == "column degree":
+        code = _code_with([[0, 0, -1], [1, -1, 0], [2, 0, -1], [3, -1, 0]])
+    elif case == "row degree":
+        code = _code_with([[0] * 17 + [-1], [-1] * 17 + [0]])
+    elif case == "z":
+        code = tl.make_qc_ldpc(8, 4, 2048)
+    elif case == "nb":
+        code = _code_with([[0] * 16 + [-1] * 17, [-1] * 16 + [0] * 17])
+    else:
+        code = tl.make_qc_ldpc(24, 12, 1024)
+    why = kh.unsupported(code)
+    assert why is not None and limit in why and not kh.supported(code)
+    llr = torch.ones((2, code.n))
+    assert torch.equal(kh.ldpc_decode(code, llr, 1, 0.5), torch.zeros((2, code.n), dtype=torch.int8))
+
+
+@pytest.mark.parametrize("rate", RATES + ["8,4", "z100"])
+def test_launch_configurations_fit(rate):
+    """The kernel's launch (one codeword a block, a thread per lifted row)
+    fits every stock code, a code with Z not a multiple of 32 and the
+    widest Z: the block's state, (E + nb)·Z floats, within shared memory."""
+    code = tl.make_qc_ldpc(8, 4, 100) if rate == "z100" else _codes(rate)[1]
+    n_e = len(kh.edge_lists(code)[0])
+    assert kh.supported(code) and code.z <= kh.MAX_Z
+    assert kh.smem_bytes(code) == 4 * (n_e + code.nb) * code.z <= kh.SMEM_BYTES
+    wide = tl.make_qc_ldpc(8, 4, kh.MAX_Z)
+    assert kh.supported(wide) and kh.smem_bytes(wide) <= kh.SMEM_BYTES
