@@ -1103,6 +1103,21 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                   f"plain {pms:.3f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         del br, bi, bhr, bhi, br_t, bi_t, bhr_t, bhi_t, byr, byi
         torch.cuda.empty_cache()
+        # K1 (D/F's wideband form) against C on the same tones, and each
+        # mode's share of its bound. C's plane ran on b_p channels: its
+        # ratio is per channel.
+        rep_n = {name: wide_report[(name, n_w)] for name in (
+            "demod_sum_cl", "demod_count_cl", "demod_llr_cl", "demod_llr_cl_bf16", "demod_sum",
+            "demod_count", "demod_llr")}
+        per_ch = (rep_n["demod_llr_cl"]["ms"] / b_w) / (rep_n["demod_llr"]["ms"] / b_p)
+        shares = ", ".join(f"{label} {rep_n[name]['bound_ms'] / rep_n[name]['ms']:.4f}"
+                           for label, name in (("sum", "demod_sum_cl"), ("count", "demod_count_cl"),
+                                               ("plane f32", "demod_llr_cl"),
+                                               ("plane bf16", "demod_llr_cl_bf16")))
+        print(f"phase 2w K1 {tag}: K1/C sum "
+              f"{rep_n['demod_sum_cl']['ms'] / rep_n['demod_sum']['ms']:.4f}, count "
+              f"{rep_n['demod_count_cl']['ms'] / rep_n['demod_count']['ms']:.4f}, plane f32 "
+              f"{per_ch:.4f} (per channel, C on {b_p}); share of bound {shares}")
 
     # ---- phase 2t: kernel #20, C's TP stage-2 mode, against its plain version
     # At the shapes the TP path runs: config 5 split over 4 ranks (rows of

@@ -26,9 +26,12 @@ permuted by ``dif_perm``, as the JAX bench passes it) is un-permuted
 here before the launch.
 
 The kernels take N a power of two up to 4096 (the JAX kernel's range,
-N = 128·2^k ≤ 4096, and below it): a block holds an (N, channels) tile
-of 128 KB at most, 32 channels up to N = 512 and 2^14/N above (the
-wideband mode, ``csrc/demod_cl.cu``). The sample planes re_t/im_t may be
+N = 128·2^k ≤ 4096, and below it). Up to N = 512 a block holds a
+32-channel (N, 32) tile in shared memory; above it (the wideband form,
+``csrc/demod_cl.cu``) a block takes 2^14/N channels (16, 8, 4), each
+thread holds 32 points of one channel in registers through a 32 · 32 ·
+N/1024 radix plan, and h is staged in shared memory once per run of 16
+symbols. The sample planes re_t/im_t may be
 float32 or bfloat16, both of one type (the JAX bench feeds bf16 by
 default, ``demod_cl_pallas.py:145``); the kernels widen bf16 samples on
 load and compute in float32, and the plain versions cast to float32
@@ -56,7 +59,7 @@ from sdr_tpu_torch.kernels import _lib
 from sdr_tpu_torch.kernels.demod import count_errors, demod_chain, inv_noise_var
 
 _BASE = 128  # the TPU kernel's leaf DFT size, which fixes its DIF order
-MAX_N_FFT = 4096  # a block's (N, channels) complex f32 tile stays ≤ 128 KB
+MAX_N_FFT = 4096  # the wideband radix plan 32 · 32 · N/1024 ends at N/1024 = 4
 
 
 @functools.lru_cache(maxsize=None)

@@ -16,8 +16,9 @@ wherever |LLR| ≥ 1e-3 and within 2^-8 relative; C's sums 1e-5 of the sum
 of |LLR|, and the same bits on a second run. Kernel H: identical hard
 bits in both schedules and layouts at any batch; the coded engine on the
 card equals the CPU run but in channels holding an LLR with |LLR| < 1e-3. The
-channels-last kernels run at N up to 4096 (their wideband mode, fewer
-channels a block above N = 512), B and C at configs 3 and 5's N, and C's
+channels-last kernels run at N up to 4096 (their wideband mode above
+N = 512: register-resident radix passes, 16, 8 or 4 channels a block), with
+ragged B and S, B and C at configs 3 and 5's N, and C's
 post-FFT mode (``llr_chain``) as C's LLR and sum modes, C's TP stage-2
 mode (``tp_stage2_llr``, #20) as C's LLR mode; D and F on bfloat16 sample
 planes as on float32 ones.
@@ -125,12 +126,16 @@ def test_demod_count_kernel_matches_plain(dev, mod, h_syms):
 
 
 CL_N_FFT = [64, 256, 512, 1024, 2048, 4096]  # 32 channels a block up to 512, then 16, 8, 4
+# B = 203 fills no channel group (32, 16, 8 or 4) and S = 19 no symbol run
+# (8 or 16); B = 3 is below one group.
+CL_SHAPES = pytest.mark.parametrize("B,S", [(203, 19), (3, 17)], ids=["203x19", "3x17"])
+CL_WIDE_N_FFT = [1024, 2048, 4096]
 
 
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
 @pytest.mark.parametrize("n_fft", CL_N_FFT)
 def test_demod_sum_cl_kernel_matches_plain(dev, mod, n_fft):
-    B, S, cp = 200, 11, n_fft // 4
+    B, S, cp = 203, 19, n_fft // 4
     g = torch.Generator(device="cpu").manual_seed(3)
     re = (torch.randn((S * (n_fft + cp), B), generator=g) / np.sqrt(2 * n_fft)).to(dev)
     im = (torch.randn((S * (n_fft + cp), B), generator=g) / np.sqrt(2 * n_fft)).to(dev)
@@ -239,7 +244,8 @@ def test_demod_count_taps_kernel_matches_plain(dev, mod, L):
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
 @pytest.mark.parametrize("n_fft", CL_N_FFT)
 def test_demod_count_cl_kernel_matches_plain(dev, mod, n_fft):
-    B, S, cp = 200, 11, n_fft // 4
+    """B below one group: test_cl_kernels_below_one_group_match_plain."""
+    B, S, cp = 203, 19, n_fft // 4
     ids = torch.arange(B, dtype=torch.int32, device=dev)
     idx = ka.payload_idx(S, n_fft, mod.bits_per_symbol, 9, ids)
     nv = 1.0 / (10 ** 0.8 * mod.bits_per_symbol)
@@ -480,13 +486,14 @@ def test_demod_llr_and_sum_kernels_match_plain(dev, mod, n_fft, h_syms, despread
 
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
 @pytest.mark.parametrize("n_fft", CL_N_FFT)
-def test_demod_llr_cl_kernel_matches_plain(dev, mod, n_fft):
+@CL_SHAPES
+def test_demod_llr_cl_kernel_matches_plain(dev, mod, n_fft, B, S):
     """Kernel F's LLR mode, f32 and bf16, against the plain plane in the
     kernel order; bf16 is the f32 plane rounded (sign-identical wherever
     |LLR| ≥ 1e-3)."""
     from sdr_tpu_torch.ops.demod import demod_llr_chain_cl
 
-    B, S, cp = 200, 11, n_fft // 4
+    cp = n_fft // 4
     g = torch.Generator(device="cpu").manual_seed(11)
     re, im = ((torch.randn((S * (n_fft + cp), B), generator=g) / np.sqrt(2 * n_fft)).to(dev)
               for _ in range(2))
@@ -731,7 +738,7 @@ def test_tp_stage2_kernel_raises_instead_of_falling_back(dev):
         kc.tp_stage2_llr(t.double(), t.double(), h, h, 0.1, Modulation.QPSK)
 
 
-@pytest.mark.parametrize("n_fft", [256, 1024, 4096])
+@pytest.mark.parametrize("n_fft", [256, 1024, 2048, 4096])
 def test_cl_kernels_on_bf16_samples_match_plain(dev, n_fft):
     """D's sum, F's count and F's plane on bfloat16 sample planes against
     their plain versions on the same planes, with their own counters."""
@@ -746,6 +753,7 @@ def test_cl_kernels_on_bf16_samples_match_plain(dev, n_fft):
     tot = _counted("demod_sum_cl_in_bf16", lambda: kd.demod_sum_cl(rb, ib, hr, hi, cp, mod, nv))
     want = kd.demod_sum_cl_plain(rb, ib, hr, hi, cp, mod, nv)
     assert abs(float(tot) - float(want)) <= 1e-4 * abs(float(want))
+    assert float(kd.demod_sum_cl(rb, ib, hr, hi, cp, mod, nv)) == float(tot)  # deterministic
     cnt = _counted("demod_count_cl_in_bf16",
                    lambda: kd.demod_count_cl(rb, ib, hr, hi, idx, cp, mod, nv))
     plane = kd.demod_llr_cl_plain(rb, ib, hr, hi, cp, mod, nv)
@@ -758,5 +766,40 @@ def test_cl_kernels_on_bf16_samples_match_plain(dev, n_fft):
                     lambda: kd.demod_llr_cl(rb, ib, hr, hi, cp, mod, nv, out_dtype=torch.bfloat16))
     assert half.dtype == torch.bfloat16
     assert float(((half.float() - f32).abs() - f32.abs() * 2.0 ** -8).max()) <= 0.0
+    big = plane.abs() >= 1e-3
+    assert torch.equal((half.float() < 0)[big], (plane < 0)[big])
+
+
+@pytest.mark.parametrize("n_fft", CL_WIDE_N_FFT)
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cl_kernels_below_one_group_match_plain(dev, n_fft, in_dtype):
+    """The wideband form with B = 3 channels (below one group) and S = 17
+    symbols (one past a run): D's sum within 1e-5 of the sum of |LLR| (C's
+    sum rule: a 3-channel sum may cancel) and the same bits twice, F's
+    count within the |LLR| < 1e-3 bits, F's plane within 1e-4 of its peak
+    (bf16 out: sign-identical wherever |LLR| >= 1e-3), each counter moved."""
+    mod, B, S, cp = Modulation.QAM64, 3, 17, n_fft // 8
+    g = torch.Generator(device=dev).manual_seed(n_fft + 1)
+    re, im = ((torch.randn((S * (n_fft + cp), B), device=dev, generator=g)
+               / (2 * n_fft) ** 0.5).to(in_dtype) for _ in range(2))
+    hr, hi = (torch.randn((n_fft, B), device=dev, generator=g) * 0.5 ** 0.5 for _ in range(2))
+    idx = torch.randint(0, 64, (S * n_fft, B), device=dev, generator=g, dtype=torch.int8)
+    nv = 0.02
+    tag = "_in_bf16" if in_dtype == torch.bfloat16 else ""
+    plane = kd.demod_llr_cl_plain(re, im, hr, hi, cp, mod, nv)
+    tot = _counted("demod_sum_cl" + tag, lambda: kd.demod_sum_cl(re, im, hr, hi, cp, mod, nv))
+    want = kd.demod_sum_cl_plain(re, im, hr, hi, cp, mod, nv)
+    assert abs(float(tot) - float(want)) <= 1e-5 * float(plane.abs().double().sum())
+    assert float(kd.demod_sum_cl(re, im, hr, hi, cp, mod, nv)) == float(tot)
+    cnt = _counted("demod_count_cl" + tag,
+                   lambda: kd.demod_count_cl(re, im, hr, hi, idx, cp, mod, nv))
+    margin = (plane.abs() < 1e-3).sum(dim=0)
+    want_cnt = kd.demod_count_cl_plain(re, im, hr, hi, idx, cp, mod, nv)
+    assert int(want_cnt.sum()) > 0
+    assert bool(((cnt - want_cnt).abs() <= margin).all())
+    f32 = _counted("demod_llr_cl" + tag, lambda: kd.demod_llr_cl(re, im, hr, hi, cp, mod, nv))
+    _llr_close(f32, plane)
+    half = _counted("demod_llr_cl_bf16" + tag,
+                    lambda: kd.demod_llr_cl(re, im, hr, hi, cp, mod, nv, out_dtype=torch.bfloat16))
     big = plane.abs() >= 1e-3
     assert torch.equal((half.float() < 0)[big], (plane < 0)[big])
