@@ -20,8 +20,9 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    and sums, D and F in their wideband mode and C's post-FFT mode
    (``llr_chain``); then holds the staged
    channel route (plain FIR + kernel E) against the fused one (kernel B's
-   FIR); kernel G in its injected and keyed modes (five channels and
-   SC-FDMA) with its bound and its share of it; C's despread at config 2
+   FIR); kernel G in its injected and keyed modes (five channels,
+   SC-FDMA, config 3's N 1024 and config 5's N 4096), with its bound
+   and its share of it; C's despread at config 2
    and at config 5's shape; kernel H (min-sum decode, flooding 25 and
    layered 13 iterations, rows and transposed layouts) on the coded
    link's LLRs at config 2, 8192 × 64 (172,032 codewords of the rate-1/2
@@ -190,12 +191,13 @@ def bound(n_bytes: float, n_flops: float, n_imul: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over the memory rate,
     the f32 operations over the f32 peak and the 32-bit integer multiplies
-    over the integer-multiply rate. Only kernel A counts its integer work
-    (40 multiplies per Philox call); the other kernels' integer work
-    (Philox in B, E and G) and the transcendentals are not counted, so
-    theirs are lower bounds. The demodulating kernels (C, D, F, #20) never
-    load a cyclic prefix, so their bounds count the S·N sample rows they
-    read, not S·(N+CP)."""
+    over the integer-multiply rate. The kernels that draw keyed numbers
+    count 40 multiplies per Philox-4x32-10 call (``PHILOX_IMUL``): A its
+    index draws, B and E one call per noise sample, G one per noise
+    sample, a quarter per index and its fading calls. Transcendentals are
+    not counted, so the bounds are lower bounds. The demodulating kernels
+    (C, D, F, #20) never load a cyclic prefix, so their bounds count the
+    S·N sample rows they read, not S·(N+CP)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(n_flops / F32_FLOPS, n_imul / IMUL_PER_S) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -378,7 +380,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     nrow = B * S  # OFDM symbols in the phase-2 planes
     report["tx"] = dict(max_abs_err=key_err, ms=ms, plain_ms=pms,
                         **bound(nrow * N + 8 * nrow * (N + CP) + 12 * B,
-                                nrow * (fft_flops(N) + 10 * (N + CP))))
+                                nrow * (fft_flops(N) + 10 * (N + CP)),
+                                nrow * (N + CP) * PHILOX_IMUL))
     print(f"phase 2 B tx+channel ({B}x{S}x{N + CP}): injected-noise max abs diff {inj_err:.3g}, "
           f"keyed-noise max abs diff {key_err:.3g} (peak {peak:.3g}); "
           f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
@@ -511,7 +514,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         lambda **kw: kb.tx_channel_plain(idx, CP, mod, noise_var=tvar, taps_r=t3_r, taps_i=t3_i,
                                          **kw), tx_shape)
     report["tx_taps"].update(bound(nrow * N + 8 * nrow * (N + CP) + 24 * nrow + 4 * B,
-                                   nrow * (fft_flops(N) + (N + CP) * (8 * 3 + 4))))
+                                   nrow * (fft_flops(N) + (N + CP) * (8 * 3 + 4)),
+                                   nrow * (N + CP) * PHILOX_IMUL))
 
     # C: taps= (3 taps per symbol) on the TDL waveform at 12 dB.
     nv12 = 1.0 / (10.0 ** 1.2 * bps)
@@ -548,7 +552,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                           lambda **kw: ke.fade_awgn_plain(*clean, *gains, tvar, **kw), tx_shape)
         if label == "per-symbol gains":
             report["fade_awgn"] = dict(rep, **bound(16 * nrow * (N + CP) + 8 * nrow + 4 * B,
-                                                    10 * nrow * (N + CP)))
+                                                    10 * nrow * (N + CP),
+                                                    nrow * (N + CP) * PHILOX_IMUL))
     del clean
 
     # Route cross-check: staged (plain FIR + E) against fused (B's FIR).
@@ -662,23 +667,35 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
 
     def g_bound(cfg, inject):
         """Kernel G's bound for one pass: channel ids in and counts out
-        (plus the injected planes); two transforms (three with SC-FDMA),
-        the channel, noise and LLR tail per tone, and 8·L per tone to
-        build H once from L taps: once per channel for static taps, once
-        per symbol for time-varying ones (injected H is read, not built)."""
+        (plus the injected planes); two transforms (four with SC-FDMA:
+        spread, IDFT, DFT, despread), the channel, noise and LLR tail per
+        tone, and 8·L per tone to build H once from L taps: once per
+        channel for static taps, once per symbol for time-varying ones
+        (injected H is read, not built). Keyed, the integer multiplies:
+        one Philox call per payload sample for the noise (none without
+        noise), a quarter for the index, and the fading calls per channel
+        (flat 1, Rician 2, static taps L, Jakes 16 paths per tap: drawn
+        once per channel, each symbol evaluates them)."""
         n, rows_g = cfg.ofdm.n_fft, cfg.n_channels * cfg.n_symbols
         model = cfg.channel.model
         taps = len(cfg.channel.pdp) if model in (ChannelModel.MULTIPATH,
                                                  ChannelModel.MULTIPATH_TIME) else 0
         n_bytes = 8 * cfg.n_channels
+        n_imul = 0.0
         if inject:
-            taps = 0
             n_bytes += 12 * rows_g * n + 8 * cfg.n_channels * kg.h_syms(cfg) * n
+        else:
+            noise = PHILOX_IMUL if model != ChannelModel.IDENTITY else 0
+            fading = {ChannelModel.RAYLEIGH_FLAT: 1, ChannelModel.RICIAN: 2,
+                      ChannelModel.MULTIPATH: taps, ChannelModel.RAYLEIGH_TIME: 16,
+                      ChannelModel.MULTIPATH_TIME: 16 * taps}.get(model, 0)
+            n_imul = (rows_g * n * (noise + PHILOX_IMUL / 4)
+                      + cfg.n_channels * fading * PHILOX_IMUL)
         h_builds = rows_g if model == ChannelModel.MULTIPATH_TIME else cfg.n_channels
-        flops = (rows_g * ((3 if cfg.dft_spread else 2) * fft_flops(n)
+        flops = (rows_g * ((4 if cfg.dft_spread else 2) * fft_flops(n)
                            + n * (10 + tail_flops(cfg.modulation)))
-                 + h_builds * 8 * taps * n)
-        return bound(n_bytes, flops)
+                 + h_builds * 8 * (0 if inject else taps) * n)
+        return bound(n_bytes, flops, n_imul)
 
     def coded_llrs(cfg, code, n_cw):
         """The coded link's deinterleaved LLRs (B·n_cw, n) and its info
@@ -714,6 +731,9 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         ("keyed MULTIPATH_TIME 3 taps fd 0.02",
          link_cfg(ChannelModel.MULTIPATH_TIME, 12.0, pdp=pdp3, doppler_norm=0.02), False),
         ("keyed SC-FDMA AWGN", link_cfg(ChannelModel.AWGN, 10.0, dft_spread=True), False),
+        ("keyed config 3 64-QAM MULTIPATH 4 taps 14 dB (N 1024, CP 128)",
+         link_cfg(ChannelModel.MULTIPATH, 14.0, n_channels=B // 4, n_fft=1024, cp=128,
+                  modulation=Modulation.QAM64, pdp=pdp4), False),
         ("keyed config 5 MULTIPATH 5 taps 14 dB (N 4096, CP 512)",
          link_cfg(ChannelModel.MULTIPATH, 14.0, n_channels=B // 4, n_fft=4096, cp=512,
                   n_symbols=16, pdp=pdp5), False),
@@ -729,7 +749,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     torch.randn((B, hs, N), device=dev) * 0.5 ** 0.5)
         cnt = kg.mc_count(cfg_g, seed, ids_g, rand_inputs=rand)
         llr, idx_g = kg.mc_llr_plain(cfg_g, seed, ids_g, rand_inputs=rand)
-        cnt_plain = kc.count_errors(llr, idx_g, bps)
+        cnt_plain = kc.count_errors(llr, idx_g, cfg_g.modulation.bits_per_symbol)
         margin = count_margin(llr)
         del llr, idx_g
         diff = (cnt - cnt_plain).abs()
@@ -930,8 +950,9 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                 # the channel (5 complex taps or one gain) and the channel ids
                 chan_bytes = (40 if name == "tx_taps" else 8) * b_p + 4 * b_p
                 fir = (n_w + cp_w) * 8 * 5 if name == "tx_taps" else 10 * (n_w + cp_w)
-                wide_report[(name, n_w)] = dict(rep, **bound(tx_bytes + chan_bytes,
-                                                             rows_p * (fft_flops(n_w) + fir)))
+                wide_report[(name, n_w)] = dict(rep, **bound(
+                    tx_bytes + chan_bytes, rows_p * (fft_flops(n_w) + fir),
+                    rows_p * (n_w + cp_w) * PHILOX_IMUL))
         # The FIR waveform (keyed noise) at b_w channels through C, F and the
         # post-FFT mode.
         re, im = kb.tx_channel(idx_w, cp_w, mod_w, noise_var=tvar_w, seed=seed, ch_ids=ids_w,
@@ -1483,10 +1504,16 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
               f"{'exact theory' if exact else 'over the drawn channel'} {want:.6g} (ratio "
               f"{ber_m / want:.5f}) in {t_m * 1e3:.3f} ms = {rate_m / 1e9:.3f} GS/s (CP excluded),"
               f" bound {bnd_m:.4f} ms ({bnd_m / (t_m * 1e3):.3f} of it){extra} on {card}")
-    fast_rate = B * S * N / t_awgn
+    # The fast engine warm at the same batch (phase 3's AWGN call is its
+    # first at full size and carries the allocator's growth).
+    t_fast = sorted(run_link(ChannelModel.AWGN, 8.0)[2] for _ in range(3))[1]
+    fast_rate = B * S * N / t_fast
+    first_rate = B * S * N / t_awgn
     print(f"phase 3d MC vs fast engine at {B}x{S} config 2: mc_simulate {mc_rate / 1e9:.3f} GS/s, "
-          f"fast_simulate (phase 3 AWGN) {fast_rate / 1e9:.3f} GS/s, both counting N samples "
-          f"per symbol; ratio {mc_rate / fast_rate:.3f}")
+          f"fast_simulate AWGN {fast_rate / 1e9:.3f} GS/s ({t_fast * 1e3:.3f} ms, median of 3 "
+          f"warm calls), both counting N samples per symbol; ratio {mc_rate / fast_rate:.3f}; "
+          f"against phase 3's first full-size AWGN call ({first_rate / 1e9:.3f} GS/s, the "
+          f"earlier yardstick) {mc_rate / first_rate:.3f}")
     cfg_big = link_cfg(ChannelModel.AWGN, 8.0, n_channels=4 * B)
     run_mc(cfg_big, iters=1)
     errors, counted, t_big = run_mc(cfg_big)
@@ -2041,7 +2068,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         "fade_awgn": ("sdr_tpu_torch/csrc/channel.cu", "sdr_tpu/kernels/channel_pallas.py:80"),
         "demod_count_cl": ("sdr_tpu_torch/csrc/demod_cl.cu",
                            "sdr_tpu/kernels/demod_cl_pallas.py:741"),
-        "mc_count": ("sdr_tpu_torch/csrc/mc.cu", "sdr_tpu/kernels/mc_pallas.py:229"),
+        "mc_count": ("sdr_tpu_torch/csrc/mc.cuh", "sdr_tpu/kernels/mc_pallas.py:229"),
         "demod_llr": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
         "demod_sum": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
         "demod_llr_despread": ("sdr_tpu_torch/csrc/demod.cu", c_rows),

@@ -175,7 +175,7 @@ class McParams(ctypes.Structure):
     _fields_ = [
         *((name, _P) for name in ("ch_ids", "out", "idx_in", "n_re", "n_im", "h_re", "h_im",
                                   "amps", "twr", "twi")),
-        *((name, _I) for name in ("B", "S", "log_n", "cp", "log_spb", "n_chunks", "kind",
+        *((name, _I) for name in ("B", "S", "log_n", "cp", "spc", "n_chunks", "kind",
                                   "n_taps", "h_syms", "noise")),
         *((name, _U) for name in ("kp0", "kp1", "kn0", "kn1", "kf0", "kf1")),
         ("idx_mask", _I),

@@ -1,7 +1,11 @@
 """Kernel G: one Monte-Carlo pass of the whole link in one kernel (port
 of ``sdr_tpu/kernels/mc_pallas.py::mc_count_pallas``, n_fft 128–512,
 and ``::_mc_count_fourstep``, n_fft 1024–4096: one CUDA kernel serves
-both, ``csrc/mc.cu`` says why).
+both, ``csrc/mc.cuh`` says why). A group of G warps holds a symbol in
+registers (one warp up to N 512, 4–16 points a lane; 2, 4 and 8 warps of
+16 points a lane at N 1024, 2048 and 4096), its DFTs run across the
+lanes by shuffles with no bit-reversal pass, and a block draws its
+channel's state once.
 
 Per channel and symbol: indices → Gray map → [SC-FDMA: spread, a
 forward DFT scaled by N^-1/2] → ×H per subcarrier → inverse DFT (1/N) →
@@ -58,7 +62,7 @@ SUPPORTED_MODELS = (
     ChannelModel.RICIAN,
     ChannelModel.MULTIPATH_TIME,
 )
-MIN_N_FFT, MAX_N_FFT = 128, 4096  # the TPU kernels' range; one tile of ≤ 32 KB here
+MIN_N_FFT, MAX_N_FFT = 128, 4096  # the TPU kernels' range; at least 4 points a lane here
 MAX_SPREAD_N_FFT = 256  # SC-FDMA in the kernel (mc_pallas.py:102); wider: link/mc.py's route
 _FADING = (ChannelModel.RAYLEIGH_FLAT, ChannelModel.RICIAN, ChannelModel.RAYLEIGH_TIME,
            ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME)

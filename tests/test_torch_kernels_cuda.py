@@ -367,12 +367,16 @@ def _mc_cfg(model, channel, n_fft=256, mod=Modulation.QAM16, S=8, B=40, spread=F
 
 
 @pytest.mark.parametrize("model,channel", _MC_MODELS, ids=lambda v: getattr(v, "value", ""))
-@pytest.mark.parametrize("n_fft,spread", [(128, False), (256, True), (1024, False),
-                                          (4096, False)])
-def test_mc_kernel_keyed_matches_plain(dev, model, channel, n_fft, spread):
-    """Kernel G (keyed) against its plain twin on the same keys; S = 7
-    is not a multiple of the symbols per block."""
-    cfg = _mc_cfg(model, channel, n_fft, S=7, B=24, spread=spread)
+@pytest.mark.parametrize("n_fft,spread", [(128, False), (256, True), (512, False),
+                                          (1024, False), (2048, False), (4096, False)])
+@pytest.mark.parametrize("S", [7, 1])
+def test_mc_kernel_keyed_matches_plain(dev, model, channel, n_fft, spread, S):
+    """Kernel G (keyed) against its plain twin on the same keys, in each
+    of its forms (one warp a symbol with 4, 8 or 16 points a lane up to
+    N 512; groups of 2, 4 and 8 warps at N 1024–4096); S = 7 is not a multiple
+    of the symbols a block runs at once, S = 1 leaves all but one group
+    of a block idle."""
+    cfg = _mc_cfg(model, channel, n_fft, S=S, B=24, spread=spread)
     ids = torch.arange(100, 124, dtype=torch.int32, device=dev)
     got = _counted("mc_count", lambda: kg.mc_count(cfg, 2**31 + 77, ids))
     llr, idx = kg.mc_llr_plain(cfg, 2**31 + 77, ids)
@@ -414,6 +418,21 @@ def test_mc_kernel_keyed_equals_fast_engine_on_card(dev, model, channel):
     _within_margin(got, llr, want)
 
 
+@pytest.mark.parametrize("n_fft", [256, 1024, 4096])
+@pytest.mark.parametrize("model,channel", [_MC_MODELS[2], _MC_MODELS[6]],
+                         ids=lambda v: getattr(v, "value", ""))
+def test_mc_kernel_counts_depend_only_on_seed_and_channel(dev, model, channel, n_fft):
+    """A keyed pass over channels [590, 600) gives the full pass's counts
+    there, though the kernel splits a channel's symbols over more blocks
+    when it has fewer channels; two runs give the same counts."""
+    cfg = _mc_cfg(model, channel, n_fft, S=9, B=600)
+    ids = torch.arange(1000, 1600, dtype=torch.int32, device=dev)
+    full = kg.mc_count(cfg, 5, ids)
+    assert int(full.sum()) > 0
+    assert torch.equal(kg.mc_count(cfg, 5, ids), full)
+    assert torch.equal(kg.mc_count(cfg, 5, ids[590:].contiguous()), full[590:])
+
+
 def test_mc_kernel_raises_on_unsupported(dev):
     ids = torch.arange(4, dtype=torch.int32, device=dev)
     for cfg in (_mc_cfg(ChannelModel.AWGN, {}, n_fft=64, B=4),
@@ -422,6 +441,17 @@ def test_mc_kernel_raises_on_unsupported(dev):
             kg.mc_count(cfg, 0, ids)
     with pytest.raises(ValueError):
         kg.mc_count(_mc_cfg(ChannelModel.AWGN, {}, B=4), 0, ids.to(torch.int64))
+
+
+def test_mc_kernel_c_entry_refuses_scfdma_above_256(dev, monkeypatch):
+    """The C entry builds SC-FDMA at N 128-256 only: past the wrapper's
+    cap it refuses the launch, which raises and counts none."""
+    monkeypatch.setattr(kg, "MAX_SPREAD_N_FFT", 4096)
+    ids = torch.arange(4, dtype=torch.int32, device=dev)
+    before = _lib.LAUNCHES["mc_count"]
+    with pytest.raises(RuntimeError, match="mc_count"):
+        kg.mc_count(_mc_cfg(ChannelModel.AWGN, {}, n_fft=512, B=4, spread=True), 0, ids)
+    assert _lib.LAUNCHES["mc_count"] == before
 
 
 @pytest.mark.parametrize("n_fft", [256, 1024])

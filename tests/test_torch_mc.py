@@ -201,3 +201,26 @@ def test_keyed_pass_is_per_channel():
     full = kg.mc_count(cfg, 5, torch.arange(20, dtype=torch.int32))
     part = kg.mc_count(cfg, 5, torch.arange(7, dtype=torch.int32))
     torch.testing.assert_close(part, full[:7], rtol=0, atol=0)
+
+
+def test_kernel_params_match_the_c_struct():
+    """``_lib.McParams`` (ctypes, passed by value) lists the fields of
+    csrc/mc.cuh's ``struct McParams`` in order and with their C types: a
+    field renamed or moved on one side only would shift every later one."""
+    import ctypes
+    import re
+
+    from sdr_tpu_torch.kernels import _lib
+
+    src = (_lib.CSRC / "mc.cuh").read_text()
+    body = re.search(r"struct McParams \{(.*?)\n\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    want = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        if "*" in decl:
+            ctype, names = ctypes.c_void_p, decl.split("*", 1)[1]
+        else:
+            base, names = decl.split(None, 1)
+            ctype = {"int": ctypes.c_int, "unsigned": ctypes.c_uint, "float": ctypes.c_float}[base]
+        want += [(name.strip(), ctype) for name in names.split(",")]
+    assert [(n, t) for n, t in _lib.McParams._fields_] == want
