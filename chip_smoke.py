@@ -13,7 +13,10 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    channel-off TX, C's taps=, despread, LLR-plane and sum modes, F's LLR
    mode in f32 and bf16) against its plain torch version on the card at
    the slice's shapes and prints both times (CUDA events, after a
-   warm-up, in turns plain, kernel, kernel, plain); phase 2w does the same
+   warm-up, in turns plain, kernel, kernel, plain) and, for D and F, the
+   share of the bound; D's sum and F's count also at N 128 and 512 (the
+   narrow plan's other shapes) at terminal-cl's sample count, in the
+   kernels line under ``other_n`` of their entries; phase 2w does the same
    at phase 3i's shapes — config 3 (N 1024) at B × 64 (B's modes and C's
    plane at B/4 × 64, the coded batch), N 2048 and config 5's shape
    (N 4096) at B/2 × 16 — for B in every channel mode, C's count, plane
@@ -319,6 +322,10 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     def plane_peak(planes):
         return max(float(b.abs().max()) for b in planes)
 
+    def of_bound(rep):
+        return (f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}), share "
+                f"{rep['bound_ms'] / rep['ms']:.4f}")
+
     # ---- phase 2: each kernel against its plain version ------------------
     # A: payload draw, exact, in int8 (bps 4) and int16 (bps 10); four
     # indices per Philox call.
@@ -596,7 +603,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                             nrow * (fft_flops(N) + N * tail_flops(mod))))
     print(f"phase 2 F demod+count channels-last ({S * (N + CP)}x{B}): {int(cnt.sum())} errors, "
           f"plain {int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} (allowed "
-          f"{int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
+          f"{int(margin.max())}); kernel {ms:.4f} ms, plain {pms:.3f} ms; "
+          f"{of_bound(report['demod_count_cl'])}")
     del llr
 
     # F's LLR mode (kernel order) on the same waveform: f32 within 1e-4 of
@@ -626,8 +634,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                     f_flops))
         print(f"phase 2 F llr channels-last {str(dt)[6:]} ({S * bps * N}x{B}): max abs diff "
               f"{err:.3g} ({'vs plain, peak ' + format(f_peak, '.3g') if dt == torch.float32 else 'vs the f32 kernel plane'}); "
-              f"kernel {ms:.3f} ms, plain {pms:.3f} ms; bound {report[name]['bound_ms']:.4f} ms "
-              f"({report[name]['bound_by']})")
+              f"kernel {ms:.4f} ms, plain {pms:.3f} ms; {of_bound(report[name])}")
     del re_t, im_t, idx_t, cnt, cnt_plain, idx, h, hs_r, hs_i, g_sym, gs_r, gs_i, taps3
     torch.cuda.empty_cache()
 
@@ -655,7 +662,58 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                           BD * S * (fft_flops(N) + N * tail_flops(mod))))
     print(f"phase 2 D demod-sum channels-last ({S * (N + CP)}x{BD}): sum {float(tot):.9g}, "
           f"plain {float(tot_plain):.9g}, rel diff {d_err / abs(float(tot_plain)):.3g} (allowed "
-          f"1e-5); kernel {ms:.3f} ms, plain {pms:.3f} ms")
+          f"1e-5); kernel {ms:.4f} ms, plain {pms:.3f} ms; {of_bound(report['demod_sum_cl'])}")
+
+    # D's sum and F's count in the narrow plan's other shapes, N 128 and
+    # 512 (16-QAM, CP N/4, bench-style inputs), at terminal-cl's sample
+    # count BD·S·N: each against its plain version and its bound.
+    for n_x in (128, 512):
+        cp_x, b_x = n_x // 4, BD * N // n_x
+        gen_x = torch.Generator(device=dev).manual_seed(seed + n_x)
+        x_planes = tuple(torch.randn((S * (n_x + cp_x), b_x), device=dev, generator=gen_x)
+                         * (1.0 / (2 * n_x) ** 0.5) for _ in range(2)) + tuple(
+            torch.randn((n_x, b_x), device=dev, generator=gen_x) * 0.5 ** 0.5 for _ in range(2))
+        x_idx = torch.randint(0, 1 << bps, (S * n_x, b_x), device=dev, generator=gen_x,
+                              dtype=torch.int8)
+        x_tot = float(kd.demod_sum_cl(*x_planes, cp_x, mod, nv12))
+        x_plain = float(kd.demod_sum_cl_plain(*x_planes, cp_x, mod, nv12))
+        x_err = abs(x_tot - x_plain)
+        _check(x_err <= 1e-5 * abs(x_plain), f"kernel D at N {n_x}: {x_tot!r} vs plain {x_plain!r}")
+        _check(float(kd.demod_sum_cl(*x_planes, cp_x, mod, nv12)) == x_tot,
+               f"kernel D is not deterministic at N {n_x}")
+        ms, pms = compare_times(lambda: kd.demod_sum_cl(*x_planes, cp_x, mod, nv12),
+                                lambda: kd.demod_sum_cl_plain(*x_planes, cp_x, mod, nv12), reps=2)
+        x_flops = b_x * S * (fft_flops(n_x) + n_x * tail_flops(mod))
+        rep_d = dict(max_abs_err=x_err, ms=ms, plain_ms=pms,
+                     **bound(8 * b_x * S * n_x + 8 * n_x * b_x + 4, x_flops))
+        report["demod_sum_cl"].setdefault("other_n", {})[f"N{n_x}"] = rep_d
+        cnt = kd.demod_count_cl(*x_planes, x_idx, cp_x, mod, nv12)
+        cnt_plain = kd.demod_count_cl_plain(*x_planes, x_idx, cp_x, mod, nv12)
+        margin = torch.zeros_like(cnt)
+        hr_rows, hi_rows = x_planes[2].T[:, None, :], x_planes[3].T[:, None, :]
+        for s in range(S):
+            rows = slice(s * (n_x + cp_x) + cp_x, (s + 1) * (n_x + cp_x))
+            margin += count_margin(kc.demod_chain(x_planes[0][rows].T[:, None, :],
+                                                  x_planes[1][rows].T[:, None, :], hr_rows,
+                                                  hi_rows, 0, mod, nv12)).to(torch.int32)
+        diff = (cnt - cnt_plain).abs()
+        _check(bool((diff <= margin).all()),
+               f"kernel F counts at N {n_x} differ beyond the |LLR| < 1e-3 bits")
+        ms, pms = compare_times(
+            lambda: kd.demod_count_cl(*x_planes, x_idx, cp_x, mod, nv12),
+            lambda: kd.demod_count_cl_plain(*x_planes, x_idx, cp_x, mod, nv12), reps=1)
+        rep_f = dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=pms,
+                     **bound(8 * b_x * S * n_x + 8 * n_x * b_x + b_x * S * n_x + 4 * b_x,
+                             x_flops))
+        report["demod_count_cl"].setdefault("other_n", {})[f"N{n_x}"] = rep_f
+        print(f"phase 2 D/F narrow plan N {n_x} ({S * (n_x + cp_x)}x{b_x}): D sum {x_tot:.9g}, "
+              f"plain {x_plain:.9g}, rel diff {x_err / abs(x_plain):.3g}; kernel "
+              f"{rep_d['ms']:.4f} ms, plain {rep_d['plain_ms']:.3f} ms; {of_bound(rep_d)}. F count "
+              f"{int(cnt.sum())} errors, plain {int(cnt_plain.sum())}, max per-channel diff "
+              f"{int(diff.max())} (allowed {int(margin.max())}); kernel {ms:.4f} ms, plain "
+              f"{pms:.3f} ms; {of_bound(rep_f)}")
+        del x_planes, x_idx, cnt, cnt_plain, margin, diff
+    torch.cuda.empty_cache()
 
     # G: the one-kernel Monte-Carlo pass against its plain twin, injected
     # then keyed; counts may differ only on bits whose plain |LLR| < 1e-3.
@@ -1200,8 +1258,9 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                 BD * S * (fft_flops(N) + N * tail_flops(mod))))
     print(f"phase 2b D demod-sum channels-last bf16 in ({S * (N + CP)}x{BD}): sum {tot_k:.9g}, "
           f"plain {tot_p:.9g}, rel diff {b_err / abs(tot_p):.3g} (allowed 1e-5); kernel "
-          f"{ms:.3f} ms, plain {pms:.3f} ms; bound {report['demod_sum_cl_in_bf16']['bound_ms']:.4f} ms (bytes, "
-          f"f32 in {bound(8 * BD * S * N + 8 * N * BD + 4, 0)['bound_ms']:.4f} ms)")
+          f"{ms:.4f} ms, plain {pms:.3f} ms; {of_bound(report['demod_sum_cl_in_bf16'])} (f32 in: "
+          f"kernel {report['demod_sum_cl']['ms']:.4f} ms, bound "
+          f"{report['demod_sum_cl']['bound_ms']:.4f} ms)")
     bf_re, bf_im = ((torch.randn((S * (N + CP), B), device=dev, generator=gen_b)
                      * (1.0 / (2 * N) ** 0.5)).to(torch.bfloat16) for _ in range(2))
     bf_hr, bf_hi = (torch.randn((N, B), device=dev, generator=gen_b) * 0.5 ** 0.5
@@ -1224,8 +1283,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                 nrow * (fft_flops(N) + N * tail_flops(mod))))
     print(f"phase 2b F demod+count channels-last bf16 in ({S * (N + CP)}x{B}): "
           f"{int(cnt.sum())} errors, plain {int(cnt_p.sum())}, max per-channel diff "
-          f"{int(diff.max())} (allowed {int(margin.max())}); kernel {ms:.3f} ms, plain "
-          f"{pms:.3f} ms; bound {report['demod_count_cl_in_bf16']['bound_ms']:.4f} ms")
+          f"{int(diff.max())} (allowed {int(margin.max())}); kernel {ms:.4f} ms, plain "
+          f"{pms:.3f} ms; {of_bound(report['demod_count_cl_in_bf16'])}")
     got = kd.demod_llr_cl(bf_re, bf_im, bf_hr, bf_hi, CP, mod, nv12)
     l_err, l_peak = llr_check("kernel F llr bf16 in", got, plane_p)
     half = kd.demod_llr_cl(bf_re, bf_im, bf_hr, bf_hi, CP, mod, nv12, out_dtype=torch.bfloat16)
@@ -1248,8 +1307,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     nrow * (fft_flops(N) + N * tail_flops(mod))))
         vs = f"vs plain, peak {l_peak:.3g}" if dt == torch.float32 else "vs the f32 kernel plane"
         print(f"phase 2b F llr channels-last bf16 in, {str(dt)[6:]} out ({S * bps * N}x{B}): "
-              f"max abs diff {err:.3g} ({vs}); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
-              f"{report[name]['bound_ms']:.4f} ms")
+              f"max abs diff {err:.3g} ({vs}); kernel {ms:.4f} ms, plain {pms:.3f} ms; "
+              f"{of_bound(report[name])}")
     del bf_re, bf_im, bf_hr, bf_hi, bf_idx, cnt, cnt_p
     torch.cuda.empty_cache()
 
@@ -1407,8 +1466,9 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     ms_term = timed(lambda: demod_sum_chain_cl(re_t, im_t, hr_d, hi_d, CP, mod, nv12,
                                                h_in_dif_order=True), iters)
     rate = S * (N + CP) * BD / (ms_term * 1e-3)
-    print(f"phase 4 demod_sum_chain_cl {BD}x{S} f32: {ms_term:.3f} ms per call, "
-          f"{rate / 1e9:.3f} GS/s ({rate:.6g} samples/s) on {card}")
+    print(f"phase 4 demod_sum_chain_cl {BD}x{S} f32: {ms_term:.4f} ms per call, "
+          f"{rate / 1e9:.3f} GS/s ({rate:.6g} samples/s), share "
+          f"{report['demod_sum_cl']['bound_ms'] / ms_term:.4f} of D's bound on {card}")
     # The same terminal on the bf16 planes (the JAX bench's default input),
     # timed in turns with f32 (f32, bf16, bf16, f32).
     re_h, im_h = re_t.to(torch.bfloat16), im_t.to(torch.bfloat16)
@@ -1419,9 +1479,10 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         lambda: demod_sum_chain_cl(re_t, im_t, hr_d, hi_d, CP, mod, nv12, h_in_dif_order=True),
         reps=iters)
     rate_h = S * (N + CP) * BD / (ms_h * 1e-3)
-    print(f"phase 4 demod_sum_chain_cl {BD}x{S} bf16 in: {ms_h:.3f} ms per call, "
-          f"{rate_h / 1e9:.3f} GS/s; f32 in the same turns {ms_f:.3f} ms; sum "
-          f"{float(val_h):.9g} (f32 {float(tot):.9g}) on {card}")
+    print(f"phase 4 demod_sum_chain_cl {BD}x{S} bf16 in: {ms_h:.4f} ms per call, "
+          f"{rate_h / 1e9:.3f} GS/s, share "
+          f"{report['demod_sum_cl_in_bf16']['bound_ms'] / ms_h:.4f} of its bound; f32 in the "
+          f"same turns {ms_f:.4f} ms; sum {float(val_h):.9g} (f32 {float(tot):.9g}) on {card}")
     del re_h, im_h
 
     launches = dict(_lib.LAUNCHES)  # phases 3-4: the fast engine and the terminal
@@ -2066,16 +2127,16 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         "demod_sum_cl": ("sdr_tpu_torch/csrc/demod_cl.cu",
                          "sdr_tpu/kernels/demod_cl_pallas.py:727"),
         "fade_awgn": ("sdr_tpu_torch/csrc/channel.cu", "sdr_tpu/kernels/channel_pallas.py:80"),
-        "demod_count_cl": ("sdr_tpu_torch/csrc/demod_cl.cu",
+        "demod_count_cl": ("sdr_tpu_torch/csrc/demod_cl_count.cu",
                            "sdr_tpu/kernels/demod_cl_pallas.py:741"),
         "mc_count": ("sdr_tpu_torch/csrc/mc.cuh", "sdr_tpu/kernels/mc_pallas.py:229"),
         "demod_llr": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
         "demod_sum": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
         "demod_llr_despread": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
         "demod_sum_despread": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
-        "demod_llr_cl": ("sdr_tpu_torch/csrc/demod_cl.cu",
+        "demod_llr_cl": ("sdr_tpu_torch/csrc/demod_cl_llr.cu",
                          "sdr_tpu/kernels/demod_cl_pallas.py:753"),
-        "demod_llr_cl_bf16": ("sdr_tpu_torch/csrc/demod_cl.cu",
+        "demod_llr_cl_bf16": ("sdr_tpu_torch/csrc/demod_cl_llr.cu",
                               "sdr_tpu/kernels/demod_cl_pallas.py:753"),
         "ldpc_minsum": ("sdr_tpu_torch/csrc/ldpc.cu", "sdr_tpu/kernels/ldpc_pallas.py:49"),
         "ldpc_minsum_layered": ("sdr_tpu_torch/csrc/ldpc.cu",
@@ -2085,11 +2146,11 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                   "sdr_tpu/kernels/ldpc_pallas.py:370"),
         "demod_sum_cl_in_bf16": ("sdr_tpu_torch/csrc/demod_cl.cu",
                                  "sdr_tpu/kernels/demod_cl_pallas.py:727"),
-        "demod_count_cl_in_bf16": ("sdr_tpu_torch/csrc/demod_cl.cu",
+        "demod_count_cl_in_bf16": ("sdr_tpu_torch/csrc/demod_cl_count.cu",
                                    "sdr_tpu/kernels/demod_cl_pallas.py:741"),
-        "demod_llr_cl_in_bf16": ("sdr_tpu_torch/csrc/demod_cl.cu",
+        "demod_llr_cl_in_bf16": ("sdr_tpu_torch/csrc/demod_cl_llr.cu",
                                  "sdr_tpu/kernels/demod_cl_pallas.py:753"),
-        "demod_llr_cl_bf16_in_bf16": ("sdr_tpu_torch/csrc/demod_cl.cu",
+        "demod_llr_cl_bf16_in_bf16": ("sdr_tpu_torch/csrc/demod_cl_llr.cu",
                                       "sdr_tpu/kernels/demod_cl_pallas.py:753"),
         "tp_stage2_llr": ("sdr_tpu_torch/csrc/demod.cu", "sdr_tpu/parallel/tp.py:69"),
     }
@@ -2120,16 +2181,28 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     launches_wide=launches_wide[name], launches_bf16=launches_bf16[name],
                     launches_parallel=launches_parallel[name], launches_nccl=launches_nccl[name])
 
+    # The form of D and F each entry ran (csrc/demod_cl.cuh's plans).
+    def cl_form(name, n_fft):
+        if not sources.get(name, ("",))[0].startswith("sdr_tpu_torch/csrc/demod_cl"):
+            return {}
+        if n_fft <= 512:
+            return {"form": "narrow plan: 16 points a thread in registers (32 at N 512), "
+                            "N = R * N/R, one exchange a symbol, h staged once per 32 symbols"}
+        return {"form": "wideband plan: 32 points a thread in registers, N = 32 * 32 * N/1024, "
+                        "h staged once per 16 symbols"}
+
     kernels = [
         dict(name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],
-             launches=own[name], **windows_of(name), **{"library_ms": None, **report[name]})
+             **cl_form(name, N), launches=own[name], **windows_of(name),
+             **{"library_ms": None, **report[name]})
         for name in sources
     ] + [
         dict(name=f"{name}@N{n_w}", route="cuda",
-             source="sdr_tpu_torch/csrc/" + ("demod_cl.cu" if name in cl_rows else
-                                             "tx.cu" if name.startswith("tx") else "demod.cu"),
+             source=sources[name][0] if name in cl_rows else
+             "sdr_tpu_torch/csrc/" + ("tx.cu" if name.startswith("tx") else "demod.cu"),
              replaces=wide_sources[name][0], also_replaces=list(wide_sources[name][1:]),
-             launches=launches_at[n_w][name], **windows_of(name), **{"library_ms": None, **rep})
+             **cl_form(name, n_w), launches=launches_at[n_w][name], **windows_of(name),
+             **{"library_ms": None, **rep})
         for (name, n_w), rep in wide_report.items()
     ] + [
         # Kernel #20 at one rank's n2 = 4096 (phase 2t's second shape): the

@@ -39,10 +39,8 @@ __device__ __forceinline__ int bit_reverse(int n, int log_n) {
 // t*tr_stride + i*el_stride. twr/twi are the forward twiddles
 // e^{-2 pi i k/N}, k < N/2; wsign = +1 gives the forward (unscaled)
 // transform, -1 the inverse (unscaled; the caller applies 1/N).
-// TR_FAST: consecutive threads take consecutive transforms (the
-// channels-last tile, bank-conflict-free across channels); otherwise
-// consecutive butterflies of one transform. n_tr = 2^log_tr.
-template <bool TR_FAST>
+// Consecutive threads take consecutive butterflies of one transform.
+// n_tr = 2^log_tr.
 __device__ __forceinline__ void smem_fft(float* re, float* im, int log_n, int log_tr,
                                          int tr_stride, int el_stride,
                                          const float* __restrict__ twr,
@@ -53,14 +51,8 @@ __device__ __forceinline__ void smem_fft(float* re, float* im, int log_n, int lo
     const int h = 1 << s;
     const int tw_shift = log_n - 1 - s;
     for (int w = threadIdx.x; w < total; w += blockDim.x) {
-      int t, j;
-      if (TR_FAST) {
-        t = w & ((1 << log_tr) - 1);
-        j = w >> log_tr;
-      } else {
-        t = w >> (log_n - 1);
-        j = w & (half - 1);
-      }
+      const int t = w >> (log_n - 1);
+      const int j = w & (half - 1);
       const int pos = j & (h - 1);
       const int i0 = ((j - pos) << 1) + pos;
       const int a0 = t * tr_stride + i0 * el_stride;
@@ -124,29 +116,52 @@ __device__ __forceinline__ void llr_axis_fold(float v, float inv_eff, const Axis
   }
 }
 
+// Un-normalised PAM level 2·gray_to_binary(g) - (2^M - 1) of Gray index g,
+// and the Gray index of level +a.
+template <int M>
+__host__ __device__ constexpr int pam_level(int g) {
+  int b = g;
+  for (int shift = 1; shift < M; shift <<= 1) b ^= b >> shift;
+  return 2 * b - ((1 << M) - 1);
+}
+template <int M>
+__host__ __device__ constexpr int gray_of_level(int a) {
+  int g = 0;
+  while (pam_level<M>(g) != a) ++g;
+  return g;
+}
+
 // Division-free max-log LLRs of one axis (M <= 2) from the
 // un-equalised inner product p = Re or Im of conj(h) y and h2 = |h|^2:
 // with g(l) = lev^2 h2 - 2 lev p, LLR_j = (min_{S1} g - min_{S0} g) * inv_nv
-// (the common p^2/h2 term cancels).
+// (the common p^2/h2 term cancels). Each product is taken once per level
+// magnitude (lev2 and two_abs of the levels +a and -a are the same floats)
+// and each level's sign is a compile-time constant.
 template <int M>
 __device__ __forceinline__ void llr_axis_dfree(float p, float h2, float inv_nv,
                                                const AxisTables& t, float* out) {
-  float d0[M], d1[M];
+  constexpr int L = 1 << M;
+  float hl[L / 2], q[L / 2], d[L];
 #pragma unroll
-  for (int j = 0; j < M; ++j) d0[j] = d1[j] = 3.4e38f;
-#pragma unroll
-  for (int g = 0; g < (1 << M); ++g) {
-    const float hl = h2 * t.lev2[g];
-    const float q = p * t.two_abs[g];
-    const float d = t.lev[g] >= 0.0f ? hl - q : hl + q;
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      if ((g >> (M - 1 - j)) & 1) d1[j] = fminf(d1[j], d);
-      else d0[j] = fminf(d0[j], d);
-    }
+  for (int u = 0; u < L / 2; ++u) {
+    hl[u] = h2 * t.lev2[gray_of_level<M>(2 * u + 1)];
+    q[u] = p * t.two_abs[gray_of_level<M>(2 * u + 1)];
   }
 #pragma unroll
-  for (int j = 0; j < M; ++j) out[j] = (d1[j] - d0[j]) * inv_nv;
+  for (int g = 0; g < L; ++g) {
+    const int a = pam_level<M>(g), u = ((a > 0 ? a : -a) - 1) / 2;
+    d[g] = a > 0 ? hl[u] - q[u] : hl[u] + q[u];
+  }
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    float d0 = 3.4e38f, d1 = 3.4e38f;
+#pragma unroll
+    for (int g = 0; g < L; ++g) {
+      if ((g >> (M - 1 - j)) & 1) d1 = fminf(d1, d[g]);
+      else d0 = fminf(d0, d[g]);
+    }
+    out[j] = (d1 - d0) * inv_nv;
+  }
 }
 
 // Sum over the block in a fixed order (warp shuffles, then warp 0 over
@@ -319,7 +334,7 @@ __device__ __forceinline__ void despread_equalize(float* sre, float* sim, int lo
     yr = sr;
   });
   __syncthreads();
-  smem_fft<false>(sre, sim, log_n, log_tr, N, 1, twr, twi, -1.0f);
+  smem_fft(sre, sim, log_n, log_tr, N, 1, twr, twi, -1.0f);
 }
 
 // After despread_equalize: f(t, n, sr, si, sinr) for time symbol n of every

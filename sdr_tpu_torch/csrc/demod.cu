@@ -102,7 +102,7 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
     }
   }
   __syncthreads();
-  sdr::smem_fft<false>(sre, sim, log_n, log_spb, N, 1, twr, twi, 1.0f);
+  sdr::smem_fft(sre, sim, log_n, log_spb, N, 1, twr, twi, 1.0f);
 
   // Channel of tone k of block row t ((1, 0) past the last row).
   auto channel = [&](int t, int k, float& h_r, float& h_i) {
@@ -212,7 +212,7 @@ demod_llr_kernel(const float* __restrict__ re, const float* __restrict__ im,
     sim[dst] = xi;
   }
   __syncthreads();
-  sdr::smem_fft<false>(sre, sim, log_n, log_spb, N, 1, twr, twi, 1.0f);
+  sdr::smem_fft(sre, sim, log_n, log_spb, N, 1, twr, twi, 1.0f);
 
   auto channel = [&](int t, int k, float& h_r, float& h_i) {
     const long long r = row0 + t;

@@ -1,0 +1,21 @@
+// Kernel F's count entry point: per-channel bit errors.
+// csrc/demod_cl.cuh holds kernels D and F: both plans and the three modes.
+// Each mode has its own translation unit (demod_cl.cu, demod_cl_count.cu,
+// demod_cl_llr.cu), so nvcc builds the three in parallel. re_t/im_t are
+// float32, or bfloat16 when in_bf16.
+#include "demod_cl.cuh"
+
+extern "C" int sdr_demod_count_cl(const void* re_t, const void* im_t, int in_bf16,
+                                  const float* hr_t, const float* hi_t, const void* idx_t,
+                                  int idx_bytes, int32_t* out, int B, int S, int log_n, int cp,
+                                  int bits_per_axis, int bpsk, sdr::AxisTables tab,
+                                  float inv_nv, const float* twr, const float* twi,
+                                  void* stream) {
+  if (bad_shape(B, S, log_n)) return (int)cudaErrorInvalidValue;
+  if (idx_bytes != 1 && idx_bytes != 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  SDR_DISPATCH_MOD(bits_per_axis, bpsk,
+    return SDR_CL_LAUNCH(demod_count_cl_kernel, re_t, im_t, in_bf16, hr_t, hi_t, idx_t,
+                         idx_bytes, out, B, S, log_n, cp, tab, inv_nv, twr, twi))
+  return (int)cudaErrorInvalidValue;
+}

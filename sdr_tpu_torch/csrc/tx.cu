@@ -109,7 +109,7 @@ tx_kernel(const IdxT* __restrict__ idx, float* __restrict__ out_re, float* __res
   load_symbols<IdxT, M, BPSK>(idx, row0, left < spb ? (int)left : spb, log_n, log_spb, sre,
                               sim);
   __syncthreads();
-  sdr::smem_fft<false>(sre, sim, log_n, log_spb, N, 1, twr, twi, -1.0f);
+  sdr::smem_fft(sre, sim, log_n, log_spb, N, 1, twr, twi, -1.0f);
 
   const int sym_len = N + cp;
   for (int e = threadIdx.x; e < spb * sym_len; e += blockDim.x) {
@@ -180,7 +180,7 @@ tx_fir_kernel(const IdxT* __restrict__ idx, float* __restrict__ out_re,
       tp_i[t * kMaxTaps + l] = taps_i[src];
     }
     __syncthreads();
-    sdr::smem_fft<false>(sre, sim, log_n, log_spb, N, 1, twr, twi, -1.0f);
+    sdr::smem_fft(sre, sim, log_n, log_spb, N, 1, twr, twi, -1.0f);
 
     for (int e = threadIdx.x; e < n_sym * sym_len; e += blockDim.x) {
       const int t = e / sym_len;

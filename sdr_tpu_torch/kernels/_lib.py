@@ -239,9 +239,12 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
 def twiddles(n: int, device: torch.device):
     """Forward twiddles e^{-2πik/n}, k < n/2, computed in float64 on the
-    device and rounded once, as (re, im) float32 tensors."""
+    device and rounded once, as (re, im) float32 tensors; built once per
+    (n, device) and shared by every later call (the kernels only read
+    them)."""
     ang = torch.arange(max(n // 2, 1), dtype=torch.float64, device=device) * (-2.0 * math.pi / n)
     return torch.cos(ang).to(torch.float32), torch.sin(ang).to(torch.float32)
 

@@ -26,12 +26,15 @@ permuted by ``dif_perm``, as the JAX bench passes it) is un-permuted
 here before the launch.
 
 The kernels take N a power of two up to 4096 (the JAX kernel's range,
-N = 128·2^k ≤ 4096, and below it). Up to N = 512 a block holds a
-32-channel (N, 32) tile in shared memory; above it (the wideband form,
-``csrc/demod_cl.cu``) a block takes 2^14/N channels (16, 8, 4), each
-thread holds 32 points of one channel in registers through a 32 · 32 ·
-N/1024 radix plan, and h is staged in shared memory once per run of 16
-symbols. The sample planes re_t/im_t may be
+N = 128·2^k ≤ 4096, and below it), in one register-resident form
+(``csrc/demod_cl.cuh``; one translation unit a mode): each thread holds
+R points of one channel (the whole symbol at N < R) in registers from its
+loads to its tail, adjacent lanes take adjacent channels, and h is staged
+in shared memory once per run of symbols. Up to N = 512 (the narrow plan,
+N = R · N/R with R = 16, 32 at N = 512: one exchange a symbol) a block
+takes 2^13/N channels, at least 32, and runs 32 symbols; above it (the
+wideband plan, N = 32 · 32 · N/1024) a block takes 2^14/N channels (16,
+8, 4) and runs 16. The sample planes re_t/im_t may be
 float32 or bfloat16, both of one type (the JAX bench feeds bf16 by
 default, ``demod_cl_pallas.py:145``); the kernels widen bf16 samples on
 load and compute in float32, and the plain versions cast to float32
@@ -44,7 +47,8 @@ a deterministic two-pass reduction, so repeated runs give the same bits;
 F's counts are integer atomics, exact in any order.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the CUDA
-kernel (``csrc/demod_cl.cu``) runs, or the call raises.
+kernel (``csrc/demod_cl.cu``, ``demod_cl_count.cu``, ``demod_cl_llr.cu``)
+runs, or the call raises.
 """
 
 from __future__ import annotations

@@ -16,10 +16,9 @@ wherever |LLR| ≥ 1e-3 and within 2^-8 relative; C's sums 1e-5 of the sum
 of |LLR|, and the same bits on a second run. Kernel H: identical hard
 bits in both schedules and layouts at any batch; the coded engine on the
 card equals the CPU run but in channels holding an LLR with |LLR| < 1e-3. The
-channels-last kernels run at N up to 4096 (their wideband mode above
-N = 512: register-resident radix passes, 16, 8 or 4 channels a block), with
-ragged B and S, B and C at configs 3 and 5's N, and C's
-post-FFT mode (``llr_chain``) as C's LLR and sum modes, C's TP stage-2
+channels-last kernels run at N 2 to 4096 (the narrow plan to N = 512,
+the wideband one above), with ragged B and S, B and C at configs 3 and
+5's N, and C's post-FFT mode (``llr_chain``) as C's LLR and sum modes, C's TP stage-2
 mode (``tp_stage2_llr``, #20) as C's LLR mode; D and F on bfloat16 sample
 planes as on float32 ones.
 """
@@ -125,10 +124,15 @@ def test_demod_count_kernel_matches_plain(dev, mod, h_syms):
     assert bool(((got - want).abs() <= margin).all())
 
 
-CL_N_FFT = [64, 256, 512, 1024, 2048, 4096]  # 32 channels a block up to 512, then 16, 8, 4
-# B = 203 fills no channel group (32, 16, 8 or 4) and S = 19 no symbol run
-# (8 or 16); B = 3 is below one group.
-CL_SHAPES = pytest.mark.parametrize("B,S", [(203, 19), (3, 17)], ids=["203x19", "3x17"])
+# Every boundary of the narrow plan (one thread a symbol at N <= 32, one
+# exchange and 2-16-point last DFTs at 64-512, 256 to 32 channels a block),
+# then the wideband plan's 16, 8, 4 channels a block.
+CL_N_FFT = [2, 8, 32, 64, 128, 256, 512, 1024, 2048, 4096]
+# B = 203 fills no channel group (256 down to 4) and S = 19 no symbol run
+# (32 narrow, 16 wide); S = 33 is one past a narrow run; B = 3 is below one
+# group.
+CL_SHAPES = pytest.mark.parametrize("B,S", [(203, 19), (203, 33), (3, 17)],
+                                    ids=["203x19", "203x33", "3x17"])
 CL_WIDE_N_FFT = [1024, 2048, 4096]
 
 
@@ -768,7 +772,7 @@ def test_tp_stage2_kernel_raises_instead_of_falling_back(dev):
         kc.tp_stage2_llr(t.double(), t.double(), h, h, 0.1, Modulation.QPSK)
 
 
-@pytest.mark.parametrize("n_fft", [256, 1024, 2048, 4096])
+@pytest.mark.parametrize("n_fft", CL_N_FFT)
 def test_cl_kernels_on_bf16_samples_match_plain(dev, n_fft):
     """D's sum, F's count and F's plane on bfloat16 sample planes against
     their plain versions on the same planes, with their own counters."""
@@ -800,15 +804,17 @@ def test_cl_kernels_on_bf16_samples_match_plain(dev, n_fft):
     assert torch.equal((half.float() < 0)[big], (plane < 0)[big])
 
 
-@pytest.mark.parametrize("n_fft", CL_WIDE_N_FFT)
+@pytest.mark.parametrize("n_fft", [64, 256, 512] + CL_WIDE_N_FFT)
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_cl_kernels_below_one_group_match_plain(dev, n_fft, in_dtype):
-    """The wideband form with B = 3 channels (below one group) and S = 17
-    symbols (one past a run): D's sum within 1e-5 of the sum of |LLR| (C's
-    sum rule: a 3-channel sum may cancel) and the same bits twice, F's
-    count within the |LLR| < 1e-3 bits, F's plane within 1e-4 of its peak
-    (bf16 out: sign-identical wherever |LLR| >= 1e-3), each counter moved."""
-    mod, B, S, cp = Modulation.QAM64, 3, 17, n_fft // 8
+    """Both plans with B = 3 channels (below one group) and S one past a
+    symbol run (33 narrow, 17 wide): D's sum within 1e-5 of the sum of
+    |LLR| (C's sum rule: a 3-channel sum may cancel) and the same bits
+    twice, F's count within the |LLR| < 1e-3 bits, F's plane within 1e-4 of
+    its peak (bf16 out: sign-identical wherever |LLR| >= 1e-3), each
+    counter moved."""
+    mod, B, cp = Modulation.QAM64, 3, n_fft // 8
+    S = 33 if n_fft <= 512 else 17
     g = torch.Generator(device=dev).manual_seed(n_fft + 1)
     re, im = ((torch.randn((S * (n_fft + cp), B), device=dev, generator=g)
                / (2 * n_fft) ** 0.5).to(in_dtype) for _ in range(2))
@@ -833,3 +839,14 @@ def test_cl_kernels_below_one_group_match_plain(dev, n_fft, in_dtype):
                     lambda: kd.demod_llr_cl(re, im, hr, hi, cp, mod, nv, out_dtype=torch.bfloat16))
     big = plane.abs() >= 1e-3
     assert torch.equal((half.float() < 0)[big], (plane < 0)[big])
+
+
+def test_twiddles_are_built_once_per_size_and_device(dev):
+    """The kernels' twiddle tables are cached per (n, device): two calls
+    give the same tensors, bit-identical to a table built anew."""
+    d = torch.empty(1, device=dev).device
+    first, again = _lib.twiddles(256, d), _lib.twiddles(256, d)
+    assert first[0] is again[0] and first[1] is again[1]
+    fresh = _lib.twiddles.__wrapped__(256, d)
+    assert torch.equal(first[0], fresh[0]) and torch.equal(first[1], fresh[1])
+    assert _lib.twiddles(512, d)[0].shape == (256,)

@@ -545,3 +545,19 @@ def test_cl_sample_dtypes_are_checked(rng):
     with pytest.raises(ValueError, match="hr_t/hi_t must be float32"):
         kd.demod_count_cl(re, im, hr.to(torch.bfloat16), hi, torch.zeros((128, 8), dtype=torch.int8),
                           16, Modulation.QPSK, 0.1)
+
+
+@pytest.mark.parametrize("n", [2, 256, 4096])
+def test_twiddles_are_cached_per_size_and_device(n):
+    """``_lib.twiddles`` builds each (n, device) table once: later calls
+    return the same tensors, equal to e^{-2πik/n}, k < n/2, in float32."""
+    from sdr_tpu_torch.kernels import _lib
+
+    dev = torch.device("cpu")
+    first, again = _lib.twiddles(n, dev), _lib.twiddles(n, dev)
+    assert first[0] is again[0] and first[1] is again[1]
+    fresh = _lib.twiddles.__wrapped__(n, dev)
+    assert torch.equal(first[0], fresh[0]) and torch.equal(first[1], fresh[1])
+    ang = -2.0 * np.pi * np.arange(max(n // 2, 1)) / n
+    np.testing.assert_allclose(first[0].numpy(), np.cos(ang), atol=6e-8)
+    np.testing.assert_allclose(first[1].numpy(), np.sin(ang), atol=6e-8)
