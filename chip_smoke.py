@@ -21,7 +21,10 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    plane at B/4 × 64, the coded batch), N 2048 and config 5's shape
    (N 4096) at B/2 × 16 — for B in every channel mode, C's count, plane
    and sums, D and F in their wideband mode and C's post-FFT mode
-   (``llr_chain``); then holds the staged
+   (``llr_chain``), the ``K1`` line per N giving F's count beside C's on
+   the same tones and each mode's share of its bound (C's count, sum
+   and plane at N 128–4096 run its warp-group form, ``csrc/
+   demod_rows.cuh``; the form each entry ran is its ``form``); then holds the staged
    channel route (plain FIR + kernel E) against the fused one (kernel B's
    FIR); kernel G in its injected and keyed modes (five channels,
    SC-FDMA, config 3's N 1024 and config 5's N 4096), with its bound
@@ -133,7 +136,10 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    windows; ``launches_bf16``, ``launches_parallel``, ``launches_nccl``; ``launches`` is the window of its own path, the one checked;
    the entries named ``<counter>@N1024``, ``@N2048`` and ``@N4096`` carry
    phase 2w's numbers, the launches in that N's window and the TPU
-   four-step, post-FFT or channels-last kernel they replace there), then
+   four-step, post-FFT or channels-last kernel they replace there),
+   before it one ``phase 6 C`` line for each entry of kernel C's
+   warp-group modes (its form, ms, bound, share of the bound, launches
+   and launches × (ms − bound ms)), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -218,6 +224,22 @@ def tail_flops(mod) -> float:
     L, m = mod.levels_per_axis, mod.bits_per_axis
     axes = 1 if mod.bits_per_symbol == 1 else 2
     return 12.0 + axes * (3 * L + 2 * m if L <= 4 else 12 * m)
+
+
+# Kernel C's modes: those the warp-group form (csrc/demod_rows.cuh) takes
+# at N 128-4096, and those that stay on the shared-memory tile (demod.cu).
+C_ROWS_MODES = ("demod_count", "demod_count_taps", "demod_llr", "demod_sum")
+C_TILE_MODES = ("demod_count_despread", "demod_llr_despread", "demod_sum_despread",
+                "tp_stage2_llr")
+
+
+def c_form(name: str, n_fft: int) -> dict:
+    """The form of kernel C that mode ``name`` runs at ``n_fft``."""
+    if name in C_ROWS_MODES and n_fft >= 128:
+        r, g = (n_fft // 32, 1) if n_fft <= 512 else (16, n_fft // 512)
+        return {"form": f"warp-group: {g} warp{'s' if g > 1 else ''} a symbol, {r} points a "
+                        "lane in registers, shuffle DFTs, a block a run of 32 symbols"}
+    return {"form": "shared-memory tile: radix-2 stages, a barrier each"}
 
 
 def _check(ok: bool, msg: str) -> None:
@@ -422,7 +444,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                          nrow * (fft_flops(N) + N * tail_flops(mod))))
     print(f"phase 2 C demod+count ({B}x{S}x{N + CP}): {int(cnt.sum())} errors, plain "
           f"{int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} "
-          f"(allowed {int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
+          f"(allowed {int(margin.max())}); kernel {ms:.4f} ms, plain {pms:.3f} ms; "
+          f"{of_bound(report['demod_count'])}")
 
     # C's LLR-plane mode on the same waveform: within 1e-4 of the plane's peak.
     def llr_check(label, got, want):
@@ -439,8 +462,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                **bound(8 * nrow * N + 8 * B * N + 4 * nrow * N * bps,
                                        c_flops))
     print(f"phase 2 C llr plane ({B}x{S}x{N * bps} f32): max abs diff {c_err:.3g} (peak "
-          f"{c_peak:.3g}, allowed 1e-4 of it); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
-          f"{report['demod_llr']['bound_ms']:.4f} ms ({report['demod_llr']['bound_by']})")
+          f"{c_peak:.3g}, allowed 1e-4 of it); kernel {ms:.4f} ms, plain {pms:.3f} ms; "
+          f"{of_bound(report['demod_llr'])}")
     del re, im, hr, hi, cnt, cnt_plain
 
     # C's sum mode, and its despread form, on bench.py-style rows inputs
@@ -468,8 +491,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                             **bound(8 * nrow * N + 8 * B * N + 4, flops))
         print(f"phase 2 C {'despread ' if desp else ''}sum ({B}x{S}x{N + CP}): {tot_c:.9g}, "
               f"plain {tot_p:.9g}, rel diff {s_err / abs(tot_p):.3g} (allowed 1e-5), "
-              f"deterministic; kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
-              f"{report[name]['bound_ms']:.4f} ms ({report[name]['bound_by']})")
+              f"deterministic; kernel {ms:.4f} ms, plain {pms:.3f} ms; {of_bound(report[name])}")
     del sr, si, shr, shi
 
     def check_modes(label, kernel_fn, plain_fn, noise_shape):
@@ -547,7 +569,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                 nrow * (fft_flops(N) + N * (tail_flops(mod) + 8 * 3))))
     print(f"phase 2 C demod+count taps= (3 per symbol): {int(cnt.sum())} errors, plain "
           f"{int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} (allowed "
-          f"{int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
+          f"{int(margin.max())}); kernel {ms:.4f} ms, plain {pms:.3f} ms; "
+          f"{of_bound(report['demod_count_taps'])}")
     del re, im, cnt, cnt_plain
 
     # E: per-link gains, per-symbol gains, noise only, over the clean waveform.
@@ -1193,10 +1216,17 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                            for label, name in (("sum", "demod_sum_cl"), ("count", "demod_count_cl"),
                                                ("plane f32", "demod_llr_cl"),
                                                ("plane bf16", "demod_llr_cl_bf16")))
+        c_shares = ", ".join(f"{label} {rep_n[name]['ms']:.4f} ms, "
+                             f"{rep_n[name]['bound_ms'] / rep_n[name]['ms']:.4f}"
+                             for label, name in (("count", "demod_count"), ("sum", "demod_sum"),
+                                                 ("plane", "demod_llr")))
         print(f"phase 2w K1 {tag}: K1/C sum "
               f"{rep_n['demod_sum_cl']['ms'] / rep_n['demod_sum']['ms']:.4f}, count "
-              f"{rep_n['demod_count_cl']['ms'] / rep_n['demod_count']['ms']:.4f}, plane f32 "
-              f"{per_ch:.4f} (per channel, C on {b_p}); share of bound {shares}")
+              f"{rep_n['demod_count_cl']['ms'] / rep_n['demod_count']['ms']:.4f} (F's count "
+              f"{rep_n['demod_count_cl']['ms']:.4f} ms, C's {rep_n['demod_count']['ms']:.4f} ms "
+              f"on the same tones), plane f32 "
+              f"{per_ch:.4f} (per channel, C on {b_p}); share of bound {shares}; C "
+              f"({c_form('demod_count', n_w)['form']}) {c_shares}")
 
     # ---- phase 2t: kernel #20, C's TP stage-2 mode, against its plain version
     # At the shapes the TP path runs: config 5 split over 4 ranks (rows of
@@ -2119,8 +2149,9 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         "payload": ("sdr_tpu_torch/csrc/payload.cu", "sdr_tpu/kernels/channel_pallas.py:233"),
         "tx": ("sdr_tpu_torch/csrc/tx.cu", "sdr_tpu/kernels/tx_pallas.py:329"),
         "tx_taps": ("sdr_tpu_torch/csrc/tx.cu", "sdr_tpu/kernels/tx_pallas.py:329"),
-        "demod_count": ("sdr_tpu_torch/csrc/demod.cu", "sdr_tpu/kernels/demod_pallas.py:500"),
-        "demod_count_taps": ("sdr_tpu_torch/csrc/demod.cu",
+        "demod_count": ("sdr_tpu_torch/csrc/demod_count.cu",
+                        "sdr_tpu/kernels/demod_pallas.py:500"),
+        "demod_count_taps": ("sdr_tpu_torch/csrc/demod_count.cu",
                              "sdr_tpu/kernels/demod_pallas.py:500"),
         "demod_count_despread": ("sdr_tpu_torch/csrc/demod.cu",
                                  "sdr_tpu/kernels/demod_pallas.py:500"),
@@ -2130,8 +2161,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         "demod_count_cl": ("sdr_tpu_torch/csrc/demod_cl_count.cu",
                            "sdr_tpu/kernels/demod_cl_pallas.py:741"),
         "mc_count": ("sdr_tpu_torch/csrc/mc.cuh", "sdr_tpu/kernels/mc_pallas.py:229"),
-        "demod_llr": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
-        "demod_sum": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
+        "demod_llr": ("sdr_tpu_torch/csrc/demod_llr.cu", c_rows),
+        "demod_sum": ("sdr_tpu_torch/csrc/demod_llr.cu", c_rows),
         "demod_llr_despread": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
         "demod_sum_despread": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
         "demod_llr_cl": ("sdr_tpu_torch/csrc/demod_cl_llr.cu",
@@ -2181,8 +2212,11 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     launches_wide=launches_wide[name], launches_bf16=launches_bf16[name],
                     launches_parallel=launches_parallel[name], launches_nccl=launches_nccl[name])
 
-    # The form of D and F each entry ran (csrc/demod_cl.cuh's plans).
+    # The form of C, D and F each entry ran (csrc/demod_rows.cuh's plans,
+    # demod.cu's tile, csrc/demod_cl.cuh's plans).
     def cl_form(name, n_fft):
+        if name in C_ROWS_MODES or name in C_TILE_MODES:
+            return c_form(name, n_fft)
         if not sources.get(name, ("",))[0].startswith("sdr_tpu_torch/csrc/demod_cl"):
             return {}
         if n_fft <= 512:
@@ -2198,8 +2232,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         for name in sources
     ] + [
         dict(name=f"{name}@N{n_w}", route="cuda",
-             source=sources[name][0] if name in cl_rows else
-             "sdr_tpu_torch/csrc/" + ("tx.cu" if name.startswith("tx") else "demod.cu"),
+             source=sources[name][0] if name in sources else "sdr_tpu_torch/csrc/demod.cu",
              replaces=wide_sources[name][0], also_replaces=list(wide_sources[name][1:]),
              **cl_form(name, n_w), launches=launches_at[n_w][name], **windows_of(name),
              **{"library_ms": None, **rep})
@@ -2211,6 +2244,14 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
              replaces=sources["tp_stage2_llr"][1], launches=launches_nccl["tp_stage2_llr"],
              **windows_of("tp_stage2_llr"), **{"library_ms": None, **tp_report["n2=4096"]})
     ]
+    # Kernel C's warp-group modes: time, share of the bound, launches in
+    # the path's window and launches × (ms − bound ms).
+    for k in kernels:
+        if k["name"].split("@")[0] in C_ROWS_MODES:
+            print(f"phase 6 C {k['name']} ({k['form']}): {k['ms']:.4f} ms, bound "
+                  f"{k['bound_ms']:.4f} ms ({k['bound_by']}), share "
+                  f"{k['bound_ms'] / k['ms']:.4f}, launches {k['launches']}, launches x gap "
+                  f"{k['launches'] * (k['ms'] - k['bound_ms']):.2f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

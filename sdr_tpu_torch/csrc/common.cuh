@@ -1,7 +1,7 @@
 // Shared device code of the port's kernels: the shared-memory radix-2
 // FFT and its bit-reversal pass, the Gray map, the per-axis max-log LLR
-// forms, the OFDM and SC-FDE receive tails with their error counts, and
-// a deterministic block reduction.
+// forms and hard decisions, the OFDM and SC-FDE receive tails with their
+// error counts, and a deterministic block reduction.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -247,6 +247,44 @@ __device__ __forceinline__ int mmse_bit_errors(float yr, float yi, float h_r, fl
 #pragma unroll
   for (int j = 0; j < BPS; ++j) err += (int)(llr[j] < 0.0f) != ((v >> (BPS - 1 - j)) & 1);
   return err;
+}
+
+// The hard decisions of one tone as a BPS-bit word, bit j (MSB first: the
+// I bits, then the Q bits) set where the tone's max-log LLR j is negative
+// (kernels C and F count with it). That is the sign of llr_axis_fold
+// without its magnitudes: LLR_j < 0 where z_j > 0, with z_0 the equalised
+// axis over the PAM norm and z_{j+1} = L/2^{j+1} - |z_j|; here taken on
+// w_j = z_j·|h|^2·norm, so w_0 = Re or Im of conj(h) y and no division is
+// needed. It holds for every L (the division-free LLRs of L <= 4 have the
+// same signs); rounding can flip only a bit whose LLR is 0 to rounding.
+template <int M>
+__device__ __forceinline__ int axis_bits(float w, float unit) {
+  int bits = 0;
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    bits = (bits << 1) | (int)(w > 0.0f);
+    w = (float)(1 << (M - 1 - j)) * unit - fabsf(w);
+  }
+  return bits;
+}
+
+template <int M, bool BPSK>
+__device__ __forceinline__ int hard_bits(float yr, float yi, float h_r, float h_i, float norm) {
+  const float unit = (h_r * h_r + h_i * h_i) * norm;
+  const int bits_i = axis_bits<M>(h_r * yr + h_i * yi, unit);
+  if constexpr (BPSK) return bits_i;
+  else return (bits_i << M) | axis_bits<M>(h_r * yi - h_i * yr, unit);
+}
+
+// v, hidden from the optimiser: what is computed from it inside a loop
+// stays inside (hoisted sets of per-point addresses or twiddles spill).
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+__device__ __forceinline__ long long opaque(long long v) {
+  asm volatile("" : "+l"(v));
+  return v;
 }
 
 // Stores n consecutive floats at dst (n a compile-time count), as 16-byte

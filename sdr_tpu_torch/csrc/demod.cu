@@ -1,6 +1,9 @@
-// Kernel C: rows-layout demod + per-channel bit-error count, the rows LLR
-// plane or its sum, the post-FFT equalize + LLR mode (llr_chain), and the
-// tensor-parallel stage-2 mode (tp_stage2_llr).
+// Kernel C, rows layout: the shared-memory tile. Its warp-group form
+// (demod_rows.cuh; demod_count.cu, demod_llr.cu) takes the count (h plane
+// and taps=), the LLR plane and the sum at N = 128 to 4096; this file
+// keeps what it does not: those modes at N = 2 to 64, the despread
+// (SC-FDE) count, plane and sum at every N, the post-FFT mode (llr_chain)
+// and the tensor-parallel stage-2 mode (tp_stage2_llr).
 //
 // Replaces sdr_tpu/kernels/demod_pallas.py::demod_count_pallas (the
 // fast engine's count terminal) with its taps= and despread modes, and
@@ -30,30 +33,21 @@
 // blocks. Counts are summed with integer atomics, which give the same
 // result in any order.
 //
-// The TPU kernel ran the DFT as a Gauss 3-multiplication matmul on the
-// MXU in bf16 passes (and the despread as a second matmul). Here a block
-// holds a few symbols in shared memory and runs radix-2 FFTs on CUDA
-// cores in f32; the count mode writes no LLR plane.
-//
-// At N = 1024 to 4096 (BASELINE configs 3 and 5) the same kernel serves
-// the TPU's wideband family: fourstep_split_pallas.py::
-// demod_chain_fourstep2 (plane, sum, count), ::demod_chain_fourstep2_fde
-// (the despread sum and count) and fourstep_pallas.py::
-// demod_chain_fourstep. Those split the DFT into N1·N2 matmul steps, some
-// staged through HBM in bf16 or f32, because dense DFT operands outgrew
-// VMEM; here one symbol's two f32 tiles are 32 KB at N = 4096, so a block
-// holds the whole transform and the stage precision is not a question.
-//
-// Bound on the H100: reading the two f32 sample planes (8 bytes per
-// sample, plus the channel and index planes; the LLR plane adds 4 bytes
-// per bit written) — memory-bound; the
-// shared-memory butterflies and the LLR tail are the compute side, and
-// the despread mode doubles the butterflies.
-#include "common.cuh"
+// The tile: a block of 256 threads holds 2^(9 - log N) symbols (one from
+// N = 512) bit-reversed in shared memory and runs radix-2 FFTs on them,
+// log2 N stages a barrier each, on CUDA cores in f32 (the TPU kernel ran
+// the DFT as a Gauss 3-multiplication matmul on the MXU in bf16 passes,
+// and the despread as a second matmul; at N 1024 to 4096 the four-step
+// kernels of fourstep_split_pallas.py and fourstep_pallas.py split it
+// into N1·N2 matmul steps because dense DFT operands outgrew VMEM).
+// Bound on the H100: the bytes (8 a sample read, the channel and index
+// planes, 4 a bit of a plane written); the despread mode doubles the
+// butterflies, and its stages, each moving 4 shared words a point, are
+// what hold it far under that bound. The despread and TP modes are the
+// tile's next redesign (ROADMAP).
+#include "demod_rows.cuh"
 
 namespace {
-
-constexpr int kMaxTaps = 8;
 
 template <typename IdxT, int M, bool BPSK, bool DESPREAD>
 __global__ void __launch_bounds__(sdr::kThreads)
@@ -415,21 +409,20 @@ extern "C" int sdr_tp_stage2_llr(const float* tr, const float* ti, const float* 
   return (int)cudaErrorInvalidValue;
 }
 
-// Number of per-block partials the sum mode's wrapper must allocate.
-extern "C" int sdr_demod_llr_partials(int B, int S, int log_n) {
+// Per-block partials of the tile's sum.
+int demod_llr_tile_partials(int B, int S, int log_n) {
   const int log_spb = log_n >= 9 ? 0 : 9 - log_n;
   return (int)((((long long)B * S) + (1 << log_spb) - 1) >> log_spb);
 }
 
-extern "C" int sdr_demod_llr(const float* re, const float* im, const float* hr, const float* hi,
-                             int h_syms, float* out, float* partials, int B, int S, int log_n,
-                             int cp, int bits_per_axis, int bpsk, sdr::AxisTables tab,
-                             float inv_nv, float nv, int despread, int reduce_sum,
-                             const float* twr, const float* twi, void* stream) {
+int demod_llr_tile(const float* re, const float* im, const float* hr, const float* hi,
+                   int h_syms, float* out, float* partials, int B, int S, int log_n, int cp,
+                   int bits_per_axis, int bpsk, const sdr::AxisTables& tab, float inv_nv,
+                   float nv, int despread, int reduce_sum, const float* twr, const float* twi,
+                   cudaStream_t st) {
   const long long n_rows = (long long)B * S;
   if (n_rows == 0) return (int)cudaErrorInvalidValue;
   const int log_spb = log_n >= 9 ? 0 : 9 - log_n;
-  cudaStream_t st = (cudaStream_t)stream;
   SDR_DISPATCH_MOD(bits_per_axis, bpsk,
     if (despread && reduce_sum)
       return launch_llr<M, BPSK, true, true>(re, im, hr, hi, h_syms, out, partials, n_rows, S,
@@ -445,13 +438,12 @@ extern "C" int sdr_demod_llr(const float* re, const float* im, const float* hr, 
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int sdr_demod_count(const float* re, const float* im, const float* hr,
-                               const float* hi, int h_syms, const float* taps_r,
-                               const float* taps_i, int n_taps, const void* idx, int idx_bytes,
-                               int32_t* out, int B, int S, int log_n, int cp,
-                               int bits_per_axis, int bpsk, sdr::AxisTables tab, float inv_nv,
-                               float nv, int despread, const float* twr, const float* twi,
-                               void* stream) {
+int demod_count_tile(const float* re, const float* im, const float* hr, const float* hi,
+                     int h_syms, const float* taps_r, const float* taps_i, int n_taps,
+                     const void* idx, int idx_bytes, int32_t* out, int B, int S, int log_n,
+                     int cp, int bits_per_axis, int bpsk, const sdr::AxisTables& tab,
+                     float inv_nv, float nv, int despread, const float* twr, const float* twi,
+                     cudaStream_t st) {
   const long long n_rows = (long long)B * S;
   if (n_rows == 0) return 0;
   if (n_taps < 0 || n_taps > kMaxTaps || (despread && n_taps)) return (int)cudaErrorInvalidValue;
@@ -461,7 +453,6 @@ extern "C" int sdr_demod_count(const float* re, const float* im, const float* hr
                       sizeof(int) * ((size_t)1 << log_spb) +
                       (size_t)2 * sizeof(float) * kMaxTaps * ((size_t)1 << log_spb) +
                       sizeof(float) * (sdr::kThreads / 32 + ((size_t)1 << log_spb));
-  cudaStream_t st = (cudaStream_t)stream;
   SDR_DISPATCH_MOD(bits_per_axis, bpsk,
     SDR_DISPATCH_IDX(idx_bytes,
       if (despread) {

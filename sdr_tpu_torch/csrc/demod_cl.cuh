@@ -189,16 +189,7 @@ __device__ __forceinline__ void mul_table(float& xr, float& xi, int m, int half,
   xi = r * wi + xi * wr;
 }
 
-// v, hidden from the optimiser: what is computed from it inside a loop
-// stays inside.
-__device__ __forceinline__ int opaque(int v) {
-  asm volatile("" : "+r"(v));
-  return v;
-}
-__device__ __forceinline__ long long opaque(long long v) {
-  asm volatile("" : "+l"(v));
-  return v;
-}
+using sdr::opaque;
 
 // Waits for every thread of the block's cluster (the pair of adjacent
 // channel groups whose plane rows share sectors), its shared-memory
@@ -607,32 +598,7 @@ __device__ __forceinline__ void store_llrs(OutT* __restrict__ out, long long o, 
   }
 }
 
-// The hard decisions of one tone as a BPS-bit word, bit j (MSB first: the
-// I bits, then the Q bits) set where the tone's max-log LLR j is negative.
-// That is the sign of sdr::llr_axis_fold without its magnitudes: LLR_j < 0
-// where z_j > 0, with z_0 the equalised axis over the PAM norm and
-// z_{j+1} = L/2^{j+1} - |z_j|; here taken on w_j = z_j·|h|^2·norm, so
-// w_0 = Re or Im of conj(h) y and no division is needed. It holds for every
-// L (the division-free LLRs of L <= 4 have the same signs); rounding can
-// flip only a bit whose LLR is 0 to rounding.
-template <int M>
-__device__ __forceinline__ int axis_bits(float w, float unit) {
-  int bits = 0;
-#pragma unroll
-  for (int j = 0; j < M; ++j) {
-    bits = (bits << 1) | (int)(w > 0.0f);
-    w = (float)(1 << (M - 1 - j)) * unit - fabsf(w);
-  }
-  return bits;
-}
-
-template <int M, bool BPSK>
-__device__ __forceinline__ int hard_bits(float yr, float yi, float h_r, float h_i, float norm) {
-  const float unit = (h_r * h_r + h_i * h_i) * norm;
-  const int bits_i = axis_bits<M>(h_r * yr + h_i * yi, unit);
-  if constexpr (BPSK) return bits_i;
-  else return (bits_i << M) | axis_bits<M>(h_r * yi - h_i * yr, unit);
-}
+using sdr::hard_bits;
 
 // The kernels, one per mode, modulation and plan. The sample type
 // (in_bf16), the index type (idx_bytes 1 or 2) and the plane's type

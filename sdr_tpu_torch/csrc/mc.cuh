@@ -40,7 +40,8 @@
 // buffer and G-point DFTs in registers. T2 runs the same steps backwards
 // (the cross-lane stages as decimation in time, bit-reversed in, natural
 // out), from the time layout to the tone layout. Either runs forward or
-// inverse. OFDM: tones -> T1 inverse -> noise -> T2 forward -> tones.
+// inverse (csrc/warpfft.cuh, shared with kernel C's warp-group form).
+// OFDM: tones -> T1 inverse -> noise -> T2 forward -> tones.
 // SC-FDMA: the spread input at the tone layout -> T1 forward (spread) ->
 // x H at the time layout (its indices are the subcarriers) -> T2 inverse
 // -> noise -> T1 forward -> equalise -> T2 inverse (despread) -> LLRs
@@ -78,7 +79,7 @@
 #pragma once
 #include "common.cuh"
 #include "philox.cuh"
-#include "regfft.cuh"
+#include "warpfft.cuh"
 
 // Launch parameters, passed by value from kernels/_lib.py::McParams. At
 // namespace scope (not in the anonymous namespace below), so that the
@@ -110,6 +111,9 @@ struct McParams {
 
 namespace {
 
+// The transform and its helpers (warpfft.cuh).
+using namespace sdr;
+
 // Channel kinds (the wrapper maps the channel model to these).
 enum : int {
   kNone = 0,     // IDENTITY, AWGN: H = 1
@@ -124,7 +128,6 @@ enum : int {
 constexpr int kJakesPaths = 16;
 constexpr int kJakesLane = 2;
 constexpr int kWarps = sdr::kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 
 // Byte offsets of the block's shared tables (dynamic shared memory), the
 // same on the host (its size) and the device (its carving). Positions
@@ -178,211 +181,10 @@ __host__ __device__ inline Carve carve(int N, int G, int kind, int L) {
   return c;
 }
 
-__device__ __forceinline__ int brev5(int lane) { return (int)(__brev((unsigned)lane) >> 27); }
-
 // W_N^m (forward), 0 <= m < N, from the half-circle table.
 __device__ __forceinline__ float2 w_table(const McParams& p, int m) {
-  const int half = 1 << (p.log_n - 1);
-  if (m < half) return make_float2(__ldg(p.twr + m), __ldg(p.twi + m));
-  return make_float2(-__ldg(p.twr + m - half), -__ldg(p.twi + m - half));
+  return sdr::w_table(p.twr, p.twi, p.log_n, m);
 }
-
-// x *= w (INV: x *= conj(w)).
-template <bool INV>
-__device__ __forceinline__ void cmul(float& xr, float& xi, float2 w) {
-  const float wi = INV ? -w.y : w.y;
-  const float r = xr;
-  xr = r * w.x - xi * wi;
-  xi = r * wi + xi * w.x;
-}
-
-// The R-point DFT of a thread's points in registers, forward or inverse
-// (the inverse by conjugation), unscaled, natural order in and out.
-template <int R, bool INV>
-__device__ __forceinline__ void fft_dir(float (&vr)[R], float (&vi)[R]) {
-  constexpr int LOG = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : R == 16 ? 4 : 5;
-  if constexpr (INV) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) vi[r] = -vi[r];
-  }
-  sdr::fft_reg<R, LOG>(vr, vi);
-  if constexpr (INV) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) vi[r] = -vi[r];
-  }
-}
-
-// The 32-point DFT across the lanes, point by point, as decimation in
-// frequency: lane order natural in, bit-reversed out. Stage i (span h =
-// 16 >> i) multiplies the odd half of each pair by W_{2h}^{lane mod h}
-// and the even half by 1 (xtw[i*32 + lane]), so that every lane runs the
-// same instructions; the stage loop stays rolled, only the points unroll.
-template <int R, bool INV>
-__device__ __forceinline__ void lanes_dif(float (&vr)[R], float (&vi)[R], const float2* xtw,
-                                          int lane) {
-#pragma unroll 1
-  for (int i = 0; i < 5; ++i) {
-    const int h = 16 >> i;
-    const float sg = (lane & h) ? -1.0f : 1.0f;
-    const float2 w = xtw[i * 32 + lane];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float pr = __shfl_xor_sync(kFull, vr[r], h);
-      const float pi = __shfl_xor_sync(kFull, vi[r], h);
-      vr[r] = fmaf(sg, vr[r], pr);
-      vi[r] = fmaf(sg, vi[r], pi);
-      cmul<INV>(vr[r], vi[r], w);
-    }
-  }
-}
-
-// The same as decimation in time: lane order bit-reversed in, natural out.
-template <int R, bool INV>
-__device__ __forceinline__ void lanes_dit(float (&vr)[R], float (&vi)[R], const float2* xtw,
-                                          int lane) {
-#pragma unroll 1
-  for (int i = 4; i >= 0; --i) {
-    const int h = 16 >> i;
-    const float sg = (lane & h) ? -1.0f : 1.0f;
-    const float2 w = xtw[i * 32 + lane];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      cmul<INV>(vr[r], vi[r], w);
-      const float pr = __shfl_xor_sync(kFull, vr[r], h);
-      const float pi = __shfl_xor_sync(kFull, vi[r], h);
-      vr[r] = fmaf(sg, vr[r], pr);
-      vi[r] = fmaf(sg, vi[r], pi);
-    }
-  }
-}
-
-// H = sum_l g[l] W^{k l} of the subcarrier with w1 = W_N^k: L complex
-// multiply-adds on the powers of w1 (0 without taps).
-__device__ __forceinline__ float2 taps_response(const float2* g, int L, float2 w1) {
-  if (L == 0) return make_float2(0.0f, 0.0f);
-  float2 acc = g[0], wv = w1;
-  for (int l = 1; l < L; ++l) {
-    acc.x += g[l].x * wv.x - g[l].y * wv.y;
-    acc.y += g[l].x * wv.y + g[l].y * wv.x;
-    const float t = wv.x;
-    wv.x = t * w1.x - wv.y * w1.y;
-    wv.y = t * w1.y + wv.y * w1.x;
-  }
-  return acc;
-}
-
-// Waits for the G warps of a group (named barrier 1 + group; a group of
-// one warp needs no barrier).
-template <int G>
-__device__ __forceinline__ void group_sync(int group) {
-  if constexpr (G == 1) {
-    __syncwarp();
-  } else {
-    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(32 * G) : "memory");
-  }
-}
-
-// The state of one thread: which points it holds and the tables it reads.
-template <int R, int G>
-struct Ctx {
-  static constexpr int N = 32 * R * G;
-  static constexpr int A = R * G;
-  int lane, w, group;
-  const float2* tw;
-  const float2* tw3;
-  const float2* xtw;
-  float2* xch;  // the group's exchange buffer
-
-  __device__ __forceinline__ int pos(int r) const { return (r * G + w) * 32 + lane; }
-  // Index of point r of thread (w, lane) in the tone layout and in the
-  // time layout.
-  static __device__ __forceinline__ int f_at(int lane, int w, int r) { return A * lane + G * r + w; }
-  static __device__ __forceinline__ int t_at(int lane, int w, int r) {
-    return brev5(lane) + 32 * (w + G * (r / G)) + 32 * R * (r % G);
-  }
-  __device__ __forceinline__ int f_index(int r) const { return f_at(lane, w, r); }
-  __device__ __forceinline__ int t_index(int r) const { return t_at(lane, w, r); }
-
-  // x *= W_N^{bitrev5(lane) a} (INV: conjugate), a = w + G r.
-  template <bool INV>
-  __device__ __forceinline__ void twiddle_n(float (&vr)[R], float (&vi)[R]) const {
-#pragma unroll
-    for (int r = (G == 1 ? 1 : 0); r < R; ++r) cmul<INV>(vr[r], vi[r], tw[pos(r)]);
-  }
-
-  // T1 for G > 1, after the R-point DFT: x W_A^{c' w}, the exchange, and
-  // the G-point DFTs over w (point j*G + d <- output d of transform j,
-  // j indexing c' = w + G j).
-  template <bool INV>
-  __device__ __forceinline__ void cross_warp_t1(float (&vr)[R], float (&vi)[R]) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r) cmul<INV>(vr[r], vi[r], tw3[w * 32 + r]);
-    group_sync<G>(group);
-#pragma unroll
-    for (int r = 0; r < R; ++r) xch[(w * R + r) * 32 + lane] = make_float2(vr[r], vi[r]);
-    group_sync<G>(group);
-#pragma unroll
-    for (int j = 0; j < R / G; ++j) {
-      float ur[G], ui[G];
-#pragma unroll
-      for (int u = 0; u < G; ++u) {
-        const float2 x = xch[(u * R + w + G * j) * 32 + lane];
-        ur[u] = x.x;
-        ui[u] = x.y;
-      }
-      fft_dir<G, INV>(ur, ui);
-#pragma unroll
-      for (int d = 0; d < G; ++d) {
-        vr[j * G + d] = ur[d];
-        vi[j * G + d] = ui[d];
-      }
-    }
-  }
-
-  // Its mirror at the start of T2.
-  template <bool INV>
-  __device__ __forceinline__ void cross_warp_t2(float (&vr)[R], float (&vi)[R]) const {
-    group_sync<G>(group);
-#pragma unroll
-    for (int j = 0; j < R / G; ++j) {
-      float ur[G], ui[G];
-#pragma unroll
-      for (int d = 0; d < G; ++d) {
-        ur[d] = vr[j * G + d];
-        ui[d] = vi[j * G + d];
-      }
-      fft_dir<G, INV>(ur, ui);
-#pragma unroll
-      for (int u = 0; u < G; ++u) xch[(u * R + w + G * j) * 32 + lane] = make_float2(ur[u], ui[u]);
-    }
-    group_sync<G>(group);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float2 x = xch[(w * R + r) * 32 + lane];
-      vr[r] = x.x;
-      vi[r] = x.y;
-      cmul<INV>(vr[r], vi[r], tw3[w * 32 + r]);
-    }
-  }
-
-  // Tone layout -> time layout, unscaled.
-  template <bool INV>
-  __device__ __forceinline__ void t1(float (&vr)[R], float (&vi)[R]) const {
-    lanes_dif<R, INV>(vr, vi, xtw, lane);
-    twiddle_n<INV>(vr, vi);
-    fft_dir<R, INV>(vr, vi);
-    if constexpr (G > 1) cross_warp_t1<INV>(vr, vi);
-  }
-
-  // Time layout -> tone layout, unscaled.
-  template <bool INV>
-  __device__ __forceinline__ void t2(float (&vr)[R], float (&vi)[R]) const {
-    if constexpr (G > 1) cross_warp_t2<INV>(vr, vi);
-    fft_dir<R, INV>(vr, vi);
-    twiddle_n<INV>(vr, vi);
-    lanes_dit<R, INV>(vr, vi, xtw, lane);
-  }
-};
 
 // The 16 path terms e^{i(ws cos theta_p + phi_p)} of the Jakes row `row`
 // of this half-warp at ws = (float)(2 pi fd) * s, one a lane (path lane
@@ -437,18 +239,7 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
 
   // ---- the block's tables and the channel's state --------------------
   if (tid == 0) *cnt = 0;
-  // Position e holds point r of thread (w, lane): e >> 5 = r*G + w = a.
-  for (int e = tid; e < N; e += blockDim.x) tw[e] = w_table(p, brev5(e & 31) * (e >> 5));
-  if (G > 1) {
-    for (int e = tid; e < 32 * G; e += blockDim.x)
-      tw3[e] = w_table(p, (32 * (e >> 5) * (e & 31)) & (N - 1));
-  }
-  // Stage i of the cross-lane DFTs, span h = 16 >> i: W_{2h}^{lane mod h}
-  // = W_N^{(lane mod h) N/(2h)} for a lane whose bit h is set, else 1.
-  for (int e = tid; e < 5 * 32; e += blockDim.x) {
-    const int i = e >> 5, l = e & 31, h = 16 >> i;
-    xtw[e] = (l & h) ? w_table(p, (l & (h - 1)) << (p.log_n - 5 + i)) : make_float2(1.0f, 0.0f);
-  }
+  build_tables<R, G>(tw, tw3, xtw, p.twr, p.twi, p.log_n);
   // The subcarrier of table position e (point r of thread (w, lane)): the
   // tone layout's index (OFDM) or the time layout's (SC-FDMA: x H sits
   // between the spread and T2).

@@ -41,9 +41,21 @@ runs the same equaliser and LLR tail, storing the plane or summing it
 
 At N = 1024 to 4096 every mode here also serves the JAX package's
 wideband four-step kernels (``fourstep_split_pallas.py``,
-``fourstep_pallas.py``): one radix-2 transform per block replaces their
-N1·N2 matmul split, which existed because dense DFT operands outgrew
-VMEM.
+``fourstep_pallas.py``): one transform per symbol replaces their N1·N2
+matmul split, which existed because dense DFT operands outgrew VMEM.
+
+Two forms run on the card (``csrc/demod_rows.cuh``, ``csrc/demod.cu``).
+The count (h plane and ``taps=``), the LLR plane and the sum at N = 128
+to 4096 take the warp-group form: a group of 1–8 warps holds one symbol
+in registers (4, 8, 16 points a lane to N 512, then 2, 4, 8 warps of 16),
+loaded straight from the sample planes in the transform's time layout,
+transformed by shuffles across lanes and register DFTs (kernel G's
+transform, ``csrc/warpfft.cuh``), its tones then taken in natural order
+through one shared-memory pass; a block takes a run of 32 symbols of one
+channel and stages h (one row a channel) or the W_N^k table of the
+``taps=`` mode once. N = 2 to 64, the ``despread`` modes and the TP
+stage-2 mode stay on the shared-memory tile: a block's symbols
+bit-reversed in shared memory and radix-2 stages a barrier each.
 
 The tensor-parallel stage-2 mode (``tp_stage2_llr``, port of
 ``sdr_tpu/parallel/tp.py::_stage2_llr_pallas``) takes one rank's digit
@@ -73,7 +85,7 @@ from sdr_tpu_torch.ops.modulation import _ints_to_bits
 from sdr_tpu_torch.ops.ofdm import ofdm_rx
 
 _IDX_DTYPES = (torch.int8, torch.int16, torch.int32)
-MAX_N_FFT = 4096  # two (symbols, N) f32 tiles in 48 KB of shared memory
+MAX_N_FFT = 4096  # both forms' widest: 8 warps of 16 points a lane; the tile's 32 KB row
 MAX_TAPS = 8  # the taps= mode's budget (demod_pallas.py:541)
 
 
@@ -286,8 +298,8 @@ def demod_llr(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
     log_n = _lib.log2_exact(N)
     bps = mod.bits_per_symbol
     if reduce_sum:
-        partials = torch.empty((lib.sdr_demod_llr_partials(B, S, log_n),), dtype=torch.float32,
-                               device=re.device)
+        partials = torch.empty((lib.sdr_demod_llr_partials(B, S, log_n, int(despread)),),
+                               dtype=torch.float32, device=re.device)
         out = torch.empty((1,), dtype=torch.float32, device=re.device)
     else:
         partials = None

@@ -105,10 +105,30 @@ def test_tx_kernel_matches_plain(dev, mod):
                 assert float((a - b).abs().max()) <= 1e-4
 
 
+# Kernel C at both sides of its tile / warp-group boundary (N 64 | 128)
+# and in every plan of the warp-group form (one warp a symbol to N 512,
+# then 2, 4, 8); B = 203 channels, S = 33 symbols: one past a block's run
+# of 32, so a block ends part-way through a channel.
+C_N_FFT = [64, 128, 256, 512, 1024, 2048, 4096]
+C_SHAPES = pytest.mark.parametrize("B,S", [(48, 8), (203, 33)], ids=["48x8", "203x33"])
+# The index plane's width: int16, int32, or the payload kernel's own
+# (int8 up to 7 bits a symbol).
+C_IDX = pytest.mark.parametrize("idx_dtype", ["payload", torch.int16, torch.int32],
+                                ids=["payload", "int16", "int32"])
+
+
+def _indices(idx, idx_dtype):
+    return idx if idx_dtype == "payload" else idx.to(idx_dtype)
+
+
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
-@pytest.mark.parametrize("h_syms", [1, 8])
-def test_demod_count_kernel_matches_plain(dev, mod, h_syms):
-    B, S, N, cp = 48, 8, 256, 64
+@pytest.mark.parametrize("h_syms", [1, "S"])
+@pytest.mark.parametrize("N", C_N_FFT)
+@C_SHAPES
+@C_IDX
+def test_demod_count_kernel_matches_plain(dev, mod, h_syms, N, B, S, idx_dtype):
+    cp = N // 4
+    h_syms = S if h_syms == "S" else h_syms
     ids = torch.arange(B, dtype=torch.int32, device=dev)
     idx = ka.payload_idx(S, N, mod.bits_per_symbol, 4, ids)
     nv = 1.0 / (10 ** 0.8 * mod.bits_per_symbol)
@@ -116,6 +136,7 @@ def test_demod_count_kernel_matches_plain(dev, mod, h_syms):
     hr = torch.randn((B, h_syms, N), generator=g).to(dev)
     hi = torch.randn((B, h_syms, N), generator=g).to(dev)
     re, im = kb.tx_channel(idx, cp, mod, noise_var=nv / N, seed=4, ch_ids=ids)
+    idx = _indices(idx, idx_dtype)
     got = _counted("demod_count", lambda: kc.demod_count(re, im, hr, hi, idx, cp, mod, nv))
     llr = kc.demod_chain(re, im, hr, hi, cp, mod, nv)
     want = kc.count_errors(llr, idx, mod.bits_per_symbol)
@@ -226,8 +247,10 @@ def test_fade_awgn_kernel_matches_plain(dev, h_syms):
 
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
 @pytest.mark.parametrize("L", [1, 3, 8])
-def test_demod_count_taps_kernel_matches_plain(dev, mod, L):
-    B, S, N, cp = 40, 8, 256, 64
+@pytest.mark.parametrize("N", C_N_FFT)
+@pytest.mark.parametrize("B,S", [(40, 8), (203, 33)], ids=["40x8", "203x33"])
+def test_demod_count_taps_kernel_matches_plain(dev, mod, L, N, B, S):
+    cp = N // 4
     ids = torch.arange(B, dtype=torch.int32, device=dev)
     idx = ka.payload_idx(S, N, mod.bits_per_symbol, 4, ids)
     nv = 1.0 / (10 ** 1.0 * mod.bits_per_symbol)
@@ -490,14 +513,22 @@ def _llr_close(got, want):
 
 
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
-@pytest.mark.parametrize("n_fft,h_syms,despread", [(64, 1, False), (256, 7, False),
+@pytest.mark.parametrize("n_fft,h_syms,despread", [(64, 1, False), (256, "S", False),
                                                    (1024, 1, False), (256, 1, True),
-                                                   (4096, 7, True)])
-def test_demod_llr_and_sum_kernels_match_plain(dev, mod, n_fft, h_syms, despread):
+                                                   (4096, "S", True), (64, "S", False),
+                                                   (128, 1, False), (128, "S", False),
+                                                   (512, 1, False), (1024, "S", False),
+                                                   (2048, 1, False), (4096, 1, False),
+                                                   (4096, "S", False)])
+@pytest.mark.parametrize("B,S", [(20, 7), (203, 33)], ids=["20x7", "203x33"])
+def test_demod_llr_and_sum_kernels_match_plain(dev, mod, n_fft, h_syms, despread, B, S):
     """Kernel C's LLR-plane and sum modes (and their despread forms)
-    against the plain plane; S = 7 rows is not a multiple of the rows per
-    block; the sum is deterministic."""
-    B, S, cp = 20, 7, n_fft // 4
+    against the plain plane; S = 7 rows is not a multiple of the tile's
+    rows per block, S = 33 one past the warp-group form's run of 32
+    symbols a block; h one row a channel or one a symbol; the sum is
+    deterministic."""
+    cp = n_fft // 4
+    h_syms = S if h_syms == "S" else h_syms
     g = torch.Generator(device="cpu").manual_seed(10)
     re, im = ((torch.randn((B, S, n_fft + cp), generator=g) / np.sqrt(2 * n_fft)).to(dev)
               for _ in range(2))
