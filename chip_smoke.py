@@ -18,7 +18,9 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    narrow plan's other shapes) at terminal-cl's sample count, in the
    kernels line under ``other_n`` of their entries; phase 2w does the same
    at phase 3i's shapes — config 3 (N 1024) at B × 64 (B's modes and C's
-   plane at B/4 × 64, the coded batch), N 2048 and config 5's shape
+   plane at B/4 × 64, the coded batch; B's flat and FIR modes at B × 64
+   too, the link's batch, held against the plain version channel slice by
+   slice), N 2048 and config 5's shape
    (N 4096) at B/2 × 16 — for B in every channel mode, C's count, plane
    and sums, D and F in their wideband mode and C's post-FFT mode
    (``llr_chain``), the ``K1`` line per N giving F's count beside C's on
@@ -139,7 +141,11 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    four-step, post-FFT or channels-last kernel they replace there),
    before it one ``phase 6 C`` line for each entry of kernel C's
    warp-group modes (its form, ms, bound, share of the bound, launches
-   and launches × (ms − bound ms)), then
+   and launches × (ms − bound ms)) and one ``phase 6 B`` line for each
+   mode and N at which phases 2 and 2w timed kernel B (its form — the
+   tile, or the warp-group plan R × G of ``csrc/tx_rows.cuh`` — ms, plain
+   ms, bound, share, the launches of its counter in that N's window and
+   launches × (ms − bound ms)), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -240,6 +246,15 @@ def c_form(name: str, n_fft: int) -> dict:
         return {"form": f"warp-group: {g} warp{'s' if g > 1 else ''} a symbol, {r} points a "
                         "lane in registers, shuffle DFTs, a block a run of 32 symbols"}
     return {"form": "shared-memory tile: radix-2 stages, a barrier each"}
+
+
+def b_form(n_fft: int) -> str:
+    """The form of kernel B at ``n_fft``: csrc/tx_rows.cuh's plan, or the tile."""
+    if n_fft >= 128:
+        r, g = (n_fft // 32, 1) if n_fft <= 512 else (16, n_fft // 512)
+        return (f"warp-group: plan R {r} x G {g} ({g} warp{'s' if g > 1 else ''} a symbol, {r} "
+                "points a lane), a block a run of 32 symbols")
+    return "shared-memory tile: radix-2 stages, a barrier each"
 
 
 def _check(ok: bool, msg: str) -> None:
@@ -407,10 +422,27 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         lambda: kb.tx_channel_plain(idx, CP, mod, hs_r, hs_i, tvar, seed=seed, ch_ids=ids),
     )
     nrow = B * S  # OFDM symbols in the phase-2 planes
-    report["tx"] = dict(max_abs_err=key_err, ms=ms, plain_ms=pms,
-                        **bound(nrow * N + 8 * nrow * (N + CP) + 12 * B,
-                                nrow * (fft_flops(N) + 10 * (N + CP)),
-                                nrow * (N + CP) * PHILOX_IMUL))
+    b_rows = []  # kernel B's timed modes, for the phase 6 B lines
+
+    def b_timed(mode, counter, n, cp_, b, s, idx_bytes, ms, pms, chan_bytes, sample_ops, keyed):
+        """Kernel B's bound for one timed mode — bytes: the indices, the two
+        output planes, the channel and (keyed) the channel ids; f32
+        operations: the inverse FFT and, a sample, the gain or the FIR and
+        the noise; keyed: a Philox call a sample — kept for its phase 6 B
+        line."""
+        rows = b * s
+        rep = dict(ms=ms, plain_ms=pms,
+                   **bound(rows * n * idx_bytes + 8 * rows * (n + cp_) + chan_bytes
+                           + (4 * b if keyed else 0),
+                           rows * (fft_flops(n) + sample_ops * (n + cp_)),
+                           rows * (n + cp_) * PHILOX_IMUL if keyed else 0))
+        b_rows.append(dict(rep, mode=mode, counter=counter, n_fft=n,
+                           shape=f"{b}x{s}x{n + cp_}"))
+        return rep
+
+    report["tx"] = dict(max_abs_err=key_err,
+                        **b_timed("flat gains, keyed", "tx", N, CP, B, S, 1, ms, pms, 8 * B, 10,
+                                  True))
     print(f"phase 2 B tx+channel ({B}x{S}x{N + CP}): injected-noise max abs diff {inj_err:.3g}, "
           f"keyed-noise max abs diff {key_err:.3g} (peak {peak:.3g}); "
           f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
@@ -420,9 +452,10 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     del got
     ms, pms = compare_times(lambda: kb.tx_chain(idx, CP, mod),
                             lambda: kb.tx_channel_plain(idx, CP, mod), reps=1)
+    off = b_timed("channel off", "tx_off", N, CP, B, S, 1, ms, pms, 0, 0, False)
+    report["tx_off"] = dict(off, max_abs_err=off_err)
     print(f"phase 2 B tx channel off ({B}x{S}x{N + CP}): max abs diff {off_err:.3g}; kernel "
-          f"{ms:.3f} ms, plain {pms:.3f} ms, bound "
-          f"{bound(nrow * N + 8 * nrow * (N + CP), nrow * fft_flops(N))['bound_ms']:.4f} ms")
+          f"{ms:.3f} ms, plain {pms:.3f} ms, {of_bound(off)}")
 
     # C: rows demod + error count on the AWGN 10 dB waveform.
     re, im = kb.tx_channel(idx, CP, mod, noise_var=tvar, seed=seed, ch_ids=ids)
@@ -525,26 +558,31 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     tx_shape = (B, S, N + CP)
     g_sym = chan.jakes_gains(seed, ids, S, 0.02)
     gs_r, gs_i = g_sym.real.contiguous(), g_sym.imag.contiguous()
-    check_modes(f"B tx+channel per-symbol gains ({B}x{S}x{N + CP})",
-                lambda **kw: kb.tx_channel(idx, CP, mod, gs_r, gs_i, tvar, **kw),
-                lambda **kw: kb.tx_channel_plain(idx, CP, mod, gs_r, gs_i, tvar, **kw), tx_shape)
+    rep = check_modes(f"B tx+channel per-symbol gains ({B}x{S}x{N + CP})",
+                      lambda **kw: kb.tx_channel(idx, CP, mod, gs_r, gs_i, tvar, **kw),
+                      lambda **kw: kb.tx_channel_plain(idx, CP, mod, gs_r, gs_i, tvar, **kw),
+                      tx_shape)
+    b_timed("per-symbol gains, keyed", "tx", N, CP, B, S, 1, rep["ms"], rep["plain_ms"],
+            8 * nrow, 10, True)
     t4_r = torch.tensor(pdp4, device=dev).expand(B, 4).contiguous()
     t4_i = torch.zeros_like(t4_r)
-    check_modes("B tx+FIR static 4 taps",
-                lambda **kw: kb.tx_channel(idx, CP, mod, noise_var=tvar, taps_r=t4_r,
-                                           taps_i=t4_i, **kw),
-                lambda **kw: kb.tx_channel_plain(idx, CP, mod, noise_var=tvar, taps_r=t4_r,
-                                                 taps_i=t4_i, **kw), tx_shape)
+    rep = check_modes("B tx+FIR static 4 taps",
+                      lambda **kw: kb.tx_channel(idx, CP, mod, noise_var=tvar, taps_r=t4_r,
+                                                 taps_i=t4_i, **kw),
+                      lambda **kw: kb.tx_channel_plain(idx, CP, mod, noise_var=tvar, taps_r=t4_r,
+                                                       taps_i=t4_i, **kw), tx_shape)
+    b_timed("FIR static 4 taps, keyed", "tx_taps", N, CP, B, S, 1, rep["ms"], rep["plain_ms"],
+            32 * B, 8 * 4 + 4, True)
     taps3 = chan.multipath_time_taps(seed, ids, pdp3, S, 0.02)
     t3_r, t3_i = taps3.real.contiguous(), taps3.imag.contiguous()
-    report["tx_taps"] = check_modes(
+    rep = check_modes(
         "B tx+FIR per-symbol 3 taps",
         lambda **kw: kb.tx_channel(idx, CP, mod, noise_var=tvar, taps_r=t3_r, taps_i=t3_i, **kw),
         lambda **kw: kb.tx_channel_plain(idx, CP, mod, noise_var=tvar, taps_r=t3_r, taps_i=t3_i,
                                          **kw), tx_shape)
-    report["tx_taps"].update(bound(nrow * N + 8 * nrow * (N + CP) + 24 * nrow + 4 * B,
-                                   nrow * (fft_flops(N) + (N + CP) * (8 * 3 + 4)),
-                                   nrow * (N + CP) * PHILOX_IMUL))
+    report["tx_taps"] = dict(rep, **b_timed("FIR per-symbol 3 taps, keyed", "tx_taps", N, CP, B,
+                                            S, 1, rep["ms"], rep["plain_ms"], 24 * nrow,
+                                            8 * 3 + 4, True))
 
     # C: taps= (3 taps per symbol) on the TDL waveform at 12 dB.
     nv12 = 1.0 / (10.0 ** 1.2 * bps)
@@ -1011,29 +1049,66 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         del got
         ms, pms = compare_times(lambda: kb.tx_chain(idx_p, cp_w, mod_w),
                                 lambda: kb.tx_channel_plain(idx_p, cp_w, mod_w), reps=1)
-        tx_bytes = rows_p * n_w + 8 * rows_p * (n_w + cp_w)
-        off_bound = bound(tx_bytes, rows_p * fft_flops(n_w))["bound_ms"]
+        ib = idx_w.element_size()
+        off = b_timed("channel off", "tx_off", n_w, cp_w, b_p, s_w, ib, ms, pms, 0, 0, False)
         print(f"phase 2w B tx channel off {tag_p}: max abs diff {off_err:.3g}; kernel {ms:.3f} ms, "
-              f"plain {pms:.3f} ms, bound {off_bound:.4f} ms")
-        for label, kw, name in (
-            ("flat gains", dict(hs_r=gw_r, hs_i=gw_i), "tx"),
+              f"plain {pms:.3f} ms, {of_bound(off)}")
+        # (label, channel, counter, the channel's bytes, f32 operations a sample)
+        b_modes = (
+            ("flat gains", dict(hs_r=gw_r, hs_i=gw_i), "tx", 8 * b_p, 10),
             ("per-symbol gains", dict(hs_r=gs_w.real.contiguous(), hs_i=gs_w.imag.contiguous()),
-             None),
-            ("FIR 5 taps (config 5's PDP)", dict(taps_r=tw_r[:b_p], taps_i=tw_i[:b_p]), "tx_taps"),
-        ):
+             None, 8 * rows_p, 10),
+            ("FIR 5 taps (config 5's PDP)", dict(taps_r=tw_r[:b_p], taps_i=tw_i[:b_p]), "tx_taps",
+             40 * b_p, 8 * 5 + 4),
+        )
+        for label, kw, name, chan_bytes, ops in b_modes:
             rep = check_modes(f"B tx+{label} {tag_p}",
                               lambda **k: kb.tx_channel(idx_p, cp_w, mod_w, noise_var=tvar_w,
                                                         **kw, **k),
                               lambda **k: kb.tx_channel_plain(idx_p, cp_w, mod_w,
                                                               noise_var=tvar_w, **kw, **k),
                               shape_p)
+            rep.update(b_timed(f"{label}, keyed", name or "tx", n_w, cp_w, b_p, s_w, ib,
+                               rep["ms"], rep["plain_ms"], chan_bytes, ops, True))
             if name:
-                # the channel (5 complex taps or one gain) and the channel ids
-                chan_bytes = (40 if name == "tx_taps" else 8) * b_p + 4 * b_p
-                fir = (n_w + cp_w) * 8 * 5 if name == "tx_taps" else 10 * (n_w + cp_w)
-                wide_report[(name, n_w)] = dict(rep, **bound(
-                    tx_bytes + chan_bytes, rows_p * (fft_flops(n_w) + fir),
-                    rows_p * (n_w + cp_w) * PHILOX_IMUL))
+                wide_report[(name, n_w)] = rep
+        if b_w > b_p:
+            # The flat and FIR modes at the link's batch (phase 3i's b_w x s_w),
+            # held against the plain version channel slice by slice.
+            g_all = chan.rayleigh_flat(seed, ids_w)[:, 0, 0]
+            for label, kw, name, chan_bytes, ops in (
+                ("flat gains", dict(hs_r=g_all.real.contiguous(), hs_i=g_all.imag.contiguous()),
+                 "tx", 8 * b_w, 10),
+                ("FIR 5 taps (config 5's PDP)", dict(taps_r=tw_r, taps_i=tw_i), "tx_taps",
+                 40 * b_w, 8 * 5 + 4),
+            ):
+                def b_kernel():
+                    return kb.tx_channel(idx_w, cp_w, mod_w, noise_var=tvar_w, seed=seed,
+                                         ch_ids=ids_w, **kw)
+
+                def b_plain(sl):
+                    return kb.tx_channel_plain(idx_w[sl], cp_w, mod_w, noise_var=tvar_w,
+                                               seed=seed, ch_ids=ids_w[sl],
+                                               **{k: v[sl] for k, v in kw.items()})
+
+                got = b_kernel()
+                err = peak = 0.0
+                for sl in parts:
+                    want = b_plain(sl)
+                    err = max(err, plane_err([g[sl] for g in got], want))
+                    peak = max(peak, plane_peak(want))
+                    del want
+                _check(err <= 1e-5 * peak, f"kernel B {tag} {label}: max abs diff {err:g}")
+                del got
+                ms, pms = compare_times(b_kernel, lambda: each(b_plain, parts), reps=2)
+                link = b_timed(f"{label}, keyed", name, n_w, cp_w, b_w, s_w, ib, ms, pms,
+                               chan_bytes, ops, True)
+                wide_report[(name, n_w)]["link_batch"] = dict(link, max_abs_err=err,
+                                                              shape=f"{b_w}x{s_w}x{n_w + cp_w}")
+                print(f"phase 2w B tx+{label} {tag} (the link's batch): max abs diff keyed "
+                      f"{err:.3g} (peak {peak:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms "
+                      f"(in {len(parts)} channel slices); {of_bound(link)}")
+                torch.cuda.empty_cache()
         # The FIR waveform (keyed noise) at b_w channels through C, F and the
         # post-FFT mode.
         re, im = kb.tx_channel(idx_w, cp_w, mod_w, noise_var=tvar_w, seed=seed, ch_ids=ids_w,
@@ -2148,7 +2223,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     sources = {
         "payload": ("sdr_tpu_torch/csrc/payload.cu", "sdr_tpu/kernels/channel_pallas.py:233"),
         "tx": ("sdr_tpu_torch/csrc/tx.cu", "sdr_tpu/kernels/tx_pallas.py:329"),
-        "tx_taps": ("sdr_tpu_torch/csrc/tx.cu", "sdr_tpu/kernels/tx_pallas.py:329"),
+        "tx_taps": ("sdr_tpu_torch/csrc/tx_fir.cu", "sdr_tpu/kernels/tx_pallas.py:329"),
+        "tx_off": ("sdr_tpu_torch/csrc/tx.cu", "sdr_tpu/kernels/tx_pallas.py:265"),
         "demod_count": ("sdr_tpu_torch/csrc/demod_count.cu",
                         "sdr_tpu/kernels/demod_pallas.py:500"),
         "demod_count_taps": ("sdr_tpu_torch/csrc/demod_count.cu",
@@ -2215,6 +2291,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     # The form of C, D and F each entry ran (csrc/demod_rows.cuh's plans,
     # demod.cu's tile, csrc/demod_cl.cuh's plans).
     def cl_form(name, n_fft):
+        if name in ("tx", "tx_taps", "tx_off"):
+            return {"form": b_form(n_fft)}
         if name in C_ROWS_MODES or name in C_TILE_MODES:
             return c_form(name, n_fft)
         if not sources.get(name, ("",))[0].startswith("sdr_tpu_torch/csrc/demod_cl"):
@@ -2252,6 +2330,16 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                   f"{k['bound_ms']:.4f} ms ({k['bound_by']}), share "
                   f"{k['bound_ms'] / k['ms']:.4f}, launches {k['launches']}, launches x gap "
                   f"{k['launches'] * (k['ms'] - k['bound_ms']):.2f}")
+    # Kernel B's timed modes: form, time, share of the bound and the
+    # launches of its counter in the window of its N (phases 3-4 at N 256,
+    # 3i's window at N 1024-4096).
+    for r in b_rows:
+        n = r["n_fft"]
+        n_launch = launches[r["counter"]] if n == N else launches_at[n][r["counter"]]
+        print(f"phase 6 B {r['mode']} N {n} ({r['shape']}; {b_form(n)}): {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"share {r['bound_ms'] / r['ms']:.4f}, launches of {r['counter']} {n_launch}, "
+              f"launches x gap {n_launch * (r['ms'] - r['bound_ms']):.2f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

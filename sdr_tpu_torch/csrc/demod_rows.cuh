@@ -105,8 +105,7 @@ struct RowsArgs {
 
 // N = 32 R G from 2^kRowsMinLog: below it the tile (demod.cu) runs.
 constexpr int kRowsMinLog = 7;
-// Symbols of one channel a block takes.
-constexpr int kRun = 32;
+using sdr::kRun;
 
 // Per-block partials of the warp-group sum: one a block.
 inline long long rows_blocks(int B, int S) { return (long long)B * ((S + kRun - 1) / kRun); }
@@ -116,10 +115,6 @@ namespace {
 constexpr int kMaxTaps = 8;
 constexpr int kRowsWarps = sdr::kThreads / 32;
 enum : int { kCount = 0, kPlane = 1, kSum = 2 };
-
-// Float2 stride of the stage's rows: writes (r·G + w)·SP + lane and reads
-// in natural order both conflict-free a half-warp.
-__host__ __device__ constexpr int stage_stride(int A) { return 32 + (A >= 16 ? 1 : 16 / A); }
 
 // Byte offsets of the block's shared buffers, the same on the host (its
 // size) and the device (its carving).
@@ -152,7 +147,7 @@ __host__ __device__ inline RowsCarve rows_carve(int R, int G, const RowsArgs& a,
   c.tw = rows_take(off, 8 * N);
   c.tw3 = rows_take(off, G > 1 ? 8 * 32 * G : 0);
   c.xtw = rows_take(off, 8 * 5 * 32);
-  c.stg = rows_take(off, 8 * A * stage_stride(A) * groups);
+  c.stg = rows_take(off, 8 * A * sdr::stage_stride(A) * groups);
   c.hw = rows_take(off, table ? 8 * N : 0);
   c.hs = rows_take(off, table ? 0 : 8 * N * groups);
   c.ix = rows_take(off, ix_bytes * N * groups);
@@ -160,28 +155,6 @@ __host__ __device__ inline RowsCarve rows_carve(int R, int G, const RowsArgs& a,
   c.red = rows_take(off, 4 * kRowsWarps + 4);
   c.total = off;
   return c;
-}
-
-// Index k of a staged index row of width `bytes`.
-__device__ __forceinline__ int staged_index(const unsigned char* ix, int bytes, int k) {
-  if (bytes == 1) return reinterpret_cast<const int8_t*>(ix)[k];
-  if (bytes == 2) return reinterpret_cast<const int16_t*>(ix)[k];
-  return reinterpret_cast<const int32_t*>(ix)[k];
-}
-
-// Copies `bytes` (a multiple of 16, both ends 16-byte aligned) from device
-// to shared memory by cp.async, 16 bytes a thread and step, thread t of n;
-// the copies land by cp_async_wait_all.
-__device__ __forceinline__ void copy_async(void* dst, const void* src, int bytes, int t, int n) {
-  for (int c = 16 * t; c < bytes; c += 16 * n) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                     (unsigned)__cvta_generic_to_shared(static_cast<char*>(dst) + c)),
-                 "l"(static_cast<const char*>(src) + c)
-                 : "memory");
-  }
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 template <int M, bool BPSK, int MODE, int R, int G>
@@ -193,7 +166,7 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
   // more groups in flight) it loads each symbol as it starts it. Both were
   // timed at every N; each plan keeps the one faster for most of its modes.
   constexpr bool PF = R == 16;
-  constexpr int N = C::N, A = C::A, SP = stage_stride(A), kGroups = kRowsWarps / G;
+  constexpr int N = C::N, A = C::A, SP = sdr::stage_stride(A), kGroups = kRowsWarps / G;
   constexpr int BPS = BPSK ? 1 : 2 * M;
   extern __shared__ __align__(16) unsigned char rows_smem[];
   unsigned char* smem = rows_smem;
@@ -261,11 +234,12 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
     if (MODE == kCount || per_sym_h) {
       sdr::group_sync<G>(group);
       if (MODE == kCount)
-        copy_async(ix, static_cast<const char*>(a.idx) + e0 * ix_bytes, N * ix_bytes, t, 32 * G);
+        sdr::copy_async(ix, static_cast<const char*>(a.idx) + e0 * ix_bytes, N * ix_bytes, t,
+                        32 * G);
       if (per_sym_h) {
         const long long h0 = ((long long)b * a.h_syms + s) << a.log_n;
-        copy_async(hsr, a.hr + h0, 4 * N, t, 32 * G);
-        copy_async(hsi, a.hi + h0, 4 * N, t, 32 * G);
+        sdr::copy_async(hsr, a.hr + h0, 4 * N, t, 32 * G);
+        sdr::copy_async(hsi, a.hi + h0, 4 * N, t, 32 * G);
       }
     }
     float vr[R], vi[R];
@@ -289,7 +263,7 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
       const long long t0 = row * L + ln;
       wg[ln] = make_float2(__ldg(a.taps_r + t0), __ldg(a.taps_i + t0));
     }
-    if (MODE == kCount || per_sym_h) cp_async_wait_all();
+    if (MODE == kCount || per_sym_h) sdr::cp_async_wait_all();
     sdr::group_sync<G>(group);
 
     // The tail, tone k = 32 G i + t in natural order.
@@ -306,7 +280,8 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
         h = make_float2(hsr[k], hsi[k]);
       if constexpr (MODE == kCount) {
         const int bits = sdr::hard_bits<M, BPSK>(y.x, y.y, h.x, h.y, norm);
-        err += __popc((unsigned)((bits ^ staged_index(ix, ix_bytes, k)) & ((1 << BPS) - 1)));
+        const int v = sdr::staged_index(ix, ix_bytes, k);
+        err += __popc((unsigned)((bits ^ v) & ((1 << BPS) - 1)));
       } else {
         float llr[BPS];
         sdr::mmse_llrs<M, BPSK>(y.x, y.y, h.x, h.y, a.inv_nv, tab, llr);

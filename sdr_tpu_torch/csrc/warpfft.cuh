@@ -1,5 +1,6 @@
-// The warp-resident transform shared by kernels G (csrc/mc.cuh) and C's
-// warp-group form (csrc/demod_rows.cuh): a group of G warps holds one
+// The warp-resident transform shared by kernel G (csrc/mc.cuh) and the
+// warp-group forms of kernels B (csrc/tx_rows.cuh) and C
+// (csrc/demod_rows.cuh), and what those two forms share around it: a group of G warps holds one
 // N-point symbol in registers, R points a lane, N = 32·R·G, and runs its
 // DFTs across lanes by shuffles and in registers, with no bit-reversal
 // pass and, for G = 1, no barrier.
@@ -16,15 +17,47 @@
 // (the cross-lane stages as decimation in time, bit-reversed in, natural
 // out), from the time layout to the tone layout. Either runs forward or
 // inverse, unscaled. The twiddles come from shared tables that
-// build_tables fills once a block.
+// build_tables fills once a block. B's and C's forms take a run of kRun
+// symbols of one channel a block, copy each symbol's index row into a
+// group's shared stage by cp.async, and pass the points once through a
+// padded stage (stage_stride) between the tone layout and natural order.
 #pragma once
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "regfft.cuh"
 
 namespace sdr {
 
 constexpr unsigned kFull = 0xffffffffu;
+// Symbols of one channel a block of B's or C's warp-group form takes.
+constexpr int kRun = 32;
+
+// Float2 stride of a stage's rows: writes (r·G + w)·SP + lane (the tone
+// layout) and reads in natural order both conflict-free a half-warp.
+__host__ __device__ constexpr int stage_stride(int A) { return 32 + (A >= 16 ? 1 : 16 / A); }
+
+// Index k of a staged index row of width `bytes`.
+__device__ __forceinline__ int staged_index(const unsigned char* ix, int bytes, int k) {
+  if (bytes == 1) return reinterpret_cast<const int8_t*>(ix)[k];
+  if (bytes == 2) return reinterpret_cast<const int16_t*>(ix)[k];
+  return reinterpret_cast<const int32_t*>(ix)[k];
+}
+
+// Copies `bytes` (a multiple of 16, both ends 16-byte aligned) from device
+// to shared memory by cp.async, 16 bytes a thread and step, thread t of n;
+// the copies land by cp_async_wait_all.
+__device__ __forceinline__ void copy_async(void* dst, const void* src, int bytes, int t, int n) {
+  for (int c = 16 * t; c < bytes; c += 16 * n) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(static_cast<char*>(dst) + c)),
+                 "l"(static_cast<const char*>(src) + c)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
 
 __device__ __forceinline__ int brev5(int lane) { return (int)(__brev((unsigned)lane) >> 27); }
 

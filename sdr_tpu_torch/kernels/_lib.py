@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 )
 
 # Launch counters, one per kernel and mode: "tx_taps" is kernel B's FIR
-# mode, "demod_count_taps" and "demod_count_despread" kernel C's taps=
+# mode, "tx_off" its channel-off mode (no gain, no FIR, no noise), "demod_count_taps" and "demod_count_despread" kernel C's taps=
 # and despread modes, "demod_llr"/"demod_sum" (and their "_despread"
 # forms) C's LLR-plane and sum modes, "demod_llr_cl"/"demod_llr_cl_bf16"
 # F's LLR mode, "*_in_bf16" D's and F's modes on bf16 sample planes
@@ -48,7 +48,7 @@ NVCC_FLAGS = (
 # kernel H (rows layout, flooding; "_t" transposed, "_layered" the layered
 # schedule), "llr_chain"/"llr_chain_sum" C's post-FFT mode,
 # "tp_stage2_llr" C's tensor-parallel stage-2 mode.
-LAUNCHES = {"payload": 0, "tx": 0, "tx_taps": 0, "demod_count": 0, "demod_count_taps": 0,
+LAUNCHES = {"payload": 0, "tx": 0, "tx_taps": 0, "tx_off": 0, "demod_count": 0, "demod_count_taps": 0,
             "demod_count_despread": 0, "demod_sum_cl": 0, "fade_awgn": 0,
             "demod_count_cl": 0, "mc_count": 0, "demod_llr": 0, "demod_sum": 0,
             "demod_llr_despread": 0, "demod_sum_despread": 0, "demod_llr_cl": 0,

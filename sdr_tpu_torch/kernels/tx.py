@@ -27,15 +27,19 @@ Noise modes:
   0) on ``seed ^ ROLE_NOISE``, Box–Muller on words 0 and 1;
 - neither: channel off (``tx_chain``), the waveform alone.
 
-At N = 1024 to 4096 the kernel also serves the JAX package's wideband
-TX (``fourstep_tx_split_pallas.py::tx_chain_fourstep2``,
-``fourstep_tx_pallas.py::tx_chain_fourstep``): one radix-2 transform per
-block replaces their N1·N2 matmul split.
+At N = 128 to 4096 the kernel runs its warp-group form
+(``csrc/tx_rows.cuh``: a symbol in the registers of 1–8 warps, the
+inverse DFT by shuffles, a block a run of 32 symbols of one channel), which
+also serves the JAX package's wideband TX
+(``fourstep_tx_split_pallas.py::tx_chain_fourstep2``,
+``fourstep_tx_pallas.py::tx_chain_fourstep``) in place of their N1·N2
+matmul split; N = 2 to 64 runs a shared-memory tile.
 
 On a CPU tensor the plain version (``tx_channel_plain``) runs; on a
-CUDA tensor the CUDA kernel (``csrc/tx.cu``) runs, or the call raises.
-The FIR mode counts its launches under ``tx_taps``, the others under
-``tx``.
+CUDA tensor the CUDA kernel runs (``csrc/tx.cu`` without the FIR,
+``csrc/tx_fir.cu`` with it), or the call raises. The FIR mode counts its
+launches under ``tx_taps``, the channel-off mode (``tx_chain``: no gain,
+no FIR, no noise) under ``tx_off``, the others under ``tx``.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from sdr_tpu_torch.ops.modulation import constellation
 from sdr_tpu_torch.ops.ofdm import ofdm_tx
 
 _IDX_DTYPES = (torch.int8, torch.int16, torch.int32)
-MAX_N_FFT = 4096  # two (symbols, N) f32 tiles in 48 KB of shared memory
+MAX_N_FFT = 4096  # the widest plan of the warp-group form (8 warps of 16 points a lane)
 MAX_TAPS = 16  # the FIR's tap budget (the TPU kernel's, fast.py:283-291)
 
 
@@ -143,6 +147,8 @@ def tx_channel(idx, cp_len: int, mod: Modulation, hs_r=None, hs_i=None,
     if hs_r is not None and taps_r is not None:
         raise ValueError("tx: taps and scalar gains are mutually exclusive")
     B, S, N = idx.shape
+    if N >= 128 and idx.data_ptr() % 16:
+        raise ValueError("tx kernel: the index plane must start 16-byte aligned (cp.async rows)")
     L = N + cp_len
     operands = [idx]
     h_syms = 0
@@ -184,9 +190,10 @@ def tx_channel(idx, cp_len: int, mod: Modulation, hs_r=None, hs_i=None,
                   _lib.ptr(ch_ids) if mode == 2 else None,
                   k0, k1, _sigma(noise_var), _lib.stream())
     if taps_r is None:
+        counter = "tx_off" if hs_r is None and mode == 0 else "tx"
         rc = _lib.lib().sdr_tx(*common, _lib.ptr(hs_r), _lib.ptr(hs_i), h_syms, *noise_args)
-        _lib.check(rc, "tx")
-        _lib.LAUNCHES["tx"] += 1
+        _lib.check(rc, counter)
+        _lib.LAUNCHES[counter] += 1
     else:
         rc = _lib.lib().sdr_tx_fir(*common, taps_r.data_ptr(), taps_i.data_ptr(), n_taps,
                                    int(per_sym), *noise_args)

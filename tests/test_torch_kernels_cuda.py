@@ -79,30 +79,56 @@ def test_payload_kernel_partial_blocks(dev, shape, bps):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
-def test_tx_kernel_matches_plain(dev, mod):
-    B, S, N, cp = 40, 8, 256, 64
-    g = torch.Generator(device="cpu").manual_seed(1)
-    idx = torch.randint(0, 1 << mod.bits_per_symbol, (B, S, N), generator=g).to(dev, torch.int32)
-    hs_r = torch.randn(B, generator=g).to(dev)
-    hs_i = torch.randn(B, generator=g).to(dev)
-    noise = tuple(torch.randn((B, S, N + cp), generator=g).to(dev) for _ in range(2))
+# Kernel B at both sides of its tile / warp-group boundary (N 64 | 128), in
+# every plan of the warp-group form, with config 2's CP ratio (N/4), no CP,
+# and rows of (N + cp) % 4 == 2 and odd (the 8-byte and scalar stores).
+TX_N_CP = [(64, 16), (128, 32), (256, 64), (512, 128), (1024, 128), (2048, 256), (4096, 512),
+           (128, 0), (512, 6), (4096, 3)]
+TX_N_CP_IDS = [f"N{n}cp{c}" for n, c in TX_N_CP]
+
+
+def _tx_indices(dev, B, S, N, mod, idx_dtype, seed):
+    """Payload-kernel indices (int8 up to 7 bits a symbol) in the given width."""
     ids = torch.arange(B, dtype=torch.int32, device=dev)
+    idx = ka.payload_idx(S, N, mod.bits_per_symbol, seed, ids)
+    return idx if idx_dtype == "payload" else idx.to(idx_dtype)
+
+
+def _tx_close(got, want, keyed, off=False):
+    """Keyed noise and channel off: 1e-5 of the peak; injected: 1e-4 absolute."""
+    for a, b in zip(got, want):
+        err = float((a - b).abs().max())
+        assert err <= (1e-5 * float(b.abs().max()) if keyed or off else 1e-4), err
+
+
+@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
+@pytest.mark.parametrize("N,cp", TX_N_CP, ids=TX_N_CP_IDS)
+@pytest.mark.parametrize("B,S,idx_dtype", [(40, 8, "payload"), (203, 33, "payload"),
+                                           (24, 13, torch.int16), (24, 13, torch.int32)],
+                         ids=["40x8-payload", "203x33-payload", "24x13-int16", "24x13-int32"])
+def test_tx_kernel_matches_plain(dev, mod, N, cp, B, S, idx_dtype):
+    """Kernel B with the channel off and with complex gains per link ((B,)
+    and (B, 1)) and per symbol ((B, S)), injected and keyed noise. B = 203
+    and S = 33: a block's run of 32 symbols ends part-way through a channel."""
+    idx = _tx_indices(dev, B, S, N, mod, idx_dtype, 1)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    flat = tuple(torch.randn(B, generator=g).to(dev) for _ in range(2))
+    per_sym = tuple(torch.randn((B, S), generator=g).to(dev) for _ in range(2))
+    noise = tuple(torch.randn((B, S, N + cp), generator=g).to(dev) for _ in range(2))
+    ids = torch.arange(B, dtype=torch.int32, device=dev) * 5 + 2
     tvar = 1e-3
     cases = [
         dict(),
-        dict(hs_r=hs_r, hs_i=hs_i, noise_var=tvar, noise=noise),
         dict(noise_var=tvar, seed=3, ch_ids=ids),
-        dict(hs_r=hs_r, hs_i=hs_i, noise_var=tvar, seed=3, ch_ids=ids),
+        dict(hs_r=flat[0], hs_i=flat[1], noise_var=tvar, noise=noise),
+        dict(hs_r=flat[0][:, None], hs_i=flat[1][:, None], noise_var=tvar, seed=3, ch_ids=ids),
+        dict(hs_r=per_sym[0], hs_i=per_sym[1], noise_var=tvar, noise=noise),
+        dict(hs_r=per_sym[0], hs_i=per_sym[1], noise_var=tvar, seed=3, ch_ids=ids),
     ]
     for kw in cases:
-        got = _counted("tx", lambda: kb.tx_channel(idx, cp, mod, **kw))
+        got = _counted("tx" if kw else "tx_off", lambda: kb.tx_channel(idx, cp, mod, **kw))
         want = kb.tx_channel_plain(idx, cp, mod, **kw)
-        for a, b in zip(got, want):
-            if "seed" in kw:
-                assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
-            else:
-                assert float((a - b).abs().max()) <= 1e-4
+        _tx_close(got, want, "seed" in kw, off=not kw)
 
 
 # Kernel C at both sides of its tile / warp-group boundary (N 64 | 128)
@@ -205,28 +231,51 @@ def _close_planes(got, want, keyed):
 
 @pytest.mark.parametrize("mod", [Modulation.QPSK, Modulation.QAM16, Modulation.QAM1024],
                          ids=lambda m: m.value)
-@pytest.mark.parametrize("kind", ["gains_per_symbol", "taps_static", "taps_per_symbol"])
-def test_tx_channel_modes_match_plain(dev, mod, kind):
-    """Kernel B's per-symbol gains and FIR modes, injected then keyed
-    noise; S = 13 is not a multiple of the symbols per chunk."""
-    B, S, N, cp = 24, 13, 256, 64
+@pytest.mark.parametrize("kind", ["taps_static", "taps_per_symbol"])
+@pytest.mark.parametrize("L", [1, 5, 16])
+@pytest.mark.parametrize("N,cp", TX_N_CP, ids=TX_N_CP_IDS)
+@pytest.mark.parametrize("B,S,idx_dtype", [(24, 13, torch.int16), (203, 33, "payload")],
+                         ids=["24x13-int16", "203x33-payload"])
+def test_tx_channel_modes_match_plain(dev, mod, kind, L, N, cp, B, S, idx_dtype):
+    """Kernel B's FIR, static and per-symbol taps, injected then keyed noise.
+    S = 13 is not a multiple of the tile's symbols per chunk; at S = 33 the
+    history of the FIR crosses a run of 32 symbols (one block to the next)."""
+    idx = _tx_indices(dev, B, S, N, mod, idx_dtype, 5)
     g = torch.Generator(device="cpu").manual_seed(5)
-    idx = torch.randint(0, 1 << mod.bits_per_symbol, (B, S, N), generator=g).to(dev, torch.int16)
     ids = torch.arange(B, dtype=torch.int32, device=dev) * 3
     noise = tuple(torch.randn((B, S, N + cp), generator=g).to(dev) for _ in range(2))
-    if kind == "gains_per_symbol":
-        ch = dict(hs_r=torch.randn((B, S), generator=g).to(dev),
-                  hs_i=torch.randn((B, S), generator=g).to(dev))
-        counter = "tx"
-    else:
-        shape = (B, 16) if kind == "taps_static" else (B, S, 16)
-        ch = dict(taps_r=(torch.randn(shape, generator=g) * 0.3).to(dev),
-                  taps_i=(torch.randn(shape, generator=g) * 0.3).to(dev))
-        counter = "tx_taps"
+    shape = (B, L) if kind == "taps_static" else (B, S, L)
+    ch = dict(taps_r=(torch.randn(shape, generator=g) * 0.3).to(dev),
+              taps_i=(torch.randn(shape, generator=g) * 0.3).to(dev))
     for kw in (dict(noise=noise), dict(seed=8, ch_ids=ids)):
-        got = _counted(counter, lambda: kb.tx_channel(idx, cp, mod, noise_var=1e-3, **ch, **kw))
+        got = _counted("tx_taps", lambda: kb.tx_channel(idx, cp, mod, noise_var=1e-3, **ch, **kw))
         want = kb.tx_channel_plain(idx, cp, mod, noise_var=1e-3, **ch, **kw)
         _close_planes(got, want, "seed" in kw)
+
+
+@pytest.mark.parametrize("N", [64, 128, 256, 1024, 4096])
+@pytest.mark.parametrize("kind", ["gains_flat", "gains_per_symbol", "taps_static",
+                                  "taps_per_symbol"])
+def test_tx_keyed_split_equals_full(dev, N, kind):
+    """Keyed noise depends on the channel id alone: channels [0, B/2) run
+    alone give the full run's first half, bit for bit."""
+    B, S, cp = 203, 33, N // 8
+    mod = Modulation.QAM16
+    idx = _tx_indices(dev, B, S, N, mod, "payload", 9)
+    ids = torch.arange(B, dtype=torch.int32, device=dev) + 1000
+    g = torch.Generator(device="cpu").manual_seed(9)
+    shape = {"gains_flat": (B,), "gains_per_symbol": (B, S), "taps_static": (B, 5),
+             "taps_per_symbol": (B, S, 5)}[kind]
+    ch = [(torch.randn(shape, generator=g) * 0.5).to(dev) for _ in range(2)]
+    keys = ("hs_r", "hs_i") if kind.startswith("gains") else ("taps_r", "taps_i")
+    h = B // 2
+
+    def run(sl):
+        kw = {k: v[sl] for k, v in zip(keys, ch)}
+        return kb.tx_channel(idx[sl], cp, mod, noise_var=1e-3, seed=11, ch_ids=ids[sl], **kw)
+
+    full, half = run(slice(None)), run(slice(0, h))
+    assert all(torch.equal(a[:h], b) for a, b in zip(full, half))
 
 
 @pytest.mark.parametrize("h_syms", [0, 1, 7])
@@ -334,6 +383,9 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         kb.tx_channel(torch.zeros((2, 2, 64), dtype=torch.int32, device=dev), 16, mod,
                       taps_r=torch.zeros((2, 17), device=dev),
                       taps_i=torch.zeros((2, 17), device=dev))
+    with pytest.raises(ValueError):  # an index plane off the 16-byte grid (N >= 128)
+        kb.tx_chain(torch.zeros(2 * 2 * 128 + 1, dtype=torch.int8, device=dev)[1:].view(2, 2, 128),
+                    32, mod)
     with pytest.raises(ValueError):
         kd.demod_count_cl(*(torch.zeros((80, 32), device=dev),) * 2,
                           *(torch.zeros((64, 32), device=dev),) * 2,
