@@ -22,11 +22,13 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    too, the link's batch, held against the plain version channel slice by
    slice), N 2048 and config 5's shape
    (N 4096) at B/2 × 16 — for B in every channel mode, C's count, plane
-   and sums, D and F in their wideband mode and C's post-FFT mode
-   (``llr_chain``), the ``K1`` line per N giving F's count beside C's on
-   the same tones and each mode's share of its bound (C's count, sum
-   and plane at N 128–4096 run its warp-group form, ``csrc/
-   demod_rows.cuh``; the form each entry ran is its ``form``); then holds the staged
+   and sums, C's despread count (at the link's batch) and plane (at the
+   coded batch) on an SC-FDMA waveform, D and F in their wideband mode
+   and C's post-FFT mode (``llr_chain``), the ``K1`` line per N giving
+   F's count beside C's on the same tones and each mode's share of its
+   bound (C's count, sum and plane, each also with the despread, at
+   N 128–4096 run its warp-group form, ``csrc/demod_rows.cuh``; the form
+   each entry ran is its ``form``); then holds the staged
    channel route (plain FIR + kernel E) against the fused one (kernel B's
    FIR); kernel G in its injected and keyed modes (five channels,
    SC-FDMA, config 3's N 1024 and config 5's N 4096), with its bound
@@ -107,7 +109,8 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    ``demod_sum_chain_cl``, ``demod_count_chain_cl``,
    ``demod_llr_chain_cl``, ``demod_chain`` (sum) and
    ``demod_chain_hybrid`` at N 1024, 2048 and 4096, every sum within 1e-5
-   of the plain sum (CUDA events);
+   of the plain sum, and the SC-FDE receive (``demod_count_chain`` and
+   ``demod_chain`` with ``despread``; the sum at N 4096) (CUDA events);
    5. the parallel layer: ``parallel.dryrun.dryrun_multichip`` on 4
    gloo ranks sharing the one card (spawned; the library built above is
    only loaded there) — TP at BASELINE config 5's full width (256 × 64,
@@ -232,19 +235,33 @@ def tail_flops(mod) -> float:
     return 12.0 + axes * (3 * L + 2 * m if L <= 4 else 12 * m)
 
 
+def despread_flops(mod, n: int, rows: int, h_rows: int, count: bool = False) -> float:
+    """The despread (SC-FDE) receive of ``rows`` n-point symbols with
+    ``h_rows`` rows of h: per symbol the forward and the inverse transform;
+    per tone the MMSE weighting (6) and the scale (2), then the hard
+    decisions (count: 3 a bit, as hard_bits) or the max-log LLRs
+    (tail_flops less its one-tap equalisation); per h row and tone the
+    MMSE weight and its bias term (9)."""
+    axes = 1 if mod.bits_per_symbol == 1 else 2
+    tone = 3.0 * axes * mod.bits_per_axis if count else tail_flops(mod) - 12
+    return rows * (2 * fft_flops(n) + n * (8 + tone)) + h_rows * n * 9.0
+
+
 # Kernel C's modes: those the warp-group form (csrc/demod_rows.cuh) takes
-# at N 128-4096, and those that stay on the shared-memory tile (demod.cu).
-C_ROWS_MODES = ("demod_count", "demod_count_taps", "demod_llr", "demod_sum")
-C_TILE_MODES = ("demod_count_despread", "demod_llr_despread", "demod_sum_despread",
-                "tp_stage2_llr")
+# at N 128-4096, and the one that stays on the shared-memory tile (demod.cu).
+C_ROWS_MODES = ("demod_count", "demod_count_taps", "demod_llr", "demod_sum",
+                "demod_count_despread", "demod_llr_despread", "demod_sum_despread")
+C_TILE_MODES = ("tp_stage2_llr",)
 
 
 def c_form(name: str, n_fft: int) -> dict:
     """The form of kernel C that mode ``name`` runs at ``n_fft``."""
     if name in C_ROWS_MODES and n_fft >= 128:
         r, g = (n_fft // 32, 1) if n_fft <= 512 else (16, n_fft // 512)
+        dfts = "two shuffle DFTs (the despread's inverse)" if "despread" in name else \
+            "shuffle DFTs"
         return {"form": f"warp-group: {g} warp{'s' if g > 1 else ''} a symbol, {r} points a "
-                        "lane in registers, shuffle DFTs, a block a run of 32 symbols"}
+                        f"lane in registers, {dfts}, a block a run of 32 symbols"}
     return {"form": "shared-memory tile: radix-2 stages, a barrier each"}
 
 
@@ -299,6 +316,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     from sdr_tpu_torch.ops.demod import (
         demod_chain,
         demod_chain_hybrid,
+        demod_count_chain,
         demod_count_chain_cl,
         demod_llr_chain_cl,
         demod_sum_chain_cl,
@@ -519,7 +537,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
             lambda: kc.demod_llr(sr, si, shr, shi, CP, mod, nv10, reduce_sum=True, despread=desp),
             lambda: kc.demod_chain(sr, si, shr, shi, CP, mod, nv10, reduce_sum=True,
                                    despread=desp), reps=1)
-        flops = c_flops + (nrow * (fft_flops(N) + 20 * N) if desp else 0)
+        flops = despread_flops(mod, N, nrow, B) if desp else c_flops
         report[name] = dict(max_abs_err=s_err, ms=ms, plain_ms=pms,
                             **bound(8 * nrow * N + 8 * B * N + 4, flops))
         print(f"phase 2 C {'despread ' if desp else ''}sum ({B}x{S}x{N + CP}): {tot_c:.9g}, "
@@ -922,7 +940,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                 max_abs_err=d_err, ms=ms, plain_ms=pms,
                 **bound(8 * rows_d * n_d + 8 * cfg_d.n_channels * n_d
                         + 4 * rows_d * n_d * bps,
-                        rows_d * (2 * fft_flops(n_d) + n_d * (tail_flops(mod) + 20))))
+                        despread_flops(mod, n_d, rows_d, hr_d.shape[0] * hr_d.shape[1])))
             print(f"phase 2 C despread llr plane {label}: max abs diff {d_err:.3g} (peak "
                   f"{d_peak:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms; bound "
                   f"{report['demod_llr_despread']['bound_ms']:.4f} ms")
@@ -931,14 +949,17 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         _check(int(cnt_plain.sum()) > 0, f"kernel C despread {label}: no errors")
         _check(bool((diff <= margin).all()),
                f"kernel C despread {label}: counts differ beyond the |LLR| < 1e-3 bits")
+        # Twenty calls a turn at config 5's shape: one wave of 256 blocks
+        # in a fraction of a millisecond reads unsteadily from one.
         ms, pms = compare_times(
             lambda: kc.demod_count(re, im, hr_d, hi_d, idx_d, cp_d, mod, nv_d, despread=True),
             lambda: kc.demod_count_plain(re, im, hr_d, hi_d, idx_d, cp_d, mod, nv_d,
-                                         despread=True), reps=1)
+                                         despread=True), reps=1 if n_d == N else 20)
         rows_d = cfg_d.n_channels * s_d
         bnd = bound(8 * rows_d * n_d + 8 * cfg_d.n_channels * n_d + rows_d * n_d
                     + 4 * cfg_d.n_channels,
-                    rows_d * (2 * fft_flops(n_d) + n_d * (tail_flops(mod) + 20)))
+                    despread_flops(mod, n_d, rows_d, hr_d.shape[0] * hr_d.shape[1],
+                                   count=True))
         if n_d == N:
             report["demod_count_despread"] = dict(max_abs_err=float(diff.max()), ms=ms,
                                                   plain_ms=pms, **bnd)
@@ -997,7 +1018,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     # batch of its links and terminals, with B's modes and C's plane at
     # B/4 × 64, the coded link's; N 2048 (16-QAM, CP 256) and config 5's
     # shape (16-QAM, N 4096, CP 512) at B/2 × 16. Kernel B in every channel
-    # mode, C's count, plane and sum (and despread sum at N 4096), the
+    # mode, C's count, plane and sum (and despread count and plane at each
+    # N, on an SC-FDMA waveform, and despread sum at N 4096), the
     # channels-last kernels D and F in their wideband mode (f32 and bf16
     # planes), and C's post-FFT mode. The plain versions that build a whole
     # LLR plane run b_p channels at a time: at B × 64 their temporaries
@@ -1116,46 +1138,65 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         h_w = fast.rx_plane(taps_w, n_w)  # (b_w, 1, N)
         hr_w, hi_w = h_w.real.contiguous(), h_w.imag.contiguous()
         del h_w
-        cnt = kc.demod_count(re, im, hr_w, hi_w, idx_w, cp_w, mod_w, nv_w)
-        cnt_plain, margin, llr_p = [], [], None
-        for sl in parts:
-            llr = kc.demod_chain(re[sl], im[sl], hr_w[sl], hi_w[sl], cp_w, mod_w, nv_w)
-            cnt_plain.append(kc.count_errors(llr, idx_w[sl], bps_w))
-            margin.append(count_margin(llr))
-            if llr_p is None:
-                llr_p = llr  # the first b_p channels, for C's plane below
-            del llr
-        cnt_plain, margin = torch.cat(cnt_plain), torch.cat(margin)
-        diff = (cnt - cnt_plain).abs()
-        _check(int(cnt_plain.sum()) > 0 and bool((diff <= margin).all()),
-               f"kernel C {tag}: counts differ beyond the |LLR| < 1e-3 bits")
-        ms, pms = compare_times(
-            lambda: kc.demod_count(re, im, hr_w, hi_w, idx_w, cp_w, mod_w, nv_w),
-            lambda: each(lambda sl: kc.demod_count_plain(re[sl], im[sl], hr_w[sl], hi_w[sl],
-                                                         idx_w[sl], cp_w, mod_w, nv_w), parts),
-            reps=1)
+        def c_count_and_plane(re, im, hr, hi, idx, nv, channel, despread=False):
+            """C's count at the b_w channels and its plane at the first b_p
+            (the coded link's batch), against the plain versions channel
+            slice by slice; returns the plain counts and their margins."""
+            kw = dict(despread=True) if despread else {}
+            mode, suffix = ("despread ", "_despread") if despread else ("", "")
+            cnt = kc.demod_count(re, im, hr, hi, idx, cp_w, mod_w, nv, **kw)
+            cnt_plain, margin, llr_p = [], [], None
+            for sl in parts:
+                llr = kc.demod_chain(re[sl], im[sl], hr[sl], hi[sl], cp_w, mod_w, nv, **kw)
+                cnt_plain.append(kc.count_errors(llr, idx[sl], bps_w))
+                margin.append(count_margin(llr))
+                if llr_p is None:
+                    llr_p = llr  # the first b_p channels, for the plane below
+                del llr
+            cnt_plain, margin = torch.cat(cnt_plain), torch.cat(margin)
+            diff = (cnt - cnt_plain).abs()
+            _check(int(cnt_plain.sum()) > 0 and bool((diff <= margin).all()),
+                   f"kernel C {mode}{tag}: counts differ beyond the |LLR| < 1e-3 bits")
+            ms, pms = compare_times(
+                lambda: kc.demod_count(re, im, hr, hi, idx, cp_w, mod_w, nv, **kw),
+                lambda: each(lambda sl: kc.demod_count_plain(re[sl], im[sl], hr[sl], hi[sl],
+                                                             idx[sl], cp_w, mod_w, nv, **kw),
+                             parts),
+                reps=1)
+            # f32 operations: the transform and the tone tail, or the
+            # despread's two transforms, its weighting and its tail.
+            def ops(rows, count):
+                if despread:
+                    return despread_flops(mod_w, n_w, rows, rows // s_w * hr.shape[1], count)
+                return rows * (fft_flops(n_w) + n_w * tail_flops(mod_w))
+
+            wide_report[("demod_count" + suffix, n_w)] = dict(
+                max_abs_err=float(diff.max()), ms=ms, plain_ms=pms,
+                **bound(8 * rows_w * n_w + 8 * b_w * n_w + rows_w * n_w * idx.element_size()
+                        + 4 * b_w, ops(rows_w, True)))
+            print(f"phase 2w C demod+count {mode}{tag} ({channel}): {int(cnt.sum())} errors, "
+                  f"plain {int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} "
+                  f"(allowed {int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
+            re_p, im_p, hr_p, hi_p = re[:b_p], im[:b_p], hr[:b_p], hi[:b_p]
+            c_err, c_peak = llr_check(
+                f"kernel C {mode}llr {tag_p}",
+                kc.demod_llr(re_p, im_p, hr_p, hi_p, cp_w, mod_w, nv, **kw), llr_p)
+            del llr_p
+            ms, pms = compare_times(
+                lambda: kc.demod_llr(re_p, im_p, hr_p, hi_p, cp_w, mod_w, nv, **kw),
+                lambda: kc.demod_chain(re_p, im_p, hr_p, hi_p, cp_w, mod_w, nv, **kw), reps=1)
+            wide_report[("demod_llr" + suffix, n_w)] = dict(
+                max_abs_err=c_err, ms=ms, plain_ms=pms,
+                **bound(8 * rows_p * n_w + 8 * b_p * n_w + 4 * rows_p * n_w * bps_w,
+                        ops(rows_p, False)))
+            print(f"phase 2w C {mode}llr plane {tag_p}: max abs diff {c_err:.3g} (peak "
+                  f"{c_peak:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
+            return cnt_plain, margin
+
+        cnt_plain, margin = c_count_and_plane(re, im, hr_w, hi_w, idx_w, nv_w,
+                                              "MULTIPATH 5 taps, 14 dB")
         c_in = 8 * rows_w * n_w + 8 * b_w * n_w
         c_flops_w = rows_w * (fft_flops(n_w) + n_w * tail_flops(mod_w))
-        wide_report[("demod_count", n_w)] = dict(
-            max_abs_err=float(diff.max()), ms=ms, plain_ms=pms,
-            **bound(c_in + rows_w * n_w + 4 * b_w, c_flops_w))
-        print(f"phase 2w C demod+count {tag} (MULTIPATH 5 taps, 14 dB): {int(cnt.sum())} errors, "
-              f"plain {int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} (allowed "
-              f"{int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
-        # C's plane on the first b_p channels (the coded link's batch).
-        re_p, im_p, hr_p, hi_p = re[:b_p], im[:b_p], hr_w[:b_p], hi_w[:b_p]
-        c_err, c_peak = llr_check(f"kernel C llr {tag_p}",
-                                  kc.demod_llr(re_p, im_p, hr_p, hi_p, cp_w, mod_w, nv_w), llr_p)
-        del llr_p
-        ms, pms = compare_times(lambda: kc.demod_llr(re_p, im_p, hr_p, hi_p, cp_w, mod_w, nv_w),
-                                lambda: kc.demod_chain(re_p, im_p, hr_p, hi_p, cp_w, mod_w, nv_w),
-                                reps=1)
-        wide_report[("demod_llr", n_w)] = dict(
-            max_abs_err=c_err, ms=ms, plain_ms=pms,
-            **bound(8 * rows_p * n_w + 8 * b_p * n_w + 4 * rows_p * n_w * bps_w,
-                    rows_p * (fft_flops(n_w) + n_w * tail_flops(mod_w))))
-        print(f"phase 2w C llr plane {tag_p}: max abs diff {c_err:.3g} (peak {c_peak:.3g}); "
-              f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
         # C's post-FFT mode on the same waveform's frequency-domain grid.
         y_w = torch.fft.fft(torch.complex(re, im)[..., cp_w:])
         yr_w, yi_w = y_w.real.contiguous(), y_w.imag.contiguous()
@@ -1178,7 +1219,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
               f"{l_peak:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
         # F (count, LLR plane f32 / bf16) on the same waveform, channels-last.
         wre_t, wim_t = fast._to_cl(re, im)
-        del re, im, re_p, im_p, yr_w, yi_w
+        del re, im, yr_w, yi_w
         torch.cuda.empty_cache()
         whr_t, whi_t = hr_w[:, 0, :].T.contiguous(), hi_w[:, 0, :].T.contiguous()
         widx_t = idx_w.permute(1, 2, 0).reshape(s_w * n_w, b_w).contiguous()
@@ -1196,7 +1237,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         print(f"phase 2w F demod+count channels-last {tag}: {int(cnt_f.sum())} errors, plain "
               f"{int(cnt_plain.sum())}, max per-channel diff {int(diff.max())} (allowed "
               f"{int(margin.max())}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
-        del cnt, cnt_f, cnt_plain, margin
+        del cnt_f, cnt_plain, margin
 
         def llr_cl_part(sl, out_dtype=torch.float32):
             return kd.demod_llr_cl_plain(*(p[:, sl] for p in planes), cp_w, mod_w, nv_w,
@@ -1226,6 +1267,18 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
             print(f"phase 2w F llr channels-last {str(dt)[6:]} {tag}: max abs diff {err:.3g} "
                   f"({vs}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
         del planes, wre_t, wim_t, widx_t, idx_w, idx_p
+        torch.cuda.empty_cache()
+        # C's despread (SC-FDE) count and plane on an SC-FDMA waveform
+        # through config 5's PDP at 14 dB.
+        cfg_s = link_cfg(ChannelModel.MULTIPATH, 14.0, n_channels=b_w, n_fft=n_w, cp=cp_w,
+                         n_symbols=s_w, modulation=mod_w, pdp=pdp5, dft_spread=True)
+        idx_s = fast.draw_idx(cfg_s, seed, ids_w)
+        re, im = fast.tx_with_channel(cfg_s, seed, ids_w, idx_s)
+        h_s, _ = fast.fade_state(cfg_s, seed, ids_w)
+        c_count_and_plane(re, im, h_s.real.contiguous(), h_s.imag.contiguous(), idx_s,
+                          fast.noise_var(cfg_s), "SC-FDMA, MULTIPATH 5 taps, 14 dB",
+                          despread=True)
+        del re, im, h_s, idx_s
         torch.cuda.empty_cache()
         # Sums on bench.py-style inputs (noise-like samples, Rayleigh h per
         # link), whose LLR sum does not cancel: C's sum (and its despread
@@ -1267,7 +1320,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                          lambda: kc.demod_llr(br, bi, bhr, bhi, cp_w, mod_w, nv_w,
                                               reduce_sum=True, despread=True),
                          plain_sum(lambda sl: c_sum_part(sl, despread=True)),
-                         bound(c_in + 4, c_flops_w + rows_w * (fft_flops(n_w) + 20 * n_w))))
+                         bound(c_in + 4, despread_flops(mod_w, n_w, rows_w, b_w))))
         for name, kfn, pfn, bnd in sums:
             tot_k, tot_p = float(kfn()), float(pfn())
             s_err = abs(tot_k - tot_p)
@@ -2137,7 +2190,19 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
             ("demod_chain sum", lambda: demod_chain(xr, xi, hr_i, hi_i, cp_t, mod_t, nv_t,
                                                     reduce_sum=True)),
         ]
-        if n_t == 4096:  # the SC-FDE sum (kernel C's despread mode; row #15)
+        # The SC-FDE receive (kernel C's despread modes; rows #4, #8, #15):
+        # the count against time-domain indices and the plane at every N,
+        # the sum at N 4096.
+        idx_r = torch.randint(0, 1 << mod_t.bits_per_symbol, (b_t, s_t, n_t), dtype=torch.int8,
+                              device=dev, generator=gen_i)
+        calls += [
+            ("demod_count_chain despread",
+             lambda: demod_count_chain(xr, xi, hr_i, hi_i, idx_r, cp_t, mod_t, nv_t,
+                                       despread=True)),
+            ("demod_chain despread plane",
+             lambda: demod_chain(xr, xi, hr_i, hi_i, cp_t, mod_t, nv_t, despread=True)),
+        ]
+        if n_t == 4096:
             calls.append(("demod_chain despread sum",
                           lambda: demod_chain(xr, xi, hr_i, hi_i, cp_t, mod_t, nv_t,
                                               reduce_sum=True, despread=True)))
@@ -2152,7 +2217,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
             del out
             print(f"phase 3i {name} {label} ({b_t}x{s_t}x{n_t + cp_t} f32 in): {ms_t:.3f} ms per "
                   f"call, {b_t * s_t * (n_t + cp_t) / (ms_t * 1e-3) / 1e9:.3f} GS/s on {card}")
-        del xr, xi, hr_i, hi_i, xr_t, xi_t, hr_it, hi_it, idx_i
+        del xr, xi, hr_i, hi_i, xr_t, xi_t, hr_it, hi_it, idx_i, idx_r
         torch.cuda.empty_cache()
     # phase 3i: the wideband link and terminals, the sum of the N windows
     launches_wide = {k: sum(w[k] for w in launches_at.values()) for k in _lib.LAUNCHES}
@@ -2229,7 +2294,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                         "sdr_tpu/kernels/demod_pallas.py:500"),
         "demod_count_taps": ("sdr_tpu_torch/csrc/demod_count.cu",
                              "sdr_tpu/kernels/demod_pallas.py:500"),
-        "demod_count_despread": ("sdr_tpu_torch/csrc/demod.cu",
+        "demod_count_despread": ("sdr_tpu_torch/csrc/demod_despread_count.cu",
                                  "sdr_tpu/kernels/demod_pallas.py:500"),
         "demod_sum_cl": ("sdr_tpu_torch/csrc/demod_cl.cu",
                          "sdr_tpu/kernels/demod_cl_pallas.py:727"),
@@ -2239,8 +2304,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         "mc_count": ("sdr_tpu_torch/csrc/mc.cuh", "sdr_tpu/kernels/mc_pallas.py:229"),
         "demod_llr": ("sdr_tpu_torch/csrc/demod_llr.cu", c_rows),
         "demod_sum": ("sdr_tpu_torch/csrc/demod_llr.cu", c_rows),
-        "demod_llr_despread": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
-        "demod_sum_despread": ("sdr_tpu_torch/csrc/demod.cu", c_rows),
+        "demod_llr_despread": ("sdr_tpu_torch/csrc/demod_despread_llr.cu", c_rows),
+        "demod_sum_despread": ("sdr_tpu_torch/csrc/demod_despread_sum.cu", c_rows),
         "demod_llr_cl": ("sdr_tpu_torch/csrc/demod_cl_llr.cu",
                          "sdr_tpu/kernels/demod_cl_pallas.py:753"),
         "demod_llr_cl_bf16": ("sdr_tpu_torch/csrc/demod_cl_llr.cu",
@@ -2277,6 +2342,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         "tx": tx4, "tx_taps": tx4, "demod_llr": demod4, "demod_sum": demod4,
         "demod_count": (demod4[0],),
         "demod_sum_despread": ("sdr_tpu/kernels/fourstep_split_pallas.py:376",),
+        "demod_count_despread": ("sdr_tpu/kernels/fourstep_split_pallas.py:376",),
+        "demod_llr_despread": (c_rows,),
         "llr_chain": ("sdr_tpu/kernels/llr_pallas.py:54",),
         "llr_chain_sum": ("sdr_tpu/kernels/llr_pallas.py:54",),
         **{k: (v,) for k, v in cl_rows.items()},

@@ -1,9 +1,9 @@
 // Kernel C, rows layout: the shared-memory tile. Its warp-group form
-// (demod_rows.cuh; demod_count.cu, demod_llr.cu) takes the count (h plane
-// and taps=), the LLR plane and the sum at N = 128 to 4096; this file
-// keeps what it does not: those modes at N = 2 to 64, the despread
-// (SC-FDE) count, plane and sum at every N, the post-FFT mode (llr_chain)
-// and the tensor-parallel stage-2 mode (tp_stage2_llr).
+// (demod_rows.cuh; demod_count.cu, demod_llr.cu, demod_despread_*.cu)
+// takes the count (h plane and taps=), the LLR plane and the sum, each
+// also with the despread (SC-FDE) receive, at N = 128 to 4096; this file
+// keeps what it does not: those modes at N = 2 to 64, the post-FFT mode
+// (llr_chain) and the tensor-parallel stage-2 mode (tp_stage2_llr).
 //
 // Replaces sdr_tpu/kernels/demod_pallas.py::demod_count_pallas (the
 // fast engine's count terminal) with its taps= and despread modes, and
@@ -28,23 +28,23 @@
 // tone, the row's tone-mean gain b (a fixed-order block reduction over
 // the whole row), an inverse FFT on the same tile (the despread), 1/b,
 // LLRs at SINR b/(1-b), counted against the time-domain indices. A row
-// is whole in one block at every N (a block holds 2^(9 - log N) rows
-// below N = 512 and one row above), so the reduction never crosses
-// blocks. Counts are summed with integer atomics, which give the same
-// result in any order.
+// is whole in one block (a block holds 2^(9 - log N) rows at N 2 to 64),
+// so the reduction never crosses blocks. Counts are summed with integer
+// atomics, which give the same result in any order.
 //
 // The tile: a block of 256 threads holds 2^(9 - log N) symbols (one from
-// N = 512) bit-reversed in shared memory and runs radix-2 FFTs on them,
-// log2 N stages a barrier each, on CUDA cores in f32 (the TPU kernel ran
-// the DFT as a Gauss 3-multiplication matmul on the MXU in bf16 passes,
-// and the despread as a second matmul; at N 1024 to 4096 the four-step
-// kernels of fourstep_split_pallas.py and fourstep_pallas.py split it
-// into N1·N2 matmul steps because dense DFT operands outgrew VMEM).
+// N = 512, where only the TP mode runs it) bit-reversed in shared memory
+// and runs radix-2 FFTs on them, log2 N stages a barrier each, on CUDA
+// cores in f32 (the TPU kernel ran the DFT as a Gauss 3-multiplication
+// matmul on the MXU in bf16 passes, and the despread as a second matmul;
+// at N 1024 to 4096 the four-step kernels of fourstep_split_pallas.py
+// and fourstep_pallas.py split it into N1·N2 matmul steps because dense
+// DFT operands outgrew VMEM).
 // Bound on the H100: the bytes (8 a sample read, the channel and index
-// planes, 4 a bit of a plane written); the despread mode doubles the
-// butterflies, and its stages, each moving 4 shared words a point, are
-// what hold it far under that bound. The despread and TP modes are the
-// tile's next redesign (ROADMAP).
+// planes, 4 a bit of a plane written); its stages, each moving 4 shared
+// words a point, are what hold it far under that bound, most of all in
+// the despread mode, which doubles them. The TP mode is the tile's next
+// redesign (ROADMAP).
 #include "demod_rows.cuh"
 
 namespace {

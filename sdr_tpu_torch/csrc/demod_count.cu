@@ -1,6 +1,7 @@
 // Kernel C's count entry point: per-channel bit errors over the h plane or
-// taps=. The warp-group form (demod_rows.cuh) takes N = 128 to 4096; the
-// shared-memory tile (demod.cu) N = 2 to 64 and the despread mode.
+// taps=, or with the despread (SC-FDE) receive. The warp-group form
+// (demod_rows.cuh) takes N = 128 to 4096, its despread mode built in
+// demod_despread_count.cu; the shared-memory tile (demod.cu) N = 2 to 64.
 #include "demod_rows.cuh"
 
 extern "C" int sdr_demod_count(const float* re, const float* im, const float* hr,
@@ -11,16 +12,18 @@ extern "C" int sdr_demod_count(const float* re, const float* im, const float* hr
                                float nv, int despread, const float* twr, const float* twi,
                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (despread || log_n < kRowsMinLog)
+  if (log_n < kRowsMinLog)
     return demod_count_tile(re, im, hr, hi, h_syms, taps_r, taps_i, n_taps, idx, idx_bytes, out,
                             B, S, log_n, cp, bits_per_axis, bpsk, tab, inv_nv, nv, despread, twr,
                             twi, st);
   if ((long long)B * S == 0) return 0;
   const RowsArgs a{re,  im,  hr,    hi,     taps_r, taps_i, idx,    out,    nullptr,
                    twr, twi, B,     S,      log_n,  cp,     h_syms, n_taps, idx_bytes,
-                   inv_nv};
-  if (rows_bad_shape(a) || (idx_bytes != 1 && idx_bytes != 2 && idx_bytes != 4))
+                   inv_nv, nv};
+  if (rows_bad_shape(a) || (idx_bytes != 1 && idx_bytes != 2 && idx_bytes != 4) ||
+      (despread && n_taps))
     return (int)cudaErrorInvalidValue;
+  if (despread) return demod_despread_count(a, tab, bits_per_axis, bpsk, st);
   SDR_DISPATCH_MOD(bits_per_axis, bpsk, return rows_launch_n<M, BPSK, kCount>(a, tab, st))
   return (int)cudaErrorInvalidValue;
 }

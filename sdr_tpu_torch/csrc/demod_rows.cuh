@@ -1,9 +1,11 @@
 // Kernel C, rows layout: the warp-group form of its count (h plane or
-// taps=), LLR-plane and sum modes at N = 128 to 4096, and the entry points
-// of the shared-memory tile in demod.cu, which keeps N = 2 to 64, the
-// despread (SC-FDE) modes, the TP stage-2 mode and the post-FFT mode.
-// demod_count.cu holds the count's instantiations and entry point,
-// demod_llr.cu the plane's and the sum's, so that nvcc builds them in
+// taps=), LLR-plane and sum modes, each also with the despread (SC-FDE)
+// receive, at N = 128 to 4096, and the entry points of the shared-memory
+// tile in demod.cu, which keeps N = 2 to 64, the TP stage-2 mode and the
+// post-FFT mode. demod_count.cu holds the count's instantiations and
+// entry point, demod_llr.cu the plane's and the sum's, and
+// demod_despread_count.cu, demod_despread_llr.cu and demod_despread_sum.cu
+// those of the three despread modes, so that nvcc builds them in
 // parallel.
 //
 // Replaces, at these N, sdr_tpu/kernels/demod_pallas.py::demod_count_pallas
@@ -61,17 +63,39 @@
 // block_sum's per-block partials, added by sum_partials_kernel in a fixed
 // order, give the same bits on every run.
 //
+// The despread (DESP, full-grid SC-FDMA's SC-FDE receive, common.cuh's
+// despread_equalize and despread_for_each on the tile) runs two
+// transforms a symbol and no bit-reversal pass: T2 forward as above,
+// then per tone the biased MMSE conj(h) y / (|h|^2 + nv) and the symbol's
+// bias b = max(mean_k |h|^2 / (|h|^2 + nv), 1e-9), then T1 inverse (the
+// despread, unscaled), which takes the tone layout to the time layout;
+// each point is scaled by 1/(sqrt(N) b) and its max-log LLRs taken at
+// SINR b / max(1 - b, 1e-9), against the time-domain indices. With one h
+// row a channel, the weights and b are the run's: the prologue builds
+// them once a block (b by block_sum, in a fixed order), the weights in
+// the tone layout at (r·G + w)·SP + lane, so each point is weighted in
+// registers. With one row a symbol, the points go once through the
+// group's stage in natural order, as the tail above: each tone is
+// weighted against the staged h row in place and the group sums its
+// bias partials (lanes, then its warps in a fixed order), and the points
+// return in the tone layout. After T1 a thread's points are time
+// samples bitrev5(lane) + 32·c: a warp's indices and plane stores cover
+// one contiguous run a point, so the tail is one rolled loop over the
+// thread's own points, staged at their tone-layout slots (read back by
+// the thread that wrote them: no pass to natural order).
+//
 // Bound on the H100: the bytes, 8 a sample read (S·N rows: the CP is
 // skipped), the h plane, the indices, and 4·BPS a tone written by the
 // plane; the transform (5·N·log2 N f32 operations a symbol) and the tail
 // are the compute side, and with the shuffles and the shared passes they
-// keep the form under the byte bound.
+// keep the form under the byte bound. The despread adds a second
+// transform and keeps the same bytes.
 #pragma once
 #include "common.cuh"
 #include "warpfft.cuh"
 
-// The shared-memory tile (demod.cu): kernel C's form at N = 2 to 64 and
-// for the despread modes. Arguments as the extern "C" entry points.
+// The shared-memory tile (demod.cu): kernel C's form at N = 2 to 64, the
+// despread modes included. Arguments as the extern "C" entry points.
 int demod_count_tile(const float* re, const float* im, const float* hr, const float* hi,
                      int h_syms, const float* taps_r, const float* taps_i, int n_taps,
                      const void* idx, int idx_bytes, int32_t* out, int B, int S, int log_n,
@@ -101,11 +125,22 @@ struct RowsArgs {
   const float* twi;
   int B, S, log_n, cp, h_syms, n_taps, idx_bytes;
   float inv_nv;
+  float nv;  // the despread's MMSE noise variance (clamped at 1e-12)
 };
 
 // N = 32 R G from 2^kRowsMinLog: below it the tile (demod.cu) runs.
 constexpr int kRowsMinLog = 7;
 using sdr::kRun;
+
+// The despread modes of the warp-group form (demod_despread_count.cu,
+// demod_despread_llr.cu, demod_despread_sum.cu); the caller has checked
+// the shape (rows_bad_shape, no taps).
+int demod_despread_count(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
+                         int bpsk, cudaStream_t st);
+int demod_despread_plane(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
+                         int bpsk, cudaStream_t st);
+int demod_despread_sum(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
+                       int bpsk, cudaStream_t st);
 
 // Per-block partials of the warp-group sum: one a block.
 inline long long rows_blocks(int B, int S) { return (long long)B * ((S + kRun - 1) / kRun); }
@@ -123,11 +158,14 @@ struct RowsCarve {
   int tw3;  // 32G float2 (G > 1)
   int xtw;  // 5 x 32 float2
   int stg;  // per group A·SP float2: the exchange (G > 1), then the points for the tail
-  int hw;   // N float2, natural order: h (h_syms = 1) or W_N^k (taps=)
+  int hw;   // N float2, natural order: h (h_syms = 1) or W_N^k (taps=); with
+            // the despread A·SP float2, the MMSE weights in the tone layout
   int hs;   // per group 2N floats: the symbol's h rows, re then im (h_syms = S)
   int ix;   // per group N indices of idx_bytes each: the symbol's index row (count)
   int wg;   // per warp kMaxTaps float2: the symbol's taps
   int red;  // kRowsWarps floats (block_sum), then the block's count
+  int bz;   // despread: kRowsWarps floats (per-warp bias partials), then the
+            // block's bias sum (one h row a channel)
   int total;
 };
 
@@ -137,9 +175,11 @@ __host__ __device__ inline int rows_take(int& off, int bytes) {
   return o;
 }
 
-// What a launch stages: h or W_N^k once a block (table), h rows per
-// symbol (h_syms = S without taps), index rows of ix_bytes (count; else 0).
-__host__ __device__ inline RowsCarve rows_carve(int R, int G, const RowsArgs& a, int ix_bytes) {
+// What a launch stages: h or W_N^k once a block (table; the despread's
+// weights in the tone layout), h rows per symbol (h_syms = S without
+// taps), index rows of ix_bytes (count; else 0).
+__host__ __device__ inline RowsCarve rows_carve(int R, int G, const RowsArgs& a, int ix_bytes,
+                                                bool desp) {
   const int N = 32 * R * G, A = R * G, groups = kRowsWarps / G;
   const bool table = a.n_taps > 0 || a.h_syms == 1;
   RowsCarve c;
@@ -148,16 +188,17 @@ __host__ __device__ inline RowsCarve rows_carve(int R, int G, const RowsArgs& a,
   c.tw3 = rows_take(off, G > 1 ? 8 * 32 * G : 0);
   c.xtw = rows_take(off, 8 * 5 * 32);
   c.stg = rows_take(off, 8 * A * sdr::stage_stride(A) * groups);
-  c.hw = rows_take(off, table ? 8 * N : 0);
+  c.hw = rows_take(off, table ? 8 * (desp ? A * sdr::stage_stride(A) : N) : 0);
   c.hs = rows_take(off, table ? 0 : 8 * N * groups);
   c.ix = rows_take(off, ix_bytes * N * groups);
   c.wg = rows_take(off, 8 * kMaxTaps * kRowsWarps);
   c.red = rows_take(off, 4 * kRowsWarps + 4);
+  c.bz = rows_take(off, desp ? 4 * kRowsWarps + 4 : 0);
   c.total = off;
   return c;
 }
 
-template <int M, bool BPSK, int MODE, int R, int G>
+template <int M, bool BPSK, int MODE, int R, int G, bool DESP>
 __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
     demod_rows_kernel(RowsArgs a, sdr::AxisTables tab) {
   using C = sdr::Ctx<R, G>;
@@ -173,13 +214,14 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
   const int L = a.n_taps;
   const bool per_sym_h = L == 0 && a.h_syms > 1;
   const int ix_bytes = MODE == kCount ? a.idx_bytes : 0;
-  const RowsCarve cv = rows_carve(R, G, a, ix_bytes);
+  const RowsCarve cv = rows_carve(R, G, a, ix_bytes, DESP);
   float2* tw = (float2*)(smem + cv.tw);
   float2* tw3 = (float2*)(smem + cv.tw3);
   float2* xtw = (float2*)(smem + cv.xtw);
   float2* hw = (float2*)(smem + cv.hw);
   float* red = (float*)(smem + cv.red);
   int* cnt = (int*)(red + kRowsWarps);
+  float* bz = (float*)(smem + cv.bz);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, group = warp / G;
   const int n_chunks = (a.S + kRun - 1) / kRun;
@@ -187,14 +229,26 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
   const int s0 = (blockIdx.x - b * n_chunks) * kRun;
   const int s1 = min(a.S, s0 + kRun);
 
-  // ---- what the run shares: twiddles, then h or W_N^k in natural order ---
+  // ---- what the run shares: twiddles, then h or W_N^k in natural order,
+  // or the despread's MMSE weights in the tone layout and the bias sum ---
   sdr::build_tables<R, G>(tw, tw3, xtw, a.twr, a.twi, a.log_n);
   if (L > 0) {
     for (int k = tid; k < N; k += blockDim.x) hw[k] = sdr::w_table(a.twr, a.twi, a.log_n, k);
   } else if (a.h_syms == 1) {
     const long long ho = (long long)b * N;
-    for (int k = tid; k < N; k += blockDim.x)
-      hw[k] = make_float2(__ldg(a.hr + ho + k), __ldg(a.hi + ho + k));
+    float g = 0.0f;
+    for (int k = tid; k < N; k += blockDim.x) {
+      const float h_r = __ldg(a.hr + ho + k), h_i = __ldg(a.hi + ho + k);
+      if constexpr (DESP) {
+        hw[(k % A) * SP + k / A] = sdr::mmse_weight(h_r, h_i, a.nv, g);
+      } else {
+        hw[k] = make_float2(h_r, h_i);
+      }
+    }
+    if constexpr (DESP) {
+      g = sdr::block_sum(g, red);
+      if (tid == 0) bz[kRowsWarps] = g;
+    }
   }
   if (MODE == kCount && tid == 0) *cnt = 0;
   __syncthreads();
@@ -205,6 +259,8 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
   unsigned char* ix = smem + cv.ix + (size_t)group * ix_bytes * N;
   float2* wg = (float2*)(smem + cv.wg) + (size_t)warp * kMaxTaps;
   const float norm = 1.0f / tab.inorm;
+  float d_scale = 0.0f, d_sinr = 0.0f;
+  if (DESP && !per_sym_h) sdr::despread_gain(bz[kRowsWarps], N, d_scale, d_sinr);
   // Time layout: point j·G + d of symbol s <- sample bitrev5(lane) +
   // 32(w + G j) + 32 R d of its row.
   auto load = [&](int s, int ln, int w, float(&xr)[R], float(&xi)[R]) {
@@ -254,6 +310,65 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
       load(s, ln, w, vr, vi);
     }
     cx.template t2<false>(vr, vi);
+
+    if constexpr (DESP) {
+      float scale = d_scale, sinr = d_sinr;
+      if (!per_sym_h) {
+        // The run's weights, staged in the tone layout.
+#pragma unroll
+        for (int r = 0; r < R; ++r) sdr::cmul<false>(vr[r], vi[r], hw[(r * G + w) * SP + ln]);
+      } else {
+        // Through the stage in natural order: each tone weighted in place
+        // against the symbol's h row, the bias partials summed.
+        sdr::group_sync<G>(group);  // the exchange's and the last tail's readers are done
+#pragma unroll
+        for (int r = 0; r < R; ++r) stg[(r * G + w) * SP + ln] = make_float2(vr[r], vi[r]);
+        sdr::cp_async_wait_all();
+        sdr::group_sync<G>(group);
+        float g = 0.0f;
+#pragma unroll 2
+        for (int i = 0; i < R; ++i) {
+          const int k = 32 * G * i + t;
+          float2& y = stg[(k % A) * SP + k / A];
+          sdr::cmul<false>(y.x, y.y, sdr::mmse_weight(hsr[k], hsi[k], a.nv, g));
+        }
+        g = sdr::group_bias_sum<G>(g, bz, warp, group, ln);
+        sdr::despread_gain(g, N, scale, sinr);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float2 y = stg[(r * G + w) * SP + ln];
+          vr[r] = y.x;
+          vi[r] = y.y;
+        }
+      }
+      cx.template t1<true>(vr, vi);  // the despread, unscaled: the time layout
+      if (MODE == kCount && !per_sym_h) sdr::cp_async_wait_all();
+      sdr::group_sync<G>(group);  // T1's exchange read; the index row landed
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        stg[(r * G + w) * SP + ln] = make_float2(vr[r] * scale, vi[r] * scale);
+      // The tail over the thread's own points, time sample n of point r.
+#pragma unroll 2
+      for (int r = 0; r < R; ++r) {
+        const float2 y = stg[(r * G + w) * SP + ln];
+        const int n = C::t_at(ln, w, r);
+        if constexpr (MODE == kCount) {
+          const int bits = sdr::hard_bits<M, BPSK>(y.x, y.y, 1.0f, 0.0f, norm);
+          const int v = sdr::staged_index(ix, ix_bytes, n);
+          err += __popc((unsigned)((bits ^ v) & ((1 << BPS) - 1)));
+        } else {
+          float llr[BPS];
+          sdr::scaled_llrs<M, BPSK>(y.x, y.y, sinr, tab, llr);
+          if constexpr (MODE == kSum) {
+#pragma unroll
+            for (int j = 0; j < BPS; ++j) acc += llr[j];
+          } else {
+            sdr::store_run<BPS>(static_cast<float*>(a.out) + (e0 + n) * BPS, llr);
+          }
+        }
+      }
+      continue;
+    }
 
     // The points at their stage rows, the symbol's taps in the warp's slot.
     sdr::group_sync<G>(group);  // the exchange's and the last tail's readers are done
@@ -308,10 +423,10 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
   }
 }
 
-template <int M, bool BPSK, int MODE, int R, int G>
+template <int M, bool BPSK, int MODE, bool DESP, int R, int G>
 int rows_launch(const RowsArgs& a, const sdr::AxisTables& tab, cudaStream_t st) {
-  const RowsCarve cv = rows_carve(R, G, a, MODE == kCount ? a.idx_bytes : 0);
-  const auto kernel = demod_rows_kernel<M, BPSK, MODE, R, G>;
+  const RowsCarve cv = rows_carve(R, G, a, MODE == kCount ? a.idx_bytes : 0, DESP);
+  const auto kernel = demod_rows_kernel<M, BPSK, MODE, R, G, DESP>;
   if (cv.total > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cv.total);
@@ -328,15 +443,15 @@ int rows_launch(const RowsArgs& a, const sdr::AxisTables& tab, cudaStream_t st) 
 
 // The plan of N = 2^log_n, 128 to 4096: one warp a symbol to N 512, then
 // 2, 4 and 8.
-template <int M, bool BPSK, int MODE>
+template <int M, bool BPSK, int MODE, bool DESP = false>
 int rows_launch_n(const RowsArgs& a, const sdr::AxisTables& tab, cudaStream_t st) {
   switch (a.log_n) {
-    case 7: return rows_launch<M, BPSK, MODE, 4, 1>(a, tab, st);
-    case 8: return rows_launch<M, BPSK, MODE, 8, 1>(a, tab, st);
-    case 9: return rows_launch<M, BPSK, MODE, 16, 1>(a, tab, st);
-    case 10: return rows_launch<M, BPSK, MODE, 16, 2>(a, tab, st);
-    case 11: return rows_launch<M, BPSK, MODE, 16, 4>(a, tab, st);
-    case 12: return rows_launch<M, BPSK, MODE, 16, 8>(a, tab, st);
+    case 7: return rows_launch<M, BPSK, MODE, DESP, 4, 1>(a, tab, st);
+    case 8: return rows_launch<M, BPSK, MODE, DESP, 8, 1>(a, tab, st);
+    case 9: return rows_launch<M, BPSK, MODE, DESP, 16, 1>(a, tab, st);
+    case 10: return rows_launch<M, BPSK, MODE, DESP, 16, 2>(a, tab, st);
+    case 11: return rows_launch<M, BPSK, MODE, DESP, 16, 4>(a, tab, st);
+    case 12: return rows_launch<M, BPSK, MODE, DESP, 16, 8>(a, tab, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -308,7 +308,6 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
   const float2* hp =
       p.kind == kTaps ? hk : ((p.kind == kTapsSym || p.kind == kPlane) ? hw : nullptr);
   const uint32_t mask = (uint32_t)p.idx_mask;
-  const float inv_sqrt_n = 1.0f / sqrtf((float)N);
   int err = 0;
 
   for (int s = s0 + group; s < s1; s += kWarps / G) {
@@ -420,11 +419,8 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
 #pragma unroll 2
       for (int r = 0; r < R; ++r) {
         const float2 h = h_at(r);
-        const float h2 = h.x * h.x + h.y * h.y;
-        acc += h2 / (h2 + p.nv);
-        const float inv_d = 1.0f / (h.x * h.x + h.y * h.y + p.nv);
         float2& y = stg[cx.pos(r)];
-        y = make_float2((h.x * y.x + h.y * y.y) * inv_d, (h.x * y.y - h.y * y.x) * inv_d);
+        cmul<false>(y.x, y.y, mmse_weight(h.x, h.y, p.nv, acc));
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -432,22 +428,10 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
         vr[r] = y.x;
         vi[r] = y.y;
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(kFull, acc, o);
-      float tot;
-      if constexpr (G == 1) {
-        tot = __shfl_sync(kFull, acc, 0);
-      } else {
-        if (lane == 0) red[warp] = acc;
-        group_sync<G>(group);
-        tot = 0.0f;
-#pragma unroll
-        for (int u = 0; u < G; ++u) tot += red[group * G + u];
-      }
+      const float tot = group_bias_sum<G>(acc, red, warp, group, lane);
       cx.template t2<true>(vr, vi);  // the despread, unscaled
-      const float bias = fmaxf(tot / (float)N, 1e-9f);
-      const float scale = inv_sqrt_n / bias;
-      const float sinr = bias / fmaxf(1.0f - bias, 1e-9f);
+      float scale, sinr;
+      despread_gain(tot, N, scale, sinr);
       stage(vr, vi, 1.0f);
 #pragma unroll 2
       for (int r = 0; r < R; ++r) {

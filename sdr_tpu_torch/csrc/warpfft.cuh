@@ -165,6 +165,46 @@ __device__ __forceinline__ void group_sync(int group) {
   }
 }
 
+// The SC-FDE (despread) equaliser of G's and C's forms, in three steps.
+// The biased MMSE weight conj(h) / (|h|^2 + nv) of one tone; its bias
+// term |h|^2 / (|h|^2 + nv) is added to g.
+__device__ __forceinline__ float2 mmse_weight(float h_r, float h_i, float nv, float& g) {
+  const float h2 = h_r * h_r + h_i * h_i, inv_d = 1.0f / (h2 + nv);
+  g += h2 * inv_d;
+  return make_float2(h_r * inv_d, -h_i * inv_d);
+}
+
+// A symbol's bias sum over its group of G warps: the lanes, then the
+// group's warps in order, so the same bits on every run. slot: one float
+// a warp of the block. Every lane of the group gets the sum, and the
+// group's shared writes before the call are visible to it after.
+template <int G>
+__device__ __forceinline__ float group_bias_sum(float g, float* slot, int warp, int group,
+                                                int lane) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) g += __shfl_down_sync(kFull, g, o);
+  if constexpr (G == 1) {
+    g = __shfl_sync(kFull, g, 0);
+    __syncwarp();
+    return g;
+  } else {
+    if (lane == 0) slot[warp] = g;
+    group_sync<G>(group);
+    g = 0.0f;
+#pragma unroll
+    for (int u = 0; u < G; ++u) g += slot[group * G + u];
+    return g;
+  }
+}
+
+// The despread's scale 1/(sqrt(N) b) and SINR b / max(1 - b, 1e-9) from
+// the bias sum tot of an N-point symbol, b = max(tot / N, 1e-9).
+__device__ __forceinline__ void despread_gain(float tot, int N, float& scale, float& sinr) {
+  const float bias = fmaxf(tot / (float)N, 1e-9f);
+  scale = (1.0f / sqrtf((float)N)) / bias;
+  sinr = bias / fmaxf(1.0f - bias, 1e-9f);
+}
+
 // Fills the block's twiddle tables (every thread of the block takes part;
 // the caller synchronises after): tw, N float2, W_N^{bitrev5(lane) (w + G
 // r)} at position (r*G + w)*32 + lane; tw3, 32G float2, W_A^{c w} at

@@ -199,7 +199,7 @@ _SIGNATURES = {
     "sdr_demod_count_cl": [_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                            AxisTables, _F, _P, _P, _P],
     "sdr_mc_count": [McParams, _I, _I, _I, AxisTables, _P],
-    "sdr_demod_llr_partials": [_I, _I, _I, _I],
+    "sdr_demod_llr_partials": [_I, _I, _I],
     "sdr_demod_llr": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, AxisTables, _F, _F,
                       _I, _I, _P, _P, _P],
     "sdr_demod_llr_cl": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, AxisTables, _F,

@@ -45,17 +45,20 @@ wideband four-step kernels (``fourstep_split_pallas.py``,
 matmul split, which existed because dense DFT operands outgrew VMEM.
 
 Two forms run on the card (``csrc/demod_rows.cuh``, ``csrc/demod.cu``).
-The count (h plane and ``taps=``), the LLR plane and the sum at N = 128
-to 4096 take the warp-group form: a group of 1–8 warps holds one symbol
+The count (h plane and ``taps=``), the LLR plane and the sum, each with
+or without ``despread``, at N = 128 to 4096 take the warp-group form: a group of 1–8 warps holds one symbol
 in registers (4, 8, 16 points a lane to N 512, then 2, 4, 8 warps of 16),
 loaded straight from the sample planes in the transform's time layout,
 transformed by shuffles across lanes and register DFTs (kernel G's
 transform, ``csrc/warpfft.cuh``), its tones then taken in natural order
 through one shared-memory pass; a block takes a run of 32 symbols of one
 channel and stages h (one row a channel) or the W_N^k table of the
-``taps=`` mode once. N = 2 to 64, the ``despread`` modes and the TP
-stage-2 mode stay on the shared-memory tile: a block's symbols
-bit-reversed in shared memory and radix-2 stages a barrier each.
+``taps=`` mode once. The ``despread`` modes run a second transform, the
+inverse, from the tones to the time samples, with the MMSE weights and
+the bias built once a block for one h row a channel, or per symbol in one
+shared-memory pass for one a symbol. N = 2 to 64 and the TP stage-2 mode
+stay on the shared-memory tile: a block's symbols bit-reversed in shared
+memory and radix-2 stages a barrier each.
 
 The tensor-parallel stage-2 mode (``tp_stage2_llr``, port of
 ``sdr_tpu/parallel/tp.py::_stage2_llr_pallas``) takes one rank's digit
@@ -298,7 +301,7 @@ def demod_llr(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
     log_n = _lib.log2_exact(N)
     bps = mod.bits_per_symbol
     if reduce_sum:
-        partials = torch.empty((lib.sdr_demod_llr_partials(B, S, log_n, int(despread)),),
+        partials = torch.empty((lib.sdr_demod_llr_partials(B, S, log_n),),
                                dtype=torch.float32, device=re.device)
         out = torch.empty((1,), dtype=torch.float32, device=re.device)
     else:

@@ -403,12 +403,12 @@ def _within_margin(got, llr, want):
     assert bool(((got - want).abs() <= margin).all()), (got, want, margin)
 
 
-@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
-@pytest.mark.parametrize("n_fft,h_syms", [(64, 1), (256, 8), (4096, 1)])
-def test_demod_count_despread_kernel_matches_plain(dev, mod, n_fft, h_syms):
-    """Kernel C's despread mode (SC-FDE) against its plain version on an
-    SC-FDMA waveform through a per-subcarrier channel."""
-    B, S, cp = 24, 8, n_fft // 8
+def _despread_count_case(dev, mod, n_fft, h_syms, B, S, idx_dtype=None):
+    """Kernel C's despread count against its plain version on an SC-FDMA
+    waveform through a per-subcarrier channel (h one row a channel, or
+    one a symbol with h_syms = "S")."""
+    cp = n_fft // 8
+    h_syms = S if h_syms == "S" else h_syms
     ids = torch.arange(B, dtype=torch.int32, device=dev)
     idx = ka.payload_idx(S, n_fft, mod.bits_per_symbol, 5, ids)
     nv = 1.0 / (10 ** 1.0 * mod.bits_per_symbol)
@@ -423,12 +423,36 @@ def test_demod_count_despread_kernel_matches_plain(dev, mod, n_fft, h_syms):
                                                                   dtype=torch.complex64,
                                                                   device=dev) * nv ** 0.5
     re, im = y.real.contiguous(), y.imag.contiguous()
+    if idx_dtype is not None:
+        idx = idx.to(idx_dtype)
     got = _counted("demod_count_despread",
                    lambda: kc.demod_count(re, im, hr, hi, idx, cp, mod, nv, despread=True))
     llr = kc.demod_chain(re, im, hr, hi, cp, mod, nv, despread=True)
     want = kc.count_errors(llr, idx, mod.bits_per_symbol)
     assert int(want.sum()) > 0
     _within_margin(got, llr, want)
+
+
+_DESPREAD_N = [64, 128, 256, 512, 1024, 2048, 4096]
+
+
+@pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
+@pytest.mark.parametrize("n_fft", _DESPREAD_N)
+@pytest.mark.parametrize("h_syms", [1, "S"])
+@pytest.mark.parametrize("B,S", [(20, 7), (203, 33)], ids=["20x7", "203x33"])
+def test_demod_count_despread_kernel_matches_plain(dev, mod, n_fft, h_syms, B, S):
+    """Kernel C's despread mode (SC-FDE) in every plan: the tile at N 64,
+    the warp-group form at N 128-4096 (1, 2, 4, 8 warps a symbol); S = 33
+    is one past a block's run of 32 symbols."""
+    _despread_count_case(dev, mod, n_fft, h_syms, B, S)
+
+
+@pytest.mark.parametrize("idx_dtype,n_fft,h_syms", [(torch.int16, 1024, "S"),
+                                                    (torch.int32, 256, 1)],
+                         ids=["int16", "int32"])
+def test_demod_count_despread_kernel_index_widths(dev, idx_dtype, n_fft, h_syms):
+    """The despread count reads int16 and int32 index rows as int8 ones."""
+    _despread_count_case(dev, Modulation.QAM16, n_fft, h_syms, 20, 33, idx_dtype)
 
 
 _MC_MODELS = [
@@ -571,13 +595,19 @@ def _llr_close(got, want):
                                                    (128, 1, False), (128, "S", False),
                                                    (512, 1, False), (1024, "S", False),
                                                    (2048, 1, False), (4096, 1, False),
-                                                   (4096, "S", False)])
+                                                   (4096, "S", False), (64, "S", True),
+                                                   (128, 1, True), (128, "S", True),
+                                                   (256, "S", True), (512, 1, True),
+                                                   (512, "S", True), (1024, 1, True),
+                                                   (1024, "S", True), (2048, 1, True),
+                                                   (2048, "S", True), (4096, 1, True)])
 @pytest.mark.parametrize("B,S", [(20, 7), (203, 33)], ids=["20x7", "203x33"])
 def test_demod_llr_and_sum_kernels_match_plain(dev, mod, n_fft, h_syms, despread, B, S):
-    """Kernel C's LLR-plane and sum modes (and their despread forms)
-    against the plain plane; S = 7 rows is not a multiple of the tile's
-    rows per block, S = 33 one past the warp-group form's run of 32
-    symbols a block; h one row a channel or one a symbol; the sum is
+    """Kernel C's LLR-plane and sum modes (and their despread forms, on
+    the tile at N 64 and in the warp-group form at N 128-4096) against
+    the plain plane; S = 7 rows is not a multiple of the tile's rows per
+    block, S = 33 one past the warp-group form's run of 32 symbols a
+    block; h one row a channel or one a symbol; the sum is
     deterministic."""
     cp = n_fft // 4
     h_syms = S if h_syms == "S" else h_syms
