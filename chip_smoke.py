@@ -24,10 +24,12 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    (N 4096) at B/2 × 16 — for B in every channel mode, C's count, plane
    and sums, C's despread count (at the link's batch) and plane (at the
    coded batch) on an SC-FDMA waveform, D and F in their wideband mode
-   and C's post-FFT mode (``llr_chain``), the ``K1`` line per N giving
+   and C's post-FFT mode (``llr_chain``, plane and sum, each with its
+   bound and share), the ``K1`` line per N giving
    F's count beside C's on the same tones and each mode's share of its
-   bound (C's count, sum and plane, each also with the despread, at
-   N 128–4096 run its warp-group form, ``csrc/demod_rows.cuh``; the form
+   bound (C's count, sum and plane, each also with the despread, and its
+   TP mode at N 128–4096 run its warp-group form, ``csrc/demod_rows.cuh``;
+   the post-FFT mode its streaming form, ``csrc/llr_chain.cu``; the form
    each entry ran is its ``form``); then holds the staged
    channel route (plain FIR + kernel E) against the fused one (kernel B's
    FIR); kernel G in its injected and keyed modes (five channels,
@@ -42,10 +44,11 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    ``torch.randint``;
    2t. kernel C's tensor-parallel stage-2 mode (``tp_stage2_llr``, #20)
    against ``stage2_llr_plain`` at the shapes the TP path runs — rows of
-   n2 = 1024 (config 5 split over 4 ranks, 256 × 64 per rank) and
-   n2 = 4096 (one rank; h per link and per symbol), 16-QAM, the noise
-   variance a device tensor: within 1e-4 of the peak, equal signs where
-   |LLR| ≥ 1e-3, times and bound;
+   n2 = 1024 (config 5 split over 4 ranks, 256 × 64 per rank),
+   n2 = 4096 (one rank; h per link and per symbol) and n2 = 512 (8
+   ranks), 16-QAM, the noise variance a device tensor, all in the
+   warp-group form: within 1e-4 of the peak, equal signs where
+   |LLR| ≥ 1e-3, times, bound and share;
    2b. kernels D and F on bfloat16 sample planes against their plain
    versions (D at 32768 × 64, F's count and plane at 8192 × 64), then,
    with the counters zeroed, the BER gate of bf16 input through
@@ -95,7 +98,9 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    decoded differently only in codewords holding a plain |LLR| < 1e-3,
    totals within max(8, 0.1 %);
    3h. the LLR-plane terminals a user calls (``demod_llr_chain_cl`` f32
-   and bf16, ``demod_chain`` plane, sum and despread) at 8192 × 64;
+   and bf16, ``demod_chain`` plane, sum and despread,
+   ``demod_chain_hybrid`` plane and sum beside its ``llr_chain``'s bound)
+   at 8192 × 64;
    3i. the wideband link: ``fast_simulate`` at config 3 (64-QAM, N 1024,
    CP 128, 8192 × 64; AWGN 12 dB and RAYLEIGH_FLAT 15 dB against exact
    theory within 5 % / 10 %, MULTIPATH with config 4's PDP at 14 dB
@@ -108,8 +113,9 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    and 4096, staged and fused seams within max(8, 1 %); the terminals
    ``demod_sum_chain_cl``, ``demod_count_chain_cl``,
    ``demod_llr_chain_cl``, ``demod_chain`` (sum) and
-   ``demod_chain_hybrid`` at N 1024, 2048 and 4096, every sum within 1e-5
-   of the plain sum, and the SC-FDE receive (``demod_count_chain`` and
+   ``demod_chain_hybrid`` (beside its ``llr_chain``'s bound) at N 1024,
+   2048 and 4096, every sum within 1e-5 of the plain sum, and the SC-FDE
+   receive (``demod_count_chain`` and
    ``demod_chain`` with ``despread``; the sum at N 4096) (CUDA events);
    5. the parallel layer: ``parallel.dryrun.dryrun_multichip`` on 4
    gloo ranks sharing the one card (spawned; the library built above is
@@ -143,8 +149,9 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    phase 2w's numbers, the launches in that N's window and the TPU
    four-step, post-FFT or channels-last kernel they replace there),
    before it one ``phase 6 C`` line for each entry of kernel C's
-   warp-group modes (its form, ms, bound, share of the bound, launches
-   and launches × (ms − bound ms)) and one ``phase 6 B`` line for each
+   warp-group, TP and post-FFT modes (its form, ms, bound, share of the
+   bound, launches and launches × (ms − bound ms)) and one ``phase 6 B``
+   line for each
    mode and N at which phases 2 and 2w timed kernel B (its form — the
    tile, or the warp-group plan R × G of ``csrc/tx_rows.cuh`` — ms, plain
    ms, bound, share, the launches of its counter in that N's window and
@@ -248,20 +255,27 @@ def despread_flops(mod, n: int, rows: int, h_rows: int, count: bool = False) -> 
 
 
 # Kernel C's modes: those the warp-group form (csrc/demod_rows.cuh) takes
-# at N 128-4096, and the one that stays on the shared-memory tile (demod.cu).
+# at N 128-4096 (below that the shared-memory tile, demod.cu), and those
+# of the post-FFT mode's streaming form (csrc/llr_chain.cu), at every N.
 C_ROWS_MODES = ("demod_count", "demod_count_taps", "demod_llr", "demod_sum",
-                "demod_count_despread", "demod_llr_despread", "demod_sum_despread")
-C_TILE_MODES = ("tp_stage2_llr",)
+                "demod_count_despread", "demod_llr_despread", "demod_sum_despread",
+                "tp_stage2_llr")
+C_STREAM_MODES = ("llr_chain", "llr_chain_sum")
 
 
 def c_form(name: str, n_fft: int) -> dict:
     """The form of kernel C that mode ``name`` runs at ``n_fft``."""
+    if name in C_STREAM_MODES:
+        return {"form": "streaming: a block a run of one channel's symbols, 4 tones a thread at "
+                        "a fixed k, h and its gains once a run, 16-byte loads and stores"}
     if name in C_ROWS_MODES and n_fft >= 128:
         r, g = (n_fft // 32, 1) if n_fft <= 512 else (16, n_fft // 512)
         dfts = "two shuffle DFTs (the despread's inverse)" if "despread" in name else \
             "shuffle DFTs"
+        run = "a digit row's run of 32 symbols" if name == "tp_stage2_llr" else \
+            "a run of 32 symbols"
         return {"form": f"warp-group: {g} warp{'s' if g > 1 else ''} a symbol, {r} points a "
-                        f"lane in registers, {dfts}, a block a run of 32 symbols"}
+                        f"lane in registers, {dfts}, a block {run}"}
     return {"form": "shared-memory tile: radix-2 stages, a barrier each"}
 
 
@@ -354,13 +368,16 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def compare_times(kernel_fn, plain_fn, reps=3):
-        """Warm up both, then time in turns plain, kernel, kernel, plain."""
+    def compare_times(kernel_fn, plain_fn, reps=3, kernel_reps=None):
+        """Warm up both, then time in turns plain, kernel, kernel, plain
+        (``kernel_reps`` calls of the kernel a turn, default ``reps``: a
+        kernel of well under a millisecond timed one call a turn also
+        carries the host's time to launch it)."""
         kernel_fn()
         plain_fn()
         p1 = timed(plain_fn, reps)
-        k1 = timed(kernel_fn, reps)
-        k2 = timed(kernel_fn, reps)
+        k1 = timed(kernel_fn, kernel_reps or reps)
+        k2 = timed(kernel_fn, kernel_reps or reps)
         p2 = timed(plain_fn, reps)
         return (k1 + k2) / 2, (p1 + p2) / 2
 
@@ -380,6 +397,17 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     def of_bound(rep):
         return (f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}), share "
                 f"{rep['bound_ms'] / rep['ms']:.4f}")
+
+    def chain_bound(b, s, n, h_syms, mod_, reduce_sum):
+        """Kernel #19's bound: y (8 bytes a tone) and h read, the plane (4
+        a bit) or the sum written; the tail's f32 operations."""
+        out_bytes = 4 if reduce_sum else 4 * b * s * n * mod_.bits_per_symbol
+        return bound(8 * b * s * n + 8 * b * h_syms * n + out_bytes, b * s * n * tail_flops(mod_))
+
+    def hybrid_bound(b, s, n, h_syms, mod_, reduce_sum, ms_call):
+        rep = chain_bound(b, s, n, h_syms, mod_, reduce_sum)
+        return (f"its llr_chain's bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}), "
+                f"{rep['bound_ms'] / ms_call:.4f} of the call")
 
     # ---- phase 2: each kernel against its plain version ------------------
     # A: payload draw, exact, in int8 (bps 4) and int16 (bps 10); four
@@ -1209,14 +1237,14 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         l_err, l_peak = parts_check(f"kernel C llr_chain {tag}", got, llr_chain_part, parts)
         del got
         ms, pms = compare_times(lambda: kc.llr_chain(yr_w, yi_w, hr_w, hi_w, mod_w, nv_w),
-                                lambda: each(llr_chain_part, parts), reps=1)
-        y_bytes = 8 * rows_w * n_w + 8 * b_w * n_w
+                                lambda: each(llr_chain_part, parts), reps=1, kernel_reps=10)
         plane_bytes = 4 * rows_w * n_w * bps_w
         wide_report[("llr_chain", n_w)] = dict(
             max_abs_err=l_err, ms=ms, plain_ms=pms,
-            **bound(y_bytes + plane_bytes, rows_w * n_w * tail_flops(mod_w)))
+            **chain_bound(b_w, s_w, n_w, 1, mod_w, False))
         print(f"phase 2w C llr_chain (post-FFT) {tag}: max abs diff {l_err:.3g} (peak "
-              f"{l_peak:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
+              f"{l_peak:.3g}); kernel {ms:.4f} ms, plain {pms:.3f} ms; "
+              f"{of_bound(wide_report[('llr_chain', n_w)])}")
         # F (count, LLR plane f32 / bf16) on the same waveform, channels-last.
         wre_t, wim_t = fast._to_cl(re, im)
         del re, im, yr_w, yi_w
@@ -1313,7 +1341,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                                    reduce_sum=True),
              plain_sum(lambda sl: kc.llr_chain_plain(byr[sl], byi[sl], bhr[sl], bhi[sl], mod_w,
                                                      nv_w, reduce_sum=True)),
-             bound(y_bytes + 4, rows_w * n_w * tail_flops(mod_w))),
+             chain_bound(b_w, s_w, n_w, 1, mod_w, True)),
         ]
         if n_w == 4096:
             sums.append(("demod_sum_despread",
@@ -1326,11 +1354,13 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
             s_err = abs(tot_k - tot_p)
             _check(s_err <= 1e-5 * abs(tot_p), f"{name} {tag}: {tot_k!r} vs plain {tot_p!r}")
             _check(float(kfn()) == tot_k, f"{name} {tag} is not deterministic")
-            ms, pms = compare_times(kfn, pfn, reps=1)
+            # #19's sum, under a millisecond at N 2048 and 4096: ten calls a turn.
+            ms, pms = compare_times(kfn, pfn, reps=1,
+                                    kernel_reps=10 if name == "llr_chain_sum" else None)
             wide_report[(name, n_w)] = dict(max_abs_err=s_err, ms=ms, plain_ms=pms, **bnd)
             print(f"phase 2w {name} {tag}: {tot_k:.9g}, plain {tot_p:.9g}, rel diff "
-                  f"{s_err / abs(tot_p):.3g} (allowed 1e-5), deterministic; kernel {ms:.3f} ms, "
-                  f"plain {pms:.3f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+                  f"{s_err / abs(tot_p):.3g} (allowed 1e-5), deterministic; kernel {ms:.4f} ms, "
+                  f"plain {pms:.3f} ms; {of_bound(wide_report[(name, n_w)])}")
         del br, bi, bhr, bhi, br_t, bi_t, bhr_t, bhi_t, byr, byi
         torch.cuda.empty_cache()
         # K1 (D/F's wideband form) against C on the same tones, and each
@@ -1359,8 +1389,9 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     # ---- phase 2t: kernel #20, C's TP stage-2 mode, against its plain version
     # At the shapes the TP path runs: config 5 split over 4 ranks (rows of
     # n2 = 1024, 256 x 64 per rank, h per link) and one rank (n2 = 4096,
-    # h per link and per symbol), 16-QAM; the noise variance a device
-    # tensor. The rows have the TP path's scale: variance 1/n2 per
+    # h per link and per symbol), and over 8 ranks (n2 = 512), 16-QAM; the
+    # noise variance a device tensor; the warp-group form (n2 >= 128). The
+    # rows have the TP path's scale: variance 1/n2 per
     # sample, so that the n2-point transform gives the unit-energy grid
     # H·X + N the equaliser sees on a link (14 dB). Within 1e-4 of the
     # peak, equal signs where |LLR| >= 1e-3.
@@ -1368,7 +1399,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     nv_t = torch.tensor(1.0 / (10.0 ** 1.4 * bps), dtype=torch.float32, device=dev)
     tp_report = {}
     for label, n2, h_syms in (("n2=1024", 1024, 1), ("n2=4096", 4096, 1),
-                              ("n2=4096 h per symbol", 4096, S)):
+                              ("n2=4096 h per symbol", 4096, S), ("n2=512", 512, 1)):
         b_t = B // 32  # 256 at B = 8192: config 5's 256 channels
         tr, ti = (torch.randn((b_t, S, 1, n2), device=dev, generator=gen_t) * (0.5 / n2) ** 0.5
                   for _ in range(2))
@@ -1382,15 +1413,15 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                f"kernel C tp_stage2_llr {label}: signs differ where |LLR| >= 1e-3")
         del got, want, big
         ms, pms = compare_times(lambda: kc.tp_stage2_llr(tr, ti, thr, thi, nv_t, mod),
-                                lambda: kc.stage2_llr_plain(tr, ti, thr, thi, nv_t, mod), reps=2)
+                                lambda: kc.stage2_llr_plain(tr, ti, thr, thi, nv_t, mod), reps=10)
         rows_t = b_t * S
         bnd = bound(8 * rows_t * n2 + 8 * b_t * h_syms * n2 + 4 * rows_t * n2 * bps + 4,
                     rows_t * (fft_flops(n2) + n2 * tail_flops(mod)))
         tp_report[label] = dict(max_abs_err=t_err, ms=ms, plain_ms=pms, **bnd)
-        print(f"phase 2t C tp_stage2_llr {label} ({b_t}x{S}x1x{n2}, h_syms {h_syms}): max abs "
-              f"diff {t_err:.3g} (peak {t_peak:.3g}, allowed 1e-4 of it), signs equal; kernel "
-              f"{ms:.3f} ms, plain {pms:.3f} ms; bound {bnd['bound_ms']:.4f} ms "
-              f"({bnd['bound_by']})")
+        print(f"phase 2t C tp_stage2_llr {label} ({b_t}x{S}x1x{n2}, h_syms {h_syms}; "
+              f"{c_form('tp_stage2_llr', n2)['form']}): max abs diff {t_err:.3g} (peak "
+              f"{t_peak:.3g}, allowed 1e-4 of it), signs equal; kernel {ms:.4f} ms, plain "
+              f"{pms:.3f} ms; {of_bound(tp_report[label])}")
         del tr, ti, thr, thi
     report["tp_stage2_llr"] = tp_report["n2=1024"]
     torch.cuda.empty_cache()
@@ -2007,14 +2038,20 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
          lambda: demod_chain(tr, ti, thr, thi, CP, mod, nv10, despread=True)),
         ("demod_chain despread sum",
          lambda: demod_chain(tr, ti, thr, thi, CP, mod, nv10, reduce_sum=True, despread=True)),
+        ("demod_chain_hybrid plane", lambda: demod_chain_hybrid(tr, ti, thr, thi, CP, mod, nv10)),
+        ("demod_chain_hybrid sum",
+         lambda: demod_chain_hybrid(tr, ti, thr, thi, CP, mod, nv10, reduce_sum=True)),
     ]
     for label, fn in terminals:
         out = fn()
         _check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite output")
         del out
         ms_t = timed(fn, 5)
+        # The hybrid route: its post-FFT kernel's bound (#19) beside the call.
+        hyb = "" if "hybrid" not in label else "; " + hybrid_bound(
+            B, S, N, 1, mod, "sum" in label, ms_t)
         print(f"phase 3h {label} ({B}x{S}x{N + CP} f32 in): {ms_t:.3f} ms per call, "
-              f"{B * S * (N + CP) / (ms_t * 1e-3) / 1e9:.3f} GS/s on {card}")
+              f"{B * S * (N + CP) / (ms_t * 1e-3) / 1e9:.3f} GS/s on {card}{hyb}")
     del tr, ti, thr, thi, tr_t, ti_t, thr_t, thi_t
     torch.cuda.empty_cache()
 
@@ -2215,8 +2252,10 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                 _check(abs(float(out) - ref_sum) <= 1e-5 * abs(ref_sum),
                        f"{name} {label}: sum {float(out)!r} vs plain {ref_sum!r}")
             del out
+            hyb = "" if "hybrid" not in name else "; " + hybrid_bound(
+                b_t, s_t, n_t, 1, mod_t, "sum" in name, ms_t)
             print(f"phase 3i {name} {label} ({b_t}x{s_t}x{n_t + cp_t} f32 in): {ms_t:.3f} ms per "
-                  f"call, {b_t * s_t * (n_t + cp_t) / (ms_t * 1e-3) / 1e9:.3f} GS/s on {card}")
+                  f"call, {b_t * s_t * (n_t + cp_t) / (ms_t * 1e-3) / 1e9:.3f} GS/s on {card}{hyb}")
         del xr, xi, hr_i, hi_i, xr_t, xi_t, hr_it, hi_it, idx_i, idx_r
         torch.cuda.empty_cache()
     # phase 3i: the wideband link and terminals, the sum of the N windows
@@ -2324,7 +2363,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                  "sdr_tpu/kernels/demod_cl_pallas.py:753"),
         "demod_llr_cl_bf16_in_bf16": ("sdr_tpu_torch/csrc/demod_cl_llr.cu",
                                       "sdr_tpu/kernels/demod_cl_pallas.py:753"),
-        "tp_stage2_llr": ("sdr_tpu_torch/csrc/demod.cu", "sdr_tpu/parallel/tp.py:69"),
+        "tp_stage2_llr": ("sdr_tpu_torch/csrc/demod_tp.cu", "sdr_tpu/parallel/tp.py:69"),
     }
     # The wideband entries: each counter at N 1024, 2048 and 4096, with its
     # launches in that N's window of phase 3i, against the TPU kernel it
@@ -2360,7 +2399,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     def cl_form(name, n_fft):
         if name in ("tx", "tx_taps", "tx_off"):
             return {"form": b_form(n_fft)}
-        if name in C_ROWS_MODES or name in C_TILE_MODES:
+        if name in C_ROWS_MODES or name in C_STREAM_MODES:
             return c_form(name, n_fft)
         if not sources.get(name, ("",))[0].startswith("sdr_tpu_torch/csrc/demod_cl"):
             return {}
@@ -2372,27 +2411,31 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
 
     kernels = [
         dict(name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],
-             **cl_form(name, N), launches=own[name], **windows_of(name),
-             **{"library_ms": None, **report[name]})
+             **cl_form(name, 1024 if name == "tp_stage2_llr" else N), launches=own[name],
+             **windows_of(name), **{"library_ms": None, **report[name]})
         for name in sources
     ] + [
         dict(name=f"{name}@N{n_w}", route="cuda",
-             source=sources[name][0] if name in sources else "sdr_tpu_torch/csrc/demod.cu",
+             source=sources[name][0] if name in sources else "sdr_tpu_torch/csrc/llr_chain.cu",
              replaces=wide_sources[name][0], also_replaces=list(wide_sources[name][1:]),
              **cl_form(name, n_w), launches=launches_at[n_w][name], **windows_of(name),
              **{"library_ms": None, **rep})
         for (name, n_w), rep in wide_report.items()
     ] + [
-        # Kernel #20 at one rank's n2 = 4096 (phase 2t's second shape): the
-        # launches of phase 5n's window, where the TP path runs it there.
-        dict(name="tp_stage2_llr@n2=4096", route="cuda", source=sources["tp_stage2_llr"][0],
-             replaces=sources["tp_stage2_llr"][1], launches=launches_nccl["tp_stage2_llr"],
-             **windows_of("tp_stage2_llr"), **{"library_ms": None, **tp_report["n2=4096"]})
+        # Kernel #20 at phase 2t's other shapes: at one rank's n2 = 4096 the
+        # launches of phase 5n's window, where the TP path runs it there; at
+        # n2 = 512 (no TP row of phase 5 splits that way) its own path's.
+        dict(name=f"tp_stage2_llr@{label.replace(' ', '_')}", route="cuda",
+             source=sources["tp_stage2_llr"][0], replaces=sources["tp_stage2_llr"][1],
+             **c_form("tp_stage2_llr", n2),
+             launches=launches_nccl["tp_stage2_llr"] if n2 == 4096 else own["tp_stage2_llr"],
+             **windows_of("tp_stage2_llr"), **{"library_ms": None, **tp_report[label]})
+        for label, n2 in (("n2=4096", 4096), ("n2=4096 h per symbol", 4096), ("n2=512", 512))
     ]
-    # Kernel C's warp-group modes: time, share of the bound, launches in
-    # the path's window and launches × (ms − bound ms).
+    # Kernel C's modes: form, time, share of the bound, launches in the
+    # path's window and launches × (ms − bound ms).
     for k in kernels:
-        if k["name"].split("@")[0] in C_ROWS_MODES:
+        if k["name"].split("@")[0] in C_ROWS_MODES + C_STREAM_MODES:
             print(f"phase 6 C {k['name']} ({k['form']}): {k['ms']:.4f} ms, bound "
                   f"{k['bound_ms']:.4f} ms ({k['bound_by']}), share "
                   f"{k['bound_ms'] / k['ms']:.4f}, launches {k['launches']}, launches x gap "

@@ -224,16 +224,29 @@ __device__ __forceinline__ int scaled_bit_errors(float sr, float si, float inv_e
   return err;
 }
 
+// What the OFDM tone tail takes from h alone: h, 1/max(|h|^2, 1e-12) and
+// the LLR scale |h|^2 / nv (built once where h serves many symbols).
+struct OneTap {
+  float hr, hi, inv_h2, eff;
+};
+__device__ __forceinline__ OneTap one_tap(float h_r, float h_i, float inv_nv) {
+  const float h2 = h_r * h_r + h_i * h_i;
+  return OneTap{h_r, h_i, 1.0f / fmaxf(h2, 1e-12f), h2 * inv_nv};
+}
+
 // The OFDM tone tail: unbiased one-tap equalisation s = conj(h) y /
 // max(|h|^2, 1e-12), LLRs scaled by |h|^2 / nv into llr[0 .. BPS-1].
 template <int M, bool BPSK>
+__device__ __forceinline__ void one_tap_llrs(float yr, float yi, const OneTap& g,
+                                             const AxisTables& tab, float* llr) {
+  const float sr = (g.hr * yr + g.hi * yi) * g.inv_h2;
+  const float si = (g.hr * yi - g.hi * yr) * g.inv_h2;
+  scaled_llrs<M, BPSK>(sr, si, g.eff, tab, llr);
+}
+template <int M, bool BPSK>
 __device__ __forceinline__ void mmse_llrs(float yr, float yi, float h_r, float h_i, float inv_nv,
                                           const AxisTables& tab, float* llr) {
-  const float h2 = h_r * h_r + h_i * h_i;
-  const float inv_h2 = 1.0f / fmaxf(h2, 1e-12f);
-  const float sr = (h_r * yr + h_i * yi) * inv_h2;
-  const float si = (h_r * yi - h_i * yr) * inv_h2;
-  scaled_llrs<M, BPSK>(sr, si, h2 * inv_nv, tab, llr);
+  one_tap_llrs<M, BPSK>(yr, yi, one_tap(h_r, h_i, inv_nv), tab, llr);
 }
 
 // The OFDM tone tail's bit errors against v.

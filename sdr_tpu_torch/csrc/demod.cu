@@ -1,9 +1,11 @@
-// Kernel C, rows layout: the shared-memory tile. Its warp-group form
-// (demod_rows.cuh; demod_count.cu, demod_llr.cu, demod_despread_*.cu)
-// takes the count (h plane and taps=), the LLR plane and the sum, each
-// also with the despread (SC-FDE) receive, at N = 128 to 4096; this file
-// keeps what it does not: those modes at N = 2 to 64, the post-FFT mode
-// (llr_chain) and the tensor-parallel stage-2 mode (tp_stage2_llr).
+// Kernel C, rows layout: the shared-memory tile, at N = 2 to 64 alone.
+// Its warp-group form (demod_rows.cuh; demod_count.cu, demod_llr.cu,
+// demod_despread_*.cu, demod_tp.cu) takes the count (h plane and taps=),
+// the LLR plane and the sum, each also with the despread (SC-FDE)
+// receive, and the tensor-parallel stage-2 mode (tp_stage2_llr) at N =
+// 128 to 4096; the post-FFT mode (llr_chain) has no transform and its own
+// streaming form (llr_chain.cu). This file keeps those modes (the TP mode
+// included) at N = 2 to 64.
 //
 // Replaces sdr_tpu/kernels/demod_pallas.py::demod_count_pallas (the
 // fast engine's count terminal) with its taps= and despread modes, and
@@ -32,19 +34,15 @@
 // so the reduction never crosses blocks. Counts are summed with integer
 // atomics, which give the same result in any order.
 //
-// The tile: a block of 256 threads holds 2^(9 - log N) symbols (one from
-// N = 512, where only the TP mode runs it) bit-reversed in shared memory
-// and runs radix-2 FFTs on them, log2 N stages a barrier each, on CUDA
-// cores in f32 (the TPU kernel ran the DFT as a Gauss 3-multiplication
-// matmul on the MXU in bf16 passes, and the despread as a second matmul;
-// at N 1024 to 4096 the four-step kernels of fourstep_split_pallas.py
-// and fourstep_pallas.py split it into N1·N2 matmul steps because dense
-// DFT operands outgrew VMEM).
+// The tile: a block of 256 threads holds 2^(9 - log N) symbols
+// bit-reversed in shared memory and runs radix-2 FFTs on them, log2 N
+// stages a barrier each, on CUDA cores in f32 (the TPU kernel ran the DFT
+// as a Gauss 3-multiplication matmul on the MXU in bf16 passes, and the
+// despread as a second matmul).
 // Bound on the H100: the bytes (8 a sample read, the channel and index
 // planes, 4 a bit of a plane written); its stages, each moving 4 shared
 // words a point, are what hold it far under that bound, most of all in
-// the despread mode, which doubles them. The TP mode is the tile's next
-// redesign (ROADMAP).
+// the despread mode, which doubles them.
 #include "demod_rows.cuh"
 
 namespace {
@@ -168,8 +166,9 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
 // sync, as the TPU kernel's SMEM scalar did. The store is the public
 // order above: per row, subcarrier-major [k·BPS + j] (the TPU kernel
 // wrote bit-major lanes and transposed them after the call). The TPU
-// kernel ran the n2-point DFT as a Gauss complex matmul on the MXU; here
-// it is the same shared-memory radix-2 f32 FFT as every other mode.
+// kernel ran the n2-point DFT as a Gauss complex matmul on the MXU; here,
+// at n2 = 2 to 64, it is the same shared-memory radix-2 f32 FFT as every
+// other mode (demod_rows.cuh's TP flag takes n2 = 128 to 4096).
 template <int M, bool BPSK, bool DESPREAD, bool SUM, bool TP = false>
 __global__ void __launch_bounds__(sdr::kThreads)
 demod_llr_kernel(const float* __restrict__ re, const float* __restrict__ im,
@@ -300,7 +299,7 @@ int launch_tp_stage2(const float* tr, const float* ti, const float* hr, const fl
                      int h_syms, const float* nv_dev, float* out, long long n_rows, int S,
                      int n1d, int log_n, const sdr::AxisTables& tab, const float* twr,
                      const float* twi, cudaStream_t st) {
-  const int log_spb = log_n >= 9 ? 0 : 9 - log_n;
+  const int log_spb = 9 - log_n;  // N <= 64: at least 8 rows a block
   const LlrLaunch l = llr_launch(n_rows, log_n, log_spb);
   demod_llr_kernel<M, BPSK, false, false, true><<<(unsigned)l.blocks, sdr::kThreads, l.smem,
                                                   st>>>(
@@ -309,100 +308,19 @@ int launch_tp_stage2(const float* tr, const float* ti, const float* hr, const fl
   return (int)cudaGetLastError();
 }
 
-// The post-FFT mode (llr_pallas.py::llr_chain_pallas, the hybrid route's
-// equalize + LLR kernel): the frequency-domain grid y (B, S, N) comes in
-// transformed, and each tone runs C's one-tap tail (mmse_llrs) against h
-// (B, 1 | S, N), storing its BPS LLRs in the public order
-// out[(row * N + k) * BPS + j], or (SUM) adding them to the thread's sum,
-// reduced per block in a fixed order into partials[block]. No shared
-// tile: consecutive threads take consecutive tones, each reading 8 bytes
-// of y and 8 of h and writing 4·BPS bytes, so the mode is bound by those
-// bytes. The grid is fixed by the tone count (llr_chain_blocks) and every
-// thread strides over it, so the sum's partials are the same for a shape
-// on every run.
-int llr_chain_blocks(long long n_tones) {
-  const long long want = (n_tones + sdr::kThreads - 1) / sdr::kThreads;
-  return (int)(want < 2112 ? want : 2112);  // 16 blocks for each of 132 SMs
-}
-
-template <int M, bool BPSK, bool SUM>
-__global__ void __launch_bounds__(sdr::kThreads)
-llr_chain_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
-                 const float* __restrict__ hr, const float* __restrict__ hi, int h_syms,
-                 float* __restrict__ out, long long n_tones, int S, int log_n,
-                 sdr::AxisTables tab, float inv_nv) {
-  constexpr int BPS = BPSK ? 1 : 2 * M;
-  __shared__ float red[sdr::kThreads / 32];
-  const int N = 1 << log_n;
-  float acc = 0.0f;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n_tones;
-       e += (long long)gridDim.x * blockDim.x) {
-    const long long r = e >> log_n;
-    const int k = (int)(e & (N - 1));
-    const long long b = r / S;
-    const long long ho = ((b * h_syms + (h_syms > 1 ? r - b * S : 0)) << log_n) + k;
-    float llr[BPS];
-    sdr::mmse_llrs<M, BPSK>(yr[e], yi[e], hr[ho], hi[ho], inv_nv, tab, llr);
-    if constexpr (SUM) {
-#pragma unroll
-      for (int j = 0; j < BPS; ++j) acc += llr[j];
-    } else {
-      sdr::store_run<BPS>(out + e * BPS, llr);
-    }
-  }
-  if constexpr (SUM) {
-    const float v = sdr::block_sum(acc, red);
-    if (threadIdx.x == 0) out[blockIdx.x] = v;
-  }
-}
-
-template <int M, bool BPSK, bool SUM>
-int launch_llr_chain(const float* yr, const float* yi, const float* hr, const float* hi,
-                     int h_syms, float* out, float* partials, long long n_tones, int S, int log_n,
-                     const sdr::AxisTables& tab, float inv_nv, cudaStream_t st) {
-  const int blocks = llr_chain_blocks(n_tones);
-  llr_chain_kernel<M, BPSK, SUM><<<blocks, sdr::kThreads, 0, st>>>(
-      yr, yi, hr, hi, h_syms, SUM ? partials : out, n_tones, S, log_n, tab, inv_nv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !SUM) return (int)err;
-  sdr::sum_partials_kernel<<<1, 1024, 0, st>>>(partials, blocks, out);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// Number of per-block partials the post-FFT sum's wrapper must allocate.
-extern "C" int sdr_llr_chain_partials(int B, int S, int log_n) {
-  return llr_chain_blocks(((long long)B * S) << log_n);
-}
-
-extern "C" int sdr_llr_chain(const float* yr, const float* yi, const float* hr, const float* hi,
-                             int h_syms, float* out, float* partials, int B, int S, int log_n,
-                             int bits_per_axis, int bpsk, sdr::AxisTables tab, float inv_nv,
-                             int reduce_sum, void* stream) {
-  const long long n_tones = ((long long)B * S) << log_n;
-  if (n_tones <= 0 || h_syms < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  SDR_DISPATCH_MOD(bits_per_axis, bpsk,
-    if (reduce_sum)
-      return launch_llr_chain<M, BPSK, true>(yr, yi, hr, hi, h_syms, out, partials, n_tones, S,
-                                             log_n, tab, inv_nv, st);
-    return launch_llr_chain<M, BPSK, false>(yr, yi, hr, hi, h_syms, out, partials, n_tones, S,
-                                            log_n, tab, inv_nv, st))
-  return (int)cudaErrorInvalidValue;
-}
-
-// The TP stage-2 mode: t (B, S, n1d, n2) twiddled stage-1 output, h
-// (B, h_syms, n1d, n2) digit-major, nv one f32 on the device; out
-// (B, S, n1d, n2·BPS) subcarrier-major. n2 = 2^log_n, 2 to 4096.
-extern "C" int sdr_tp_stage2_llr(const float* tr, const float* ti, const float* hr,
-                                 const float* hi, int h_syms, const float* nv, float* out, int B,
-                                 int S, int n1d, int log_n, int bits_per_axis, int bpsk,
-                                 sdr::AxisTables tab, const float* twr, const float* twi,
-                                 void* stream) {
+// The TP stage-2 mode at n2 = 2 to 64 (sdr_tp_stage2_llr in demod_tp.cu
+// takes n2 = 128 to 4096 in the warp-group form): t (B, S, n1d, n2)
+// twiddled stage-1 output, h (B, h_syms, n1d, n2) digit-major, nv one f32
+// on the device; out (B, S, n1d, n2·BPS) subcarrier-major.
+int demod_tp_tile(const float* tr, const float* ti, const float* hr, const float* hi, int h_syms,
+                  const float* nv, float* out, int B, int S, int n1d, int log_n,
+                  int bits_per_axis, int bpsk, const sdr::AxisTables& tab, const float* twr,
+                  const float* twi, cudaStream_t st) {
   const long long n_rows = (long long)B * S * n1d;
-  if (n_rows <= 0 || h_syms < 1 || log_n < 1 || log_n > 12) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+  if (n_rows <= 0 || h_syms < 1 || log_n < 1 || log_n >= kRowsMinLog)
+    return (int)cudaErrorInvalidValue;
   SDR_DISPATCH_MOD(bits_per_axis, bpsk,
     return launch_tp_stage2<M, BPSK>(tr, ti, hr, hi, h_syms, nv, out, n_rows, S, n1d, log_n, tab,
                                      twr, twi, st))
@@ -411,7 +329,7 @@ extern "C" int sdr_tp_stage2_llr(const float* tr, const float* ti, const float* 
 
 // Per-block partials of the tile's sum.
 int demod_llr_tile_partials(int B, int S, int log_n) {
-  const int log_spb = log_n >= 9 ? 0 : 9 - log_n;
+  const int log_spb = 9 - log_n;  // N <= 64: at least 8 rows a block
   return (int)((((long long)B * S) + (1 << log_spb) - 1) >> log_spb);
 }
 
@@ -422,7 +340,7 @@ int demod_llr_tile(const float* re, const float* im, const float* hr, const floa
                    cudaStream_t st) {
   const long long n_rows = (long long)B * S;
   if (n_rows == 0) return (int)cudaErrorInvalidValue;
-  const int log_spb = log_n >= 9 ? 0 : 9 - log_n;
+  const int log_spb = 9 - log_n;  // N <= 64: at least 8 rows a block
   SDR_DISPATCH_MOD(bits_per_axis, bpsk,
     if (despread && reduce_sum)
       return launch_llr<M, BPSK, true, true>(re, im, hr, hi, h_syms, out, partials, n_rows, S,
@@ -447,7 +365,7 @@ int demod_count_tile(const float* re, const float* im, const float* hr, const fl
   const long long n_rows = (long long)B * S;
   if (n_rows == 0) return 0;
   if (n_taps < 0 || n_taps > kMaxTaps || (despread && n_taps)) return (int)cudaErrorInvalidValue;
-  const int log_spb = log_n >= 9 ? 0 : 9 - log_n;
+  const int log_spb = 9 - log_n;  // N <= 64: at least 8 rows a block
   const long long blocks = (n_rows + (1 << log_spb) - 1) >> log_spb;
   const size_t smem = (size_t)2 * sizeof(float) * ((size_t)1 << (log_spb + log_n)) +
                       sizeof(int) * ((size_t)1 << log_spb) +

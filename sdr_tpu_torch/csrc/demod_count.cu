@@ -19,7 +19,7 @@ extern "C" int sdr_demod_count(const float* re, const float* im, const float* hr
   if ((long long)B * S == 0) return 0;
   const RowsArgs a{re,  im,  hr,    hi,     taps_r, taps_i, idx,    out,    nullptr,
                    twr, twi, B,     S,      log_n,  cp,     h_syms, n_taps, idx_bytes,
-                   inv_nv, nv};
+                   inv_nv, nv, 1, nullptr};
   if (rows_bad_shape(a) || (idx_bytes != 1 && idx_bytes != 2 && idx_bytes != 4) ||
       (despread && n_taps))
     return (int)cudaErrorInvalidValue;

@@ -23,7 +23,7 @@ extern "C" int sdr_demod_llr(const float* re, const float* im, const float* hr, 
   const RowsArgs a{re,  im,  hr,  hi, nullptr, nullptr, nullptr,
                    reduce_sum ? (void*)partials : (void*)out,
                    reduce_sum ? out : nullptr,
-                   twr, twi, B,   S,  log_n,   cp,      h_syms, 0, 0, inv_nv, nv};
+                   twr, twi, B,   S,  log_n,   cp,      h_syms, 0, 0, inv_nv, nv, 1, nullptr};
   if (rows_bad_shape(a)) return (int)cudaErrorInvalidValue;
   if (despread && reduce_sum) return demod_despread_sum(a, tab, bits_per_axis, bpsk, st);
   if (despread) return demod_despread_plane(a, tab, bits_per_axis, bpsk, st);

@@ -1,12 +1,14 @@
 // Kernel C, rows layout: the warp-group form of its count (h plane or
 // taps=), LLR-plane and sum modes, each also with the despread (SC-FDE)
-// receive, at N = 128 to 4096, and the entry points of the shared-memory
-// tile in demod.cu, which keeps N = 2 to 64, the TP stage-2 mode and the
-// post-FFT mode. demod_count.cu holds the count's instantiations and
-// entry point, demod_llr.cu the plane's and the sum's, and
-// demod_despread_count.cu, demod_despread_llr.cu and demod_despread_sum.cu
-// those of the three despread modes, so that nvcc builds them in
-// parallel.
+// receive, and of its tensor-parallel stage-2 mode (the plane with the TP
+// flag), at N = 128 to 4096, and the entry points of the shared-memory
+// tile in demod.cu, which keeps N = 2 to 64 of every mode. demod_count.cu
+// holds the count's instantiations and entry point, demod_llr.cu the
+// plane's and the sum's, demod_despread_count.cu, demod_despread_llr.cu
+// and demod_despread_sum.cu those of the three despread modes, and
+// demod_tp.cu the TP mode's, so that nvcc builds them in parallel. The
+// post-FFT mode (llr_chain) has no transform: its streaming form is
+// llr_chain.cu.
 //
 // Replaces, at these N, sdr_tpu/kernels/demod_pallas.py::demod_count_pallas
 // (the count, with taps=) and ::demod_chain_pallas (the plane and the sum),
@@ -84,6 +86,16 @@
 // thread's own points, staged at their tone-layout slots (read back by
 // the thread that wrote them: no pass to natural order).
 //
+// The TP flag (demod_tp.cu; sdr_tpu/parallel/tp.py::_stage2_llr_pallas,
+// the four-step's phase B on one rank's digit block, which ran its
+// n2-point DFT as a Gauss complex matmul on the MXU) changes three things
+// of the plane mode. The row map: a run's channel is the digit row
+// (b, k1) of t (B, S, n1d, n2), symbol s of it row (b·S + s)·n1d + k1
+// with no CP, its h row (b·h_syms + (h_syms > 1 ? s : 0))·n1d + k1, and
+// the grid B·n1d·⌈S/32⌉ blocks. The noise variance: 1/max(nv, 1e-12) from
+// the one f32 on the device, read once by each thread, so no host sync.
+// The store: the plane's, row by row in the public order [k·BPS + j].
+//
 // Bound on the H100: the bytes, 8 a sample read (S·N rows: the CP is
 // skipped), the h plane, the indices, and 4·BPS a tone written by the
 // plane; the transform (5·N·log2 N f32 operations a symbol) and the tail
@@ -95,7 +107,7 @@
 #include "warpfft.cuh"
 
 // The shared-memory tile (demod.cu): kernel C's form at N = 2 to 64, the
-// despread modes included. Arguments as the extern "C" entry points.
+// despread and TP modes included. Arguments as the extern "C" entry points.
 int demod_count_tile(const float* re, const float* im, const float* hr, const float* hi,
                      int h_syms, const float* taps_r, const float* taps_i, int n_taps,
                      const void* idx, int idx_bytes, int32_t* out, int B, int S, int log_n,
@@ -108,6 +120,10 @@ int demod_llr_tile(const float* re, const float* im, const float* hr, const floa
                    float nv, int despread, int reduce_sum, const float* twr, const float* twi,
                    cudaStream_t st);
 int demod_llr_tile_partials(int B, int S, int log_n);
+int demod_tp_tile(const float* tr, const float* ti, const float* hr, const float* hi, int h_syms,
+                  const float* nv, float* out, int B, int S, int n1d, int log_n,
+                  int bits_per_axis, int bpsk, const sdr::AxisTables& tab, const float* twr,
+                  const float* twi, cudaStream_t st);
 
 // One launch of the warp-group form, by value. At namespace scope, so
 // that the functions that take it keep external linkage.
@@ -126,6 +142,8 @@ struct RowsArgs {
   int B, S, log_n, cp, h_syms, n_taps, idx_bytes;
   float inv_nv;
   float nv;  // the despread's MMSE noise variance (clamped at 1e-12)
+  int n1d;             // TP: digit rows a symbol (1 otherwise)
+  const float* nv_dev;  // TP: the noise variance, one f32 on the device
 };
 
 // N = 32 R G from 2^kRowsMinLog: below it the tile (demod.cu) runs.
@@ -142,8 +160,9 @@ int demod_despread_plane(const RowsArgs& a, const sdr::AxisTables& tab, int bits
 int demod_despread_sum(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
                        int bpsk, cudaStream_t st);
 
-// Per-block partials of the warp-group sum: one a block.
-inline long long rows_blocks(int B, int S) { return (long long)B * ((S + kRun - 1) / kRun); }
+// Blocks of a launch over `runs` channels (B, or B·n1d with TP) of S
+// symbols; the sum's per-block partials, one a block.
+inline long long rows_blocks(long long runs, int S) { return runs * ((S + kRun - 1) / kRun); }
 
 namespace {
 
@@ -198,9 +217,10 @@ __host__ __device__ inline RowsCarve rows_carve(int R, int G, const RowsArgs& a,
   return c;
 }
 
-template <int M, bool BPSK, int MODE, int R, int G, bool DESP>
+template <int M, bool BPSK, int MODE, int R, int G, bool DESP, bool TP>
 __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
     demod_rows_kernel(RowsArgs a, sdr::AxisTables tab) {
+  static_assert(!TP || (MODE == kPlane && !DESP), "the TP mode stores the plane");
   using C = sdr::Ctx<R, G>;
   // At 16 points a lane (two blocks an SM) a group loads its next symbol
   // into registers while this one runs; at 4 and 8 (three blocks an SM,
@@ -224,10 +244,16 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
   float* bz = (float*)(smem + cv.bz);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, group = warp / G;
+  // The run's channel: b, or with TP the digit row (b, k1); symbol s of
+  // it is row (b·S + s)·n1d + k1 of the planes.
   const int n_chunks = (a.S + kRun - 1) / kRun;
-  const int b = blockIdx.x / n_chunks;
-  const int s0 = (blockIdx.x - b * n_chunks) * kRun;
+  const int ch = blockIdx.x / n_chunks;
+  const int n1d = TP ? a.n1d : 1;
+  const int b = TP ? ch / n1d : ch;
+  const int k1 = TP ? ch - b * n1d : 0;
+  const int s0 = (blockIdx.x - ch * n_chunks) * kRun;
   const int s1 = min(a.S, s0 + kRun);
+  const float inv_nv = TP ? 1.0f / fmaxf(__ldg(a.nv_dev), 1e-12f) : a.inv_nv;
 
   // ---- what the run shares: twiddles, then h or W_N^k in natural order,
   // or the despread's MMSE weights in the tone layout and the bias sum ---
@@ -235,7 +261,7 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
   if (L > 0) {
     for (int k = tid; k < N; k += blockDim.x) hw[k] = sdr::w_table(a.twr, a.twi, a.log_n, k);
   } else if (a.h_syms == 1) {
-    const long long ho = (long long)b * N;
+    const long long ho = ((long long)b * n1d + k1) * N;
     float g = 0.0f;
     for (int k = tid; k < N; k += blockDim.x) {
       const float h_r = __ldg(a.hr + ho + k), h_i = __ldg(a.hi + ho + k);
@@ -264,7 +290,8 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
   // Time layout: point j·G + d of symbol s <- sample bitrev5(lane) +
   // 32(w + G j) + 32 R d of its row.
   auto load = [&](int s, int ln, int w, float(&xr)[R], float(&xi)[R]) {
-    const long long o = ((long long)b * a.S + s) * (N + a.cp) + a.cp + sdr::brev5(ln) + 32 * w;
+    const long long o = (((long long)b * a.S + s) * n1d + k1) * (N + a.cp) + a.cp +
+                        sdr::brev5(ln) + 32 * w;
 #pragma unroll
     for (int j = 0; j < R / G; ++j) {
 #pragma unroll
@@ -281,7 +308,7 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
   for (int s = s0 + group; s < s1; s += kGroups) {
     const int ln = sdr::opaque(lane), w = sdr::opaque(warp % G);
     const C cx{ln, w, group, tw, tw3, xtw, stg};
-    const long long row = (long long)b * a.S + s;
+    const long long row = ((long long)b * a.S + s) * n1d + k1;
     const long long e0 = row << a.log_n;
     const int t = 32 * w + ln;
     // The symbol's index row and h rows, copied into the group's stages
@@ -293,7 +320,7 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
         sdr::copy_async(ix, static_cast<const char*>(a.idx) + e0 * ix_bytes, N * ix_bytes, t,
                         32 * G);
       if (per_sym_h) {
-        const long long h0 = ((long long)b * a.h_syms + s) << a.log_n;
+        const long long h0 = (((long long)b * a.h_syms + s) * n1d + k1) << a.log_n;
         sdr::copy_async(hsr, a.hr + h0, 4 * N, t, 32 * G);
         sdr::copy_async(hsi, a.hi + h0, 4 * N, t, 32 * G);
       }
@@ -399,7 +426,7 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
         err += __popc((unsigned)((bits ^ v) & ((1 << BPS) - 1)));
       } else {
         float llr[BPS];
-        sdr::mmse_llrs<M, BPSK>(y.x, y.y, h.x, h.y, a.inv_nv, tab, llr);
+        sdr::mmse_llrs<M, BPSK>(y.x, y.y, h.x, h.y, inv_nv, tab, llr);
         if constexpr (MODE == kSum) {
 #pragma unroll
           for (int j = 0; j < BPS; ++j) acc += llr[j];
@@ -423,16 +450,16 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
   }
 }
 
-template <int M, bool BPSK, int MODE, bool DESP, int R, int G>
+template <int M, bool BPSK, int MODE, bool DESP, bool TP, int R, int G>
 int rows_launch(const RowsArgs& a, const sdr::AxisTables& tab, cudaStream_t st) {
   const RowsCarve cv = rows_carve(R, G, a, MODE == kCount ? a.idx_bytes : 0, DESP);
-  const auto kernel = demod_rows_kernel<M, BPSK, MODE, R, G, DESP>;
+  const auto kernel = demod_rows_kernel<M, BPSK, MODE, R, G, DESP, TP>;
   if (cv.total > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cv.total);
     if (err != cudaSuccess) return (int)err;
   }
-  const long long blocks = rows_blocks(a.B, a.S);
+  const long long blocks = rows_blocks(TP ? (long long)a.B * a.n1d : a.B, a.S);
   kernel<<<(unsigned)blocks, sdr::kThreads, cv.total, st>>>(a, tab);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || MODE != kSum) return (int)err;
@@ -443,15 +470,15 @@ int rows_launch(const RowsArgs& a, const sdr::AxisTables& tab, cudaStream_t st) 
 
 // The plan of N = 2^log_n, 128 to 4096: one warp a symbol to N 512, then
 // 2, 4 and 8.
-template <int M, bool BPSK, int MODE, bool DESP = false>
+template <int M, bool BPSK, int MODE, bool DESP = false, bool TP = false>
 int rows_launch_n(const RowsArgs& a, const sdr::AxisTables& tab, cudaStream_t st) {
   switch (a.log_n) {
-    case 7: return rows_launch<M, BPSK, MODE, DESP, 4, 1>(a, tab, st);
-    case 8: return rows_launch<M, BPSK, MODE, DESP, 8, 1>(a, tab, st);
-    case 9: return rows_launch<M, BPSK, MODE, DESP, 16, 1>(a, tab, st);
-    case 10: return rows_launch<M, BPSK, MODE, DESP, 16, 2>(a, tab, st);
-    case 11: return rows_launch<M, BPSK, MODE, DESP, 16, 4>(a, tab, st);
-    case 12: return rows_launch<M, BPSK, MODE, DESP, 16, 8>(a, tab, st);
+    case 7: return rows_launch<M, BPSK, MODE, DESP, TP, 4, 1>(a, tab, st);
+    case 8: return rows_launch<M, BPSK, MODE, DESP, TP, 8, 1>(a, tab, st);
+    case 9: return rows_launch<M, BPSK, MODE, DESP, TP, 16, 1>(a, tab, st);
+    case 10: return rows_launch<M, BPSK, MODE, DESP, TP, 16, 2>(a, tab, st);
+    case 11: return rows_launch<M, BPSK, MODE, DESP, TP, 16, 4>(a, tab, st);
+    case 12: return rows_launch<M, BPSK, MODE, DESP, TP, 16, 8>(a, tab, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -460,7 +487,7 @@ int rows_launch_n(const RowsArgs& a, const sdr::AxisTables& tab, cudaStream_t st
 inline bool rows_bad_shape(const RowsArgs& a) {
   return a.log_n < kRowsMinLog || a.log_n > 12 || a.h_syms < 0 || a.n_taps < 0 ||
          a.n_taps > kMaxTaps || (a.n_taps == 0 && a.h_syms != 1 && a.h_syms != a.S) ||
-         rows_blocks(a.B, a.S) > 0x7FFFFFFFLL;
+         a.n1d < 1 || rows_blocks((long long)a.B * a.n1d, a.S) > 0x7FFFFFFFLL;
 }
 
 }  // namespace

@@ -256,6 +256,12 @@ def log2_exact(n: int) -> int:
     return lg
 
 
+def require_aligned(name: str, align: int, *tensors: torch.Tensor) -> None:
+    """Every operand's first byte on an ``align``-byte boundary."""
+    if any(t.data_ptr() % align for t in tensors):
+        raise ValueError(f"{name}: operands must start on {align}-byte boundaries")
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Every operand on one CUDA device and contiguous."""
     dev = tensors[0].device

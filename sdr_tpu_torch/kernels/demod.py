@@ -34,9 +34,10 @@ versions (``kernels/demod_cl.py``) and the tests reuse.
 
 The post-FFT mode (``llr_chain``, port of
 ``sdr_tpu/kernels/llr_pallas.py::llr_chain_pallas``) takes the
-frequency-domain grid (B, S, N), transformed outside the kernel, and
-runs the same equaliser and LLR tail, storing the plane or summing it
-(counters ``llr_chain`` and ``llr_chain_sum``); its plain version is
+frequency-domain grid (B, S, N), transformed outside the kernel, as two
+planes or as one interleaved complex64 plane read in place, and runs the
+same equaliser and LLR tail, storing the plane or summing it (counters
+``llr_chain`` and ``llr_chain_sum``); its plain version is
 ``demod_chain`` minus the FFT.
 
 At N = 1024 to 4096 every mode here also serves the JAX package's
@@ -44,9 +45,11 @@ wideband four-step kernels (``fourstep_split_pallas.py``,
 ``fourstep_pallas.py``): one transform per symbol replaces their N1·N2
 matmul split, which existed because dense DFT operands outgrew VMEM.
 
-Two forms run on the card (``csrc/demod_rows.cuh``, ``csrc/demod.cu``).
-The count (h plane and ``taps=``), the LLR plane and the sum, each with
-or without ``despread``, at N = 128 to 4096 take the warp-group form: a group of 1–8 warps holds one symbol
+Three forms run on the card. The count (h plane and ``taps=``), the LLR
+plane and the sum, each with or without ``despread``, and the TP stage-2
+mode at N = 128 to 4096 take the warp-group form (``csrc/demod_rows.cuh``;
+built from ``demod_count.cu``, ``demod_llr.cu``, ``demod_despread_*.cu``
+and ``demod_tp.cu``): a group of 1–8 warps holds one symbol
 in registers (4, 8, 16 points a lane to N 512, then 2, 4, 8 warps of 16),
 loaded straight from the sample planes in the transform's time layout,
 transformed by shuffles across lanes and register DFTs (kernel G's
@@ -56,9 +59,16 @@ channel and stages h (one row a channel) or the W_N^k table of the
 ``taps=`` mode once. The ``despread`` modes run a second transform, the
 inverse, from the tones to the time samples, with the MMSE weights and
 the bias built once a block for one h row a channel, or per symbol in one
-shared-memory pass for one a symbol. N = 2 to 64 and the TP stage-2 mode
-stay on the shared-memory tile: a block's symbols bit-reversed in shared
-memory and radix-2 stages a barrier each.
+shared-memory pass for one a symbol. The TP mode is the plane over
+digit rows (b, k1) with no CP and the noise variance read on the card.
+N = 2 to 64 of every mode stays on the shared-memory tile
+(``csrc/demod.cu``): a block's symbols bit-reversed in shared memory and
+radix-2 stages a barrier each. The post-FFT mode has no transform and its
+own streaming form (``csrc/llr_chain.cu``): a block takes a run of
+symbols of one channel, a thread four consecutive tones of a row at the
+same k in every symbol, so h and its gains are loaded and built once a
+run (one h row a channel); y comes in as 16-byte vectors, the LLRs leave
+as 16-byte runs, the sum in a fixed order.
 
 The tensor-parallel stage-2 mode (``tp_stage2_llr``, port of
 ``sdr_tpu/parallel/tp.py::_stage2_llr_pallas``) takes one rank's digit
@@ -71,7 +81,9 @@ card, read by the kernel (counter ``tp_stage2_llr``). Its plain version
 is ``stage2_llr_plain``: torch's FFT, then ``post_fft_llr``.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the CUDA
-kernel (``csrc/demod.cu``) runs, or the call raises.
+kernel runs, or the call raises. GPU tests of the post-FFT and TP modes:
+``python -m pytest tests/test_torch_kernels_cuda.py -m gpu -q
+--noconftest -k "llr_chain or tp_stage2"``.
 """
 
 from __future__ import annotations
@@ -88,7 +100,7 @@ from sdr_tpu_torch.ops.modulation import _ints_to_bits
 from sdr_tpu_torch.ops.ofdm import ofdm_rx
 
 _IDX_DTYPES = (torch.int8, torch.int16, torch.int32)
-MAX_N_FFT = 4096  # both forms' widest: 8 warps of 16 points a lane; the tile's 32 KB row
+MAX_N_FFT = 4096  # the warp-group form's widest: 8 warps of 16 points a lane
 MAX_TAPS = 8  # the taps= mode's budget (demod_pallas.py:541)
 
 
@@ -223,8 +235,12 @@ def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: fl
 
 def llr_chain_plain(yr, yi, hr, hi, mod: Modulation, noise_var: float,
                     reduce_sum: bool = False):
-    """Plain version of the post-FFT mode: ``demod_chain`` minus the FFT."""
-    y = torch.complex(yr.to(torch.float32), yi.to(torch.float32))
+    """Plain version of the post-FFT mode: ``demod_chain`` minus the FFT.
+    ``yi=None``: ``yr`` is the interleaved (B, S, N, 2) plane."""
+    if yi is None:
+        y = torch.view_as_complex(yr.to(torch.float32).contiguous())
+    else:
+        y = torch.complex(yr.to(torch.float32), yi.to(torch.float32))
     return post_fft_llr(y, hr, hi, mod, noise_var, reduce_sum)
 
 
@@ -232,22 +248,29 @@ def llr_chain(yr, yi, hr, hi, mod: Modulation, noise_var: float, reduce_sum: boo
     """The post-FFT mode (port of ``llr_pallas.py::llr_chain_pallas``):
     equalise + max-log LLRs over a frequency-domain grid.
 
-    yr/yi (B, S, N) float32, N a power of two; hr/hi (B, 1 | S, N)
-    float32. Returns the (B, S, N·bps) float32 plane in the public order,
-    or its float32 sum (0-d, deterministic) with ``reduce_sum``. Counters
-    ``llr_chain`` and ``llr_chain_sum``."""
+    yr/yi (B, S, N) float32, N a power of two; or ``yi=None`` and yr the
+    interleaved (B, S, N, 2) float32 plane (``torch.view_as_real`` of a
+    complex64 grid, read in place); hr/hi (B, 1 | S, N) float32. Returns
+    the (B, S, N·bps) float32 plane in the public order, or its float32 sum
+    (0-d, deterministic, the same bits in either y layout) with
+    ``reduce_sum``. Counters ``llr_chain`` and ``llr_chain_sum``."""
     if yr.device.type == "cpu":
         return llr_chain_plain(yr, yi, hr, hi, mod, noise_var, reduce_sum)
-    if yr.ndim != 3 or hr is None or hr.ndim != 3:
-        raise ValueError("llr_chain kernel: y (B, S, N) and h (B, 1 | S, N) planes")
-    B, S, N = yr.shape
+    planes = (yr,) if yi is None else (yr, yi)
+    if yr.ndim != (4 if yi is None else 3) or hr is None or hr.ndim != 3:
+        raise ValueError("llr_chain kernel: y (B, S, N) planes or one (B, S, N, 2) plane, and "
+                         "h (B, 1 | S, N) planes")
+    B, S, N = yr.shape[:3]
     if (N < 2 or N & (N - 1) or tuple(hr.shape) not in ((B, 1, N), (B, S, N))
-            or yi.shape != yr.shape or hi.shape != hr.shape):
+            or (yi is None and yr.shape[3] != 2) or (yi is not None and yi.shape != yr.shape)
+            or hi.shape != hr.shape):
         raise ValueError(f"llr_chain kernel: unsupported shapes y {tuple(yr.shape)}, "
                          f"h {tuple(hr.shape)}")
-    if any(t.dtype != torch.float32 for t in (yr, yi, hr, hi)):
+    if any(t.dtype != torch.float32 for t in (*planes, hr, hi)):
         raise ValueError("llr_chain kernel: y and h planes must be float32")
-    _lib.require_cuda("llr_chain", yr, yi, hr, hi)
+    _lib.require_cuda("llr_chain", *planes, hr, hi)
+    # The kernel moves y, h and the plane as 16-byte vectors (8 at N = 2).
+    _lib.require_aligned("llr_chain", 16 if N > 2 else 8, *planes, hr, hi)
     lib = _lib.lib()
     log_n = _lib.log2_exact(N)
     if reduce_sum:
@@ -258,7 +281,7 @@ def llr_chain(yr, yi, hr, hi, mod: Modulation, noise_var: float, reduce_sum: boo
         partials = None
         out = torch.empty((B, S, N * mod.bits_per_symbol), dtype=torch.float32, device=yr.device)
     rc = lib.sdr_llr_chain(
-        yr.data_ptr(), yi.data_ptr(), hr.data_ptr(), hi.data_ptr(), hr.shape[1], out.data_ptr(),
+        yr.data_ptr(), _lib.ptr(yi), hr.data_ptr(), hi.data_ptr(), hr.shape[1], out.data_ptr(),
         _lib.ptr(partials), B, S, log_n, mod.bits_per_axis, int(mod is Modulation.BPSK),
         _lib.axis_tables(mod), inv_noise_var(noise_var), int(reduce_sum), _lib.stream(),
     )

@@ -117,10 +117,12 @@ def demod_chain_hybrid(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: 
     """The hybrid route of the JAX package (``ops.demod.demod_chain_hybrid``):
     CP strip and FFT in torch (``ops.ofdm.ofdm_rx``, outside any kernel,
     as XLA's FFT is outside Pallas there), then kernel C's post-FFT mode
-    ``llr_chain``. re/im (B, S, N+cp); hr/hi (B, 1 | S, N). Returns the
-    (B, S, N·bps) LLR plane in the public order, or its float32 sum."""
+    ``llr_chain``, which reads the FFT's complex64 output in place
+    (``torch.view_as_real``, no copies). re/im (B, S, N+cp); hr/hi
+    (B, 1 | S, N). Returns the (B, S, N·bps) LLR plane in the public order,
+    or its float32 sum."""
     y = ofdm_rx(torch.complex(re, im), cp_len)
-    return _kc.llr_chain(y.real.contiguous(), y.imag.contiguous(), hr, hi, mod, noise_var,
+    return _kc.llr_chain(torch.view_as_real(y.contiguous()), None, hr, hi, mod, noise_var,
                          reduce_sum=reduce_sum)
 
 

@@ -396,6 +396,9 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         kc.llr_chain(*(torch.zeros((2, 2, 96), device=dev),) * 2,
                      *(torch.zeros((2, 1, 96), device=dev),) * 2, mod, 0.1)
+    with pytest.raises(ValueError):  # a y plane off the 16-byte grid
+        kc.llr_chain(*(torch.zeros(2 * 2 * 64 + 1, device=dev)[1:].view(2, 2, 64),) * 2,
+                     *(torch.zeros((2, 1, 64), device=dev),) * 2, mod, 0.1)
 
 
 def _within_margin(got, llr, want):
@@ -793,14 +796,21 @@ def test_coded_kernels_raise_instead_of_falling_back(dev):
 
 
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
-@pytest.mark.parametrize("n_fft,h_syms", [(256, 1), (1024, 1), (4096, 5)])
-def test_llr_chain_kernel_matches_plain(dev, mod, n_fft, h_syms):
+@pytest.mark.parametrize("n_fft,h_syms,S", [(256, 1, 5), (1024, 1, 5), (4096, "S", 5),
+                                            (2, 1, 5), (2, "S", 5), (64, 1, 5), (128, "S", 5),
+                                            (128, 1, 37), (1024, "S", 37), (2048, 1, 37)])
+def test_llr_chain_kernel_matches_plain(dev, mod, n_fft, h_syms, S):
     """Kernel C's post-FFT mode against its plain version: the plane
     within 1e-4 of its peak, the sum within 1e-5 of the sum of |LLR| and
-    the same bits twice; demod_chain_hybrid runs it after torch's FFT."""
+    the same bits twice; S = 37 is one symbol past a block's run of 32.
+    demod_chain_hybrid runs it on torch's FFT output in place (the
+    interleaved plane): bit for bit the kernel on planar copies of it,
+    plane and sum."""
     from sdr_tpu_torch.ops.demod import demod_chain_hybrid
+    from sdr_tpu_torch.ops.ofdm import ofdm_rx
 
-    B, S, cp = 20, 5, n_fft // 8
+    B, cp = 20, max(n_fft // 8, 1)
+    h_syms = S if h_syms == "S" else h_syms
     g = torch.Generator(device="cpu").manual_seed(12)
     yr, yi = (torch.randn((B, S, n_fft), generator=g).to(dev) * 0.7 for _ in range(2))
     hr, hi = ((torch.randn((B, h_syms, n_fft), generator=g) * np.sqrt(0.5)).to(dev)
@@ -818,6 +828,12 @@ def test_llr_chain_kernel_matches_plain(dev, mod, n_fft, h_syms):
               for _ in range(2))
     hyb = _counted("llr_chain", lambda: demod_chain_hybrid(re, im, hr, hi, cp, mod, nv))
     _llr_close(hyb, kc.demod_chain(re, im, hr, hi, cp, mod, nv))
+    y = ofdm_rx(torch.complex(re, im), cp)
+    planar = (y.real.contiguous(), y.imag.contiguous(), hr, hi, mod, nv)
+    assert torch.equal(hyb, kc.llr_chain(*planar))
+    hyb_sum = _counted("llr_chain_sum", lambda: demod_chain_hybrid(re, im, hr, hi, cp, mod, nv,
+                                                                   reduce_sum=True))
+    assert float(hyb_sum) == float(kc.llr_chain(*planar, reduce_sum=True))
 
 
 @pytest.mark.parametrize("n_fft,cp,mod", [(1024, 128, Modulation.QAM64),
@@ -852,15 +868,20 @@ def test_wideband_tx_and_count_kernels_match_plain(dev, n_fft, cp, mod):
 
 @pytest.mark.parametrize("mod", [Modulation.BPSK, Modulation.QPSK, Modulation.QAM16,
                                  Modulation.QAM64], ids=lambda m: m.value)
-@pytest.mark.parametrize("n2,n1d,h_syms", [(64, 1, 1), (64, 2, 3), (1024, 1, 3), (1024, 4, 1),
-                                           (4096, 1, 1), (4096, 1, 3)])
-def test_tp_stage2_kernel_matches_plain(dev, mod, n2, n1d, h_syms):
-    """Kernel C's TP stage-2 mode (#20): LLRs within 1e-4 of the plain
-    version's peak, equal signs where |LLR| ≥ 1e-3, the noise variance a
-    0-d tensor on the card (two values through the same inputs). The rows
-    have the TP path's scale (variance 1/n2: a unit-energy grid after the
-    transform)."""
-    B, S = 3, 3
+@pytest.mark.parametrize("n2,n1d,h_syms,S", [(64, 1, 1, 3), (64, 2, "S", 3), (1024, 1, "S", 3),
+                                             (1024, 4, 1, 3), (4096, 1, 1, 3),
+                                             (4096, 1, "S", 3), (128, 1, 1, 3),
+                                             (512, 2, "S", 3), (1024, 4, 1, 37),
+                                             (1024, 4, "S", 37)])
+def test_tp_stage2_kernel_matches_plain(dev, mod, n2, n1d, h_syms, S):
+    """Kernel C's TP stage-2 mode (#20; the tile at n2 64, the warp-group
+    form from n2 128): LLRs within 1e-4 of the plain version's peak, equal
+    signs where |LLR| ≥ 1e-3, the noise variance a 0-d tensor on the card
+    (two values through the same inputs); S = 37 splits a digit row's
+    run over two blocks, the second one short. The rows have the TP path's
+    scale (variance 1/n2: a unit-energy grid after the transform)."""
+    B = 3
+    h_syms = S if h_syms == "S" else h_syms
     g = torch.Generator(device=dev).manual_seed(n2 + n1d)
     tr, ti = (torch.randn((B, S, n1d, n2), device=dev, generator=g) * (0.5 / n2) ** 0.5
               for _ in range(2))

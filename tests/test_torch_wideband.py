@@ -330,14 +330,21 @@ def test_demod_despread_sum_matches_jax_fourstep2_fde(wide5):
     _assert_sums_close(total, w["ref"]["fde_sum"])
 
 
-def test_llr_chain_plain_matches_jax_llr_kernel(wide):
+@pytest.mark.parametrize("layout", ["planes", "interleaved"])
+def test_llr_chain_plain_matches_jax_llr_kernel(wide, layout):
     """Kernel C's post-FFT mode (plain version) against llr_chain_pallas
-    on the same frequency-domain grids: plane and sum."""
+    on the same frequency-domain grids: plane and sum; y as two planes or
+    as the interleaved (B, S, N, 2) plane the hybrid route passes."""
     w = wide
-    plane = kc.llr_chain(*_t(*w["grids"]["wave"], w["hr"], w["hi"]), w["mod"], w["nv"])
+
+    def y(grid):
+        yr, yi = _t(*grid)
+        return (yr, yi) if layout == "planes" else (torch.stack((yr, yi), dim=-1), None)
+
+    plane = kc.llr_chain(*y(w["grids"]["wave"]), *_t(w["hr"], w["hi"]), w["mod"], w["nv"])
     assert plane.shape == (B, S, w["N"] * w["mod"].bits_per_symbol)
     _assert_planes_close(plane.numpy(), w["ref"]["llr_plane"])
-    total = kc.llr_chain(*_t(*w["grids"]["bench"], *w["bench"][2:]), w["mod"], w["nv"],
+    total = kc.llr_chain(*y(w["grids"]["bench"]), *_t(*w["bench"][2:]), w["mod"], w["nv"],
                          reduce_sum=True)
     _assert_sums_close(total, w["ref"]["llr_sum"])
 
