@@ -24,8 +24,10 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    (N 4096) at B/2 × 16 — for B in every channel mode, C's count, plane
    and sums, C's despread count (at the link's batch) and plane (at the
    coded batch) on an SC-FDMA waveform, D and F in their wideband mode
-   and C's post-FFT mode (``llr_chain``, plane and sum, each with its
-   bound and share), the ``K1`` line per N giving
+   and C's post-FFT mode (``llr_chain``, plane and sum, on the
+   interleaved plane the hybrid route passes, each with its bound and
+   share, and the planar build's bits equal to it), the ``K1`` line per
+   N giving
    F's count beside C's on the same tones and each mode's share of its
    bound (C's count, sum and plane, each also with the despread, and its
    TP mode at N 128–4096 run its warp-group form, ``csrc/demod_rows.cuh``;
@@ -99,8 +101,7 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    totals within max(8, 0.1 %);
    3h. the LLR-plane terminals a user calls (``demod_llr_chain_cl`` f32
    and bf16, ``demod_chain`` plane, sum and despread,
-   ``demod_chain_hybrid`` plane and sum beside its ``llr_chain``'s bound)
-   at 8192 × 64;
+   ``demod_chain_hybrid`` plane and sum) at 8192 × 64;
    3i. the wideband link: ``fast_simulate`` at config 3 (64-QAM, N 1024,
    CP 128, 8192 × 64; AWGN 12 dB and RAYLEIGH_FLAT 15 dB against exact
    theory within 5 % / 10 %, MULTIPATH with config 4's PDP at 14 dB
@@ -113,7 +114,7 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    and 4096, staged and fused seams within max(8, 1 %); the terminals
    ``demod_sum_chain_cl``, ``demod_count_chain_cl``,
    ``demod_llr_chain_cl``, ``demod_chain`` (sum) and
-   ``demod_chain_hybrid`` (beside its ``llr_chain``'s bound) at N 1024,
+   ``demod_chain_hybrid`` at N 1024,
    2048 and 4096, every sum within 1e-5 of the plain sum, and the SC-FDE
    receive (``demod_count_chain`` and
    ``demod_chain`` with ``despread``; the sum at N 4096) (CUDA events);
@@ -403,11 +404,6 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         a bit) or the sum written; the tail's f32 operations."""
         out_bytes = 4 if reduce_sum else 4 * b * s * n * mod_.bits_per_symbol
         return bound(8 * b * s * n + 8 * b * h_syms * n + out_bytes, b * s * n * tail_flops(mod_))
-
-    def hybrid_bound(b, s, n, h_syms, mod_, reduce_sum, ms_call):
-        rep = chain_bound(b, s, n, h_syms, mod_, reduce_sum)
-        return (f"its llr_chain's bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}), "
-                f"{rep['bound_ms'] / ms_call:.4f} of the call")
 
     # ---- phase 2: each kernel against its plain version ------------------
     # A: payload draw, exact, in int8 (bps 4) and int16 (bps 10); four
@@ -1225,18 +1221,23 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                               "MULTIPATH 5 taps, 14 dB")
         c_in = 8 * rows_w * n_w + 8 * b_w * n_w
         c_flops_w = rows_w * (fft_flops(n_w) + n_w * tail_flops(mod_w))
-        # C's post-FFT mode on the same waveform's frequency-domain grid.
-        y_w = torch.fft.fft(torch.complex(re, im)[..., cp_w:])
-        yr_w, yi_w = y_w.real.contiguous(), y_w.imag.contiguous()
-        del y_w
+        # C's post-FFT mode on the same waveform's frequency-domain grid, in
+        # the layout the hybrid route passes: the FFT's complex64 output read
+        # in place (torch.view_as_real, yi None). The planar build, on copies
+        # of the first slice's grid, gives the same bits.
+        y_w = torch.view_as_real(torch.fft.fft(torch.complex(re, im)[..., cp_w:]))
 
         def llr_chain_part(sl, **kw):
-            return kc.llr_chain_plain(yr_w[sl], yi_w[sl], hr_w[sl], hi_w[sl], mod_w, nv_w, **kw)
+            return kc.llr_chain_plain(y_w[sl], None, hr_w[sl], hi_w[sl], mod_w, nv_w, **kw)
 
-        got = kc.llr_chain(yr_w, yi_w, hr_w, hi_w, mod_w, nv_w)
+        got = kc.llr_chain(y_w, None, hr_w, hi_w, mod_w, nv_w)
         l_err, l_peak = parts_check(f"kernel C llr_chain {tag}", got, llr_chain_part, parts)
+        sl = parts[0]
+        _check(torch.equal(kc.llr_chain(y_w[sl][..., 0].contiguous(), y_w[sl][..., 1].contiguous(),
+                                        hr_w[sl], hi_w[sl], mod_w, nv_w), got[sl]),
+               f"kernel C llr_chain {tag}: the planar and interleaved builds differ")
         del got
-        ms, pms = compare_times(lambda: kc.llr_chain(yr_w, yi_w, hr_w, hi_w, mod_w, nv_w),
+        ms, pms = compare_times(lambda: kc.llr_chain(y_w, None, hr_w, hi_w, mod_w, nv_w),
                                 lambda: each(llr_chain_part, parts), reps=1, kernel_reps=10)
         plane_bytes = 4 * rows_w * n_w * bps_w
         wide_report[("llr_chain", n_w)] = dict(
@@ -1247,7 +1248,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
               f"{of_bound(wide_report[('llr_chain', n_w)])}")
         # F (count, LLR plane f32 / bf16) on the same waveform, channels-last.
         wre_t, wim_t = fast._to_cl(re, im)
-        del re, im, yr_w, yi_w
+        del re, im, y_w
         torch.cuda.empty_cache()
         whr_t, whi_t = hr_w[:, 0, :].T.contiguous(), hi_w[:, 0, :].T.contiguous()
         widx_t = idx_w.permute(1, 2, 0).reshape(s_w * n_w, b_w).contiguous()
@@ -1319,9 +1320,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     for _ in range(2))
         br_t, bi_t = fast._to_cl(br, bi)
         bhr_t, bhi_t = bhr[:, 0, :].T.contiguous(), bhi[:, 0, :].T.contiguous()
-        by = torch.fft.fft(torch.complex(br, bi)[..., cp_w:])
-        byr, byi = by.real.contiguous(), by.imag.contiguous()
-        del by
+        by = torch.view_as_real(torch.fft.fft(torch.complex(br, bi)[..., cp_w:]))
 
         def plain_sum(fn):
             return lambda: sum(float(fn(sl)) for sl in parts)
@@ -1337,9 +1336,9 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
             ("demod_sum_cl", lambda: kd.demod_sum_cl(br_t, bi_t, bhr_t, bhi_t, cp_w, mod_w, nv_w),
              lambda: kd.demod_sum_cl_plain(br_t, bi_t, bhr_t, bhi_t, cp_w, mod_w, nv_w),
              bound(c_in + 4, c_flops_w)),
-            ("llr_chain_sum", lambda: kc.llr_chain(byr, byi, bhr, bhi, mod_w, nv_w,
+            ("llr_chain_sum", lambda: kc.llr_chain(by, None, bhr, bhi, mod_w, nv_w,
                                                    reduce_sum=True),
-             plain_sum(lambda sl: kc.llr_chain_plain(byr[sl], byi[sl], bhr[sl], bhi[sl], mod_w,
+             plain_sum(lambda sl: kc.llr_chain_plain(by[sl], None, bhr[sl], bhi[sl], mod_w,
                                                      nv_w, reduce_sum=True)),
              chain_bound(b_w, s_w, n_w, 1, mod_w, True)),
         ]
@@ -1349,8 +1348,10 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                               reduce_sum=True, despread=True),
                          plain_sum(lambda sl: c_sum_part(sl, despread=True)),
                          bound(c_in + 4, despread_flops(mod_w, n_w, rows_w, b_w))))
+        got_sums = {}
         for name, kfn, pfn, bnd in sums:
             tot_k, tot_p = float(kfn()), float(pfn())
+            got_sums[name] = tot_k
             s_err = abs(tot_k - tot_p)
             _check(s_err <= 1e-5 * abs(tot_p), f"{name} {tag}: {tot_k!r} vs plain {tot_p!r}")
             _check(float(kfn()) == tot_k, f"{name} {tag} is not deterministic")
@@ -1361,7 +1362,13 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
             print(f"phase 2w {name} {tag}: {tot_k:.9g}, plain {tot_p:.9g}, rel diff "
                   f"{s_err / abs(tot_p):.3g} (allowed 1e-5), deterministic; kernel {ms:.4f} ms, "
                   f"plain {pms:.3f} ms; {of_bound(wide_report[(name, n_w)])}")
-        del br, bi, bhr, bhi, br_t, bi_t, bhr_t, bhi_t, byr, byi
+        # The post-FFT sum of the planar build: the same bits as the
+        # interleaved one's.
+        _check(float(kc.llr_chain(by[..., 0].contiguous(), by[..., 1].contiguous(), bhr, bhi,
+                                  mod_w, nv_w, reduce_sum=True))
+               == got_sums["llr_chain_sum"],
+               f"llr_chain_sum {tag}: the planar and interleaved builds differ")
+        del br, bi, bhr, bhi, br_t, bi_t, bhr_t, bhi_t, by
         torch.cuda.empty_cache()
         # K1 (D/F's wideband form) against C on the same tones, and each
         # mode's share of its bound. C's plane ran on b_p channels: its
@@ -2047,11 +2054,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         _check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite output")
         del out
         ms_t = timed(fn, 5)
-        # The hybrid route: its post-FFT kernel's bound (#19) beside the call.
-        hyb = "" if "hybrid" not in label else "; " + hybrid_bound(
-            B, S, N, 1, mod, "sum" in label, ms_t)
         print(f"phase 3h {label} ({B}x{S}x{N + CP} f32 in): {ms_t:.3f} ms per call, "
-              f"{B * S * (N + CP) / (ms_t * 1e-3) / 1e9:.3f} GS/s on {card}{hyb}")
+              f"{B * S * (N + CP) / (ms_t * 1e-3) / 1e9:.3f} GS/s on {card}")
     del tr, ti, thr, thi, tr_t, ti_t, thr_t, thi_t
     torch.cuda.empty_cache()
 
@@ -2252,10 +2256,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                 _check(abs(float(out) - ref_sum) <= 1e-5 * abs(ref_sum),
                        f"{name} {label}: sum {float(out)!r} vs plain {ref_sum!r}")
             del out
-            hyb = "" if "hybrid" not in name else "; " + hybrid_bound(
-                b_t, s_t, n_t, 1, mod_t, "sum" in name, ms_t)
             print(f"phase 3i {name} {label} ({b_t}x{s_t}x{n_t + cp_t} f32 in): {ms_t:.3f} ms per "
-                  f"call, {b_t * s_t * (n_t + cp_t) / (ms_t * 1e-3) / 1e9:.3f} GS/s on {card}{hyb}")
+                  f"call, {b_t * s_t * (n_t + cp_t) / (ms_t * 1e-3) / 1e9:.3f} GS/s on {card}")
         del xr, xi, hr_i, hi_i, xr_t, xi_t, hr_it, hi_it, idx_i, idx_r
         torch.cuda.empty_cache()
     # phase 3i: the wideband link and terminals, the sum of the N windows
@@ -2422,13 +2424,13 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
              **{"library_ms": None, **rep})
         for (name, n_w), rep in wide_report.items()
     ] + [
-        # Kernel #20 at phase 2t's other shapes: at one rank's n2 = 4096 the
-        # launches of phase 5n's window, where the TP path runs it there; at
-        # n2 = 512 (no TP row of phase 5 splits that way) its own path's.
+        # Kernel #20 at phase 2t's other shapes: at one rank's n2 = 4096
+        # with h per link the launches of phase 5n's window, where the TP
+        # path runs that shape; no path runs n2 = 512 or h per symbol, so 0.
         dict(name=f"tp_stage2_llr@{label.replace(' ', '_')}", route="cuda",
              source=sources["tp_stage2_llr"][0], replaces=sources["tp_stage2_llr"][1],
              **c_form("tp_stage2_llr", n2),
-             launches=launches_nccl["tp_stage2_llr"] if n2 == 4096 else own["tp_stage2_llr"],
+             launches=launches_nccl["tp_stage2_llr"] if label == "n2=4096" else 0,
              **windows_of("tp_stage2_llr"), **{"library_ms": None, **tp_report[label]})
         for label, n2 in (("n2=4096", 4096), ("n2=4096 h per symbol", 4096), ("n2=512", 512))
     ]

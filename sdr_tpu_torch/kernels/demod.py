@@ -269,8 +269,10 @@ def llr_chain(yr, yi, hr, hi, mod: Modulation, noise_var: float, reduce_sum: boo
     if any(t.dtype != torch.float32 for t in (*planes, hr, hi)):
         raise ValueError("llr_chain kernel: y and h planes must be float32")
     _lib.require_cuda("llr_chain", *planes, hr, hi)
-    # The kernel moves y, h and the plane as 16-byte vectors (8 at N = 2).
-    _lib.require_aligned("llr_chain", 16 if N > 2 else 8, *planes, hr, hi)
+    # The kernel moves y, h and the plane as 16-byte vectors (the planes
+    # and h as 8-byte ones at N = 2; the interleaved plane as 16 at every N).
+    _lib.require_aligned("llr_chain", 16 if N > 2 or yi is None else 8, *planes)
+    _lib.require_aligned("llr_chain", 16 if N > 2 else 8, hr, hi)
     lib = _lib.lib()
     log_n = _lib.log2_exact(N)
     if reduce_sum:
@@ -379,6 +381,8 @@ def tp_stage2_llr(t_r, t_i, hr4, hi4, noise_var, mod: Modulation):
         raise ValueError("tp_stage2_llr kernel: noise_var must be one float32")
     _lib.require_cuda("tp_stage2_llr", t_r, t_i, hr4, hi4, noise_var)
     B, S, n1d, n2 = t_r.shape
+    if n2 >= 128:  # the warp-group form copies h rows by 16-byte cp.async
+        _lib.require_aligned("tp_stage2_llr", 16, t_r, t_i, hr4, hi4)
     out = torch.empty((B, S, n1d, n2 * mod.bits_per_symbol), dtype=torch.float32,
                       device=t_r.device)
     twr, twi = _lib.twiddles(n2, t_r.device)

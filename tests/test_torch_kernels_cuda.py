@@ -399,6 +399,13 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):  # a y plane off the 16-byte grid
         kc.llr_chain(*(torch.zeros(2 * 2 * 64 + 1, device=dev)[1:].view(2, 2, 64),) * 2,
                      *(torch.zeros((2, 1, 64), device=dev),) * 2, mod, 0.1)
+    with pytest.raises(ValueError):  # an interleaved y plane off the 16-byte grid at N = 2
+        kc.llr_chain(torch.zeros(2 * 2 * 2 * 2 + 2, device=dev)[2:].view(2, 2, 2, 2), None,
+                     *(torch.zeros((2, 1, 2), device=dev),) * 2, mod, 0.1)
+    with pytest.raises(ValueError):  # a TP h plane off the 16-byte grid (n2 >= 128)
+        kc.tp_stage2_llr(*(torch.zeros((2, 2, 1, 128), device=dev),) * 2,
+                         *(torch.zeros(2 * 2 * 128 + 1, device=dev)[1:].view(2, 2, 1, 128),) * 2,
+                         torch.tensor(0.1, device=dev), mod)
 
 
 def _within_margin(got, llr, want):
