@@ -10,7 +10,8 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
 1. prints the card (``nvidia-smi`` name and power limit), torch's
    version and the kernels' build time;
 2. runs each kernel A–H and each mode (B's per-symbol gains, FIR and
-   channel-off TX, C's taps=, despread, LLR-plane and sum modes, F's LLR
+   channel-off TX, C's taps=, despread, LLR-plane and sum modes, E's
+   gains, noise and FIR — 24 taps, static and per symbol — F's LLR
    mode in f32 and bf16) against its plain torch version on the card at
    the slice's shapes and prints both times (CUDA events, after a
    warm-up, in turns plain, kernel, kernel, plain) and, for D and F, the
@@ -33,8 +34,8 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    TP mode at N 128–4096 run its warp-group form, ``csrc/demod_rows.cuh``;
    the post-FFT mode its streaming form, ``csrc/llr_chain.cu``; the form
    each entry ran is its ``form``); then holds the staged
-   channel route (plain FIR + kernel E) against the fused one (kernel B's
-   FIR); kernel G in its injected and keyed modes (five channels,
+   channel route (kernel B's channel-off TX, then kernel E's FIR) against
+   the fused one (kernel B's FIR), which must agree bit for bit; kernel G in its injected and keyed modes (five channels,
    SC-FDMA, config 3's N 1024 and config 5's N 4096), with its bound
    and its share of it; C's despread at config 2
    and at config 5's shape; kernel H (min-sum decode, flooding 25 and
@@ -66,8 +67,9 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    3b. the selective and time-varying channels at the same size —
    MULTIPATH with BASELINE config 4's PDP, RAYLEIGH_TIME and
    MULTIPATH_TIME at doppler 0.02, MULTIPATH with 24 taps (the staged
-   route) — each BER within 2 % of the exact BER over the channel the
-   run drew, and split == full for MULTIPATH_TIME;
+   route: kernel E's FIR) — each BER within 2 % of the exact BER over the
+   channel the run drew, with its time, and split == full for
+   MULTIPATH_TIME;
    3c. ``layout="cl"`` for AWGN and flat Rayleigh: counts equal to the
    rows run's (but for bits with plain |LLR| < 1e-3), the same BER
    gates, and both layouts' end-to-end times;
@@ -130,8 +132,9 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    N 4096 and DP fast, so that device tensors go to the collectives;
 6. checks that each path launched every kernel and mode of its slice
    (the counters are zeroed just before phase 3 and read after phase 4
-   for kernels A–F, zeroed again before phase 3d and read after 3f for
-   G and C's despread, again before 3g and read after it for H and the
+   for kernels A–F, E's FIR mode included, zeroed again before phase 3d
+   and read after 3f for G, C's despread and E's gain and noise mode
+   (the SC-FDMA links), again before 3g and read after it for H and the
    LLR modes the coded engine runs (C's plane, F's f32), and again
    before 3h and read after it for the modes only the terminals run
    (C's sum and despread, F's bf16), and in 3i around each main-path call
@@ -151,8 +154,10 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    four-step, post-FFT or channels-last kernel they replace there),
    before it one ``phase 6 C`` line for each entry of kernel C's
    warp-group, TP and post-FFT modes (its form, ms, bound, share of the
-   bound, launches and launches × (ms − bound ms)) and one ``phase 6 B``
-   line for each
+   bound, launches and launches × (ms − bound ms)), one ``phase 6 E``
+   line for each mode phase 2 timed kernel E in (its form, ms, plain ms,
+   bound, share, the launches of its counter in its path's window and
+   launches × (ms − bound ms)) and one ``phase 6 B`` line for each
    mode and N at which phases 2 and 2w timed kernel B (its form — the
    tile, or the warp-group plan R × G of ``csrc/tx_rows.cuh`` — ms, plain
    ms, bound, share, the launches of its counter in that N's window and
@@ -287,6 +292,15 @@ def b_form(n_fft: int) -> str:
         return (f"warp-group: plan R {r} x G {g} ({g} warp{'s' if g > 1 else ''} a symbol, {r} "
                 "points a lane), a block a run of 32 symbols")
     return "shared-memory tile: radix-2 stages, a barrier each"
+
+
+def e_form(name: str) -> str:
+    """The form of kernel E (csrc/channel.cu) that counter ``name`` runs."""
+    form = ("streaming: a block a run of 32 symbols of one channel, 4 samples a thread, "
+            "16-byte accesses")
+    if name == "fade_awgn_fir":
+        form += ", the FIR over a shared-memory tile of 4096 samples and its history"
+    return form
 
 
 def _check(ok: bool, msg: str) -> None:
@@ -569,9 +583,10 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
               f"deterministic; kernel {ms:.4f} ms, plain {pms:.3f} ms; {of_bound(report[name])}")
     del sr, si, shr, shi
 
-    def check_modes(label, kernel_fn, plain_fn, noise_shape):
+    def check_modes(label, kernel_fn, plain_fn, noise_shape, kernel_reps=None):
         """Injected noise, then keyed (channels [0, noise_shape[0])): max
-        abs diff ≤ 1e-5 of the peak; times in the keyed mode."""
+        abs diff ≤ 1e-5 of the peak; times in the keyed mode
+        (``kernel_reps`` kernel calls a turn)."""
         ch = ids[:noise_shape[0]]
         noise_i = (torch.randn(noise_shape, device=dev), torch.randn(noise_shape, device=dev))
         want = plain_fn(noise=noise_i)
@@ -585,7 +600,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         _check(e_inj <= 1e-5 * p_inj, f"{label} (injected noise) max abs diff {e_inj:g}")
         _check(e_key <= 1e-5 * p_key, f"{label} (keyed noise) max abs diff {e_key:g}")
         ms, pms = compare_times(lambda: kernel_fn(seed=seed, ch_ids=ch),
-                                lambda: plain_fn(seed=seed, ch_ids=ch), reps=1)
+                                lambda: plain_fn(seed=seed, ch_ids=ch), reps=1,
+                                kernel_reps=kernel_reps)
         print(f"phase 2 {label}: max abs diff injected {e_inj:.3g}, keyed {e_key:.3g} "
               f"(peak {p_key:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
         return dict(max_abs_err=max(e_inj, e_key), ms=ms, plain_ms=pms)
@@ -653,20 +669,37 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
           f"{of_bound(report['demod_count_taps'])}")
     del re, im, cnt, cnt_plain
 
-    # E: per-link gains, per-symbol gains, noise only, over the clean waveform.
+    # E: per-link gains, per-symbol gains, noise only and the FIR (24 taps,
+    # static and per symbol), over the clean waveform. Bound: 16 bytes a
+    # sample, the gains or taps and the channel ids; f32 operations a
+    # sample: 6 for a gain, 8 a tap, 4 for the noise; a Philox call a sample.
     clean = kb.tx_chain(idx, CP, mod)
-    for label, gains in (("per-link gains", (hs_r[:, None], hs_i[:, None])),
-                         ("per-symbol gains", (gs_r, gs_i)), ("noise only", (None, None))):
-        rep = check_modes(f"E fade+awgn {label} ({B}x{S}x{N + CP})",
-                          lambda **kw: ke.fade_awgn(*clean, *gains, tvar, **kw),
-                          lambda **kw: ke.fade_awgn_plain(*clean, *gains, tvar, **kw), tx_shape)
-        if label == "per-symbol gains":
-            report["fade_awgn"] = dict(rep, **bound(16 * nrow * (N + CP) + 8 * nrow + 4 * B,
-                                                    10 * nrow * (N + CP),
-                                                    nrow * (N + CP) * PHILOX_IMUL))
-    del clean
+    pdp24 = tuple(0.8 ** l for l in range(24))
+    t24 = chan.multipath_taps(seed, ids, pdp24)
+    t24s = chan.multipath_time_taps(seed, ids, pdp24, S, 0.02)
+    e_rows = []  # kernel E's timed modes, for the phase 6 E lines
+    for label, counter, chan_kw, chan_bytes, sample_ops in (
+        ("per-link gains", "fade_awgn", dict(hr_s=hs_r[:, None], hi_s=hs_i[:, None]), 8 * B, 6),
+        ("per-symbol gains", "fade_awgn", dict(hr_s=gs_r, hi_s=gs_i), 8 * nrow, 6),
+        ("noise only", "fade_awgn", {}, 0, 0),
+        ("FIR 24 static taps", "fade_awgn_fir",
+         dict(taps_r=t24.real.contiguous(), taps_i=t24.imag.contiguous()), 8 * 24 * B, 8 * 24),
+        ("FIR 24 per-symbol taps", "fade_awgn_fir",
+         dict(taps_r=t24s.real.contiguous(), taps_i=t24s.imag.contiguous()), 8 * 24 * nrow,
+         8 * 24),
+    ):
+        rep = check_modes(f"E {label} ({B}x{S}x{N + CP})",
+                          lambda **kw: ke.fade_awgn(*clean, noise_var=tvar, **chan_kw, **kw),
+                          lambda **kw: ke.fade_awgn_plain(*clean, noise_var=tvar, **chan_kw, **kw),
+                          tx_shape, kernel_reps=10)
+        rep.update(bound(16 * nrow * (N + CP) + chan_bytes + 4 * B,
+                         (sample_ops + 4) * nrow * (N + CP), nrow * (N + CP) * PHILOX_IMUL))
+        e_rows.append(dict(rep, mode=label, counter=counter))
+        if label in ("per-symbol gains", "FIR 24 static taps"):
+            report[counter] = rep
+    del clean, t24, t24s
 
-    # Route cross-check: staged (plain FIR + E) against fused (B's FIR).
+    # Route cross-check: staged (B off, then E's FIR) against fused (B's FIR).
     cfg_mp = LinkConfig(modulation=mod, ofdm=OFDMConfig(N, CP),
                         channel=ChannelConfig(model=ChannelModel.MULTIPATH, ebno_db=14.0,
                                               pdp=pdp4),
@@ -675,7 +708,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     staged = fast.apply_channel_fast(cfg_mp, seed, ids, *kb.tx_chain(idx, CP, mod))
     r_err, r_peak = plane_err(staged, fused), plane_peak(fused)
     _check(r_err <= 1e-5 * r_peak, f"staged route differs from the fused route by {r_err:g}")
-    print(f"phase 2 route cross-check MULTIPATH 4 taps: staged (FIR + E) vs fused (B) max abs "
+    print(f"phase 2 route cross-check MULTIPATH 4 taps: staged (E's FIR) vs fused (B) max abs "
           f"diff {r_err:.3g} (peak {r_peak:.3g})")
     del staged
 
@@ -1593,7 +1626,6 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     del part
 
     # ---- phase 3b: selective and time-varying channels -------------------
-    pdp24 = tuple(0.8 ** l for l in range(24))
     for label, model, ebno_db, channel in (
         ("MULTIPATH config-4 PDP (4 taps)", ChannelModel.MULTIPATH, 14.0, dict(pdp=pdp4)),
         ("RAYLEIGH_TIME doppler 0.02", ChannelModel.RAYLEIGH_TIME, 12.0,
@@ -2306,7 +2338,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     launches_nccl = window(rows_n)
     _check(launches_nccl["tp_stage2_llr"] > 0, "phase 5n: kernel #20 was not launched")
     print(f"phase 5n: {len(rows_n)} rows OK in {t5n:.1f} s with the spawn")
-    mc_path = ("mc_count", "demod_count_despread")
+    mc_path = ("mc_count", "demod_count_despread", "fade_awgn")
     coded_path = ("demod_llr", "demod_llr_cl", "ldpc_minsum", "ldpc_minsum_layered",
                   "ldpc_minsum_t", "ldpc_minsum_t_layered")
     terminal_path = ("demod_sum", "demod_llr_despread", "demod_sum_despread",
@@ -2340,6 +2372,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         "demod_sum_cl": ("sdr_tpu_torch/csrc/demod_cl.cu",
                          "sdr_tpu/kernels/demod_cl_pallas.py:727"),
         "fade_awgn": ("sdr_tpu_torch/csrc/channel.cu", "sdr_tpu/kernels/channel_pallas.py:80"),
+        "fade_awgn_fir": ("sdr_tpu_torch/csrc/channel.cu",
+                          "sdr_tpu/kernels/channel_pallas.py:80"),
         "demod_count_cl": ("sdr_tpu_torch/csrc/demod_cl_count.cu",
                            "sdr_tpu/kernels/demod_cl_pallas.py:741"),
         "mc_count": ("sdr_tpu_torch/csrc/mc.cuh", "sdr_tpu/kernels/mc_pallas.py:229"),
@@ -2401,6 +2435,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     def cl_form(name, n_fft):
         if name in ("tx", "tx_taps", "tx_off"):
             return {"form": b_form(n_fft)}
+        if name in ("fade_awgn", "fade_awgn_fir"):
+            return {"form": e_form(name)}
         if name in C_ROWS_MODES or name in C_STREAM_MODES:
             return c_form(name, n_fft)
         if not sources.get(name, ("",))[0].startswith("sdr_tpu_torch/csrc/demod_cl"):
@@ -2452,6 +2488,15 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
               f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"share {r['bound_ms'] / r['ms']:.4f}, launches of {r['counter']} {n_launch}, "
               f"launches x gap {n_launch * (r['ms'] - r['bound_ms']):.2f}")
+    # Kernel E's timed modes (phase 2): form, time, share of the bound and
+    # the launches of its counter in its path's window (the FIR in phases
+    # 3-4: the 24-tap link; the gains and noise in 3d-3f: SC-FDMA).
+    for r in e_rows:
+        n_launch = own[r["counter"]]
+        print(f"phase 6 E {r['mode']} N {N} ({B}x{S}x{N + CP}; {e_form(r['counter'])}): "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), share {r['bound_ms'] / r['ms']:.4f}, launches of "
+              f"{r['counter']} {n_launch}, launches x gap {n_launch * (r['ms'] - r['bound_ms']):.2f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

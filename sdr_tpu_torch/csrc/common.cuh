@@ -300,6 +300,21 @@ __device__ __forceinline__ long long opaque(long long v) {
   return v;
 }
 
+// V consecutive floats from src (aligned to 4V bytes), through the
+// read-only path.
+template <int V>
+__device__ __forceinline__ void load_run(const float* __restrict__ src, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(src));
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if constexpr (V == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(src));
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = __ldg(src);
+  }
+}
+
 // Stores n consecutive floats at dst (n a compile-time count), as 16-byte
 // stores where n is a multiple of 4 and 8-byte ones where it is even; the
 // caller guarantees dst is aligned to that width.

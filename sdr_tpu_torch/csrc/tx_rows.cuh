@@ -142,20 +142,6 @@ __host__ __device__ inline TxCarve tx_carve(int R, int G, int idx_bytes, bool fi
   return c;
 }
 
-// V consecutive floats from src (aligned to 4V bytes).
-template <int V>
-__device__ __forceinline__ void load_run(const float* __restrict__ src, float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(src));
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  } else if constexpr (V == 2) {
-    const float2 x = __ldg(reinterpret_cast<const float2*>(src));
-    v[0] = x.x, v[1] = x.y;
-  } else {
-    v[0] = __ldg(src);
-  }
-}
-
 // Adds the noise of samples u0 .. u0 + V - 1 of symbol s (flat offset o of
 // sample u0) and stores them.
 template <int V>
@@ -163,8 +149,8 @@ __device__ __forceinline__ void noisy_store(const TxArgs& a, long long o, uint32
                                             int u0, float (&yr)[V], float (&yi)[V]) {
   if (a.noise_mode == 1) {
     float nr[V], ni[V];
-    load_run<V>(a.n_re + o, nr);
-    load_run<V>(a.n_im + o, ni);
+    sdr::load_run<V>(a.n_re + o, nr);
+    sdr::load_run<V>(a.n_im + o, ni);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       yr[v] += a.sigma * nr[v];

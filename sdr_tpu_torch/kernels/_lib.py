@@ -40,8 +40,10 @@ NVCC_FLAGS = (
 )
 
 # Launch counters, one per kernel and mode: "tx_taps" is kernel B's FIR
-# mode, "tx_off" its channel-off mode (no gain, no FIR, no noise), "demod_count_taps" and "demod_count_despread" kernel C's taps=
-# and despread modes, "demod_llr"/"demod_sum" (and their "_despread"
+# mode, "tx_off" its channel-off mode (no gain, no FIR, no noise),
+# "fade_awgn_fir" kernel E's FIR mode ("fade_awgn" its gains and noise),
+# "demod_count_taps" and "demod_count_despread" kernel C's taps= and
+# despread modes, "demod_llr"/"demod_sum" (and their "_despread"
 # forms) C's LLR-plane and sum modes, "demod_llr_cl"/"demod_llr_cl_bf16"
 # F's LLR mode, "*_in_bf16" D's and F's modes on bf16 sample planes
 # (one per output type of F's plane), "mc_count" kernel G, "ldpc_minsum"
@@ -50,7 +52,7 @@ NVCC_FLAGS = (
 # "tp_stage2_llr" C's tensor-parallel stage-2 mode.
 LAUNCHES = {"payload": 0, "tx": 0, "tx_taps": 0, "tx_off": 0, "demod_count": 0, "demod_count_taps": 0,
             "demod_count_despread": 0, "demod_sum_cl": 0, "fade_awgn": 0,
-            "demod_count_cl": 0, "mc_count": 0, "demod_llr": 0, "demod_sum": 0,
+            "fade_awgn_fir": 0, "demod_count_cl": 0, "mc_count": 0, "demod_llr": 0, "demod_sum": 0,
             "demod_llr_despread": 0, "demod_sum_despread": 0, "demod_llr_cl": 0,
             "demod_llr_cl_bf16": 0, "ldpc_minsum": 0, "ldpc_minsum_layered": 0,
             "ldpc_minsum_t": 0, "ldpc_minsum_t_layered": 0, "llr_chain": 0,
@@ -189,8 +191,8 @@ _SIGNATURES = {
                _I, _P, _P, _P, _U, _U, _F, _P],
     "sdr_tx_fir": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I, _I,
                    _I, _P, _P, _P, _U, _U, _F, _P],
-    "sdr_fade_awgn": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _U, _U, _F,
-                      _P],
+    "sdr_fade_awgn": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P,
+                      _U, _U, _F, _P],
     "sdr_demod_count": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                         _I, AxisTables, _F, _F, _I, _P, _P, _P],
     "sdr_demod_sum_cl_partials": [_I, _I, _I],

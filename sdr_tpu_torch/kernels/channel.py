@@ -1,10 +1,16 @@
-"""Kernel E: fading gain + AWGN over an externally built waveform (port
-of ``sdr_tpu/kernels/channel_pallas.py::fade_awgn_pallas``).
+"""Kernel E: the staged channel stage over an externally built waveform
+(port of ``sdr_tpu/kernels/channel_pallas.py::fade_awgn_pallas`` and of
+the FIR the JAX route runs before it, ``sdr_tpu/link/fast.py``'s staged
+channel).
 
-(B, S, L) planar float32 samples → x·h + σ·n, σ = sqrt(noise_var/2)
-with ``noise_var`` the time-domain complex variance, h an optional
-complex gain per link (``hr_s``/``hi_s`` of shape (B, 1)) or per symbol
-((B, S)).
+(B, S, L) planar float32 samples → FIR(x) + σ·n or x·h + σ·n,
+σ = sqrt(noise_var/2) with ``noise_var`` the time-domain complex
+variance; h an optional complex gain per link (``hr_s``/``hi_s`` of shape
+(B, 1)) or per symbol ((B, S)); the FIR, exclusive with the gains, takes
+planar taps ``taps_r``/``taps_i``, static (B, Lt) — each channel's whole
+CP'd stream from zero history — or per symbol (B, S, Lt) — each symbol
+with its own taps and the previous symbol's tail as history
+(``ops.channel.grid_fir``), 1 ≤ Lt ≤ L + 1.
 
 Noise modes, as kernel B's (``kernels/tx.py``):
 
@@ -14,10 +20,12 @@ Noise modes, as kernel B's (``kernels/tx.py``):
   0) on ``seed ^ ROLE_NOISE`` — kernel B's stream, so the staged and the
   fused channel routes of ``link.fast`` draw the same noise (the TPU
   kernel's per-128-block seeding is not carried over);
-- neither: the gain alone.
+- neither: the channel alone.
 
 On a CPU tensor the plain version (``fade_awgn_plain``) runs; on a CUDA
 tensor the CUDA kernel (``csrc/channel.cu``) runs, or the call raises.
+The FIR mode counts its launches under ``fade_awgn_fir``, the others
+under ``fade_awgn``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 from sdr_tpu_torch.core import prng
 from sdr_tpu_torch.kernels import _lib
 from sdr_tpu_torch.kernels.tx import _noise_mode, _sigma
+from sdr_tpu_torch.ops.channel import grid_fir
 
 
 def _check_gains(hr_s, hi_s, B: int, S: int) -> int:
@@ -39,13 +48,35 @@ def _check_gains(hr_s, hi_s, B: int, S: int) -> int:
     return hr_s.shape[1]
 
 
+def _check_taps(hr_s, taps_r, taps_i, B: int, S: int, L: int) -> bool:
+    """Whether a tap pair is per symbol ((B, S, Lt)) or static ((B, Lt));
+    raises on any other shape, on Lt outside [1, L + 1] and on gains
+    given with taps."""
+    if hr_s is not None:
+        raise ValueError("fade_awgn: taps and gains are mutually exclusive")
+    per_sym = taps_r.ndim == 3 and taps_r.shape[:2] == (B, S)
+    if (not per_sym and not (taps_r.ndim == 2 and taps_r.shape[0] == B)) or (
+            taps_i.shape != taps_r.shape):
+        raise ValueError(f"fade_awgn: taps must be (B, Lt) or (B, S, Lt), got "
+                         f"{tuple(taps_r.shape)}")
+    if not 1 <= taps_r.shape[-1] <= L + 1:
+        raise ValueError(f"fade_awgn: {taps_r.shape[-1]} taps, rows of {L} samples take 1 to "
+                         f"{L + 1}")
+    return per_sym
+
+
 def fade_awgn_plain(re, im, hr_s=None, hi_s=None, noise_var: float = 0.0, noise=None,
-                    seed=None, ch_ids=None):
-    """Plain torch version (same arguments and modes as ``fade_awgn``)."""
+                    seed=None, ch_ids=None, taps_r=None, taps_i=None):
+    """Plain torch version (same arguments and modes as ``fade_awgn``):
+    ``grid_fir`` over the complex stream, then the gains and the noise."""
     mode = _noise_mode(noise, seed, ch_ids)
     B, S, L = re.shape
     _check_gains(hr_s, hi_s, B, S)
     yr, yi = re, im
+    if taps_r is not None:
+        _check_taps(hr_s, taps_r, taps_i, B, S, L)
+        y = grid_fir(torch.complex(re, im), torch.complex(taps_r, taps_i))
+        yr, yi = y.real, y.imag
     if hr_s is not None:
         fr = hr_s[:, :, None]
         fi = hi_s[:, :, None]
@@ -61,41 +92,48 @@ def fade_awgn_plain(re, im, hr_s=None, hi_s=None, noise_var: float = 0.0, noise=
 
 
 def fade_awgn(re, im, hr_s=None, hi_s=None, noise_var: float = 0.0, noise=None, seed=None,
-              ch_ids=None):
-    """Faded, noisy planes (out_re, out_im), each (B, S, L) float32."""
+              ch_ids=None, taps_r=None, taps_i=None):
+    """Faded (or filtered), noisy planes (out_re, out_im), each (B, S, L)
+    float32."""
     mode = _noise_mode(noise, seed, ch_ids)
     if re.device.type == "cpu":
-        return fade_awgn_plain(re, im, hr_s, hi_s, noise_var, noise, seed, ch_ids)
+        return fade_awgn_plain(re, im, hr_s, hi_s, noise_var, noise, seed, ch_ids, taps_r,
+                               taps_i)
     if re.ndim != 3 or im.shape != re.shape:
         raise ValueError(
             f"fade_awgn kernel: samples must be a (B, S, L) pair, got {tuple(re.shape)}")
     B, S, L = re.shape
     h_syms = _check_gains(hr_s, hi_s, B, S)
+    fir = taps_r is not None
+    per_sym = fir and _check_taps(hr_s, taps_r, taps_i, B, S, L)
     operands = [re, im]
     if h_syms:
         operands += [hr_s, hi_s]
+    if fir:
+        operands += [taps_r, taps_i]
     if mode == 1:
         if any(n.shape != re.shape for n in noise):
             raise ValueError(f"fade_awgn kernel: noise planes must be {tuple(re.shape)}")
         operands += list(noise)
+    if any(t.dtype != torch.float32 for t in operands):
+        raise ValueError("fade_awgn kernel: samples, gains, taps and noise must be float32")
     if mode == 2:
         if ch_ids.shape != (B,) or ch_ids.dtype != torch.int32:
             raise ValueError("fade_awgn kernel: ch_ids must be int32 (B,)")
         operands.append(ch_ids)
-    if any(t.dtype != torch.float32 for t in operands if t is not ch_ids):
-        raise ValueError("fade_awgn kernel: samples, gains and noise must be float32")
     _lib.require_cuda("fade_awgn", *operands)
     out_re = torch.empty_like(re)
     out_im = torch.empty_like(im)
     k0, k1 = prng.split_key(seed, prng.ROLE_NOISE) if mode == 2 else (0, 0)
     rc = _lib.lib().sdr_fade_awgn(
         re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(), B, S, L,
-        _lib.ptr(hr_s), _lib.ptr(hi_s), h_syms, mode,
+        _lib.ptr(hr_s), _lib.ptr(hi_s), h_syms, _lib.ptr(taps_r), _lib.ptr(taps_i),
+        taps_r.shape[-1] if fir else 0, int(per_sym), mode,
         _lib.ptr(noise[0]) if mode == 1 else None,
         _lib.ptr(noise[1]) if mode == 1 else None,
         _lib.ptr(ch_ids) if mode == 2 else None,
         k0, k1, _sigma(noise_var), _lib.stream(),
     )
     _lib.check(rc, "fade_awgn")
-    _lib.LAUNCHES["fade_awgn"] += 1
+    _lib.LAUNCHES["fade_awgn_fir" if fir else "fade_awgn"] += 1
     return out_re, out_im

@@ -21,10 +21,10 @@ versions) and on the card (kernels):
   (RAYLEIGH_TIME), static taps (MULTIPATH) or per-symbol taps
   (MULTIPATH_TIME), then the noise;
 - staged (``apply_channel_fast``): MULTIPATH and MULTIPATH_TIME with 17
-  to cp+1 taps — kernel B with the channel off, the FIR in plain torch
-  (as it is XLA in the JAX route), then kernel E for the noise. Both
-  routes draw the noise with one counter, so they agree sample for
-  sample.
+  to cp+1 taps — kernel B with the channel off, then kernel E for the
+  FIR (XLA before the channel kernel in the JAX route) and the noise in
+  one pass. Both routes draw the noise with one counter and run the FIR
+  in one order, so they agree sample for sample.
 
 Receive routes (fast.py:414-511): MULTIPATH_TIME with at most 8 taps
 hands its per-symbol taps to kernel C, which builds the response in the
@@ -250,24 +250,26 @@ def apply_channel_fast(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, re: tor
                        im: torch.Tensor, h: torch.Tensor | None = None,
                        taps: torch.Tensor | None = None, noise=None, layout: str = "rows"):
     """The staged channel over an externally built waveform (B, S, N+cp):
-    the FIR of a selective model in plain torch (over the whole CP'd
-    stream for static taps, per symbol with the previous symbol's tail as
-    history for per-symbol taps), then kernel E for the gains and the
-    keyed noise. The route the engine takes for 17 to cp+1 taps, and the
-    channel stage a coded engine calls. Arguments as ``tx_with_channel``."""
+    kernel E in one pass — the FIR of a selective model (over the whole
+    CP'd stream for static taps, per symbol with the previous symbol's
+    tail as history for per-symbol taps) or the gains, then the keyed
+    noise. The route the engine takes for 17 to cp+1 taps and for
+    SC-FDMA, and the channel stage a coded engine calls. Arguments as
+    ``tx_with_channel``."""
     check_supported(cfg, layout)
     model = cfg.channel.model
     if model == ChannelModel.IDENTITY:
         return _laid_out(re, im, layout)
     if h is None and taps is None:
         h, taps = fade_state(cfg, seed, ch_ids, plane=False)
-    hs_r = hs_i = None
+    hs_r = hs_i = taps_r = taps_i = None
     if model in _SELECTIVE:
-        re, im = _planar(chan.grid_fir(torch.complex(re, im), taps))
+        taps_r, taps_i = _planar(taps)
     elif h is not None:
         hs_r, hs_i = _gains(h)
     tvar = noise_var(cfg) / cfg.ofdm.n_fft
-    re, im = fade_awgn(re, im, hs_r, hs_i, tvar, **_noise_kw(seed, ch_ids, noise))
+    re, im = fade_awgn(re, im, hs_r, hs_i, tvar, taps_r=taps_r, taps_i=taps_i,
+                       **_noise_kw(seed, ch_ids, noise))
     return _laid_out(re, im, layout)
 
 

@@ -195,7 +195,8 @@ def apply_multipath(samples: torch.Tensor, taps: torch.Tensor,
 
 
 def grid_fir(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
-    """The fast engine's FIR over a (B, S, sym_len) grid of CP'd symbols.
+    """The fast engine's FIR over a (B, S, sym_len) grid of CP'd symbols
+    (the plain version of kernel B's and kernel E's FIR modes).
     Static taps (B, L): each channel's whole stream through one FIR from
     zero history. Per-symbol taps (B, S, L): each symbol through its own
     taps, the previous symbol's tail as history (zeros before symbol 0)."""

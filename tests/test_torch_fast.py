@@ -44,10 +44,12 @@ from sdr_tpu_torch.core.config import (
     OFDMConfig,
     link_config_to_dict,
 )
+from sdr_tpu_torch.kernels.channel import fade_awgn_plain
 from sdr_tpu_torch.kernels.demod import demod_chain
 from sdr_tpu_torch.kernels.tx import tx_chain
 from sdr_tpu_torch.link import fast
 from sdr_tpu_torch.link.ber import ber_awgn_exact, ber_rayleigh_exact, ber_rician_exact
+from sdr_tpu_torch.ops import channel as chan
 
 torch.set_num_threads(1)
 
@@ -376,6 +378,34 @@ def test_staged_route_equals_fused_route():
                                                                  cfg.modulation))
         for a, b in zip(fused, staged):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("model", [ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME],
+                         ids=lambda m: m.value)
+def test_staged_route_hands_the_fir_to_kernel_e(model, monkeypatch):
+    """The staged route passes the selective model's taps to kernel E (one
+    call, taps and no gains), whose plain version is the FIR then the
+    noise: the same bits as ``grid_fir`` followed by E's noise alone."""
+    cfg = _sel_cfg(model, PDP24, n_channels=5)
+    ids = torch.arange(40, 45, dtype=torch.int32)
+    clean = tx_chain(fast.draw_idx(cfg, 9, ids), cfg.ofdm.cp_len, cfg.modulation)
+    calls = []
+
+    def recording(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fade_awgn_plain(*args, **kwargs)
+
+    monkeypatch.setattr(fast, "fade_awgn", recording)
+    got = fast.apply_channel_fast(cfg, 9, ids, *clean)
+    assert len(calls) == 1
+    args, kwargs = calls[0]
+    assert args[2] is None and kwargs["taps_r"].shape[-1] == len(PDP24)
+    _, taps = fast.fade_state(cfg, 9, ids, plane=False)
+    y = chan.grid_fir(torch.complex(*clean), taps)
+    want = fade_awgn_plain(y.real.contiguous(), y.imag.contiguous(), None, None, args[4],
+                           seed=9, ch_ids=ids)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("model", [ChannelModel.AWGN, ChannelModel.RAYLEIGH_FLAT,

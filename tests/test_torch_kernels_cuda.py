@@ -9,7 +9,7 @@ fixture, never at import. Run on a machine with an NVIDIA Hopper card:
 Tolerances: indices and counts exact (counts: or within the number of
 bits whose plain |LLR| < 1e-3); sample planes 1e-4 absolute (injected
 noise) and 1e-5 of the plane's peak (keyed noise; kernel B's FIR and
-kernel E in both modes); LLR sums 1e-4 relative. Kernel G and kernel
+kernel E, its FIR mode included, in both modes); LLR sums 1e-4 relative. Kernel G and kernel
 C's despread mode follow the count rule. Kernel C's LLR-plane mode and
 F's LLR mode: 1e-4 of the plane's peak |LLR|; bf16 sign-identical
 wherever |LLR| ≥ 1e-3 and within 2^-8 relative; C's sums 1e-5 of the sum
@@ -294,6 +294,104 @@ def test_fade_awgn_kernel_matches_plain(dev, h_syms):
         _close_planes(got, want, "seed" in kw)
 
 
+# Kernel E's FIR mode: N 16 and 4096, config 2's N 256 (CP 64), and a row
+# of 319 samples (not a multiple of 4); taps up to cp + 1.
+E_FIR_SHAPES = [(40, 9, 16, 16), (24, 40, 256, 64), (20, 33, 256, 63), (3, 5, 4096, 512)]
+E_FIR_CASES = [(shape, n_taps) for shape in E_FIR_SHAPES for n_taps in (2, 17, 24, shape[3] + 1)
+               if n_taps <= shape[3] + 1]
+
+
+def _fir_inputs(dev, B, S, L, n_taps, kind, seed=8):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    re, im = (torch.randn((B, S, L), generator=g).to(dev) for _ in range(2))
+    shape = (B, n_taps) if kind == "static" else (B, S, n_taps)
+    taps = tuple((torch.randn(shape, generator=g) * n_taps ** -0.5).to(dev) for _ in range(2))
+    return re, im, taps
+
+
+@pytest.mark.parametrize("kind", ["static", "per_symbol"])
+@pytest.mark.parametrize("shape,n_taps", E_FIR_CASES,
+                         ids=[f"{b}x{s}-N{n}-cp{c}-{t}taps" for (b, s, n, c), t in E_FIR_CASES])
+def test_fade_awgn_fir_kernel_matches_plain(dev, shape, n_taps, kind):
+    B, S, N, cp = shape
+    re, im, (tr, ti) = _fir_inputs(dev, B, S, N + cp, n_taps, kind)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    noise = tuple(torch.randn((B, S, N + cp), generator=g).to(dev) for _ in range(2))
+    ids = torch.arange(300, 300 + B, dtype=torch.int32, device=dev)
+    for kw in (dict(noise=noise), dict(seed=13, ch_ids=ids)):
+        got = _counted("fade_awgn_fir", lambda: ke.fade_awgn(re, im, noise_var=0.02, taps_r=tr,
+                                                             taps_i=ti, **kw))
+        want = ke.fade_awgn_plain(re, im, noise_var=0.02, taps_r=tr, taps_i=ti, **kw)
+        _close_planes(got, want, "seed" in kw)
+
+
+@pytest.mark.parametrize("kind", ["static", "per_symbol"])
+def test_fade_awgn_fir_kernel_split_equals_full(dev, kind):
+    """Channels [0, B/2) alone give the same bits as inside the full run:
+    a block reads its history from the clean input, not from another
+    block's output."""
+    B, S, N, cp = 24, 40, 256, 63
+    re, im, (tr, ti) = _fir_inputs(dev, B, S, N + cp, 24, kind)
+    ids = torch.arange(500, 500 + B, dtype=torch.int32, device=dev)
+    h = B // 2
+
+    def run(sl):
+        return ke.fade_awgn(re[sl], im[sl], noise_var=0.02, taps_r=tr[sl], taps_i=ti[sl],
+                            seed=3, ch_ids=ids[sl])
+
+    full, half = run(slice(None)), run(slice(0, h))
+    assert all(torch.equal(a[:h], b) for a, b in zip(full, half))
+
+
+def test_staged_route_runs_kernel_e_alone(dev, monkeypatch):
+    """On the card the staged route makes no plain-torch FIR: after B's
+    channel-off launch, one launch of E a call (its FIR mode for the
+    selective models, its gain mode for the flat ones)."""
+    from sdr_tpu_torch.ops import channel as chan
+
+    def no_fir(*args, **kwargs):
+        raise AssertionError("plain-torch FIR on the card")
+
+    monkeypatch.setattr(chan, "grid_fir", no_fir)
+    monkeypatch.setattr(ke, "grid_fir", no_fir)
+    for model, pdp, counter in ((ChannelModel.MULTIPATH, tuple(0.8 ** l for l in range(24)),
+                                 "fade_awgn_fir"),
+                                (ChannelModel.MULTIPATH_TIME, tuple(0.8 ** l for l in range(20)),
+                                 "fade_awgn_fir"),
+                                (ChannelModel.RAYLEIGH_FLAT, None, "fade_awgn")):
+        cfg = LinkConfig(modulation=Modulation.QAM16, ofdm=OFDMConfig(256, 64),
+                         channel=ChannelConfig(model=model, ebno_db=14.0, doppler_norm=0.02,
+                                               **({"pdp": pdp} if pdp else {})),
+                         n_symbols=8, n_channels=16)
+        ids = torch.arange(16, dtype=torch.int32, device=dev)
+        idx = fast.draw_idx(cfg, 5, ids)
+        _lib.reset_launches()
+        re, im = kb.tx_chain(idx, 64, cfg.modulation)
+        out = fast.apply_channel_fast(cfg, 5, ids, re, im)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _lib.LAUNCHES.items() if v}
+        assert launched == {"tx_off": 1, counter: 1}, launched
+        assert all(bool(torch.isfinite(p).all()) for p in out)
+
+
+def test_fade_awgn_refused_launch_raises(dev, monkeypatch):
+    """A launch the C entry refuses raises and counts nothing: no FIR
+    falls back to the plain version on the card."""
+    re = torch.zeros((4, 3, 80), device=dev)
+    taps = torch.zeros((4, 5), device=dev)
+
+    class Refusing:
+        @staticmethod
+        def sdr_fade_awgn(*args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(_lib, "lib", lambda: Refusing)
+    before = dict(_lib.LAUNCHES)
+    with pytest.raises(RuntimeError, match="fade_awgn"):
+        ke.fade_awgn(re, re, taps_r=taps, taps_i=taps)
+    assert _lib.LAUNCHES == before
+
+
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
 @pytest.mark.parametrize("L", [1, 3, 8])
 @pytest.mark.parametrize("N", C_N_FFT)
@@ -406,6 +504,14 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         kc.tp_stage2_llr(*(torch.zeros((2, 2, 1, 128), device=dev),) * 2,
                          *(torch.zeros(2 * 2 * 128 + 1, device=dev)[1:].view(2, 2, 1, 128),) * 2,
                          torch.tensor(0.1, device=dev), mod)
+    x, taps = torch.zeros((4, 3, 80), device=dev), torch.zeros((4, 5), device=dev)
+    with pytest.raises(ValueError):  # E: taps and gains together
+        ke.fade_awgn(x, x, taps[:, :1], taps[:, :1], taps_r=taps, taps_i=taps)
+    with pytest.raises(ValueError):  # E: more taps than a row and its history hold
+        ke.fade_awgn(x, x, taps_r=torch.zeros((4, 82), device=dev),
+                     taps_i=torch.zeros((4, 82), device=dev))
+    with pytest.raises(ValueError):  # E: taps of another batch
+        ke.fade_awgn(x, x, taps_r=taps[:2], taps_i=taps[:2])
 
 
 def _within_margin(got, llr, want):

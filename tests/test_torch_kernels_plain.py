@@ -8,7 +8,9 @@ made with numpy from a seed and handed to both.
 Tolerances (stated before the comparison, from the JAX suite):
 - sample planes atol = 2e-5 (tests/test_tx_pallas.py), for kernel B's
   gain and FIR modes against the JAX staged composition (TX kernel →
-  apply_multipath → channel kernel) and for kernel E;
+  apply_multipath → channel kernel) and for kernel E; kernel E's FIR mode
+  against the JAX staged channel (apply_multipath → channel kernel) at
+  the reference's float tolerance, atol = 1e-5, rtol = 1e-6;
 - error counts: equal, or differing by no more than the number of bits
   whose plain |LLR| < 1e-3 (decisions that float rounding may flip);
 - LLR sums rtol = 1e-4 (float32 sums over ~1e4 terms in another order);
@@ -344,6 +346,40 @@ def test_fade_awgn_plain_matches_jax_channel_kernel(rng, h_syms):
     gre, gim = ke.fade_awgn(*_t(re, im), *gains, 0.02, noise=_t(n_re, n_im))
     np.testing.assert_allclose(gre.numpy(), np.asarray(jre), atol=SAMPLE_ATOL, rtol=0)
     np.testing.assert_allclose(gim.numpy(), np.asarray(jim), atol=SAMPLE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["static", "per_symbol"])
+@pytest.mark.parametrize("n_taps", [17, 33], ids=["17taps", "cp+1taps"])
+def test_fade_awgn_plain_fir_matches_jax_staged_channel(rng, kind, n_taps):
+    """Kernel E's FIR mode (plain version, injected noise) against the JAX
+    staged channel: apply_multipath (over the stream for static taps; per
+    symbol with symbol_history otherwise) → fade_awgn_pallas(noise=…) in
+    interpret mode; B = 128 for the channel kernel's 128-row blocks. The
+    reference's float tolerance, abs 1e-5 / rel 1e-6."""
+    B, S, N, cp = 128, 3, 128, 32
+    L = N + cp
+    x = ((rng.standard_normal((B, S, L)) + 1j * rng.standard_normal((B, S, L)))
+         / np.sqrt(2)).astype(np.complex64)
+    shape = (B, n_taps) if kind == "static" else (B, S, n_taps)
+    taps = ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+            / np.sqrt(2 * n_taps)).astype(np.complex64)
+    n_re = rng.standard_normal((B, S, L)).astype(np.float32)
+    n_im = rng.standard_normal((B, S, L)).astype(np.float32)
+    tvar = 0.02
+    jx = jnp.asarray(x)
+    if kind == "static":
+        y = jchan.apply_multipath(jx.reshape(B, -1), jnp.asarray(taps)).reshape(jx.shape)
+    else:
+        y = jchan.apply_multipath(jx, jnp.asarray(taps), history=jchan.symbol_history(jx, n_taps))
+    jre, jim = fade_awgn_pallas(jnp.real(y), jnp.imag(y), None, None, 0, tvar,
+                                noise=(jnp.asarray(n_re), jnp.asarray(n_im)), interpret=True)
+    re, im = _t(np.real(x).astype(np.float32), np.imag(x).astype(np.float32))
+    tr, ti = _t(np.real(taps).astype(np.float32), np.imag(taps).astype(np.float32))
+    gre, gim = ke.fade_awgn_plain(re, im, noise_var=tvar, noise=_t(n_re, n_im), taps_r=tr,
+                                  taps_i=ti)
+    assert gre.shape == (B, S, L) and gre.dtype == torch.float32
+    np.testing.assert_allclose(gre.numpy(), np.asarray(jre), atol=1e-5, rtol=1e-6)
+    np.testing.assert_allclose(gim.numpy(), np.asarray(jim), atol=1e-5, rtol=1e-6)
 
 
 def test_fade_awgn_plain_keyed_noise_is_kernel_b_stream():
