@@ -44,7 +44,11 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    code): identical hard bits to the plain version, each layout and
    schedule timed beside its bound; kernel A at 8192 × 64 × 256
    int8 (bps 4) and int16 (bps 10) bit for bit, timed beside
-   ``torch.randint``;
+   ``torch.randint``, and at a symbol offset (s0 = 32: rows 32.. of the
+   frame, bit for bit; timed at s0 = 64); kernel E at a time block's seam
+   (s0 = 32 and the FIR's history planes, 24 static and per-symbol taps,
+   injected and keyed, against the plain version, timed; the block's rows
+   with the frame's tail as history equal to the frame's, bit for bit);
    2t. kernel C's tensor-parallel stage-2 mode (``tp_stage2_llr``, #20)
    against ``stage2_llr_plain`` at the shapes the TP path runs — rows of
    n2 = 1024 (config 5 split over 4 ranks, 256 × 64 per rank),
@@ -120,6 +124,22 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    2048 and 4096, every sum within 1e-5 of the plain sum, and the SC-FDE
    receive (``demod_count_chain`` and
    ``demod_chain`` with ``despread``; the sum at N 4096) (CUDA events);
+   3p. the link pipeline (``link.pipeline.simulate``) at config 2, 8192
+   × 64, counters zeroed before it: ``__graft_entry__.entry()``'s link
+   (MULTIPATH PDP (1, .5, .25, .125), MMSE, 12 dB) within 2 % of the BER
+   over the drawn channel, its counts equal to ``fast_simulate``'s on the
+   same seed and channels [0, B/2) alone equal to the full run; AWGN
+   10 dB MMSE and NONE within 5 % of theory; ZF on the entry link (kernel
+   C's one-tap tail, as MMSE) within 2 % of the drawn channel's BER;
+   RICIAN, RAYLEIGH_TIME and
+   MULTIPATH_TIME within 2 % of theirs; SC-FDMA AWGN 10 dB within 2 % of
+   theory; ``want_llrs=True`` (kernel C's plane: its shape, and its hard
+   bits against the count but for bits with |LLR| < 1e-3); and
+   ``link.stream.stream_simulate`` at n_blocks 4 against ``simulate``:
+   bit for bit on the entry link, and on MULTIPATH_TIME (fd 0.03) but
+   for the same margin — each
+   with ms (median of 3 warm calls, CUDA events) and the launches of one
+   call (kernels A, B off, E, C);
    5. the parallel layer: ``parallel.dryrun.dryrun_multichip`` on 4
    gloo ranks sharing the one card (spawned; the library built above is
    only loaded there) — TP at BASELINE config 5's full width (256 × 64,
@@ -127,8 +147,10 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    plane (1e-4 of the peak, equal signs) and the drawn channel's BER
    (2 %); DP fast rows and cl at config 5's shape, config 2 and config 4;
    DP MC keyed (1 % of theory) and injected; DP coded-fast; DP SC-FDMA
-   at N 1024; PP 2 × 2 — each bit-exact against the unsharded port, with
-   its wall time (not a scaling figure); 5n. one NCCL rank runs TP at
+   at N 1024; PP 2 × 2; the time-block stream with its halo exchange
+   (2 × 2, n_blocks 4, 1024 × 64, the entry link and MULTIPATH_TIME fd
+   0.03; also against ``pipeline.simulate``) — each bit-exact against
+   the unsharded port, with its wall time (not a scaling figure); 5n. one NCCL rank runs TP at
    N 4096 and DP fast, so that device tensors go to the collectives;
 6. checks that each path launched every kernel and mode of its slice
    (the counters are zeroed just before phase 3 and read after phase 4
@@ -143,7 +165,9 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    before 2b's gate and read after it for F on bf16 planes (D's bf16
    mode is in phase 4's window); and in phase 5's ranks around each
    sharded call, summed, for kernel #20 — phase 5n's window holds its
-   launches at n2 = 4096)
+   launches at n2 = 4096; and in phase 3p around each pipeline and
+   stream call, for A, B off, E (both modes) and C's count, despread
+   count and plane, ``launches_pipeline``)
    and prints one JSON line per kernel set, with each kernel's bound (bytes over 3.35 TB/s or f32
    operations over 67 TFLOP/s, the H100 SXM data sheet) and its launches
    in each window (``launches_fast``, ``launches_mc``, ``launches_coded``,
@@ -212,6 +236,27 @@ def coded_cell(n_channels: int = 8192):
     return LinkConfig(modulation=Modulation.QAM16, ofdm=OFDMConfig(n_fft=256, cp_len=64),
                       channel=ChannelConfig(model=ChannelModel.RAYLEIGH_FLAT, ebno_db=6.0),
                       n_symbols=64, n_channels=n_channels)
+
+
+def pipeline_cell(n_channels: int = 8192, **kw):
+    """The pipeline cells' link (root PERF.md §4, pipeline-entry):
+    ``__graft_entry__.entry()``'s — BASELINE config 2 (16-QAM, N = 256,
+    CP 64), MULTIPATH PDP (1, .5, .25, .125), MMSE, 12 dB — at 64 symbols
+    (``equalizer=Equalizer.ZF``: pipeline-zf)."""
+    from sdr_tpu_torch.core.config import (
+        ChannelConfig,
+        ChannelModel,
+        Equalizer,
+        LinkConfig,
+        Modulation,
+        OFDMConfig,
+    )
+
+    return LinkConfig(**{**dict(
+        modulation=Modulation.QAM16, ofdm=OFDMConfig(n_fft=256, cp_len=64),
+        channel=ChannelConfig(model=ChannelModel.MULTIPATH, ebno_db=12.0,
+                              pdp=(1.0, 0.5, 0.25, 0.125)),
+        equalizer=Equalizer.MMSE, n_symbols=64, n_channels=n_channels), **kw})
 
 
 def _fail(msg: str):
@@ -428,6 +473,14 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         _check(idx.dtype == ka.out_dtype(bps_a) and torch.equal(idx, idx_plain),
                f"kernel A differs from its plain version at bps {bps_a}")
         del idx_plain
+    # A at a symbol offset (a time block of link.stream): rows S/2 .. S-1
+    # of the frame's draw, bit for bit, and equal to the plain version.
+    half_s = S // 2
+    idx_s0 = ka.payload_idx(half_s, N, bps, seed, ids, s0=half_s)
+    _check(torch.equal(idx_s0, ka.payload_idx_plain(half_s, N, bps, seed, ids, s0=half_s))
+           and torch.equal(idx_s0, idx[:, half_s:]),
+           "kernel A at s0 differs from its plain version or from the frame's rows")
+    del idx_s0
 
     def plain_a():
         return ka.payload_idx_plain(S, N, bps, seed, ids)
@@ -444,13 +497,16 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     k2 = timed(lambda: ka.payload_idx(S, N, bps, seed, ids), 20)
     r2 = timed(randint, 20)
     ms, lib_ms = (k1 + k2) / 2, (r1 + r2) / 2
+    # The same draw at s0 = S (the frame's next S rows), 20 calls.
+    ms_s0 = timed(lambda: ka.payload_idx(S, N, bps, seed, ids, s0=S), 20)
     n_calls = B * S * (-(-N // 4))
     report["payload"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
-                             **bound(B * S * N + 4 * B, 0, n_calls * PHILOX_IMUL))
+                             ms_s0=ms_s0, **bound(B * S * N + 4 * B, 0, n_calls * PHILOX_IMUL))
     a_bytes = bound(B * S * N + 4 * B, 0)["bound_ms"]
     print(f"phase 2 A payload ({B}x{S}x{N} int8, bps {bps}; int16 bps 10 exact too): exact; "
           f"kernel {ms:.4f} ms, torch.randint {lib_ms:.4f} ms (20 calls each, in turns; "
-          f"kernel/randint {ms / lib_ms:.3f}), plain {pms:.3f} ms; bound "
+          f"kernel/randint {ms / lib_ms:.3f}; at s0 = {S} {ms_s0:.4f} ms, rows s0.. exact), "
+          f"plain {pms:.3f} ms; bound "
           f"{report['payload']['bound_ms']:.4f} ms ({report['payload']['bound_by']}: {n_calls} "
           f"Philox calls x {PHILOX_IMUL} multiplies; bytes {a_bytes:.4f} ms), "
           f"{report['payload']['bound_ms'] / ms:.3f} of it")
@@ -697,7 +753,41 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         e_rows.append(dict(rep, mode=label, counter=counter))
         if label in ("per-symbol gains", "FIR 24 static taps"):
             report[counter] = rep
-    del clean, t24, t24s
+    # E at a time block's seam (link/stream.py): s0 = S/2 and the FIR's
+    # history planes (the clean tail of the frame's last symbol), static
+    # and per-symbol taps, injected and keyed, against the plain version;
+    # then rows [S/2, S) at s0 = S/2 with the frame's row S/2 - 1 tail as
+    # history against the whole frame's rows, bit for bit.
+    hist24 = tuple(p[:, -1, -23:].contiguous() for p in clean)
+    for label, taps24 in (("static", t24), ("per-symbol", t24s)):
+        t_r, t_i = taps24.real.contiguous(), taps24.imag.contiguous()
+        hist_kw = dict(taps_r=t_r, taps_i=t_i, s0=half_s, history_r=hist24[0],
+                       history_i=hist24[1])
+        rep = check_modes(f"E FIR 24 {label} taps from history planes at s0 = {half_s} "
+                          f"({B}x{S}x{N + CP})",
+                          lambda **kw: ke.fade_awgn(*clean, noise_var=tvar, **hist_kw, **kw),
+                          lambda **kw: ke.fade_awgn_plain(*clean, noise_var=tvar, **hist_kw,
+                                                          **kw),
+                          tx_shape, kernel_reps=10)
+        rep.update(bound(16 * nrow * (N + CP) + 8 * t_r.numel() + 8 * 23 * B + 4 * B,
+                         (8 * 24 + 4) * nrow * (N + CP), nrow * (N + CP) * PHILOX_IMUL))
+        e_rows.append(dict(rep, mode=f"FIR 24 {label} taps, history, s0 {half_s}",
+                           counter="fade_awgn_fir"))
+        rows_kw = dict(taps_r=t_r, taps_i=t_i) if label == "static" else dict(
+            taps_r=t_r[:, half_s:].contiguous(), taps_i=t_i[:, half_s:].contiguous())
+        full_e = ke.fade_awgn(*clean, noise_var=tvar, taps_r=t_r, taps_i=t_i, seed=seed,
+                              ch_ids=ids)
+        part_e = ke.fade_awgn(*(p[:, half_s:].contiguous() for p in clean), noise_var=tvar,
+                              seed=seed, ch_ids=ids, s0=half_s,
+                              history_r=clean[0][:, half_s - 1, -23:].contiguous(),
+                              history_i=clean[1][:, half_s - 1, -23:].contiguous(), **rows_kw)
+        same = all(torch.equal(a, b[:, half_s:]) for a, b in zip(part_e, full_e))
+        _check(same, f"kernel E ({label} taps): the block at s0 = {half_s} with the frame's "
+                     "tail differs from the frame's rows")
+        print(f"phase 2 E FIR 24 {label} taps: rows [{half_s}, {S}) at s0 = {half_s} with the "
+              f"frame's tail as history == the frame's rows (bit for bit)")
+        del full_e, part_e
+    del clean, t24, t24s, hist24
 
     # Route cross-check: staged (B off, then E's FIR) against fused (B's FIR).
     cfg_mp = LinkConfig(modulation=mod, ofdm=OFDMConfig(N, CP),
@@ -2295,6 +2385,143 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     # phase 3i: the wideband link and terminals, the sum of the N windows
     launches_wide = {k: sum(w[k] for w in launches_at.values()) for k in _lib.LAUNCHES}
 
+    # ---- phase 3p: the link pipeline and the blocked stream, counters zeroed --
+    # ``link.pipeline.simulate`` at config 2, B x 64: the link that
+    # ``__graft_entry__.entry()`` compiles (MULTIPATH PDP (1, .5, .25, .125),
+    # MMSE, 12 dB), the other receivers and models, ``want_llrs``, and
+    # ``link.stream.stream_simulate``. Each main-path call runs inside
+    # ``in_pipeline()`` (the counters zeroed on entry, added to the window on
+    # exit); the references (fast_simulate, the drawn channel's BER, the
+    # LLR margins) are in no window. Each line: ms the median of 3 warm
+    # calls (CUDA events) and the launches of one call.
+    from sdr_tpu_torch.core.config import Equalizer
+    from sdr_tpu_torch.link import pipeline
+    from sdr_tpu_torch.link.stream import exact_at_seams, stream_simulate
+
+    launches_pipeline = dict.fromkeys(_lib.LAUNCHES, 0)
+    pipeline_path = ("payload", "tx_off", "fade_awgn", "fade_awgn_fir", "demod_count",
+                     "demod_count_despread", "demod_llr")
+
+    @contextlib.contextmanager
+    def in_pipeline():
+        _lib.reset_launches()
+        yield
+        for k, v in _lib.LAUNCHES.items():
+            launches_pipeline[k] += v
+
+    def p_cfg(model, ebno_db, equalizer=Equalizer.MMSE, dft_spread=False, **channel):
+        return LinkConfig(modulation=mod, ofdm=OFDMConfig(N, CP),
+                          channel=ChannelConfig(model=model, ebno_db=ebno_db, **channel),
+                          equalizer=equalizer, n_symbols=S, n_channels=B, dft_spread=dft_spread)
+
+    def p_run(fn):
+        """fn() warm, then 3 timed calls: (result, median ms, launches of one call)."""
+        with in_pipeline():
+            out = fn()
+            torch.cuda.synchronize()
+            per_call = {k: v for k, v in _lib.LAUNCHES.items() if v}
+            ms_p = sorted(timed(fn, 1) for _ in range(3))[1]
+        return out, ms_p, per_call
+
+    def p_ber(res):
+        return int(res.bit_errors.sum()) / int(res.bits_counted.sum())
+
+    def drawn(cfg):
+        h_d, _ = fast.fade_state(cfg, seed, ids)
+        return ber_given_gain(mod, cfg.channel.ebno_db, (h_d.abs() ** 2).to(torch.float64))
+
+    def plane_margin(cfg):
+        llrs = pipeline.simulate(cfg, seed, device=dev, want_llrs=True).llrs
+        return (llrs.abs() < 1e-3).sum(dim=(1, 2))
+
+    t3p = time.perf_counter()
+    half = B // 2
+    entry = pipeline_cell(B)
+    res_e, ms_e, per_e = p_run(lambda: pipeline.simulate(entry, seed, device=dev))
+    ber_e, want_e = p_ber(res_e), drawn(entry)
+    _check(abs(ber_e / want_e - 1) <= 0.02,
+           f"pipeline entry link: BER {ber_e:g} vs {want_e:g} over the drawn channel")
+    fast_e, _ = fast.fast_simulate(entry, seed, device=dev)
+    _check(torch.equal(res_e.bit_errors, fast_e), "pipeline: bit_errors differ from fast_simulate")
+    with in_pipeline():
+        part_e, _, _ = pipeline.simulate_core(entry, seed, ids[:half])
+    _check(torch.equal(part_e, res_e.bit_errors[:half]), "pipeline: split run differs from full")
+    pipe_rows = [dict(label="entry MULTIPATH 4 taps MMSE 12 dB", ms=ms_e, ber=ber_e)]
+    print(f"phase 3p pipeline.simulate {B}x{S} config 2 MULTIPATH PDP (1, .5, .25, .125) MMSE "
+          f"12 dB (the entry link): BER {ber_e:.6g}, over the drawn channel {want_e:.6g} (ratio "
+          f"{ber_e / want_e:.5f}, allowed 2 %); bit_errors == fast_simulate's; split [0, {half}) "
+          f"== full; {ms_e:.3f} ms (median of 3 warm calls, CUDA events), launches a call "
+          f"{per_e} on {card}")
+    del fast_e, part_e
+    th10 = ber_awgn_exact(mod, 10.0)
+    for label, cfg, want, tol in (
+        ("AWGN 10 dB MMSE", p_cfg(ChannelModel.AWGN, 10.0), th10, 0.05),
+        ("AWGN 10 dB NONE", p_cfg(ChannelModel.AWGN, 10.0, Equalizer.NONE), th10, 0.05),
+        ("ZF on the entry link", pipeline_cell(B, equalizer=Equalizer.ZF), want_e, 0.02),
+        ("RICIAN K 4 12 dB MMSE", p_cfg(ChannelModel.RICIAN, 12.0), None, 0.02),
+        ("RAYLEIGH_TIME fd 0.02 12 dB MMSE",
+         p_cfg(ChannelModel.RAYLEIGH_TIME, 12.0, doppler_norm=0.02), None, 0.02),
+        ("MULTIPATH_TIME PDP (1, .5, .25) fd 0.02 12 dB MMSE",
+         p_cfg(ChannelModel.MULTIPATH_TIME, 12.0, pdp=pdp3, doppler_norm=0.02), None, 0.02),
+        ("SC-FDMA AWGN 10 dB MMSE (SC-FDE)", p_cfg(ChannelModel.AWGN, 10.0, dft_spread=True),
+         th10, 0.02),
+    ):
+        res_p, ms_p, per_p = p_run(lambda: pipeline.simulate(cfg, seed, device=dev))
+        ber_p = p_ber(res_p)
+        against = "theory" if want is not None and cfg.channel.model == ChannelModel.AWGN else \
+            "the drawn channel"
+        want = drawn(cfg) if want is None else want
+        _check(abs(ber_p / want - 1) <= tol, f"pipeline {label}: BER {ber_p:g} vs {want:g}")
+        pipe_rows.append(dict(label=label, ms=ms_p, ber=ber_p))
+        print(f"phase 3p pipeline.simulate {B}x{S} config 2 {label}: BER {ber_p:.6g}, {against} "
+              f"{want:.6g} (ratio {ber_p / want:.5f}, allowed {tol:.0%}); {ms_p:.3f} ms, "
+              f"launches a call {per_p}")
+        del res_p
+    res_l, ms_l, per_l = p_run(lambda: pipeline.simulate(entry, seed, device=dev,
+                                                         want_llrs=True))
+    llrs_e = res_l.llrs
+    _check(tuple(llrs_e.shape) == (B, S, N * bps) and bool(torch.isfinite(llrs_e).all()),
+           f"pipeline want_llrs: plane {tuple(llrs_e.shape)}")
+    margin_e = (llrs_e.abs() < 1e-3).sum(dim=(1, 2))
+    diff_l = (res_l.bit_errors - res_e.bit_errors).abs()
+    _check(bool((diff_l <= margin_e).all()),
+           "pipeline want_llrs: the plane's hard bits differ from the count beyond the margin")
+    pipe_rows.append(dict(label="entry, want_llrs", ms=ms_l, ber=p_ber(res_l)))
+    print(f"phase 3p pipeline.simulate want_llrs=True (entry link): C's plane "
+          f"{tuple(llrs_e.shape)} f32, its hard bits vs the count max per-channel diff "
+          f"{int(diff_l.max())} (allowed {int(margin_e.max())}); {ms_l:.3f} ms, launches a call "
+          f"{per_l}")
+    del res_l, llrs_e
+    torch.cuda.empty_cache()
+    tdl = p_cfg(ChannelModel.MULTIPATH_TIME, 12.0, pdp=pdp4, doppler_norm=0.03)
+    for label, cfg, ref_errors in (
+        ("entry link", entry, res_e.bit_errors),
+        ("MULTIPATH_TIME PDP (1, .5, .25, .125) fd 0.03 12 dB",
+         tdl, pipeline.simulate(tdl, seed, device=dev).bit_errors),
+    ):
+        # Static taps: every draw keyed by absolute position, so bit for bit;
+        # Jakes fading: but for the bits whose |LLR| < 1e-3.
+        exact = exact_at_seams(cfg)
+        margin = torch.zeros_like(ref_errors) if exact else plane_margin(cfg)
+        (errors_st, _), ms_st, per_st = p_run(lambda: stream_simulate(cfg, seed, 4, device=dev))
+        diff_st = (errors_st - ref_errors).abs()
+        _check(bool((diff_st <= margin).all()),
+               f"stream {label}: differs from simulate"
+               + ("" if exact else " beyond the |LLR| < 1e-3 bits"))
+        pipe_rows.append(dict(label=f"stream n_blocks 4, {label}", ms=ms_st,
+                              ber=int(errors_st.sum()) / (B * S * N * bps)))
+        print(f"phase 3p stream_simulate n_blocks 4 {B}x{S} {label}: == simulate "
+              f"{bool(torch.equal(errors_st, ref_errors))} (max per-channel diff "
+              f"{int(diff_st.max())}, allowed {int(margin.max())}"
+              f"{', bit-exact required' if exact else ''}); {ms_st:.3f} ms, launches a "
+              f"call {per_st}")
+    del res_e, margin_e
+    torch.cuda.empty_cache()
+    for name in pipeline_path:
+        _check(launches_pipeline[name] > 0, f"phase 3p: kernel {name} was not launched")
+    print(f"phase 3p: {len(pipe_rows)} lines in {time.perf_counter() - t3p:.1f} s; window "
+          f"{ {k: launches_pipeline[k] for k in pipeline_path} }")
+
     # ---- phase 5: the parallel layer, 4 gloo ranks sharing the one card -----
     # ``dryrun_multichip`` spawns the ranks (the kernel library was built in
     # phase 1; the ranks only load it), runs every row at full width, holds
@@ -2428,7 +2655,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     launches_coded=launches_coded[name],
                     launches_terminals=launches_terminals[name],
                     launches_wide=launches_wide[name], launches_bf16=launches_bf16[name],
-                    launches_parallel=launches_parallel[name], launches_nccl=launches_nccl[name])
+                    launches_parallel=launches_parallel[name], launches_nccl=launches_nccl[name],
+                    launches_pipeline=launches_pipeline[name])
 
     # The form of C, D and F each entry ran (csrc/demod_rows.cuh's plans,
     # demod.cu's tile, csrc/demod_cl.cuh's plans).

@@ -95,14 +95,16 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int, rounds: int = 10):
     return c0, c1, c2, c3
 
 
-def keyed_words(seed: int, role: int, ch_ids: torch.Tensor, shape, lane: int = 0):
+def keyed_words(seed: int, role: int, ch_ids: torch.Tensor, shape, lane: int = 0,
+                i0: int = 0):
     """The four Philox words for every (channel, i, j) of a per-channel
-    (n_i, n_j) grid: counter = (ch_ids[b], i, j, lane). Each returned
-    word has shape (B, n_i, n_j)."""
+    (n_i, n_j) grid: counter = (ch_ids[b], i0 + i, j, lane). Each
+    returned word has shape (B, n_i, n_j); ``i0`` starts the grid at row
+    i0 of a longer one (a time block's first symbol)."""
     n_i, n_j = shape
     dev = ch_ids.device
     c0 = ch_ids.to(torch.int64).reshape(-1, 1, 1) & MASK32
-    c1 = torch.arange(n_i, dtype=torch.int64, device=dev).reshape(1, -1, 1)
+    c1 = torch.arange(i0, i0 + n_i, dtype=torch.int64, device=dev).reshape(1, -1, 1)
     c2 = torch.arange(n_j, dtype=torch.int64, device=dev).reshape(1, 1, -1)
     k0, k1 = split_key(seed, role)
     return philox4x32(c0, c1, c2, lane, k0, k1)
@@ -124,11 +126,12 @@ def box_muller(b1: torch.Tensor, b2: torch.Tensor):
     return r * torch.cos(t), r * torch.sin(t)
 
 
-def normal_pair(seed: int, role: int, ch_ids: torch.Tensor, shape, lane: int = 0):
+def normal_pair(seed: int, role: int, ch_ids: torch.Tensor, shape, lane: int = 0,
+                i0: int = 0):
     """Two independent N(0, 1) planes (B, n_i, n_j) from words 0 and 1
-    of the keyed Philox stream — the draw the fused TX kernel makes
-    for the re/im noise of each sample."""
-    w0, w1, _, _ = keyed_words(seed, role, ch_ids, shape, lane)
+    of the keyed Philox stream (rows from ``i0``) — the draw the fused TX
+    kernel makes for the re/im noise of each sample."""
+    w0, w1, _, _ = keyed_words(seed, role, ch_ids, shape, lane, i0)
     return box_muller(w0, w1)
 
 

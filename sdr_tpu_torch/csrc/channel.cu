@@ -11,13 +11,17 @@
 // with its own taps and the previous symbol's last Lt-1 clean samples as
 // history, zeros before symbol 0 (ops/channel.py::grid_fir). Either way the
 // history of a sample is the channel's flat stream just before it; only the
-// taps' row differs. The gain h, exclusive with the FIR, is per link
-// (hs (B, 1)) or per symbol ((B, S)). Noise modes: 0 off, 1 injected planes
-// (n_re, n_im) of shape (B, S, L), 2 keyed Philox with kernel B's counter:
-// (ch_ids[b], s, u, 0) on key seed ^ ROLE_NOISE, Box-Muller on words 0 and
-// 1, so the staged route and the fused one (kernel B's FIR mode) draw the
-// same noise for the same samples (the TPU kernel seeded its on-core PRNG
-// per 128-channel block; that is not carried over).
+// taps' row differs. Optional history planes (B, Lt - 1) hold the clean
+// samples that precede row 0 (a time block's halo: the previous block's
+// tail, link/stream.py) and replace the zeros there, for both tap layouts.
+// The gain h, exclusive with the FIR, is per link (hs (B, 1)) or per symbol
+// ((B, S)). Noise modes: 0 off, 1 injected planes (n_re, n_im) of shape
+// (B, S, L), 2 keyed Philox with kernel B's counter: (ch_ids[b], s0 + s, u,
+// 0) on key seed ^ ROLE_NOISE, Box-Muller on words 0 and 1, so the staged
+// route and the fused one (kernel B's FIR mode) draw the same noise for the
+// same samples, and a time block whose first symbol is s0 draws the whole
+// frame's noise of its rows (the TPU kernel seeded its on-core PRNG per
+// 128-channel block; that is not carried over).
 //
 // Bound on the H100: the bytes, two f32 planes read and two written (16 a
 // sample), in every mode but the FIR with more than about 40 taps, where
@@ -38,19 +42,19 @@
 // L is not a multiple of 4, so each sample takes its own (s, u). Planes off
 // the 16-byte grid (a channel slice of an odd-length plane) take V = 1.
 //
-// The FIR mode stages the run tile by tile: a tile of T clean samples and
-// at least Lt before it (the history, read from the input, zeros before the
-// channel's first sample) in shared memory as two planes on the 16-byte
-// grid, and the taps of the tile's symbols beside them, each row padded to
-// a multiple of four. A thread's four outputs start on the grid, so taps
-// 4m .. 4m+3 meet only the quads m and m+1 before them: a group of four
-// taps loads one 16-byte quad a plane (consecutive lanes, consecutive
-// quads: no bank conflict) and its taps in two 16-byte broadcasts. The sums
-// keep kernel B's order (csrc/tx_rows.cuh, store pass): acc += tap * x over
-// l ascending from zero, so the two routes give the same bits. Quads at a
-// tile's ends, and quads whose samples lie in two symbols of per-symbol
-// taps, run sample by sample in the same order. No block reads another
-// block's output: blocks run in any order.
+// The FIR mode stages the run tile by tile: a tile of T clean samples and at
+// least Lt before it (the history, read from the input; before the channel's
+// first sample from the history planes, or zeros) in shared memory as two
+// planes on the 16-byte grid, and the taps of the tile's symbols beside
+// them, each row padded to a multiple of four. A thread's four outputs start
+// on the grid, so taps 4m .. 4m+3 meet only the quads m and m+1 before them:
+// a group of four taps loads one 16-byte quad a plane (consecutive lanes,
+// consecutive quads: no bank conflict) and its taps in two 16-byte
+// broadcasts. The sums keep kernel B's order (csrc/tx_rows.cuh, store pass):
+// acc += tap * x over l ascending from zero, so the two routes give the same
+// bits. Quads at a tile's ends, and quads whose samples lie in two symbols
+// of per-symbol taps, run sample by sample in the same order. No block reads
+// another block's output: blocks run in any order.
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -72,7 +76,9 @@ struct FadeArgs {
   const float* n_re;  // injected noise (B, S, L), noise mode 1
   const float* n_im;
   const int32_t* ch_ids;  // (B,) global channel ids, noise mode 2
-  int S, L, h_syms, n_taps, taps_per_sym, noise_mode, tile, stage, tap_stride;
+  const float* hist_r;    // (B, Lt - 1) clean samples before row 0, or null (zeros)
+  const float* hist_i;
+  int S, L, h_syms, n_taps, taps_per_sym, noise_mode, tile, stage, tap_stride, s0;
   float sigma;
   sdr::PhiloxKeys keys;
 };
@@ -162,7 +168,7 @@ __device__ __forceinline__ void noisy_store(const FadeArgs& a, const Run& r, uin
       int sv, uv;
       step_in(s, u, v, a.L, sv, uv);
       const uint4 w =
-          sdr::philox4x32_10(make_uint4(ch, (uint32_t)sv, (uint32_t)uv, 0u), a.keys);
+          sdr::philox4x32_10(make_uint4(ch, (uint32_t)(a.s0 + sv), (uint32_t)uv, 0u), a.keys);
       float g1, g2;
       sdr::box_muller(w.x, w.y, g1, g2);
       yr[v] += a.sigma * g1;
@@ -251,8 +257,7 @@ __device__ __forceinline__ float2 fir_point(const float* xr, const float* xi, co
   for (int l = 0; l < Lt; ++l) {
     const float2 g = tp[l];
     const float wr = xr[j - l], wi = xi[j - l];  // j - l >= j - Lt + 1 > 0: staged
-    acc.x += g.x * wr - g.y * wi;
-    acc.y += g.x * wi + g.y * wr;
+    sdr::cmac(acc, g, wr, wi);
   }
   return acc;
 }
@@ -283,8 +288,7 @@ __device__ __forceinline__ void fir_quad(const float* xr, const float* xi, const
       for (int v = 0; v < 4; ++v) {  // sample j0 + v - (4m + k)
         const int d = v - k;
         const float wr = d >= 0 ? cr[d] : pr[d + 4], wi = d >= 0 ? ci[d] : pi[d + 4];
-        acc[v].x += g[k].x * wr - g[k].y * wi;
-        acc[v].y += g[k].x * wi + g[k].y * wr;
+        sdr::cmac(acc[v], g[k], wr, wi);
       }
     }
 #pragma unroll
@@ -317,7 +321,8 @@ __global__ void __launch_bounds__(sdr::kThreads, kBlocksPerSm) fade_fir_kernel(c
   for (int g0 = r.lo; g0 < r.hi;) {
     const int g1 = min(r.hi, unit_at<V>(r, g0) + a.tile);
     // Stage index 0 is sample x0, on the grid and at least Lt before g0;
-    // samples below the channel's first are zeros.
+    // samples below the channel's first come from the history planes (the
+    // Lt - 1 just before it) or are zeros.
     const int x0 = unit_at<V>(r, g0 - Lt);
     __syncthreads();  // the previous tile's readers are done
     for (int x = x0 + V * (int)threadIdx.x; x < g1; x += step) {
@@ -332,9 +337,17 @@ __global__ void __launch_bounds__(sdr::kThreads, kBlocksPerSm) fade_fir_kernel(c
 #pragma unroll
         for (int v = 0; v < V; ++v) {
           if (x + v >= g1) break;
-          const bool in = x + v >= 0;
-          xr[x + v - x0] = in ? __ldg(a.re + o + v) : 0.0f;
-          xi[x + v - x0] = in ? __ldg(a.im + o + v) : 0.0f;
+          float wr = 0.0f, wi = 0.0f;
+          if (x + v >= 0) {
+            wr = __ldg(a.re + o + v);
+            wi = __ldg(a.im + o + v);
+          } else if (a.hist_r != nullptr && x + v >= 1 - Lt) {
+            const long long h = (long long)r.b * (Lt - 1) + (Lt - 1) + x + v;
+            wr = __ldg(a.hist_r + h);
+            wi = __ldg(a.hist_i + h);
+          }
+          xr[x + v - x0] = wr;
+          xi[x + v - x0] = wi;
         }
       }
     }
@@ -419,21 +432,26 @@ int launch(const FadeArgs& a, int B, cudaStream_t st) {
 extern "C" int sdr_fade_awgn(const float* re, const float* im, float* out_re, float* out_im,
                              int B, int S, int L, const float* hr, const float* hi, int h_syms,
                              const float* taps_r, const float* taps_i, int n_taps,
-                             int taps_per_sym, int noise_mode, const float* n_re,
-                             const float* n_im, const int32_t* ch_ids, unsigned k0, unsigned k1,
-                             float sigma, void* stream) {
+                             int taps_per_sym, const float* hist_r, const float* hist_i,
+                             int s0, int noise_mode, const float* n_re, const float* n_im,
+                             const int32_t* ch_ids, unsigned k0, unsigned k1, float sigma,
+                             void* stream) {
   if ((long long)B * S == 0 || L == 0) return 0;
   // Channel-relative offsets are 32-bit; the FIR's taps reach back at most
   // one symbol and its history.
   if ((long long)S * L + 4 * sdr::kThreads > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (taps_r != nullptr && (n_taps < 1 || n_taps > L + 1 || hr != nullptr))
     return (int)cudaErrorInvalidValue;
+  if (s0 < 0 || (long long)s0 + S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (hist_r != nullptr && (taps_r == nullptr || hist_i == nullptr))
+    return (int)cudaErrorInvalidValue;
   FadeArgs a;
   a.re = re, a.im = im, a.out_re = out_re, a.out_im = out_im;
   a.hr = hr, a.hi = hi, a.h_syms = h_syms;
   a.taps_r = taps_r, a.taps_i = taps_i, a.n_taps = n_taps, a.taps_per_sym = taps_per_sym;
   a.n_re = n_re, a.n_im = n_im, a.ch_ids = ch_ids, a.noise_mode = noise_mode;
-  a.S = S, a.L = L, a.tile = 0, a.stage = 0, a.tap_stride = 0;
+  a.hist_r = n_taps > 1 ? hist_r : nullptr, a.hist_i = n_taps > 1 ? hist_i : nullptr;
+  a.S = S, a.L = L, a.tile = 0, a.stage = 0, a.tap_stride = 0, a.s0 = s0;
   a.sigma = sigma;
   a.keys = sdr::philox_keys(k0, k1);
   // 16-byte accesses need every plane on the 16-byte grid.

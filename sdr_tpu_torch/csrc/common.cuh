@@ -1,7 +1,8 @@
-// Shared device code of the port's kernels: the shared-memory radix-2
-// FFT and its bit-reversal pass, the Gray map, the per-axis max-log LLR
-// forms and hard decisions, the OFDM and SC-FDE receive tails with their
-// error counts, and a deterministic block reduction.
+// Shared device code of the port's kernels: the complex FIR tap of kernels
+// B and E, the shared-memory radix-2 FFT and its bit-reversal pass, the
+// Gray map, the per-axis max-log LLR forms and hard decisions, the OFDM and
+// SC-FDE receive tails with their error counts, and a deterministic block
+// reduction.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -20,6 +21,15 @@ struct AxisTables {
   float norm2;        // norm^2 (Gray fold recursion scale)
   float inorm;        // 1/norm
 };
+
+// One tap of a complex FIR: acc += g * w, with its rounding pinned (a
+// multiply, a fused multiply-add and an add a component, in that order), so
+// kernels B and E and every code path of each round alike wherever nvcc
+// would otherwise contract the sums into fused multiply-adds its own way.
+__device__ __forceinline__ void cmac(float2& acc, float2 g, float wr, float wi) {
+  acc.x = __fadd_rn(acc.x, __fmaf_rn(g.x, wr, -__fmul_rn(g.y, wi)));
+  acc.y = __fadd_rn(acc.y, __fmaf_rn(g.x, wi, __fmul_rn(g.y, wr)));
+}
 
 template <int M>
 __device__ __forceinline__ int gray_to_binary(int g) {

@@ -57,7 +57,7 @@ tx_fir_kernel(const IdxT* __restrict__ idx, float* __restrict__ out_re,
     for (int e = threadIdx.x; e < n_sym * sym_len; e += blockDim.x) {
       const int t = e / sym_len;
       const int u = e - t * sym_len;
-      float ar = 0.0f, ai = 0.0f;
+      float2 acc = make_float2(0.0f, 0.0f);
       for (int l = 0; l < n_taps; ++l) {
         const int v = u - l;
         float xr, xi;
@@ -71,11 +71,9 @@ tx_fir_kernel(const IdxT* __restrict__ idx, float* __restrict__ out_re,
           xr = hist_r[hl + v];
           xi = hist_i[hl + v];
         }
-        const float tr = tp_r[t * kMaxTaps + l], ti = tp_i[t * kMaxTaps + l];
-        ar += tr * xr - ti * xi;
-        ai += tr * xi + ti * xr;
+        sdr::cmac(acc, make_float2(tp_r[t * kMaxTaps + l], tp_i[t * kMaxTaps + l]), xr, xi);
       }
-      store_noisy(ar, ai, (row0 + t) * sym_len + u, noise_mode, n_re, n_im, ch, s0 + t, u, k0,
+      store_noisy(acc.x, acc.y, (row0 + t) * sym_len + u, noise_mode, n_re, n_im, ch, s0 + t, u, k0,
                   k1, sigma, out_re, out_im);
     }
     __syncthreads();

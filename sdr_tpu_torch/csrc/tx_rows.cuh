@@ -279,8 +279,7 @@ __global__ void __launch_bounds__(sdr::kThreads, 3) tx_rows_kernel(const TxArgs 
           const float2 g = tp[l];
 #pragma unroll
           for (int v = 0; v < V; ++v) {
-            acc[v].x += g.x * win[v].x - g.y * win[v].y;
-            acc[v].y += g.x * win[v].y + g.y * win[v].x;
+            sdr::cmac(acc[v], g, win[v].x, win[v].y);
           }
 #pragma unroll
           for (int v = V - 1; v > 0; --v) win[v] = win[v - 1];

@@ -186,13 +186,13 @@ class McParams(ctypes.Structure):
     ]
 
 _SIGNATURES = {
-    "sdr_payload": [_P, _I, _P, _I, _I, _I, _I, _U, _U, _P],
+    "sdr_payload": [_P, _I, _P, _I, _I, _I, _I, _I, _U, _U, _P],
     "sdr_tx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I,
                _I, _P, _P, _P, _U, _U, _F, _P],
     "sdr_tx_fir": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I, _I,
                    _I, _P, _P, _P, _U, _U, _F, _P],
-    "sdr_fade_awgn": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P,
-                      _U, _U, _F, _P],
+    "sdr_fade_awgn": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I,
+                      _P, _P, _P, _U, _U, _F, _P],
     "sdr_demod_count": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                         _I, AxisTables, _F, _F, _I, _P, _P, _P],
     "sdr_demod_sum_cl_partials": [_I, _I, _I],

@@ -10,16 +10,22 @@ variance; h an optional complex gain per link (``hr_s``/``hi_s`` of shape
 planar taps ``taps_r``/``taps_i``, static (B, Lt) — each channel's whole
 CP'd stream from zero history — or per symbol (B, S, Lt) — each symbol
 with its own taps and the previous symbol's tail as history
-(``ops.channel.grid_fir``), 1 ≤ Lt ≤ L + 1.
+(``ops.channel.grid_fir``), 1 ≤ Lt ≤ L + 1. ``history_r``/``history_i``
+(B, Lt − 1) planes, with the FIR only, hold the clean samples that
+precede row 0 (a time block's halo, ``link.stream``): they replace the
+zero start of static taps and symbol 0's zero history of per-symbol
+taps.
 
 Noise modes, as kernel B's (``kernels/tx.py``):
 
 - ``noise=(n_re, n_im)``: injected N(0, 1) planes of shape (B, S, L),
   for exact comparison with the plain version and the JAX kernel;
-- ``seed`` and ``ch_ids``: keyed Philox, counter (ch_ids[b], s, sample,
-  0) on ``seed ^ ROLE_NOISE`` — kernel B's stream, so the staged and the
-  fused channel routes of ``link.fast`` draw the same noise (the TPU
-  kernel's per-128-block seeding is not carried over);
+- ``seed`` and ``ch_ids``: keyed Philox, counter (ch_ids[b], s0 + s,
+  sample, 0) on ``seed ^ ROLE_NOISE`` — kernel B's stream, so the staged
+  and the fused channel routes of ``link.fast`` draw the same noise, and
+  a time block whose first symbol is ``s0`` draws the rows of the whole
+  frame's noise (the TPU kernel's per-128-block seeding is not carried
+  over);
 - neither: the channel alone.
 
 On a CPU tensor the plain version (``fade_awgn_plain``) runs; on a CUDA
@@ -65,17 +71,33 @@ def _check_taps(hr_s, taps_r, taps_i, B: int, S: int, L: int) -> bool:
     return per_sym
 
 
+def _check_history(history_r, history_i, taps_r, B: int) -> None:
+    """History planes go with the FIR, (B, Lt − 1) each."""
+    if history_r is None and history_i is None:
+        return
+    if taps_r is None:
+        raise ValueError("fade_awgn: history planes go with the FIR taps")
+    shape = (B, taps_r.shape[-1] - 1)
+    if history_r is None or history_i is None or tuple(history_r.shape) != shape or (
+            tuple(history_i.shape) != shape):
+        raise ValueError(f"fade_awgn: history planes must both be {shape}")
+
+
 def fade_awgn_plain(re, im, hr_s=None, hi_s=None, noise_var: float = 0.0, noise=None,
-                    seed=None, ch_ids=None, taps_r=None, taps_i=None):
+                    seed=None, ch_ids=None, taps_r=None, taps_i=None, s0: int = 0,
+                    history_r=None, history_i=None):
     """Plain torch version (same arguments and modes as ``fade_awgn``):
-    ``grid_fir`` over the complex stream, then the gains and the noise."""
+    ``grid_fir`` over the complex stream from the history, then the gains
+    and the noise."""
     mode = _noise_mode(noise, seed, ch_ids)
     B, S, L = re.shape
     _check_gains(hr_s, hi_s, B, S)
+    _check_history(history_r, history_i, taps_r, B)
     yr, yi = re, im
     if taps_r is not None:
         _check_taps(hr_s, taps_r, taps_i, B, S, L)
-        y = grid_fir(torch.complex(re, im), torch.complex(taps_r, taps_i))
+        hist = None if history_r is None else torch.complex(history_r, history_i)
+        y = grid_fir(torch.complex(re, im), torch.complex(taps_r, taps_i), hist)
         yr, yi = y.real, y.imag
     if hr_s is not None:
         fr = hr_s[:, :, None]
@@ -86,24 +108,29 @@ def fade_awgn_plain(re, im, hr_s=None, hi_s=None, noise_var: float = 0.0, noise=
     if mode == 1:
         n_re, n_im = noise
     else:
-        n_re, n_im = prng.normal_pair(seed, prng.ROLE_NOISE, ch_ids, (S, L))
+        n_re, n_im = prng.normal_pair(seed, prng.ROLE_NOISE, ch_ids, (S, L), i0=s0)
     sigma = _sigma(noise_var)
     return yr + sigma * n_re, yi + sigma * n_im
 
 
 def fade_awgn(re, im, hr_s=None, hi_s=None, noise_var: float = 0.0, noise=None, seed=None,
-              ch_ids=None, taps_r=None, taps_i=None):
+              ch_ids=None, taps_r=None, taps_i=None, s0: int = 0, history_r=None,
+              history_i=None):
     """Faded (or filtered), noisy planes (out_re, out_im), each (B, S, L)
-    float32."""
+    float32. ``s0``: the first symbol's index in the frame (keyed noise);
+    ``history_r``/``history_i``: the FIR's history before row 0."""
     mode = _noise_mode(noise, seed, ch_ids)
+    if s0 < 0:
+        raise ValueError(f"fade_awgn: s0 must be >= 0, got {s0}")
     if re.device.type == "cpu":
         return fade_awgn_plain(re, im, hr_s, hi_s, noise_var, noise, seed, ch_ids, taps_r,
-                               taps_i)
+                               taps_i, s0, history_r, history_i)
     if re.ndim != 3 or im.shape != re.shape:
         raise ValueError(
             f"fade_awgn kernel: samples must be a (B, S, L) pair, got {tuple(re.shape)}")
     B, S, L = re.shape
     h_syms = _check_gains(hr_s, hi_s, B, S)
+    _check_history(history_r, history_i, taps_r, B)
     fir = taps_r is not None
     per_sym = fir and _check_taps(hr_s, taps_r, taps_i, B, S, L)
     operands = [re, im]
@@ -111,6 +138,8 @@ def fade_awgn(re, im, hr_s=None, hi_s=None, noise_var: float = 0.0, noise=None, 
         operands += [hr_s, hi_s]
     if fir:
         operands += [taps_r, taps_i]
+    if history_r is not None:
+        operands += [history_r, history_i]
     if mode == 1:
         if any(n.shape != re.shape for n in noise):
             raise ValueError(f"fade_awgn kernel: noise planes must be {tuple(re.shape)}")
@@ -128,7 +157,8 @@ def fade_awgn(re, im, hr_s=None, hi_s=None, noise_var: float = 0.0, noise=None, 
     rc = _lib.lib().sdr_fade_awgn(
         re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(), B, S, L,
         _lib.ptr(hr_s), _lib.ptr(hi_s), h_syms, _lib.ptr(taps_r), _lib.ptr(taps_i),
-        taps_r.shape[-1] if fir else 0, int(per_sym), mode,
+        taps_r.shape[-1] if fir else 0, int(per_sym), _lib.ptr(history_r),
+        _lib.ptr(history_i), s0, mode,
         _lib.ptr(noise[0]) if mode == 1 else None,
         _lib.ptr(noise[1]) if mode == 1 else None,
         _lib.ptr(ch_ids) if mode == 2 else None,

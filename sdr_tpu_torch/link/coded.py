@@ -4,8 +4,8 @@
 ``ldpc_code_for`` gives the stock QC-LDPC family (nb = 24, Z = 128;
 rates 1/2, 2/3, 3/4), ``ldpc_codewords_per_channel`` the whole codewords
 a frame holds. ``simulate_ldpc`` and the convolutional and polar
-families run through ``link.pipeline`` and are ported with it (ROADMAP
-queue 1, item 11).
+families run through ``link.pipeline`` and are ROADMAP queue 1, item
+11f.
 """
 
 from __future__ import annotations

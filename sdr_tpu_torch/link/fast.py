@@ -80,12 +80,12 @@ def check_supported(cfg: LinkConfig, layout: str = "auto") -> None:
     if cfg.pilot_spacing:
         raise NotImplementedError(
             "fast_simulate is the full-grid throughput path; pilot-based "
-            "estimation is ported with link.pipeline (ROADMAP queue 1, item 11)"
+            "estimation is ported with link.pipeline (ROADMAP queue 1, item 11c)"
         )
     if cfg.mimo is not None:
         raise NotImplementedError(
             "fast_simulate is SISO; MIMO is ported with link.pipeline "
-            "(ROADMAP queue 1, item 11)"
+            "(ROADMAP queue 1, item 11e)"
         )
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
@@ -146,8 +146,44 @@ def draw_idx(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor) -> torch.Tensor:
                        seed, ch_ids)
 
 
+def fading_params(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor):
+    """The channels' fading state, drawn once from the keys: the static
+    models' (h, taps) — h (B, 1, 1) flat gain (RAYLEIGH_FLAT, RICIAN),
+    taps (B, L) (MULTIPATH), either None —, the Jakes (θ, φ) of
+    RAYLEIGH_TIME and (θ, φ, amps) of MULTIPATH_TIME, which ``fading_at``
+    evaluates at any symbols."""
+    model = cfg.channel.model
+    if model == ChannelModel.RAYLEIGH_FLAT:
+        return chan.rayleigh_flat(seed, ch_ids), None
+    if model == ChannelModel.RICIAN:
+        return chan.rician_flat(seed, ch_ids, cfg.channel.k_factor), None
+    if model == ChannelModel.RAYLEIGH_TIME:
+        return chan.jakes_params(seed, ch_ids)
+    if model == ChannelModel.MULTIPATH:
+        return None, chan.multipath_taps(seed, ch_ids, cfg.channel.pdp)
+    if model == ChannelModel.MULTIPATH_TIME:
+        return chan.multipath_time_params(seed, ch_ids, cfg.channel.pdp)
+    return None, None
+
+
+def fading_at(cfg: LinkConfig, params, s0: int, n_symbols: int):
+    """(h, taps) of ``fading_params``' state at the absolute symbols s0 …
+    s0+n_symbols−1: the per-symbol models evaluated there — h (B, S, 1)
+    Jakes gain (RAYLEIGH_TIME), taps (B, S, L) (MULTIPATH_TIME) —, the
+    static ones as drawn. A time block (``link.stream``) and the whole
+    frame (``fade_state``) evaluate the same state."""
+    model = cfg.channel.model
+    if model not in _PER_SYMBOL:
+        return params
+    t = torch.arange(s0, s0 + n_symbols, dtype=torch.float32, device=params[0].device)
+    if model == ChannelModel.RAYLEIGH_TIME:
+        return chan.jakes_eval(*params, t, cfg.channel.doppler_norm)[:, :, None], None
+    return None, chan.multipath_time_taps_at(*params, t, cfg.channel.doppler_norm)
+
+
 def fade_state(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, plane: bool = True):
-    """Per-channel fading state from the keys: (h, taps), either None.
+    """Per-channel fading state of the whole frame from the keys: (h,
+    taps), either None (``fading_at`` symbols 0 … S−1).
 
     h: (B, 1, 1) flat gain (RAYLEIGH_FLAT, RICIAN); (B, S, 1) per-symbol
     Jakes gain (RAYLEIGH_TIME); (B, 1, N) or (B, S, N) frequency response
@@ -155,22 +191,9 @@ def fade_state(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, plane: bool = T
     per-symbol TDL taps. ``plane=False`` leaves the selective models' h
     out (None): the engine derives it (``rx_plane``) only where its
     receive route reads it."""
-    model = cfg.channel.model
-    S, N = cfg.n_symbols, cfg.ofdm.n_fft
-    h = taps = None
-    if model == ChannelModel.RAYLEIGH_FLAT:
-        h = chan.rayleigh_flat(seed, ch_ids)
-    elif model == ChannelModel.RICIAN:
-        h = chan.rician_flat(seed, ch_ids, cfg.channel.k_factor)
-    elif model == ChannelModel.RAYLEIGH_TIME:
-        h = chan.jakes_gains(seed, ch_ids, S, cfg.channel.doppler_norm)[:, :, None]
-    elif model == ChannelModel.MULTIPATH:
-        taps = chan.multipath_taps(seed, ch_ids, cfg.channel.pdp)
-    elif model == ChannelModel.MULTIPATH_TIME:
-        taps = chan.multipath_time_taps(seed, ch_ids, cfg.channel.pdp, S,
-                                        cfg.channel.doppler_norm)
+    h, taps = fading_at(cfg, fading_params(cfg, seed, ch_ids), 0, cfg.n_symbols)
     if plane and taps is not None:
-        h = rx_plane(taps, N)
+        h = rx_plane(taps, cfg.ofdm.n_fft)
     return h, taps
 
 

@@ -38,7 +38,7 @@ and the noise.
 
 Pilots, MIMO and SC-FDMA raise ``NotImplementedError``, as in JAX
 (coded links with those run in ``link.coded`` through ``link.pipeline``,
-ROADMAP queue 1, item 11). The entry points run on the card unless the
+ROADMAP queue 1, item 11f). The entry points run on the card unless the
 caller asks for the CPU.
 """
 
@@ -71,7 +71,7 @@ def check_supported(cfg: LinkConfig, seam: str = "auto", schedule: str = "floodi
     if cfg.pilot_spacing or cfg.mimo is not None or cfg.dft_spread:
         raise NotImplementedError(
             "the coded fast engine runs full-grid SISO OFDM; pilots/MIMO/SC-FDMA coded links "
-            "run in link.coded through link.pipeline (ROADMAP queue 1, item 11)"
+            "run in link.coded through link.pipeline (ROADMAP queue 1, item 11f)"
         )
     if seam not in SEAMS:
         raise ValueError(f"seam must be one of {SEAMS}, got {seam!r}")

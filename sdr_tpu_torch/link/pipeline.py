@@ -1,0 +1,301 @@
+"""End-to-end link pipeline: bits → TX → channel → RX → LLR → BER.
+
+Port of the SISO genie-CSI core of ``sdr_tpu/link/pipeline.py`` (ROADMAP
+queue 1, item 11a): ``LinkResult``, ``generate_bits``, ``tx_chain``,
+``apply_channel`` (the seven channel models of ``_apply_channel_model``),
+``rx_chain``'s genie branches, ``simulate`` and ``make_simulate_fn``. The
+whole link runs at batch level on (n_channels, n_symbols, ·) planes, and
+on the card through the port's kernels wherever one computes the same
+function (the JAX pipeline has no Pallas kernel; the port's rules keep the
+plain versions of the kernels off the card):
+
+    payload draw (kernel A) → Gray map, IDFT, CP (kernel B, channel off;
+    SC-FDMA: ``link.fast.scfdma_tx``) → fading draws (``link.fast.
+    fading_at``) → FIR or gains, then AWGN (kernel E, one launch) →
+    CP strip, DFT, equalise, max-log LLR (kernel C)
+
+- The payload bits are kernel A's indices in ``modulate``'s order (I bits
+  then Q bits, MSB first), so ``simulate`` draws the payload of
+  ``link.fast.fast_simulate`` and, for the MMSE links, counts the same
+  errors on the same seed.
+- The receive: kernel C (the LLR plane, or the count when no LLRs are
+  asked for; SC-FDMA through C's despread modes). OFDM ZF is C's one-tap
+  tail, as MMSE is; where the JAX receiver skips the equaliser (h None:
+  AWGN, IDENTITY; and NONE) C takes a unit h, as ``link.fast.
+  rx_count_core`` does. Plain torch (``ops/equalize.py``, ``ops/llr.py``)
+  keeps what no kernel computes: the SC-FDMA ZF despread, and the
+  unequalised SC-FDMA LLRs at a noise variance below 1e-2, where C's
+  despread no longer resolves the SINR (IDENTITY's among them).
+- The noise variance follows the JAX receiver: the Eb/N0 variance, 0 for
+  IDENTITY, floored at 1e-12 (so IDENTITY's LLRs reach about 1e12, with
+  their signs).
+
+Every draw is keyed Philox on (seed, role, global channel id, position)
+— the payload on ``ROLE_PAYLOAD``, the fading on ``ROLE_FADING``, the
+noise on ``ROLE_NOISE`` at counter (channel, symbol, sample) — not the
+JAX package's per-channel ``fold_in`` threefry keys. ``s0`` (a time
+block's first symbol, ``link.stream``) moves every per-symbol draw to the
+block's absolute symbols, so a blocked stream equals the whole frame.
+
+Not covered: pilots raise ``NotImplementedError`` naming ROADMAP queue 1,
+item 11c, front-end impairments (PA, phase noise, I/Q, blind acquisition)
+item 11d and MIMO item 11e. The entry points run on the card
+(``device="cuda"``) unless the caller asks for the CPU; without a card
+they raise, and a CUDA tensor that a kernel refuses raises: nothing falls
+back to plain torch or to the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+from sdr_tpu_torch.core.config import ChannelModel, Equalizer, LinkConfig
+from sdr_tpu_torch.kernels import demod as _kc
+from sdr_tpu_torch.kernels import tx as _kb
+from sdr_tpu_torch.kernels.channel import fade_awgn
+from sdr_tpu_torch.kernels.payload import out_dtype, payload_idx
+from sdr_tpu_torch.link import fast
+from sdr_tpu_torch.ops import equalize as eq
+from sdr_tpu_torch.ops.fft import ifft
+from sdr_tpu_torch.ops.llr import llr_maxlog, llr_to_hard_bits
+from sdr_tpu_torch.ops.modulation import _bits_to_ints, _ints_to_bits
+from sdr_tpu_torch.ops.ofdm import ofdm_rx
+
+_SELECTIVE = (ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME)
+
+
+@dataclasses.dataclass
+class LinkResult:
+    """Per-invocation link statistics (tensors on the run's device)."""
+
+    bit_errors: torch.Tensor  # (n_channels,) int32
+    bits_counted: torch.Tensor  # (n_channels,) int32
+    llrs: torch.Tensor | None = None  # (n_channels, n_symbols, bits/sym) float32 or None
+
+    @property
+    def ber(self) -> torch.Tensor:
+        return self.bit_errors.to(torch.float32) / torch.clamp(
+            self.bits_counted.to(torch.float32), min=1.0)
+
+
+def check_supported(cfg: LinkConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for what the
+    SISO genie-CSI core does not run yet."""
+    if cfg.mimo is not None:
+        raise NotImplementedError(
+            "link.pipeline runs SISO links; MIMO (ops/mimo.py, the detectors) is "
+            "ROADMAP queue 1, item 11e")
+    ch = cfg.channel
+    if ch.impaired or ch.has_pa or ch.phase_noise_std or ch.iq_imbalanced:
+        raise NotImplementedError(
+            "front-end impairments (PA, phase noise, I/Q imbalance, timing/CFO acquisition) "
+            "are ROADMAP queue 1, item 11d")
+    if cfg.pilot_spacing:
+        raise NotImplementedError(
+            "link.pipeline runs genie-CSI links; pilot-based estimation (ops/pilots.py) is "
+            "ROADMAP queue 1, item 11c")
+
+
+def noise_var(cfg: LinkConfig) -> float:
+    """The receiver's subcarrier noise variance: the Eb/N0 variance, 0 for
+    IDENTITY (floored at 1e-12 where it divides)."""
+    return 0.0 if cfg.channel.model == ChannelModel.IDENTITY else fast.noise_var(cfg)
+
+
+def draw_idx(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, s0: int = 0,
+             n_symbols: int | None = None) -> torch.Tensor:
+    """Kernel A's symbol indices (B, n_symbols, N) of symbols s0 …
+    (default: the whole frame)."""
+    n = cfg.n_symbols if n_symbols is None else n_symbols
+    return payload_idx(n, cfg.ofdm.n_fft, cfg.modulation.bits_per_symbol, seed, ch_ids, s0)
+
+
+def generate_bits(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, s0: int = 0,
+                  n_symbols: int | None = None) -> torch.Tensor:
+    """Source bits (B, n_symbols, N·bps) int8: the bits of kernel A's
+    indices in ``modulate``'s order (MSB first per symbol)."""
+    idx = draw_idx(cfg, seed, ch_ids, s0, n_symbols)
+    return _ints_to_bits(idx, cfg.modulation.bits_per_symbol)
+
+
+def tx_idx(cfg: LinkConfig, idx: torch.Tensor):
+    """The waveform of explicit indices: planar (re, im), each (B, S, N+cp)
+    float32 — kernel B with the channel off, or SC-FDMA's full-grid TX."""
+    if cfg.dft_spread:
+        return fast.scfdma_tx(cfg, idx)
+    return _kb.tx_chain(idx, cfg.ofdm.cp_len, cfg.modulation)
+
+
+def tx_chain(cfg: LinkConfig, bits: torch.Tensor):
+    """Bits (B, S, N·bps) → time samples, planar (re, im) (B, S, N+cp): the
+    bits packed to indices MSB first, then ``tx_idx``."""
+    check_supported(cfg)
+    bps = cfg.modulation.bits_per_symbol
+    return tx_idx(cfg, _bits_to_ints(bits, bps).to(out_dtype(bps)))
+
+
+def apply_channel(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, tx, *, s0: int = 0,
+                  history=None, fading=None, noise=None):
+    """The channel over a planar waveform ``tx`` (B, S, N+cp) → (rx, h_freq,
+    noise_var).
+
+    rx is planar (re, im); h_freq the complex response that broadcasts
+    against the post-FFT grid (B, S, N) — (B, 1, 1) flat, (B, S, 1) per
+    symbol, (B, 1, N) or (B, S, N) selective — or None (AWGN, IDENTITY);
+    noise_var the subcarrier variance (0 for IDENTITY). After the fading
+    draws (``link.fast.fading_at``, at the absolute symbols from ``s0``)
+    the channel is one launch of kernel E: the FIR or the gains, then the
+    noise (keyed at counter (channel, s0 + s, sample)).
+
+    ``history`` (hr, hi), each (B, L−1): the clean samples before row 0
+    that the FIR of a selective model reads (a time block's halo), zeros
+    when None. ``fading`` ((h, taps) in ``fade_state``'s form) and
+    ``noise`` (N(0, 1) planes (n_re, n_im) of the waveform's shape) are
+    the injection forms the parity tests use."""
+    check_supported(cfg)
+    re, im = tx
+    model = cfg.channel.model
+    nv = noise_var(cfg)
+    if model == ChannelModel.IDENTITY:
+        return (re, im), None, nv
+    B, S, _ = re.shape
+    N = cfg.ofdm.n_fft
+    h, taps = fading if fading is not None else fast.fading_at(
+        cfg, fast.fading_params(cfg, seed, ch_ids), s0, S)
+    kw = dict(noise=noise) if noise is not None else dict(seed=seed, ch_ids=ch_ids)
+    chan_kw = {}
+    h_freq = None
+    if model in _SELECTIVE:
+        chan_kw["taps_r"], chan_kw["taps_i"] = fast._planar(taps)
+        if history is not None and taps.shape[-1] > 1:
+            chan_kw["history_r"], chan_kw["history_i"] = (
+                t.to(torch.float32).contiguous() for t in history)
+        h_freq = fast.rx_plane(taps, N)
+    elif h is not None:
+        chan_kw["hr_s"], chan_kw["hi_s"] = fast._gains(h)
+        h_freq = h
+    rx = fade_awgn(re, im, noise_var=nv / N, s0=s0, **chan_kw, **kw)
+    return rx, h_freq, nv
+
+
+def _h_plane(h: torch.Tensor | None, B: int, N: int, device):
+    """Kernel C's (hr, hi) planes (B, 1 | S, N) of a response that
+    broadcasts against the grid; a unit response for None."""
+    if h is None:
+        return (torch.ones((B, 1, N), dtype=torch.float32, device=device),
+                torch.zeros((B, 1, N), dtype=torch.float32, device=device))
+    return fast._planar(h.to(torch.complex64).expand(B, h.shape[1], N))
+
+
+# Below this noise variance kernel C's despread does not resolve an
+# unequalised link's SINR: on a unit h it takes nv back as (1 − b)/b with
+# b = 1/(1 + nv), a relative rounding of about 2^-24/nv, 1e-5 of the LLRs
+# at nv = 1e-2 (IDENTITY's 1e-12 leaves 1 − b = 0).
+_DESPREAD_UNIT_NV_MIN = 1e-2
+
+
+def _kernel_h(cfg: LinkConfig, h, nv: float):
+    """Whether kernel C computes the JAX receiver's branch for ``h`` and
+    ``nv``, and the response it equalises with (None: a unit h).
+
+    OFDM, every branch: ZF and MMSE are both C's one-tap tail, s =
+    conj(h)·y/max(|h|², 1e-12) with LLRs scaled by |h|²/nv (ZF's floor
+    is |h|² + 1e-12: they part only where |h|² is near 1e-12); NONE, and
+    no h, are that tail on a unit h (the raw tones, scaled by 1/nv).
+    SC-FDMA: MMSE on h is C's despread; the unequalised despread (no h,
+    or NONE) is C's despread on a unit h where nv ≥ ``_DESPREAD_UNIT_NV_MIN``;
+    the ZF despread (per tone nv/|h|², averaged) is no kernel's."""
+    unequalised = h is None or cfg.equalizer == Equalizer.NONE
+    if not cfg.dft_spread:
+        return True, None if unequalised else h
+    if unequalised:
+        return nv >= _DESPREAD_UNIT_NV_MIN, None
+    return cfg.equalizer == Equalizer.MMSE, h
+
+
+def _rx_plain(cfg: LinkConfig, re, im, h, nv: float) -> torch.Tensor:
+    """The JAX receiver's SC-FDMA branches that no kernel computes, in
+    plain torch (pipeline.py:387-416): the ZF despread, and the
+    unequalised despread at a noise variance C does not resolve."""
+    y = ofdm_rx(torch.complex(re, im), cfg.ofdm.cp_len)
+    if h is not None and cfg.equalizer == Equalizer.ZF:
+        s, eff = eq.equalize_zf(y, h, nv)
+    else:
+        s, eff = y, nv
+    m = s.shape[-1]
+    eff = torch.broadcast_to(
+        torch.as_tensor(eff, dtype=torch.float32, device=s.device), s.shape
+    ).mean(dim=-1, keepdim=True)
+    s = (ifft(s) * (m ** 0.5)).to(torch.complex64)
+    return llr_maxlog(s, cfg.modulation, eff)
+
+
+def rx_chain(cfg: LinkConfig, rx, h_freq, noise_var):
+    """Receiver: planar samples (B, S, N+cp) → (llrs (B, S, N·bps) float32
+    in the public order, hard bits int8). Kernel C's LLR mode (SC-FDMA:
+    its despread mode) wherever it computes the branch (``_kernel_h``);
+    the SC-FDMA ZF despread, and the unequalised despread at a noise
+    variance below ``_DESPREAD_UNIT_NV_MIN``, in plain torch."""
+    check_supported(cfg)
+    re, im = rx
+    nv = max(float(noise_var), 1e-12)
+    kernel, h = _kernel_h(cfg, h_freq, nv)
+    if kernel:
+        hr, hi = _h_plane(h, re.shape[0], cfg.ofdm.n_fft, re.device)
+        llrs = _kc.demod_llr(re, im, hr, hi, cfg.ofdm.cp_len, cfg.modulation, nv,
+                             despread=cfg.dft_spread)
+    else:
+        llrs = _rx_plain(cfg, re, im, h_freq, nv)
+    return llrs, llr_to_hard_bits(llrs)
+
+
+def count_errors(cfg: LinkConfig, rx, h_freq, noise_var, idx: torch.Tensor) -> torch.Tensor:
+    """Per-channel (B,) int32 bit errors of the received planes against the
+    transmitted indices: kernel C's count on ``_kernel_h``'s response (its
+    hard decisions do not depend on nv, so the unequalised despread counts
+    there at any nv), the SC-FDMA ZF despread through ``rx_chain``'s plane."""
+    re, im = rx
+    nv = max(float(noise_var), 1e-12)
+    mod = cfg.modulation
+    kernel, h = _kernel_h(cfg, h_freq, nv)
+    if not kernel and h is not None:
+        llrs, _ = rx_chain(cfg, rx, h_freq, nv)
+        return _kc.count_errors(llrs, idx, mod.bits_per_symbol)
+    hr, hi = _h_plane(h, re.shape[0], cfg.ofdm.n_fft, re.device)
+    return _kc.demod_count(re, im, hr, hi, idx, cfg.ofdm.cp_len, mod, nv,
+                           despread=cfg.dft_spread)
+
+
+def simulate_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, want_llrs: bool = False):
+    """The link over explicit GLOBAL channel ids (B,) int32 on the target
+    device: (bit_errors, bits_counted, llrs | None)."""
+    check_supported(cfg)
+    idx = draw_idx(cfg, seed, ch_ids)
+    rx, h_freq, nv = apply_channel(cfg, seed, ch_ids, tx_idx(cfg, idx))
+    B = ch_ids.shape[0]
+    counted = torch.full((B,), cfg.n_data_symbols * cfg.bits_per_ofdm_symbol, dtype=torch.int32,
+                         device=ch_ids.device)
+    if want_llrs:
+        llrs, _ = rx_chain(cfg, rx, h_freq, nv)
+        return _kc.count_errors(llrs, idx, cfg.modulation.bits_per_symbol), counted, llrs
+    return count_errors(cfg, rx, h_freq, nv, idx), counted, None
+
+
+def simulate(cfg: LinkConfig, seed: int, device="cuda", want_llrs: bool = False) -> LinkResult:
+    """Run cfg.n_channels independent links as one batched program on
+    ``device`` (the card unless the caller asks for the CPU). Every draw
+    is keyed by global channel id, so channels [a, b) alone give the
+    counts they have in the full run."""
+    check_supported(cfg)
+    ch_ids = torch.arange(cfg.n_channels, dtype=torch.int32, device=device)
+    errors, counted, llrs = simulate_core(cfg, seed, ch_ids, want_llrs)
+    return LinkResult(bit_errors=errors, bits_counted=counted, llrs=llrs)
+
+
+def make_simulate_fn(cfg: LinkConfig, device="cuda", want_llrs: bool = False):
+    """``simulate`` with cfg and device bound: fn(seed) → LinkResult."""
+    check_supported(cfg)
+    return functools.partial(simulate, cfg, device=device, want_llrs=want_llrs)

@@ -7,11 +7,13 @@ JSON checkpoint, so a long sweep survives interruption and a rerun
 resumes after the completed points (or tops a point up under larger
 targets).
 
-Engines: ``"fast"`` (``link.fast``) and ``"mc"`` (``link.mc``, kernel G,
-``mc_iters`` passes per invocation) run on ``device`` — the card unless
-the caller asks for the CPU. ``"pipeline"`` and coded sweeps (``code=``)
-are not ported yet and raise ``NotImplementedError`` naming their
-ROADMAP items.
+Engines: ``"pipeline"`` (``link.pipeline``, the default, as in the JAX
+sweep: uncoded SISO genie-CSI links), ``"fast"`` (``link.fast``) and
+``"mc"`` (``link.mc``, kernel G, ``mc_iters`` passes per invocation) run
+on ``device`` — the card unless the caller asks for the CPU. Coded
+sweeps (``code=``), pilot, impaired and MIMO configs on the pipeline
+engine are not ported yet and raise ``NotImplementedError`` naming their
+ROADMAP items (11f, 11c, 11d, 11e).
 
 Seeds: the JAX ``key`` becomes an int ``seed``. Invocation ``batch`` of
 point ``i`` runs with
@@ -80,7 +82,8 @@ class SweepResult:
         MIMO diversity curves are not ported yet."""
         if mimo is not None:
             raise NotImplementedError(
-                "MIMO theory curves are ported with link.pipeline (ROADMAP queue 1, item 11)"
+                "MIMO theory curves are ported with link.pipeline's MIMO links (ROADMAP "
+                "queue 1, item 11e)"
             )
         if channel_model == ChannelModel.RICIAN:
             fn = lambda m, e: ber_rician_exact(m, e, k_factor)  # noqa: E731
@@ -135,10 +138,18 @@ def _invoker(engine: str, pt_cfg: LinkConfig, mc_iters: int, device):
         from sdr_tpu_torch.link.mc import make_mc_fn
 
         fn = make_mc_fn(pt_cfg, iters=mc_iters, device=device)
-    else:
+    elif engine == "fast":
         from sdr_tpu_torch.link.fast import make_fast_fn
 
         fn = make_fast_fn(pt_cfg, device=device)
+    else:
+        from sdr_tpu_torch.link.pipeline import make_simulate_fn
+
+        sim = make_simulate_fn(pt_cfg, device=device)
+
+        def fn(seed: int):
+            res = sim(seed)
+            return res.bit_errors, res.bits_counted
 
     def invoke(seed: int):
         e, c = fn(seed)
@@ -155,7 +166,7 @@ def ebno_sweep(
     max_bits: int = 20_000_000,
     checkpoint_path: Optional[str] = None,
     progress=None,
-    engine: str = "fast",
+    engine: str = "pipeline",
     mc_iters: int = 16,
     code: Optional[str] = None,
     device="cuda",
@@ -168,9 +179,7 @@ def ebno_sweep(
     its points are loaded: complete ones (under the current targets) are
     reused, incomplete ones topped up from their next batch. Checkpoints
     record the engine, so sweeps of different engines never share state.
-
-    The JAX sweep's default engine is ``"pipeline"``; this port defaults
-    to ``"fast"`` until the pipeline is ported."""
+    The default engine is ``"pipeline"``, as in the JAX sweep."""
     if engine not in ENGINES:
         raise ValueError(f"unknown sweep engine {engine!r}")
     if code is not None and engine != "pipeline":
@@ -181,17 +190,18 @@ def ebno_sweep(
     if engine == "pipeline":
         if code is not None:
             raise NotImplementedError(
-                "coded sweeps run link.coded on the pipeline engine, ported with "
-                "link.pipeline (ROADMAP queue 1, item 11)"
+                "coded sweeps run link.coded's families on the pipeline engine (ROADMAP "
+                "queue 1, item 11f)"
             )
-        raise NotImplementedError(
-            "the pipeline sweep engine is ported with link.pipeline (ROADMAP queue 1, item 11)"
-        )
+        from sdr_tpu_torch.link.pipeline import check_supported
+
+        check_supported(cfg)
     if engine == "fast" and (cfg.pilot_spacing or cfg.channel.impaired):
         raise ValueError(
             "engine='fast' needs a full-grid config (no pilots or timing/CFO impairments)"
         )
-    summary = _cfg_summary(cfg) + {"fast": "/fast", "mc": "/mc"}[engine] + "/torch"
+    suffix = {"pipeline": "", "fast": "/fast", "mc": "/mc"}[engine]
+    summary = _cfg_summary(cfg) + suffix + "/torch"
     done: dict[float, SweepPoint] = {}
     if checkpoint_path and os.path.exists(checkpoint_path):
         with open(checkpoint_path) as f:

@@ -194,15 +194,25 @@ def apply_multipath(samples: torch.Tensor, taps: torch.Tensor,
     return y
 
 
-def grid_fir(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+def grid_fir(x: torch.Tensor, taps: torch.Tensor,
+             history: torch.Tensor | None = None) -> torch.Tensor:
     """The fast engine's FIR over a (B, S, sym_len) grid of CP'd symbols
     (the plain version of kernel B's and kernel E's FIR modes).
     Static taps (B, L): each channel's whole stream through one FIR from
-    zero history. Per-symbol taps (B, S, L): each symbol through its own
-    taps, the previous symbol's tail as history (zeros before symbol 0)."""
+    ``history``. Per-symbol taps (B, S, L): each symbol through its own
+    taps, the previous symbol's tail as history, ``history`` before
+    symbol 0. ``history`` (B, L−1): the samples that precede the grid (a
+    time block's halo, ``link.stream``), zeros when None."""
+    L = taps.shape[-1]
+    if history is not None and L > 1:
+        history = history[..., -(L - 1):]
     if taps.ndim == 2:
-        return apply_multipath(x.reshape(x.shape[0], -1), taps).reshape(x.shape)
-    return apply_multipath(x, taps, history=symbol_history(x, taps.shape[-1]))
+        return apply_multipath(x.reshape(x.shape[0], -1), taps,
+                               history=history).reshape(x.shape)
+    hist = symbol_history(x, L)
+    if hist is not None and history is not None:
+        hist = torch.cat([history[:, None, :].to(hist.dtype), hist[:, 1:]], dim=1)
+    return apply_multipath(x, taps, history=hist)
 
 
 def freq_response(taps: torch.Tensor, n_fft: int) -> torch.Tensor:

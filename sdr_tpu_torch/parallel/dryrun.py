@@ -14,16 +14,20 @@ imports ``torch`` and ``sdr_tpu_torch`` only.
 dryrun and of the CPU tests: each case is a dict naming a sharded entry
 point, its configuration, its mesh (n_time, n_channel) and its inputs.
 Rank 0 holds each sharded result against the unsharded port on the same
-device (bit-exact for the data-parallel and pipelined rows; LLRs within
-1e-4 of their peak with equal signs for TP). Every rank returns what it
-got (counts, and a checksum of TP planes), so that the caller can check
-that all ranks hold the same result, and each row's wall time (host
-clock between two barriers, after one warm-up call when ``warm``).
+device (bit-exact for the data-parallel, pipelined and stream rows; LLRs
+within 1e-4 of their peak with equal signs for TP; a stream also against
+``pipeline.simulate``, equal, under Jakes fading but for bits whose
+|LLR| < 1e-3). Every
+rank returns what it got (counts, and a checksum of TP planes), so that
+the caller can check that all ranks hold the same result, and each row's
+wall time (host clock between two barriers, after one warm-up call when
+``warm``).
 
 ``dryrun_multichip(world, device)`` runs the rows of BASELINE configs 4
 and 5 at full width over ``world`` gloo ranks and prints one line per
-row, as the JAX function does. Ranks that share one card measure
-nothing about scaling: their wall times are marked so.
+row, as the JAX function does — the time-block stream with its halo and
+the TDL stream among them. Ranks that share one card measure nothing
+about scaling: their wall times are marked so.
 """
 
 from __future__ import annotations
@@ -42,13 +46,15 @@ import torch
 from sdr_tpu_torch.core.config import (
     ChannelConfig,
     ChannelModel,
+    Equalizer,
     LinkConfig,
     Modulation,
     OFDMConfig,
 )
 from sdr_tpu_torch.kernels import _lib
 from sdr_tpu_torch.kernels import demod as _kc
-from sdr_tpu_torch.link import fast, fast_coded
+from sdr_tpu_torch.link import fast, fast_coded, pipeline
+from sdr_tpu_torch.link.stream import exact_at_seams, stream_simulate
 from sdr_tpu_torch.link.ber import ber_awgn_exact, ber_given_gain
 from sdr_tpu_torch.link.mc import mc_simulate
 from sdr_tpu_torch.parallel import _comm
@@ -60,11 +66,13 @@ from sdr_tpu_torch.parallel.shard import (
     make_sharded_fast_fn,
     make_sharded_mc_fn,
     make_sharded_mc_inject_fn,
+    make_sharded_simulate_fn,
+    make_sharded_stream_fn,
 )
 from sdr_tpu_torch.parallel.tp import make_tp_demod_fn
 
 SHARED_CARD = "ranks sharing one card, gloo through the host: not a scaling figure"
-NOT_PORTED = ("stream (time-block SP, halo)", "MIMO", "polar", "TDL stream")
+NOT_PORTED = (("MIMO", "11e"), ("polar", "11f"))
 
 
 # ---- the launcher ------------------------------------------------------------
@@ -175,6 +183,41 @@ def _fast(case, mesh, dev):
                    lambda: fast.fast_simulate(cfg, seed, device=dev, layout=layout))
 
 
+def _simulate(case, mesh, dev):
+    cfg, seed = case["cfg"], case["seed"]
+    fn = make_sharded_simulate_fn(cfg, mesh, device=dev)
+
+    def reference():
+        res = pipeline.simulate(cfg, seed, device=dev)
+        return res.bit_errors, res.bits_counted
+
+    return _counts(case, mesh, dev, lambda: fn(seed), reference)
+
+
+def _stream(case, mesh, dev):
+    """The sharded stream against the unsharded one (``exact``) and, on
+    rank 0, against ``pipeline.simulate``: per channel equal, but for the
+    bits whose |LLR| < 1e-3 under Jakes fading (``vs_simulate``,
+    ``allowed``; ``link.stream.exact_at_seams``)."""
+    cfg, seed, n_blocks = case["cfg"], case["seed"], case["n_blocks"]
+    fn = make_sharded_stream_fn(cfg, mesh, n_blocks=n_blocks, device=dev)
+    res = _counts(case, mesh, dev, lambda: fn(seed),
+                  lambda: stream_simulate(cfg, seed, n_blocks, device=dev))
+    if mesh.rank == 0:
+        errors = pipeline.simulate(cfg, seed, device=dev).bit_errors
+        if exact_at_seams(cfg):
+            margin = torch.zeros_like(errors)
+        else:
+            llrs = pipeline.simulate(cfg, seed, device=dev, want_llrs=True).llrs
+            margin = (llrs.abs() < 1e-3).sum(dim=(1, 2))
+            del llrs
+        diff = (torch.as_tensor(res["errors"], device=dev) - errors).abs()
+        res["vs_simulate"] = int(diff.max())
+        res["allowed"] = int(margin.max())
+        res["within"] = bool((diff <= margin).all())
+    return res
+
+
 def _pp(case, mesh, dev):
     cfg, seed = case["cfg"], case["seed"]
     fn = make_pipelined_fast_fn(cfg, mesh, n_micro=case["n_micro"], device=dev)
@@ -271,7 +314,7 @@ def _tp(case, mesh, dev):
 
 
 _KINDS = {"tp": _tp, "fast": _fast, "pp": _pp, "coded_fast": _coded_fast, "mc": _mc,
-          "mc_inject": _mc_inject}
+          "mc_inject": _mc_inject, "simulate": _simulate, "stream": _stream}
 
 
 def run_cases(rank: int, world: int, device, cases: list) -> list:
@@ -316,7 +359,11 @@ def dryrun_cases(world: int) -> list:
     8192 × 64) and injected (1024 × 64); DP coded-fast staged rate 1/2
     (1024 × 64, RAYLEIGH_FLAT 6 dB); DP SC-FDMA at N 1024 (2048 × 16,
     MULTIPATH config 4's PDP 14 dB); PP 2 stages × world/2 channel
-    shards, n_micro 2, config 2 at 2048 × 64."""
+    shards, n_micro 2, config 2 at 2048 × 64; the time-block stream with
+    its halo on 2 time × world/2 channel ranks, n_blocks 4 (a seam
+    exchanged between ranks and one inside each rank), 1024 × 64 at
+    ``__graft_entry__.entry()``'s link (config 2, MULTIPATH PDP (1, .5,
+    .25, .125), MMSE, 12 dB) and as the TDL (MULTIPATH_TIME, fd 0.03)."""
     dp = (1, world)
     c5 = dict(n_fft=4096, cp=512, pdp=PDP5)
     seed = SEED
@@ -342,6 +389,13 @@ def dryrun_cases(world: int) -> list:
                       dft_spread=True)),
         dict(name="PP 2 stages config 2", kind="pp", mesh=(2, world // 2), seed=seed,
              n_micro=2, cfg=_cfg(ChannelModel.AWGN, 10.0, 2048, 64)),
+        dict(name="stream (time-block SP, halo)", kind="stream", mesh=(2, world // 2),
+             seed=seed, n_blocks=4,
+             cfg=_cfg(ChannelModel.MULTIPATH, 12.0, 1024, 64, pdp=PDP4,
+                      equalizer=Equalizer.MMSE)),
+        dict(name="TDL stream", kind="stream", mesh=(2, world // 2), seed=seed, n_blocks=4,
+             cfg=_cfg(ChannelModel.MULTIPATH_TIME, 12.0, 1024, 64, pdp=PDP4,
+                      doppler_norm=0.03, equalizer=Equalizer.MMSE)),
     ]
     for row in rows:
         row["warm"] = True
@@ -377,6 +431,13 @@ def check_rows(cases: list, per_rank: list) -> list:
                 th = ber_awgn_exact(case["cfg"].modulation, case["cfg"].channel.ebno_db)
                 ok = same and abs(errors / counted / th - 1) <= 0.01
                 detail = f"BER {errors / counted:.6g} vs theory {th:.6g} (allowed 1 %)"
+            elif case["kind"] == "stream":
+                ok = same and r0.get("exact", False) and r0.get("within", False)
+                detail = (f"n_blocks {case['n_blocks']}; sharded == unsharded stream "
+                          f"(bit-exact) {r0.get('exact', False)}; vs pipeline.simulate max "
+                          f"per-channel diff {r0.get('vs_simulate')} (allowed "
+                          f"{r0.get('allowed')}: 0, or under Jakes fading the bits with "
+                          f"|LLR| < 1e-3)")
             else:
                 ok = same and r0.get("exact", False)
                 detail = f"sharded == unsharded (bit-exact) {r0.get('exact', False)}"
@@ -393,8 +454,8 @@ def check_rows(cases: list, per_rank: list) -> list:
 
 def dryrun_multichip(world: int = 4, device="cuda", timeout: float = 600.0) -> list:
     """Run ``dryrun_cases(world)`` over ``world`` spawned ranks, print one
-    line per row (and one "not ported" line per row that waits for
-    ROADMAP item 11, not counted as passing) and return the rows; every
+    line per row (and one "not ported" line per row that waits for its
+    ROADMAP item, not counted as passing) and return the rows; every
     row's wall time is from ranks that may share one card."""
     resolve_device(device)
     cases = dryrun_cases(world)
@@ -402,6 +463,6 @@ def dryrun_multichip(world: int = 4, device="cuda", timeout: float = 600.0) -> l
     rows = check_rows(cases, per_rank)
     for row in rows:
         print(f"{row['line']} ({world} {SHARED_CARD})", flush=True)
-    for name in NOT_PORTED:
-        print(f"dryrun_multichip {name}: not ported (item 11)", flush=True)
+    for name, item in NOT_PORTED:
+        print(f"dryrun_multichip {name}: not ported (item {item})", flush=True)
     return rows

@@ -1,21 +1,25 @@
-"""Channel-batch data parallelism (port of ``sdr_tpu/parallel/shard.py``).
+"""Channel-batch data parallelism and time-block sequence parallelism
+(port of ``sdr_tpu/parallel/shard.py``).
 
 Every entry point is SPMD over a ``LinkMesh``: each rank runs the
 unsharded engine on its block of GLOBAL channel ids, and one
 ``all_gather`` gives every rank the (n_channels,) result. Because every
-draw of the fast, coded and injected Monte-Carlo links is keyed by
-(seed, global channel id), the result equals the unsharded run bit for
-bit, for any mesh (any slice of channels reproduces the full run).
+draw of the pipeline, fast, coded and injected Monte-Carlo links is keyed
+by (seed, global channel id), the result equals the unsharded run bit
+for bit, for any mesh (any slice of channels reproduces the full run).
 
 The fast and coded links have no time-axis structure, so every rank is
 a DP worker over the flattened mesh (rank r owns block r, as the JAX
-module's ``time·n_channel + channel``); the Monte-Carlo builders shard
-over "channel" and repeat the work along "time", as in JAX.
+module's ``time·n_channel + channel``); the pipeline and Monte-Carlo
+builders shard over "channel" and repeat the work along "time", as in
+JAX. The stream builder shards time blocks over "time" and channels over
+"channel"; its one exchange is the FIR's halo, each time rank's last
+clean block tail sent to the next rank along "time" (the JAX
+``ppermute``), then one reduction of the counts over "time".
 
-``make_sharded_simulate_fn``, ``make_sharded_stream_fn`` (with its
-halo exchange) and ``make_sharded_coded_fn`` need ``link.pipeline``,
-``link.stream`` and the conv/polar families, which are not ported:
-they raise ``NotImplementedError`` naming ROADMAP queue 1, item 11.
+``make_sharded_coded_fn`` needs the conv and polar families, which are
+not ported: it raises ``NotImplementedError`` naming ROADMAP queue 1,
+item 11f.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import dataclasses
 import torch
 
 from sdr_tpu_torch.core.config import LinkConfig
-from sdr_tpu_torch.link import fast, fast_coded
+from sdr_tpu_torch.link import fast, fast_coded, pipeline
+from sdr_tpu_torch.link import stream as _stream
 from sdr_tpu_torch.link.mc import _wrap_i32, mc_simulate
 from sdr_tpu_torch.parallel import _comm
 from sdr_tpu_torch.parallel.mesh import LinkMesh
@@ -34,23 +39,11 @@ from sdr_tpu_torch.parallel.distributed import resolve_device
 _SHARD_STRIDE = 0x5BD1E995 & 0x7FFFFFFF  # the JAX module's per-shard seed step (shard.py:246)
 
 
-def _item11(what: str):
-    raise NotImplementedError(
-        f"{what} needs link.pipeline / link.stream and the conv and polar families, which are "
-        "not ported yet (ROADMAP queue 1, item 11)"
-    )
-
-
-def make_sharded_simulate_fn(cfg: LinkConfig, mesh: LinkMesh, *args, **kwargs):
-    _item11("make_sharded_simulate_fn")
-
-
-def make_sharded_stream_fn(cfg: LinkConfig, mesh: LinkMesh, *args, **kwargs):
-    _item11("make_sharded_stream_fn (time-block SP with its halo exchange)")
-
-
 def make_sharded_coded_fn(cfg: LinkConfig, mesh: LinkMesh, *args, **kwargs):
-    _item11("make_sharded_coded_fn")
+    raise NotImplementedError(
+        "make_sharded_coded_fn needs link.coded's conv and polar families, which are not "
+        "ported yet (ROADMAP queue 1, item 11f)"
+    )
 
 
 def _local_ids(cfg: LinkConfig, n_shards: int, shard: int, dev):
@@ -67,6 +60,85 @@ def _gather_pair(errors, counted, group):
     both = _comm.all_gather(torch.stack([errors, counted]), group)  # (D, 2, local)
     both = both.permute(1, 0, 2).reshape(2, -1)
     return both[0], both[1]
+
+
+def make_sharded_simulate_fn(cfg: LinkConfig, mesh: LinkMesh, device="cuda"):
+    """Channel DP for ``link.pipeline.simulate`` over "channel" (repeated
+    along "time", as in JAX). Returns ``fn(seed) -> (bit_errors,
+    bits_counted)``, both (n_channels,) int32 on every rank, equal to the
+    unsharded ``simulate`` bit for bit."""
+    dev = resolve_device(device)
+    pipeline.check_supported(cfg)
+    ids = _local_ids(cfg, mesh.shape["channel"], mesh.coord("channel"), dev)
+
+    def fn(seed: int):
+        errors, counted, _ = pipeline.simulate_core(cfg, seed, ids)
+        return _gather_pair(errors, counted, mesh.group("channel"))
+
+    return fn
+
+
+def _exchange_halo(halo, mesh: LinkMesh):
+    """The FIR's halo along "time": this rank's last block tail (hr, hi)
+    (B, L−1) goes to the next time rank, the previous rank's comes back
+    (None at time rank 0: zeros). Even time ranks send first and odd ones
+    receive first, so the blocking point-to-point pairs of gloo always
+    meet."""
+    t, c, n_t = mesh.coord("time"), mesh.coord("channel"), mesh.shape["time"]
+    wire = torch.stack(halo)
+    group = mesh.group("time")
+    got = None
+
+    def send():
+        if t + 1 < n_t:
+            _comm.send(wire, mesh.rank_at(t + 1, c), group)
+
+    def recv():
+        if t > 0:
+            return _comm.recv(wire.shape, wire.dtype, mesh.rank_at(t - 1, c), wire.device, group)
+        return None
+
+    if t % 2 == 0:
+        send()
+        got = recv()
+    else:
+        got = recv()
+        send()
+    return None if got is None else (got[0], got[1])
+
+
+def make_sharded_stream_fn(cfg: LinkConfig, mesh: LinkMesh, n_blocks: int | None = None,
+                           device="cuda"):
+    """Time-block SP (+ channel DP) for the stream link. ``n_blocks``
+    blocks (default one per time rank) go contiguously to the time ranks:
+    rank t owns global blocks [t·bpd, (t+1)·bpd). Each rank draws and
+    transmits its blocks, sends its last block's clean tail to the next
+    time rank and takes the previous rank's as its first block's history
+    (rank 0: zeros), threads the seams inside its own run, and counts.
+    Returns ``fn(seed) -> (bit_errors, bits_counted)`` (n_channels,) on
+    every rank, equal to ``link.stream.stream_simulate(cfg, seed,
+    n_blocks)`` bit for bit."""
+    dev = resolve_device(device)
+    n_t = mesh.shape["time"]
+    if n_blocks is None:
+        n_blocks = n_t
+    if n_blocks % n_t != 0:
+        raise ValueError(f"n_blocks={n_blocks} not divisible by time axis {n_t}")
+    spb = _stream._check_blocking(cfg, n_blocks)
+    ids = _local_ids(cfg, mesh.shape["channel"], mesh.coord("channel"), dev)
+    bpd = n_blocks // n_t
+    blocks = range(mesh.coord("time") * bpd, (mesh.coord("time") + 1) * bpd)
+    n_halo = _stream._halo_len(cfg)
+
+    def fn(seed: int):
+        txs = [_stream.block_tx(cfg, seed, ids, b, spb) for b in blocks]
+        halo = _exchange_halo(_stream.tail(txs[-1][1], n_halo), mesh) if n_halo else None
+        errors = _stream.run_blocks(cfg, seed, ids, blocks, spb, halo, txs)
+        errors = _comm.all_gather(errors, mesh.group("time")).sum(dim=0, dtype=torch.int32)
+        counted = torch.full_like(errors, cfg.n_symbols * cfg.bits_per_ofdm_symbol)
+        return _gather_pair(errors, counted, mesh.group("channel"))
+
+    return fn
 
 
 def make_sharded_fast_fn(cfg: LinkConfig, mesh: LinkMesh, layout: str = "auto",

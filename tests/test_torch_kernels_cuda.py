@@ -392,6 +392,132 @@ def test_fade_awgn_refused_launch_raises(dev, monkeypatch):
     assert _lib.LAUNCHES == before
 
 
+@pytest.mark.parametrize("s0", [1, 7, 4096])
+@pytest.mark.parametrize("shape", [(3, 5, 4), (9, 17, 64), (40, 8, 256), (2, 3, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_payload_kernel_s0_matches_plain(dev, shape, s0):
+    """Kernel A at a symbol offset: bit for bit its plain version, and rows
+    s0 … of the frame's draw."""
+    B, S, N = shape
+    ids = torch.arange(70, 70 + B, dtype=torch.int32, device=dev)
+    got = _counted("payload", lambda: ka.payload_idx(S, N, 4, 31, ids, s0=s0))
+    assert torch.equal(got, ka.payload_idx_plain(S, N, 4, 31, ids, s0=s0))
+    assert torch.equal(got, ka.payload_idx(s0 + S, N, 4, 31, ids)[:, s0:])
+
+
+# Kernel E with history planes: the FIR shapes above, taps 2, 4, 17, cp + 1.
+E_HIST_CASES = [(shape, n_taps) for shape in E_FIR_SHAPES for n_taps in (2, 4, 17, shape[3] + 1)
+                if n_taps <= shape[3] + 1]
+
+
+@pytest.mark.parametrize("kind", ["static", "per_symbol"])
+@pytest.mark.parametrize("shape,n_taps", E_HIST_CASES,
+                         ids=[f"{b}x{s}-N{n}-cp{c}-{t}taps" for (b, s, n, c), t in E_HIST_CASES])
+def test_fade_awgn_history_kernel_matches_plain(dev, shape, n_taps, kind):
+    """E's FIR from history planes (row 0's halo) and at a symbol offset,
+    injected and keyed, against the plain version."""
+    B, S, N, cp = shape
+    re, im, (tr, ti) = _fir_inputs(dev, B, S, N + cp, n_taps, kind)
+    g = torch.Generator(device="cpu").manual_seed(10)
+    hist = tuple(torch.randn((B, n_taps - 1), generator=g).to(dev) for _ in range(2))
+    noise = tuple(torch.randn((B, S, N + cp), generator=g).to(dev) for _ in range(2))
+    ids = torch.arange(300, 300 + B, dtype=torch.int32, device=dev)
+    for kw in (dict(noise=noise), dict(seed=13, ch_ids=ids, s0=5)):
+        got = _counted("fade_awgn_fir", lambda: ke.fade_awgn(
+            re, im, noise_var=0.02, taps_r=tr, taps_i=ti, history_r=hist[0], history_i=hist[1],
+            **kw))
+        want = ke.fade_awgn_plain(re, im, noise_var=0.02, taps_r=tr, taps_i=ti,
+                                  history_r=hist[0], history_i=hist[1], **kw)
+        _close_planes(got, want, "seed" in kw)
+
+
+@pytest.mark.parametrize("kind", ["static", "per_symbol", "gains", "noise_only"])
+@pytest.mark.parametrize("L", [319, 320])
+def test_fade_awgn_block_equals_frame_rows(dev, kind, L):
+    """Keyed E over rows [s0, S) of a frame at s0, with the frame's tail
+    before s0 as history, gives those rows of the whole frame's channel
+    (the seam of a time block, link/stream.py), bit for bit: on rows of a
+    multiple of 4 samples (config 2's 320), and on 319-sample rows, where
+    the block's first quad of the FIR is taken sample by sample (it starts
+    off the 16-byte grid) while the frame takes it whole — both sum in the
+    pinned rounding of ``sdr::cmac``."""
+    B, S, s0, Lt = 12, 40, 17, 24
+    re, im, (tr, ti) = _fir_inputs(dev, B, S, L, Lt, "per_symbol" if kind == "per_symbol"
+                                   else "static")
+    ids = torch.arange(40, 40 + B, dtype=torch.int32, device=dev)
+    rows = slice(s0, None)
+    kw_full, kw_part = {}, {}
+    if kind == "gains":
+        g = torch.Generator(device="cpu").manual_seed(4)
+        hr, hi = (torch.randn((B, S), generator=g).to(dev) for _ in range(2))
+        kw_full = dict(hr_s=hr, hi_s=hi)
+        kw_part = dict(hr_s=hr[:, rows].contiguous(), hi_s=hi[:, rows].contiguous())
+    elif kind != "noise_only":
+        kw_full = dict(taps_r=tr, taps_i=ti)
+        kw_part = dict(taps_r=tr, taps_i=ti) if kind == "static" else dict(
+            taps_r=tr[:, rows].contiguous(), taps_i=ti[:, rows].contiguous())
+        kw_part.update(history_r=re[:, s0 - 1, -(Lt - 1):].contiguous(),
+                       history_i=im[:, s0 - 1, -(Lt - 1):].contiguous())
+    full = ke.fade_awgn(re, im, noise_var=0.02, seed=9, ch_ids=ids, **kw_full)
+    part = ke.fade_awgn(re[:, rows].contiguous(), im[:, rows].contiguous(), noise_var=0.02,
+                        seed=9, ch_ids=ids, s0=s0, **kw_part)
+    want = tuple(b[:, rows] for b in full)
+    assert all(torch.equal(a, b) for a, b in zip(part, want))
+
+
+def _pipeline_cfg(model=ChannelModel.MULTIPATH, B=64, S=16, **kw):
+    from sdr_tpu_torch.core.config import Equalizer
+
+    channel = dict(pdp=(1.0, 0.5, 0.25, 0.125), doppler_norm=0.03)
+    return LinkConfig(modulation=Modulation.QAM16, ofdm=OFDMConfig(256, 64),
+                      channel=ChannelConfig(model=model, ebno_db=kw.pop("ebno_db", 12.0),
+                                            **channel),
+                      equalizer=kw.pop("equalizer", Equalizer.MMSE), n_symbols=S, n_channels=B,
+                      **kw)
+
+
+def test_pipeline_on_card_equals_fast_simulate(dev):
+    """``__graft_entry__.entry()``'s link on the card: the pipeline's counts
+    equal the fast engine's on the same seed (B off then E's FIR is B's
+    fused FIR bit for bit), through A, B off, E and C's count alone; the
+    LLR plane's hard bits give the same counts."""
+    from sdr_tpu_torch.link import pipeline
+
+    cfg = _pipeline_cfg()
+    _lib.reset_launches()
+    res = pipeline.simulate(cfg, 7, device=dev)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _lib.LAUNCHES.items() if v}
+    assert launched == {"payload": 1, "tx_off": 1, "fade_awgn_fir": 1, "demod_count": 1}, launched
+    want, counted = fast.fast_simulate(cfg, 7, device=dev)
+    assert torch.equal(res.bit_errors, want) and torch.equal(res.bits_counted, counted)
+    plane = pipeline.simulate(cfg, 7, device=dev, want_llrs=True)
+    assert plane.llrs.shape == (64, 16, 1024) and plane.llrs.device.type == "cuda"
+    margin = (plane.llrs.abs() < 1e-3).sum(dim=(1, 2))
+    assert bool(((plane.bit_errors - res.bit_errors).abs() <= margin).all())
+
+
+@pytest.mark.parametrize("n_blocks", [2, 4])
+@pytest.mark.parametrize("model", [ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME])
+def test_stream_on_card_equals_simulate(dev, model, n_blocks):
+    """The blocked stream on the card, its seams through E's history planes,
+    equals the whole frame: bit for bit on static taps, under Jakes fading
+    but for bits whose |LLR| < 1e-3."""
+    from sdr_tpu_torch.link import pipeline
+    from sdr_tpu_torch.link.stream import exact_at_seams, stream_simulate
+
+    cfg = _pipeline_cfg(model)
+    errors, _ = stream_simulate(cfg, 7, n_blocks, device=dev)
+    ref = pipeline.simulate(cfg, 7, device=dev)
+    if exact_at_seams(cfg):
+        assert torch.equal(errors, ref.bit_errors)
+    else:
+        llrs = pipeline.simulate(cfg, 7, device=dev, want_llrs=True).llrs
+        margin = (llrs.abs() < 1e-3).sum(dim=(1, 2))
+        assert bool(((errors - ref.bit_errors).abs() <= margin).all())
+    assert int(errors.sum()) > 0
+
+
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
 @pytest.mark.parametrize("L", [1, 3, 8])
 @pytest.mark.parametrize("N", C_N_FFT)

@@ -397,6 +397,101 @@ def test_fade_awgn_plain_keyed_noise_is_kernel_b_stream():
         torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("s0", [1, 5])
+@pytest.mark.parametrize("N", [6, 64])
+def test_payload_plain_s0_is_the_frame_rows(N, s0):
+    """Kernel A with a symbol offset: rows s0 … s0+S−1 of the whole
+    frame's draw, bit for bit (a time block's payload)."""
+    from sdr_tpu_torch.kernels.payload import payload_idx, payload_idx_plain
+
+    ids = torch.tensor([3, 0, 2**31 - 1], dtype=torch.int32)
+    full = payload_idx_plain(8, N, 4, 77, ids)
+    got = payload_idx_plain(3, N, 4, 77, ids, s0=s0)
+    torch.testing.assert_close(got, full[:, s0:s0 + 3], rtol=0, atol=0)
+    torch.testing.assert_close(payload_idx(3, N, 4, 77, ids, s0=s0), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["static", "per_symbol"])
+@pytest.mark.parametrize("n_taps", [2, 4, 17], ids=lambda n: f"{n}taps")
+def test_fade_awgn_plain_history_matches_jax_halo(rng, kind, n_taps):
+    """Kernel E's FIR with history planes (plain version, injected noise)
+    against the JAX stream's block channel (link/stream.py:_block_rx):
+    ``apply_multipath(stream, taps, history=halo)`` for static taps,
+    ``apply_multipath`` per symbol with ``symbol_history`` whose row 0 is
+    the halo for per-symbol taps; then the noise. abs 1e-5 / rel 1e-6."""
+    B, S, L = 4, 3, 80
+    x = ((rng.standard_normal((B, S, L)) + 1j * rng.standard_normal((B, S, L)))
+         / np.sqrt(2)).astype(np.complex64)
+    shape = (B, n_taps) if kind == "static" else (B, S, n_taps)
+    taps = ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+            / np.sqrt(2 * n_taps)).astype(np.complex64)
+    halo = ((rng.standard_normal((B, n_taps - 1)) + 1j * rng.standard_normal((B, n_taps - 1)))
+            / np.sqrt(2)).astype(np.complex64)
+    n_re = rng.standard_normal((B, S, L)).astype(np.float32)
+    n_im = rng.standard_normal((B, S, L)).astype(np.float32)
+    tvar = 0.02
+    jx, jt, jh = jnp.asarray(x), jnp.asarray(taps), jnp.asarray(halo)
+    if kind == "static":
+        y = jchan.apply_multipath(jx.reshape(B, -1), jt, history=jh).reshape(jx.shape)
+    else:
+        hist = jchan.symbol_history(jx, n_taps).at[:, 0].set(jh)
+        y = jchan.apply_multipath(jx, jt, history=hist)
+    y = np.asarray(y) + np.sqrt(tvar / 2) * (n_re + 1j * n_im)
+    parts = lambda z: _t(np.real(z).astype(np.float32), np.imag(z).astype(np.float32))  # noqa: E731
+    hr, hi = parts(halo)
+    gre, gim = ke.fade_awgn_plain(*parts(x), noise_var=tvar, noise=_t(n_re, n_im),
+                                  taps_r=parts(taps)[0], taps_i=parts(taps)[1], history_r=hr,
+                                  history_i=hi)
+    np.testing.assert_allclose(gre.numpy(), np.real(y), atol=1e-5, rtol=1e-6)
+    np.testing.assert_allclose(gim.numpy(), np.imag(y), atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["static", "per_symbol", "gains", "noise_only"])
+def test_fade_awgn_plain_keyed_s0_is_the_frame_rows(kind):
+    """Keyed E at s0 over rows [s0, S) of a frame, with the frame's tail
+    before s0 as history, equals those rows of the whole frame's channel:
+    the noise counter is (channel, s0 + s, u). Bit for bit, but for static
+    taps, whose plain FIR runs over each channel's flat row: a shorter row
+    puts a sample's complex products in other vector lanes of torch's CPU
+    loop, so those rows agree to abs 1e-6 / rel 1e-6 (the kernel, which
+    sums in one order, is held bit for bit on the card)."""
+    B, S, L, s0, Lt = 3, 6, 21, 4, 5
+    g = torch.Generator().manual_seed(3)
+    re, im = (torch.randn((B, S, L), generator=g) for _ in range(2))
+    ids = torch.tensor([9, 1, 40], dtype=torch.int32)
+    kw_full, kw_part = {}, {}
+    if kind == "gains":
+        hr, hi = (torch.randn((B, S), generator=g) for _ in range(2))
+        kw_full, kw_part = dict(hr_s=hr, hi_s=hi), dict(hr_s=hr[:, s0:].contiguous(),
+                                                        hi_s=hi[:, s0:].contiguous())
+    elif kind != "noise_only":
+        shape = (B, Lt) if kind == "static" else (B, S, Lt)
+        tr, ti = (torch.randn(shape, generator=g) for _ in range(2))
+        kw_full = dict(taps_r=tr, taps_i=ti)
+        kw_part = dict(taps_r=tr, taps_i=ti) if kind == "static" else dict(
+            taps_r=tr[:, s0:].contiguous(), taps_i=ti[:, s0:].contiguous())
+        kw_part.update(history_r=re[:, s0 - 1, -(Lt - 1):].contiguous(),
+                       history_i=im[:, s0 - 1, -(Lt - 1):].contiguous())
+    full = ke.fade_awgn(re, im, noise_var=0.1, seed=12, ch_ids=ids, **kw_full)
+    part = ke.fade_awgn(re[:, s0:].contiguous(), im[:, s0:].contiguous(), noise_var=0.1,
+                        seed=12, ch_ids=ids, s0=s0, **kw_part)
+    tol = 1e-6 if kind == "static" else 0.0
+    for a, b in zip(part, full):
+        torch.testing.assert_close(a, b[:, s0:], rtol=tol, atol=tol)
+
+
+def test_fade_awgn_history_is_checked():
+    re = torch.zeros((2, 3, 8))
+    taps = torch.ones((2, 4))
+    with pytest.raises(ValueError, match="history planes go with the FIR"):
+        ke.fade_awgn(re, re, history_r=torch.zeros(2, 3), history_i=torch.zeros(2, 3))
+    with pytest.raises(ValueError, match=r"history planes must both be \(2, 3\)"):
+        ke.fade_awgn(re, re, taps_r=taps, taps_i=taps, history_r=torch.zeros(2, 2),
+                     history_i=torch.zeros(2, 2))
+    with pytest.raises(ValueError, match="s0 must be >= 0"):
+        ke.fade_awgn(re, re, taps_r=taps, taps_i=taps, s0=-1)
+
+
 @pytest.mark.parametrize("L", [1, 3, 8])
 @pytest.mark.parametrize("mod", [Modulation.QAM16, Modulation.QAM256], ids=lambda m: m.value)
 def test_demod_count_plain_taps_matches_jax_count_kernel(rng, mod, L):

@@ -12,8 +12,15 @@ on the CPU, over 4 gloo ranks spawned once for the module.
   4 virtual CPU devices: equal per-channel counts but for bits whose
   plain |LLR| < 1e-3 (port and JAX draw from different streams, so the
   comparison injects the same numpy draws into both).
+- The sharded pipeline (channel DP, 1 × 4) and the time-block stream
+  with its halo exchange (2 × 2, n_blocks 4: one seam between ranks and
+  one inside each rank; static MULTIPATH and the TDL) are bit-exact
+  against the unsharded ``simulate`` and ``stream_simulate``, and each
+  stream equals ``simulate``: the static one bit for bit, the TDL but for
+  bits whose |LLR| < 1e-3.
 - What the layer refuses: shapes that do not divide, a pipeline mesh
-  without two stages, and the builders that wait for ROADMAP item 11.
+  without two stages, and the coded builder, which waits for ROADMAP
+  item 11f.
 """
 
 import dataclasses
@@ -29,6 +36,8 @@ from sdr_tpu.parallel import make_link_mesh as j_make_link_mesh
 from sdr_tpu.parallel.shard import make_sharded_mc_inject_fn as j_sharded_mc_inject
 from sdr_tpu_torch import interop
 from sdr_tpu_torch.core.config import ChannelModel, Equalizer
+from sdr_tpu_torch.link import pipeline as pipe
+from sdr_tpu_torch.link.stream import exact_at_seams, stream_simulate
 from sdr_tpu_torch.kernels.mc import mc_llr_plain
 from sdr_tpu_torch.link import mc
 from sdr_tpu_torch.link.mc import _wrap_i32
@@ -102,6 +111,14 @@ CASES = {
                          cfg=_small(ChannelModel.MULTIPATH, pdp=PDP3)),
     "mc_keyed": dict(kind="mc", mesh=(2, 2), iters=2,
                      cfg=_small(ChannelModel.AWGN, n_channels=8, n_fft=128)),
+    "simulate_dp": dict(kind="simulate", mesh=(1, 4),
+                        cfg=_small(ChannelModel.MULTIPATH, pdp=PDP3, equalizer=Equalizer.MMSE)),
+    "stream": dict(kind="stream", mesh=(2, 2), n_blocks=4,
+                   cfg=_small(ChannelModel.MULTIPATH, n_symbols=8, pdp=PDP3,
+                              equalizer=Equalizer.MMSE)),
+    "stream_tdl": dict(kind="stream", mesh=(2, 2), n_blocks=4,
+                       cfg=_small(ChannelModel.MULTIPATH_TIME, n_symbols=8, pdp=PDP3,
+                                  doppler_norm=0.03, equalizer=Equalizer.MMSE)),
 }
 EXACT = [name for name, c in CASES.items() if c["kind"] != "mc"]
 
@@ -123,6 +140,23 @@ def test_sharded_equals_unsharded_on_every_rank(ranks, name):
     for r in res[1:]:
         np.testing.assert_array_equal(r["errors"], res[0]["errors"])
         np.testing.assert_array_equal(r["counted"], res[0]["counted"])
+
+
+@pytest.mark.parametrize("name", ["stream", "stream_tdl"])
+def test_sharded_stream_equals_simulate(ranks, name):
+    """The halo exchange gives every seam the whole frame's history: the
+    sharded stream equals ``simulate`` (bit for bit on static taps, under
+    Jakes fading but for bits whose |LLR| < 1e-3) and the unsharded stream
+    on the CPU, for every n_blocks."""
+    res = ranks[name][0]
+    cfg = CASES[name]["cfg"]
+    assert res["within"] is True and res["vs_simulate"] <= res["allowed"]
+    assert exact_at_seams(cfg) == (name == "stream")
+    if exact_at_seams(cfg):
+        assert res["allowed"] == 0 and res["vs_simulate"] == 0
+    for n_blocks in (1, 2, 8):
+        errors, _ = stream_simulate(cfg, SEED, n_blocks, device="cpu")
+        np.testing.assert_array_equal(errors.numpy(), res["errors"])
 
 
 def test_sharded_mc_keyed_uses_the_per_shard_seeds(ranks):
@@ -161,9 +195,16 @@ def test_layer_refuses_what_it_does_not_run():
     mesh = make_link_mesh()  # one process: 1 × 1
     with pytest.raises(ValueError, match='"time" axis == 2'):
         make_pipelined_fast_fn(_small(ChannelModel.AWGN), mesh, device="cpu")
-    for builder in (make_sharded_simulate_fn, make_sharded_stream_fn, make_sharded_coded_fn):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            builder(_small(ChannelModel.AWGN), mesh)
+    with pytest.raises(NotImplementedError, match="item 11f"):
+        make_sharded_coded_fn(_small(ChannelModel.AWGN), mesh)
+    for builder in (make_sharded_simulate_fn, make_sharded_stream_fn):
+        with pytest.raises(NotImplementedError, match="item 11c"):
+            builder(_small(ChannelModel.AWGN, pilot_spacing=4, equalizer=Equalizer.MMSE), mesh,
+                    device="cpu")
+    with pytest.raises(ValueError, match="not divisible by time axis 2"):
+        make_sharded_stream_fn(_small(ChannelModel.AWGN),
+                               dataclasses.replace(mesh, n_time=2, n_channel=1), n_blocks=3,
+                               device="cpu")
     with pytest.raises(NotImplementedError):
         make_sharded_fast_fn(_small(ChannelModel.AWGN, pilot_spacing=4, equalizer=Equalizer.MMSE),
                              mesh, device="cpu")
@@ -201,11 +242,27 @@ def test_one_process_dp_equals_the_engine():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("model", [ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME])
+def test_one_process_simulate_and_stream_equal_the_engines(model):
+    """On a 1 × 1 mesh the sharded pipeline is ``simulate`` and the sharded
+    stream (one time rank, n_blocks 2: its seam inside the rank) is
+    ``stream_simulate``."""
+    cfg = _small(model, n_symbols=8, pdp=PDP3, doppler_norm=0.03, equalizer=Equalizer.MMSE)
+    mesh = make_link_mesh()
+    got = make_sharded_simulate_fn(cfg, mesh, device="cpu")(SEED)
+    want = pipe.simulate(cfg, SEED, device="cpu")
+    torch.testing.assert_close(got[0], want.bit_errors, rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want.bits_counted, rtol=0, atol=0)
+    got = make_sharded_stream_fn(cfg, mesh, n_blocks=2, device="cpu")(SEED)
+    for a, b in zip(got, stream_simulate(cfg, SEED, 2, device="cpu")):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_entry_points_default_to_the_card():
     import inspect
 
     for builder in (make_sharded_fast_fn, make_sharded_coded_fast_fn, make_pipelined_fast_fn,
-                    make_sharded_mc_fn):
+                    make_sharded_mc_fn, make_sharded_simulate_fn, make_sharded_stream_fn):
         assert inspect.signature(builder).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,6 +1,6 @@
 """The port's Eb/N0 sweep (sdr_tpu_torch.obs.sweep) on the CPU.
 
-Both engines at a tiny size: checkpoint resume (no invocation), top-up
+The three engines (pipeline, fast, mc) at a tiny size: checkpoint resume (no invocation), top-up
 under a larger ``target_errors`` (the same point as a fresh sweep to
 that target: the seeds of the resumed batches are not replayed), a
 checkpoint without the ``/torch`` suffix is recomputed, and ``theory()``
@@ -20,6 +20,7 @@ from sdr_tpu.obs.sweep import SweepResult as JSweepResult
 from sdr_tpu_torch.core.config import (
     ChannelConfig,
     ChannelModel,
+    Equalizer,
     LinkConfig,
     MIMOConfig,
     Modulation,
@@ -46,19 +47,20 @@ def _run(path, engine, target_errors=100, **kw):
     return res, done
 
 
-@pytest.mark.parametrize("engine", ["fast", "mc"])
+@pytest.mark.parametrize("engine", ["pipeline", "fast", "mc"])
 def test_sweep_resumes_from_checkpoint(tmp_path, engine):
     path = tmp_path / "ck.json"
     first, done = _run(path, engine)
     assert len(done) == len(GRID)
     assert all(p.bit_errors >= 100 or p.bits_counted >= 200_000 for p in first.points)
-    assert first.config_summary.endswith(f"/{engine}/torch")
+    suffix = "/torch" if engine == "pipeline" else f"/{engine}/torch"
+    assert first.config_summary == sweep._cfg_summary(_cfg()) + suffix
     np.testing.assert_allclose(first.bers()[0], ber_awgn_exact(Modulation.QPSK, 0.0), rtol=0.2)
     again, done = _run(path, engine)
     assert done == [] and again.points == first.points
 
 
-@pytest.mark.parametrize("engine", ["fast", "mc"])
+@pytest.mark.parametrize("engine", ["pipeline", "fast", "mc"])
 def test_sweep_tops_up_under_a_larger_target(tmp_path, engine):
     _run(tmp_path / "ck.json", engine, target_errors=100)
     topped, done = _run(tmp_path / "ck.json", engine, target_errors=400)
@@ -96,18 +98,35 @@ def test_theory_matches_reference(model, k_factor, mod):
 
 
 def test_unported_engines_and_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sweep.ebno_sweep(_cfg(), GRID, engine="pipeline", device="cpu")
-    with pytest.raises(NotImplementedError, match="link.coded .*item 11"):
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        sweep.ebno_sweep(_cfg(pilot_spacing=4, equalizer=Equalizer.MMSE), GRID,
+                         engine="pipeline", device="cpu")
+    with pytest.raises(NotImplementedError, match="link.coded.*item 11f"):
         sweep.ebno_sweep(_cfg(), GRID, engine="pipeline", code="ldpc", device="cpu")
     with pytest.raises(ValueError, match="pipeline engine"):
         sweep.ebno_sweep(_cfg(), GRID, engine="mc", code="ldpc", device="cpu")
     with pytest.raises(ValueError, match="unknown"):
         sweep.ebno_sweep(_cfg(), GRID, engine="xla", device="cpu")
     res = sweep.SweepResult([sweep.SweepPoint(3.0, 1, 10)], "s")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11e"):
         res.theory(Modulation.QPSK, ChannelModel.RAYLEIGH_FLAT, mimo=MIMOConfig())
     assert inspect.signature(sweep.ebno_sweep).parameters["device"].default == "cuda"
+
+
+def test_default_engine_is_the_pipeline(tmp_path):
+    """As in the JAX sweep, the default engine is ``"pipeline"``: its points
+    are the pipeline's, and its checkpoint summary carries no engine
+    suffix before ``/torch``."""
+    assert inspect.signature(sweep.ebno_sweep).parameters["engine"].default == "pipeline"
+    res = sweep.ebno_sweep(_cfg(), GRID[:1], seed=3, target_errors=50, max_bits=50_000,
+                           device="cpu")
+    want, _ = _run(tmp_path / "ck.json", "pipeline", target_errors=50)
+    assert res.config_summary == want.config_summary
+    seed0 = sweep.invocation_seed(3, 0, 0)
+    from sdr_tpu_torch.link.pipeline import simulate
+
+    first = simulate(_cfg(), seed0, device="cpu")
+    assert res.points[0].bit_errors >= int(first.bit_errors.sum())
 
 
 def test_invocation_seeds_are_unique_and_mixed_with_the_seed():
