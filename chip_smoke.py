@@ -140,6 +140,24 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    for the same margin — each
    with ms (median of 3 warm calls, CUDA events) and the launches of one
    call (kernels A, B off, E, C);
+   3q. pilots, counters zeroed before it: kernel B's pilot comb (spacing
+   8, channel off) and kernel C's count skipping the comb's tones against
+   their plain versions at 8192 × 64 (phase 2's tolerances), each timed
+   beside its mode without the comb; the receive's torch work timed alone
+   (the comb frame's FFT, the LS and DFT estimates, frame-averaged and per
+   symbol, the block pilots' pilot-row FFT and data-row gather); then
+   ``pipeline.simulate`` at config 2, 8192 × 64, on the comb links
+   (MULTIPATH PDP (1, .5, .25, .125) 12 dB spacing 8: LS, DFT (32 taps),
+   DFT with ZF; RAYLEIGH_TIME fd 0.02 LS per symbol; MULTIPATH_TIME PDP
+   (1, .5, .25) fd 0.02 DFT per symbol) and the SC-FDMA block-pilot links
+   (spacing 4, DFT, MMSE: MULTIPATH config 4's PDP 14 dB, and under
+   MULTIPATH_TIME and RAYLEIGH_TIME fd 0.02), each against its genie twin
+   (pilot_spacing 0, the same seed) with the JAX tests' gates — LS and
+   block static ≤ 2 × max(genie, 1e-4), DFT < LS and DFT ≤ 1.6 × genie +
+   2e-4, per symbol and block time-varying ≤ 3 × genie + 1e-3 — with ms
+   (median of 3 warm calls) and launches a call; ``want_llrs`` on the DFT
+   link (the data tones' plane, its hard bits against the comb count);
+   ``make_sharded_simulate_fn`` on one rank equal to ``simulate``;
    5. the parallel layer: ``parallel.dryrun.dryrun_multichip`` on 4
    gloo ranks sharing the one card (spawned; the library built above is
    only loaded there) — TP at BASELINE config 5's full width (256 × 64,
@@ -167,12 +185,15 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    sharded call, summed, for kernel #20 — phase 5n's window holds its
    launches at n2 = 4096; and in phase 3p around each pipeline and
    stream call, for A, B off, E (both modes) and C's count, despread
-   count and plane, ``launches_pipeline``)
+   count and plane, ``launches_pipeline``; and in phase 3q around each
+   pilot link's call, for B's comb and C's comb count,
+   ``launches_pilots``)
    and prints one JSON line per kernel set, with each kernel's bound (bytes over 3.35 TB/s or f32
    operations over 67 TFLOP/s, the H100 SXM data sheet) and its launches
    in each window (``launches_fast``, ``launches_mc``, ``launches_coded``,
    ``launches_terminals``, ``launches_wide`` — the sum of 3i's N
-   windows; ``launches_bf16``, ``launches_parallel``, ``launches_nccl``; ``launches`` is the window of its own path, the one checked;
+   windows; ``launches_bf16``, ``launches_parallel``, ``launches_nccl``,
+   ``launches_pipeline``, ``launches_pilots``; ``launches`` is the window of its own path, the one checked;
    the entries named ``<counter>@N1024``, ``@N2048`` and ``@N4096`` carry
    phase 2w's numbers, the launches in that N's window and the TPU
    four-step, post-FFT or channels-last kernel they replace there),
@@ -310,7 +331,7 @@ def despread_flops(mod, n: int, rows: int, h_rows: int, count: bool = False) -> 
 # of the post-FFT mode's streaming form (csrc/llr_chain.cu), at every N.
 C_ROWS_MODES = ("demod_count", "demod_count_taps", "demod_llr", "demod_sum",
                 "demod_count_despread", "demod_llr_despread", "demod_sum_despread",
-                "tp_stage2_llr")
+                "tp_stage2_llr", "demod_count_comb")
 C_STREAM_MODES = ("llr_chain", "llr_chain_sum")
 
 
@@ -2522,6 +2543,200 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     print(f"phase 3p: {len(pipe_rows)} lines in {time.perf_counter() - t3p:.1f} s; window "
           f"{ {k: launches_pipeline[k] for k in pipeline_path} }")
 
+    # ---- phase 3q: pilots and channel estimation, counters zeroed -----------
+    # First kernel B's pilot comb and kernel C's pilot-skipping count at full
+    # width against their plain versions (phase 2's tolerances), each timed
+    # beside its mode without the comb on the same inputs (in turns, off,
+    # comb, comb, off) and its plain version; the receive's torch work (the
+    # frame's FFT for the comb's pilot tones, the estimates, the block
+    # pilots' pilot-row FFT and data-row gather) timed alone. Then the pilot
+    # links through ``pipeline.simulate`` at config 2, B x 64, each against
+    # its genie twin (pilot_spacing 0, the same seed and data) with the JAX
+    # tests' gates; ms the median of 3 warm calls (CUDA events). Each
+    # main-path call runs inside ``in_pilots()``; the twins and the
+    # references are in no window.
+    import dataclasses
+
+    from sdr_tpu_torch.core.config import ChannelEstimator
+    from sdr_tpu_torch.ops import pilots as pil
+    from sdr_tpu_torch.ops.ofdm import ofdm_rx
+    from sdr_tpu_torch.parallel import make_link_mesh, make_sharded_simulate_fn
+
+    t3q = time.perf_counter()
+    SP = 8  # the comb's spacing: 32 pilot tones of 256
+    n_data = pil.n_data_subcarriers(N, SP)
+    idx_q = ka.payload_idx(S, N, bps, seed, ids)
+    got = kb.tx_chain(idx_q, CP, mod, pilot_spacing=SP)
+    comb_err = plane_err(got, kb.tx_channel_plain(idx_q, CP, mod, pilot_spacing=SP))
+    _check(comb_err <= 1e-5 * plane_peak(got), f"kernel B (pilot comb) max abs diff {comb_err:g}")
+    del got
+    ms_comb, ms_off = compare_times(lambda: kb.tx_chain(idx_q, CP, mod, pilot_spacing=SP),
+                                    lambda: kb.tx_chain(idx_q, CP, mod))
+    pms = timed(lambda: kb.tx_channel_plain(idx_q, CP, mod, pilot_spacing=SP), 1)
+    # Bytes: the data tones' indices read, the two planes written; the IFFT.
+    report["tx_comb"] = dict(max_abs_err=comb_err, ms=ms_comb, plain_ms=pms, off_ms=ms_off,
+                             **bound(nrow * n_data + 8 * nrow * (N + CP), nrow * fft_flops(N)))
+    print(f"phase 3q B tx pilot comb spacing {SP} ({B}x{S}x{N + CP}): max abs diff "
+          f"{comb_err:.3g}; kernel {ms_comb:.4f} ms beside the channel-off mode's {ms_off:.4f} "
+          f"(ratio {ms_comb / ms_off:.4f}), plain {pms:.3f} ms, {of_bound(report['tx_comb'])}")
+    re_q, im_q = kb.tx_channel(idx_q, CP, mod, noise_var=tvar, seed=seed, ch_ids=ids,
+                               pilot_spacing=SP)
+    h1 = (torch.ones((B, 1, N), device=dev), torch.zeros((B, 1, N), device=dev))
+    cnt = kc.demod_count(re_q, im_q, *h1, idx_q, CP, mod, nv10, pilot_spacing=SP)
+    llr = pil.data_tones(kc.demod_chain(re_q, im_q, *h1, CP, mod, nv10), SP, bps)
+    cnt_plain = kc.count_errors(llr, pil.data_tones(idx_q, SP), bps)
+    margin = (llr.abs() < 1e-3).sum(dim=(1, 2))
+    del llr
+    diff = (cnt - cnt_plain).abs()
+    _check(bool((diff <= margin).all()) and int(cnt_plain.sum()) > 0,
+           "kernel C (pilot comb) counts differ beyond the |LLR| < 1e-3 bits")
+    ms_cc, ms_c = compare_times(
+        lambda: kc.demod_count(re_q, im_q, *h1, idx_q, CP, mod, nv10, pilot_spacing=SP),
+        lambda: kc.demod_count(re_q, im_q, *h1, idx_q, CP, mod, nv10))
+    pms = timed(lambda: kc.demod_count_plain(re_q, im_q, *h1, idx_q, CP, mod, nv10,
+                                             pilot_spacing=SP), 1)
+    # Bytes: S·N sample rows, h, the data tones' indices, the counts; the FFT
+    # of every symbol and the tail of its data tones.
+    report["demod_count_comb"] = dict(
+        max_abs_err=float(diff.max()), ms=ms_cc, plain_ms=pms, no_comb_ms=ms_c,
+        **bound(8 * nrow * N + 8 * B * N + nrow * n_data + 4 * B,
+                nrow * (fft_flops(N) + n_data * tail_flops(mod))))
+    print(f"phase 3q C demod+count pilot comb spacing {SP} ({B}x{S}x{N + CP}): "
+          f"{int(cnt.sum())} errors, plain {int(cnt_plain.sum())}, max per-channel diff "
+          f"{int(diff.max())} (allowed {int(margin.max())}); kernel {ms_cc:.4f} ms beside the "
+          f"count without the comb {ms_c:.4f} (ratio {ms_cc / ms_c:.4f}), plain {pms:.3f} ms, "
+          f"{of_bound(report['demod_count_comb'])}")
+
+    def q_cfg(model, ebno_db, spacing=SP, estimator=ChannelEstimator.LS,
+              equalizer=Equalizer.MMSE, dft_spread=False, **channel):
+        return dataclasses.replace(
+            p_cfg(model, ebno_db, equalizer, dft_spread, **channel), pilot_spacing=spacing,
+            estimator=estimator)
+
+    block = q_cfg(ChannelModel.MULTIPATH, 14.0, 4, ChannelEstimator.DFT, dft_spread=True,
+                  pdp=pdp4)
+    parts = {}
+    y_q = ofdm_rx(torch.complex(re_q, im_q), CP)
+    parts["comb frame FFT (complex + ofdm_rx)"] = timed(
+        lambda: ofdm_rx(torch.complex(re_q, im_q), CP), 3)
+    n_taps_q = pil.dft_n_taps(N, CP, SP)
+    for label, fn in (("LS estimate", lambda: pil.estimate_ls_comb(y_q, SP)),
+                      ("DFT estimate", lambda: pil.estimate_dft_comb(y_q, SP, n_taps_q)),
+                      ("LS estimate per symbol",
+                       lambda: pil.estimate_ls_comb(y_q, SP, per_symbol=True)),
+                      ("DFT estimate per symbol",
+                       lambda: pil.estimate_dft_comb(y_q, SP, n_taps_q, per_symbol=True)),
+                      ("block pilot-row FFT", lambda: ofdm_rx(torch.complex(
+                          *(pipeline._block_view(block, t)[:, :, 0] for t in (re_q, im_q))), CP)),
+                      ("block data-row gather", lambda: (pipeline._data_rows(block, re_q),
+                                                         pipeline._data_rows(block, im_q)))):
+        fn()  # warm: the tables' first copy to the card, the first complex product
+        parts[label] = timed(fn, 3)
+    del y_q, re_q, im_q, idx_q
+    torch.cuda.empty_cache()
+    print(f"phase 3q receive parts ({B}x{S}x{N + CP}, CUDA events, 3 warm calls each): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+
+    launches_pilots = dict.fromkeys(_lib.LAUNCHES, 0)
+    pilot_path = ("tx_comb", "demod_count_comb")
+
+    @contextlib.contextmanager
+    def in_pilots():
+        _lib.reset_launches()
+        yield
+        for k, v in _lib.LAUNCHES.items():
+            launches_pilots[k] += v
+
+    def q_run(fn):
+        """fn() warm, then 3 timed calls: (result, median ms, launches of one call)."""
+        with in_pilots():
+            out = fn()
+            torch.cuda.synchronize()
+            per_call = {k: v for k, v in _lib.LAUNCHES.items() if v}
+            ms_p = sorted(timed(fn, 1) for _ in range(3))[1]
+        return out, ms_p, per_call
+
+    def static_gate(ber, genie):
+        return ber <= 2.0 * max(genie, 1e-4), "2 x max(genie, 1e-4)"
+
+    def dft_gate(ber, genie):
+        return ber <= 1.6 * genie + 2e-4, "1.6 x genie + 2e-4"
+
+    def varying_gate(ber, genie):
+        return ber <= 3.0 * genie + 1e-3, "3 x genie + 1e-3"
+
+    DFT_E = ChannelEstimator.DFT
+    q_links = (
+        ("pilots-comb-ls", q_cfg(ChannelModel.MULTIPATH, 12.0, pdp=pdp4), static_gate),
+        ("pilots-comb-dft", q_cfg(ChannelModel.MULTIPATH, 12.0, estimator=DFT_E, pdp=pdp4),
+         dft_gate),
+        ("pilots-comb-dft-zf", q_cfg(ChannelModel.MULTIPATH, 12.0, estimator=DFT_E,
+                                     equalizer=Equalizer.ZF, pdp=pdp4), dft_gate),
+        ("pilots-comb-rayleigh-time", q_cfg(ChannelModel.RAYLEIGH_TIME, 12.0, doppler_norm=0.02),
+         varying_gate),
+        ("pilots-comb-multipath-time", q_cfg(ChannelModel.MULTIPATH_TIME, 12.0, estimator=DFT_E,
+                                             pdp=pdp3, doppler_norm=0.02), varying_gate),
+        ("pilots-block-scfdma", block, static_gate),
+        ("pilots-block-scfdma-time (MULTIPATH_TIME, interp_full)",
+         dataclasses.replace(block, channel=dataclasses.replace(
+             block.channel, model=ChannelModel.MULTIPATH_TIME, doppler_norm=0.02)), varying_gate),
+        ("pilots-block-scfdma-time (RAYLEIGH_TIME, interp)",
+         dataclasses.replace(block, channel=dataclasses.replace(
+             block.channel, model=ChannelModel.RAYLEIGH_TIME, doppler_norm=0.02, pdp=(1.0,))),
+         varying_gate),
+    )
+    q_rows = []
+    q_ber = {}
+    for label, cfg, gate in q_links:
+        res_q, ms_q, per_q = q_run(lambda: pipeline.simulate(cfg, seed, device=dev))
+        genie = p_ber(pipeline.simulate(dataclasses.replace(cfg, pilot_spacing=0), seed,
+                                        device=dev))
+        ber_q = p_ber(res_q)
+        _check(int(res_q.bits_counted[0]) == cfg.n_data_symbols * cfg.bits_per_ofdm_symbol,
+               f"{label}: bits_counted")
+        ok, rule = gate(ber_q, genie)
+        _check(ok, f"{label}: BER {ber_q:g} vs genie {genie:g} breaks {rule}")
+        q_ber[label] = ber_q
+        q_rows.append(dict(label=label, ms=ms_q, ber=ber_q, genie=genie))
+        print(f"phase 3q pipeline.simulate {B}x{S} config 2 {label}: BER {ber_q:.6g}, genie twin "
+              f"{genie:.6g} (ratio {ber_q / genie:.5f}, gate {rule}); {ms_q:.3f} ms (median of 3 "
+              f"warm calls, CUDA events), launches a call {per_q} on {card}")
+        del res_q
+    _check(q_ber["pilots-comb-dft"] < q_ber["pilots-comb-ls"],
+           f"pilots: DFT BER {q_ber['pilots-comb-dft']:g} not below LS "
+           f"{q_ber['pilots-comb-ls']:g}")
+    dft_cfg = q_links[1][1]
+    res_c, _, _ = q_run(lambda: pipeline.simulate(dft_cfg, seed, device=dev))
+    res_l, ms_l, per_l = q_run(lambda: pipeline.simulate(dft_cfg, seed, device=dev,
+                                                         want_llrs=True))
+    want_shape = (B, S, n_data * bps)
+    _check(tuple(res_l.llrs.shape) == want_shape and bool(torch.isfinite(res_l.llrs).all()),
+           f"pilots want_llrs: plane {tuple(res_l.llrs.shape)}, want {want_shape}")
+    margin_l = (res_l.llrs.abs() < 1e-3).sum(dim=(1, 2))
+    diff_l = (res_l.bit_errors - res_c.bit_errors).abs()
+    _check(bool((diff_l <= margin_l).all()),
+           "pilots want_llrs: the plane's hard bits differ from the count beyond the margin")
+    q_rows.append(dict(label="pilots-comb-dft, want_llrs", ms=ms_l, ber=p_ber(res_l)))
+    print(f"phase 3q pipeline.simulate want_llrs=True (pilots-comb-dft): the data tones' plane "
+          f"{tuple(res_l.llrs.shape)} f32, its hard bits vs the comb count max per-channel diff "
+          f"{int(diff_l.max())} (allowed {int(margin_l.max())}); {ms_l:.3f} ms, launches a call "
+          f"{per_l}")
+    del res_l, margin_l
+    with in_pilots():
+        errors_sh, counted_sh = make_sharded_simulate_fn(dft_cfg, make_link_mesh(), device=dev)(
+            seed)
+    _check(torch.equal(errors_sh, res_c.bit_errors) and torch.equal(counted_sh,
+                                                                     res_c.bits_counted),
+           "pilots: make_sharded_simulate_fn (one rank) differs from simulate")
+    print(f"phase 3q make_sharded_simulate_fn (one rank, 1 x 1 mesh) on pilots-comb-dft: == "
+          f"simulate bit for bit")
+    del res_c
+    torch.cuda.empty_cache()
+    for name in pilot_path:
+        _check(launches_pilots[name] > 0, f"phase 3q: kernel {name} was not launched")
+    print(f"phase 3q: {len(q_rows)} links in {time.perf_counter() - t3q:.1f} s; window "
+          f"{ {k: v for k, v in launches_pilots.items() if v} }")
+
     # ---- phase 5: the parallel layer, 4 gloo ranks sharing the one card -----
     # ``dryrun_multichip`` spawns the ranks (the kernel library was built in
     # phase 1; the ranks only load it), runs every row at full width, holds
@@ -2575,7 +2790,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     parallel_path = ("tp_stage2_llr",)
     windows = ((coded_path, launches_coded), (terminal_path, launches_terminals),
                (mc_path, launches_mc), (wide_path, launches_wide), (bf16_path, launches_bf16),
-               (parallel_path, launches_parallel))
+               (parallel_path, launches_parallel), (pilot_path, launches_pilots))
     own = {name: next((w[name] for path, w in windows if name in path), launches[name])
            for name in launches}
     for name, n in own.items():
@@ -2627,6 +2842,9 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         "demod_llr_cl_bf16_in_bf16": ("sdr_tpu_torch/csrc/demod_cl_llr.cu",
                                       "sdr_tpu/kernels/demod_cl_pallas.py:753"),
         "tp_stage2_llr": ("sdr_tpu_torch/csrc/demod_tp.cu", "sdr_tpu/parallel/tp.py:69"),
+        "tx_comb": ("sdr_tpu_torch/csrc/tx.cu", "sdr_tpu/kernels/tx_pallas.py:265"),
+        "demod_count_comb": ("sdr_tpu_torch/csrc/demod_count.cu",
+                             "sdr_tpu/kernels/demod_pallas.py:500"),
     }
     # The wideband entries: each counter at N 1024, 2048 and 4096, with its
     # launches in that N's window of phase 3i, against the TPU kernel it
@@ -2656,12 +2874,13 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     launches_terminals=launches_terminals[name],
                     launches_wide=launches_wide[name], launches_bf16=launches_bf16[name],
                     launches_parallel=launches_parallel[name], launches_nccl=launches_nccl[name],
-                    launches_pipeline=launches_pipeline[name])
+                    launches_pipeline=launches_pipeline[name],
+                    launches_pilots=launches_pilots[name])
 
     # The form of C, D and F each entry ran (csrc/demod_rows.cuh's plans,
     # demod.cu's tile, csrc/demod_cl.cuh's plans).
     def cl_form(name, n_fft):
-        if name in ("tx", "tx_taps", "tx_off"):
+        if name in ("tx", "tx_taps", "tx_off", "tx_comb"):
             return {"form": b_form(n_fft)}
         if name in ("fade_awgn", "fade_awgn_fir"):
             return {"form": e_form(name)}

@@ -39,6 +39,15 @@ __device__ __forceinline__ int gray_to_binary(int g) {
   return b;
 }
 
+// Whether tone k (0 <= k < 2^22) is on the pilot comb of spacing p, i.e.
+// k % p == 0, with inv_p = 1/p rounded to float: q = floor((k + 1/2) inv_p)
+// is floor(k/p) exactly, since (k + 1/2)/p stays at least 1/(2p) from an
+// integer and the two roundings move it by at most (k/p) 2^-23. Five
+// instructions where a remainder by a run-time p takes about twenty.
+__device__ __forceinline__ bool on_comb(int k, int p, float inv_p) {
+  return k == __float2int_rz(((float)k + 0.5f) * inv_p) * p;
+}
+
 __device__ __forceinline__ int bit_reverse(int n, int log_n) {
   return (int)(__brev((unsigned)n) >> (32 - log_n));
 }

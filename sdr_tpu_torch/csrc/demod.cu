@@ -17,7 +17,8 @@
 //   h2 = |h|^2, s = p / max(h2, 1e-12), inv_eff = h2 / nv; per-axis
 //   max-log LLR (level scan for L <= 4, Gray fold recursion for L >= 8;
 //   I bits then Q bits, MSB first); hard decision llr < 0 against
-//   (idx >> (bps-1-j)) & 1; integer error count per channel.
+//   (idx >> (bps-1-j)) & 1; integer error count per channel (with the
+//   pilot comb, pilot > 0, over the data tones: k % pilot != 0).
 // h is (B, 1, N) or (B, S, N), or, in the taps mode, built in the
 // kernel from per-symbol FIR taps (B, S, L <= 8):
 //   H[k] = sum_l t_l e^{-2 pi i k l / N},
@@ -54,7 +55,7 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
                    const float* __restrict__ taps_r, const float* __restrict__ taps_i,
                    int n_taps, const IdxT* __restrict__ idx, int32_t* __restrict__ out,
                    long long n_rows, int S, int log_n, int cp, int log_spb, sdr::AxisTables tab,
-                   float inv_nv, float nv, const float* __restrict__ twr,
+                   float inv_nv, float nv, int pilot, const float* __restrict__ twr,
                    const float* __restrict__ twi) {
   extern __shared__ float smem[];
   const int N = 1 << log_n;
@@ -135,7 +136,7 @@ demod_count_kernel(const float* __restrict__ re, const float* __restrict__ im,
       const int t = e >> log_n;
       const int k = e & (N - 1);
       const int v = index(t, k);
-      if (v < 0) continue;
+      if (v < 0 || (pilot && k % pilot == 0)) continue;  // past the rows, or a pilot tone
       float h_r, h_i;
       channel(t, k, h_r, h_i);
       const int err = sdr::mmse_bit_errors<M, BPSK>(sre[e], sim[e], h_r, h_i, inv_nv, tab, v);
@@ -360,8 +361,8 @@ int demod_count_tile(const float* re, const float* im, const float* hr, const fl
                      int h_syms, const float* taps_r, const float* taps_i, int n_taps,
                      const void* idx, int idx_bytes, int32_t* out, int B, int S, int log_n,
                      int cp, int bits_per_axis, int bpsk, const sdr::AxisTables& tab,
-                     float inv_nv, float nv, int despread, const float* twr, const float* twi,
-                     cudaStream_t st) {
+                     float inv_nv, float nv, int despread, int pilot, const float* twr,
+                     const float* twi, cudaStream_t st) {
   const long long n_rows = (long long)B * S;
   if (n_rows == 0) return 0;
   if (n_taps < 0 || n_taps > kMaxTaps || (despread && n_taps)) return (int)cudaErrorInvalidValue;
@@ -376,11 +377,11 @@ int demod_count_tile(const float* re, const float* im, const float* hr, const fl
       if (despread) {
         demod_count_kernel<IdxT, M, BPSK, true><<<(unsigned)blocks, sdr::kThreads, smem, st>>>(
             re, im, hr, hi, h_syms, taps_r, taps_i, n_taps, (const IdxT*)idx, out, n_rows, S,
-            log_n, cp, log_spb, tab, inv_nv, nv, twr, twi);
+            log_n, cp, log_spb, tab, inv_nv, nv, 0, twr, twi);
       } else {
         demod_count_kernel<IdxT, M, BPSK, false><<<(unsigned)blocks, sdr::kThreads, smem, st>>>(
             re, im, hr, hi, h_syms, taps_r, taps_i, n_taps, (const IdxT*)idx, out, n_rows, S,
-            log_n, cp, log_spb, tab, inv_nv, nv, twr, twi);
+            log_n, cp, log_spb, tab, inv_nv, nv, pilot, twr, twi);
       }))
   return (int)cudaGetLastError();
 }

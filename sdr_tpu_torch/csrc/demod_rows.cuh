@@ -23,7 +23,9 @@
 // inv_eff = h2 / nv; per-axis max-log LLR (common.cuh's mmse_llrs), the
 // LLRs stored in the public order out[(row·N + k)·BPS + j] or summed; the
 // count takes each LLR's sign alone (common.cuh's hard_bits, as kernel
-// F's count) and counts it against the indices.
+// F's count) and counts it against the indices, with the pilot comb
+// (pilot > 0, not with the despread) over the data tones alone: tone k
+// with k % pilot == 0 is skipped, k the natural tone index of the tail.
 //
 // The form. A group of G warps holds one symbol in registers, R points a
 // lane, in the plans of kernel G (csrc/mc.cuh): G = 1 and R = 4, 8, 16 at
@@ -112,8 +114,8 @@ int demod_count_tile(const float* re, const float* im, const float* hr, const fl
                      int h_syms, const float* taps_r, const float* taps_i, int n_taps,
                      const void* idx, int idx_bytes, int32_t* out, int B, int S, int log_n,
                      int cp, int bits_per_axis, int bpsk, const sdr::AxisTables& tab,
-                     float inv_nv, float nv, int despread, const float* twr, const float* twi,
-                     cudaStream_t st);
+                     float inv_nv, float nv, int despread, int pilot, const float* twr,
+                     const float* twi, cudaStream_t st);
 int demod_llr_tile(const float* re, const float* im, const float* hr, const float* hi,
                    int h_syms, float* out, float* partials, int B, int S, int log_n, int cp,
                    int bits_per_axis, int bpsk, const sdr::AxisTables& tab, float inv_nv,
@@ -144,6 +146,8 @@ struct RowsArgs {
   float nv;  // the despread's MMSE noise variance (clamped at 1e-12)
   int n1d;             // TP: digit rows a symbol (1 otherwise)
   const float* nv_dev;  // TP: the noise variance, one f32 on the device
+  int pilot;            // count: skip tones k with k % pilot == 0 (the comb); 0 off
+  float pilot_inv;      // 1/pilot (sdr::on_comb)
 };
 
 // N = 32 R G from 2^kRowsMinLog: below it the tile (demod.cu) runs.
@@ -423,7 +427,9 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
       if constexpr (MODE == kCount) {
         const int bits = sdr::hard_bits<M, BPSK>(y.x, y.y, h.x, h.y, norm);
         const int v = sdr::staged_index(ix, ix_bytes, k);
-        err += __popc((unsigned)((bits ^ v) & ((1 << BPS) - 1)));
+        // k is the natural tone index: the comb's tones carry no payload.
+        if (!a.pilot || !sdr::on_comb(k, a.pilot, a.pilot_inv))
+          err += __popc((unsigned)((bits ^ v) & ((1 << BPS) - 1)));
       } else {
         float llr[BPS];
         sdr::mmse_llrs<M, BPSK>(y.x, y.y, h.x, h.y, inv_nv, tab, llr);

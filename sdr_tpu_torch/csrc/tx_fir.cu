@@ -43,7 +43,7 @@ tx_fir_kernel(const IdxT* __restrict__ idx, float* __restrict__ out_re,
   for (int s0 = 0; s0 < S; s0 += spb) {
     const int n_sym = min(spb, S - s0);
     const long long row0 = (long long)b * S + s0;
-    load_symbols<IdxT, M, BPSK>(idx, row0, n_sym, log_n, log_spb, sre, sim);
+    load_symbols<IdxT, M, BPSK>(idx, row0, n_sym, log_n, log_spb, sre, sim, 0, 0.0f, 0.0f);
     for (int e = threadIdx.x; e < n_sym * n_taps; e += blockDim.x) {
       const int t = e / n_taps;
       const int l = e - t * n_taps;

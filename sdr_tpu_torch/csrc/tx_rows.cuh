@@ -12,7 +12,10 @@
 //
 // Per OFDM symbol (one row of the (B, S, N) index plane): Gray split
 // gi = idx >> m, gq = idx & (L-1), prefix-XOR Gray decode, PAM level
-// 2b - (L-1); N-point inverse DFT scaled by norm/N; cyclic prefix (the last
+// 2b - (L-1) (with the pilot comb of sdr_tx, tone k with k % spacing == 0
+// takes the pilot point instead, PILOT_VALUE / norm, and its index is not
+// read; k is the natural tone index, which the warp-group form's map step
+// reads in the time layout); N-point inverse DFT scaled by norm/N; cyclic prefix (the last
 // cp samples first); then either a complex gain hs, per link ((B,) or
 // (B, 1)) or per symbol ((B, S)), or a causal FIR y[u] = sum_l tap_l x[u-l]
 // of at most 16 taps: static (B, L), the zero-history convolution of each
@@ -104,7 +107,8 @@ struct TxArgs {
   const float* n_im;
   const int32_t* ch_ids;  // (B,) global channel ids, noise mode 2
   int B, S, log_n, cp, idx_bytes, h_syms, n_taps, taps_per_sym, noise_mode, vec;
-  float scale, sigma;
+  int pilot;              // the comb: tone k with k % pilot == 0 carries (pilot_r, pilot_i); 0 off
+  float scale, sigma, pilot_r, pilot_i, pilot_inv;  // pilot_inv = 1/pilot (sdr::on_comb)
   sdr::PhiloxKeys keys;
 };
 
@@ -231,8 +235,13 @@ __global__ void __launch_bounds__(sdr::kThreads, 3) tx_rows_kernel(const TxArgs 
     sdr::group_sync<G>(group);
     float vr[R], vi[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      sdr::pam_point<M, BPSK>(sdr::staged_index(ix, a.idx_bytes, cx.t_index(r)), vr[r], vi[r]);
+    for (int r = 0; r < R; ++r) {
+      const int k = cx.t_index(r);  // the natural tone index of point r
+      if (a.pilot && sdr::on_comb(k, a.pilot, a.pilot_inv))
+        vr[r] = a.pilot_r, vi[r] = a.pilot_i;
+      else
+        sdr::pam_point<M, BPSK>(sdr::staged_index(ix, a.idx_bytes, k), vr[r], vi[r]);
+    }
     sdr::group_sync<G>(group);  // every lane has read the row
     if (next >= 0) fetch(next);
     cx.template t2<true>(vr, vi);
@@ -418,17 +427,22 @@ __host__ int log_symbols_per_block(int log_n) { return log_n >= 9 ? 0 : 9 - log_
 
 // Gray-map n_rows_valid of the n_tr rows starting at row0 into shared
 // memory, bit-reversed within each transform; rows past the valid ones
-// are zeros.
+// are zeros. With the comb (pilot > 0), tone n with n % pilot == 0 takes
+// (pilot_r, pilot_i) and its index is not read.
 template <typename IdxT, int M, bool BPSK>
 __device__ __forceinline__ void load_symbols(const IdxT* __restrict__ idx, long long row0,
                                              int n_valid, int log_n, int log_tr, float* sre,
-                                             float* sim) {
+                                             float* sim, int pilot, float pilot_r,
+                                             float pilot_i) {
   const int N = 1 << log_n;
   for (int e = threadIdx.x; e < (1 << (log_tr + log_n)); e += blockDim.x) {
     const int t = e >> log_n;
     const int n = e & (N - 1);
     float xr = 0.0f, xi = 0.0f;
-    if (t < n_valid) sdr::pam_point<M, BPSK>((int)idx[((row0 + t) << log_n) + n], xr, xi);
+    if (t < n_valid && pilot && n % pilot == 0)  // the tile: N <= 64
+      xr = pilot_r, xi = pilot_i;
+    else if (t < n_valid)
+      sdr::pam_point<M, BPSK>((int)idx[((row0 + t) << log_n) + n], xr, xi);
     const int dst = (t << log_n) + sdr::bit_reverse(n, log_n);
     sre[dst] = xr;
     sim[dst] = xi;

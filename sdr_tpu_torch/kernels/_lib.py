@@ -41,6 +41,8 @@ NVCC_FLAGS = (
 
 # Launch counters, one per kernel and mode: "tx_taps" is kernel B's FIR
 # mode, "tx_off" its channel-off mode (no gain, no FIR, no noise),
+# "tx_comb" any of its modes with the pilot comb, "demod_count_comb"
+# kernel C's count skipping the comb's tones,
 # "fade_awgn_fir" kernel E's FIR mode ("fade_awgn" its gains and noise),
 # "demod_count_taps" and "demod_count_despread" kernel C's taps= and
 # despread modes, "demod_llr"/"demod_sum" (and their "_despread"
@@ -57,7 +59,8 @@ LAUNCHES = {"payload": 0, "tx": 0, "tx_taps": 0, "tx_off": 0, "demod_count": 0, 
             "demod_llr_cl_bf16": 0, "ldpc_minsum": 0, "ldpc_minsum_layered": 0,
             "ldpc_minsum_t": 0, "ldpc_minsum_t_layered": 0, "llr_chain": 0,
             "llr_chain_sum": 0, "demod_sum_cl_in_bf16": 0, "demod_count_cl_in_bf16": 0,
-            "demod_llr_cl_in_bf16": 0, "demod_llr_cl_bf16_in_bf16": 0, "tp_stage2_llr": 0}
+            "demod_llr_cl_in_bf16": 0, "demod_llr_cl_bf16_in_bf16": 0, "tp_stage2_llr": 0,
+            "tx_comb": 0, "demod_count_comb": 0}
 
 _lib = None
 
@@ -188,13 +191,13 @@ class McParams(ctypes.Structure):
 _SIGNATURES = {
     "sdr_payload": [_P, _I, _P, _I, _I, _I, _I, _I, _U, _U, _P],
     "sdr_tx": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I,
-               _I, _P, _P, _P, _U, _U, _F, _P],
+               _I, _P, _P, _P, _U, _U, _F, _I, _F, _F, _P],
     "sdr_tx_fir": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _I, _I,
                    _I, _P, _P, _P, _U, _U, _F, _P],
     "sdr_fade_awgn": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I,
                       _P, _P, _P, _U, _U, _F, _P],
     "sdr_demod_count": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                        _I, AxisTables, _F, _F, _I, _P, _P, _P],
+                        _I, AxisTables, _F, _F, _I, _I, _P, _P, _P],
     "sdr_demod_sum_cl_partials": [_I, _I, _I],
     "sdr_demod_sum_cl": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          AxisTables, _F, _P, _P, _P],

@@ -15,6 +15,12 @@ H[k] = Σ_l t_l·e^{−2πikl/N} the kernel builds per bin, so the (B, S, N)
 plane never exists in device memory; that mode counts its launches
 under ``demod_count_taps``.
 
+``pilot_spacing`` (in [2, N], not with ``despread``; 0 off) counts the
+data tones of the OFDM pilot comb alone: tone k with k % pilot_spacing
+== 0 carries ``ops.pilots.PILOT_VALUE``, no payload, and is skipped, so
+the count is the JAX count over ``ops.pilots.data_indices``. That mode
+counts its launches under ``demod_count_comb``.
+
 ``despread=True`` is the SC-FDE receive of full-grid SC-FDMA
 (``ops.equalize.equalize_mmse_fde``): per tone the biased MMSE
 conj(h)·y/(|h|² + nv), per symbol the tone mean b = max(mean(|h|²/(|h|² +
@@ -98,6 +104,7 @@ from sdr_tpu_torch.ops.fft import fft
 from sdr_tpu_torch.ops.llr import axis_metric
 from sdr_tpu_torch.ops.modulation import _ints_to_bits
 from sdr_tpu_torch.ops.ofdm import ofdm_rx
+from sdr_tpu_torch.ops.pilots import data_tones
 
 _IDX_DTYPES = (torch.int8, torch.int16, torch.int32)
 MAX_N_FFT = 4096  # the warp-group form's widest: 8 warps of 16 points a lane
@@ -176,27 +183,41 @@ def taps_plane(taps, n_fft: int):
     return h.real.contiguous(), h.imag.contiguous()
 
 
+def _check_comb(pilot_spacing: int, n_fft: int, despread: bool) -> None:
+    if pilot_spacing and not 2 <= pilot_spacing <= n_fft:
+        raise ValueError(f"demod count: pilot_spacing must be 0 or in [2, {n_fft}], got "
+                         f"{pilot_spacing}")
+    if pilot_spacing and despread:
+        raise ValueError("demod count: the pilot comb is an OFDM grid; despread takes none")
+
+
 def demod_count_plain(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: float,
-                      taps=None, despread: bool = False):
+                      taps=None, despread: bool = False, pilot_spacing: int = 0):
     """Plain torch version of the count."""
+    _check_comb(pilot_spacing, idx.shape[-1], despread)
     if taps is not None:
         hr, hi = taps_plane(taps, idx.shape[-1])
     llr = demod_chain(re, im, hr, hi, cp_len, mod, noise_var, despread=despread)
+    if pilot_spacing:
+        llr = data_tones(llr, pilot_spacing, mod.bits_per_symbol)
+        idx = data_tones(idx, pilot_spacing)
     return count_errors(llr, idx, mod.bits_per_symbol)
 
 
 def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: float,
-                taps=None, despread: bool = False):
+                taps=None, despread: bool = False, pilot_spacing: int = 0):
     """Per-channel (B,) int32 bit-error counts.
 
     re/im (B, S, N+cp) float32; hr/hi (B, 1, N) or (B, S, N) float32, or
     None with ``taps=(taps_r, taps_i)`` float32 (B, S, L ≤ 8); idx
     (B, S, N) int8/int16/int32 transmitted symbol indices (time-domain
-    symbols with ``despread``, which takes the h plane, not taps)."""
+    symbols with ``despread``, which takes the h plane, not taps);
+    ``pilot_spacing``: count the data tones of the comb alone."""
     if despread and taps is not None:
         raise ValueError("demod count: despread takes the h plane, not taps=")
     if re.device.type == "cpu":
-        return demod_count_plain(re, im, hr, hi, idx, cp_len, mod, noise_var, taps, despread)
+        return demod_count_plain(re, im, hr, hi, idx, cp_len, mod, noise_var, taps, despread,
+                                 pilot_spacing)
     chan = (hr, hi) if taps is None else tuple(taps)
     if not supported(re.shape, chan[0].shape, idx.shape, cp_len):
         raise ValueError(
@@ -210,6 +231,7 @@ def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: fl
         raise ValueError("demod count kernel: sample and channel planes must be float32 pairs")
     if idx.dtype not in _IDX_DTYPES:
         raise ValueError(f"demod count kernel: indices must be int8/16/32, got {idx.dtype}")
+    _check_comb(pilot_spacing, idx.shape[-1], despread)
     _lib.require_cuda("demod_count", re, im, *chan, idx)
     B, S, sym_len = re.shape
     N = sym_len - cp_len
@@ -224,9 +246,9 @@ def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: fl
         idx.data_ptr(), idx.element_size(), out.data_ptr(), B, S, _lib.log2_exact(N),
         cp_len, mod.bits_per_axis, int(mod is Modulation.BPSK), _lib.axis_tables(mod),
         inv_noise_var(noise_var), max(float(noise_var), 1e-12), int(despread),
-        twr.data_ptr(), twi.data_ptr(), _lib.stream(),
+        pilot_spacing, twr.data_ptr(), twi.data_ptr(), _lib.stream(),
     )
-    name = "demod_count_taps" if taps is not None else (
+    name = "demod_count_comb" if pilot_spacing else "demod_count_taps" if taps is not None else (
         "demod_count_despread" if despread else "demod_count")
     _lib.check(rc, name)
     _lib.LAUNCHES[name] += 1

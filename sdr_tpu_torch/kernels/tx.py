@@ -27,6 +27,13 @@ Noise modes:
   0) on ``seed ^ ROLE_NOISE``, Box–Muller on words 0 and 1;
 - neither: channel off (``tx_chain``), the waveform alone.
 
+The pilot comb (``pilot_spacing`` in [2, N], any mode but the FIR; 0 off):
+tone k with k % pilot_spacing == 0 carries ``ops.pilots.PILOT_VALUE``
+in place of its index's point (the index plane stays (B, S, N); its
+entries at the pilot tones are not read), as ``ops.pilots.insert_pilots``
+lays out the grid of the JAX ``tx_chain``. It counts its launches under
+``tx_comb``.
+
 At N = 128 to 4096 the kernel runs its warp-group form
 (``csrc/tx_rows.cuh``: a symbol in the registers of 1–8 warps, the
 inverse DFT by shuffles, a block a run of 32 symbols of one channel), which
@@ -38,8 +45,9 @@ matmul split; N = 2 to 64 runs a shared-memory tile.
 On a CPU tensor the plain version (``tx_channel_plain``) runs; on a
 CUDA tensor the CUDA kernel runs (``csrc/tx.cu`` without the FIR,
 ``csrc/tx_fir.cu`` with it), or the call raises. The FIR mode counts its
-launches under ``tx_taps``, the channel-off mode (``tx_chain``: no gain,
-no FIR, no noise) under ``tx_off``, the others under ``tx``.
+launches under ``tx_taps``, the pilot comb under ``tx_comb``, the
+channel-off mode (``tx_chain``: no gain, no FIR, no noise) under
+``tx_off``, the others under ``tx``.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from sdr_tpu_torch.kernels import _lib
 from sdr_tpu_torch.ops.channel import grid_fir
 from sdr_tpu_torch.ops.modulation import constellation
 from sdr_tpu_torch.ops.ofdm import ofdm_tx
+from sdr_tpu_torch.ops.pilots import PILOT_VALUE, pilot_indices
 
 _IDX_DTYPES = (torch.int8, torch.int16, torch.int32)
 MAX_N_FFT = 4096  # the widest plan of the warp-group form (8 warps of 16 points a lane)
@@ -98,15 +107,25 @@ def _taps_shape(taps_r, B: int, S: int) -> bool:
     raise ValueError(f"tx: taps must be (B, L) or (B, S, L), got {tuple(taps_r.shape)}")
 
 
+def _check_comb(pilot_spacing: int, n_fft: int, taps_r) -> None:
+    if pilot_spacing and not 2 <= pilot_spacing <= n_fft:
+        raise ValueError(f"tx: pilot_spacing must be 0 or in [2, {n_fft}], got {pilot_spacing}")
+    if pilot_spacing and taps_r is not None:
+        raise ValueError("tx: the pilot comb does not run with the FIR")
+
+
 def tx_channel_plain(idx, cp_len: int, mod: Modulation, hs_r=None, hs_i=None,
                      noise_var: float = 0.0, noise=None, seed=None, ch_ids=None,
-                     taps_r=None, taps_i=None):
+                     taps_r=None, taps_i=None, pilot_spacing: int = 0):
     """Plain torch version (same arguments and modes as ``tx_channel``)."""
     mode = _noise_mode(noise, seed, ch_ids)
     if hs_r is not None and taps_r is not None:
         raise ValueError("tx: taps and scalar gains are mutually exclusive")
     B, S, N = idx.shape
+    _check_comb(pilot_spacing, N, taps_r)
     pts = constellation(mod, idx.device)[idx.to(torch.int64)]
+    if pilot_spacing:
+        pts[..., list(pilot_indices(N, pilot_spacing))] = PILOT_VALUE
     x = ofdm_tx(pts, cp_len)
     if taps_r is not None:
         _taps_shape(taps_r, B, S)
@@ -129,17 +148,17 @@ def tx_channel_plain(idx, cp_len: int, mod: Modulation, hs_r=None, hs_i=None,
 
 def tx_channel(idx, cp_len: int, mod: Modulation, hs_r=None, hs_i=None,
                noise_var: float = 0.0, noise=None, seed=None, ch_ids=None,
-               taps_r=None, taps_i=None):
+               taps_r=None, taps_i=None, pilot_spacing: int = 0):
     """Fused TX + channel over explicit indices.
 
     idx (B, S, N) int8/int16/int32; hs_r/hs_i float32 gains (B,), (B, 1)
     or (B, S), or None; taps_r/taps_i float32 FIR taps (B, L) or
     (B, S, L), L ≤ 16, or None; see the module docstring for the noise
-    modes. Returns (re, im) (B, S, N+cp) float32."""
+    modes and the pilot comb. Returns (re, im) (B, S, N+cp) float32."""
     mode = _noise_mode(noise, seed, ch_ids)
     if idx.device.type == "cpu":
         return tx_channel_plain(idx, cp_len, mod, hs_r, hs_i, noise_var, noise, seed, ch_ids,
-                                taps_r, taps_i)
+                                taps_r, taps_i, pilot_spacing)
     if not supported(idx.shape, cp_len, mod):
         raise ValueError(f"tx kernel: unsupported shape {tuple(idx.shape)} cp={cp_len}")
     if idx.dtype not in _IDX_DTYPES:
@@ -147,6 +166,7 @@ def tx_channel(idx, cp_len: int, mod: Modulation, hs_r=None, hs_i=None,
     if hs_r is not None and taps_r is not None:
         raise ValueError("tx: taps and scalar gains are mutually exclusive")
     B, S, N = idx.shape
+    _check_comb(pilot_spacing, N, taps_r)
     if N >= 128 and idx.data_ptr() % 16:
         raise ValueError("tx kernel: the index plane must start 16-byte aligned (cp.async rows)")
     L = N + cp_len
@@ -190,8 +210,12 @@ def tx_channel(idx, cp_len: int, mod: Modulation, hs_r=None, hs_i=None,
                   _lib.ptr(ch_ids) if mode == 2 else None,
                   k0, k1, _sigma(noise_var), _lib.stream())
     if taps_r is None:
-        counter = "tx_off" if hs_r is None and mode == 0 else "tx"
-        rc = _lib.lib().sdr_tx(*common, _lib.ptr(hs_r), _lib.ptr(hs_i), h_syms, *noise_args)
+        counter = "tx_comb" if pilot_spacing else (
+            "tx_off" if hs_r is None and mode == 0 else "tx")
+        p_r, p_i = (PILOT_VALUE.real / mod.unit_energy_scale,
+                    PILOT_VALUE.imag / mod.unit_energy_scale)
+        rc = _lib.lib().sdr_tx(*common, _lib.ptr(hs_r), _lib.ptr(hs_i), h_syms, *noise_args[:-1],
+                               pilot_spacing, p_r, p_i, noise_args[-1])
         _lib.check(rc, counter)
         _lib.LAUNCHES[counter] += 1
     else:
@@ -202,6 +226,7 @@ def tx_channel(idx, cp_len: int, mod: Modulation, hs_r=None, hs_i=None,
     return out_re, out_im
 
 
-def tx_chain(idx, cp_len: int, mod: Modulation):
-    """The waveform alone (channel off): ``tx_chain_pallas``'s contract."""
-    return tx_channel(idx, cp_len, mod)
+def tx_chain(idx, cp_len: int, mod: Modulation, pilot_spacing: int = 0):
+    """The waveform alone (channel off): ``tx_chain_pallas``'s contract;
+    with ``pilot_spacing``, the comb of ``ops.pilots.insert_pilots``."""
+    return tx_channel(idx, cp_len, mod, pilot_spacing=pilot_spacing)

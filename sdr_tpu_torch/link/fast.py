@@ -43,8 +43,9 @@ The BER is validated statistically against theory (``link/ber.py``,
 and the BER over the drawn channel), as the JAX engine's is; it is a
 different stream from the JAX engine's threefry and on-core draws.
 
-Not covered: pilots and MIMO raise ``NotImplementedError`` naming the
-ROADMAP entry that ports them.
+Not covered: pilots raise ``NotImplementedError`` (they run in
+``link.pipeline.simulate``, as in the JAX package), and MIMO names the
+ROADMAP entry that ports it.
 
 The entry points run on the card (``device="cuda"``) unless the caller
 asks for the CPU; without a card they raise, nothing moves to the CPU.
@@ -80,7 +81,7 @@ def check_supported(cfg: LinkConfig, layout: str = "auto") -> None:
     if cfg.pilot_spacing:
         raise NotImplementedError(
             "fast_simulate is the full-grid throughput path; pilot-based "
-            "estimation is ported with link.pipeline (ROADMAP queue 1, item 11c)"
+            "estimation lives in link.pipeline.simulate (pilot_spacing=0 here)"
         )
     if cfg.mimo is not None:
         raise NotImplementedError(

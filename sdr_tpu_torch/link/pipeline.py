@@ -1,9 +1,10 @@
 """End-to-end link pipeline: bits → TX → channel → RX → LLR → BER.
 
-Port of the SISO genie-CSI core of ``sdr_tpu/link/pipeline.py`` (ROADMAP
-queue 1, item 11a): ``LinkResult``, ``generate_bits``, ``tx_chain``,
+Port of the SISO core of ``sdr_tpu/link/pipeline.py`` (ROADMAP queue 1,
+items 11a and 11c): ``LinkResult``, ``generate_bits``, ``tx_chain``,
 ``apply_channel`` (the seven channel models of ``_apply_channel_model``),
-``rx_chain``'s genie branches, ``simulate`` and ``make_simulate_fn``. The
+``rx_chain``'s genie and pilot branches, ``simulate`` and
+``make_simulate_fn``. The
 whole link runs at batch level on (n_channels, n_symbols, ·) planes, and
 on the card through the port's kernels wherever one computes the same
 function (the JAX pipeline has no Pallas kernel; the port's rules keep the
@@ -29,6 +30,21 @@ plain versions of the kernels off the card):
 - The noise variance follows the JAX receiver: the Eb/N0 variance, 0 for
   IDENTITY, floored at 1e-12 (so IDENTITY's LLRs reach about 1e12, with
   their signs).
+- Pilots (``cfg.pilot_spacing``, ``ops/pilots.py``). OFDM comb: kernel B
+  puts ``PILOT_VALUE`` on every spacing-th tone; the receiver takes one
+  torch FFT of the frame (``ops.ofdm.ofdm_rx``) for the pilot tones, the
+  LS or DFT estimate (frame-averaged, per symbol for the time-varying
+  models, or phase-tracked with ``track_phase``) is kernel C's h plane,
+  and C's count skips the pilot tones (``pilot_spacing``), or its LLR
+  plane is cut to the data tones. SC-FDMA block pilots: a Zadoff–Chu
+  symbol (``ofdm_tx(zadoff_chu(N))``) heads each block of spacing rows,
+  the data rows are ``link.fast.scfdma_tx``'s; the receiver transforms
+  the pilot rows (``ofdm_rx``), estimates (frame-static, DFT-projected,
+  or interpolated per block for RAYLEIGH_TIME and per tone for
+  MULTIPATH_TIME) and runs C's despread on the data rows, gathered to
+  (B, n_data_symbols, N+cp). The payload is kernel A's (B, S, N) grid at
+  the data tones or rows (pilot tones and rows are drawn and discarded),
+  so a pilot link and its genie twin carry the same data there.
 
 Every draw is keyed Philox on (seed, role, global channel id, position)
 — the payload on ``ROLE_PAYLOAD``, the fading on ``ROLE_FADING``, the
@@ -37,9 +53,9 @@ JAX package's per-channel ``fold_in`` threefry keys. ``s0`` (a time
 block's first symbol, ``link.stream``) moves every per-symbol draw to the
 block's absolute symbols, so a blocked stream equals the whole frame.
 
-Not covered: pilots raise ``NotImplementedError`` naming ROADMAP queue 1,
-item 11c, front-end impairments (PA, phase noise, I/Q, blind acquisition)
-item 11d and MIMO item 11e. The entry points run on the card
+Not covered: front-end impairments (PA, phase noise, I/Q, blind
+acquisition) raise ``NotImplementedError`` naming ROADMAP queue 1, item
+11d, and MIMO item 11e. The entry points run on the card
 (``device="cuda"``) unless the caller asks for the CPU; without a card
 they raise, and a CUDA tensor that a kernel refuses raises: nothing falls
 back to plain torch or to the CPU.
@@ -52,17 +68,24 @@ import functools
 
 import torch
 
-from sdr_tpu_torch.core.config import ChannelModel, Equalizer, LinkConfig
+from sdr_tpu_torch.core.config import (
+    TIME_VARYING_MODELS,
+    ChannelEstimator,
+    ChannelModel,
+    Equalizer,
+    LinkConfig,
+)
 from sdr_tpu_torch.kernels import demod as _kc
 from sdr_tpu_torch.kernels import tx as _kb
 from sdr_tpu_torch.kernels.channel import fade_awgn
 from sdr_tpu_torch.kernels.payload import out_dtype, payload_idx
 from sdr_tpu_torch.link import fast
 from sdr_tpu_torch.ops import equalize as eq
+from sdr_tpu_torch.ops import pilots as pil
 from sdr_tpu_torch.ops.fft import ifft
 from sdr_tpu_torch.ops.llr import llr_maxlog, llr_to_hard_bits
 from sdr_tpu_torch.ops.modulation import _bits_to_ints, _ints_to_bits
-from sdr_tpu_torch.ops.ofdm import ofdm_rx
+from sdr_tpu_torch.ops.ofdm import ofdm_rx, ofdm_tx
 
 _SELECTIVE = (ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME)
 
@@ -73,7 +96,7 @@ class LinkResult:
 
     bit_errors: torch.Tensor  # (n_channels,) int32
     bits_counted: torch.Tensor  # (n_channels,) int32
-    llrs: torch.Tensor | None = None  # (n_channels, n_symbols, bits/sym) float32 or None
+    llrs: torch.Tensor | None = None  # (n_channels, n_data_symbols, bits/sym) f32 or None
 
     @property
     def ber(self) -> torch.Tensor:
@@ -83,7 +106,7 @@ class LinkResult:
 
 def check_supported(cfg: LinkConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for what the
-    SISO genie-CSI core does not run yet."""
+    SISO core does not run yet."""
     if cfg.mimo is not None:
         raise NotImplementedError(
             "link.pipeline runs SISO links; MIMO (ops/mimo.py, the detectors) is "
@@ -93,10 +116,6 @@ def check_supported(cfg: LinkConfig) -> None:
         raise NotImplementedError(
             "front-end impairments (PA, phase noise, I/Q imbalance, timing/CFO acquisition) "
             "are ROADMAP queue 1, item 11d")
-    if cfg.pilot_spacing:
-        raise NotImplementedError(
-            "link.pipeline runs genie-CSI links; pilot-based estimation (ops/pilots.py) is "
-            "ROADMAP queue 1, item 11c")
 
 
 def noise_var(cfg: LinkConfig) -> float:
@@ -113,28 +132,92 @@ def draw_idx(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, s0: int = 0,
     return payload_idx(n, cfg.ofdm.n_fft, cfg.modulation.bits_per_symbol, seed, ch_ids, s0)
 
 
+def _block_view(cfg: LinkConfig, t: torch.Tensor) -> torch.Tensor:
+    """A (B, S, ...) plane as (B, S/p, p, ...): row 0 of each block is the
+    pilot symbol."""
+    B, S = t.shape[:2]
+    return t.reshape(B, S // cfg.pilot_spacing, cfg.pilot_spacing, *t.shape[2:])
+
+
+def _data_rows(cfg: LinkConfig, t: torch.Tensor) -> torch.Tensor:
+    """The data rows of a block-pilot frame's (B, S, ...) plane, gathered
+    to (B, n_data_symbols, ...)."""
+    return _block_view(cfg, t)[:, :, 1:].reshape(t.shape[0], cfg.n_data_symbols, *t.shape[2:])
+
+
+def payload_of(cfg: LinkConfig, idx: torch.Tensor) -> torch.Tensor:
+    """The payload of kernel A's (B, S, N) grid: its data tones (comb) or
+    rows (block pilots), in ``modulate``'s order; the grid itself without
+    pilots."""
+    if not cfg.pilot_spacing:
+        return idx
+    return _data_rows(cfg, idx) if cfg.dft_spread else pil.data_tones(idx, cfg.pilot_spacing)
+
+
 def generate_bits(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, s0: int = 0,
                   n_symbols: int | None = None) -> torch.Tensor:
-    """Source bits (B, n_symbols, N·bps) int8: the bits of kernel A's
-    indices in ``modulate``'s order (MSB first per symbol)."""
-    idx = draw_idx(cfg, seed, ch_ids, s0, n_symbols)
+    """Source bits (B, n_data_symbols, bits_per_ofdm_symbol) int8: the bits
+    of kernel A's indices at the payload positions (``payload_of``; a
+    pilot frame is drawn whole) in ``modulate``'s order (MSB first per
+    symbol)."""
+    if cfg.pilot_spacing and (s0 or n_symbols not in (None, cfg.n_symbols)):
+        raise ValueError("a pilot frame's payload is drawn for the whole frame")
+    idx = payload_of(cfg, draw_idx(cfg, seed, ch_ids, s0, n_symbols))
     return _ints_to_bits(idx, cfg.modulation.bits_per_symbol)
 
 
+@functools.lru_cache(maxsize=None)
+def _zc_row(n_fft: int, cp_len: int, device: str):
+    """The block pilots' reference waveform, planar (N+cp,) each:
+    ``ofdm_tx(zadoff_chu(N))`` (the 1/N inverse), made once per (N, cp,
+    device)."""
+    z = ofdm_tx(torch.from_numpy(pil.zadoff_chu(n_fft)), cp_len)
+    return fast._planar(z.to(device))
+
+
+def _block_tx(cfg: LinkConfig, idx: torch.Tensor):
+    """Block-pilot SC-FDMA TX of A's (B, S, N) grid: the data rows through
+    ``link.fast.scfdma_tx``, each block headed by the Zadoff–Chu row."""
+    B, S, _ = idx.shape
+    L = cfg.ofdm.n_fft + cfg.ofdm.cp_len
+    data = fast.scfdma_tx(cfg, _block_view(cfg, idx)[:, :, 1:])  # (B, S/p, p-1, L) each
+    zc = _zc_row(cfg.ofdm.n_fft, cfg.ofdm.cp_len, str(idx.device))
+    return tuple(torch.cat([z.expand(B, S // cfg.pilot_spacing, 1, L), d], dim=2).reshape(B, S, L)
+                 for z, d in zip(zc, data))
+
+
 def tx_idx(cfg: LinkConfig, idx: torch.Tensor):
-    """The waveform of explicit indices: planar (re, im), each (B, S, N+cp)
-    float32 — kernel B with the channel off, or SC-FDMA's full-grid TX."""
+    """The waveform of A's (B, S, N) grid: planar (re, im), each
+    (B, S, N+cp) float32 — kernel B with the channel off (with the comb
+    when the config has pilots), or SC-FDMA's full-grid TX (with block
+    pilots: its data rows; see ``_block_tx``)."""
     if cfg.dft_spread:
-        return fast.scfdma_tx(cfg, idx)
-    return _kb.tx_chain(idx, cfg.ofdm.cp_len, cfg.modulation)
+        return _block_tx(cfg, idx) if cfg.pilot_spacing else fast.scfdma_tx(cfg, idx)
+    return _kb.tx_chain(idx, cfg.ofdm.cp_len, cfg.modulation, pilot_spacing=cfg.pilot_spacing)
+
+
+def _grid_of(cfg: LinkConfig, ints: torch.Tensor) -> torch.Tensor:
+    """The payload's indices (B, n_data_symbols, n_data) laid on a (B, S, N)
+    grid, zeros at the pilot tones or rows (``tx_idx`` reads none there)."""
+    if not cfg.pilot_spacing:
+        return ints
+    B = ints.shape[0]
+    grid = torch.zeros((B, cfg.n_symbols, cfg.ofdm.n_fft), dtype=ints.dtype, device=ints.device)
+    if cfg.dft_spread:
+        _block_view(cfg, grid)[:, :, 1:] = ints.reshape(
+            B, cfg.n_pilot_symbols, cfg.pilot_spacing - 1, -1)
+    else:
+        grid[..., list(pil.data_indices(cfg.ofdm.n_fft, cfg.pilot_spacing))] = ints
+    return grid
 
 
 def tx_chain(cfg: LinkConfig, bits: torch.Tensor):
-    """Bits (B, S, N·bps) → time samples, planar (re, im) (B, S, N+cp): the
-    bits packed to indices MSB first, then ``tx_idx``."""
+    """Bits (B, n_data_symbols, bits_per_ofdm_symbol) → time samples, planar
+    (re, im) (B, S, N+cp): the bits packed to indices MSB first, laid on
+    the data tones or rows, then ``tx_idx``."""
     check_supported(cfg)
     bps = cfg.modulation.bits_per_symbol
-    return tx_idx(cfg, _bits_to_ints(bits, bps).to(out_dtype(bps)))
+    return tx_idx(cfg, _grid_of(cfg, _bits_to_ints(bits, bps).to(out_dtype(bps))))
 
 
 def apply_channel(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, tx, *, s0: int = 0,
@@ -233,45 +316,117 @@ def _rx_plain(cfg: LinkConfig, re, im, h, nv: float) -> torch.Tensor:
     return llr_maxlog(s, cfg.modulation, eff)
 
 
-def rx_chain(cfg: LinkConfig, rx, h_freq, noise_var):
-    """Receiver: planar samples (B, S, N+cp) → (llrs (B, S, N·bps) float32
-    in the public order, hard bits int8). Kernel C's LLR mode (SC-FDMA:
-    its despread mode) wherever it computes the branch (``_kernel_h``);
-    the SC-FDMA ZF despread, and the unequalised despread at a noise
-    variance below ``_DESPREAD_UNIT_NV_MIN``, in plain torch."""
-    check_supported(cfg)
+def _comb_estimate(cfg: LinkConfig, y: torch.Tensor, track_phase: bool) -> torch.Tensor:
+    """The comb's estimate from the post-FFT grid (B, S, N)
+    (pipeline.py:324-369): LS or DFT, per symbol for the time-varying
+    models, phase-tracked with ``track_phase``, else frame-averaged →
+    (B, 1 | S, N)."""
+    sp = cfg.pilot_spacing
+    base = pil.estimate_ls_comb
+    if cfg.estimator == ChannelEstimator.DFT:
+        base = functools.partial(
+            pil.estimate_dft_comb, n_taps=pil.dft_n_taps(cfg.ofdm.n_fft, cfg.ofdm.cp_len, sp))
+    if cfg.channel.model in TIME_VARYING_MODELS:
+        return base(y, sp, per_symbol=True)
+    if track_phase:
+        return pil.estimate_ls_comb_tracked(y, sp, base=base)
+    return base(y, sp, per_symbol=False)
+
+
+def _block_estimate(cfg: LinkConfig, y_pil: torch.Tensor) -> torch.Tensor:
+    """The block pilots' estimate from the post-FFT pilot rows (B, S/p, N)
+    (pipeline.py:283-329): interpolated per block (RAYLEIGH_TIME) or per
+    tone (MULTIPATH_TIME) → (B, n_data_symbols, N); else frame-static,
+    DFT-projected with the DFT estimator → (B, 1, N)."""
+    p, N = cfg.pilot_spacing, cfg.ofdm.n_fft
+    if cfg.channel.model == ChannelModel.RAYLEIGH_TIME:
+        h = pil.estimate_block_pilots_interp(y_pil, p)
+    elif cfg.channel.model == ChannelModel.MULTIPATH_TIME:
+        h = pil.estimate_block_pilots_interp_full(y_pil, p)
+    else:
+        n_taps = min(cfg.ofdm.cp_len + 1, N) if cfg.estimator == ChannelEstimator.DFT else 0
+        return pil.estimate_block_pilots(y_pil, n_taps)[:, None, :]
+    return h.reshape(y_pil.shape[0], cfg.n_data_symbols, N)
+
+
+def _estimate(cfg: LinkConfig, rx, track_phase: bool = False):
+    """A pilot frame's receive front: (the planes of its data symbols, the
+    estimated response that broadcasts against their grid). Comb: the
+    frame's planes, and the estimate from one torch FFT of the frame;
+    block pilots: the data rows gathered to (B, n_data_symbols, N+cp),
+    and the estimate from the FFT of the pilot rows."""
     re, im = rx
-    nv = max(float(noise_var), 1e-12)
+    cp = cfg.ofdm.cp_len
+    if cfg.dft_spread:
+        rows = tuple(_block_view(cfg, t)[:, :, 0] for t in rx)
+        h = _block_estimate(cfg, ofdm_rx(torch.complex(*rows), cp))
+        return (_data_rows(cfg, re), _data_rows(cfg, im)), h
+    return rx, _comb_estimate(cfg, ofdm_rx(torch.complex(re, im), cp), track_phase)
+
+
+def _llrs(cfg: LinkConfig, rx, h_freq, nv: float) -> torch.Tensor:
+    """The LLR plane (B, S', N·bps) of the planes ``rx`` (the whole grid;
+    the comb's pilot tones included)."""
+    re, im = rx
     kernel, h = _kernel_h(cfg, h_freq, nv)
     if kernel:
         hr, hi = _h_plane(h, re.shape[0], cfg.ofdm.n_fft, re.device)
-        llrs = _kc.demod_llr(re, im, hr, hi, cfg.ofdm.cp_len, cfg.modulation, nv,
+        return _kc.demod_llr(re, im, hr, hi, cfg.ofdm.cp_len, cfg.modulation, nv,
                              despread=cfg.dft_spread)
-    else:
-        llrs = _rx_plain(cfg, re, im, h_freq, nv)
+    return _rx_plain(cfg, re, im, h_freq, nv)
+
+
+def rx_chain(cfg: LinkConfig, rx, h_freq, noise_var, track_phase: bool = False):
+    """Receiver: planar samples (B, S, N+cp) → (llrs (B, n_data_symbols,
+    bits_per_ofdm_symbol) float32 in the public order, hard bits int8).
+    Kernel C's LLR mode (SC-FDMA: its despread mode) wherever it computes
+    the branch (``_kernel_h``); the SC-FDMA ZF despread, and the
+    unequalised despread at a noise variance below
+    ``_DESPREAD_UNIT_NV_MIN``, in plain torch. With pilots the response is
+    estimated (``_estimate``; ``h_freq`` is not read, and
+    ``track_phase`` selects the comb's tracked estimator for the
+    frame-static models) and only the data tones or rows are demapped."""
+    check_supported(cfg)
+    nv = max(float(noise_var), 1e-12)
+    if cfg.pilot_spacing:
+        rx, h_freq = _estimate(cfg, rx, track_phase)
+    llrs = _llrs(cfg, rx, h_freq, nv)
+    if cfg.pilot_spacing and not cfg.dft_spread:
+        llrs = pil.data_tones(llrs, cfg.pilot_spacing, cfg.modulation.bits_per_symbol)
     return llrs, llr_to_hard_bits(llrs)
 
 
-def count_errors(cfg: LinkConfig, rx, h_freq, noise_var, idx: torch.Tensor) -> torch.Tensor:
-    """Per-channel (B,) int32 bit errors of the received planes against the
-    transmitted indices: kernel C's count on ``_kernel_h``'s response (its
-    hard decisions do not depend on nv, so the unequalised despread counts
-    there at any nv), the SC-FDMA ZF despread through ``rx_chain``'s plane."""
-    re, im = rx
+def count_errors(cfg: LinkConfig, rx, h_freq, noise_var, idx: torch.Tensor,
+                 track_phase: bool = False) -> torch.Tensor:
+    """Per-channel (B,) int32 bit errors of the received planes against
+    kernel A's transmitted grid ``idx`` (B, S, N): kernel C's count on
+    ``_kernel_h``'s response (its hard decisions do not depend on nv, so
+    the unequalised despread counts there at any nv), the SC-FDMA ZF
+    despread through the plain plane. With pilots, on the estimate
+    (``_estimate``): the comb's count skips the pilot tones, the block
+    pilots' counts the gathered data rows."""
     nv = max(float(noise_var), 1e-12)
     mod = cfg.modulation
+    comb = 0
+    if cfg.pilot_spacing:
+        rx, h_freq = _estimate(cfg, rx, track_phase)
+        if cfg.dft_spread:
+            idx = _data_rows(cfg, idx)
+        else:
+            comb = cfg.pilot_spacing
+    re, im = rx
     kernel, h = _kernel_h(cfg, h_freq, nv)
     if not kernel and h is not None:
-        llrs, _ = rx_chain(cfg, rx, h_freq, nv)
-        return _kc.count_errors(llrs, idx, mod.bits_per_symbol)
+        return _kc.count_errors(_llrs(cfg, rx, h_freq, nv), idx, mod.bits_per_symbol)
     hr, hi = _h_plane(h, re.shape[0], cfg.ofdm.n_fft, re.device)
     return _kc.demod_count(re, im, hr, hi, idx, cfg.ofdm.cp_len, mod, nv,
-                           despread=cfg.dft_spread)
+                           despread=cfg.dft_spread, pilot_spacing=comb)
 
 
 def simulate_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, want_llrs: bool = False):
     """The link over explicit GLOBAL channel ids (B,) int32 on the target
-    device: (bit_errors, bits_counted, llrs | None)."""
+    device: (bit_errors, bits_counted, llrs | None). bits_counted is
+    n_data_symbols × bits_per_ofdm_symbol: the payload alone."""
     check_supported(cfg)
     idx = draw_idx(cfg, seed, ch_ids)
     rx, h_freq, nv = apply_channel(cfg, seed, ch_ids, tx_idx(cfg, idx))
@@ -280,7 +435,8 @@ def simulate_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, want_llrs: b
                          device=ch_ids.device)
     if want_llrs:
         llrs, _ = rx_chain(cfg, rx, h_freq, nv)
-        return _kc.count_errors(llrs, idx, cfg.modulation.bits_per_symbol), counted, llrs
+        errors = _kc.count_errors(llrs, payload_of(cfg, idx), cfg.modulation.bits_per_symbol)
+        return errors, counted, llrs
     return count_errors(cfg, rx, h_freq, nv, idx), counted, None
 
 

@@ -37,9 +37,15 @@ from sdr_tpu_torch.link import fast, pipeline
 
 
 def _check_blocking(cfg: LinkConfig, n_blocks: int) -> int:
-    """The symbols per block; raises for what the stream does not run
-    (what ``pipeline.check_supported`` refuses: MIMO, impairments, pilots)."""
+    """The symbols per block; raises for what the stream does not run:
+    what ``pipeline.check_supported`` refuses (MIMO, impairments: not
+    ported yet, named first), then pilots, as the JAX module does
+    (stream.py:40-44)."""
     pipeline.check_supported(cfg)
+    if cfg.pilot_spacing:
+        raise NotImplementedError(
+            "the blocked-stream path simulates full-grid links; pilot-based "
+            "estimation lives in link.pipeline.simulate (pilot_spacing=0 here)")
     if n_blocks < 1 or cfg.n_symbols % n_blocks != 0:
         raise ValueError(f"n_symbols={cfg.n_symbols} not divisible by n_blocks={n_blocks}")
     return cfg.n_symbols // n_blocks

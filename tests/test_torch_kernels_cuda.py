@@ -1223,3 +1223,162 @@ def test_twiddles_are_built_once_per_size_and_device(dev):
     fresh = _lib.twiddles.__wrapped__(256, d)
     assert torch.equal(first[0], fresh[0]) and torch.equal(first[1], fresh[1])
     assert _lib.twiddles(512, d)[0].shape == (256,)
+
+
+# Kernel B's pilot comb and kernel C's pilot-skipping count (the comb-pilot
+# link's TX and count): on the tile (N 16, 64) and the warp-group form
+# (N 256, 1024), at spacings that divide N and one that does not (3).
+COMB_N = [16, 64, 256, 1024]
+COMB_SPACING = [4, 8, 3]
+
+
+@pytest.mark.parametrize("spacing", COMB_SPACING)
+@pytest.mark.parametrize("N", COMB_N)
+@pytest.mark.parametrize("mod", [Modulation.QPSK, Modulation.QAM16, Modulation.QAM64],
+                         ids=lambda m: m.value)
+def test_tx_comb_kernel_matches_plain(dev, mod, N, spacing):
+    """B with the comb, channel off and with per-symbol gains and keyed
+    noise: 1e-5 of the peak (the channel-off and keyed rule). The pilot
+    tones' indices are not read: a grid with other values there gives the
+    same samples, bit for bit."""
+    B, S, cp = 203, 33, N // 4
+    idx = _tx_indices(dev, B, S, N, mod, "payload", 6)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    gains = tuple(torch.randn((B, S), generator=g).to(dev) for _ in range(2))
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    for kw in (dict(), dict(hs_r=gains[0], hs_i=gains[1], noise_var=1e-3, seed=3, ch_ids=ids)):
+        got = _counted("tx_comb", lambda: kb.tx_channel(idx, cp, mod, pilot_spacing=spacing, **kw))
+        _tx_close(got, kb.tx_channel_plain(idx, cp, mod, pilot_spacing=spacing, **kw), True)
+    other = idx.clone()
+    other[..., ::spacing] = 0
+    assert all(torch.equal(a, b) for a, b in zip(
+        kb.tx_chain(idx, cp, mod, pilot_spacing=spacing),
+        kb.tx_chain(other, cp, mod, pilot_spacing=spacing)))
+
+
+@pytest.mark.parametrize("spacing", COMB_SPACING)
+@pytest.mark.parametrize("N", COMB_N)
+@pytest.mark.parametrize("h_syms", [1, "S"])
+@pytest.mark.parametrize("mod", [Modulation.QPSK, Modulation.QAM16], ids=lambda m: m.value)
+def test_demod_count_comb_kernel_matches_plain(dev, mod, h_syms, N, spacing):
+    """C's count skipping the comb's tones, on the h plane and on taps=,
+    against the plain count over the data tones: within the bits whose
+    plain |LLR| < 1e-3 there. Errors placed on the pilot tones alone are
+    not counted."""
+    from sdr_tpu_torch.ops.pilots import data_tones
+
+    B, S, cp = 203, 33, N // 4
+    h_syms = S if h_syms == "S" else h_syms
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    idx = ka.payload_idx(S, N, mod.bits_per_symbol, 4, ids)
+    nv = 1.0 / (10 ** 0.8 * mod.bits_per_symbol)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    hr = torch.randn((B, h_syms, N), generator=g).to(dev)
+    hi = torch.randn((B, h_syms, N), generator=g).to(dev)
+    re, im = kb.tx_channel(idx, cp, mod, noise_var=nv / N, seed=4, ch_ids=ids,
+                           pilot_spacing=spacing)
+    got = _counted("demod_count_comb", lambda: kc.demod_count(re, im, hr, hi, idx, cp, mod, nv,
+                                                              pilot_spacing=spacing))
+    llr = data_tones(kc.demod_chain(re, im, hr, hi, cp, mod, nv), spacing, mod.bits_per_symbol)
+    want = kc.count_errors(llr, data_tones(idx, spacing), mod.bits_per_symbol)
+    margin = (llr.abs() < 1e-3).sum(dim=(1, 2))
+    assert int(want.sum()) > 0 and bool(((got - want).abs() <= margin).all())
+    assert torch.equal(want, kc.demod_count_plain(re, im, hr, hi, idx, cp, mod, nv,
+                                                  pilot_spacing=spacing))
+    wrong = idx.clone()
+    wrong[..., ::spacing] ^= 1
+    assert torch.equal(kc.demod_count(re, im, hr, hi, wrong, cp, mod, nv, pilot_spacing=spacing),
+                       got)
+    taps = tuple(torch.randn((B, S, 3), generator=g).to(dev) for _ in range(2))
+    got_t = _counted("demod_count_comb", lambda: kc.demod_count(
+        re, im, None, None, idx, cp, mod, nv, taps=taps, pilot_spacing=spacing))
+    want_t = kc.demod_count_plain(re, im, None, None, idx, cp, mod, nv, taps=taps,
+                                  pilot_spacing=spacing)
+    tr, ti = kc.taps_plane(taps, N)
+    llr_t = data_tones(kc.demod_chain(re, im, tr, ti, cp, mod, nv), spacing, mod.bits_per_symbol)
+    assert bool(((got_t - want_t).abs() <= (llr_t.abs() < 1e-3).sum(dim=(1, 2))).all())
+
+
+def test_comb_wrappers_raise_on_spacings_outside_the_grid(dev):
+    """B and C refuse a spacing outside [2, N] (and C the comb with the
+    despread) before any launch; nothing falls back."""
+    N, cp, mod = 256, 64, Modulation.QAM16
+    ids = torch.arange(8, dtype=torch.int32, device=dev)
+    idx = ka.payload_idx(4, N, mod.bits_per_symbol, 1, ids)
+    re, im = kb.tx_chain(idx, cp, mod)
+    h = torch.ones((8, 1, N), device=dev)
+    before = dict(_lib.LAUNCHES)
+    for bad in (1, -4, N + 1):
+        with pytest.raises(ValueError, match="pilot_spacing"):
+            kb.tx_chain(idx, cp, mod, pilot_spacing=bad)
+        with pytest.raises(ValueError, match="pilot_spacing"):
+            kc.demod_count(re, im, h, 0 * h, idx, cp, mod, 0.1, pilot_spacing=bad)
+    with pytest.raises(ValueError, match="despread"):
+        kc.demod_count(re, im, h, 0 * h, idx, cp, mod, 0.1, despread=True, pilot_spacing=4)
+    assert _lib.LAUNCHES == before
+
+
+def _pilot_cfg(**kw):
+    from sdr_tpu_torch.core.config import ChannelEstimator
+
+    kw.setdefault("pilot_spacing", 8)
+    kw.setdefault("estimator", ChannelEstimator.DFT)
+    return _pipeline_cfg(**kw)
+
+
+@pytest.mark.parametrize("case", ["comb_dft", "comb_ls_rayleigh_time", "block_dft",
+                                  "block_interp_full"])
+def test_pilot_pipeline_on_card_matches_cpu(dev, case):
+    """A pilot link on the card (A, B's comb or the block TX, E, the torch
+    FFT and estimate, C's comb or despread count) counts what the CPU run
+    counts but for bits whose |LLR| < 1e-3, through the comb modes."""
+    from sdr_tpu_torch.core.config import ChannelEstimator
+    from sdr_tpu_torch.link import pipeline
+
+    cfg = {
+        "comb_dft": lambda: _pilot_cfg(),
+        "comb_ls_rayleigh_time": lambda: _pilot_cfg(model=ChannelModel.RAYLEIGH_TIME,
+                                                    estimator=ChannelEstimator.LS),
+        "block_dft": lambda: _pilot_cfg(pilot_spacing=4, dft_spread=True, ebno_db=14.0),
+        "block_interp_full": lambda: _pilot_cfg(model=ChannelModel.MULTIPATH_TIME,
+                                                pilot_spacing=4, dft_spread=True),
+    }[case]()
+    _lib.reset_launches()
+    res = pipeline.simulate(cfg, 7, device=dev)
+    torch.cuda.synchronize()
+    launched = {k for k, v in _lib.LAUNCHES.items() if v}
+    want_launched = {"demod_count_despread"} if cfg.dft_spread else {"tx_comb", "demod_count_comb"}
+    assert want_launched <= launched and "payload" in launched, launched
+    cpu = pipeline.simulate(cfg, 7, device="cpu", want_llrs=True)
+    margin = (cpu.llrs.abs() < 1e-3).sum(dim=(1, 2))
+    assert bool(((res.bit_errors.cpu() - cpu.bit_errors).abs() <= margin).all())
+    assert torch.equal(res.bits_counted.cpu(), cpu.bits_counted) and int(cpu.bit_errors.sum()) > 0
+
+
+def test_dft_projections_on_card_stay_full_f32(dev):
+    """The DFT estimators' products run in full float32 on the card even
+    with TF32 switched on globally (``ops.pilots._project`` holds it off):
+    within 1e-5 of the peak of a float64 reference, where TF32's 10-bit
+    mantissa would miss by about 1e-3; the flag is restored."""
+    from sdr_tpu_torch.ops import pilots as pil
+
+    g = np.random.default_rng(3)
+    y = (g.standard_normal((512, 64, 256)) + 1j * g.standard_normal((512, 64, 256))).astype(
+        np.complex64)
+    pidx = list(pil.pilot_indices(256, 8))
+    want = (y[..., pidx].astype(np.complex128) / pil.PILOT_VALUE) @ pil._dft_projection(
+        256, 8, 32).astype(np.complex128)
+    y_pil = y[:, :4]
+    want_b = y_pil.astype(np.complex128) * np.conj(pil.zadoff_chu(256)).astype(np.complex128)
+    want_b = want_b.mean(axis=-2) @ pil._dft_projection_full(256, 65).astype(np.complex128)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = pil.estimate_dft_comb(torch.from_numpy(y).to(dev), 8, 32, per_symbol=True)
+        got_b = pil.estimate_block_pilots(torch.from_numpy(y_pil).to(dev), 65)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for a, b in ((got, want), (got_b, want_b)):
+        err = float(np.abs(a.cpu().numpy() - b).max())
+        assert err <= 1e-5 * float(np.abs(b).max()), err

@@ -12,15 +12,17 @@ on the CPU, over 4 gloo ranks spawned once for the module.
   4 virtual CPU devices: equal per-channel counts but for bits whose
   plain |LLR| < 1e-3 (port and JAX draw from different streams, so the
   comparison injects the same numpy draws into both).
-- The sharded pipeline (channel DP, 1 × 4) and the time-block stream
+- The sharded pipeline (channel DP, 1 × 4; a genie and a comb-pilot DFT
+  link) and the time-block stream
   with its halo exchange (2 × 2, n_blocks 4: one seam between ranks and
   one inside each rank; static MULTIPATH and the TDL) are bit-exact
   against the unsharded ``simulate`` and ``stream_simulate``, and each
   stream equals ``simulate``: the static one bit for bit, the TDL but for
   bits whose |LLR| < 1e-3.
 - What the layer refuses: shapes that do not divide, a pipeline mesh
-  without two stages, and the coded builder, which waits for ROADMAP
-  item 11f.
+  without two stages, the coded builder, which waits for ROADMAP item
+  11f, and pilots in the stream and fast builders (the simulate builder
+  runs them).
 """
 
 import dataclasses
@@ -35,7 +37,7 @@ from sdr_tpu.core import config as jcfg
 from sdr_tpu.parallel import make_link_mesh as j_make_link_mesh
 from sdr_tpu.parallel.shard import make_sharded_mc_inject_fn as j_sharded_mc_inject
 from sdr_tpu_torch import interop
-from sdr_tpu_torch.core.config import ChannelModel, Equalizer
+from sdr_tpu_torch.core.config import ChannelEstimator, ChannelModel, Equalizer
 from sdr_tpu_torch.link import pipeline as pipe
 from sdr_tpu_torch.link.stream import exact_at_seams, stream_simulate
 from sdr_tpu_torch.kernels.mc import mc_llr_plain
@@ -113,6 +115,10 @@ CASES = {
                      cfg=_small(ChannelModel.AWGN, n_channels=8, n_fft=128)),
     "simulate_dp": dict(kind="simulate", mesh=(1, 4),
                         cfg=_small(ChannelModel.MULTIPATH, pdp=PDP3, equalizer=Equalizer.MMSE)),
+    "simulate_dp_pilots": dict(kind="simulate", mesh=(1, 4),
+                               cfg=_small(ChannelModel.MULTIPATH, pdp=PDP3, n_symbols=8,
+                                          equalizer=Equalizer.MMSE, pilot_spacing=4,
+                                          estimator=ChannelEstimator.DFT)),
     "stream": dict(kind="stream", mesh=(2, 2), n_blocks=4,
                    cfg=_small(ChannelModel.MULTIPATH, n_symbols=8, pdp=PDP3,
                               equalizer=Equalizer.MMSE)),
@@ -197,10 +203,12 @@ def test_layer_refuses_what_it_does_not_run():
         make_pipelined_fast_fn(_small(ChannelModel.AWGN), mesh, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11f"):
         make_sharded_coded_fn(_small(ChannelModel.AWGN), mesh)
-    for builder in (make_sharded_simulate_fn, make_sharded_stream_fn):
-        with pytest.raises(NotImplementedError, match="item 11c"):
-            builder(_small(ChannelModel.AWGN, pilot_spacing=4, equalizer=Equalizer.MMSE), mesh,
-                    device="cpu")
+    pilots = _small(ChannelModel.AWGN, pilot_spacing=4, equalizer=Equalizer.MMSE)
+    errors, counted = make_sharded_simulate_fn(pilots, mesh, device="cpu")(SEED)
+    assert torch.equal(errors, pipe.simulate(pilots, SEED, device="cpu").bit_errors)
+    assert int(counted[0]) == pilots.n_data_symbols * pilots.bits_per_ofdm_symbol
+    with pytest.raises(NotImplementedError, match=r"link\.pipeline"):
+        make_sharded_stream_fn(pilots, mesh, device="cpu")
     with pytest.raises(ValueError, match="not divisible by time axis 2"):
         make_sharded_stream_fn(_small(ChannelModel.AWGN),
                                dataclasses.replace(mesh, n_time=2, n_channel=1), n_blocks=3,

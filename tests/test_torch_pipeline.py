@@ -10,7 +10,9 @@ N 64, CP 16).
 - ``simulate`` against ``link.fast.fast_simulate`` on the same seed (the
   payload is kernel A's stream in both), split against full;
 - ``stream_simulate`` against ``simulate`` for n_blocks 1, 2 and 4;
-- what the pipeline refuses, naming its ROADMAP item.
+- what the pipeline refuses, naming its ROADMAP item (pilots run, the
+  stream refuses them; ``tests/test_torch_pilots.py`` holds the pilot
+  branches against JAX).
 
 Tolerances (stated before the comparison): samples and equalised
 responses at the reference's float tolerance, abs 1e-5 / rel 1e-6
@@ -372,15 +374,17 @@ def test_stream_equals_simulate(case, n_blocks):
 # ---- what the pipeline refuses ---------------------------------------------------
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(pilot_spacing=4), "11c"),
+    (dict(pilot_spacing=4), None),
     (dict(pilot_spacing=4, channel_kw=dict(model=jcfg.ChannelModel.RAYLEIGH_FLAT,
                                            pa_ibo_db=4.0)), "11d"),
     (dict(mimo=jcfg.MIMOConfig(), channel_kw=dict(model=jcfg.ChannelModel.RAYLEIGH_FLAT)),
      "11e"),
 ], ids=["pilots", "pa", "mimo"])
 def test_unported_options_raise(kw, item):
-    """Pilots name item 11c, front-end impairments 11d and MIMO 11e, in
-    ``simulate``, ``make_simulate_fn`` and the stream."""
+    """Front-end impairments name item 11d and MIMO 11e, in ``simulate``,
+    ``make_simulate_fn`` and the stream. Pilots (item 11c) run in
+    ``simulate`` and ``make_simulate_fn``; the stream refuses them as the
+    JAX module does, naming ``link.pipeline``."""
     kw = dict(kw)
     channel_kw = kw.pop("channel_kw", {})
     ref = jcfg.LinkConfig(modulation=jcfg.Modulation.QPSK,
@@ -388,9 +392,16 @@ def test_unported_options_raise(kw, item):
                           channel=jcfg.ChannelConfig(**channel_kw),
                           equalizer=jcfg.Equalizer.MMSE, n_symbols=S, n_channels=B, **kw)
     cfg = interop.link_config_from_reference(ref)
-    for call in (lambda: pipeline.simulate(cfg, 0, device="cpu"),
-                 lambda: pipeline.make_simulate_fn(cfg, device="cpu"),
-                 lambda: stream.stream_simulate(cfg, 0, 2, device="cpu")):
+    calls = (lambda: pipeline.simulate(cfg, 0, device="cpu"),
+             lambda: pipeline.make_simulate_fn(cfg, device="cpu")(0))
+    if item is None:
+        for call in calls:
+            res = call()
+            assert int(res.bits_counted[0]) == S * cfg.bits_per_ofdm_symbol
+        with pytest.raises(NotImplementedError, match=r"link\.pipeline"):
+            stream.stream_simulate(cfg, 0, 2, device="cpu")
+        return
+    for call in (*calls, lambda: stream.stream_simulate(cfg, 0, 2, device="cpu")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()
 

@@ -98,9 +98,11 @@ def test_theory_matches_reference(model, k_factor, mod):
 
 
 def test_unported_engines_and_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        sweep.ebno_sweep(_cfg(pilot_spacing=4, equalizer=Equalizer.MMSE), GRID,
-                         engine="pipeline", device="cpu")
+    pilots = sweep.ebno_sweep(_cfg(pilot_spacing=4, equalizer=Equalizer.MMSE), GRID[:2],
+                              engine="pipeline", target_errors=1, max_bits=1, device="cpu")
+    assert [p.ebno_db for p in pilots.points] == list(GRID[:2])
+    assert all(p.batches == 1 and p.bits_counted > 0 for p in pilots.points)
+    assert "/pilots4:ls" in pilots.config_summary
     with pytest.raises(NotImplementedError, match="link.coded.*item 11f"):
         sweep.ebno_sweep(_cfg(), GRID, engine="pipeline", code="ldpc", device="cpu")
     with pytest.raises(ValueError, match="pipeline engine"):
