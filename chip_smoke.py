@@ -158,6 +158,33 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    (median of 3 warm calls) and launches a call; ``want_llrs`` on the DFT
    link (the data tones' plane, its hard bits against the comb count);
    ``make_sharded_simulate_fn`` on one rank equal to ``simulate``;
+   3r. front-end impairments, counters zeroed before it: kernel E's
+   noise-only mode on the acquired link's stream, one (B, 1, 21477) row a
+   channel, against its plain version (phase 2's tolerance) and timed
+   beside it; its channel-only mode on the acquired link's (B, 67, 320)
+   plane with ``pipeline.acquired_plane``'s gains and taps (per-link and
+   per-symbol gains, static and per-symbol taps), likewise; the acquired
+   receive's torch parts on a full-width stream
+   (the timing metric, the fractional correction, the integer CFO, fine
+   timing, the full-stream correction, the payload gather, the Wiener
+   draw, ``iq_compensate``, the whole ``acquire_start``; CUDA events); then
+   ``pipeline.simulate`` at config 2, 8192 × 64, spacing 8 unless named,
+   on ``impairment_links``: acquired AWGN (QPSK 6 dB, CFO 2.3, offset 37)
+   < 1.1 × the aligned link at 5.5 dB; acquired MULTIPATH (PDP (1, .3,
+   .1), 8 dB) < 2 × its aligned twin; acquisition + PA (IBO 6 dB) < 5e-3;
+   the aligned PA (16-QAM 10 dB) — IBO 20 within the linear link's
+   Poisson band, IBO 0 > 5 × linear, DPD at IBO 5 < raw; the tracked LO
+   walk (std scaled by √(80/320) from the JAX tests' N 64 CP 16) on AWGN
+   (the untracked walk > 0.015 and > 10 × tracked) and MULTIPATH, and
+   with acquisition; I/Q (1.1, 0.1) compensated against clean (at (1.3,
+   0.25) the uncompensated link > 2 × compensated + 1e-3), and (1.05, 0.03) with acquisition at CFO 1.3 and at CFO
+   0 with offset 37; the full front end over MULTIPATH_TIME < 3 × its
+   unimpaired twin + 5e-3; SC-FDMA block pilots (spacing 4, DFT) with
+   acquisition and a PA < max(2.5 × aligned twin, 5e-3) — each with ms
+   (median of 3 warm calls) and launches a call, the window
+   ``launches_impairments``, its wall time and peak memory;
+   ``make_sharded_simulate_fn`` on one rank equal to ``simulate`` on the
+   acquired AWGN link;
    5. the parallel layer: ``parallel.dryrun.dryrun_multichip`` on 4
    gloo ranks sharing the one card (spawned; the library built above is
    only loaded there) — TP at BASELINE config 5's full width (256 × 64,
@@ -187,13 +214,19 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    stream call, for A, B off, E (both modes) and C's count, despread
    count and plane, ``launches_pipeline``; and in phase 3q around each
    pilot link's call, for B's comb and C's comb count,
-   ``launches_pilots``)
+   ``launches_pilots``; and in phase 3r around each impaired link's call,
+   for A, B's comb, E (the acquired stream's noise row among its noise
+   launches, and the FIR) and C's comb and despread counts,
+   ``launches_impairments``, the acquired links' calls also in a window
+   of their own, where E's noise launches are the row's alone)
    and prints one JSON line per kernel set, with each kernel's bound (bytes over 3.35 TB/s or f32
    operations over 67 TFLOP/s, the H100 SXM data sheet) and its launches
    in each window (``launches_fast``, ``launches_mc``, ``launches_coded``,
    ``launches_terminals``, ``launches_wide`` — the sum of 3i's N
    windows; ``launches_bf16``, ``launches_parallel``, ``launches_nccl``,
-   ``launches_pipeline``, ``launches_pilots``; ``launches`` is the window of its own path, the one checked;
+   ``launches_pipeline``, ``launches_pilots``, ``launches_impairments``; ``launches`` is the
+   window of its own path, the one checked; the entry ``fade_awgn@acquired_stream`` carries
+   phase 3r's check of E at the stream's shape and the row's launches in the acquired links' window;
    the entries named ``<counter>@N1024``, ``@N2048`` and ``@N4096`` carry
    phase 2w's numbers, the launches in that N's window and the TPU
    four-step, post-FFT or channels-last kernel they replace there),
@@ -278,6 +311,160 @@ def pipeline_cell(n_channels: int = 8192, **kw):
         channel=ChannelConfig(model=ChannelModel.MULTIPATH, ebno_db=12.0,
                               pdp=(1.0, 0.5, 0.25, 0.125)),
         equalizer=Equalizer.MMSE, n_symbols=64, n_channels=n_channels), **kw})
+
+
+# Phase 3r's front-end impairment links at config 2's width (N 256, CP 64,
+# 64 symbols, comb spacing 8 unless named), each with the modulation,
+# Eb/N0, impairment values and gate form of the JAX test it follows. The
+# LO walk's std is per sample: scaled so that std·√(N + cp) equals the JAX
+# test's at N 64, CP 16 (0.01 → 0.005, 0.008 → 0.004, 2e-3 → 1e-3).
+PN_SCALE = (80 / 320) ** 0.5
+
+
+def impairment_links(n_channels: int = 8192):
+    """Phase 3r's links: (label, config of the main-path call, reference
+    configs by name (run outside the launch window, the same seed), gate)
+    with gate(ber, ref_bers, bits) → (ok, rule), bits the count of every
+    link of the entry. A reference is a config (``pipeline.simulate``) or
+    an oracle fn(seed, device) → per-channel errors: the JAX tests' links
+    with a stage left out, which must fail where the stage is needed."""
+    import dataclasses
+
+    import torch
+
+    from sdr_tpu_torch.kernels import demod as kc
+    from sdr_tpu_torch.link import pipeline
+    from sdr_tpu_torch.ops import pilots as pil
+    from sdr_tpu_torch.ops.fft import fft as t_fft
+
+    from sdr_tpu_torch.core.config import (
+        ChannelConfig,
+        ChannelEstimator,
+        ChannelModel,
+        Equalizer,
+        LinkConfig,
+        Modulation,
+        OFDMConfig,
+    )
+
+    def link(mod, ebno_db, model=ChannelModel.AWGN, spacing=8, dft_spread=False,
+             estimator=ChannelEstimator.LS, **channel):
+        return LinkConfig(modulation=mod, ofdm=OFDMConfig(n_fft=256, cp_len=64),
+                          channel=ChannelConfig(model=model, ebno_db=ebno_db, **channel),
+                          equalizer=Equalizer.MMSE, n_symbols=64, n_channels=n_channels,
+                          pilot_spacing=spacing, dft_spread=dft_spread, estimator=estimator)
+
+    def without(cfg, *names):
+        defaults = dict(cfo_subcarriers=0.0, timing_offset=0, pa_ibo_db=None, pa_dpd=False,
+                        phase_noise_std=0.0, iq_gain=1.0, iq_phase_rad=0.0)
+        return dataclasses.replace(cfg, channel=dataclasses.replace(
+            cfg.channel, **{k: defaults[k] for k in names}))
+
+    acq = ("cfo_subcarriers", "timing_offset")
+    q, q16 = Modulation.QPSK, Modulation.QAM16
+    mp = ChannelModel.MULTIPATH
+    acq_awgn = link(q, 6.0, cfo_subcarriers=2.3, timing_offset=37)
+    acq_mp = link(q, 8.0, mp, pdp=(1.0, 0.3, 0.1), cfo_subcarriers=2.3, timing_offset=37)
+    pa_dpd = link(q16, 10.0, pa_ibo_db=5.0, pa_dpd=True)
+    pn_awgn = link(q16, 16.0, phase_noise_std=0.01 * PN_SCALE)
+    pn_mp = link(q16, 16.0, mp, pdp=(1.0, 0.5, 0.25), phase_noise_std=0.008 * PN_SCALE)
+    acq14 = link(q16, 14.0, cfo_subcarriers=1.3, timing_offset=37)
+    pn_acq = dataclasses.replace(acq14, channel=dataclasses.replace(
+        acq14.channel, phase_noise_std=2e-3 * PN_SCALE))
+    iq = link(q16, 16.0, iq_gain=1.1, iq_phase_rad=0.1)
+    iq_strong = link(q16, 16.0, iq_gain=1.3, iq_phase_rad=0.25)
+    iq_acq = dataclasses.replace(acq14, channel=dataclasses.replace(
+        acq14.channel, iq_gain=1.05, iq_phase_rad=0.03))
+    iq_zero = without(dataclasses.replace(iq_acq, channel=dataclasses.replace(
+        iq_acq.channel, timing_offset=37)), "cfo_subcarriers")
+    full = link(q16, 16.0, ChannelModel.MULTIPATH_TIME, pdp=(1.0, 0.5, 0.25), doppler_norm=0.02,
+                cfo_subcarriers=1.3, timing_offset=37, pa_ibo_db=8.0,
+                phase_noise_std=2e-3 * PN_SCALE, iq_gain=1.05, iq_phase_rad=0.03)
+    block = link(q16, 14.0, mp, spacing=4, dft_spread=True, estimator=ChannelEstimator.DFT,
+                 pdp=(1.0, 0.5, 0.25, 0.125), cfo_subcarriers=1.3, timing_offset=37,
+                 pa_ibo_db=6.0)
+
+    def aligned(cfg, seed, dev):
+        ids = torch.arange(cfg.n_channels, dtype=torch.int32, device=dev)
+        idx = pipeline.draw_idx(cfg, seed, ids)
+        return (idx, *pipeline.apply_channel(cfg, seed, ids, pipeline.tx_idx(cfg, idx)))
+
+    def uncompensated(cfg):
+        """The aligned link's planes counted with ``skip_iq``: no blind I/Q
+        compensator (tests/test_iq_imbalance.py:186-219)."""
+        def run(seed, dev):
+            idx, rx, _, nv = aligned(cfg, seed, dev)
+            return pipeline.count_errors(cfg, rx, None, nv, idx, skip_iq=True)
+        return run
+
+    def untracked(cfg):
+        """The aligned link's planes counted on the frame-averaged LS comb
+        estimate: no phase tracking (tests/test_phase_noise.py:136-171)."""
+        def run(seed, dev):
+            idx, rx, _, nv = aligned(cfg, seed, dev)
+            cp = cfg.ofdm.cp_len
+            h = pil.estimate_ls_comb(t_fft(torch.complex(*rx)[..., cp:]), cfg.pilot_spacing)
+            hr, hi = pipeline._h_plane(h, cfg.n_channels, cfg.ofdm.n_fft, dev)
+            return kc.demod_count(*rx, hr, hi, idx, cp, cfg.modulation, nv,
+                                  pilot_spacing=cfg.pilot_spacing)
+        return run
+
+    def pa_gate(ber, r, bits):
+        e = {k: v * bits for k, v in r.items()}
+        band = abs(e["ibo20"] - e["linear"]) <= 4.0 * (max(e["linear"], 1) ** 0.5) + 10.0
+        return (band and e["ibo0"] > 5 * max(e["linear"], 1) and ber < r["ibo5_raw"],
+                "errors: |IBO 20 - linear| <= 4 sqrt(linear) + 10, IBO 0 > 5 x linear, "
+                "DPD < raw at IBO 5")
+
+    return [
+        ("acq-awgn (QPSK 6 dB, CFO 2.3, offset 37)", acq_awgn,
+         {"aligned 5.5 dB": without(link(q, 5.5), *acq)},
+         lambda b, r, _: (b < 1.1 * r["aligned 5.5 dB"], "< 1.1 x aligned at 5.5 dB")),
+        ("acq-multipath (PDP (1, .3, .1), 8 dB)", acq_mp, {"aligned": without(acq_mp, *acq)},
+         lambda b, r, _: (b < 2.0 * r["aligned"], "< 2 x aligned twin")),
+        ("acq-pa (QPSK 12 dB, CFO 1.7, offset 41, IBO 6 dB)",
+         link(q, 12.0, cfo_subcarriers=1.7, timing_offset=41, pa_ibo_db=6.0), {},
+         lambda b, r, _: (b < 5e-3, "< 5e-3")),
+        ("pa-dpd (16-QAM 10 dB, IBO 5 dB, DPD)", pa_dpd,
+         {"linear": without(pa_dpd, "pa_ibo_db", "pa_dpd"),
+          "ibo20": dataclasses.replace(pa_dpd, channel=dataclasses.replace(
+              pa_dpd.channel, pa_ibo_db=20.0, pa_dpd=False)),
+          "ibo0": dataclasses.replace(pa_dpd, channel=dataclasses.replace(
+              pa_dpd.channel, pa_ibo_db=0.0, pa_dpd=False)),
+          "ibo5_raw": without(pa_dpd, "pa_dpd")}, pa_gate),
+        ("pn-tracked-awgn (16-QAM 16 dB, std 0.005)", pn_awgn,
+         {"clean": without(pn_awgn, "phase_noise_std"), "untracked": untracked(pn_awgn)},
+         lambda b, r, _: (b < 3.0 * r["clean"] + 2e-3 and b < 0.02 and r["untracked"] > 0.015
+                          and b < r["untracked"] / 10.0,
+                          "< 3 x clean + 2e-3, < 0.02; untracked > 0.015 and > 10 x tracked")),
+        ("pn-tracked-multipath (16-QAM 16 dB, std 0.004)", pn_mp,
+         {"clean": without(pn_mp, "phase_noise_std")},
+         lambda b, r, _: (b < 3.0 * r["clean"] + 5e-3, "< 3 x clean + 5e-3")),
+        ("pn-acq (16-QAM 14 dB, CFO 1.3, offset 37, std 0.001)", pn_acq,
+         {"acquisition only": acq14},
+         lambda b, r, _: (b < max(2.5 * r["acquisition only"], 5e-3),
+                       "< max(2.5 x acquisition only, 5e-3)")),
+        ("iq-compensated (16-QAM 16 dB, 1.1, 0.1 rad)", iq,
+         {"clean": without(iq, "iq_gain", "iq_phase_rad"), "compensated 1.3, 0.25": iq_strong,
+          "uncompensated 1.3, 0.25": uncompensated(iq_strong)},
+         lambda b, r, _: (b < 3.0 * r["clean"] + 2e-3 and r["uncompensated 1.3, 0.25"] > 2.0 * r[
+             "compensated 1.3, 0.25"] + 1e-3, "< 3 x clean + 2e-3; uncompensated at (1.3, 0.25) "
+                                             "> 2 x compensated + 1e-3")),
+        ("iq-acq (16-QAM 14 dB, CFO 1.3, offset 37, 1.05, 0.03 rad)", iq_acq,
+         {"acquisition only": acq14},
+         lambda b, r, _: (b < max(2.5 * r["acquisition only"], 5e-3),
+                       "< max(2.5 x acquisition only, 5e-3)")),
+        ("iq-acq-zero-cfo (offset 37, CFO 0)", iq_zero, {"aligned": without(iq_zero, *acq)},
+         lambda b, r, _: (b < max(2.5 * r["aligned"], 2e-4), "< max(2.5 x aligned, 2e-4)")),
+        ("front-end-full (MULTIPATH_TIME fd 0.02, CFO 1.3, offset 37, IBO 8 dB, std 0.001, "
+         "I/Q 1.05, 0.03 rad)", full,
+         {"unimpaired": without(full, *acq, "pa_ibo_db", "phase_noise_std", "iq_gain",
+                                "iq_phase_rad")},
+         lambda b, r, _: (b < 3.0 * r["unimpaired"] + 5e-3, "< 3 x unimpaired twin + 5e-3")),
+        ("scfdma-block-acq-pa (spacing 4, DFT, PDP (1, .5, .25, .125) 14 dB, CFO 1.3, "
+         "offset 37, IBO 6 dB)", block, {"aligned": without(block, *acq)},
+         lambda b, r, _: (b < max(2.5 * r["aligned"], 5e-3), "< max(2.5 x aligned twin, 5e-3)")),
+    ]
 
 
 def _fail(msg: str):
@@ -385,6 +572,7 @@ def main() -> int:
 
 def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     """The phases on ``dev`` with B link channels and BD terminal channels."""
+    t_script = time.perf_counter()
     import torch
 
     from sdr_tpu_torch.core.config import (
@@ -2737,6 +2925,180 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     print(f"phase 3q: {len(q_rows)} links in {time.perf_counter() - t3q:.1f} s; window "
           f"{ {k: v for k, v in launches_pilots.items() if v} }")
 
+    # ---- phase 3r: front-end impairments, counters zeroed -----------------------
+    # First kernel E's noise-only mode on the acquired link's stream, one
+    # (B, 1, T) row a channel (T = 37 + 67·320 = 21477, odd: off E's 16-byte
+    # grid, so its V = 1 path), against its plain version (phase 2's
+    # tolerance) and timed beside it; then the acquired receive's torch parts
+    # on a full-width stream; then the links of ``impairment_links`` through
+    # ``pipeline.simulate`` at config 2, B x 64, each gated against its
+    # references (the same seed, outside the window) with the JAX test's
+    # gate form; ms the median of 3 warm calls (CUDA events). Each main-path
+    # call runs inside ``in_impairments()``.
+    from sdr_tpu_torch.ops import channel as chan_ops
+    from sdr_tpu_torch.ops import sync
+    from sdr_tpu_torch.ops.fft import fft as t_fft
+
+    t3r = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    launches_impairments = dict.fromkeys(_lib.LAUNCHES, 0)
+    acq_cfg = impairment_links(B)[0][1]
+    T = pipeline.stream_len(acq_cfg)
+    nv_q = fast.noise_var(acq_cfg)
+    row_shape = (B, 1, T)
+    stream_clean = torch.complex(*(torch.randn(row_shape, device=dev) * (0.5 / N) ** 0.5
+                                   for _ in range(2)))
+    row = tuple(t.contiguous() for t in fast._planar(stream_clean))
+    rep = check_modes(f"E noise only on the acquired stream ({B}x1x{T})",
+                      lambda **kw: ke.fade_awgn(*row, noise_var=nv_q / N, **kw),
+                      lambda **kw: ke.fade_awgn_plain(*row, noise_var=nv_q / N, **kw),
+                      row_shape, kernel_reps=10)
+    rep.update(bound(16 * B * T + 4 * B, 4 * B * T, B * T * PHILOX_IMUL))
+    # The row's launches are counted in the acquired links' own window
+    # (``launches_acquired``), below.
+    launches_acquired = dict.fromkeys(_lib.LAUNCHES, 0)
+    e_rows.append(dict(rep, mode=f"noise only, acquired stream row 1 x {T}", counter="fade_awgn",
+                       shape=f"{B}x1x{T}", window=launches_acquired))
+    report["fade_awgn@acquired_stream"] = rep
+    del row, stream_clean
+    ids_r = ids
+    idx_r = pipeline.draw_idx(acq_cfg, seed, ids_r)
+    # E's channel-only mode (no noise) on the acquired link's (B, S+3, N+cp)
+    # plane (67 rows: a partial run of E's 32-symbol blocks), with the
+    # inputs ``pipeline.acquired_plane`` builds for each fading kind,
+    # against its plain version (1e-5 of the peak), timed beside it. Bound:
+    # 16 bytes a sample and the gains or taps; 6 f32 operations a sample
+    # for a gain, 8 a tap. The FIR rows' launches are the acquired links'
+    # (acq-multipath and scfdma-block: static, front-end-full: per
+    # symbol); no 3r link runs an acquired gains model, so theirs are 0.
+    acq_shape = (B, S + 3, N + CP)
+    n_acq = B * (S + 3) * (N + CP)
+    for label, model, pdp, counter in (
+        ("per-link gains", ChannelModel.RAYLEIGH_FLAT, None, "fade_awgn"),
+        ("per-symbol gains, a unit tail row", ChannelModel.RAYLEIGH_TIME, None, "fade_awgn"),
+        ("static taps (1, .3, .1)", ChannelModel.MULTIPATH, (1.0, 0.3, 0.1), "fade_awgn_fir"),
+        ("per-symbol taps (1, .5, .25), the last row repeated", ChannelModel.MULTIPATH_TIME,
+         (1.0, 0.5, 0.25), "fade_awgn_fir"),
+    ):
+        cfg_p = dataclasses.replace(acq_cfg, channel=dataclasses.replace(
+            acq_cfg.channel, model=model, pdp=pdp or acq_cfg.channel.pdp, doppler_norm=0.02))
+        plane_p, kw_p = pipeline.acquired_plane(cfg_p, seed, ids_r, idx_r)
+        _check(tuple(plane_p[0].shape) == acq_shape and kw_p is not None,
+               f"acquired plane ({label}): shape {tuple(plane_p[0].shape)}")
+        want = ke.fade_awgn_plain(*plane_p, **kw_p)
+        err, peak = plane_err(ke.fade_awgn(*plane_p, **kw_p), want), plane_peak(want)
+        del want
+        _check(err <= 1e-5 * peak, f"E channel only on the acquired plane ({label}): max abs "
+                                   f"diff {err:g} of peak {peak:g}")
+        ms, pms = compare_times(lambda: ke.fade_awgn(*plane_p, **kw_p),
+                                lambda: ke.fade_awgn_plain(*plane_p, **kw_p), reps=1,
+                                kernel_reps=10)
+        side = kw_p.get("taps_r", kw_p.get("hr_s"))
+        per_sample = 8 * side.shape[-1] if counter == "fade_awgn_fir" else 6
+        rep = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                   **bound(16 * n_acq + 8 * side.numel(), per_sample * n_acq))
+        window = launches_acquired if counter == "fade_awgn_fir" else {"fade_awgn": 0}
+        e_rows.append(dict(rep, mode=f"channel only, acquired plane, {label}", counter=counter,
+                           shape="x".join(map(str, acq_shape)), window=window))
+        print(f"phase 3r E channel only on the acquired plane ({'x'.join(map(str, acq_shape))}, "
+              f"{label}): max abs diff {err:.3g} (peak {peak:.3g}, allowed 1e-5 of it); kernel "
+              f"{ms:.4f} ms, plain {pms:.3f} ms; {of_bound(rep)} on {card}")
+        del plane_p, kw_p
+    stream_r = pipeline.acquired_stream(acq_cfg, seed, ids_r, idx_r)
+    parts = {}
+
+    def part(label, fn):
+        out = fn()  # warm
+        parts[label] = timed(fn, 3)
+        return out
+
+    d_r, frac_r = part("timing metric and coarse estimate",
+                       lambda: sync.estimate_timing_cfo(stream_r, N))
+    w1, w2 = part("fractional correction (the two preamble windows)", lambda: (
+        sync.corrected_slice(stream_r, frac_r, d_r, N, N),
+        sync.corrected_slice(stream_r, frac_r, d_r + N + CP, N, N)))
+    mu_r = part("integer CFO (two FFTs, 5 shifts)",
+                lambda: sync.estimate_integer_cfo(t_fft(w1), t_fft(w2), N))
+    total_r = frac_r + mu_r.to(torch.float32)
+    start_r = part("fine timing (window, 2048-point correlation)",
+                   lambda: sync._fine_start(stream_r, total_r, d_r, N, CP, sync.PREAMBLE_SEED))
+    part("full-stream correction (the JAX rx_c; the link corrects the payload only)",
+         lambda: sync.correct_cfo(stream_r, total_r, N))
+    part("payload gather and correction", lambda: sync.corrected_slice(
+        stream_r, total_r, start_r, S * (N + CP), N))
+    part("Wiener draw (keyed increments and walk, B x T)",
+         lambda: chan_ops.wiener_phase(seed, ids_r, T, 1e-3))
+    part("iq_compensate (diff_lag one symbol, B x T)",
+         lambda: chan_ops.iq_compensate(stream_r, diff_lag=N + CP))
+    part("acquire_start (the whole acquisition)", lambda: sync.acquire_start(stream_r, N, CP))
+    want_start = acq_cfg.channel.timing_offset + 2 * (N + CP)
+    locked = float((start_r == want_start).float().mean())
+    _check(locked > 0.99, f"phase 3r: acquisition locked on {locked:.4f} of the channels")
+    del stream_r, w1, w2, idx_r
+    torch.cuda.empty_cache()
+    print(f"phase 3r receive parts ({B} x {T} stream, CUDA events, 3 warm calls each, the "
+          f"whole batch in one pass; start exact on {locked:.4f} of the channels; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()) + f" on {card}")
+    torch.cuda.reset_peak_memory_stats()
+
+    impairment_path = ("payload", "tx_comb", "fade_awgn", "fade_awgn_fir", "demod_count_comb",
+                       "demod_count_despread")
+
+    @contextlib.contextmanager
+    def in_impairments(acquired=False):
+        """3r's window; an acquired link's launches also go to its own."""
+        _lib.reset_launches()
+        yield
+        for k, v in _lib.LAUNCHES.items():
+            launches_impairments[k] += v
+            if acquired:
+                launches_acquired[k] += v
+
+    r_rows = []
+    gains_models = (ChannelModel.RAYLEIGH_FLAT, ChannelModel.RAYLEIGH_TIME, ChannelModel.RICIAN)
+    for label, cfg, refs, gate in impairment_links(B):
+        acquired = cfg.channel.impaired
+        # An acquired link's E launches outside the FIR counter are then its
+        # noise row's alone.
+        _check(not (acquired and cfg.channel.model in gains_models),
+               f"{label}: an acquired gains model would share the row's counter")
+        with in_impairments(acquired):
+            res_r = pipeline.simulate(cfg, seed, device=dev)
+            torch.cuda.synchronize()
+            per_r = {k: v for k, v in _lib.LAUNCHES.items() if v}
+            ms_r = sorted(timed(lambda: pipeline.simulate(cfg, seed, device=dev), 1)
+                          for _ in range(3))[1]
+        _check(int(res_r.bits_counted[0]) == cfg.n_data_symbols * cfg.bits_per_ofdm_symbol,
+               f"{label}: bits_counted")
+        errs = {"main": int(res_r.bit_errors.sum())}
+        bits = int(res_r.bits_counted.sum())
+        del res_r
+        for name, ref in refs.items():
+            errs[name] = int((ref(seed, dev) if callable(ref) else pipeline.simulate(
+                ref, seed, device=dev).bit_errors).sum())
+        ber_r = errs["main"] / bits
+        ref_ber = {k: v / bits for k, v in errs.items() if k != "main"}
+        ok, rule = gate(ber_r, ref_ber, bits)
+        _check(ok, f"{label}: BER {ber_r:g} against {ref_ber} breaks {rule}")
+        r_rows.append(dict(label=label, ms=ms_r, ber=ber_r, refs=ref_ber))
+        print(f"phase 3r pipeline.simulate {B}x{S} config 2 {label}: BER {ber_r:.6g}, "
+              f"references {ref_ber} (gate {rule}: met); {ms_r:.3f} ms (median of 3 warm "
+              f"calls, CUDA events), launches a call {per_r} on {card}")
+    with in_impairments(acquired=True):
+        errors_sh, _ = make_sharded_simulate_fn(acq_cfg, make_link_mesh(), device=dev)(seed)
+    _check(torch.equal(errors_sh, pipeline.simulate(acq_cfg, seed, device=dev).bit_errors),
+           "phase 3r: make_sharded_simulate_fn (one rank) differs from simulate")
+    print("phase 3r make_sharded_simulate_fn (one rank, 1 x 1 mesh) on acq-awgn: == simulate "
+          "bit for bit")
+    torch.cuda.empty_cache()
+    for name in impairment_path:
+        _check(launches_impairments[name] > 0, f"phase 3r: kernel {name} was not launched")
+    print(f"phase 3r: {len(r_rows)} links in {time.perf_counter() - t3r:.1f} s (the links' peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated); window "
+          f"{ {k: v for k, v in launches_impairments.items() if v} }; the acquired links' own "
+          f"window { {k: v for k, v in launches_acquired.items() if v} }")
+
     # ---- phase 5: the parallel layer, 4 gloo ranks sharing the one card -----
     # ``dryrun_multichip`` spawns the ranks (the kernel library was built in
     # phase 1; the ranks only load it), runs every row at full width, holds
@@ -2875,7 +3237,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     launches_wide=launches_wide[name], launches_bf16=launches_bf16[name],
                     launches_parallel=launches_parallel[name], launches_nccl=launches_nccl[name],
                     launches_pipeline=launches_pipeline[name],
-                    launches_pilots=launches_pilots[name])
+                    launches_pilots=launches_pilots[name],
+                    launches_impairments=launches_impairments[name])
 
     # The form of C, D and F each entry ran (csrc/demod_rows.cuh's plans,
     # demod.cu's tile, csrc/demod_cl.cuh's plans).
@@ -2906,6 +3269,15 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
              **cl_form(name, n_w), launches=launches_at[n_w][name], **windows_of(name),
              **{"library_ms": None, **rep})
         for (name, n_w), rep in wide_report.items()
+    ] + [
+        # Kernel E's noise-only mode at the acquired link's stream shape
+        # (phase 3r, (B, 1, 21477)): its counter's launches in the acquired
+        # links' own window, where they are the noise row's alone (no 3r
+        # acquired link runs a gains model).
+        dict(name="fade_awgn@acquired_stream", route="cuda", source=sources["fade_awgn"][0],
+             replaces=sources["fade_awgn"][1], form=e_form("fade_awgn"),
+             launches=launches_acquired["fade_awgn"], **windows_of("fade_awgn"),
+             **{"library_ms": None, **report["fade_awgn@acquired_stream"]})
     ] + [
         # Kernel #20 at phase 2t's other shapes: at one rank's n2 = 4096
         # with h per link the launches of phase 5n's window, where the TP
@@ -2939,11 +3311,14 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     # the launches of its counter in its path's window (the FIR in phases
     # 3-4: the 24-tap link; the gains and noise in 3d-3f: SC-FDMA).
     for r in e_rows:
-        n_launch = own[r["counter"]]
-        print(f"phase 6 E {r['mode']} N {N} ({B}x{S}x{N + CP}; {e_form(r['counter'])}): "
+        n_launch = r.get("window", own)[r["counter"]]
+        print(f"phase 6 E {r['mode']} N {N} ({r.get('shape', f'{B}x{S}x{N + CP}')}; "
+              f"{e_form(r['counter'])}): "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), share {r['bound_ms'] / r['ms']:.4f}, launches of "
               f"{r['counter']} {n_launch}, launches x gap {n_launch * (r['ms'] - r['bound_ms']):.2f}")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_script:.1f} s of wall "
+          f"time, the build included")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

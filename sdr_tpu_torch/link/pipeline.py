@@ -1,10 +1,11 @@
 """End-to-end link pipeline: bits → TX → channel → RX → LLR → BER.
 
-Port of the SISO core of ``sdr_tpu/link/pipeline.py`` (ROADMAP queue 1,
-items 11a and 11c): ``LinkResult``, ``generate_bits``, ``tx_chain``,
-``apply_channel`` (the seven channel models of ``_apply_channel_model``),
-``rx_chain``'s genie and pilot branches, ``simulate`` and
-``make_simulate_fn``. The
+Port of the SISO link of ``sdr_tpu/link/pipeline.py`` (ROADMAP queue 1,
+items 11a, 11c and 11d): ``LinkResult``, ``generate_bits``, ``tx_chain``,
+``apply_channel`` (the seven channel models of ``_apply_channel_model``,
+with the PA before and the LO walk and I/Q mismatch after them),
+``rx_chain``'s genie, pilot and front-end branches, the acquired link
+(``_simulate_one_acquired``), ``simulate`` and ``make_simulate_fn``. The
 whole link runs at batch level on (n_channels, n_symbols, ·) planes, and
 on the card through the port's kernels wherever one computes the same
 function (the JAX pipeline has no Pallas kernel; the port's rules keep the
@@ -46,19 +47,38 @@ plain versions of the kernels off the card):
   the data tones or rows (pilot tones and rows are drawn and discarded),
   so a pilot link and its genie twin carry the same data there.
 
+- Front-end impairments (item 11d, ``ops/pa.py``, ``ops/sync.py``, the
+  LO walk and I/Q functions of ``ops/channel.py``). Aligned links: the
+  PA on the TX waveform, the propagation (one E launch), then the Wiener
+  LO rotation and the I/Q mismatch over each channel's flattened frame;
+  the receive compensates the image blindly (moments of consecutive
+  symbols' differences, or blocks' for SC-FDMA block pilots), refines
+  SC-FDMA's residual CFO from the CP, and tracks the common phase
+  (``estimate_ls_comb_tracked``, ``estimate_block_pilots_tracked``). A
+  timing offset or CFO takes the acquired link: the stream (delay,
+  two-symbol Schmidl & Cox preamble, body, one tail symbol) through the
+  PA, E's channel over the contiguous (B, S+3, N+cp) plane, the CFO, E's
+  noise over one (B, 1, T) row, the walk, the mixer and the compensator
+  lagged one symbol (one block), then batched ``ops.sync.acquire`` and
+  the payload at the recovered start into the pilot receive. The torch
+  stages run in passes of ``CHUNK`` channels.
+
 Every draw is keyed Philox on (seed, role, global channel id, position)
 — the payload on ``ROLE_PAYLOAD``, the fading on ``ROLE_FADING``, the
-noise on ``ROLE_NOISE`` at counter (channel, symbol, sample) — not the
-JAX package's per-channel ``fold_in`` threefry keys. ``s0`` (a time
-block's first symbol, ``link.stream``) moves every per-symbol draw to the
-block's absolute symbols, so a blocked stream equals the whole frame.
+noise on ``ROLE_NOISE`` at counter (channel, symbol, sample) (the
+acquired stream's at (channel, 0, sample)), the LO walk's increments on
+``ROLE_PHASE`` at the sample's position in the frame or stream
+(``ops.channel.wiener_increments``) — not the JAX package's per-channel
+``fold_in`` threefry keys. ``s0`` (a time block's first symbol,
+``link.stream``) moves every per-symbol draw to the block's absolute
+symbols, so a blocked stream equals the whole frame. The acquired link's
+fading is ``fast.fading_at`` over 2 + S symbols from symbol 0.
 
-Not covered: front-end impairments (PA, phase noise, I/Q, blind
-acquisition) raise ``NotImplementedError`` naming ROADMAP queue 1, item
-11d, and MIMO item 11e. The entry points run on the card
-(``device="cuda"``) unless the caller asks for the CPU; without a card
-they raise, and a CUDA tensor that a kernel refuses raises: nothing falls
-back to plain torch or to the CPU.
+Not covered: MIMO raises ``NotImplementedError`` naming ROADMAP queue 1,
+item 11e. The entry points run on the card (``device="cuda"``) unless
+the caller asks for the CPU; without a card they raise, and a CUDA tensor
+that a kernel refuses raises: nothing falls back to plain torch or to the
+CPU.
 """
 
 from __future__ import annotations
@@ -80,8 +100,11 @@ from sdr_tpu_torch.kernels import tx as _kb
 from sdr_tpu_torch.kernels.channel import fade_awgn
 from sdr_tpu_torch.kernels.payload import out_dtype, payload_idx
 from sdr_tpu_torch.link import fast
+from sdr_tpu_torch.ops import channel as chan
 from sdr_tpu_torch.ops import equalize as eq
+from sdr_tpu_torch.ops import pa as _pa
 from sdr_tpu_torch.ops import pilots as pil
+from sdr_tpu_torch.ops import sync
 from sdr_tpu_torch.ops.fft import ifft
 from sdr_tpu_torch.ops.llr import llr_maxlog, llr_to_hard_bits
 from sdr_tpu_torch.ops.modulation import _bits_to_ints, _ints_to_bits
@@ -106,16 +129,18 @@ class LinkResult:
 
 def check_supported(cfg: LinkConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for what the
-    SISO core does not run yet."""
+    pipeline does not run yet: MIMO."""
     if cfg.mimo is not None:
         raise NotImplementedError(
             "link.pipeline runs SISO links; MIMO (ops/mimo.py, the detectors) is "
             "ROADMAP queue 1, item 11e")
+
+
+def front_end_impaired(cfg: LinkConfig) -> bool:
+    """Whether the config has a front-end impairment: a PA, LO phase
+    noise, I/Q imbalance, or a timing offset or CFO (the acquired link)."""
     ch = cfg.channel
-    if ch.impaired or ch.has_pa or ch.phase_noise_std or ch.iq_imbalanced:
-        raise NotImplementedError(
-            "front-end impairments (PA, phase noise, I/Q imbalance, timing/CFO acquisition) "
-            "are ROADMAP queue 1, item 11d")
+    return bool(ch.impaired or ch.has_pa or ch.phase_noise_std or ch.iq_imbalanced)
 
 
 def noise_var(cfg: LinkConfig) -> float:
@@ -220,25 +245,108 @@ def tx_chain(cfg: LinkConfig, bits: torch.Tensor):
     return tx_idx(cfg, _grid_of(cfg, _bits_to_ints(bits, bps).to(out_dtype(bps))))
 
 
+def apply_pa(cfg: LinkConfig, tx):
+    """The TX front end on a planar waveform: the configured PA (DPD, then
+    Rapp) at the nominal input power 1/N, or the waveform as it is."""
+    ch = cfg.channel
+    if not ch.has_pa:
+        return tx
+    return _pa.apply_pa(tx, ch.pa_ibo_db, 1.0 / cfg.ofdm.n_fft, ch.pa_smoothness, ch.pa_dpd)
+
+
+# Channels a pass of the front end's plain-torch stages (the LO walk, the
+# mixer, the blind I/Q compensation, acquisition, the payload gather): at
+# config 2's acquired stream (21477 samples) their temporaries take about
+# 2 GB a thousand channels, so a pass of 2048 holds them near 4 GB. Every
+# stage is per channel (keyed draws, per-channel moments and decisions), so
+# a pass gives each channel what one pass over the batch gives it, up to the
+# order torch's reductions take for the pass's shape.
+CHUNK = 2048
+
+
+def _in_passes(fn, *xs: torch.Tensor):
+    """fn(channel slice, *(x[slice] for x in xs)) over passes of ``CHUNK``
+    channels of the (B, ...) inputs, each of fn's outputs (a tensor or a
+    tuple of them) gathered into one (B, ...) tensor of its dtype."""
+    B = xs[0].shape[0]
+    outs = None
+    for a in range(0, max(B, 1), CHUNK):
+        sl = slice(a, min(a + CHUNK, B))
+        got = fn(sl, *(x[sl] for x in xs))
+        got = got if isinstance(got, tuple) else (got,)
+        if outs is None:
+            outs = tuple(torch.empty((B, *t.shape[1:]), dtype=t.dtype, device=t.device)
+                         for t in got)
+        for o, t in zip(outs, got):
+            o[sl] = t
+    return outs if len(outs) > 1 else outs[0]
+
+
+def mixer(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, z: torch.Tensor, phase=None,
+          compensate_lag: int = 0):
+    """The receiver's analog stages over each channel's serialised samples
+    z (B, n) complex: the Wiener LO rotation (keyed increments at sample
+    positions 0 … n−1, or the injected ``phase`` (B, n) N(0, 1)
+    increments), then the I/Q mismatch, then with ``compensate_lag`` the
+    blind compensation on moments of samples that lag apart (the acquired
+    stream's); in passes of ``CHUNK`` channels."""
+    ch = cfg.channel
+    compensate = bool(compensate_lag and ch.iq_imbalanced)
+
+    def stages(sl, zc):
+        if ch.phase_noise_std:
+            zc = zc * chan.wiener_phase(seed, ch_ids[sl], z.shape[-1], ch.phase_noise_std,
+                                        None if phase is None else phase[sl])
+        if ch.iq_imbalanced:
+            zc = chan.apply_iq_imbalance(zc, ch.iq_gain, ch.iq_phase_rad)
+        if compensate:
+            zc = chan.iq_compensate(zc, diff_lag=compensate_lag)
+        return zc
+
+    return _in_passes(stages, z) if ch.phase_noise_std or ch.iq_imbalanced else z
+
+
+def _iq_compensated(z: torch.Tensor, **kw) -> torch.Tensor:
+    """``ops.channel.iq_compensate`` (per-channel moments) in passes."""
+    return _in_passes(lambda _, zc: chan.iq_compensate(zc, **kw), z)
+
+
 def apply_channel(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, tx, *, s0: int = 0,
-                  history=None, fading=None, noise=None):
+                  history=None, fading=None, noise=None, phase=None):
     """The channel over a planar waveform ``tx`` (B, S, N+cp) → (rx, h_freq,
     noise_var).
 
     rx is planar (re, im); h_freq the complex response that broadcasts
     against the post-FFT grid (B, S, N) — (B, 1, 1) flat, (B, S, 1) per
     symbol, (B, 1, N) or (B, S, N) selective — or None (AWGN, IDENTITY);
-    noise_var the subcarrier variance (0 for IDENTITY). After the fading
-    draws (``link.fast.fading_at``, at the absolute symbols from ``s0``)
-    the channel is one launch of kernel E: the FIR or the gains, then the
-    noise (keyed at counter (channel, s0 + s, sample)).
+    noise_var the subcarrier variance (0 for IDENTITY). The order is the
+    JAX function's: the PA on the waveform (``apply_pa``), the
+    propagation — after the fading draws (``link.fast.fading_at``, at the
+    absolute symbols from ``s0``) one launch of kernel E: the FIR or the
+    gains, then the noise (keyed at counter (channel, s0 + s, sample)) —,
+    then the LO walk and the I/Q mismatch over each channel's flattened
+    frame (``mixer``).
 
     ``history`` (hr, hi), each (B, L−1): the clean samples before row 0
     that the FIR of a selective model reads (a time block's halo), zeros
-    when None. ``fading`` ((h, taps) in ``fade_state``'s form) and
-    ``noise`` (N(0, 1) planes (n_re, n_im) of the waveform's shape) are
-    the injection forms the parity tests use."""
+    when None. ``fading`` ((h, taps) in ``fade_state``'s form), ``noise``
+    (N(0, 1) planes (n_re, n_im) of the waveform's shape) and ``phase``
+    (the Wiener walk's N(0, 1) increments, (B, S·(N+cp))) are the
+    injection forms the parity tests use."""
     check_supported(cfg)
+    tx = apply_pa(cfg, tx)
+    rx, h_freq, nv = _propagate(cfg, seed, ch_ids, tx, s0, history, fading, noise)
+    ch = cfg.channel
+    if ch.phase_noise_std or ch.iq_imbalanced:
+        re, im = rx
+        z = mixer(cfg, seed, ch_ids, torch.complex(re, im).reshape(re.shape[0], -1), phase)
+        rx = fast._planar(z.reshape(re.shape))
+    return rx, h_freq, nv
+
+
+def _propagate(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, tx, s0, history, fading,
+               noise):
+    """The propagation model (``apply_channel``'s middle): one E launch."""
     re, im = tx
     model = cfg.channel.model
     nv = noise_var(cfg)
@@ -316,11 +424,19 @@ def _rx_plain(cfg: LinkConfig, re, im, h, nv: float) -> torch.Tensor:
     return llr_maxlog(s, cfg.modulation, eff)
 
 
+def _tracked(cfg: LinkConfig, track_phase: bool = False) -> bool:
+    """Whether a frame-static model takes the phase-tracked estimate: a
+    residual CFO after acquisition or an LO walk rotates the grid a little
+    more each symbol (pipeline.py:303-320, :351-376)."""
+    ch = cfg.channel
+    return bool(ch.impaired or ch.phase_noise_std or track_phase)
+
+
 def _comb_estimate(cfg: LinkConfig, y: torch.Tensor, track_phase: bool) -> torch.Tensor:
     """The comb's estimate from the post-FFT grid (B, S, N)
-    (pipeline.py:324-369): LS or DFT, per symbol for the time-varying
-    models, phase-tracked with ``track_phase``, else frame-averaged →
-    (B, 1 | S, N)."""
+    (pipeline.py:324-376): LS or DFT, per symbol for the time-varying
+    models, phase-tracked on the impaired and phase-noise links or with
+    ``track_phase``, else frame-averaged → (B, 1 | S, N)."""
     sp = cfg.pilot_spacing
     base = pil.estimate_ls_comb
     if cfg.estimator == ChannelEstimator.DFT:
@@ -328,7 +444,7 @@ def _comb_estimate(cfg: LinkConfig, y: torch.Tensor, track_phase: bool) -> torch
             pil.estimate_dft_comb, n_taps=pil.dft_n_taps(cfg.ofdm.n_fft, cfg.ofdm.cp_len, sp))
     if cfg.channel.model in TIME_VARYING_MODELS:
         return base(y, sp, per_symbol=True)
-    if track_phase:
+    if _tracked(cfg, track_phase):
         return pil.estimate_ls_comb_tracked(y, sp, base=base)
     return base(y, sp, per_symbol=False)
 
@@ -336,17 +452,43 @@ def _comb_estimate(cfg: LinkConfig, y: torch.Tensor, track_phase: bool) -> torch
 def _block_estimate(cfg: LinkConfig, y_pil: torch.Tensor) -> torch.Tensor:
     """The block pilots' estimate from the post-FFT pilot rows (B, S/p, N)
     (pipeline.py:283-329): interpolated per block (RAYLEIGH_TIME) or per
-    tone (MULTIPATH_TIME) → (B, n_data_symbols, N); else frame-static,
-    DFT-projected with the DFT estimator → (B, 1, N)."""
+    tone (MULTIPATH_TIME), phase-tracked on the impaired and phase-noise
+    links → (B, n_data_symbols, N); else frame-static, DFT-projected with
+    the DFT estimator → (B, 1, N)."""
     p, N = cfg.pilot_spacing, cfg.ofdm.n_fft
+    n_taps = min(cfg.ofdm.cp_len + 1, N) if cfg.estimator == ChannelEstimator.DFT else 0
     if cfg.channel.model == ChannelModel.RAYLEIGH_TIME:
         h = pil.estimate_block_pilots_interp(y_pil, p)
     elif cfg.channel.model == ChannelModel.MULTIPATH_TIME:
         h = pil.estimate_block_pilots_interp_full(y_pil, p)
+    elif _tracked(cfg):
+        h = pil.estimate_block_pilots_tracked(y_pil, p, n_taps)
     else:
-        n_taps = min(cfg.ofdm.cp_len + 1, N) if cfg.estimator == ChannelEstimator.DFT else 0
         return pil.estimate_block_pilots(y_pil, n_taps)[:, None, :]
     return h.reshape(y_pil.shape[0], cfg.n_data_symbols, N)
+
+
+def _front(cfg: LinkConfig, rx, skip_iq: bool = False):
+    """The receive's steps before the FFT (pipeline.py:232-265), on planar
+    (B, S, N+cp): the blind I/Q compensation (moments of consecutive
+    symbols' differences, or consecutive blocks' for SC-FDMA block pilots;
+    skipped with ``skip_iq``), then SC-FDMA block pilots' CP-based
+    residual-CFO refinement on the impaired links."""
+    ch = cfg.channel
+    block = bool(cfg.dft_spread and cfg.pilot_spacing)
+    iq = ch.iq_imbalanced and not skip_iq
+    resid = block and ch.impaired
+    if not (iq or resid):
+        return rx
+    z = torch.complex(*rx)
+    if iq and block:
+        z = _iq_compensated(_block_view(cfg, z), diff_axis=-3).reshape(z.shape)
+    elif iq:
+        z = _iq_compensated(z, diff_axis=-2)
+    if resid:
+        z = _in_passes(lambda _, zc: sync.correct_residual_cfo(zc, cfg.ofdm.n_fft,
+                                                                cfg.ofdm.cp_len), z)
+    return fast._planar(z)
 
 
 def _estimate(cfg: LinkConfig, rx, track_phase: bool = False):
@@ -376,18 +518,22 @@ def _llrs(cfg: LinkConfig, rx, h_freq, nv: float) -> torch.Tensor:
     return _rx_plain(cfg, re, im, h_freq, nv)
 
 
-def rx_chain(cfg: LinkConfig, rx, h_freq, noise_var, track_phase: bool = False):
+def rx_chain(cfg: LinkConfig, rx, h_freq, noise_var, skip_iq: bool = False,
+             track_phase: bool = False):
     """Receiver: planar samples (B, S, N+cp) → (llrs (B, n_data_symbols,
     bits_per_ofdm_symbol) float32 in the public order, hard bits int8).
-    Kernel C's LLR mode (SC-FDMA: its despread mode) wherever it computes
-    the branch (``_kernel_h``); the SC-FDMA ZF despread, and the
-    unequalised despread at a noise variance below
-    ``_DESPREAD_UNIT_NV_MIN``, in plain torch. With pilots the response is
-    estimated (``_estimate``; ``h_freq`` is not read, and
-    ``track_phase`` selects the comb's tracked estimator for the
-    frame-static models) and only the data tones or rows are demapped."""
+    First the front-end compensation (``_front``: the blind I/Q stage
+    unless ``skip_iq``, SC-FDMA block pilots' residual CFO). Kernel C's
+    LLR mode (SC-FDMA: its despread mode) wherever it computes the branch
+    (``_kernel_h``); the SC-FDMA ZF despread, and the unequalised
+    despread at a noise variance below ``_DESPREAD_UNIT_NV_MIN``, in plain
+    torch. With pilots the response is estimated (``_estimate``; ``h_freq``
+    is not read, and ``track_phase`` selects the comb's tracked estimator
+    for the frame-static models) and only the data tones or rows are
+    demapped."""
     check_supported(cfg)
     nv = max(float(noise_var), 1e-12)
+    rx = _front(cfg, rx, skip_iq)
     if cfg.pilot_spacing:
         rx, h_freq = _estimate(cfg, rx, track_phase)
     llrs = _llrs(cfg, rx, h_freq, nv)
@@ -397,17 +543,18 @@ def rx_chain(cfg: LinkConfig, rx, h_freq, noise_var, track_phase: bool = False):
 
 
 def count_errors(cfg: LinkConfig, rx, h_freq, noise_var, idx: torch.Tensor,
-                 track_phase: bool = False) -> torch.Tensor:
+                 track_phase: bool = False, skip_iq: bool = False) -> torch.Tensor:
     """Per-channel (B,) int32 bit errors of the received planes against
-    kernel A's transmitted grid ``idx`` (B, S, N): kernel C's count on
-    ``_kernel_h``'s response (its hard decisions do not depend on nv, so
-    the unequalised despread counts there at any nv), the SC-FDMA ZF
-    despread through the plain plane. With pilots, on the estimate
-    (``_estimate``): the comb's count skips the pilot tones, the block
-    pilots' counts the gathered data rows."""
+    kernel A's transmitted grid ``idx`` (B, S, N): after ``_front``,
+    kernel C's count on ``_kernel_h``'s response (its hard decisions do
+    not depend on nv, so the unequalised despread counts there at any
+    nv), the SC-FDMA ZF despread through the plain plane. With pilots, on
+    the estimate (``_estimate``): the comb's count skips the pilot tones,
+    the block pilots' counts the gathered data rows."""
     nv = max(float(noise_var), 1e-12)
     mod = cfg.modulation
     comb = 0
+    rx = _front(cfg, rx, skip_iq)
     if cfg.pilot_spacing:
         rx, h_freq = _estimate(cfg, rx, track_phase)
         if cfg.dft_spread:
@@ -423,21 +570,138 @@ def count_errors(cfg: LinkConfig, rx, h_freq, noise_var, idx: torch.Tensor,
                            despread=cfg.dft_spread, pilot_spacing=comb)
 
 
+# ---- the acquired link: blind timing and CFO acquisition ----------------------------
+
+def stream_len(cfg: LinkConfig) -> int:
+    """Samples of the acquired link's stream: the delay, the two preamble
+    symbols, the body and one symbol of tail zeros."""
+    return cfg.channel.timing_offset + (cfg.n_symbols + 3) * cfg.ofdm.symbol_len
+
+
+def _tail_fading(cfg: LinkConfig, h, taps):
+    """The acquired plane's (B, S+3, ·) fading from the 2 + S symbols'
+    state: per-symbol taps with the tail row repeating the last symbol's
+    (the JAX tail convolution, pipeline.py:491-495, is exactly one symbol
+    with those taps and the last symbol's tail as history), per-symbol
+    gains with a unit gain on the tail row; the static models as drawn."""
+    model = cfg.channel.model
+    if model == ChannelModel.MULTIPATH_TIME:
+        return None, torch.cat([taps, taps[:, -1:]], dim=1)
+    if model == ChannelModel.RAYLEIGH_TIME:
+        return torch.cat([h, torch.ones_like(h[:, :1])], dim=1), None
+    return h, taps
+
+
+def acquired_plane(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, idx: torch.Tensor,
+                   fading=None):
+    """The acquired link's transmitted plane and its channel: planar
+    (B, S+3, N+cp) — the two preamble symbols, the body (kernel B, with
+    its comb; SC-FDMA's ``tx_idx``) and one symbol of zeros, through the
+    PA (zeros stay zeros) — and kernel E's channel arguments for it
+    (``_tail_fading``'s gains or taps), None for IDENTITY and AWGN.
+    ``fading``: (h, taps) of ``fast.fading_at`` over 2 + S symbols."""
+    model = cfg.channel.model
+    L = cfg.ofdm.symbol_len
+    B, S = idx.shape[:2]
+    pre = sync.acquisition_preamble(cfg.ofdm.n_fft, cfg.ofdm.cp_len,
+                                    device=idx.device).reshape(2, L)
+    zeros = torch.zeros((B, 1, L), dtype=torch.float32, device=idx.device)
+    plane = tuple(torch.cat([p.expand(B, 2, L), b, zeros], dim=1)
+                  for p, b in zip(fast._planar(pre), tx_idx(cfg, idx)))
+    plane = tuple(t.contiguous() for t in apply_pa(cfg, plane))
+    if model in (ChannelModel.IDENTITY, ChannelModel.AWGN):
+        return plane, None
+    h, taps = fading if fading is not None else fast.fading_at(
+        cfg, fast.fading_params(cfg, seed, ch_ids), 0, S + 2)
+    h, taps = _tail_fading(cfg, h, taps)
+    if model in _SELECTIVE:
+        return plane, dict(zip(("taps_r", "taps_i"), fast._planar(taps)))
+    return plane, dict(zip(("hr_s", "hi_s"), fast._gains(h)))
+
+
+def acquired_stream(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, idx: torch.Tensor, *,
+                    fading=None, noise=None, phase=None) -> torch.Tensor:
+    """TX and channel of the acquired link (pipeline.py:435-543) for A's
+    grid ``idx`` (B, S, N): the received stream (B, T) complex64,
+    T = ``stream_len``.
+
+    The stream is the delay's zeros, then ``acquired_plane`` after one
+    launch of kernel E with the channel only (the delay stays zeros
+    through any FIR); then the CFO at absolute sample index n
+    (``ops.sync.apply_cfo``), E's keyed noise over the stream as one
+    (B, 1, T) row at counter (channel, 0, n) (none for IDENTITY), the
+    Wiener walk, the I/Q mismatch and the blind I/Q compensation with
+    moments lagged one symbol (one pilot block for SC-FDMA block pilots)
+    (``mixer``).
+
+    Injection forms: ``fading`` ((h, taps) of ``fast.fading_at`` over
+    2 + S symbols), ``noise`` ((n_re, n_im) N(0, 1) planes (B, 1, T)),
+    ``phase`` ((B, T) N(0, 1) increments)."""
+    ch = cfg.channel
+    N, L = cfg.ofdm.n_fft, cfg.ofdm.symbol_len
+    B = idx.shape[0]
+    plane, chan_kw = acquired_plane(cfg, seed, ch_ids, idx, fading)
+    if chan_kw is not None:
+        plane = fade_awgn(*plane, **chan_kw)
+    delay = torch.zeros((B, ch.timing_offset), dtype=torch.float32, device=idx.device)
+    z = torch.complex(*(torch.cat([delay, t.reshape(B, -1)], dim=1) for t in plane))
+    del plane
+    z = sync.apply_cfo(z, ch.cfo_subcarriers, N)
+    if ch.model != ChannelModel.IDENTITY:
+        kw = dict(noise=noise) if noise is not None else dict(seed=seed, ch_ids=ch_ids)
+        re, im = fast._planar(z[:, None, :])
+        del z
+        re, im = fade_awgn(re, im, noise_var=fast.noise_var(cfg) / N, **kw)
+        z = torch.complex(re[:, 0], im[:, 0])
+        del re, im
+    lag = L * (cfg.pilot_spacing if cfg.dft_spread and cfg.pilot_spacing else 1)
+    return mixer(cfg, seed, ch_ids, z, phase, compensate_lag=lag)
+
+
+def acquire_payload(cfg: LinkConfig, stream: torch.Tensor):
+    """The acquired link's receive front (pipeline.py:551-565): batched
+    ``ops.sync.acquire`` on the stream (B, T), then the CFO-corrected
+    payload (B, S, N+cp) planar from max(start − backoff, 0) (clamped
+    into the stream, as ``dynamic_slice`` clamps; backoff 2 for SC-FDMA
+    with cp ≥ 4, else 0); in passes of ``CHUNK`` channels. Returns
+    (start, total CFO, payload planes)."""
+    N, cp = cfg.ofdm.n_fft, cfg.ofdm.cp_len
+    backoff = 2 if (cfg.dft_spread and cp >= 4) else 0
+    S, L = cfg.n_symbols, cfg.ofdm.symbol_len
+
+    def front(_, zc):
+        start, total = sync.acquire_start(zc, N, cp)
+        pay = sync.corrected_slice(zc, total, torch.clamp(start - backoff, min=0), S * L,
+                                   N).reshape(-1, S, L)
+        return start, total, pay.real, pay.imag
+
+    start, total, re, im = _in_passes(front, stream)
+    return start, total, (re, im)
+
+
 def simulate_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, want_llrs: bool = False):
     """The link over explicit GLOBAL channel ids (B,) int32 on the target
     device: (bit_errors, bits_counted, llrs | None). bits_counted is
-    n_data_symbols × bits_per_ofdm_symbol: the payload alone."""
+    n_data_symbols × bits_per_ofdm_symbol: the payload alone. A timing
+    offset or CFO takes the acquired link, as the JAX ``_simulate_one``
+    does: ``acquired_stream``, ``acquire_payload``, then the pilot receive
+    with ``skip_iq`` (the raw stream was compensated)."""
     check_supported(cfg)
     idx = draw_idx(cfg, seed, ch_ids)
-    rx, h_freq, nv = apply_channel(cfg, seed, ch_ids, tx_idx(cfg, idx))
+    acquired = cfg.channel.impaired
+    if acquired:
+        rx = acquire_payload(cfg, acquired_stream(cfg, seed, ch_ids, idx))[2]
+        h_freq, nv = None, fast.noise_var(cfg)
+    else:
+        rx, h_freq, nv = apply_channel(cfg, seed, ch_ids, tx_idx(cfg, idx))
     B = ch_ids.shape[0]
     counted = torch.full((B,), cfg.n_data_symbols * cfg.bits_per_ofdm_symbol, dtype=torch.int32,
                          device=ch_ids.device)
     if want_llrs:
-        llrs, _ = rx_chain(cfg, rx, h_freq, nv)
+        llrs, _ = rx_chain(cfg, rx, h_freq, nv, skip_iq=acquired)
         errors = _kc.count_errors(llrs, payload_of(cfg, idx), cfg.modulation.bits_per_symbol)
         return errors, counted, llrs
-    return count_errors(cfg, rx, h_freq, nv, idx), counted, None
+    return count_errors(cfg, rx, h_freq, nv, idx, skip_iq=acquired), counted, None
 
 
 def simulate(cfg: LinkConfig, seed: int, device="cuda", want_llrs: bool = False) -> LinkResult:

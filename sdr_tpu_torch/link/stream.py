@@ -38,10 +38,16 @@ from sdr_tpu_torch.link import fast, pipeline
 
 def _check_blocking(cfg: LinkConfig, n_blocks: int) -> int:
     """The symbols per block; raises for what the stream does not run:
-    what ``pipeline.check_supported`` refuses (MIMO, impairments: not
-    ported yet, named first), then pilots, as the JAX module does
+    what ``pipeline.check_supported`` refuses (MIMO), front-end
+    impairments (the JAX stream runs the propagation model alone there;
+    this one names item 11d), then pilots, as the JAX module does
     (stream.py:40-44)."""
     pipeline.check_supported(cfg)
+    if pipeline.front_end_impaired(cfg):
+        raise NotImplementedError(
+            "the blocked stream does not run front-end impairments (PA, phase noise, I/Q "
+            "imbalance, timing/CFO acquisition: ROADMAP queue 1, item 11d, ported in "
+            "link.pipeline.simulate only)")
     if cfg.pilot_spacing:
         raise NotImplementedError(
             "the blocked-stream path simulates full-grid links; pilot-based "

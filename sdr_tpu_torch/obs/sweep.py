@@ -11,9 +11,9 @@ Engines: ``"pipeline"`` (``link.pipeline``, the default, as in the JAX
 sweep: uncoded SISO links, genie CSI or pilot-estimated), ``"fast"``
 (``link.fast``) and ``"mc"`` (``link.mc``, kernel G, ``mc_iters`` passes
 per invocation) run on ``device`` — the card unless the caller asks for
-the CPU. Coded sweeps (``code=``), impaired and MIMO configs on the
-pipeline engine are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP items (11f, 11d, 11e).
+the CPU. Impaired configs run on the pipeline engine (item 11d); coded
+sweeps (``code=``) and MIMO configs are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP items (11f, 11e).
 
 Seeds: the JAX ``key`` becomes an int ``seed``. Invocation ``batch`` of
 point ``i`` runs with

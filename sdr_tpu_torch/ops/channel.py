@@ -1,15 +1,17 @@
 """Channel models the fast link uses: AWGN, flat Rayleigh and Rician,
 Jakes block fading, static multipath and the per-tap-Jakes TDL.
 
-Port of ``sdr_tpu/ops/channel.py`` (channel.py:31-371, the subset on the
-fast engine's path). The JAX functions take a ``jax.random`` key per
+Port of ``sdr_tpu/ops/channel.py`` (channel.py:31-371: the subset on the
+fast engine's path, and the receiver front end's LO phase noise and I/Q
+mismatch with its blind compensator, channel.py:63-156). The JAX functions take a ``jax.random`` key per
 channel; here every draw is keyed Philox (``sdr_tpu_torch.core.prng``):
 a pure function of (seed, role, global channel id, position), so a
 channel's fading and noise do not depend on the batch it is computed
 in. Lanes of the fading stream (``ROLE_FADING``), one per draw of a
 model: 0 the complex Gaussians (flat Rayleigh gain, Rician diffuse
 part, multipath taps), 1 the Rician LOS phase, 2 the Jakes state
-(θ on word 0, φ on word 1; counter (channel, tap, path)).
+(θ on word 0, φ on word 1; counter (channel, tap, path)). The Wiener
+phase walk's increments are on ``ROLE_PHASE`` (``wiener_increments``).
 
 The deterministic halves — ``jakes_eval``, ``multipath_time_taps_at``,
 ``symbol_history``, ``apply_multipath``, ``freq_response`` — follow the
@@ -223,3 +225,73 @@ def freq_response(taps: torch.Tensor, n_fft: int) -> torch.Tensor:
     pad = torch.zeros(taps.shape[:-1] + (n_fft - L,), dtype=torch.complex64,
                       device=taps.device)
     return fft(torch.cat([taps.to(torch.complex64), pad], dim=-1))
+
+
+def wiener_increments(seed: int, ch_ids: torch.Tensor, n: int) -> torch.Tensor:
+    """The Wiener walk's N(0, 1) increments (B, n) float32 of samples
+    0 … n−1: sample k is normal k mod 4 of counter (channel, 0, k div 4, 0)
+    on ``seed ^ ROLE_PHASE`` — Box–Muller on words 0 and 1 (normals 0, 1)
+    and on words 2 and 3 (normals 2, 3), four increments a Philox call.
+    A pure function of (seed, channel, sample)."""
+    n4 = -(-n // 4)
+    w0, w1, w2, w3 = prng.keyed_words(seed, prng.ROLE_PHASE, ch_ids, (1, n4))
+    g = torch.stack((*prng.box_muller(w0, w1), *prng.box_muller(w2, w3)), dim=-1)
+    return g.reshape(ch_ids.shape[0], 4 * n4)[:, :n]
+
+
+def wiener_phase(seed: int, ch_ids: torch.Tensor, n: int, std: float,
+                 increments: torch.Tensor | None = None) -> torch.Tensor:
+    """RX-LO phase-noise rotation e^{jθ[k]}, θ a Wiener walk: θ[k] =
+    Σ_{i≤k} std·g[i] with g the keyed increments (``wiener_increments``)
+    or the injected (B, n) N(0, 1) ``increments``. ``std`` is the
+    per-sample increment in radians. Returns (B, n) complex64 of unit
+    magnitude; the walk is a float32 cumsum, as in the JAX function."""
+    g = wiener_increments(seed, ch_ids, n) if increments is None else increments
+    theta = torch.cumsum(g.to(torch.float32) * torch.tensor(std, dtype=torch.float32), dim=-1)
+    return torch.complex(torch.cos(theta), torch.sin(theta))
+
+
+def iq_imbalance_coeffs(gain: float, phase_rad: float):
+    """Widely-linear mixer coefficients (μ, ν) for y = μ·x + ν·x*:
+    μ = (1 + g·e^{jφ})/2, ν = (1 − g·e^{jφ})/2 (Python complex)."""
+    ge = gain * complex(math.cos(phase_rad), math.sin(phase_rad))
+    return (1.0 + ge) / 2.0, (1.0 - ge) / 2.0
+
+
+def apply_iq_imbalance(x: torch.Tensor, gain: float, phase_rad: float) -> torch.Tensor:
+    """RX front-end I/Q mismatch y = μ·x + ν·conj(x) over complex x (any
+    shape), applied after the noise."""
+    mu, nu = iq_imbalance_coeffs(gain, phase_rad)
+    c64 = dict(dtype=torch.complex64, device=x.device)
+    return x * torch.tensor(mu, **c64) + torch.conj(x) * torch.tensor(nu, **c64)
+
+
+def iq_compensate(r: torch.Tensor, diff_axis: int | None = None, diff_lag: int = 0) -> torch.Tensor:
+    """Blind I/Q-image cancellation by exact properization, per channel.
+
+    r: (B, ...) complex, the batch on axis 0. The moments of each channel
+    — c = mean(m²), p = mean(|m|²) over every axis but the batch (the JAX
+    function's whole-array means under ``vmap``) — give the minimal-|w|
+    root w of c̄·w² − 2p·w + c = 0, and z = r − w·conj(r). m is r itself,
+    the consecutive differences along ``diff_axis`` (the symbol axis, or
+    the block axis of SC-FDMA's pilot blocks), or r[n + lag] − r[n] for
+    a serialised stream (``diff_lag``), each over √2, so a frame-periodic
+    deterministic part cannot bias the pseudo-variance."""
+    if diff_lag:
+        m = (r[..., diff_lag:] - r[..., :-diff_lag]) * (2 ** -0.5)
+    elif diff_axis is None:
+        m = r
+    else:
+        n = r.shape[diff_axis]
+        if n < 2:
+            raise ValueError("diff_axis needs >= 2 symbols to difference")
+        m = (r.narrow(diff_axis, 1, n - 1) - r.narrow(diff_axis, 0, n - 1)) * (2 ** -0.5)
+    axes = tuple(range(1, r.ndim))
+    c = torch.mean(m * m, dim=axes)
+    p = torch.mean(torch.abs(m) ** 2, dim=axes)
+    c_abs = torch.abs(c)
+    disc = torch.sqrt(torch.clamp(p * p - c_abs ** 2, min=0.0))
+    nz = c_abs > 0
+    denom = torch.where(nz, torch.conj(c), torch.ones_like(c))
+    w = torch.where(nz, (p - disc).to(c.dtype) / denom, torch.zeros_like(c))
+    return r - w.reshape((-1,) + (1,) * (r.ndim - 1)) * torch.conj(r)

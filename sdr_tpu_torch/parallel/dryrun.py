@@ -337,7 +337,9 @@ def run_cases(rank: int, world: int, device, cases: list) -> list:
 
 def _cfg(model, ebno_db, n_channels, n_symbols, n_fft=256, cp=64, mod=Modulation.QAM16,
          **kw):
-    channel = {k: kw.pop(k) for k in ("pdp", "doppler_norm") if k in kw}
+    channel = {k: kw.pop(k) for k in ("pdp", "doppler_norm", "cfo_subcarriers", "timing_offset",
+                                      "pa_ibo_db", "phase_noise_std", "iq_gain", "iq_phase_rad")
+               if k in kw}
     return LinkConfig(modulation=mod, ofdm=OFDMConfig(n_fft=n_fft, cp_len=cp),
                       channel=ChannelConfig(model=model, ebno_db=ebno_db, **channel),
                       n_symbols=n_symbols, n_channels=n_channels, **kw)

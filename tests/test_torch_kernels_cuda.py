@@ -23,6 +23,8 @@ mode (``tp_stage2_llr``, #20) as C's LLR mode; D and F on bfloat16 sample
 planes as on float32 ones.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1353,6 +1355,80 @@ def test_pilot_pipeline_on_card_matches_cpu(dev, case):
     margin = (cpu.llrs.abs() < 1e-3).sum(dim=(1, 2))
     assert bool(((res.bit_errors.cpu() - cpu.bit_errors).abs() <= margin).all())
     assert torch.equal(res.bits_counted.cpu(), cpu.bits_counted) and int(cpu.bit_errors.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["acq_awgn", "acq_multipath_pa", "pn_iq_comb",
+                                  "acq_block_pa"])
+def test_impaired_pipeline_on_card_matches_cpu(dev, case):
+    """An impaired link on the card (A, B's comb or the block TX, E's
+    channel and its noise row, the torch front end and acquisition, C's
+    comb or despread count) counts what the CPU run counts but for bits
+    whose |LLR| < 1e-3."""
+    from sdr_tpu_torch.link import pipeline
+
+    acq = dict(cfo_subcarriers=1.3, timing_offset=37)
+    kw = {"acq_awgn": dict(model=ChannelModel.AWGN, **acq),
+          "acq_multipath_pa": dict(pa_ibo_db=6.0, **acq),
+          "pn_iq_comb": dict(phase_noise_std=1e-3, iq_gain=1.05, iq_phase_rad=0.03),
+          "acq_block_pa": dict(pilot_spacing=4, dft_spread=True, ebno_db=14.0, pa_ibo_db=6.0,
+                               **acq)}[case]
+    channel = {k: kw.pop(k) for k in list(kw) if k in (
+        "cfo_subcarriers", "timing_offset", "pa_ibo_db", "phase_noise_std", "iq_gain",
+        "iq_phase_rad")}
+    cfg = _pilot_cfg(**kw)
+    cfg = dataclasses.replace(cfg, channel=dataclasses.replace(cfg.channel, **channel))
+    _lib.reset_launches()
+    res = pipeline.simulate(cfg, 7, device=dev)
+    torch.cuda.synchronize()
+    launched = {k for k, v in _lib.LAUNCHES.items() if v}
+    want = {"demod_count_despread"} if cfg.dft_spread else {"tx_comb", "demod_count_comb"}
+    assert want | {"payload"} <= launched and launched & {"fade_awgn", "fade_awgn_fir"}, launched
+    if cfg.channel.impaired:
+        assert "fade_awgn" in launched  # the acquired stream's noise row
+    cpu = pipeline.simulate(cfg, 7, device="cpu", want_llrs=True)
+    margin = (cpu.llrs.abs() < 1e-3).sum(dim=(1, 2))
+    assert bool(((res.bit_errors.cpu() - cpu.bit_errors).abs() <= margin).all())
+    assert torch.equal(res.bits_counted.cpu(), cpu.bits_counted)
+
+
+def test_fade_awgn_noise_row_off_the_grid(dev):
+    """E's noise-only mode on one odd-length row a channel (the acquired
+    stream's (B, 1, T) shape, off the 16-byte grid): injected noise equal
+    to the plain version within 1e-5 of the peak, keyed noise too."""
+    B, T = 64, 21477
+    g = torch.Generator(device="cpu").manual_seed(5)
+    row = tuple(torch.randn((B, 1, T), generator=g).to(dev) for _ in range(2))
+    noise = tuple(torch.randn((B, 1, T), generator=g).to(dev) for _ in range(2))
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    for kw in (dict(noise=noise), dict(seed=3, ch_ids=ids)):
+        got = ke.fade_awgn(*row, noise_var=0.01, **kw)
+        want = ke.fade_awgn_plain(*row, noise_var=0.01, **kw)
+        peak = max(float(w.abs().max()) for w in want)
+        assert max(float((a - b).abs().max()) for a, b in zip(got, want)) <= 1e-5 * peak
+
+
+@pytest.mark.parametrize("model,counter", [
+    (ChannelModel.RAYLEIGH_FLAT, "fade_awgn"), (ChannelModel.RAYLEIGH_TIME, "fade_awgn"),
+    (ChannelModel.MULTIPATH, "fade_awgn_fir"), (ChannelModel.MULTIPATH_TIME, "fade_awgn_fir")])
+def test_fade_awgn_channel_only_on_the_acquired_plane(dev, model, counter):
+    """E's channel-only mode (no noise) on the acquired link's
+    (B, S+3, N+cp) plane at S = 64 (67 rows: a partial run of E's
+    32-symbol blocks), with ``pipeline.acquired_plane``'s inputs — per-link
+    gains, per-symbol gains with a unit tail row, static taps, per-symbol
+    taps with the last row repeated — within 1e-5 of the plain version's
+    peak."""
+    from sdr_tpu_torch.link import pipeline
+
+    cfg = _pilot_cfg(model=model, B=24, S=64)
+    cfg = dataclasses.replace(cfg, channel=dataclasses.replace(
+        cfg.channel, cfo_subcarriers=1.3, timing_offset=37))
+    ids = torch.arange(100, 124, dtype=torch.int32, device=dev)
+    plane, kw = pipeline.acquired_plane(cfg, 7, ids, pipeline.draw_idx(cfg, 7, ids))
+    assert plane[0].shape == (24, 67, 320) and kw is not None
+    got = _counted(counter, lambda: ke.fade_awgn(*plane, **kw))
+    want = ke.fade_awgn_plain(*plane, **kw)
+    peak = max(float(w.abs().max()) for w in want)
+    assert max(float((a - b).abs().max()) for a, b in zip(got, want)) <= 1e-5 * peak
 
 
 def test_dft_projections_on_card_stay_full_f32(dev):

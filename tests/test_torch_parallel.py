@@ -119,6 +119,12 @@ CASES = {
                                cfg=_small(ChannelModel.MULTIPATH, pdp=PDP3, n_symbols=8,
                                           equalizer=Equalizer.MMSE, pilot_spacing=4,
                                           estimator=ChannelEstimator.DFT)),
+    "simulate_dp_acquired": dict(kind="simulate", mesh=(1, 4),
+                                 cfg=_small(ChannelModel.MULTIPATH, pdp=PDP3, n_symbols=8,
+                                            equalizer=Equalizer.MMSE, pilot_spacing=4,
+                                            cfo_subcarriers=1.3, timing_offset=37,
+                                            pa_ibo_db=6.0, phase_noise_std=0.002,
+                                            iq_gain=1.05, iq_phase_rad=0.03)),
     "stream": dict(kind="stream", mesh=(2, 2), n_blocks=4,
                    cfg=_small(ChannelModel.MULTIPATH, n_symbols=8, pdp=PDP3,
                               equalizer=Equalizer.MMSE)),

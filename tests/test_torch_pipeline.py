@@ -381,10 +381,11 @@ def test_stream_equals_simulate(case, n_blocks):
      "11e"),
 ], ids=["pilots", "pa", "mimo"])
 def test_unported_options_raise(kw, item):
-    """Front-end impairments name item 11d and MIMO 11e, in ``simulate``,
-    ``make_simulate_fn`` and the stream. Pilots (item 11c) run in
-    ``simulate`` and ``make_simulate_fn``; the stream refuses them as the
-    JAX module does, naming ``link.pipeline``."""
+    """MIMO names item 11e, in ``simulate``, ``make_simulate_fn`` and the
+    stream. Pilots (item 11c) and front-end impairments (item 11d) run in
+    ``simulate`` and ``make_simulate_fn``; the stream refuses pilots as the
+    JAX module does, naming ``link.pipeline``, and impairments naming
+    item 11d."""
     kw = dict(kw)
     channel_kw = kw.pop("channel_kw", {})
     ref = jcfg.LinkConfig(modulation=jcfg.Modulation.QPSK,
@@ -394,11 +395,15 @@ def test_unported_options_raise(kw, item):
     cfg = interop.link_config_from_reference(ref)
     calls = (lambda: pipeline.simulate(cfg, 0, device="cpu"),
              lambda: pipeline.make_simulate_fn(cfg, device="cpu")(0))
-    if item is None:
+    if item in (None, "11d"):
         for call in calls:
             res = call()
             assert int(res.bits_counted[0]) == S * cfg.bits_per_ofdm_symbol
         with pytest.raises(NotImplementedError, match=r"link\.pipeline"):
+            stream.stream_simulate(cfg, 0, 2, device="cpu")
+        if item is None:
+            return
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             stream.stream_simulate(cfg, 0, 2, device="cpu")
         return
     for call in (*calls, lambda: stream.stream_simulate(cfg, 0, 2, device="cpu")):
