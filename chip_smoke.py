@@ -185,6 +185,26 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    ``launches_impairments``, its wall time and peak memory;
    ``make_sharded_simulate_fn`` on one rank equal to ``simulate`` on the
    acquired AWGN link;
+   3m. MIMO on the frame-static models, counters zeroed before it: on one
+   pass of ``pipeline.CHUNK`` channels, kernel E's channel-only mode over
+   the 2 × 2 pair plane (B·4, 66, 320) with the pairs' gains and static
+   taps, its noise-only mode over the RX planes (B, 132, 320), and C's
+   post-FFT mode on whitened tones (h per link, and per symbol after
+   SC-FDMA's despread), each against its plain version (phase 2's
+   tolerances) and timed beside it; the link's parts timed alone on that
+   pass (A, B off and the preamble rows, the pair-plane copy, E, the torch
+   sum over TX antennas, E's noise, the FFT, the preamble estimate, each
+   detector, ``whitened_llrs``, the torch count); then ``pipeline.simulate``
+   on ``mimo_links``: Alamouti 2x1, 2x2 and MRC 1x2 (16-QAM 10 dB, 8192 ×
+   64) within 10 % of ``ber_alamouti_exact`` / ``ber_mrc_exact`` and 2 %
+   of the exact BER over the drawn Σ|h|² (½ for Alamouti); the 2x2 mux
+   with MMSE, ZF, SIC and ML and the 2x4 mux at 12 dB (ML < SIC < 0.8 ×
+   MMSE, 2x4 < 0.25 × 2x2); the preamble links, LS and DFT, against their
+   genie twins at 5 dB (the JAX gates of ``test_preamble_ber_near_genie``);
+   at 2048 × 64 the JAX tests' MULTIPATH (and a MULTIPATH Alamouti link
+   against its drawn channel), RICIAN, PA and SC-FDMA gate forms — each
+   with ms (median of 3 warm calls), peak memory (under 40 GiB) and
+   launches a call, the window ``launches_mimo``;
    5. the parallel layer: ``parallel.dryrun.dryrun_multichip`` on 4
    gloo ranks sharing the one card (spawned; the library built above is
    only loaded there) — TP at BASELINE config 5's full width (256 × 64,
@@ -194,7 +214,8 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    DP MC keyed (1 % of theory) and injected; DP coded-fast; DP SC-FDMA
    at N 1024; PP 2 × 2; the time-block stream with its halo exchange
    (2 × 2, n_blocks 4, 1024 × 64, the entry link and MULTIPATH_TIME fd
-   0.03; also against ``pipeline.simulate``) — each bit-exact against
+   0.03; also against ``pipeline.simulate``), the 2 × 2 ML MIMO link on
+   the preamble's DFT estimate (``dryrun.mimo_cfg``) — each bit-exact against
    the unsharded port, with its wall time (not a scaling figure); 5n. one NCCL rank runs TP at
    N 4096 and DP fast, so that device tensors go to the collectives;
 6. checks that each path launched every kernel and mode of its slice
@@ -218,15 +239,21 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    for A, B's comb, E (the acquired stream's noise row among its noise
    launches, and the FIR) and C's comb and despread counts,
    ``launches_impairments``, the acquired links' calls also in a window
-   of their own, where E's noise launches are the row's alone)
+   of their own, where E's noise launches are the row's alone; and in
+   phase 3m around each MIMO link's call, for A, B off, E (gains, FIR) and
+   C's post-FFT mode, ``launches_mimo``)
    and prints one JSON line per kernel set, with each kernel's bound (bytes over 3.35 TB/s or f32
    operations over 67 TFLOP/s, the H100 SXM data sheet) and its launches
    in each window (``launches_fast``, ``launches_mc``, ``launches_coded``,
    ``launches_terminals``, ``launches_wide`` — the sum of 3i's N
    windows; ``launches_bf16``, ``launches_parallel``, ``launches_nccl``,
-   ``launches_pipeline``, ``launches_pilots``, ``launches_impairments``; ``launches`` is the
+   ``launches_pipeline``, ``launches_pilots``, ``launches_impairments``,
+   ``launches_mimo``; ``launches`` is the
    window of its own path, the one checked; the entry ``fade_awgn@acquired_stream`` carries
    phase 3r's check of E at the stream's shape and the row's launches in the acquired links' window;
+   the entries ``fade_awgn@mimo_pair_plane``, ``fade_awgn_fir@mimo_pair_plane``,
+   ``fade_awgn@mimo_rx_noise`` and ``llr_chain@mimo_whitened_h_per_link`` /
+   ``_h_per_symbol`` phase 3m's checks and their counters' launches in its window;
    the entries named ``<counter>@N1024``, ``@N2048`` and ``@N4096`` carry
    phase 2w's numbers, the launches in that N's window and the TPU
    four-step, post-FFT or channels-last kernel they replace there),
@@ -465,6 +492,131 @@ def impairment_links(n_channels: int = 8192):
          "offset 37, IBO 6 dB)", block, {"aligned": without(block, *acq)},
          lambda b, r, _: (b < max(2.5 * r["aligned"], 5e-3), "< max(2.5 x aligned twin, 5e-3)")),
     ]
+
+
+def mimo_links(n_channels: int = 8192, n_side: int = 2048):
+    """Phase 3m's links (root PERF.md §4, the MIMO cells to be): (key, label,
+    config) in run order, at config 2's numerology (N 256, CP 64, 64
+    symbols); the diversity, detector and preamble links at 16-QAM and
+    ``n_channels``, the other JAX gate forms (MULTIPATH, RICIAN, the PA,
+    SC-FDMA) at the JAX tests' modulation and Eb/N0 and ``n_side``. Then
+    the theory (key → (name, BER)), the drawn-channel scale of the exact
+    BER over Σ|h|² (key → ½ for Alamouti, 1 for MRC), and the gates
+    (rule, fn(ber: key → BER) → ok), each the JAX test's form."""
+    from sdr_tpu_torch.core.config import (
+        ChannelConfig,
+        ChannelEstimator,
+        ChannelModel,
+        Equalizer,
+        LinkConfig,
+        MIMOConfig,
+        MIMOScheme,
+        Modulation,
+        OFDMConfig,
+    )
+    from sdr_tpu_torch.link.ber import ber_alamouti_exact, ber_mrc_exact
+
+    import dataclasses
+
+    A, M, X = MIMOScheme.ALAMOUTI, MIMOScheme.MRC, MIMOScheme.SPATIAL_MUX
+    q16, q = Modulation.QAM16, Modulation.QPSK
+    flat, mp = ChannelModel.RAYLEIGH_FLAT, ChannelModel.MULTIPATH
+    dft = ChannelEstimator.DFT
+
+    def link(mimo, ebno_db, model=flat, mod=q16, n=n_channels, estimator=ChannelEstimator.LS,
+             equalizer=Equalizer.MMSE, dft_spread=False, **channel):
+        return LinkConfig(modulation=mod, ofdm=OFDMConfig(n_fft=256, cp_len=64),
+                          channel=ChannelConfig(model=model, ebno_db=ebno_db, **channel),
+                          equalizer=equalizer, estimator=estimator, n_symbols=64, n_channels=n,
+                          dft_spread=dft_spread, mimo=mimo)
+
+    pre = dict(csi="preamble")
+    links = [
+        ("a21", "Alamouti 2x1 RAYLEIGH_FLAT 10 dB", link(MIMOConfig(A, 2, 1), 10.0)),
+        ("a22", "Alamouti 2x2 RAYLEIGH_FLAT 10 dB", link(MIMOConfig(A, 2, 2), 10.0)),
+        ("m12", "MRC 1x2 RAYLEIGH_FLAT 10 dB", link(MIMOConfig(M, 1, 2), 10.0)),
+        ("mmse", "mux 2x2 MMSE 12 dB", link(MIMOConfig(X, 2, 2), 12.0)),
+        ("zf", "mux 2x2 ZF 12 dB", link(MIMOConfig(X, 2, 2), 12.0, equalizer=Equalizer.ZF)),
+        ("sic", "mux 2x2 SIC 12 dB", link(MIMOConfig(X, 2, 2, detector="sic"), 12.0)),
+        ("ml", "mux 2x2 ML 12 dB", link(MIMOConfig(X, 2, 2, detector="ml"), 12.0)),
+        ("mux24", "mux 2x4 MMSE 12 dB", link(MIMOConfig(X, 2, 4), 12.0)),
+    ]
+    for key, label, mimo in (("a22", "Alamouti 2x2", MIMOConfig(A, 2, 2)),
+                             ("m12", "MRC 1x2", MIMOConfig(M, 1, 2)),
+                             ("ml", "mux 2x2 ML", MIMOConfig(X, 2, 2, detector="ml"))):
+        genie = dataclasses.replace(mimo, csi="genie")
+        est = dataclasses.replace(mimo, csi="preamble")
+        links += [(f"{key}_genie5", f"{label} genie CSI 5 dB", link(genie, 5.0)),
+                  (f"{key}_ls5", f"{label} preamble LS 5 dB", link(est, 5.0)),
+                  (f"{key}_dft5", f"{label} preamble DFT 5 dB", link(est, 5.0, estimator=dft))]
+    side = dict(n=n_side, mod=q)
+    links += [
+        ("mp_a22", "MULTIPATH (1, .5, .25) Alamouti 2x2 QPSK 30 dB",
+         link(MIMOConfig(A, 2, 2), 30.0, mp, pdp=(1.0, 0.5, 0.25), **side)),
+        ("mp_mux24", "MULTIPATH (1, .5, .25) mux 2x4 MMSE QPSK 30 dB",
+         link(MIMOConfig(X, 2, 4), 30.0, mp, pdp=(1.0, 0.5, 0.25), **side)),
+        ("mp_ml23", "MULTIPATH (1, .5) mux 2x3 ML 16-QAM 35 dB",
+         link(MIMOConfig(X, 2, 3, detector="ml"), 35.0, mp, pdp=(1.0, 0.5), n=n_side)),
+        ("mp_a22_10", "MULTIPATH (1, .5, .25, .125) Alamouti 2x2 16-QAM 10 dB",
+         link(MIMOConfig(A, 2, 2), 10.0, mp, pdp=(1.0, 0.5, 0.25, 0.125), n=n_side)),
+        ("ray21", "Alamouti 2x1 RAYLEIGH_FLAT QPSK 5 dB", link(MIMOConfig(A, 2, 1), 5.0, **side)),
+        ("ric21", "Alamouti 2x1 RICIAN K 10 QPSK 5 dB",
+         link(MIMOConfig(A, 2, 1), 5.0, ChannelModel.RICIAN, k_factor=10.0, **side)),
+        ("pa_lin", "Alamouti 2x2 preamble QPSK 10 dB, no PA",
+         link(MIMOConfig(A, 2, 2, **pre), 10.0, **side)),
+        ("pa8", "Alamouti 2x2 preamble QPSK 10 dB, PA IBO 8 dB",
+         link(MIMOConfig(A, 2, 2, **pre), 10.0, pa_ibo_db=8.0, **side)),
+        ("dpd4", "Alamouti 2x2 preamble QPSK 10 dB, PA IBO 4 dB with DPD",
+         link(MIMOConfig(A, 2, 2, **pre), 10.0, pa_ibo_db=4.0, pa_dpd=True, **side)),
+    ]
+    for key, label, mimo in (("a", "Alamouti 2x2", MIMOConfig(A, 2, 2, **pre)),
+                             ("m", "MRC 1x2", MIMOConfig(M, 1, 2, **pre)),
+                             ("x", "mux 2x2 MMSE", MIMOConfig(X, 2, 2, **pre))):
+        for wave, spread in (("ofdm", False), ("sc", True)):
+            links.append((f"{wave}_{key}", f"{'SC-FDMA' if spread else 'OFDM'} {label} preamble "
+                          "QPSK 10 dB", link(mimo, 10.0, dft_spread=spread, **side)))
+    for wave, spread in (("ofdm", False), ("sc", True)):
+        links += [(f"{wave}_mp", f"{'SC-FDMA' if spread else 'OFDM'} Alamouti 2x2 preamble "
+                   "MULTIPATH (1, .3) QPSK 10 dB",
+                   link(MIMOConfig(A, 2, 2, **pre), 10.0, mp, pdp=(1.0, 0.3), dft_spread=spread,
+                        **side)),
+                  (f"{wave}_pa3", f"{'SC-FDMA' if spread else 'OFDM'} Alamouti 2x2 preamble "
+                   "QPSK 10 dB, PA IBO 3 dB",
+                   link(MIMOConfig(A, 2, 2, **pre), 10.0, pa_ibo_db=3.0, dft_spread=spread,
+                        **side))]
+    theory = {"a21": ("ber_alamouti_exact n_rx 1", ber_alamouti_exact(q16, 10.0, 1)),
+              "a22": ("ber_alamouti_exact n_rx 2", ber_alamouti_exact(q16, 10.0, 2)),
+              "m12": ("ber_mrc_exact n_rx 2", ber_mrc_exact(q16, 10.0, 2))}
+    drawn = {"a21": 0.5, "a22": 0.5, "m12": 1.0, "mp_a22_10": 0.5}
+
+    def near_genie(k):
+        return (f"{k} preamble: 0.8 x genie < DFT < 3 x genie, 0.8 x genie < LS < 12 x genie, "
+                "DFT < LS (tests/test_mimo.py:449-469)",
+                lambda b: (0.8 * b[f"{k}_genie5"] < b[f"{k}_dft5"] < 3.0 * b[f"{k}_genie5"]
+                           and 0.8 * b[f"{k}_genie5"] < b[f"{k}_ls5"] < 12.0 * b[f"{k}_genie5"]
+                           and b[f"{k}_dft5"] < b[f"{k}_ls5"]))
+
+    gates = [
+        ("ML < SIC < MMSE and SIC < 0.8 x MMSE (tests/test_mimo.py:359-370)",
+         lambda b: b["ml"] < b["sic"] < b["mmse"] and b["sic"] < 0.8 * b["mmse"]),
+        ("2x4 < 0.25 x 2x2, MMSE (tests/test_mimo.py:198-208)",
+         lambda b: b["mux24"] < 0.25 * b["mmse"]),
+        near_genie("a22"), near_genie("m12"), near_genie("ml"),
+        ("MULTIPATH Alamouti 2x2 30 dB < 1e-4, mux 2x4 < 1e-3 (tests/test_mimo.py:211-236)",
+         lambda b: b["mp_a22"] < 1e-4 and b["mp_mux24"] < 1e-3),
+        ("MULTIPATH ML 2x3 35 dB < 1e-3 (tests/test_mimo.py:316-329)",
+         lambda b: b["mp_ml23"] < 1e-3),
+        ("RICIAN K 10 < Rayleigh (tests/test_mimo.py:239-248)", lambda b: b["ric21"] < b["ray21"]),
+        ("PA IBO 8 < 6 x max(linear, 1e-4), DPD at 4 < 8 x max(linear, 1e-4) "
+         "(tests/test_pa.py:305-306)",
+         lambda b: (b["pa8"] < 6.0 * max(b["pa_lin"], 1e-4)
+                    and b["dpd4"] < 8.0 * max(b["pa_lin"], 1e-4))),
+        ("SC-FDMA < 2 x OFDM for Alamouti, MRC and mux; < OFDM under MULTIPATH (1, .3) and "
+         "a PA at IBO 3 (tests/test_scfdma.py:270-284)",
+         lambda b: (all(b[f"sc_{k}"] < 2.0 * b[f"ofdm_{k}"] for k in "amx")
+                    and b["sc_mp"] < b["ofdm_mp"] and b["sc_pa3"] < b["ofdm_pa3"])),
+    ]
+    return links, theory, drawn, gates
 
 
 def _fail(msg: str):
@@ -3099,6 +3251,198 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
           f"{ {k: v for k, v in launches_impairments.items() if v} }; the acquired links' own "
           f"window { {k: v for k, v in launches_acquired.items() if v} }")
 
+    # ---- phase 3m: MIMO on frame-static channels, counters zeroed -------------
+    # First the MIMO link's kernels at its shapes, one pass of
+    # ``pipeline.CHUNK`` channels (the link runs in such passes): kernel E's
+    # channel-only mode over the pair plane (B·n_rx·n_tx, S', N+cp) with the
+    # pairs' gains and static taps, its noise-only mode over the RX planes
+    # (B, n_rx·S', N+cp), and C's post-FFT mode on whitened tones (h per link
+    # and, SC-FDMA, per symbol), each against its plain version and timed
+    # beside it; then the link's parts timed alone on that pass; then the
+    # links of ``mimo_links`` through ``pipeline.simulate``, each inside
+    # ``in_mimo()``, with ms the median of 3 warm calls (CUDA events), its
+    # peak memory and its launches; then the gates.
+    from sdr_tpu_torch.ops import pilots as pil_ops
+    from sdr_tpu_torch.ops.ofdm import ofdm_rx as t_ofdm_rx
+
+    t3m = time.perf_counter()
+    launches_mimo = dict.fromkeys(_lib.LAUNCHES, 0)
+    mimo_path = ("payload", "tx_off", "fade_awgn", "fade_awgn_fir", "llr_chain")
+    m_links, m_theory, m_drawn, m_gates = mimo_links(B, B // 4)
+    m_cfg = {key: cfg for key, _, cfg in m_links}
+    P = min(pipeline.CHUNK, B)
+    ids_m = ids[:P]
+    cfg_pre = dataclasses.replace(m_cfg["a22_ls5"], n_channels=P)
+    cfg_mp = dataclasses.replace(m_cfg["mp_a22_10"], n_channels=P)
+    m_parts = {}
+
+    def m_part(label, fn):
+        out = fn()  # warm
+        m_parts[label] = timed(fn, 3)
+        return out
+
+    idx_m = m_part("A payload (P x 2·64 x 256 for the mux)",
+                   lambda: pipeline.draw_mimo_idx(m_cfg["mmse"], seed, ids_m))
+    tx_pre = m_part("B off + preamble rows (Alamouti 2x2 grid, 66 rows)",
+                    lambda: pipeline.mimo_tx(cfg_pre, pipeline.draw_mimo_idx(cfg_pre, seed,
+                                                                             ids_m)))
+    pair = m_part("pair plane (expand and copy, 4 pairs)",
+                  lambda: pipeline.pair_plane(tx_pre, 2))
+    for label, cfg_k, counter in (("gains", cfg_pre, "fade_awgn"),
+                                  ("static taps (1, .5, .25, .125)", cfg_mp, "fade_awgn_fir")):
+        kw_k = pipeline.pair_channel(cfg_k, pipeline.mimo_fading(cfg_k, seed, ids_m))
+        want = ke.fade_awgn_plain(*pair, **kw_k)
+        got = ke.fade_awgn(*pair, **kw_k)
+        err, peak = plane_err(got, want), plane_peak(want)
+        del want, got
+        _check(err <= 1e-5 * peak, f"E channel only on the MIMO pair plane ({label}): max abs "
+                                   f"diff {err:g} of peak {peak:g}")
+        ms, pms = compare_times(lambda: ke.fade_awgn(*pair, **kw_k),
+                                lambda: ke.fade_awgn_plain(*pair, **kw_k), reps=1,
+                                kernel_reps=10)
+        side = kw_k.get("taps_r", kw_k.get("hr_s"))
+        n_pair = pair[0].numel()
+        per_sample = 8 * side.shape[-1] if counter == "fade_awgn_fir" else 6
+        rep = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                   **bound(16 * n_pair + 8 * side.numel(), per_sample * n_pair))
+        shape = "x".join(map(str, pair[0].shape))
+        e_rows.append(dict(rep, mode=f"channel only, MIMO pair plane, {label}", counter=counter,
+                           shape=shape, window=launches_mimo))
+        report[f"{counter}@mimo_pair_plane"] = rep
+        print(f"phase 3m E channel only on the MIMO pair plane ({shape}, {label}): max abs diff "
+              f"{err:.3g} (peak {peak:.3g}, allowed 1e-5 of it); kernel {ms:.4f} ms, plain "
+              f"{pms:.3f} ms; {of_bound(rep)} on {card}")
+    kw_pre = pipeline.pair_channel(cfg_pre, pipeline.mimo_fading(cfg_pre, seed, ids_m))
+    y_pair = m_part("E channel only on the pair plane (gains)",
+                    lambda: ke.fade_awgn(*pair, **kw_pre))
+    rx_m = m_part("torch sum over TX antennas", lambda: pipeline.rx_sum(y_pair, P, 2, 2))
+    del y_pair, pair
+    rx_shape = (P, 2 * rx_m[0].shape[2], N + CP)
+    rx_v = tuple(t.view(rx_shape) for t in rx_m)
+    nv_m = pipeline.mimo_noise_var(cfg_pre)
+    rep = check_modes(f"E noise only on the MIMO RX planes ({'x'.join(map(str, rx_shape))})",
+                      lambda **kw: ke.fade_awgn(*rx_v, noise_var=nv_m / N, **kw),
+                      lambda **kw: ke.fade_awgn_plain(*rx_v, noise_var=nv_m / N, **kw),
+                      rx_shape, kernel_reps=10)
+    n_rx_s = rx_v[0].numel()
+    rep.update(bound(16 * n_rx_s + 4 * P, 4 * n_rx_s, n_rx_s * PHILOX_IMUL))
+    e_rows.append(dict(rep, mode="noise only, MIMO RX planes", counter="fade_awgn",
+                       shape="x".join(map(str, rx_shape)), window=launches_mimo))
+    report["fade_awgn@mimo_rx_noise"] = rep
+    rx_n = m_part("E noise only on the RX planes", lambda: tuple(
+        t.view(rx_m[0].shape) for t in ke.fade_awgn(*rx_v, noise_var=nv_m / N, seed=seed,
+                                                     ch_ids=ids_m)))
+    y_m = m_part("FFT (ofdm_rx of the RX planes)", lambda: t_ofdm_rx(torch.complex(*rx_n), CP))
+    pre_norm = (torch.tensor(pil_ops.PILOT_VALUE, dtype=torch.complex64, device=dev)
+                / torch.from_numpy(pipeline.preamble_ref(cfg_pre)).to(dev))
+    h_pre = m_part("preamble estimate (LS)",
+                   lambda: pil_ops.estimate_mimo_preamble(y_m[:, :, :2] * pre_norm, 0))
+    y_d = y_m[:, :, 2:]
+    s_a, eff_a = m_part("detector: Alamouti combine",
+                        lambda: pipeline.mimo_detect(cfg_pre, y_d, h_pre, nv_m))
+    h_g = pipeline.mimo_fading(cfg_pre, seed, ids_m)
+    for key in ("mmse", "zf", "sic", "ml"):
+        cfg_d = dataclasses.replace(m_cfg[key], n_channels=P)
+        m_part(f"detector: mux 2x2 {key}", lambda: pipeline.mimo_detect(cfg_d, y_d, h_g, nv_m))
+    m_part("whitened_llrs (the whitening, then llr_chain)",
+           lambda: pipeline.whitened_llrs(cfg_pre, s_a, eff_a))
+    for label, cfg_w, (s_w, eff_w) in (
+        ("h per link (Alamouti 2x2)", cfg_pre, (s_a, eff_a)),
+        ("h per symbol (SC-FDMA despread, mux 2x2 MMSE)",
+         dataclasses.replace(m_cfg["mmse"], dft_spread=True, n_channels=P),
+         pipeline.mimo_detect(m_cfg["mmse"], y_d, h_g, nv_m)),
+    ):
+        # The whitened tones and h exactly as ``whitened_llrs`` builds them.
+        Bw, K, Sw, Nw = s_w.shape
+        if cfg_w.dft_spread:
+            eff_w = torch.broadcast_to(eff_w, s_w.shape).mean(dim=-1, keepdim=True)
+            s_w = (torch.fft.ifft(s_w, dim=-1) * Nw ** 0.5).to(torch.complex64)
+        g_w = torch.rsqrt(torch.clamp(eff_w, min=pipeline._EFF_FLOOR))
+        y_w = torch.view_as_real((s_w * g_w).reshape(Bw * K, Sw, Nw))
+        hr_w = g_w.expand(Bw, K, g_w.shape[2], Nw).reshape(Bw * K, g_w.shape[2], Nw).contiguous()
+        hi_w = torch.zeros_like(hr_w)
+        got = kc.llr_chain(y_w, None, hr_w, hi_w, mod, 1.0)
+        want = kc.llr_chain_plain(y_w, None, hr_w, hi_w, mod, 1.0)
+        err, peak = float((got - want).abs().max()), float(want.abs().max())
+        _check(err <= 1e-4 * peak, f"C llr_chain on whitened MIMO tones ({label}): max abs diff "
+                                   f"{err:g} > 1e-4 of the peak {peak:g}")
+        del got, want
+        ms, pms = compare_times(lambda: kc.llr_chain(y_w, None, hr_w, hi_w, mod, 1.0),
+                                lambda: kc.llr_chain_plain(y_w, None, hr_w, hi_w, mod, 1.0),
+                                reps=1, kernel_reps=10)
+        rep = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                   **chain_bound(Bw * K, Sw, Nw, hr_w.shape[1], mod, False))
+        tag = "h_per_link" if hr_w.shape[1] == 1 else "h_per_symbol"
+        report[f"llr_chain@mimo_whitened_{tag}"] = rep
+        print(f"phase 3m C llr_chain on whitened MIMO tones ({label}, {Bw * K}x{Sw}x{Nw}): max "
+              f"abs diff {err:.3g} (peak {peak:.3g}, allowed 1e-4 of it); kernel {ms:.4f} ms, "
+              f"plain {pms:.3f} ms; {of_bound(rep)} on {card}")
+        del y_w, hr_w, hi_w
+    llrs_m = pipeline.whitened_llrs(cfg_pre, s_a, eff_a)
+    m_part("torch count (kernels.demod.count_errors)", lambda: kc.count_errors(
+        llrs_m.reshape(P, -1, llrs_m.shape[-1]), pipeline.draw_mimo_idx(cfg_pre, seed, ids_m),
+        bps))
+    del llrs_m, s_a, eff_a, y_m, y_d, rx_m, rx_n, rx_v, tx_pre, idx_m
+    torch.cuda.empty_cache()
+    print(f"phase 3m link parts (one pass of {P} channels, the link runs {-(-B // P)} a call at "
+          f"{B} channels; CUDA events, 3 warm calls each): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in m_parts.items()) + f" on {card}")
+
+    @contextlib.contextmanager
+    def in_mimo():
+        _lib.reset_launches()
+        yield
+        for k, v in _lib.LAUNCHES.items():
+            launches_mimo[k] += v
+
+    m_ber, m_rows = {}, []
+    for key, label, cfg in m_links:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with in_mimo():
+            res_m = pipeline.simulate(cfg, seed, device=dev)
+            torch.cuda.synchronize()
+            per_m = {k: v for k, v in _lib.LAUNCHES.items() if v}
+            ms_m = sorted(timed(lambda: pipeline.simulate(cfg, seed, device=dev), 1)
+                          for _ in range(3))[1]
+        peak_m = torch.cuda.max_memory_allocated() / 2 ** 30
+        bits_m = int(res_m.bits_counted.sum())
+        _check(int(res_m.bits_counted[0]) == cfg.mimo.n_streams * S * N * cfg.modulation
+               .bits_per_symbol, f"{label}: bits_counted")
+        m_ber[key] = int(res_m.bit_errors.sum()) / bits_m
+        del res_m
+        extra = ""
+        if key in m_theory:
+            name, th = m_theory[key]
+            _check(abs(m_ber[key] / th - 1) <= 0.10,
+                   f"{label}: BER {m_ber[key]:g} vs {name} {th:g} (allowed 10 %)")
+            extra += f", {name} {th:.6g} (ratio {m_ber[key] / th:.5f}, allowed 10 %)"
+        if key in m_drawn:
+            fade = pipeline.mimo_fading(cfg, seed, ids[:cfg.n_channels])
+            if cfg.channel.model == ChannelModel.MULTIPATH:
+                fade = chan.freq_response(fade, N)
+            g2 = (fade.abs() ** 2).sum(dim=(1, 2)).to(torch.float64) * m_drawn[key]
+            want_m = ber_given_gain(cfg.modulation, cfg.channel.ebno_db, g2)
+            _check(abs(m_ber[key] / want_m - 1) <= 0.02,
+                   f"{label}: BER {m_ber[key]:g} vs {want_m:g} over the drawn channel")
+            extra += (f", over the drawn channel {want_m:.6g} (ratio {m_ber[key] / want_m:.5f}, "
+                      "allowed 2 %)")
+            del fade, g2
+        m_rows.append(dict(key=key, label=label, ms=ms_m, ber=m_ber[key], peak_gib=peak_m,
+                           launches=per_m))
+        print(f"phase 3m pipeline.simulate {cfg.n_channels}x{S} config 2 {label}: BER "
+              f"{m_ber[key]:.6g}{extra}; {ms_m:.3f} ms (median of 3 warm calls, CUDA events), "
+              f"peak {peak_m:.2f} GiB allocated, launches a call {per_m} on {card}")
+    for rule, gate in m_gates:
+        _check(gate(m_ber), f"phase 3m: {rule} fails: {m_ber}")
+        print(f"phase 3m gate met: {rule}")
+    _check(max(r["peak_gib"] for r in m_rows) < 40.0, "phase 3m: a link's peak exceeds 40 GiB")
+    for name in mimo_path:
+        _check(launches_mimo[name] > 0, f"phase 3m: kernel {name} was not launched")
+    print(f"phase 3m: {len(m_rows)} links in {time.perf_counter() - t3m:.1f} s (the largest peak "
+          f"{max(r['peak_gib'] for r in m_rows):.2f} GiB allocated); window "
+          f"{ {k: v for k, v in launches_mimo.items() if v} }")
+
     # ---- phase 5: the parallel layer, 4 gloo ranks sharing the one card -----
     # ``dryrun_multichip`` spawns the ranks (the kernel library was built in
     # phase 1; the ranks only load it), runs every row at full width, holds
@@ -3238,7 +3582,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     launches_parallel=launches_parallel[name], launches_nccl=launches_nccl[name],
                     launches_pipeline=launches_pipeline[name],
                     launches_pilots=launches_pilots[name],
-                    launches_impairments=launches_impairments[name])
+                    launches_impairments=launches_impairments[name],
+                    launches_mimo=launches_mimo[name])
 
     # The form of C, D and F each entry ran (csrc/demod_rows.cuh's plans,
     # demod.cu's tile, csrc/demod_cl.cuh's plans).
@@ -3288,6 +3633,21 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
              launches=launches_nccl["tp_stage2_llr"] if label == "n2=4096" else 0,
              **windows_of("tp_stage2_llr"), **{"library_ms": None, **tp_report[label]})
         for label, n2 in (("n2=4096", 4096), ("n2=4096 h per symbol", 4096), ("n2=512", 512))
+    ]
+    # The MIMO link's shapes (phase 3m, one pass of CHUNK channels): E over
+    # the pair plane (gains, static taps) and the RX planes' noise, C's
+    # post-FFT mode on whitened tones; each with its counter's launches in
+    # 3m's window (E's gains and noise launches share ``fade_awgn``).
+    mimo_sources = {**sources, "llr_chain": ("sdr_tpu_torch/csrc/llr_chain.cu",
+                                             "sdr_tpu/kernels/llr_pallas.py:54")}
+    kernels += [
+        dict(name=key, route="cuda", source=mimo_sources[key.split("@")[0]][0],
+             replaces=mimo_sources[key.split("@")[0]][1], **cl_form(key.split("@")[0], N),
+             launches=launches_mimo[key.split("@")[0]], **windows_of(key.split("@")[0]),
+             **{"library_ms": None, **report[key]})
+        for key in ("fade_awgn@mimo_pair_plane", "fade_awgn_fir@mimo_pair_plane",
+                    "fade_awgn@mimo_rx_noise", "llr_chain@mimo_whitened_h_per_link",
+                    "llr_chain@mimo_whitened_h_per_symbol")
     ]
     # Kernel C's modes: form, time, share of the bound, launches in the
     # path's window and launches × (ms − bound ms).

@@ -7,10 +7,11 @@ Cho–Yoon closed form (per-axis PAM decomposition — the same
 decomposition the LLR demapper exploits), implemented host-side in
 numpy for test oracles and plot overlays.
 
-A numpy copy of the AWGN, flat-Rayleigh and flat-Rician curves of
-``sdr_tpu/link/ber.py`` (importing that package pulls in JAX), and
-``ber_given_gain``: the exact BER over a channel a run drew, the gate of
-the selective and time-varying links.
+A numpy copy of the AWGN, flat-Rayleigh and flat-Rician curves and the
+MIMO diversity curves (``ber_mrc_exact``, ``ber_alamouti_exact``) of
+``sdr_tpu/link/ber.py`` (importing that package pulls in JAX), its
+``count_bit_errors``, and ``ber_given_gain``: the exact BER over a
+channel a run drew, the gate of the selective and time-varying links.
 """
 
 from __future__ import annotations
@@ -129,6 +130,51 @@ def ber_rician_exact(mod: Modulation, ebno_db: float, k_factor: float) -> float:
         for k in range(1, m + 1)
     ]
     return float(np.mean(per_axis_bits))
+
+
+def _mrc_q(c, branches: int, branch_scale: float = 1.0, n_nodes: int = 96):
+    """E_g[Q(c·√(a·g))] for g = Σ_L |h_i|², h_i ~ CN(0, 1) i.i.d. (L-branch
+    Rayleigh MRC, g ~ Gamma(L, 1)), a = ``branch_scale``: Craig's form with
+    the MGF (1 − s)^−L, (1/π)∫₀^{π/2} (1 + a·c²/(2sin²θ))^−L dθ by
+    Gauss–Legendre on θ, as ``_rician_q``."""
+    x, w = np.polynomial.legendre.leggauss(n_nodes)
+    theta = (x + 1.0) * (math.pi / 4.0)
+    s2 = np.sin(theta) ** 2
+    c = np.asarray(c, np.float64)
+    integ = (1.0 + branch_scale * c * c / (2.0 * s2)) ** (-float(branches))
+    return float(np.sum(w * integ) * (math.pi / 4.0) / math.pi)
+
+
+def _diversity_exact(mod: Modulation, ebno_db: float, branches: int,
+                     branch_scale: float) -> float:
+    gamma_b = 10.0 ** (ebno_db / 10.0)
+    L = mod.levels_per_axis
+    m = mod.bits_per_axis
+    arg_base = mod.unit_energy_scale * math.sqrt(2.0 * mod.bits_per_symbol * gamma_b)
+    per_axis_bits = [
+        _pam_bit_error(L, k, arg_base, q=lambda c: _mrc_q(c, branches, branch_scale))
+        for k in range(1, m + 1)
+    ]
+    return float(np.mean(per_axis_bits))
+
+
+def ber_mrc_exact(mod: Modulation, ebno_db: float, n_rx: int) -> float:
+    """Exact average BER of 1 × n_rx receive MRC over i.i.d. flat Rayleigh
+    branches with genie CSI (g ~ Gamma(n_rx, 1) at the full per-branch
+    SNR); n_rx = 1 is ``ber_rayleigh_exact``."""
+    return _diversity_exact(mod, ebno_db, n_rx, 1.0)
+
+
+def ber_alamouti_exact(mod: Modulation, ebno_db: float, n_rx: int = 1) -> float:
+    """Exact average BER of Alamouti 2 × n_rx over i.i.d. flat Rayleigh with
+    genie CSI: 2·n_rx MRC branches at half the per-branch SNR (the TX
+    power split)."""
+    return _diversity_exact(mod, ebno_db, 2 * n_rx, 0.5)
+
+
+def count_bit_errors(tx_bits, rx_bits) -> int:
+    """The number of positions where two bit arrays differ."""
+    return int((torch.as_tensor(tx_bits) != torch.as_tensor(rx_bits)).sum())
 
 
 def ber_given_gain(mod, ebno_db: float, g2) -> float:

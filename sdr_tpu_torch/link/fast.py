@@ -43,9 +43,8 @@ The BER is validated statistically against theory (``link/ber.py``,
 and the BER over the drawn channel), as the JAX engine's is; it is a
 different stream from the JAX engine's threefry and on-core draws.
 
-Not covered: pilots raise ``NotImplementedError`` (they run in
-``link.pipeline.simulate``, as in the JAX package), and MIMO names the
-ROADMAP entry that ports it.
+Not covered: pilots and MIMO raise ``NotImplementedError`` naming
+``link.pipeline.simulate``, where they run, as in the JAX package.
 
 The entry points run on the card (``device="cuda"``) unless the caller
 asks for the CPU; without a card they raise, nothing moves to the CPU.
@@ -85,8 +84,8 @@ def check_supported(cfg: LinkConfig, layout: str = "auto") -> None:
         )
     if cfg.mimo is not None:
         raise NotImplementedError(
-            "fast_simulate is SISO; MIMO is ported with link.pipeline "
-            "(ROADMAP queue 1, item 11e)"
+            "fast_simulate is SISO; MIMO links run in "
+            "link.pipeline.simulate (set mimo=None here)"
         )
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")

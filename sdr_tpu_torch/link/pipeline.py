@@ -1,7 +1,7 @@
 """End-to-end link pipeline: bits → TX → channel → RX → LLR → BER.
 
-Port of the SISO link of ``sdr_tpu/link/pipeline.py`` (ROADMAP queue 1,
-items 11a, 11c and 11d): ``LinkResult``, ``generate_bits``, ``tx_chain``,
+Port of ``sdr_tpu/link/pipeline.py`` (ROADMAP queue 1, items 11a, 11c,
+11d and 11e-i): ``LinkResult``, ``generate_bits``, ``tx_chain``,
 ``apply_channel`` (the seven channel models of ``_apply_channel_model``,
 with the PA before and the LO walk and I/Q mismatch after them),
 ``rx_chain``'s genie, pilot and front-end branches, the acquired link
@@ -74,8 +74,21 @@ acquired stream's at (channel, 0, sample)), the LO walk's increments on
 symbols, so a blocked stream equals the whole frame. The acquired link's
 fading is ``fast.fading_at`` over 2 + S symbols from symbol 0.
 
-Not covered: MIMO raises ``NotImplementedError`` naming ROADMAP queue 1,
-item 11e. The entry points run on the card (``device="cuda"``) unless
+- MIMO on the frame-static models (item 11e-i, ``_simulate_one_mimo``,
+  ``mimo_llr_link``, ``_mimo_llrs``; ``ops/mimo.py``): A's grid over
+  n_streams·S rows → B off on the antennas' index grids (``mimo_tx``;
+  SC-FDMA in torch), the head preamble's rows ahead → the PA per antenna →
+  E's channel alone over the pair plane, the 1/√n_tx split in its gains
+  or taps → the torch sum over TX antennas → E's noise over the RX planes
+  (``mimo_channel``) → the torch FFT, the preamble estimate, the detector
+  → C's post-FFT mode on whitened tones (``mimo_rx``; ML's LLRs in
+  torch); in passes of ``CHUNK`` channels. The pairs' fading is keyed at
+  (channel, pair r·n_tx + t), the noise at (channel, r·S' + s, sample).
+
+Not covered: MIMO on a time-varying channel, with a midamble schedule,
+LO phase noise, I/Q imbalance or acquisition raises
+``NotImplementedError`` naming ROADMAP queue 1, item 11e-ii
+(``check_supported``). The entry points run on the card (``device="cuda"``) unless
 the caller asks for the CPU; without a card they raise, and a CUDA tensor
 that a kernel refuses raises: nothing falls back to plain torch or to the
 CPU.
@@ -86,6 +99,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from sdr_tpu_torch.core.config import (
@@ -94,6 +108,7 @@ from sdr_tpu_torch.core.config import (
     ChannelModel,
     Equalizer,
     LinkConfig,
+    MIMOScheme,
 )
 from sdr_tpu_torch.kernels import demod as _kc
 from sdr_tpu_torch.kernels import tx as _kb
@@ -102,12 +117,13 @@ from sdr_tpu_torch.kernels.payload import out_dtype, payload_idx
 from sdr_tpu_torch.link import fast
 from sdr_tpu_torch.ops import channel as chan
 from sdr_tpu_torch.ops import equalize as eq
+from sdr_tpu_torch.ops import mimo as mo
 from sdr_tpu_torch.ops import pa as _pa
 from sdr_tpu_torch.ops import pilots as pil
 from sdr_tpu_torch.ops import sync
 from sdr_tpu_torch.ops.fft import ifft
 from sdr_tpu_torch.ops.llr import llr_maxlog, llr_to_hard_bits
-from sdr_tpu_torch.ops.modulation import _bits_to_ints, _ints_to_bits
+from sdr_tpu_torch.ops.modulation import _bits_to_ints, _ints_to_bits, constellation
 from sdr_tpu_torch.ops.ofdm import ofdm_rx, ofdm_tx
 
 _SELECTIVE = (ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME)
@@ -129,11 +145,22 @@ class LinkResult:
 
 def check_supported(cfg: LinkConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for what the
-    pipeline does not run yet: MIMO."""
-    if cfg.mimo is not None:
+    pipeline does not run yet: MIMO on a time-varying channel, with a
+    midamble schedule, or with LO phase noise, I/Q imbalance, a timing
+    offset or a CFO (item 11e-ii)."""
+    if cfg.mimo is None:
+        return
+    ch = cfg.channel
+    left = [name for name, on in (
+        (f"the time-varying model {ch.model.value}", ch.model in TIME_VARYING_MODELS),
+        ("a midamble schedule", bool(cfg.mimo.midamble_period)),
+        ("LO phase noise", bool(ch.phase_noise_std)),
+        ("I/Q imbalance", ch.iq_imbalanced),
+        ("timing/CFO acquisition", ch.impaired)) if on]
+    if left:
         raise NotImplementedError(
-            "link.pipeline runs SISO links; MIMO (ops/mimo.py, the detectors) is "
-            "ROADMAP queue 1, item 11e")
+            f"link.pipeline runs MIMO on frame-static channels; MIMO with {', '.join(left)} "
+            "is ROADMAP queue 1, item 11e-ii")
 
 
 def front_end_impaired(cfg: LinkConfig) -> bool:
@@ -679,14 +706,338 @@ def acquire_payload(cfg: LinkConfig, stream: torch.Tensor):
     return start, total, (re, im)
 
 
+# ---- MIMO on frame-static channels (item 11e-i) ---------------------------------------
+
+def _split(cfg: LinkConfig) -> float:
+    """The per-antenna amplitude the encoders give the data: n_tx^-½
+    (Alamouti, spatial mux) or 1 (MRC)."""
+    mc = cfg.mimo
+    return 1.0 if mc.scheme == MIMOScheme.MRC else mc.n_tx ** -0.5
+
+
+def mimo_noise_var(cfg: LinkConfig) -> float:
+    """The MIMO link's subcarrier noise variance: Eb/N0 against the bits
+    of every stream (pipeline.py:745-747)."""
+    return 1.0 / (10.0 ** (cfg.channel.ebno_db / 10.0) * cfg.modulation.bits_per_symbol
+                  * cfg.mimo.n_streams)
+
+
+def n_preamble(cfg: LinkConfig) -> int:
+    """Rows of the head preamble: n_tx with ``csi="preamble"``, else 0."""
+    return cfg.mimo.n_tx if cfg.mimo.csi == "preamble" else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _preamble_grid(n_fft: int, dft_spread: bool, has_pa: bool, ant_pwr: float) -> np.ndarray:
+    """The head preamble's reference tones (N,) complex64, as the JAX link
+    forms them (pipeline.py:646-672): a Zadoff–Chu grid (SC-FDMA, at the
+    per-antenna data power with a PA), the PN QPSK grid at that power (a
+    PA), or ``PILOT_VALUE`` on every tone."""
+    if dft_spread:
+        return (pil.zadoff_chu(n_fft) * (ant_pwr ** 0.5 if has_pa else 1.0)).astype(np.complex64)
+    if has_pa:
+        return (pil.pn_preamble_grid(n_fft) * ant_pwr ** 0.5).astype(np.complex64)
+    return np.full(n_fft, pil.PILOT_VALUE, np.complex64)
+
+
+def _ant_pwr(cfg: LinkConfig) -> float:
+    """The per-antenna subcarrier power of the data: 1/n_tx (Alamouti,
+    spatial mux) or 1 (MRC)."""
+    return 1.0 if cfg.mimo.scheme == MIMOScheme.MRC else 1.0 / cfg.mimo.n_tx
+
+
+def preamble_ref(cfg: LinkConfig) -> np.ndarray:
+    """``_preamble_grid`` of the config: the reference the receiver divides
+    out, on the tones antenna t radiates in preamble row t."""
+    return _preamble_grid(cfg.ofdm.n_fft, cfg.dft_spread, cfg.channel.has_pa, _ant_pwr(cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _preamble_row_on(n_fft: int, cp_len: int, dft_spread: bool, has_pa: bool, ant_pwr: float,
+                     split: float, device: str):
+    grid = _preamble_grid(n_fft, dft_spread, has_pa, ant_pwr) / np.float32(split)
+    return fast._planar(ofdm_tx(torch.from_numpy(grid), cp_len).to(device))
+
+
+def preamble_row(cfg: LinkConfig, device):
+    """The preamble row's waveform before the power split, planar (N+cp,)
+    each: ``ofdm_tx`` of ``preamble_ref``/split, made once per (grid, cp,
+    split, device)."""
+    return _preamble_row_on(cfg.ofdm.n_fft, cfg.ofdm.cp_len, cfg.dft_spread,
+                            cfg.channel.has_pa, _ant_pwr(cfg), _split(cfg), str(device))
+
+
+def _conj_flips(mod) -> tuple[int, int]:
+    """The index bits whose flip negates an axis of the Gray square
+    constellation (the axis level 2·gray_to_binary(g) − (L−1) changes sign
+    with the axis MSB): (I, Q) — BPSK has no Q axis."""
+    return 1 << (mod.bits_per_symbol - 1), (
+        0 if mod.bits_per_axis == mod.bits_per_symbol else 1 << (mod.bits_per_axis - 1))
+
+
+def alamouti_idx(idx: torch.Tensor, mod) -> torch.Tensor:
+    """A's (B, S, N) grid → the G2 antennas' index grid (B, 2·S, N),
+    antenna 0's rows first: for each symbol pair (i0, i1) antenna 0 sends
+    [i0, i1 ^ I] (−conj(x1): the I axis negated) and antenna 1 [i1, i0 ^ Q]
+    (conj(x0): the Q axis negated) — ``ops.mimo.alamouti_layout`` in the
+    index domain."""
+    B, S, N = idx.shape
+    f_i, f_q = _conj_flips(mod)
+    pairs = idx.reshape(B, S // 2, 2, N)
+    i0, i1 = pairs[:, :, 0], pairs[:, :, 1]
+    ant0 = torch.stack([i0, i1 ^ f_i], dim=2)
+    ant1 = torch.stack([i1, i0 ^ f_q], dim=2)
+    return torch.stack([ant0, ant1], dim=1).reshape(B, 2 * S, N)
+
+
+def draw_mimo_idx(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor) -> torch.Tensor:
+    """Kernel A's payload grid (B, n_streams·S, N): stream j on rows
+    j·S … j·S+S−1 (stream j's bits are the indices MSB first)."""
+    return payload_idx(cfg.mimo.n_streams * cfg.n_symbols, cfg.ofdm.n_fft,
+                       cfg.modulation.bits_per_symbol, seed, ch_ids)
+
+
+def _scfdma_mimo_tx(cfg: LinkConfig, idx: torch.Tensor):
+    """SC-FDMA MIMO data (pipeline.py:620-639), plain torch: each stream's
+    points DFT-precoded, the scheme's layout, ``ofdm_tx``."""
+    B = idx.shape[0]
+    S, N = cfg.n_symbols, cfg.ofdm.n_fft
+    pts = constellation(cfg.modulation, idx.device)[idx.to(torch.int64)]
+    pts = (torch.fft.fft(pts.reshape(B, cfg.mimo.n_streams, S, N), dim=-1)
+           * N ** -0.5).to(torch.complex64)
+    ant = mo.alamouti_layout(pts[:, 0]) if cfg.mimo.scheme == MIMOScheme.ALAMOUTI else pts
+    return fast._planar(ofdm_tx(ant, cfg.ofdm.cp_len))
+
+
+def mimo_tx(cfg: LinkConfig, idx: torch.Tensor):
+    """The antennas' waveforms of A's MIMO grid ``idx`` (B, n_streams·S, N):
+    planar (B, n_tx, S', N+cp), S' = n_preamble + S, before the power split
+    (E applies it, ``pair_channel``). OFDM: kernel B with the channel off on
+    the stream's grid (MRC), on the (B, n_tx·S, N) grid (spatial mux:
+    stream t is antenna t), or on ``alamouti_idx``'s grid; SC-FDMA:
+    ``_scfdma_mimo_tx``. With a preamble, antenna t radiates
+    ``preamble_row`` in row t and zeros in the other preamble rows."""
+    mc = cfg.mimo
+    B = idx.shape[0]
+    S, cp = cfg.n_symbols, cfg.ofdm.cp_len
+    L = cfg.ofdm.symbol_len
+    if cfg.dft_spread:
+        data = _scfdma_mimo_tx(cfg, idx)
+    else:
+        grid = alamouti_idx(idx, cfg.modulation) if mc.scheme == MIMOScheme.ALAMOUTI else idx
+        data = tuple(t.view(B, mc.n_tx, S, L) for t in _kb.tx_chain(grid, cp, cfg.modulation))
+    n_pre = n_preamble(cfg)
+    if not n_pre:
+        return data
+    out = []
+    for d, row in zip(data, preamble_row(cfg, idx.device)):
+        a = torch.empty((B, mc.n_tx, n_pre + S, L), dtype=torch.float32, device=idx.device)
+        a[:, :, :n_pre] = 0.0
+        a[:, :, n_pre:] = d
+        for t in range(mc.n_tx):
+            a[:, t, t] = row
+        out.append(a)
+    return tuple(out)
+
+
+def mimo_fading(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor) -> torch.Tensor:
+    """The pairs' keyed fading: flat gains (B, n_rx, n_tx, 1) (RAYLEIGH_FLAT,
+    RICIAN) or static taps (B, n_rx, n_tx, L) (MULTIPATH), pair r·n_tx + t
+    at counter (channel, pair, ·) of ``ROLE_FADING``."""
+    mc = cfg.mimo
+    n_pairs = mc.n_rx * mc.n_tx
+    model = cfg.channel.model
+    if model == ChannelModel.RAYLEIGH_FLAT:
+        f = chan.rayleigh_flat(seed, ch_ids, n_pairs)
+    elif model == ChannelModel.RICIAN:
+        f = chan.rician_flat(seed, ch_ids, cfg.channel.k_factor, n_pairs)
+    else:
+        f = chan.multipath_taps(seed, ch_ids, cfg.channel.pdp, n_pairs)
+    return f.reshape(ch_ids.shape[0], mc.n_rx, mc.n_tx, -1)
+
+
+def apply_pa_mimo(cfg: LinkConfig, tx):
+    """One PA per antenna (pipeline.py:721-738) on the antennas' planes
+    before the split. The JAX PA runs at the nominal power ant_pwr/N on the
+    split waveform s·x; Rapp and its predistorter are homogeneous of degree
+    one in (x, A_sat), and A_sat scales with √power, so PA(s·x) at
+    ant_pwr/N = s²/N is s·PA(x) at 1/N: the PA at 1/N here, the split in E."""
+    ch = cfg.channel
+    if not ch.has_pa:
+        return tx
+    return _pa.apply_pa(tx, ch.pa_ibo_db, 1.0 / cfg.ofdm.n_fft, ch.pa_smoothness, ch.pa_dpd)
+
+
+def pair_plane(tx, n_rx: int):
+    """The antennas' planes (B, n_tx, S', L) → the pair plane
+    (B·n_rx·n_tx, S', L): pair (r, t) carries antenna t's waveform."""
+    B, n_tx, Sp, L = tx[0].shape
+    return tuple(t[:, None].expand(B, n_rx, n_tx, Sp, L).reshape(B * n_rx * n_tx, Sp, L)
+                 for t in tx)
+
+
+def pair_channel(cfg: LinkConfig, fade: torch.Tensor) -> dict:
+    """Kernel E's channel arguments for the pair plane: per pair its gain
+    (B·n_rx·n_tx, 1) or static taps (B·n_rx·n_tx, Lt), times the split (the
+    FIR runs each pair's whole stream from zero history, the JAX
+    ``apply_multipath(tx_flat[None], taps)``)."""
+    w = (fade * _split(cfg)).reshape(-1, fade.shape[-1])
+    names = ("taps_r", "taps_i") if cfg.channel.model in _SELECTIVE else ("hr_s", "hi_s")
+    return dict(zip(names, fast._planar(w)))
+
+
+def rx_sum(y, B: int, n_rx: int, n_tx: int):
+    """E's pair-plane output → the RX antennas' planes (B, n_rx, S', L):
+    the sum over TX antennas, in torch (a K ≤ 8 weighted sum of planes)."""
+    return tuple(t.view(B, n_rx, n_tx, *t.shape[1:]).sum(dim=2) if n_tx > 1
+                 else t.view(B, n_rx, *t.shape[1:]) for t in y)
+
+
+def mimo_channel(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, tx, *, fading=None,
+                 noise=None):
+    """The MIMO channel over the antennas' planes ``tx`` (``mimo_tx``'s) →
+    (rx planar (B, n_rx, S', L), the genie response (B, n_rx, n_tx, 1) flat
+    or ``freq_response`` (B, n_rx, n_tx, N)). The PA per antenna
+    (``apply_pa_mimo``), then kernel E twice: the channel alone over the
+    pair plane (``pair_plane``, ``pair_channel``), the sum over TX antennas
+    (``rx_sum``), then E's keyed noise over the RX planes as one
+    (B, n_rx·S', L) plane — counter (channel, r·S' + s, sample) on the
+    batch's global channel ids.
+
+    Injection forms: ``fading`` (``mimo_fading``'s gains or taps),
+    ``noise`` (N(0, 1) planes (n_re, n_im), each (B, n_rx·S', L))."""
+    mc = cfg.mimo
+    B, n_tx, Sp, L = tx[0].shape
+    fade = mimo_fading(cfg, seed, ch_ids) if fading is None else fading
+    y = fade_awgn(*pair_plane(apply_pa_mimo(cfg, tx), mc.n_rx), **pair_channel(cfg, fade))
+    rx = rx_sum(y, B, mc.n_rx, n_tx)
+    del y
+    kw = dict(noise=noise) if noise is not None else dict(seed=seed, ch_ids=ch_ids)
+    rx = fade_awgn(*(t.view(B, mc.n_rx * Sp, L) for t in rx),
+                   noise_var=mimo_noise_var(cfg) / cfg.ofdm.n_fft, **kw)
+    h = chan.freq_response(fade, cfg.ofdm.n_fft) if cfg.channel.model in _SELECTIVE else fade
+    return tuple(t.view(B, mc.n_rx, Sp, L) for t in rx), h
+
+
+def mimo_detect(cfg: LinkConfig, y: torch.Tensor, h: torch.Tensor, nv: float):
+    """The configured detector on the post-FFT data grid y (B, n_rx, S, N):
+    (s (B, n_streams, S, N), eff_var (B, n_streams, 1, N')), or for ML its
+    LLRs (B, n_tx, S, N·bps) and None."""
+    mc = cfg.mimo
+    if mc.scheme == MIMOScheme.ALAMOUTI:
+        s, eff = mo.alamouti_combine(y, h, nv)
+    elif mc.scheme == MIMOScheme.MRC:
+        s, eff = mo.mrc_combine(y, h, nv)
+    elif mc.detector == "ml":
+        return mo.mux_detect_ml(y, h, nv, cfg.modulation), None
+    elif mc.detector == "sic":
+        return mo.mux_detect_sic(y, h, nv, cfg.modulation)
+    elif cfg.equalizer == Equalizer.ZF:
+        return mo.mux_detect_zf(y, h, nv)
+    else:
+        return mo.mux_detect_mmse(y, h, nv)
+    return s[:, None], eff[:, None]  # the combiners' one stream
+
+
+# eff_var's floor where the whitening takes 1/√eff_var: below any variance
+# a float32 link reaches (the detectors floor nv at 1e-12).
+_EFF_FLOOR = 1e-30
+
+
+def whitened_llrs(cfg: LinkConfig, s: torch.Tensor, eff: torch.Tensor) -> torch.Tensor:
+    """``llr_maxlog(s, mod, eff_var)`` of the detectors' estimates s
+    (B, K, S, N) on kernel C's post-FFT mode (pipeline.py:1017-1031): with
+    g = 1/√eff_var, C takes y = s·g, h = g (hi = 0) and nv = 1, so it forms
+    conj(h)·y/|h|² = s and scales the LLRs by |h|² = 1/eff_var. SC-FDMA
+    despreads first: the tone mean of eff_var per symbol row (h is then a
+    (B·K, S, N) plane), then ``ifft``·√N. Returns (B, K, S, N·bps).
+
+    Where eff_var > 1e12, |h|² falls under C's 1e-12 floor: there
+    |LLR| < ~1e-11 and its sign is not the JAX one."""
+    B, K, S, N = s.shape
+    if cfg.dft_spread:
+        eff = torch.broadcast_to(eff, s.shape).mean(dim=-1, keepdim=True)
+        s = (ifft(s) * N ** 0.5).to(torch.complex64)
+    g = torch.rsqrt(torch.clamp(eff, min=_EFF_FLOOR))  # (B, K, 1 | S, 1 | N)
+    y = torch.view_as_real((s * g).reshape(B * K, S, N))
+    hr = g.expand(B, K, g.shape[2], N).reshape(B * K, g.shape[2], N).contiguous()
+    llrs = _kc.llr_chain(y, None, hr, torch.zeros_like(hr), cfg.modulation, 1.0)
+    return llrs.view(B, K, S, N * cfg.modulation.bits_per_symbol)
+
+
+def mimo_rx(cfg: LinkConfig, rx, h: torch.Tensor | None, noise_var: float) -> torch.Tensor:
+    """The MIMO receive (pipeline.py:907-1014) on the RX planes (B, n_rx, S',
+    L): ``ofdm_rx``; with a preamble the per-pair estimate
+    (``estimate_mimo_preamble`` on the preamble rows times
+    PILOT_VALUE/``preamble_ref``, DFT-projected onto min(cp+1, N) taps with
+    the DFT estimator; ``h`` is not read); the detector; the LLRs
+    (``whitened_llrs``, ML's from the detector). Returns (B, n_streams, S,
+    N·bps) float32 in the bits' order."""
+    N, cp = cfg.ofdm.n_fft, cfg.ofdm.cp_len
+    nv = max(float(noise_var), 1e-12)
+    y = ofdm_rx(torch.complex(*rx), cp)  # (B, n_rx, S', N)
+    n_pre = n_preamble(cfg)
+    if n_pre:
+        ref = torch.from_numpy(preamble_ref(cfg)).to(y.device)
+        norm = torch.tensor(pil.PILOT_VALUE, dtype=torch.complex64, device=y.device) / ref
+        n_taps = min(cp + 1, N) if cfg.estimator == ChannelEstimator.DFT else 0
+        h = pil.estimate_mimo_preamble(y[:, :, :n_pre] * norm, n_taps)
+        y = y[:, :, n_pre:]
+    s, eff = mimo_detect(cfg, y, h, nv)
+    return s if eff is None else whitened_llrs(cfg, s, eff)
+
+
+def mimo_llrs(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, idx: torch.Tensor, *,
+              fading=None, noise=None) -> torch.Tensor:
+    """A's MIMO grid → LLRs (B, n_streams, S, N·bps): ``mimo_tx``,
+    ``mimo_channel``, ``mimo_rx``."""
+    rx, h = mimo_channel(cfg, seed, ch_ids, mimo_tx(cfg, idx), fading=fading, noise=noise)
+    return mimo_rx(cfg, rx, h, mimo_noise_var(cfg))
+
+
+def mimo_llr_link(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, bits: torch.Tensor, *,
+                  fading=None, noise=None) -> torch.Tensor:
+    """The MIMO link as bits → LLRs (the JAX ``mimo_llr_link``): bits
+    (B, n_streams, S, N·bps) int8 → float32 LLRs of that shape and order.
+    The draws are keyed on ``seed`` and ``ch_ids`` unless injected
+    (``mimo_channel``)."""
+    check_supported(cfg)
+    bps = cfg.modulation.bits_per_symbol
+    idx = _bits_to_ints(bits, bps).to(out_dtype(bps))
+    return mimo_llrs(cfg, seed, ch_ids, idx.reshape(bits.shape[0], -1, cfg.ofdm.n_fft),
+                     fading=fading, noise=noise)
+
+
+def _mimo_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, want_llrs: bool):
+    """(bit_errors, llrs | None) of the MIMO link: A's grid drawn once, then
+    the link in passes of ``CHUNK`` channels, each counted against A's bits
+    in torch (``kernels.demod.count_errors``)."""
+    bps = cfg.modulation.bits_per_symbol
+
+    def link(_, ids, idx):
+        llrs = mimo_llrs(cfg, seed, ids, idx)
+        errors = _kc.count_errors(llrs.reshape(*idx.shape[:2], -1), idx, bps)
+        return (errors, llrs) if want_llrs else errors
+
+    out = _in_passes(link, ch_ids, draw_mimo_idx(cfg, seed, ch_ids))
+    return out if want_llrs else (out, None)
+
+
 def simulate_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, want_llrs: bool = False):
     """The link over explicit GLOBAL channel ids (B,) int32 on the target
     device: (bit_errors, bits_counted, llrs | None). bits_counted is
-    n_data_symbols × bits_per_ofdm_symbol: the payload alone. A timing
-    offset or CFO takes the acquired link, as the JAX ``_simulate_one``
-    does: ``acquired_stream``, ``acquire_payload``, then the pilot receive
+    n_data_symbols × bits_per_ofdm_symbol: the payload alone. As in the JAX
+    ``_simulate_one``, a MIMO config takes the MIMO link (``_mimo_core``;
+    llrs (B, n_streams, S, N·bps)) and a timing offset or CFO the acquired
+    link: ``acquired_stream``, ``acquire_payload``, then the pilot receive
     with ``skip_iq`` (the raw stream was compensated)."""
     check_supported(cfg)
+    B = ch_ids.shape[0]
+    counted = torch.full((B,), cfg.n_data_symbols * cfg.bits_per_ofdm_symbol, dtype=torch.int32,
+                         device=ch_ids.device)
+    if cfg.mimo is not None:
+        errors, llrs = _mimo_core(cfg, seed, ch_ids, want_llrs)
+        return errors, counted, llrs
     idx = draw_idx(cfg, seed, ch_ids)
     acquired = cfg.channel.impaired
     if acquired:
@@ -694,9 +1045,6 @@ def simulate_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, want_llrs: b
         h_freq, nv = None, fast.noise_var(cfg)
     else:
         rx, h_freq, nv = apply_channel(cfg, seed, ch_ids, tx_idx(cfg, idx))
-    B = ch_ids.shape[0]
-    counted = torch.full((B,), cfg.n_data_symbols * cfg.bits_per_ofdm_symbol, dtype=torch.int32,
-                         device=ch_ids.device)
     if want_llrs:
         llrs, _ = rx_chain(cfg, rx, h_freq, nv, skip_iq=acquired)
         errors = _kc.count_errors(llrs, payload_of(cfg, idx), cfg.modulation.bits_per_symbol)

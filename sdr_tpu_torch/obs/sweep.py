@@ -8,12 +8,14 @@ resumes after the completed points (or tops a point up under larger
 targets).
 
 Engines: ``"pipeline"`` (``link.pipeline``, the default, as in the JAX
-sweep: uncoded SISO links, genie CSI or pilot-estimated), ``"fast"``
+sweep: uncoded links, genie CSI or pilot- or preamble-estimated, MIMO on
+frame-static channels among them), ``"fast"``
 (``link.fast``) and ``"mc"`` (``link.mc``, kernel G, ``mc_iters`` passes
 per invocation) run on ``device`` — the card unless the caller asks for
 the CPU. Impaired configs run on the pipeline engine (item 11d); coded
-sweeps (``code=``) and MIMO configs are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP items (11f, 11e).
+sweeps (``code=``) are not ported yet and raise ``NotImplementedError``
+naming ROADMAP item 11f, and the pipeline raises for the MIMO configs of
+item 11e-ii.
 
 Seeds: the JAX ``key`` becomes an int ``seed``. Invocation ``batch`` of
 point ``i`` runs with
@@ -38,8 +40,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from sdr_tpu_torch.core.config import ChannelModel, LinkConfig
-from sdr_tpu_torch.link.ber import ber_awgn_exact, ber_rayleigh_exact, ber_rician_exact
+from sdr_tpu_torch.core.config import ChannelModel, LinkConfig, MIMOScheme
+from sdr_tpu_torch.link.ber import (
+    ber_alamouti_exact,
+    ber_awgn_exact,
+    ber_mrc_exact,
+    ber_rayleigh_exact,
+    ber_rician_exact,
+)
 
 ENGINES = ("pipeline", "fast", "mc")
 _POINT_STRIDE = 1_000_003  # the JAX sweep's per-point stride (sweep.py:220)
@@ -78,14 +86,15 @@ class SweepResult:
     def theory(self, mod, channel_model=None, k_factor: float = 4.0, mimo=None) -> np.ndarray:
         """Exact reference curve: AWGN by default; flat Rayleigh for
         RAYLEIGH_FLAT and RAYLEIGH_TIME (the Jakes marginal is the same
-        exponential fade); flat Rician at ``k_factor`` for RICIAN. The
-        MIMO diversity curves are not ported yet."""
-        if mimo is not None:
-            raise NotImplementedError(
-                "MIMO theory curves are ported with link.pipeline's MIMO links (ROADMAP "
-                "queue 1, item 11e)"
-            )
-        if channel_model == ChannelModel.RICIAN:
+        exponential fade); flat Rician at ``k_factor`` for RICIAN; the exact
+        diversity curves (``ber_alamouti_exact``, ``ber_mrc_exact``) for
+        Alamouti and MRC over flat Rayleigh (spatial mux has no simple
+        closed form: it falls through to the channel model's curve)."""
+        if (mimo is not None and channel_model == ChannelModel.RAYLEIGH_FLAT
+                and mimo.scheme in (MIMOScheme.ALAMOUTI, MIMOScheme.MRC)):
+            base = ber_alamouti_exact if mimo.scheme == MIMOScheme.ALAMOUTI else ber_mrc_exact
+            fn = lambda m, e: base(m, e, mimo.n_rx)  # noqa: E731
+        elif channel_model == ChannelModel.RICIAN:
             fn = lambda m, e: ber_rician_exact(m, e, k_factor)  # noqa: E731
         elif channel_model in (ChannelModel.RAYLEIGH_FLAT, ChannelModel.RAYLEIGH_TIME):
             fn = ber_rayleigh_exact

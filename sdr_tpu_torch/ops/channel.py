@@ -69,20 +69,24 @@ def awgn(x: torch.Tensor, noise_var, seed: int, ch_ids: torch.Tensor) -> torch.T
     return x + n * math.sqrt(float(noise_var))
 
 
-def rayleigh_flat(seed: int, ch_ids: torch.Tensor) -> torch.Tensor:
-    """Per-channel flat Rayleigh gain h ~ CN(0, 1), (B, 1, 1) complex64."""
-    return cgauss(seed, prng.ROLE_FADING, ch_ids, (1, 1))
+def rayleigh_flat(seed: int, ch_ids: torch.Tensor, n_pairs: int = 1) -> torch.Tensor:
+    """Per-channel flat Rayleigh gain h ~ CN(0, 1), (B, 1, 1) complex64;
+    (B, n_pairs, 1) for the antenna pairs of a MIMO link, pair p at counter
+    (channel, p, 0) (pair 0 is the SISO draw)."""
+    return cgauss(seed, prng.ROLE_FADING, ch_ids, (n_pairs, 1))
 
 
-def rician_flat(seed: int, ch_ids: torch.Tensor, k_factor: float) -> torch.Tensor:
+def rician_flat(seed: int, ch_ids: torch.Tensor, k_factor: float,
+                n_pairs: int = 1) -> torch.Tensor:
     """Per-channel flat Rician gain with linear K-factor, E|h|² = 1:
     h = √(K/(K+1))·e^{jφ} + √(1/(K+1))·CN(0, 1), φ ~ U[0, 2π) drawn on
-    lane 1 of the fading stream. (B, 1, 1) complex64."""
+    lane 1 of the fading stream. (B, 1, 1) complex64, or (B, n_pairs, 1)
+    as ``rayleigh_flat``."""
     K = float(k_factor)
-    phase = prng.uniform_plane(seed, prng.ROLE_FADING, ch_ids, (1, 1), lane=1)
+    phase = prng.uniform_plane(seed, prng.ROLE_FADING, ch_ids, (n_pairs, 1), lane=1)
     phase = phase * (2.0 * math.pi)
     los = math.sqrt(K / (K + 1.0)) * torch.complex(torch.cos(phase), torch.sin(phase))
-    return los + cgauss(seed, prng.ROLE_FADING, ch_ids, (1, 1), var=1.0 / (K + 1.0))
+    return los + cgauss(seed, prng.ROLE_FADING, ch_ids, (n_pairs, 1), var=1.0 / (K + 1.0))
 
 
 def jakes_params(seed: int, ch_ids: torch.Tensor, n_paths: int = JAKES_PATHS,
@@ -135,12 +139,15 @@ def _pdp_amps(pdp, device) -> torch.Tensor:
     return torch.sqrt(p / torch.sum(p))
 
 
-def multipath_taps(seed: int, ch_ids: torch.Tensor, pdp) -> torch.Tensor:
+def multipath_taps(seed: int, ch_ids: torch.Tensor, pdp,
+                   n_pairs: int | None = None) -> torch.Tensor:
     """Static Rayleigh taps for a power-delay profile (normalised to
-    total power 1): (B, L) complex64 from lane 0 of the fading stream."""
+    total power 1): (B, L) complex64 from lane 0 of the fading stream;
+    with ``n_pairs``, (B, n_pairs, L) for the antenna pairs of a MIMO link,
+    tap l of pair p at counter (channel, p, l) (pair 0 is the SISO draw)."""
     amps = _pdp_amps(pdp, ch_ids.device)
-    taps = cgauss(seed, prng.ROLE_FADING, ch_ids, (1, amps.shape[0]))[:, 0, :]
-    return taps * amps
+    taps = cgauss(seed, prng.ROLE_FADING, ch_ids, (n_pairs or 1, amps.shape[0])) * amps
+    return taps if n_pairs else taps[:, 0, :]
 
 
 def multipath_time_params(seed: int, ch_ids: torch.Tensor, pdp, n_paths: int = JAKES_PATHS):

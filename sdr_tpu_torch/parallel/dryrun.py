@@ -25,8 +25,8 @@ wall time (host clock between two barriers, after one warm-up call when
 
 ``dryrun_multichip(world, device)`` runs the rows of BASELINE configs 4
 and 5 at full width over ``world`` gloo ranks and prints one line per
-row, as the JAX function does — the time-block stream with its halo and
-the TDL stream among them. Ranks that share one card measure nothing
+row, as the JAX function does — the time-block stream with its halo, the
+TDL stream and the 2 × 2 ML MIMO link among them. Ranks that share one card measure nothing
 about scaling: their wall times are marked so.
 """
 
@@ -45,9 +45,12 @@ import torch
 
 from sdr_tpu_torch.core.config import (
     ChannelConfig,
+    ChannelEstimator,
     ChannelModel,
     Equalizer,
     LinkConfig,
+    MIMOConfig,
+    MIMOScheme,
     Modulation,
     OFDMConfig,
 )
@@ -72,7 +75,7 @@ from sdr_tpu_torch.parallel.shard import (
 from sdr_tpu_torch.parallel.tp import make_tp_demod_fn
 
 SHARED_CARD = "ranks sharing one card, gloo through the host: not a scaling figure"
-NOT_PORTED = (("MIMO", "11e"), ("polar", "11f"))
+NOT_PORTED = (("polar", "11f"),)
 
 
 # ---- the launcher ------------------------------------------------------------
@@ -352,6 +355,16 @@ PDP5 = (1.0, 0.6, 0.3, 0.1, 0.05)  # config 5's
 SEED = 20261016
 
 
+def mimo_cfg(world: int) -> LinkConfig:
+    """The dryrun's MIMO row (``__graft_entry__.py``'s): ``entry()``'s link
+    (config 2, MULTIPATH PDP (1, .5, .25, .125), MMSE, 12 dB) at 2·world
+    channels × 4 symbols, as a 2 × 2 spatial-mux link with the ML detector
+    on the head preamble's DFT estimate."""
+    return _cfg(ChannelModel.MULTIPATH, 12.0, 2 * world, 4, pdp=PDP4, equalizer=Equalizer.MMSE,
+                estimator=ChannelEstimator.DFT,
+                mimo=MIMOConfig(MIMOScheme.SPATIAL_MUX, 2, 2, csi="preamble", detector="ml"))
+
+
 def dryrun_cases(world: int) -> list:
     """The dryrun's rows at full width over ``world`` ranks (world² must
     divide 4096 and world be even): TP at BASELINE config 5 (256 × 64,
@@ -365,7 +378,8 @@ def dryrun_cases(world: int) -> list:
     its halo on 2 time × world/2 channel ranks, n_blocks 4 (a seam
     exchanged between ranks and one inside each rank), 1024 × 64 at
     ``__graft_entry__.entry()``'s link (config 2, MULTIPATH PDP (1, .5,
-    .25, .125), MMSE, 12 dB) and as the TDL (MULTIPATH_TIME, fd 0.03)."""
+    .25, .125), MMSE, 12 dB) and as the TDL (MULTIPATH_TIME, fd 0.03); the
+    MIMO link of ``mimo_cfg`` on 1 × world ranks."""
     dp = (1, world)
     c5 = dict(n_fft=4096, cp=512, pdp=PDP5)
     seed = SEED
@@ -398,6 +412,8 @@ def dryrun_cases(world: int) -> list:
         dict(name="TDL stream", kind="stream", mesh=(2, world // 2), seed=seed, n_blocks=4,
              cfg=_cfg(ChannelModel.MULTIPATH_TIME, 12.0, 1024, 64, pdp=PDP4,
                       doppler_norm=0.03, equalizer=Equalizer.MMSE)),
+        dict(name="MIMO 2x2 spatial-mux ML, preamble CSI (DFT)", kind="simulate", mesh=dp,
+             seed=seed, cfg=mimo_cfg(world)),
     ]
     for row in rows:
         row["warm"] = True

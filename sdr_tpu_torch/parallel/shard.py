@@ -148,6 +148,10 @@ def make_sharded_fast_fn(cfg: LinkConfig, mesh: LinkMesh, layout: str = "auto",
     on every rank, equal to ``fast_simulate(cfg, seed)``. ``layout="auto"``
     resolves once against the per-rank batch."""
     dev = resolve_device(device)
+    if cfg.mimo is not None:
+        raise NotImplementedError(
+            "the fast path is SISO; sharded MIMO links run through "
+            "make_sharded_simulate_fn (link.pipeline)")
     fast.check_supported(cfg, layout)
     ids = _local_ids(cfg, mesh.size, mesh.rank, dev)
     if layout == "auto":

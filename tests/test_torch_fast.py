@@ -163,7 +163,7 @@ def test_package_imports_no_jax():
         "sdr_tpu_torch.kernels.demod, sdr_tpu_torch.kernels.tx, sdr_tpu_torch.ops.llr, "
         "sdr_tpu_torch.parallel, sdr_tpu_torch.parallel.dryrun, sdr_tpu_torch.link.pipeline, "
         "sdr_tpu_torch.link.stream, sdr_tpu_torch.ops.pilots, sdr_tpu_torch.ops.pa, "
-        "sdr_tpu_torch.ops.sync; "
+        "sdr_tpu_torch.ops.sync, sdr_tpu_torch.ops.mimo; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m == 'sdr_tpu' or m.startswith('sdr_tpu.') for m in sys.modules)"
     )
@@ -182,8 +182,8 @@ def test_package_imports_no_jax():
     ids=["dft_spread", "pilots", "mimo"],
 )
 def test_unported_paths_raise(kw):
-    """Pilots raise, naming ``link.pipeline.simulate``, where they run (as
-    the JAX engine says), and MIMO names its ROADMAP item. SC-FDMA raised
+    """Pilots and MIMO raise, naming ``link.pipeline.simulate``, where they
+    run (as the JAX engine says). SC-FDMA raised
     until this engine ported it; its case now runs: channels [0, 2) alone
     give the counts of the full run."""
     kw = dict(kw)
@@ -197,8 +197,7 @@ def test_unported_paths_raise(kw):
         torch.testing.assert_close(part, full[:2], rtol=0, atol=0)
         assert int(counted[0]) == 4 * 64 * 4
         return
-    with pytest.raises(NotImplementedError,
-                       match=r"link\.pipeline\.simulate" if cfg.pilot_spacing else "ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"link\.pipeline\.simulate"):
         fast.fast_simulate(cfg, seed=0, device="cpu")
 
 

@@ -520,6 +520,59 @@ def test_stream_on_card_equals_simulate(dev, model, n_blocks):
     assert int(errors.sum()) > 0
 
 
+_MIMO_ON_CARD = {
+    "alamouti_2x2": dict(scheme="alamouti", n_tx=2, n_rx=2),
+    "mrc_1x3_multipath": dict(scheme="mrc", n_tx=1, n_rx=3, model=ChannelModel.MULTIPATH),
+    "mux_2x2_ml_preamble_dft": dict(scheme="mux", n_tx=2, n_rx=2, csi="preamble",
+                                    detector="ml", model=ChannelModel.MULTIPATH),
+    "mux_3x4_sic": dict(scheme="mux", n_tx=3, n_rx=4, detector="sic",
+                        mod=Modulation.QPSK),
+    "scfdma_mux_2x2_preamble_pa": dict(scheme="mux", n_tx=2, n_rx=2, csi="preamble",
+                                       dft_spread=True, pa_ibo_db=6.0),
+}
+
+
+@pytest.mark.parametrize("case", list(_MIMO_ON_CARD))
+def test_mimo_links_on_card_match_the_cpu(dev, case):
+    """A MIMO link (item 11e-i) on the card against the same link's plain
+    versions on the CPU: LLRs within 1e-4 of their peak, counts equal but
+    for bits whose |LLR| < 1e-3; the card's call launches A, B off, E (the
+    pair plane, then the noise) and C's post-FFT mode (not for ML)."""
+    from sdr_tpu_torch.core.config import ChannelEstimator, Equalizer, MIMOConfig, MIMOScheme
+    from sdr_tpu_torch.link import pipeline
+
+    kw = dict(_MIMO_ON_CARD[case])
+    model = kw.pop("model", ChannelModel.RAYLEIGH_FLAT)
+    mod = kw.pop("mod", Modulation.QAM16)
+    spread = kw.pop("dft_spread", False)
+    channel = {"pa_ibo_db": kw.pop("pa_ibo_db")} if "pa_ibo_db" in kw else {}
+    if model == ChannelModel.MULTIPATH:
+        channel["pdp"] = (1.0, 0.5, 0.25)
+    cfg = LinkConfig(modulation=mod, ofdm=OFDMConfig(64, 16),
+                     channel=ChannelConfig(model=model, ebno_db=10.0, **channel),
+                     equalizer=Equalizer.MMSE, estimator=ChannelEstimator.DFT, n_symbols=16,
+                     n_channels=64,
+                     dft_spread=spread,
+                     mimo=MIMOConfig(MIMOScheme(kw.pop("scheme")), **kw))
+    _lib.reset_launches()
+    res = pipeline.simulate(cfg, 5, device=dev, want_llrs=True)
+    torch.cuda.synchronize()
+    launched = {k for k, v in _lib.LAUNCHES.items() if v}
+    want = {"payload", "tx_off", "fade_awgn"} | (
+        {"fade_awgn_fir"} if model == ChannelModel.MULTIPATH else set()) | (
+        set() if cfg.mimo.detector == "ml" else {"llr_chain"})
+    if spread:
+        want.discard("tx_off")
+    assert launched == want, launched
+    ref = pipeline.simulate(cfg, 5, device="cpu", want_llrs=True)
+    got = res.llrs.cpu()
+    peak = float(ref.llrs.abs().max())
+    assert float((got - ref.llrs).abs().max()) <= 1e-4 * peak
+    margin = (ref.llrs.abs() < 1e-3).sum(dim=(1, 2, 3))
+    assert bool(((res.bit_errors.cpu() - ref.bit_errors).abs() <= margin).all())
+    assert int(ref.bit_errors.sum()) > 0
+
+
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
 @pytest.mark.parametrize("L", [1, 3, 8])
 @pytest.mark.parametrize("N", C_N_FFT)

@@ -13,7 +13,8 @@ on the CPU, over 4 gloo ranks spawned once for the module.
   plain |LLR| < 1e-3 (port and JAX draw from different streams, so the
   comparison injects the same numpy draws into both).
 - The sharded pipeline (channel DP, 1 × 4; a genie and a comb-pilot DFT
-  link) and the time-block stream
+  link, the dryrun's 2 × 2 ML MIMO link on the preamble's DFT estimate,
+  and an Alamouti 2 × 2 link on 2 × 2 ranks) and the time-block stream
   with its halo exchange (2 × 2, n_blocks 4: one seam between ranks and
   one inside each rank; static MULTIPATH and the TDL) are bit-exact
   against the unsharded ``simulate`` and ``stream_simulate``, and each
@@ -37,7 +38,13 @@ from sdr_tpu.core import config as jcfg
 from sdr_tpu.parallel import make_link_mesh as j_make_link_mesh
 from sdr_tpu.parallel.shard import make_sharded_mc_inject_fn as j_sharded_mc_inject
 from sdr_tpu_torch import interop
-from sdr_tpu_torch.core.config import ChannelEstimator, ChannelModel, Equalizer
+from sdr_tpu_torch.core.config import (
+    ChannelEstimator,
+    ChannelModel,
+    Equalizer,
+    MIMOConfig,
+    MIMOScheme,
+)
 from sdr_tpu_torch.link import pipeline as pipe
 from sdr_tpu_torch.link.stream import exact_at_seams, stream_simulate
 from sdr_tpu_torch.kernels.mc import mc_llr_plain
@@ -125,6 +132,14 @@ CASES = {
                                             cfo_subcarriers=1.3, timing_offset=37,
                                             pa_ibo_db=6.0, phase_noise_std=0.002,
                                             iq_gain=1.05, iq_phase_rad=0.03)),
+    "simulate_dp_mimo": dict(kind="simulate", mesh=(1, 4),
+                             cfg=_small(ChannelModel.MULTIPATH, pdp=PDP3, equalizer=Equalizer.MMSE,
+                                        estimator=ChannelEstimator.DFT,
+                                        mimo=MIMOConfig(MIMOScheme.SPATIAL_MUX, 2, 2,
+                                                        csi="preamble", detector="ml"))),
+    "simulate_dp_mimo_alamouti": dict(kind="simulate", mesh=(2, 2),
+                                      cfg=_small(ChannelModel.RAYLEIGH_FLAT,
+                                                 mimo=MIMOConfig(MIMOScheme.ALAMOUTI, 2, 2))),
     "stream": dict(kind="stream", mesh=(2, 2), n_blocks=4,
                    cfg=_small(ChannelModel.MULTIPATH, n_symbols=8, pdp=PDP3,
                               equalizer=Equalizer.MMSE)),

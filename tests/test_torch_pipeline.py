@@ -377,12 +377,14 @@ def test_stream_equals_simulate(case, n_blocks):
     (dict(pilot_spacing=4), None),
     (dict(pilot_spacing=4, channel_kw=dict(model=jcfg.ChannelModel.RAYLEIGH_FLAT,
                                            pa_ibo_db=4.0)), "11d"),
-    (dict(mimo=jcfg.MIMOConfig(), channel_kw=dict(model=jcfg.ChannelModel.RAYLEIGH_FLAT)),
-     "11e"),
+    (dict(mimo=jcfg.MIMOConfig(), channel_kw=dict(model=jcfg.ChannelModel.RAYLEIGH_TIME,
+                                                  doppler_norm=0.02)), "11e-ii"),
 ], ids=["pilots", "pa", "mimo"])
 def test_unported_options_raise(kw, item):
-    """MIMO names item 11e, in ``simulate``, ``make_simulate_fn`` and the
-    stream. Pilots (item 11c) and front-end impairments (item 11d) run in
+    """MIMO on a time-varying channel names item 11e-ii, in ``simulate``,
+    ``make_simulate_fn`` and the stream (frame-static MIMO runs in the
+    pipeline: ``tests/test_torch_mimo.py``). Pilots (item 11c) and
+    front-end impairments (item 11d) run in
     ``simulate`` and ``make_simulate_fn``; the stream refuses pilots as the
     JAX module does, naming ``link.pipeline``, and impairments naming
     item 11d."""

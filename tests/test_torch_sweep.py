@@ -23,6 +23,7 @@ from sdr_tpu_torch.core.config import (
     Equalizer,
     LinkConfig,
     MIMOConfig,
+    MIMOScheme,
     Modulation,
     OFDMConfig,
 )
@@ -109,9 +110,17 @@ def test_unported_engines_and_options_raise(tmp_path):
         sweep.ebno_sweep(_cfg(), GRID, engine="mc", code="ldpc", device="cpu")
     with pytest.raises(ValueError, match="unknown"):
         sweep.ebno_sweep(_cfg(), GRID, engine="xla", device="cpu")
-    res = sweep.SweepResult([sweep.SweepPoint(3.0, 1, 10)], "s")
-    with pytest.raises(NotImplementedError, match="item 11e"):
-        res.theory(Modulation.QPSK, ChannelModel.RAYLEIGH_FLAT, mimo=MIMOConfig())
+    res = sweep.SweepResult([sweep.SweepPoint(e, 1, 10) for e in (3.0, 9.0)], "s")
+    want = JSweepResult([JSweepPoint(e, 1, 10) for e in (3.0, 9.0)], "s")
+    for mimo, j_mimo in ((MIMOConfig(), jcfg.MIMOConfig()),
+                         (MIMOConfig(MIMOScheme.MRC, 1, 4), jcfg.MIMOConfig(
+                             jcfg.MIMOScheme.MRC, 1, 4)),
+                         (MIMOConfig(MIMOScheme.SPATIAL_MUX, 2, 2), jcfg.MIMOConfig(
+                             jcfg.MIMOScheme.SPATIAL_MUX, 2, 2))):
+        np.testing.assert_allclose(
+            res.theory(Modulation.QPSK, ChannelModel.RAYLEIGH_FLAT, mimo=mimo),
+            want.theory(jcfg.Modulation.QPSK, jcfg.ChannelModel.RAYLEIGH_FLAT, mimo=j_mimo),
+            rtol=0, atol=1e-12)
     assert inspect.signature(sweep.ebno_sweep).parameters["device"].default == "cuda"
 
 
