@@ -205,6 +205,25 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    against its drawn channel), RICIAN, PA and SC-FDMA gate forms — each
    with ms (median of 3 warm calls), peak memory (under 40 GiB) and
    launches a call, the window ``launches_mimo``;
+   3v. time-varying and impaired MIMO, counters zeroed before it: on one
+   pass of ``pipeline.CHUNK`` channels, kernel E's channel-only mode over
+   the 2 × 2 pair plane with per-symbol gains (RAYLEIGH_TIME, 64 rows) and
+   per-symbol taps with in-plane history (MULTIPATH_TIME with midambles,
+   96 rows), over the acquired MRC pair plane (83 rows, the tail row), its
+   noise-only mode over the acquired streams (B, 2, 31717), and C's
+   post-FFT mode with h per symbol and tone, each against its plain
+   version and timed beside it; the receive's parts timed alone
+   (``mimo_stream``, the mixer, ``acquire_array_start``, the slice, the
+   midamble estimates, each per-symbol detector, ``whitened_llrs``); then
+   ``pipeline.simulate`` on ``mimo_time_links``' 32 links at config 2's
+   numerology (8192 × 64; ML and the TDL forms 2048 × 64): MRC 1x2 under
+   Jakes fd 0.02 within 2 % of the exact BER over the drawn per-symbol
+   Σ|h|², fd 1e-5 Alamouti 2x1 and MRC 1x2 within 10 % of theory, and the
+   JAX tests' gate forms (per-symbol ML and SIC, the Doppler floor,
+   midamble tracking, the TDL ladder, blind acquisition with the walk, I/Q,
+   the PA, Jakes and SC-FDMA, the walk and I/Q alone) — each with ms
+   (median of 3 warm calls), peak memory (under 40 GiB) and launches, the
+   window ``launches_mimo_time``;
    5. the parallel layer: ``parallel.dryrun.dryrun_multichip`` on 4
    gloo ranks sharing the one card (spawned; the library built above is
    only loaded there) — TP at BASELINE config 5's full width (256 × 64,
@@ -241,19 +260,25 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    ``launches_impairments``, the acquired links' calls also in a window
    of their own, where E's noise launches are the row's alone; and in
    phase 3m around each MIMO link's call, for A, B off, E (gains, FIR) and
-   C's post-FFT mode, ``launches_mimo``)
+   C's post-FFT mode, ``launches_mimo``; and in phase 3v around each
+   time-varying or impaired MIMO link's call, for the same kernels,
+   ``launches_mimo_time``)
    and prints one JSON line per kernel set, with each kernel's bound (bytes over 3.35 TB/s or f32
    operations over 67 TFLOP/s, the H100 SXM data sheet) and its launches
    in each window (``launches_fast``, ``launches_mc``, ``launches_coded``,
    ``launches_terminals``, ``launches_wide`` — the sum of 3i's N
    windows; ``launches_bf16``, ``launches_parallel``, ``launches_nccl``,
    ``launches_pipeline``, ``launches_pilots``, ``launches_impairments``,
-   ``launches_mimo``; ``launches`` is the
+   ``launches_mimo``, ``launches_mimo_time``; ``launches`` is the
    window of its own path, the one checked; the entry ``fade_awgn@acquired_stream`` carries
    phase 3r's check of E at the stream's shape and the row's launches in the acquired links' window;
    the entries ``fade_awgn@mimo_pair_plane``, ``fade_awgn_fir@mimo_pair_plane``,
    ``fade_awgn@mimo_rx_noise`` and ``llr_chain@mimo_whitened_h_per_link`` /
    ``_h_per_symbol`` phase 3m's checks and their counters' launches in its window;
+   the entries ``fade_awgn@mimo_time_pair_gains``,
+   ``fade_awgn_fir@mimo_time_pair_taps``, ``fade_awgn@mimo_time_acquired_plane``,
+   ``fade_awgn@mimo_time_stream_noise`` and ``llr_chain@mimo_time_h_per_symbol``
+   phase 3v's;
    the entries named ``<counter>@N1024``, ``@N2048`` and ``@N4096`` carry
    phase 2w's numbers, the launches in that N's window and the TPU
    four-step, post-FFT or channels-last kernel they replace there),
@@ -615,6 +640,174 @@ def mimo_links(n_channels: int = 8192, n_side: int = 2048):
          "a PA at IBO 3 (tests/test_scfdma.py:270-284)",
          lambda b: (all(b[f"sc_{k}"] < 2.0 * b[f"ofdm_{k}"] for k in "amx")
                     and b["sc_mp"] < b["ofdm_mp"] and b["sc_pa3"] < b["ofdm_pa3"])),
+    ]
+    return links, theory, drawn, gates
+
+
+def mimo_time_links(n_channels: int = 8192, n_side: int = 2048):
+    """Phase 3v's links (root PERF.md §4, the time-varying and impaired MIMO
+    cells to be): (key, label, config) in run order, at config 2's
+    numerology (N 256, CP 64, 64 symbols), ``n_channels`` channels, ML and
+    the side forms (the per-tap-Jakes TDL) at ``n_side``; each JAX gate's
+    modulation and Eb/N0 where its bound depends on them (QPSK), 16-QAM
+    10 dB (config 2's) for the theory and drawn-channel gates; the LO walk's
+    std × √(80/320) (per sample at N 256, CP 64, as phase 3r). Then the
+    theory (key → (name, BER)), the drawn-channel keys (the exact BER over
+    the drawn per-symbol Σ|h|²), and the gates (rule, fn(r: key → per-channel
+    BER, a numpy array) → ok), each the JAX test's form."""
+    from sdr_tpu_torch.core.config import (
+        ChannelConfig,
+        ChannelEstimator,
+        ChannelModel,
+        Equalizer,
+        LinkConfig,
+        MIMOConfig,
+        MIMOScheme,
+        Modulation,
+        OFDMConfig,
+    )
+    from sdr_tpu_torch.link.ber import ber_alamouti_exact, ber_mrc_exact
+
+    A, M, X = MIMOScheme.ALAMOUTI, MIMOScheme.MRC, MIMOScheme.SPATIAL_MUX
+    q16, q = Modulation.QAM16, Modulation.QPSK
+    flat, rt, mt = ChannelModel.RAYLEIGH_FLAT, ChannelModel.RAYLEIGH_TIME, ChannelModel.MULTIPATH_TIME
+    dft = ChannelEstimator.DFT
+    pdp = (1.0, 0.5, 0.25)
+    walk = 2e-3 * PN_SCALE
+
+    def link(mimo, ebno_db, model=rt, mod=q, n=n_channels, estimator=ChannelEstimator.LS,
+             dft_spread=False, **channel):
+        if model in (rt, mt):
+            channel.setdefault("doppler_norm", 0.02)
+        if model == mt:
+            channel.setdefault("pdp", pdp)
+        return LinkConfig(modulation=mod, ofdm=OFDMConfig(n_fft=256, cp_len=64),
+                          channel=ChannelConfig(model=model, ebno_db=ebno_db, **channel),
+                          equalizer=Equalizer.MMSE, estimator=estimator, n_symbols=64,
+                          n_channels=n, dft_spread=dft_spread, mimo=mimo)
+
+    def pre(k=0, **kw):
+        return dict(csi="preamble", midamble_period=k, **kw)
+
+    acq = dict(cfo_subcarriers=1.3, timing_offset=37)
+    links = [
+        ("m12_rt", "MRC 1x2 RAYLEIGH_TIME fd 0.02 genie 16-QAM 10 dB",
+         link(MIMOConfig(M, 1, 2), 10.0, mod=q16)),
+        ("a21_slow", "Alamouti 2x1 RAYLEIGH_TIME fd 1e-5 genie 16-QAM 10 dB",
+         link(MIMOConfig(A, 2, 1), 10.0, mod=q16, doppler_norm=1e-5)),
+        ("m12_slow", "MRC 1x2 RAYLEIGH_TIME fd 1e-5 genie 16-QAM 10 dB",
+         link(MIMOConfig(M, 1, 2), 10.0, mod=q16, doppler_norm=1e-5)),
+        ("ml_flat", "mux 2x2 ML RAYLEIGH_FLAT genie 5 dB",
+         link(MIMOConfig(X, 2, 2, detector="ml"), 5.0, flat, n=n_side)),
+        ("ml_fast", "mux 2x2 ML RAYLEIGH_TIME fd 0.2 genie (per symbol) 5 dB",
+         link(MIMOConfig(X, 2, 2, detector="ml"), 5.0, doppler_norm=0.2, n=n_side)),
+        ("sic_fast", "mux 2x2 SIC RAYLEIGH_TIME fd 0.2 genie 5 dB",
+         link(MIMOConfig(X, 2, 2, detector="sic"), 5.0, doppler_norm=0.2, n=n_side)),
+        ("mmse_mid", "mux 2x2 MMSE RAYLEIGH_TIME fd 0.02 midamble K 8 10 dB",
+         link(MIMOConfig(X, 2, 2, **pre(8)), 10.0)),
+        ("a22_slow20", "Alamouti 2x2 RAYLEIGH_TIME fd 1e-4 genie 20 dB",
+         link(MIMOConfig(A, 2, 2), 20.0, doppler_norm=1e-4)),
+        ("a22_fast20", "Alamouti 2x2 RAYLEIGH_TIME fd 0.3 genie 20 dB",
+         link(MIMOConfig(A, 2, 2), 20.0, doppler_norm=0.3)),
+        ("m12_genie005", "MRC 1x2 RAYLEIGH_TIME fd 0.005 genie 5 dB",
+         link(MIMOConfig(M, 1, 2), 5.0, doppler_norm=0.005)),
+        ("m12_k4_005", "MRC 1x2 RAYLEIGH_TIME fd 0.005 midamble K 4 5 dB",
+         link(MIMOConfig(M, 1, 2, **pre(4)), 5.0, doppler_norm=0.005)),
+        ("m12_k2_08", "MRC 1x2 RAYLEIGH_TIME fd 0.08 midamble K 2 15 dB",
+         link(MIMOConfig(M, 1, 2, **pre(2)), 15.0, doppler_norm=0.08)),
+        ("m12_k16_08", "MRC 1x2 RAYLEIGH_TIME fd 0.08 midamble K 16 15 dB",
+         link(MIMOConfig(M, 1, 2, **pre(16)), 15.0, doppler_norm=0.08)),
+        ("tdl_siso", "SISO MULTIPATH_TIME (1, .5, .25) fd 0.02 16-QAM 16 dB",
+         link(None, 16.0, mt, mod=q16, n=n_side)),
+        ("tdl_a22", "Alamouti 2x2 MULTIPATH_TIME genie 16-QAM 16 dB",
+         link(MIMOConfig(A, 2, 2), 16.0, mt, mod=q16, n=n_side)),
+        ("tdl_m12", "MRC 1x2 MULTIPATH_TIME genie 16-QAM 16 dB",
+         link(MIMOConfig(M, 1, 2), 16.0, mt, mod=q16, n=n_side)),
+        ("tdl_a22_k4", "Alamouti 2x2 MULTIPATH_TIME midamble K 4 LS 16-QAM 16 dB",
+         link(MIMOConfig(A, 2, 2, **pre(4)), 16.0, mt, mod=q16, n=n_side)),
+        ("tdl_a22_k4_dft", "Alamouti 2x2 MULTIPATH_TIME midamble K 4 DFT 16-QAM 16 dB",
+         link(MIMOConfig(A, 2, 2, **pre(4)), 16.0, mt, mod=q16, n=n_side, estimator=dft)),
+        ("aligned_dft", "Alamouti 2x2 RAYLEIGH_FLAT head preamble DFT 8 dB",
+         link(MIMOConfig(A, 2, 2, **pre()), 8.0, flat, estimator=dft)),
+        ("acq_dft", "Alamouti 2x2 acquired (CFO 1.3, offset 37) midamble K 4 DFT 8 dB",
+         link(MIMOConfig(A, 2, 2, **pre(4)), 8.0, flat, estimator=dft, **acq)),
+        ("acq_ls", "Alamouti 2x2 acquired midamble K 4 LS 8 dB",
+         link(MIMOConfig(A, 2, 2, **pre(4)), 8.0, flat, **acq)),
+        ("acq_walk_iq", "Alamouti 2x2 acquired midamble K 4 LS 8 dB, LO walk and I/Q (1.05, .03)",
+         link(MIMOConfig(A, 2, 2, **pre(4)), 8.0, flat, phase_noise_std=walk, iq_gain=1.05,
+              iq_phase_rad=0.03, **acq)),
+        ("acq_pa8", "Alamouti 2x2 acquired midamble K 4 LS 8 dB, PA IBO 8 dB",
+         link(MIMOConfig(A, 2, 2, **pre(4)), 8.0, flat, pa_ibo_db=8.0, **acq)),
+        ("acq_ml", "mux 2x2 ML acquired midamble K 4 8 dB",
+         link(MIMOConfig(X, 2, 2, detector="ml", **pre(4)), 8.0, flat, n=n_side, **acq)),
+        ("jk_genie", "MRC 1x2 RAYLEIGH_TIME fd 0.02 genie 5 dB",
+         link(MIMOConfig(M, 1, 2), 5.0)),
+        ("jk_mid", "MRC 1x2 RAYLEIGH_TIME fd 0.02 midamble K 4 5 dB",
+         link(MIMOConfig(M, 1, 2, **pre(4)), 5.0)),
+        ("jk_acq", "MRC 1x2 RAYLEIGH_TIME fd 0.02 acquired (CFO 1.7, offset 21) K 4 5 dB",
+         link(MIMOConfig(M, 1, 2, **pre(4)), 5.0, cfo_subcarriers=1.7, timing_offset=21)),
+        ("pn_clean", "Alamouti 2x2 RAYLEIGH_FLAT head preamble LS 8 dB",
+         link(MIMOConfig(A, 2, 2, **pre()), 8.0, flat)),
+        ("pn", "Alamouti 2x2 RAYLEIGH_FLAT midamble K 4 8 dB, LO walk",
+         link(MIMOConfig(A, 2, 2, **pre(4)), 8.0, flat, phase_noise_std=walk)),
+        ("iq", "Alamouti 2x2 RAYLEIGH_FLAT head preamble DFT 8 dB, I/Q (1.05, .03)",
+         link(MIMOConfig(A, 2, 2, **pre()), 8.0, flat, estimator=dft, iq_gain=1.05,
+              iq_phase_rad=0.03)),
+        ("sc_aligned", "SC-FDMA Alamouti 2x2 head preamble 8 dB",
+         link(MIMOConfig(A, 2, 2, **pre()), 8.0, flat, dft_spread=True)),
+        ("sc_acq", "SC-FDMA Alamouti 2x2 acquired midamble K 4 8 dB",
+         link(MIMOConfig(A, 2, 2, **pre(4)), 8.0, flat, dft_spread=True, **acq)),
+    ]
+    theory = {"a21_slow": ("ber_alamouti_exact n_rx 1", ber_alamouti_exact(q16, 10.0, 1)),
+              "m12_slow": ("ber_mrc_exact n_rx 2", ber_mrc_exact(q16, 10.0, 2))}
+    drawn = ("m12_rt",)
+    t_bits = 64 * 256 * 2  # a QPSK channel's bits
+
+    def in_lock(r):
+        return r[r <= 0.25]
+
+    gates = [
+        ("ML per symbol at fd 0.2 within (0.6, 1.4) x flat ML; SIC at fd 0.2 0 < BER < 0.5 "
+         "(tests/test_mimo.py:590-611)",
+         lambda r: 0.6 < r["ml_fast"].mean() / r["ml_flat"].mean() < 1.4
+         and 0 < r["sic_fast"].mean() < 0.5),
+        ("the midamble-tracked mux runs: 0 <= BER < 0.5 (tests/test_mimo.py:664-680)",
+         lambda r: 0 <= r["mmse_mid"].mean() < 0.5),
+        ("Alamouti 2x2 at 20 dB: fd 0.3 > 5 x max(fd 1e-4, 1e-6) (tests/test_mimo.py:614-625)",
+         lambda r: r["a22_fast20"].mean() > 5 * max(r["a22_slow20"].mean(), 1e-6)),
+        ("MRC midamble K 4 < 2 x genie at fd 0.005; at fd 0.08 K 2 < 0.7 x K 16 "
+         "(tests/test_mimo.py:644-661)",
+         lambda r: (r["m12_k4_005"].mean() < 2.0 * r["m12_genie005"].mean()
+                    and r["m12_k2_08"].mean() < 0.7 * r["m12_k16_08"].mean())),
+        ("MULTIPATH_TIME: Alamouti 2x2 < MRC 1x2 < SISO; midamble K 4 DFT < LS < 0.05 "
+         "(tests/test_channel_time.py:243-290)",
+         lambda r: (r["tdl_a22"].mean() < r["tdl_m12"].mean() < r["tdl_siso"].mean()
+                    and r["tdl_a22_k4_dft"].mean() < r["tdl_a22_k4"].mean() < 0.05)),
+        ("acquisition: outage (BER > 0.25) < 5 %, in-lock mean < 3 x max(aligned mean, 5e-4); "
+         "mux ML through it 0 < BER < 0.2 (tests/test_mimo.py:683-752)",
+         lambda r: ((r["acq_dft"] > 0.25).mean() < 0.05
+                    and in_lock(r["acq_dft"]).mean() < 3.0 * max(r["aligned_dft"].mean(), 5e-4)
+                    and 0 < r["acq_ml"].mean() < 0.2)),
+        ("acquired with LO walk and I/Q < 1.5 x acquired clean (tests/test_mimo.py:755-791)",
+         lambda r: r["acq_walk_iq"].mean() < 1.5 * r["acq_ls"].mean()),
+        ("acquired PA IBO 8 < 6 x max(acquired linear, 1e-4) (tests/test_pa.py:305's form)",
+         lambda r: r["acq_pa8"].mean() < 6.0 * max(r["acq_ls"].mean(), 1e-4)),
+        ("acquisition under Jakes fd 0.02: outages <= 3/64 of the channels, in-lock mean <= 2 x "
+         "max(genie mean, 1 error), in-lock sum <= 1.5 x midamble sum (tests/test_mimo.py:"
+         "794-839)",
+         lambda r: ((r["jk_acq"] > 0.25).mean() <= 3 / 64
+                    and in_lock(r["jk_acq"]).mean() * t_bits
+                    <= 2.0 * max(r["jk_genie"].mean() * t_bits, 1.0)
+                    and in_lock(r["jk_acq"]).sum() <= 1.5 * r["jk_mid"].sum())),
+        ("LO walk with midamble K 4 < 1.8 x clean head preamble (tests/test_mimo.py:842-899)",
+         lambda r: r["pn"].mean() < 1.8 * r["pn_clean"].mean()),
+        ("I/Q (1.05, .03) compensated < 1.6 x matched, DFT (tests/test_mimo.py:902-923)",
+         lambda r: r["iq"].mean() < 1.6 * r["aligned_dft"].mean()),
+        ("SC-FDMA acquired: outage < 5 %, in-lock mean < 2.5 x max(aligned mean, 1 error) "
+         "(tests/test_scfdma.py:298-330)",
+         lambda r: ((r["sc_acq"] > 0.25).mean() < 0.05
+                    and in_lock(r["sc_acq"]).mean() * t_bits
+                    < 2.5 * max(r["sc_aligned"].mean() * t_bits, 1.0))),
     ]
     return links, theory, drawn, gates
 
@@ -3288,30 +3481,39 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                                                                              ids_m)))
     pair = m_part("pair plane (expand and copy, 4 pairs)",
                   lambda: pipeline.pair_plane(tx_pre, 2))
-    for label, cfg_k, counter in (("gains", cfg_pre, "fade_awgn"),
-                                  ("static taps (1, .5, .25, .125)", cfg_mp, "fade_awgn_fir")):
-        kw_k = pipeline.pair_channel(cfg_k, pipeline.mimo_fading(cfg_k, seed, ids_m))
-        want = ke.fade_awgn_plain(*pair, **kw_k)
-        got = ke.fade_awgn(*pair, **kw_k)
+    def e_check(phase, label, name, counter, cfg_k, planes, window, n_steps=None, tail=False):
+        """E's channel-only mode on the pair plane ``planes`` with ``cfg_k``'s
+        keyed pair fading (at ``n_steps`` steps on the time-varying models)
+        against its plain version, then timed beside it; its report entry
+        and phase 6 E row."""
+        fade = pipeline.mimo_fading(cfg_k, seed, ids[:P], n_steps)
+        kw_k = pipeline.pair_channel(cfg_k, fade, tail)
+        want = ke.fade_awgn_plain(*planes, **kw_k)
+        got = ke.fade_awgn(*planes, **kw_k)
         err, peak = plane_err(got, want), plane_peak(want)
         del want, got
-        _check(err <= 1e-5 * peak, f"E channel only on the MIMO pair plane ({label}): max abs "
-                                   f"diff {err:g} of peak {peak:g}")
-        ms, pms = compare_times(lambda: ke.fade_awgn(*pair, **kw_k),
-                                lambda: ke.fade_awgn_plain(*pair, **kw_k), reps=1,
+        _check(err <= 1e-5 * peak, f"E channel only on the {label}: max abs diff {err:g} of "
+                                   f"peak {peak:g}")
+        ms, pms = compare_times(lambda: ke.fade_awgn(*planes, **kw_k),
+                                lambda: ke.fade_awgn_plain(*planes, **kw_k), reps=1,
                                 kernel_reps=10)
         side = kw_k.get("taps_r", kw_k.get("hr_s"))
-        n_pair = pair[0].numel()
+        n_pl = planes[0].numel()
         per_sample = 8 * side.shape[-1] if counter == "fade_awgn_fir" else 6
         rep = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                   **bound(16 * n_pair + 8 * side.numel(), per_sample * n_pair))
-        shape = "x".join(map(str, pair[0].shape))
-        e_rows.append(dict(rep, mode=f"channel only, MIMO pair plane, {label}", counter=counter,
-                           shape=shape, window=launches_mimo))
-        report[f"{counter}@mimo_pair_plane"] = rep
-        print(f"phase 3m E channel only on the MIMO pair plane ({shape}, {label}): max abs diff "
-              f"{err:.3g} (peak {peak:.3g}, allowed 1e-5 of it); kernel {ms:.4f} ms, plain "
-              f"{pms:.3f} ms; {of_bound(rep)} on {card}")
+                   **bound(16 * n_pl + 8 * side.numel(), per_sample * n_pl))
+        shape = "x".join(map(str, planes[0].shape))
+        e_rows.append(dict(rep, mode=f"channel only, {label}", counter=counter, shape=shape,
+                           window=window))
+        report[name] = rep
+        print(f"phase {phase} E channel only on the {label} ({shape}): max abs diff {err:.3g} "
+              f"(peak {peak:.3g}, allowed 1e-5 of it); kernel {ms:.4f} ms, plain {pms:.3f} ms; "
+              f"{of_bound(rep)} on {card}")
+
+    for label, cfg_k, counter in (("gains", cfg_pre, "fade_awgn"),
+                                  ("static taps (1, .5, .25, .125)", cfg_mp, "fade_awgn_fir")):
+        e_check("3m", f"MIMO pair plane, {label}", f"{counter}@mimo_pair_plane", counter, cfg_k,
+                pair, launches_mimo)
     kw_pre = pipeline.pair_channel(cfg_pre, pipeline.mimo_fading(cfg_pre, seed, ids_m))
     y_pair = m_part("E channel only on the pair plane (gains)",
                     lambda: ke.fade_awgn(*pair, **kw_pre))
@@ -3442,6 +3644,201 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     print(f"phase 3m: {len(m_rows)} links in {time.perf_counter() - t3m:.1f} s (the largest peak "
           f"{max(r['peak_gib'] for r in m_rows):.2f} GiB allocated); window "
           f"{ {k: v for k, v in launches_mimo.items() if v} }")
+
+    # ---- phase 3v: time-varying and impaired MIMO, counters zeroed -------------
+    # First the link's new kernel shapes, one pass of ``pipeline.CHUNK``
+    # channels: kernel E's channel-only mode over the pair plane with
+    # per-symbol gains (RAYLEIGH_TIME, genie: S' = 64 rows) and per-symbol
+    # taps with in-plane history (MULTIPATH_TIME with midambles, S' = 96),
+    # over the acquired pair plane (per-symbol gains and the tail row, 83
+    # rows), its noise-only mode over the acquired streams (B, n_rx, T), T
+    # odd (off the 16-byte grid), and C's post-FFT mode with h per symbol on
+    # the per-symbol detector's whitened tones — each against its plain
+    # version (phase 2's tolerances) and timed beside it; then the receive's
+    # parts timed alone on that pass; then the links of ``mimo_time_links``
+    # through ``pipeline.simulate``, each inside ``in_mimo_time()``, with ms
+    # the median of 3 warm calls, its peak memory and its launches; then the
+    # gates.
+    from sdr_tpu_torch.core.config import Equalizer
+
+    t3v = time.perf_counter()
+    launches_mimo_time = dict.fromkeys(_lib.LAUNCHES, 0)
+    v_links, v_theory, v_drawn, v_gates = mimo_time_links(B, B // 4)
+    v_cfg = {key: cfg for key, _, cfg in v_links}
+    ids_v = ids[:P]
+
+    def v_cfg_p(key):
+        return dataclasses.replace(v_cfg[key], n_channels=P)
+
+    v_parts = {}
+
+    def v_part(label, fn):
+        out = fn()  # warm
+        v_parts[label] = timed(fn, 3)
+        return out
+
+    cfg_g = v_cfg_p("a22_fast20")  # genie RAYLEIGH_TIME: per-symbol gains on 64 rows
+    tx_g = pipeline.mimo_tx(cfg_g, pipeline.draw_mimo_idx(cfg_g, seed, ids_v))
+    pair_g = pipeline.pair_plane(tx_g, 2)
+    del tx_g
+    e_check("3v", "MIMO pair plane, per-symbol gains (RAYLEIGH_TIME)",
+            "fade_awgn@mimo_time_pair_gains", "fade_awgn", cfg_g, pair_g, launches_mimo_time, S)
+    del pair_g
+    cfg_t = v_cfg_p("tdl_a22_k4")  # MULTIPATH_TIME with midambles: per-symbol taps, 96 rows
+    tx_t = v_part("B off + midamble rows (Alamouti 2x2, K 4: 96 rows)",
+                  lambda: pipeline.mimo_tx(cfg_t, pipeline.draw_mimo_idx(cfg_t, seed, ids_v)))
+    Sp_t = tx_t[0].shape[2]
+    pair_t = pipeline.pair_plane(tx_t, 2)
+    e_check("3v", "MIMO pair plane, per-symbol taps (MULTIPATH_TIME, 3 taps, midambles)",
+            "fade_awgn_fir@mimo_time_pair_taps", "fade_awgn_fir", cfg_t, pair_t,
+            launches_mimo_time, Sp_t)
+    del pair_t
+    cfg_j = v_cfg_p("jk_acq")  # acquired RAYLEIGH_TIME MRC: 2 + 80 + 1 rows
+    tx_j = pipeline.mimo_tx(cfg_j, pipeline.draw_mimo_idx(cfg_j, seed, ids_v))
+    pair_j = pipeline.pair_plane(tx_j, 2)
+    e_check("3v", "acquired MIMO pair plane, per-symbol gains and the tail row",
+            "fade_awgn@mimo_time_acquired_plane", "fade_awgn", cfg_j, pair_j,
+            launches_mimo_time, tx_j[0].shape[2] - 1, tail=True)
+    del pair_j, tx_j
+    cfg_a = v_cfg_p("acq_walk_iq")
+    tx_a = v_part("B off + sync and midamble rows (Alamouti 2x2, acquired: 99 rows)",
+                  lambda: pipeline.mimo_tx(cfg_a, pipeline.draw_mimo_idx(cfg_a, seed, ids_v)))
+    z_a = v_part("mimo_stream (PA, E on the pair plane, TX sum, delay, CFO, E's noise, walk, "
+                 "I/Q and its compensation)",
+                 lambda: pipeline.mimo_stream(cfg_a, seed, ids_v, tx_a))
+    del tx_a
+    T_v = z_a.shape[-1]
+    st_shape = (P, 2, T_v)
+    st = tuple(t.contiguous() for t in fast._planar(z_a))
+    nv_v = pipeline.mimo_noise_var(cfg_a)
+    rep = check_modes(f"E noise only on the acquired MIMO streams ({P}x2x{T_v})",
+                      lambda **kw: ke.fade_awgn(*st, noise_var=nv_v / N, **kw),
+                      lambda **kw: ke.fade_awgn_plain(*st, noise_var=nv_v / N, **kw),
+                      st_shape, kernel_reps=10)
+    n_st = st[0].numel()
+    rep.update(bound(16 * n_st + 4 * P, 4 * n_st, n_st * PHILOX_IMUL))
+    e_rows.append(dict(rep, mode="noise only, acquired MIMO streams", counter="fade_awgn",
+                       shape="x".join(map(str, st_shape)), window=launches_mimo_time))
+    report["fade_awgn@mimo_time_stream_noise"] = rep
+    del st
+    v_part(f"mixer (LO walk draw, I/Q, per-antenna compensation; {P}x2x{T_v})",
+           lambda: pipeline.mixer(cfg_a, seed, ids_v, z_a, compensate_lag=N + CP))
+    start_v, total_v = v_part("acquire_array_start", lambda: sync.acquire_array_start(z_a, N, CP))
+    Sp_a = pipeline.n_tx_symbols(cfg_a)
+    v_part("the CFO-corrected slice (corrected_slice, every antenna)",
+           lambda: sync.corrected_slice(z_a, total_v, start_v[:, None], Sp_a * (N + CP), N))
+    del z_a
+    # The per-symbol receive on the MULTIPATH_TIME midamble link's frame.
+    rx_t, _ = pipeline.mimo_channel(cfg_t, seed, ids_v, tx_t)
+    del tx_t
+    y_t = t_ofdm_rx(torch.complex(*rx_t), CP)
+    del rx_t
+    for est_key in ("tdl_a22_k4", "tdl_a22_k4_dft"):
+        h_v, y_dv = v_part(f"midamble estimate ({v_cfg[est_key].estimator.value}, per tone)",
+                           lambda: pipeline.estimate_mimo_midamble(v_cfg_p(est_key), y_t))
+    cfg_rt = v_cfg_p("m12_k4_005")
+    y_rt = torch.complex(torch.randn((P, 2, pipeline.n_tx_symbols(cfg_rt), N), device=dev),
+                         torch.randn((P, 2, pipeline.n_tx_symbols(cfg_rt), N), device=dev))
+    v_part("midamble estimate (RAYLEIGH_TIME, tone mean)",
+           lambda: pipeline.estimate_mimo_midamble(cfg_rt, y_rt))
+    del y_rt
+    nv_t = pipeline.mimo_noise_var(cfg_t)
+    s_v, eff_v = v_part("per-symbol detector: Alamouti (pair-mean H, per tone)",
+                        lambda: pipeline.mimo_detect_per_symbol(cfg_t, y_dv, h_v, nv_t))
+    h_mrc = h_v[:, :, :, :1].contiguous()
+    v_part("per-symbol detector: MRC 1x2 (per tone)",
+           lambda: pipeline.mimo_detect_per_symbol(v_cfg_p("tdl_m12"), y_dv, h_mrc, nv_t))
+    for key, label in (("mmse_mid", "MMSE"), ("sic_fast", "SIC"), ("ml_fast", "ML")):
+        cfg_d = v_cfg_p(key)
+        v_part(f"per-symbol detector: mux 2x2 {label} ({cfg_d.modulation.value}, per tone)",
+               lambda: pipeline.mimo_detect_per_symbol(cfg_d, y_dv, h_v, nv_t))
+    cfg_zf = dataclasses.replace(v_cfg_p("mmse_mid"), equalizer=Equalizer.ZF)
+    v_part("per-symbol detector: mux 2x2 ZF (qpsk, per tone)",
+           lambda: pipeline.mimo_detect_per_symbol(cfg_zf, y_dv, h_v, nv_t))
+    v_part("whitened_llrs (h per symbol, then llr_chain)",
+           lambda: pipeline.whitened_llrs(cfg_t, s_v, eff_v))
+    # C's post-FFT mode on those whitened tones, h per symbol and tone.
+    Bw, Kw, Sw, Nw = s_v.shape
+    g_w = torch.rsqrt(torch.clamp(eff_v, min=pipeline._EFF_FLOOR))
+    y_w = torch.view_as_real((s_v * g_w).reshape(Bw * Kw, Sw, Nw))
+    hr_w = g_w.expand(Bw, Kw, Sw, Nw).reshape(Bw * Kw, Sw, Nw).contiguous()
+    hi_w = torch.zeros_like(hr_w)
+    mod_t = v_cfg["tdl_a22_k4"].modulation
+    got = kc.llr_chain(y_w, None, hr_w, hi_w, mod_t, 1.0)
+    want = kc.llr_chain_plain(y_w, None, hr_w, hi_w, mod_t, 1.0)
+    err, peak = float((got - want).abs().max()), float(want.abs().max())
+    _check(err <= 1e-4 * peak, f"C llr_chain on per-symbol whitened MIMO tones: max abs diff "
+                               f"{err:g} > 1e-4 of the peak {peak:g}")
+    del got, want
+    ms, pms = compare_times(lambda: kc.llr_chain(y_w, None, hr_w, hi_w, mod_t, 1.0),
+                            lambda: kc.llr_chain_plain(y_w, None, hr_w, hi_w, mod_t, 1.0),
+                            reps=1, kernel_reps=10)
+    rep = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+               **chain_bound(Bw * Kw, Sw, Nw, Sw, mod_t, False))
+    report["llr_chain@mimo_time_h_per_symbol"] = rep
+    print(f"phase 3v C llr_chain on per-symbol whitened MIMO tones (h per symbol and tone, "
+          f"{Bw * Kw}x{Sw}x{Nw}): max abs diff {err:.3g} (peak {peak:.3g}, allowed 1e-4 of "
+          f"it); kernel {ms:.4f} ms, plain {pms:.3f} ms; {of_bound(rep)} on {card}")
+    del y_w, hr_w, hi_w, g_w, s_v, eff_v, y_dv, h_v, h_mrc, y_t
+    torch.cuda.empty_cache()
+    print(f"phase 3v link parts (one pass of {P} channels; CUDA events, 3 warm calls each): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in v_parts.items()) + f" on {card}")
+
+    @contextlib.contextmanager
+    def in_mimo_time():
+        _lib.reset_launches()
+        yield
+        for k, v in _lib.LAUNCHES.items():
+            launches_mimo_time[k] += v
+
+    v_ber, v_rows = {}, []
+    for key, label, cfg in v_links:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with in_mimo_time():
+            res_v = pipeline.simulate(cfg, seed, device=dev)
+            torch.cuda.synchronize()
+            per_v = {k: v for k, v in _lib.LAUNCHES.items() if v}
+            ms_v = sorted(timed(lambda: pipeline.simulate(cfg, seed, device=dev), 1)
+                          for _ in range(3))[1]
+        peak_v = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_bits = cfg.n_data_symbols * cfg.bits_per_ofdm_symbol
+        _check(bool((res_v.bits_counted == n_bits).all()), f"{label}: bits_counted")
+        v_ber[key] = (res_v.bit_errors.to(torch.float64) / n_bits).cpu().numpy()
+        del res_v
+        ber_v = float(v_ber[key].mean())
+        extra = ""
+        if key in v_theory:
+            name, th = v_theory[key]
+            _check(abs(ber_v / th - 1) <= 0.10,
+                   f"{label}: BER {ber_v:g} vs {name} {th:g} (allowed 10 %)")
+            extra += f", {name} {th:.6g} (ratio {ber_v / th:.5f}, allowed 10 %)"
+        if key in v_drawn:
+            fade = pipeline.mimo_fading(cfg, seed, ids[:cfg.n_channels], S)
+            g2 = (fade.abs() ** 2).sum(dim=(1, 2)).to(torch.float64)  # (B, S, 1): Σ_r |h_rs|²
+            want_v = ber_given_gain(cfg.modulation, cfg.channel.ebno_db, g2)
+            _check(abs(ber_v / want_v - 1) <= 0.02,
+                   f"{label}: BER {ber_v:g} vs {want_v:g} over the drawn per-symbol channel")
+            extra += (f", over the drawn per-symbol channel {want_v:.6g} (ratio "
+                      f"{ber_v / want_v:.5f}, allowed 2 %)")
+            del fade, g2
+        outage = float((v_ber[key] > 0.25).mean())
+        v_rows.append(dict(key=key, label=label, ms=ms_v, ber=ber_v, peak_gib=peak_v,
+                           launches=per_v))
+        print(f"phase 3v pipeline.simulate {cfg.n_channels}x{S} config 2 {label}: BER "
+              f"{ber_v:.6g}{extra}; channels with BER > 0.25 {outage:.5f}; {ms_v:.3f} ms "
+              f"(median of 3 warm calls, CUDA events), peak {peak_v:.2f} GiB allocated, "
+              f"launches a call {per_v} on {card}")
+    for rule, gate in v_gates:
+        _check(gate(v_ber), f"phase 3v: {rule} fails: "
+                            f"{ {k: float(v.mean()) for k, v in v_ber.items()} }")
+        print(f"phase 3v gate met: {rule}")
+    _check(max(r["peak_gib"] for r in v_rows) < 40.0, "phase 3v: a link's peak exceeds 40 GiB")
+    for name in mimo_path:
+        _check(launches_mimo_time[name] > 0, f"phase 3v: kernel {name} was not launched")
+    print(f"phase 3v: {len(v_rows)} links in {time.perf_counter() - t3v:.1f} s (the largest peak "
+          f"{max(r['peak_gib'] for r in v_rows):.2f} GiB allocated); window "
+          f"{ {k: v for k, v in launches_mimo_time.items() if v} }")
 
     # ---- phase 5: the parallel layer, 4 gloo ranks sharing the one card -----
     # ``dryrun_multichip`` spawns the ranks (the kernel library was built in
@@ -3583,7 +3980,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     launches_pipeline=launches_pipeline[name],
                     launches_pilots=launches_pilots[name],
                     launches_impairments=launches_impairments[name],
-                    launches_mimo=launches_mimo[name])
+                    launches_mimo=launches_mimo[name],
+                    launches_mimo_time=launches_mimo_time[name])
 
     # The form of C, D and F each entry ran (csrc/demod_rows.cuh's plans,
     # demod.cu's tile, csrc/demod_cl.cuh's plans).
@@ -3648,6 +4046,19 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         for key in ("fade_awgn@mimo_pair_plane", "fade_awgn_fir@mimo_pair_plane",
                     "fade_awgn@mimo_rx_noise", "llr_chain@mimo_whitened_h_per_link",
                     "llr_chain@mimo_whitened_h_per_symbol")
+    ]
+    # The time-varying and impaired MIMO link's shapes (phase 3v, one pass of
+    # CHUNK channels): E's per-symbol gains and taps on the pair plane, the
+    # acquired pair plane and the streams' noise, C's post-FFT mode with h per
+    # symbol; each with its counter's launches in 3v's window.
+    kernels += [
+        dict(name=key, route="cuda", source=mimo_sources[key.split("@")[0]][0],
+             replaces=mimo_sources[key.split("@")[0]][1], **cl_form(key.split("@")[0], N),
+             launches=launches_mimo_time[key.split("@")[0]], **windows_of(key.split("@")[0]),
+             **{"library_ms": None, **report[key]})
+        for key in ("fade_awgn@mimo_time_pair_gains", "fade_awgn_fir@mimo_time_pair_taps",
+                    "fade_awgn@mimo_time_acquired_plane", "fade_awgn@mimo_time_stream_noise",
+                    "llr_chain@mimo_time_h_per_symbol")
     ]
     # Kernel C's modes: form, time, share of the bound, launches in the
     # path's window and launches × (ms − bound ms).

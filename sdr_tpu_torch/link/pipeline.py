@@ -1,7 +1,7 @@
 """End-to-end link pipeline: bits → TX → channel → RX → LLR → BER.
 
 Port of ``sdr_tpu/link/pipeline.py`` (ROADMAP queue 1, items 11a, 11c,
-11d and 11e-i): ``LinkResult``, ``generate_bits``, ``tx_chain``,
+11d and 11e): ``LinkResult``, ``generate_bits``, ``tx_chain``,
 ``apply_channel`` (the seven channel models of ``_apply_channel_model``,
 with the PA before and the LO walk and I/Q mismatch after them),
 ``rx_chain``'s genie, pilot and front-end branches, the acquired link
@@ -74,24 +74,30 @@ acquired stream's at (channel, 0, sample)), the LO walk's increments on
 symbols, so a blocked stream equals the whole frame. The acquired link's
 fading is ``fast.fading_at`` over 2 + S symbols from symbol 0.
 
-- MIMO on the frame-static models (item 11e-i, ``_simulate_one_mimo``,
-  ``mimo_llr_link``, ``_mimo_llrs``; ``ops/mimo.py``): A's grid over
-  n_streams·S rows → B off on the antennas' index grids (``mimo_tx``;
-  SC-FDMA in torch), the head preamble's rows ahead → the PA per antenna →
-  E's channel alone over the pair plane, the 1/√n_tx split in its gains
-  or taps → the torch sum over TX antennas → E's noise over the RX planes
-  (``mimo_channel``) → the torch FFT, the preamble estimate, the detector
-  → C's post-FFT mode on whitened tones (``mimo_rx``; ML's LLRs in
+- MIMO (item 11e, ``_simulate_one_mimo``, ``mimo_llr_link``,
+  ``_mimo_detect_per_symbol``, ``_mimo_llrs``; ``ops/mimo.py``): A's grid
+  over n_streams·S rows → B off on the antennas' index grids (``mimo_tx``;
+  SC-FDMA in torch), the preamble rows placed ahead (a head preamble) or
+  every K data rows (a midamble schedule), the acquired link's two sync
+  rows on antenna 0 → the PA per antenna → E's channel alone over the pair
+  plane, the 1/√n_tx split in its gains or taps, per row on the
+  time-varying models → the torch sum over TX antennas → E's noise over the
+  RX planes (``mimo_channel``) or, acquired, the CFO and E's noise over the
+  streams (``mimo_stream``) → the shared LO walk, the I/Q mismatch and its
+  blind compensation per antenna (``mixer``) → ``acquire_array`` and the
+  corrected slice (``mimo_acquire``) → the torch FFT, the head-preamble or
+  the tracked midamble estimate, the detector, per symbol on a per-symbol
+  h → C's post-FFT mode on whitened tones (``mimo_rx``; ML's LLRs in
   torch); in passes of ``CHUNK`` channels. The pairs' fading is keyed at
-  (channel, pair r·n_tx + t), the noise at (channel, r·S' + s, sample).
+  (channel, pair r·n_tx + t) (the Jakes state at row p, a TDL tap at row
+  p·L + l), the noise at (channel, r·S' + s, sample) on a frame link and at
+  (channel, r, sample) on the acquired streams, the walk at (channel,
+  sample) as the SISO link's.
 
-Not covered: MIMO on a time-varying channel, with a midamble schedule,
-LO phase noise, I/Q imbalance or acquisition raises
-``NotImplementedError`` naming ROADMAP queue 1, item 11e-ii
-(``check_supported``). The entry points run on the card (``device="cuda"``) unless
-the caller asks for the CPU; without a card they raise, and a CUDA tensor
-that a kernel refuses raises: nothing falls back to plain torch or to the
-CPU.
+The stream and the fast engines are SISO, and coded MIMO waits for item
+11f. The entry points run on the card (``device="cuda"``) unless the
+caller asks for the CPU; without a card they raise, and a CUDA tensor that
+a kernel refuses raises: nothing falls back to plain torch or to the CPU.
 """
 
 from __future__ import annotations
@@ -141,26 +147,6 @@ class LinkResult:
     def ber(self) -> torch.Tensor:
         return self.bit_errors.to(torch.float32) / torch.clamp(
             self.bits_counted.to(torch.float32), min=1.0)
-
-
-def check_supported(cfg: LinkConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for what the
-    pipeline does not run yet: MIMO on a time-varying channel, with a
-    midamble schedule, or with LO phase noise, I/Q imbalance, a timing
-    offset or a CFO (item 11e-ii)."""
-    if cfg.mimo is None:
-        return
-    ch = cfg.channel
-    left = [name for name, on in (
-        (f"the time-varying model {ch.model.value}", ch.model in TIME_VARYING_MODELS),
-        ("a midamble schedule", bool(cfg.mimo.midamble_period)),
-        ("LO phase noise", bool(ch.phase_noise_std)),
-        ("I/Q imbalance", ch.iq_imbalanced),
-        ("timing/CFO acquisition", ch.impaired)) if on]
-    if left:
-        raise NotImplementedError(
-            f"link.pipeline runs MIMO on frame-static channels; MIMO with {', '.join(left)} "
-            "is ROADMAP queue 1, item 11e-ii")
 
 
 def front_end_impaired(cfg: LinkConfig) -> bool:
@@ -267,7 +253,6 @@ def tx_chain(cfg: LinkConfig, bits: torch.Tensor):
     """Bits (B, n_data_symbols, bits_per_ofdm_symbol) → time samples, planar
     (re, im) (B, S, N+cp): the bits packed to indices MSB first, laid on
     the data tones or rows, then ``tx_idx``."""
-    check_supported(cfg)
     bps = cfg.modulation.bits_per_symbol
     return tx_idx(cfg, _grid_of(cfg, _bits_to_ints(bits, bps).to(out_dtype(bps))))
 
@@ -312,22 +297,26 @@ def _in_passes(fn, *xs: torch.Tensor):
 def mixer(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, z: torch.Tensor, phase=None,
           compensate_lag: int = 0):
     """The receiver's analog stages over each channel's serialised samples
-    z (B, n) complex: the Wiener LO rotation (keyed increments at sample
-    positions 0 … n−1, or the injected ``phase`` (B, n) N(0, 1)
-    increments), then the I/Q mismatch, then with ``compensate_lag`` the
-    blind compensation on moments of samples that lag apart (the acquired
-    stream's); in passes of ``CHUNK`` channels."""
+    z (B, n), or (B, n_rx, n) for an antenna array: the Wiener LO rotation
+    (keyed increments at sample positions 0 … n−1, or the injected
+    ``phase`` (B, n) N(0, 1) increments; one walk a channel, rotating its
+    antennas alike — a shared LO), then the I/Q mismatch, then with
+    ``compensate_lag`` the blind compensation on moments of samples that
+    lag apart, per channel and antenna (each antenna owns a mixer); in
+    passes of ``CHUNK`` channels."""
     ch = cfg.channel
     compensate = bool(compensate_lag and ch.iq_imbalanced)
+    n = z.shape[-1]
 
     def stages(sl, zc):
         if ch.phase_noise_std:
-            zc = zc * chan.wiener_phase(seed, ch_ids[sl], z.shape[-1], ch.phase_noise_std,
-                                        None if phase is None else phase[sl])
+            ph = chan.wiener_phase(seed, ch_ids[sl], n, ch.phase_noise_std,
+                                   None if phase is None else phase[sl])
+            zc = zc * ph.view(ph.shape[0], *(1,) * (zc.ndim - 2), n)
         if ch.iq_imbalanced:
             zc = chan.apply_iq_imbalance(zc, ch.iq_gain, ch.iq_phase_rad)
         if compensate:
-            zc = chan.iq_compensate(zc, diff_lag=compensate_lag)
+            zc = chan.iq_compensate(zc.reshape(-1, n), diff_lag=compensate_lag).view(zc.shape)
         return zc
 
     return _in_passes(stages, z) if ch.phase_noise_std or ch.iq_imbalanced else z
@@ -360,7 +349,6 @@ def apply_channel(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, tx, *, s0: i
     (N(0, 1) planes (n_re, n_im) of the waveform's shape) and ``phase``
     (the Wiener walk's N(0, 1) increments, (B, S·(N+cp))) are the
     injection forms the parity tests use."""
-    check_supported(cfg)
     tx = apply_pa(cfg, tx)
     rx, h_freq, nv = _propagate(cfg, seed, ch_ids, tx, s0, history, fading, noise)
     ch = cfg.channel
@@ -558,7 +546,6 @@ def rx_chain(cfg: LinkConfig, rx, h_freq, noise_var, skip_iq: bool = False,
     is not read, and ``track_phase`` selects the comb's tracked estimator
     for the frame-static models) and only the data tones or rows are
     demapped."""
-    check_supported(cfg)
     nv = max(float(noise_var), 1e-12)
     rx = _front(cfg, rx, skip_iq)
     if cfg.pilot_spacing:
@@ -605,17 +592,25 @@ def stream_len(cfg: LinkConfig) -> int:
     return cfg.channel.timing_offset + (cfg.n_symbols + 3) * cfg.ofdm.symbol_len
 
 
+def _tail_row(fade: torch.Tensor, selective: bool) -> torch.Tensor:
+    """Per-step fading (..., steps, ·) with the acquired plane's tail row
+    after it: the last step's taps repeated (the JAX tail convolution,
+    pipeline.py:491-495 and :788-792, is exactly one symbol with those
+    taps and the last symbol's tail as history), or a unit gain (the tail
+    row is zeros)."""
+    last = fade[..., -1:, :] if selective else torch.ones_like(fade[..., :1, :])
+    return torch.cat([fade, last], dim=-2)
+
+
 def _tail_fading(cfg: LinkConfig, h, taps):
     """The acquired plane's (B, S+3, ·) fading from the 2 + S symbols'
-    state: per-symbol taps with the tail row repeating the last symbol's
-    (the JAX tail convolution, pipeline.py:491-495, is exactly one symbol
-    with those taps and the last symbol's tail as history), per-symbol
-    gains with a unit gain on the tail row; the static models as drawn."""
+    state: the per-symbol models with ``_tail_row``; the static models as
+    drawn."""
     model = cfg.channel.model
     if model == ChannelModel.MULTIPATH_TIME:
-        return None, torch.cat([taps, taps[:, -1:]], dim=1)
+        return None, _tail_row(taps, True)
     if model == ChannelModel.RAYLEIGH_TIME:
-        return torch.cat([h, torch.ones_like(h[:, :1])], dim=1), None
+        return _tail_row(h, False), None
     return h, taps
 
 
@@ -722,9 +717,36 @@ def mimo_noise_var(cfg: LinkConfig) -> float:
                   * cfg.mimo.n_streams)
 
 
+def midamble(cfg: LinkConfig) -> bool:
+    """Whether the MIMO link re-sends its preamble every ``midamble_period``
+    data symbols (pipeline.py:638-642): estimated CSI on a time-varying
+    model, under LO phase noise, or after acquisition."""
+    ch = cfg.channel
+    return cfg.mimo.csi == "preamble" and (
+        ch.model in TIME_VARYING_MODELS or bool(ch.phase_noise_std) or ch.impaired)
+
+
 def n_preamble(cfg: LinkConfig) -> int:
-    """Rows of the head preamble: n_tx with ``csi="preamble"``, else 0."""
+    """Preamble rows a block: n_tx with ``csi="preamble"``, else 0."""
     return cfg.mimo.n_tx if cfg.mimo.csi == "preamble" else 0
+
+
+def _blocks(cfg: LinkConfig) -> tuple[int, int]:
+    """(blocks, data rows a block) of the MIMO frame: (S/K, K) with a
+    midamble schedule of period K, else (1, S) — the head preamble is the
+    one-block layout."""
+    if midamble(cfg):
+        K = cfg.mimo.midamble_period
+        return cfg.n_symbols // K, K
+    return 1, cfg.n_symbols
+
+
+def n_tx_symbols(cfg: LinkConfig) -> int:
+    """S', the transmitted symbol rows: blocks · (preamble rows + data rows
+    a block) — S + n_tx with a head preamble, (S/K)(n_tx + K) with a
+    midamble schedule, S with genie CSI."""
+    nb, K = _blocks(cfg)
+    return nb * (n_preamble(cfg) + K)
 
 
 @functools.lru_cache(maxsize=None)
@@ -809,59 +831,100 @@ def _scfdma_mimo_tx(cfg: LinkConfig, idx: torch.Tensor):
     return fast._planar(ofdm_tx(ant, cfg.ofdm.cp_len))
 
 
+@functools.lru_cache(maxsize=None)
+def _sync_rows_on(n_fft: int, cp_len: int, split: float, device: str):
+    pre = sync.acquisition_preamble(n_fft, cp_len).reshape(2, n_fft + cp_len) / np.float32(split)
+    return fast._planar(pre.to(device))
+
+
 def mimo_tx(cfg: LinkConfig, idx: torch.Tensor):
     """The antennas' waveforms of A's MIMO grid ``idx`` (B, n_streams·S, N):
-    planar (B, n_tx, S', N+cp), S' = n_preamble + S, before the power split
-    (E applies it, ``pair_channel``). OFDM: kernel B with the channel off on
-    the stream's grid (MRC), on the (B, n_tx·S, N) grid (spatial mux:
-    stream t is antenna t), or on ``alamouti_idx``'s grid; SC-FDMA:
-    ``_scfdma_mimo_tx``. With a preamble, antenna t radiates
-    ``preamble_row`` in row t and zeros in the other preamble rows."""
+    planar (B, n_tx, S', N+cp), S' = ``n_tx_symbols``, before the power
+    split (E applies it, ``pair_channel``). OFDM: kernel B with the channel
+    off on the stream's grid (MRC), on the (B, n_tx·S, N) grid (spatial
+    mux: stream t is antenna t), or on ``alamouti_idx``'s grid; SC-FDMA:
+    ``_scfdma_mimo_tx``. With a preamble the rows are blocks of [n_tx
+    preamble rows | K data rows] (pipeline.py:672-693: one block of S data
+    rows for the head preamble, S/K blocks with a midamble schedule),
+    antenna t radiating ``preamble_row`` in preamble row t and zeros in
+    the others; B's rows are placed there by one copy.
+
+    The acquired link (a timing offset or CFO) adds the two Schmidl & Cox
+    rows ahead, on antenna 0 alone and stored divided by the split (the
+    JAX head is at full amplitude: E's split gives it back), and one zero
+    row after: (B, n_tx, 2 + S' + 1, N+cp) (pipeline.py:698-719)."""
     mc = cfg.mimo
     B = idx.shape[0]
-    S, cp = cfg.n_symbols, cfg.ofdm.cp_len
-    L = cfg.ofdm.symbol_len
+    S, cp, L = cfg.n_symbols, cfg.ofdm.cp_len, cfg.ofdm.symbol_len
     if cfg.dft_spread:
         data = _scfdma_mimo_tx(cfg, idx)
     else:
         grid = alamouti_idx(idx, cfg.modulation) if mc.scheme == MIMOScheme.ALAMOUTI else idx
         data = tuple(t.view(B, mc.n_tx, S, L) for t in _kb.tx_chain(grid, cp, cfg.modulation))
     n_pre = n_preamble(cfg)
-    if not n_pre:
+    acquired = cfg.channel.impaired
+    if not (n_pre or acquired):
         return data
+    nb, K = _blocks(cfg)
+    Sp = nb * (n_pre + K)
+    head = 2 if acquired else 0
+    dev = idx.device
+    rows = preamble_row(cfg, dev) if n_pre else (None, None)
+    heads = _sync_rows_on(cfg.ofdm.n_fft, cp, _split(cfg), str(dev)) if acquired else (None,) * 2
     out = []
-    for d, row in zip(data, preamble_row(cfg, idx.device)):
-        a = torch.empty((B, mc.n_tx, n_pre + S, L), dtype=torch.float32, device=idx.device)
-        a[:, :, :n_pre] = 0.0
-        a[:, :, n_pre:] = d
-        for t in range(mc.n_tx):
-            a[:, t, t] = row
+    for d, row, sync_row in zip(data, rows, heads):
+        a = torch.empty((B, mc.n_tx, head + Sp + head // 2, L), dtype=torch.float32, device=dev)
+        body = a[:, :, head:head + Sp].view(B, mc.n_tx, nb, n_pre + K, L)
+        body[:, :, :, :n_pre] = 0.0
+        body[:, :, :, n_pre:] = d.view(B, mc.n_tx, nb, K, L)
+        for t in range(n_pre):
+            body[:, t, :, t] = row
+        if acquired:
+            a[:, :, :head] = 0.0
+            a[:, 0, :head] = sync_row
+            a[:, :, head + Sp:] = 0.0
         out.append(a)
     return tuple(out)
 
 
-def mimo_fading(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor) -> torch.Tensor:
-    """The pairs' keyed fading: flat gains (B, n_rx, n_tx, 1) (RAYLEIGH_FLAT,
-    RICIAN) or static taps (B, n_rx, n_tx, L) (MULTIPATH), pair r·n_tx + t
-    at counter (channel, pair, ·) of ``ROLE_FADING``."""
+def mimo_fading(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor,
+                n_steps: int | None = None) -> torch.Tensor:
+    """The pairs' keyed fading, pair p = r·n_tx + t. Frame-static models:
+    flat gains (B, n_rx, n_tx, 1) (RAYLEIGH_FLAT, RICIAN) or static taps
+    (B, n_rx, n_tx, L) (MULTIPATH) at counter (channel, p, ·) of
+    ``ROLE_FADING``. Time-varying models, at steps 0 … n_steps−1 (one a
+    transmitted symbol): Jakes gains (B, n_rx, n_tx, n_steps, 1)
+    (RAYLEIGH_TIME, Jakes row p) or per-tap-Jakes taps
+    (B, n_rx, n_tx, n_steps, L) (MULTIPATH_TIME, tap l at row p·L + l;
+    ``ops.channel.jakes_params``). Pair 0 is the SISO draw."""
     mc = cfg.mimo
     n_pairs = mc.n_rx * mc.n_tx
-    model = cfg.channel.model
-    if model == ChannelModel.RAYLEIGH_FLAT:
+    ch = cfg.channel
+    B = ch_ids.shape[0]
+    if ch.model == ChannelModel.RAYLEIGH_TIME:
+        g = chan.jakes_gains(seed, ch_ids, n_steps, ch.doppler_norm, n_pairs=n_pairs)
+        return g.reshape(B, mc.n_rx, mc.n_tx, n_steps, 1)
+    if ch.model == ChannelModel.MULTIPATH_TIME:
+        taps = chan.multipath_time_taps(seed, ch_ids, ch.pdp, n_steps, ch.doppler_norm,
+                                        n_pairs=n_pairs)
+        return taps.reshape(B, mc.n_rx, mc.n_tx, n_steps, -1)
+    if ch.model == ChannelModel.RAYLEIGH_FLAT:
         f = chan.rayleigh_flat(seed, ch_ids, n_pairs)
-    elif model == ChannelModel.RICIAN:
-        f = chan.rician_flat(seed, ch_ids, cfg.channel.k_factor, n_pairs)
+    elif ch.model == ChannelModel.RICIAN:
+        f = chan.rician_flat(seed, ch_ids, ch.k_factor, n_pairs)
     else:
-        f = chan.multipath_taps(seed, ch_ids, cfg.channel.pdp, n_pairs)
-    return f.reshape(ch_ids.shape[0], mc.n_rx, mc.n_tx, -1)
+        f = chan.multipath_taps(seed, ch_ids, ch.pdp, n_pairs)
+    return f.reshape(B, mc.n_rx, mc.n_tx, -1)
 
 
 def apply_pa_mimo(cfg: LinkConfig, tx):
-    """One PA per antenna (pipeline.py:721-738) on the antennas' planes
+    """One PA per antenna (pipeline.py:721-743) on the antennas' planes
     before the split. The JAX PA runs at the nominal power ant_pwr/N on the
     split waveform s·x; Rapp and its predistorter are homogeneous of degree
     one in (x, A_sat), and A_sat scales with √power, so PA(s·x) at
-    ant_pwr/N = s²/N is s·PA(x) at 1/N: the PA at 1/N here, the split in E."""
+    ant_pwr/N = s²/N is s·PA(x) at 1/N: the PA at 1/N here, the split in E
+    (the acquired link's sync rows, stored divided by s, come out of E as
+    the JAX PA of the full-amplitude head)."""
     ch = cfg.channel
     if not ch.has_pa:
         return tx
@@ -876,14 +939,23 @@ def pair_plane(tx, n_rx: int):
                  for t in tx)
 
 
-def pair_channel(cfg: LinkConfig, fade: torch.Tensor) -> dict:
-    """Kernel E's channel arguments for the pair plane: per pair its gain
-    (B·n_rx·n_tx, 1) or static taps (B·n_rx·n_tx, Lt), times the split (the
-    FIR runs each pair's whole stream from zero history, the JAX
-    ``apply_multipath(tx_flat[None], taps)``)."""
-    w = (fade * _split(cfg)).reshape(-1, fade.shape[-1])
-    names = ("taps_r", "taps_i") if cfg.channel.model in _SELECTIVE else ("hr_s", "hi_s")
-    return dict(zip(names, fast._planar(w)))
+def pair_channel(cfg: LinkConfig, fade: torch.Tensor, tail: bool = False) -> dict:
+    """Kernel E's channel arguments for the pair plane, times the split:
+    per pair its gain (B·n_rx·n_tx, 1) or static taps (B·n_rx·n_tx, Lt) —
+    the FIR runs each pair's whole stream from zero history, the JAX
+    ``apply_multipath(tx_flat[None], taps)`` —, or per row its gains
+    (B·n_rx·n_tx, S') or taps (B·n_rx·n_tx, S', Lt) — each row with its
+    own taps and the previous row's tail as history, the JAX
+    ``symbol_history`` convention, preamble rows included. ``tail``: the
+    acquired plane's last row (``_tail_row``)."""
+    selective = cfg.channel.model in _SELECTIVE
+    if fade.ndim == 5 and tail:
+        fade = _tail_row(fade, selective)
+    w = fade * _split(cfg)
+    if selective:
+        return dict(zip(("taps_r", "taps_i"), fast._planar(w.reshape(-1, *fade.shape[3:]))))
+    return dict(zip(("hr_s", "hi_s"),
+                    fast._planar(w.reshape(-1, fade.shape[3] if fade.ndim == 5 else 1))))
 
 
 def rx_sum(y, B: int, n_rx: int, n_tx: int):
@@ -893,30 +965,113 @@ def rx_sum(y, B: int, n_rx: int, n_tx: int):
                  else t.view(B, n_rx, *t.shape[1:]) for t in y)
 
 
+def mimo_genie(cfg: LinkConfig, fade: torch.Tensor) -> torch.Tensor:
+    """The detectors' genie response of ``mimo_fading``'s draw: the gains,
+    or the taps' ``freq_response``; (B, n_rx, n_tx, 1 | N) frame-static,
+    (B, S', n_rx, n_tx, 1 | N) per symbol."""
+    h = chan.freq_response(fade, cfg.ofdm.n_fft) if cfg.channel.model in _SELECTIVE else fade
+    return h.movedim(3, 1) if fade.ndim == 5 else h
+
+
+def _propagate_pairs(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, tx, n_steps: int,
+                     fading, tail: bool = False):
+    """The PA, then E's channel alone over the pair plane, then the sum over
+    TX antennas: (the RX planes (B, n_rx, rows, L), the fading)."""
+    mc = cfg.mimo
+    B, n_tx = tx[0].shape[:2]
+    fade = mimo_fading(cfg, seed, ch_ids, n_steps) if fading is None else fading
+    y = fade_awgn(*pair_plane(apply_pa_mimo(cfg, tx), mc.n_rx), **pair_channel(cfg, fade, tail))
+    return rx_sum(y, B, mc.n_rx, n_tx), fade
+
+
 def mimo_channel(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, tx, *, fading=None,
-                 noise=None):
-    """The MIMO channel over the antennas' planes ``tx`` (``mimo_tx``'s) →
-    (rx planar (B, n_rx, S', L), the genie response (B, n_rx, n_tx, 1) flat
-    or ``freq_response`` (B, n_rx, n_tx, N)). The PA per antenna
-    (``apply_pa_mimo``), then kernel E twice: the channel alone over the
-    pair plane (``pair_plane``, ``pair_channel``), the sum over TX antennas
-    (``rx_sum``), then E's keyed noise over the RX planes as one
-    (B, n_rx·S', L) plane — counter (channel, r·S' + s, sample) on the
-    batch's global channel ids.
+                 noise=None, phase=None):
+    """The MIMO channel of an aligned link over the antennas' planes ``tx``
+    (``mimo_tx``'s) → (rx planar (B, n_rx, S', L), the genie response or
+    None). The PA per antenna (``apply_pa_mimo``), then kernel E twice:
+    the channel alone over the pair plane (``pair_plane``,
+    ``pair_channel``; per-row gains or taps on the time-varying models),
+    the sum over TX antennas (``rx_sum``), then E's keyed noise over the
+    RX planes as one (B, n_rx·S', L) plane — counter (channel, r·S' + s,
+    sample) on the batch's global channel ids; then over each antenna's
+    serialised frame (``mixer``) the shared LO walk (one per channel,
+    keyed at the sample's position in the frame, rotating every antenna
+    alike), the I/Q mismatch and its blind compensation per antenna
+    (moments of samples a row apart, the JAX symbol-row differences).
+    The genie response (``mimo_genie``): frame-static always, per symbol
+    with genie CSI only (a midamble link estimates its own).
 
     Injection forms: ``fading`` (``mimo_fading``'s gains or taps),
-    ``noise`` (N(0, 1) planes (n_re, n_im), each (B, n_rx·S', L))."""
+    ``noise`` (N(0, 1) planes (n_re, n_im), each (B, n_rx·S', L)),
+    ``phase`` (the walk's N(0, 1) increments (B, S'·L))."""
     mc = cfg.mimo
-    B, n_tx, Sp, L = tx[0].shape
-    fade = mimo_fading(cfg, seed, ch_ids) if fading is None else fading
-    y = fade_awgn(*pair_plane(apply_pa_mimo(cfg, tx), mc.n_rx), **pair_channel(cfg, fade))
-    rx = rx_sum(y, B, mc.n_rx, n_tx)
-    del y
+    ch = cfg.channel
+    B, _, Sp, L = tx[0].shape
+    rx, fade = _propagate_pairs(cfg, seed, ch_ids, tx, Sp, fading)
     kw = dict(noise=noise) if noise is not None else dict(seed=seed, ch_ids=ch_ids)
     rx = fade_awgn(*(t.view(B, mc.n_rx * Sp, L) for t in rx),
                    noise_var=mimo_noise_var(cfg) / cfg.ofdm.n_fft, **kw)
-    h = chan.freq_response(fade, cfg.ofdm.n_fft) if cfg.channel.model in _SELECTIVE else fade
+    if ch.phase_noise_std or ch.iq_imbalanced:
+        z = mixer(cfg, seed, ch_ids, torch.complex(*rx).view(B, mc.n_rx, Sp * L), phase,
+                  compensate_lag=L)
+        rx = fast._planar(z)
+    h = mimo_genie(cfg, fade) if fade.ndim == 4 or mc.csi == "genie" else None
     return tuple(t.view(B, mc.n_rx, Sp, L) for t in rx), h
+
+
+def mimo_stream(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, tx, *, fading=None,
+                noise=None, phase=None) -> torch.Tensor:
+    """TX and channel of the acquired MIMO link (pipeline.py:698-906) over
+    ``mimo_tx``'s acquired planes (B, n_tx, 2 + S' + 1, L): the received
+    streams (B, n_rx, T) complex64, T = offset + (S' + 3)·L.
+
+    The PA per antenna, E's channel alone over the pair plane (a step's
+    gains or taps a row from symbol 0 — the sync rows' two steps, then the
+    body's —, the tail row ``pair_channel``'s), the sum over TX antennas,
+    the delay's zeros in front; then the CFO at absolute sample index n,
+    E's keyed noise over the streams as one (B, n_rx, T) plane at counter
+    (channel, r, n), the shared LO walk keyed at n, the I/Q mismatch and
+    the blind compensation per antenna with moments lagged one symbol
+    (``mixer``).
+
+    Injection forms: ``fading`` (``mimo_fading``'s over S' + 2 steps),
+    ``noise`` ((n_re, n_im) N(0, 1) planes (B, n_rx, T)), ``phase`` ((B, T)
+    N(0, 1) increments)."""
+    mc = cfg.mimo
+    ch = cfg.channel
+    B, _, R, L = tx[0].shape
+    rx, _ = _propagate_pairs(cfg, seed, ch_ids, tx, R - 1, fading, tail=True)
+    delay = torch.zeros((B, mc.n_rx, ch.timing_offset), dtype=torch.float32,
+                        device=tx[0].device)
+    z = torch.complex(*(torch.cat([delay, t.reshape(B, mc.n_rx, R * L)], dim=-1) for t in rx))
+    del rx
+    z = sync.apply_cfo(z, ch.cfo_subcarriers, cfg.ofdm.n_fft)
+    re, im = fast._planar(z)
+    del z
+    kw = dict(noise=noise) if noise is not None else dict(seed=seed, ch_ids=ch_ids)
+    re, im = fade_awgn(re, im, noise_var=mimo_noise_var(cfg) / cfg.ofdm.n_fft, **kw)
+    z = torch.complex(re, im)
+    del re, im
+    return mixer(cfg, seed, ch_ids, z, phase, compensate_lag=L)
+
+
+def mimo_acquire(cfg: LinkConfig, z: torch.Tensor):
+    """The acquired MIMO link's receive front (pipeline.py:896-906):
+    ``ops.sync.acquire_array_start`` on the streams (B, n_rx, T), then the
+    CFO-corrected S'·L samples from the start, every antenna at once (no
+    backoff; ``dynamic_slice``'s clamp); in passes of ``CHUNK`` channels.
+    Returns (start, total CFO, planes (B, n_rx, S', L))."""
+    N, cp, L = cfg.ofdm.n_fft, cfg.ofdm.cp_len, cfg.ofdm.symbol_len
+    Sp = n_tx_symbols(cfg)
+
+    def front(_, zc):
+        start, total = sync.acquire_array_start(zc, N, cp)
+        pay = sync.corrected_slice(zc, total, start[:, None], Sp * L, N)
+        pay = pay.reshape(zc.shape[0], zc.shape[1], Sp, L)
+        return start, total, pay.real, pay.imag
+
+    start, total, re, im = _in_passes(front, z)
+    return start, total, (re, im)
 
 
 def mimo_detect(cfg: LinkConfig, y: torch.Tensor, h: torch.Tensor, nv: float):
@@ -939,6 +1094,37 @@ def mimo_detect(cfg: LinkConfig, y: torch.Tensor, h: torch.Tensor, nv: float):
     return s[:, None], eff[:, None]  # the combiners' one stream
 
 
+def mimo_detect_per_symbol(cfg: LinkConfig, y: torch.Tensor, h_t: torch.Tensor, nv: float):
+    """Detection under per-symbol CSI (``_mimo_detect_per_symbol``,
+    pipeline.py:1034-1081): y (B, n_rx, S, N), h_t (B, S, n_rx, n_tx, 1 | N).
+    The symbol axis joins the detectors' batch; Alamouti combines each
+    symbol pair with the pair's mean H (the quasi-static receiver, so the
+    channel's motion within a pair shows as the Doppler floor). Returns
+    (s (B, n_streams, S, N), eff_var (B, n_streams, S, N')), or for ML its
+    LLRs (B, n_tx, S, N·bps) and None."""
+    mc = cfg.mimo
+    B, n_rx, S, N = y.shape
+    if mc.scheme == MIMOScheme.ALAMOUTI:
+        yp = y.view(B, n_rx, S // 2, 2, N).movedim(2, 1)  # (B, P, n_rx, 2, N)
+        h_pair = h_t.reshape(B, S // 2, 2, n_rx, 2, -1).mean(dim=2)  # (B, P, n_rx, 2, N')
+        s, eff = mo.alamouti_combine(yp, h_pair, nv)  # (B, P, 2, N), (B, P, 1, N')
+        eff = eff.expand(B, S // 2, 2, eff.shape[-1])
+        return s.reshape(B, 1, S, N), eff.reshape(B, 1, S, -1)
+    ys = y.movedim(2, 1)[:, :, :, None, :]  # (B, S, n_rx, 1, N)
+    if mc.scheme == MIMOScheme.MRC:
+        s, eff = mo.mrc_combine(ys, h_t, nv)  # (B, S, 1, N), (B, S, 1, N')
+        return s.movedim(2, 1), eff.movedim(2, 1)
+    if mc.detector == "ml":
+        return mo.mux_detect_ml(ys, h_t, nv, cfg.modulation)[:, :, :, 0].movedim(1, 2), None
+    if mc.detector == "sic":
+        s, eff = mo.mux_detect_sic(ys, h_t, nv, cfg.modulation)
+    elif cfg.equalizer == Equalizer.ZF:
+        s, eff = mo.mux_detect_zf(ys, h_t, nv)
+    else:
+        s, eff = mo.mux_detect_mmse(ys, h_t, nv)
+    return s[:, :, :, 0].movedim(1, 2), eff[:, :, :, 0].movedim(1, 2)
+
+
 # eff_var's floor where the whitening takes 1/√eff_var: below any variance
 # a float32 link reaches (the detectors floor nv at 1e-12).
 _EFF_FLOOR = 1e-30
@@ -948,9 +1134,11 @@ def whitened_llrs(cfg: LinkConfig, s: torch.Tensor, eff: torch.Tensor) -> torch.
     """``llr_maxlog(s, mod, eff_var)`` of the detectors' estimates s
     (B, K, S, N) on kernel C's post-FFT mode (pipeline.py:1017-1031): with
     g = 1/√eff_var, C takes y = s·g, h = g (hi = 0) and nv = 1, so it forms
-    conj(h)·y/|h|² = s and scales the LLRs by |h|² = 1/eff_var. SC-FDMA
-    despreads first: the tone mean of eff_var per symbol row (h is then a
-    (B·K, S, N) plane), then ``ifft``·√N. Returns (B, K, S, N·bps).
+    conj(h)·y/|h|² = s and scales the LLRs by |h|² = 1/eff_var. eff_var is
+    (B, K, 1 | S, 1 | N): one h row a link, or one a symbol (per-symbol
+    detection). SC-FDMA despreads first: the tone mean of eff_var per
+    symbol row (h is then a (B·K, S, N) plane), then ``ifft``·√N. Returns
+    (B, K, S, N·bps).
 
     Where eff_var > 1e12, |h|² falls under C's 1e-12 floor: there
     |LLR| < ~1e-11 and its sign is not the JAX one."""
@@ -965,47 +1153,123 @@ def whitened_llrs(cfg: LinkConfig, s: torch.Tensor, eff: torch.Tensor) -> torch.
     return llrs.view(B, K, S, N * cfg.modulation.bits_per_symbol)
 
 
+@functools.lru_cache(maxsize=None)
+def _midamble_tables(n_symbols: int, K: int, n_tx: int):
+    """The static interpolation of the midamble estimates
+    (pipeline.py:964-978), numpy as in the JAX link: per data symbol its
+    block b and the next (the last block's own), the weight w (float32) of
+    the next, and its phase time (g − t_0)/period (float32), g the
+    symbol's row in the frame and t_b block b's first preamble row."""
+    period = n_tx + K
+    nb = n_symbols // K
+    s_idx = np.arange(n_symbols)
+    b_of = s_idx // K
+    g = b_of * period + n_tx + (s_idx % K)
+    t_b = b_of * period + 0.0
+    w = np.clip((g - t_b) / period, 0.0, 1.0).astype(np.float32)
+    b_next = np.minimum(b_of + 1, nb - 1)
+    return b_of, b_next, w, ((g - t_b[0]) / period).astype(np.float32)
+
+
+def estimate_mimo_midamble(cfg: LinkConfig, y: torch.Tensor):
+    """The midamble receive (pipeline.py:910-981) on the post-FFT frame
+    y (B, n_rx, S', N): per block the per-pair LS of its preamble rows over
+    ``preamble_ref`` — its tone mean on RAYLEIGH_TIME, its
+    ``_dft_projection_full`` product with the DFT estimator, else raw —;
+    the common-phase slope dphi, the angle of the sum over every block
+    product h_{b+1}·conj(h_b) of one channel (blocks, antennas and tones);
+    each block derotated by b·dphi and each TX antenna's estimate by its
+    slot's t·dphi/period; the linear interpolation between blocks; the
+    exact per-symbol phase dphi·(g − t_0)/period. In the JAX float32
+    order. Returns (h_t (B, S, n_rx, n_tx, 1 | N), the data rows
+    (B, n_rx, S, N))."""
+    mc = cfg.mimo
+    B, n_rx = y.shape[:2]
+    N, S, K, n_tx = cfg.ofdm.n_fft, cfg.n_symbols, mc.midamble_period, mc.n_tx
+    nb, period = S // K, n_tx + K
+    dev = y.device
+    yb = y.view(B, n_rx, nb, period, N)
+    raw = yb[:, :, :, :n_tx] / torch.from_numpy(preamble_ref(cfg)).to(dev)  # (B, n_rx, nb, n_tx, N)
+    if cfg.channel.model == ChannelModel.RAYLEIGH_TIME:
+        h_b = raw.mean(dim=-1, keepdim=True)
+    elif cfg.estimator == ChannelEstimator.DFT:
+        h_b = pil._project(raw, pil._table(pil._dft_projection_full, raw, N,
+                                           min(cfg.ofdm.cp_len + 1, N)))
+    else:
+        h_b = raw
+    h_b = h_b.movedim(2, 1)  # (B, nb, n_rx, n_tx, N')
+    data = yb[:, :, :, n_tx:].reshape(B, n_rx, S, N)
+    if nb >= 2:
+        dphi = torch.angle(torch.sum(h_b[:, 1:] * torch.conj(h_b[:, :-1]), dim=(1, 2, 3, 4)))
+    else:
+        dphi = torch.zeros((B,), dtype=torch.float32, device=dev)
+    blocks = torch.arange(nb, dtype=torch.float32, device=dev)
+    h_b = h_b * pil._phase(-dphi[:, None] * blocks)[:, :, None, None, None]
+    slot = torch.arange(n_tx, dtype=torch.float32, device=dev) * (dphi / period)[:, None]
+    h_b = h_b * pil._phase(-slot)[:, None, None, :, None]
+    b_of, b_next, w, t_phase = (torch.from_numpy(t).to(dev)
+                                for t in _midamble_tables(S, K, n_tx))
+    wj = w[:, None, None, None]
+    h_t = (1.0 - wj) * h_b[:, b_of] + wj * h_b[:, b_next]
+    h_t = h_t * pil._phase(dphi[:, None] * t_phase)[:, :, None, None, None]
+    return h_t, data
+
+
 def mimo_rx(cfg: LinkConfig, rx, h: torch.Tensor | None, noise_var: float) -> torch.Tensor:
     """The MIMO receive (pipeline.py:907-1014) on the RX planes (B, n_rx, S',
-    L): ``ofdm_rx``; with a preamble the per-pair estimate
-    (``estimate_mimo_preamble`` on the preamble rows times
+    L): ``ofdm_rx``; with a midamble schedule the tracked per-symbol
+    estimate (``estimate_mimo_midamble``); with a head preamble the per-pair
+    estimate (``estimate_mimo_preamble`` on the preamble rows times
     PILOT_VALUE/``preamble_ref``, DFT-projected onto min(cp+1, N) taps with
-    the DFT estimator; ``h`` is not read); the detector; the LLRs
-    (``whitened_llrs``, ML's from the detector). Returns (B, n_streams, S,
-    N·bps) float32 in the bits' order."""
+    the DFT estimator); then the detector — per symbol
+    (``mimo_detect_per_symbol``) on a per-symbol h (B, S, n_rx, n_tx, ·),
+    else ``mimo_detect`` —; the LLRs (``whitened_llrs``, ML's from the
+    detector). ``h`` (the genie response) is read with genie CSI only.
+    Returns (B, n_streams, S, N·bps) float32 in the bits' order."""
     N, cp = cfg.ofdm.n_fft, cfg.ofdm.cp_len
     nv = max(float(noise_var), 1e-12)
     y = ofdm_rx(torch.complex(*rx), cp)  # (B, n_rx, S', N)
     n_pre = n_preamble(cfg)
-    if n_pre:
+    if midamble(cfg):
+        h, y = estimate_mimo_midamble(cfg, y)
+    elif n_pre:
         ref = torch.from_numpy(preamble_ref(cfg)).to(y.device)
         norm = torch.tensor(pil.PILOT_VALUE, dtype=torch.complex64, device=y.device) / ref
         n_taps = min(cp + 1, N) if cfg.estimator == ChannelEstimator.DFT else 0
         h = pil.estimate_mimo_preamble(y[:, :, :n_pre] * norm, n_taps)
         y = y[:, :, n_pre:]
-    s, eff = mimo_detect(cfg, y, h, nv)
+    detect = mimo_detect_per_symbol if h.ndim == 5 else mimo_detect
+    s, eff = detect(cfg, y, h, nv)
     return s if eff is None else whitened_llrs(cfg, s, eff)
 
 
 def mimo_llrs(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, idx: torch.Tensor, *,
-              fading=None, noise=None) -> torch.Tensor:
-    """A's MIMO grid → LLRs (B, n_streams, S, N·bps): ``mimo_tx``,
-    ``mimo_channel``, ``mimo_rx``."""
-    rx, h = mimo_channel(cfg, seed, ch_ids, mimo_tx(cfg, idx), fading=fading, noise=noise)
+              fading=None, noise=None, phase=None) -> torch.Tensor:
+    """A's MIMO grid → LLRs (B, n_streams, S, N·bps): ``mimo_tx``, then
+    ``mimo_channel`` (an aligned link) or ``mimo_stream`` and
+    ``mimo_acquire`` (a timing offset or CFO), then ``mimo_rx``."""
+    tx = mimo_tx(cfg, idx)
+    kw = dict(fading=fading, noise=noise, phase=phase)
+    if cfg.channel.impaired:
+        z = mimo_stream(cfg, seed, ch_ids, tx, **kw)
+        del tx
+        rx, h = mimo_acquire(cfg, z)[2], None
+        del z
+    else:
+        rx, h = mimo_channel(cfg, seed, ch_ids, tx, **kw)
     return mimo_rx(cfg, rx, h, mimo_noise_var(cfg))
 
 
 def mimo_llr_link(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, bits: torch.Tensor, *,
-                  fading=None, noise=None) -> torch.Tensor:
+                  fading=None, noise=None, phase=None) -> torch.Tensor:
     """The MIMO link as bits → LLRs (the JAX ``mimo_llr_link``): bits
     (B, n_streams, S, N·bps) int8 → float32 LLRs of that shape and order.
     The draws are keyed on ``seed`` and ``ch_ids`` unless injected
-    (``mimo_channel``)."""
-    check_supported(cfg)
+    (``mimo_channel``, ``mimo_stream``)."""
     bps = cfg.modulation.bits_per_symbol
     idx = _bits_to_ints(bits, bps).to(out_dtype(bps))
     return mimo_llrs(cfg, seed, ch_ids, idx.reshape(bits.shape[0], -1, cfg.ofdm.n_fft),
-                     fading=fading, noise=noise)
+                     fading=fading, noise=noise, phase=phase)
 
 
 def _mimo_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, want_llrs: bool):
@@ -1031,7 +1295,6 @@ def simulate_core(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, want_llrs: b
     llrs (B, n_streams, S, N·bps)) and a timing offset or CFO the acquired
     link: ``acquired_stream``, ``acquire_payload``, then the pilot receive
     with ``skip_iq`` (the raw stream was compensated)."""
-    check_supported(cfg)
     B = ch_ids.shape[0]
     counted = torch.full((B,), cfg.n_data_symbols * cfg.bits_per_ofdm_symbol, dtype=torch.int32,
                          device=ch_ids.device)
@@ -1057,7 +1320,6 @@ def simulate(cfg: LinkConfig, seed: int, device="cuda", want_llrs: bool = False)
     ``device`` (the card unless the caller asks for the CPU). Every draw
     is keyed by global channel id, so channels [a, b) alone give the
     counts they have in the full run."""
-    check_supported(cfg)
     ch_ids = torch.arange(cfg.n_channels, dtype=torch.int32, device=device)
     errors, counted, llrs = simulate_core(cfg, seed, ch_ids, want_llrs)
     return LinkResult(bit_errors=errors, bits_counted=counted, llrs=llrs)
@@ -1065,5 +1327,4 @@ def simulate(cfg: LinkConfig, seed: int, device="cuda", want_llrs: bool = False)
 
 def make_simulate_fn(cfg: LinkConfig, device="cuda", want_llrs: bool = False):
     """``simulate`` with cfg and device bound: fn(seed) → LinkResult."""
-    check_supported(cfg)
     return functools.partial(simulate, cfg, device=device, want_llrs=want_llrs)

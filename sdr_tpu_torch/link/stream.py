@@ -38,12 +38,10 @@ from sdr_tpu_torch.link import fast, pipeline
 
 def _check_blocking(cfg: LinkConfig, n_blocks: int) -> int:
     """The symbols per block; raises for what the stream does not run:
-    what ``pipeline.check_supported`` refuses (item 11e-ii's MIMO), MIMO
-    (it runs in the pipeline, as the JAX module says), front-end
+    MIMO (it runs in the pipeline, as the JAX module says), front-end
     impairments (the JAX stream runs the propagation model alone there;
     this one names item 11d), then pilots, as the JAX module does
     (stream.py:40-49)."""
-    pipeline.check_supported(cfg)
     if cfg.mimo is not None:
         raise NotImplementedError(
             "the blocked-stream path is SISO; MIMO links run in "

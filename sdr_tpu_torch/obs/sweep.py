@@ -8,14 +8,13 @@ resumes after the completed points (or tops a point up under larger
 targets).
 
 Engines: ``"pipeline"`` (``link.pipeline``, the default, as in the JAX
-sweep: uncoded links, genie CSI or pilot- or preamble-estimated, MIMO on
-frame-static channels among them), ``"fast"``
+sweep: uncoded links, genie CSI or pilot- or preamble-estimated, MIMO
+among them), ``"fast"``
 (``link.fast``) and ``"mc"`` (``link.mc``, kernel G, ``mc_iters`` passes
 per invocation) run on ``device`` — the card unless the caller asks for
 the CPU. Impaired configs run on the pipeline engine (item 11d); coded
 sweeps (``code=``) are not ported yet and raise ``NotImplementedError``
-naming ROADMAP item 11f, and the pipeline raises for the MIMO configs of
-item 11e-ii.
+naming ROADMAP item 11f.
 
 Seeds: the JAX ``key`` becomes an int ``seed``. Invocation ``batch`` of
 point ``i`` runs with
@@ -196,15 +195,11 @@ def ebno_sweep(
             "coded sweeps run on the pipeline engine (the fast/mc engines count "
             "channel bits, not decoded info bits)"
         )
-    if engine == "pipeline":
-        if code is not None:
-            raise NotImplementedError(
-                "coded sweeps run link.coded's families on the pipeline engine (ROADMAP "
-                "queue 1, item 11f)"
-            )
-        from sdr_tpu_torch.link.pipeline import check_supported
-
-        check_supported(cfg)
+    if engine == "pipeline" and code is not None:
+        raise NotImplementedError(
+            "coded sweeps run link.coded's families on the pipeline engine (ROADMAP "
+            "queue 1, item 11f)"
+        )
     if engine == "fast" and (cfg.pilot_spacing or cfg.channel.impaired):
         raise ValueError(
             "engine='fast' needs a full-grid config (no pilots or timing/CFO impairments)"

@@ -90,22 +90,25 @@ def rician_flat(seed: int, ch_ids: torch.Tensor, k_factor: float,
 
 
 def jakes_params(seed: int, ch_ids: torch.Tensor, n_paths: int = JAKES_PATHS,
-                 n_taps: int | None = None):
+                 n_taps: int | None = None, n_pairs: int | None = None):
     """The Jakes sum-of-sinusoids state (θ, φ), each uniform on (0, 2π]:
     (B, n_paths) float32, or (B, n_taps, n_paths) for a TDL with one
-    independent process per tap. Words 0 and 1 of the fading stream's
-    lane ``JAKES_LANE`` at counter (channel, tap, path).
+    independent process per tap; with ``n_pairs`` (the antenna pairs of a
+    MIMO link) a pair axis after the batch, (B, n_pairs, [n_taps,]
+    n_paths). Words 0 and 1 of the fading stream's lane ``JAKES_LANE`` at
+    counter (channel, row, path), row p·n_taps + l for tap l of pair p
+    (p for a pair's gain; l for a SISO tap), so pair 0 is the SISO draw.
 
     The state is the whole realisation: ``jakes_eval`` gives the gains at
     any time index, so a run over symbols [t0, t1) evaluates the same
     sum as a run over the whole frame."""
-    rows = 1 if n_taps is None else n_taps
+    rows = (n_pairs or 1) * (n_taps or 1)
     w0, w1, _, _ = prng.keyed_words(seed, prng.ROLE_FADING, ch_ids, (rows, n_paths),
                                     lane=JAKES_LANE)
-    theta = prng.uniform_01(w0) * prng.TWO_PI_F32
-    phi = prng.uniform_01(w1) * prng.TWO_PI_F32
-    if n_taps is None:
-        return theta[:, 0], phi[:, 0]
+    shape = (ch_ids.shape[0], *((n_pairs,) if n_pairs else ()), *((n_taps,) if n_taps else ()),
+             n_paths)
+    theta = (prng.uniform_01(w0) * prng.TWO_PI_F32).reshape(shape)
+    phi = (prng.uniform_01(w1) * prng.TWO_PI_F32).reshape(shape)
     return theta, phi
 
 
@@ -123,12 +126,13 @@ def jakes_eval(theta: torch.Tensor, phi: torch.Tensor, t, doppler_norm: float) -
 
 
 def jakes_gains(seed: int, ch_ids: torch.Tensor, n_steps: int, doppler_norm: float,
-                n_paths: int = JAKES_PATHS) -> torch.Tensor:
+                n_paths: int = JAKES_PATHS, n_pairs: int | None = None) -> torch.Tensor:
     """Per-channel time-varying Rayleigh gains (B, n_steps) complex64 by
-    the Jakes model; ``doppler_norm`` = fd·T_step (steps = OFDM symbols
-    for block fading per symbol). The autocorrelation approaches
-    J₀(2π·fd·Δt) as n_paths grows."""
-    theta, phi = jakes_params(seed, ch_ids, n_paths)
+    the Jakes model, or (B, n_pairs, n_steps) for the antenna pairs of a
+    MIMO link (``jakes_params``' keying); ``doppler_norm`` = fd·T_step
+    (steps = OFDM symbols for block fading per symbol). The
+    autocorrelation approaches J₀(2π·fd·Δt) as n_paths grows."""
+    theta, phi = jakes_params(seed, ch_ids, n_paths, n_pairs=n_pairs)
     t = torch.arange(n_steps, dtype=torch.float32, device=ch_ids.device)
     return jakes_eval(theta, phi, t, doppler_norm)
 
@@ -150,11 +154,14 @@ def multipath_taps(seed: int, ch_ids: torch.Tensor, pdp,
     return taps if n_pairs else taps[:, 0, :]
 
 
-def multipath_time_params(seed: int, ch_ids: torch.Tensor, pdp, n_paths: int = JAKES_PATHS):
+def multipath_time_params(seed: int, ch_ids: torch.Tensor, pdp, n_paths: int = JAKES_PATHS,
+                          n_pairs: int | None = None):
     """State of the time-varying TDL: per-tap Jakes (θ, φ), each
-    (B, L, n_paths), and the static tap amplitudes √(p/Σp) (L,)."""
+    (B, L, n_paths) or (B, n_pairs, L, n_paths) (``jakes_params``' keying:
+    tap l of pair p at row p·L + l), and the static tap amplitudes
+    √(p/Σp) (L,)."""
     amps = _pdp_amps(pdp, ch_ids.device)
-    theta, phi = jakes_params(seed, ch_ids, n_paths, n_taps=amps.shape[0])
+    theta, phi = jakes_params(seed, ch_ids, n_paths, n_taps=amps.shape[0], n_pairs=n_pairs)
     return theta, phi, amps
 
 
@@ -165,9 +172,11 @@ def multipath_time_taps_at(theta, phi, amps, t, doppler_norm: float) -> torch.Te
 
 
 def multipath_time_taps(seed: int, ch_ids: torch.Tensor, pdp, n_steps: int,
-                        doppler_norm: float, n_paths: int = JAKES_PATHS) -> torch.Tensor:
-    """Per-tap-Jakes TDL taps for steps 0..n_steps-1: (B, n_steps, L)."""
-    theta, phi, amps = multipath_time_params(seed, ch_ids, pdp, n_paths)
+                        doppler_norm: float, n_paths: int = JAKES_PATHS,
+                        n_pairs: int | None = None) -> torch.Tensor:
+    """Per-tap-Jakes TDL taps for steps 0..n_steps-1: (B, n_steps, L), or
+    (B, n_pairs, n_steps, L) for the antenna pairs of a MIMO link."""
+    theta, phi, amps = multipath_time_params(seed, ch_ids, pdp, n_paths, n_pairs)
     t = torch.arange(n_steps, dtype=torch.float32, device=ch_ids.device)
     return multipath_time_taps_at(theta, phi, amps, t, doppler_norm)
 

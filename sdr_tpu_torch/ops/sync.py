@@ -16,8 +16,9 @@ start is clamped into [0, n − size], as ``dynamic_slice`` clamps.
 - ``acquire``: coarse timing and fractional CFO from the plateau, the
   integer CFO from the two preamble symbols' FFTs, the full correction,
   then matched-filter fine timing against the whole preamble in a window
-  around the coarse point. ``acquire_start`` gives the start and CFO
-  without the corrected stream, and ``corrected_slice`` the corrected
+  around the coarse point. ``acquire_start`` (and ``acquire_array_start``
+  for antenna arrays) gives the start and CFO without the corrected
+  stream, and ``corrected_slice`` the corrected
   samples of a per-channel window: the rotation at each sample's
   absolute index, the angles of slicing ``correct_cfo`` of the whole
   stream.
@@ -261,13 +262,10 @@ def acquire(rx: torch.Tensor, n_fft: int, cp_len: int, max_int_shift: int = 2,
     return start, total, correct_cfo(rx, total, n_fft)
 
 
-def acquire_array(rx: torch.Tensor, n_fft: int, cp_len: int, max_int_shift: int = 2,
-                  seed: int = PREAMBLE_SEED):
-    """Blind acquisition from antenna arrays (B, n_rx, n), one link per
-    leading index: the timing metric and the matched filter combined
-    non-coherently over the antennas, P (over the CP-wide plateau window)
-    and the integer-CFO scores as in the JAX function. Returns (start (B,),
-    total CFO (B,), corrected (B, n_rx, n))."""
+def acquire_array_start(rx: torch.Tensor, n_fft: int, cp_len: int, max_int_shift: int = 2,
+                        seed: int = PREAMBLE_SEED):
+    """``acquire_array`` without the corrected stream: (start (B,) int64,
+    total CFO (B,) float32) of antenna arrays (B, n_rx, n)."""
     sym_len = n_fft + cp_len
     P, _, M = timing_metric(rx, n_fft)
     Mc = torch.mean(M, dim=-2)
@@ -282,7 +280,17 @@ def acquire_array(rx: torch.Tensor, n_fft: int, cp_len: int, max_int_shift: int 
     mu = estimate_integer_cfo(fft(w1), fft(w2), n_fft, max_int_shift, seed,
                               noncoherent_axis=-2)
     total = frac + mu.to(torch.float32)
-    start = _fine_start(rx, total, d, n_fft, cp_len, seed, combine_axis=-2)
+    return _fine_start(rx, total, d, n_fft, cp_len, seed, combine_axis=-2), total
+
+
+def acquire_array(rx: torch.Tensor, n_fft: int, cp_len: int, max_int_shift: int = 2,
+                  seed: int = PREAMBLE_SEED):
+    """Blind acquisition from antenna arrays (B, n_rx, n), one link per
+    leading index: the timing metric and the matched filter combined
+    non-coherently over the antennas, P (over the CP-wide plateau window)
+    and the integer-CFO scores as in the JAX function. Returns (start (B,),
+    total CFO (B,), corrected (B, n_rx, n))."""
+    start, total = acquire_array_start(rx, n_fft, cp_len, max_int_shift, seed)
     return start, total, correct_cfo(rx, total[..., None], n_fft)
 
 

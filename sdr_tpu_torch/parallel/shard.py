@@ -68,7 +68,6 @@ def make_sharded_simulate_fn(cfg: LinkConfig, mesh: LinkMesh, device="cuda"):
     bits_counted)``, both (n_channels,) int32 on every rank, equal to the
     unsharded ``simulate`` bit for bit."""
     dev = resolve_device(device)
-    pipeline.check_supported(cfg)
     ids = _local_ids(cfg, mesh.shape["channel"], mesh.coord("channel"), dev)
 
     def fn(seed: int):

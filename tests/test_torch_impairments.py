@@ -658,13 +658,15 @@ def test_acquired_link_in_channel_passes(monkeypatch):
 
 
 def test_stream_refuses_impairments_the_pipeline_runs():
-    """``check_supported`` passes every impairment (it raises only for the
-    MIMO configs of item 11e-ii); the blocked stream raises for each
-    impairment, naming 11d."""
+    """The pipeline runs every impairment (every bit counted, a finite BER
+    under 0.5); the blocked stream raises for each impairment, naming
+    11d."""
     for kw in (dict(pa_ibo_db=6.0), dict(phase_noise_std=0.01), dict(iq_gain=1.1),
                dict(iq_phase_rad=0.1), dict(cfo_subcarriers=1.0), dict(timing_offset=3)):
         _, cfg = _cfgs(AWGN, n_symbols=4, **kw)
-        pipeline.check_supported(cfg)
+        res = pipeline.simulate(cfg, 0, device="cpu")
+        assert bool((res.bits_counted == cfg.n_data_symbols * cfg.bits_per_ofdm_symbol).all())
+        assert 0.0 <= float(res.ber.mean()) < 0.5
         with pytest.raises(NotImplementedError, match="item 11d"):
             stream.stream_simulate(cfg, 0, 2, device="cpu")
 

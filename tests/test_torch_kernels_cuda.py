@@ -573,6 +573,94 @@ def test_mimo_links_on_card_match_the_cpu(dev, case):
     assert int(ref.bit_errors.sum()) > 0
 
 
+_MIMO_TIME_ON_CARD = {
+    "rayleigh_time_mrc_genie": dict(model=ChannelModel.RAYLEIGH_TIME, scheme="mrc", n_tx=1,
+                                    n_rx=2),
+    "multipath_time_alamouti_midamble_dft": dict(model=ChannelModel.MULTIPATH_TIME,
+                                                 scheme="alamouti", n_tx=2, n_rx=2,
+                                                 csi="preamble", midamble_period=4),
+    "rayleigh_time_ml_per_symbol": dict(model=ChannelModel.RAYLEIGH_TIME, scheme="mux", n_tx=2,
+                                        n_rx=2, detector="ml", mod=Modulation.QPSK),
+    "acquired_walk_iq_alamouti": dict(scheme="alamouti", n_tx=2, n_rx=2, csi="preamble",
+                                      midamble_period=4, phase_noise_std=2e-3, iq_gain=1.05,
+                                      iq_phase_rad=0.03, cfo_subcarriers=1.3, timing_offset=37),
+    "acquired_scfdma_pa": dict(scheme="alamouti", n_tx=2, n_rx=2, csi="preamble",
+                               midamble_period=4, dft_spread=True, pa_ibo_db=6.0,
+                               cfo_subcarriers=1.3, timing_offset=37),
+    "acquired_multipath_time_sic": dict(model=ChannelModel.MULTIPATH_TIME, scheme="mux", n_tx=2,
+                                        n_rx=2, detector="sic", csi="preamble",
+                                        midamble_period=4, cfo_subcarriers=-0.7,
+                                        timing_offset=11),
+}
+
+
+@pytest.mark.parametrize("case", list(_MIMO_TIME_ON_CARD))
+def test_mimo_time_links_on_card_match_the_cpu(dev, case):
+    """A time-varying or impaired MIMO link (item 11e-ii) on the card against
+    the same link's plain versions on the CPU: the acquired links' starts
+    equal and their total CFO estimates within 1e-5 subcarriers; LLRs within
+    (1e-4 + 4ρ) of their peak — ρ = 0 on the aligned links, on the acquired
+    ones the samples' relative error after the CFO correction,
+    2π·|Δε|·T/N for the two estimates' difference Δε plus the rotations'
+    float32 error 4 ulp(2π·5·T/N) and 2u —; counts equal but for bits
+    whose |LLR| < 1e-3. The card's call launches A, B off (not SC-FDMA), E
+    (gains or FIR, and the noise) and C's post-FFT mode (not for ML)."""
+    import math
+
+    import numpy as np
+
+    from sdr_tpu_torch.core.config import ChannelEstimator, Equalizer, MIMOConfig, MIMOScheme
+    from sdr_tpu_torch.link import pipeline
+
+    kw = dict(_MIMO_TIME_ON_CARD[case])
+    model = kw.pop("model", ChannelModel.RAYLEIGH_FLAT)
+    mod = kw.pop("mod", Modulation.QAM16)
+    spread = kw.pop("dft_spread", False)
+    ch_keys = ("pa_ibo_db", "phase_noise_std", "iq_gain", "iq_phase_rad", "cfo_subcarriers",
+               "timing_offset")
+    channel = {k: kw.pop(k) for k in ch_keys if k in kw}
+    if model in (ChannelModel.RAYLEIGH_TIME, ChannelModel.MULTIPATH_TIME):
+        channel["doppler_norm"] = 0.02
+    if model == ChannelModel.MULTIPATH_TIME:
+        channel["pdp"] = (1.0, 0.5, 0.25)
+    cfg = LinkConfig(modulation=mod, ofdm=OFDMConfig(64, 16),
+                     channel=ChannelConfig(model=model, ebno_db=10.0, **channel),
+                     equalizer=Equalizer.MMSE, estimator=ChannelEstimator.DFT, n_symbols=16,
+                     n_channels=64, dft_spread=spread,
+                     mimo=MIMOConfig(MIMOScheme(kw.pop("scheme")), **kw))
+    _lib.reset_launches()
+    res = pipeline.simulate(cfg, 5, device=dev, want_llrs=True)
+    torch.cuda.synchronize()
+    launched = {k for k, v in _lib.LAUNCHES.items() if v}
+    want = {"payload", "tx_off", "fade_awgn"} | (
+        {"fade_awgn_fir"} if model == ChannelModel.MULTIPATH_TIME else set()) | (
+        set() if cfg.mimo.detector == "ml" else {"llr_chain"})
+    if spread:
+        want.discard("tx_off")
+    assert launched == want, launched
+    ref = pipeline.simulate(cfg, 5, device="cpu", want_llrs=True)
+    rho = 0.0
+    if cfg.channel.impaired:
+        fronts = []
+        for d in (dev, "cpu"):
+            ids = torch.arange(64, dtype=torch.int32, device=d)
+            tx = pipeline.mimo_tx(cfg, pipeline.draw_mimo_idx(cfg, 5, ids))
+            fronts.append(pipeline.mimo_acquire(cfg, pipeline.mimo_stream(cfg, 5, ids, tx))[:2])
+        (s_g, t_g), (s_c, t_c) = fronts
+        assert torch.equal(s_g.cpu(), s_c)
+        d_eps = float((t_g.cpu() - t_c).abs().max())
+        assert d_eps <= 1e-5
+        T = cfg.channel.timing_offset + (pipeline.n_tx_symbols(cfg) + 3) * 80
+        rho = (2 * math.pi * d_eps * T / 64
+               + 4 * float(np.spacing(np.float32(2 * math.pi * 5 * T / 64))) + 2.0 ** -23)
+    got = res.llrs.cpu()
+    peak = float(ref.llrs.abs().max())
+    assert float((got - ref.llrs).abs().max()) <= (1e-4 + 4 * rho) * peak
+    margin = (ref.llrs.abs() < 1e-3).sum(dim=(1, 2, 3))
+    assert bool(((res.bit_errors.cpu() - ref.bit_errors).abs() <= margin).all())
+    assert int(ref.bit_errors.sum()) > 0
+
+
 @pytest.mark.parametrize("mod", list(Modulation), ids=lambda m: m.value)
 @pytest.mark.parametrize("L", [1, 3, 8])
 @pytest.mark.parametrize("N", C_N_FFT)

@@ -14,7 +14,8 @@ on the CPU, over 4 gloo ranks spawned once for the module.
   comparison injects the same numpy draws into both).
 - The sharded pipeline (channel DP, 1 × 4; a genie and a comb-pilot DFT
   link, the dryrun's 2 × 2 ML MIMO link on the preamble's DFT estimate,
-  and an Alamouti 2 × 2 link on 2 × 2 ranks) and the time-block stream
+  an acquired Alamouti 2 × 2 midamble link with the LO walk and I/Q
+  imbalance, and an Alamouti 2 × 2 link on 2 × 2 ranks) and the time-block stream
   with its halo exchange (2 × 2, n_blocks 4: one seam between ranks and
   one inside each rank; static MULTIPATH and the TDL) are bit-exact
   against the unsharded ``simulate`` and ``stream_simulate``, and each
@@ -140,6 +141,14 @@ CASES = {
     "simulate_dp_mimo_alamouti": dict(kind="simulate", mesh=(2, 2),
                                       cfg=_small(ChannelModel.RAYLEIGH_FLAT,
                                                  mimo=MIMOConfig(MIMOScheme.ALAMOUTI, 2, 2))),
+    "simulate_dp_mimo_acquired": dict(kind="simulate", mesh=(1, 4),
+                                      cfg=_small(ChannelModel.RAYLEIGH_FLAT, n_symbols=8,
+                                                 cfo_subcarriers=1.3, timing_offset=37,
+                                                 phase_noise_std=0.002, iq_gain=1.05,
+                                                 iq_phase_rad=0.03,
+                                                 mimo=MIMOConfig(MIMOScheme.ALAMOUTI, 2, 2,
+                                                                 csi="preamble",
+                                                                 midamble_period=4))),
     "stream": dict(kind="stream", mesh=(2, 2), n_blocks=4,
                    cfg=_small(ChannelModel.MULTIPATH, n_symbols=8, pdp=PDP3,
                               equalizer=Equalizer.MMSE)),

@@ -378,16 +378,14 @@ def test_stream_equals_simulate(case, n_blocks):
     (dict(pilot_spacing=4, channel_kw=dict(model=jcfg.ChannelModel.RAYLEIGH_FLAT,
                                            pa_ibo_db=4.0)), "11d"),
     (dict(mimo=jcfg.MIMOConfig(), channel_kw=dict(model=jcfg.ChannelModel.RAYLEIGH_TIME,
-                                                  doppler_norm=0.02)), "11e-ii"),
+                                                  doppler_norm=0.02)), "mimo"),
 ], ids=["pilots", "pa", "mimo"])
 def test_unported_options_raise(kw, item):
-    """MIMO on a time-varying channel names item 11e-ii, in ``simulate``,
-    ``make_simulate_fn`` and the stream (frame-static MIMO runs in the
-    pipeline: ``tests/test_torch_mimo.py``). Pilots (item 11c) and
-    front-end impairments (item 11d) run in
-    ``simulate`` and ``make_simulate_fn``; the stream refuses pilots as the
-    JAX module does, naming ``link.pipeline``, and impairments naming
-    item 11d."""
+    """Pilots (item 11c), front-end impairments (item 11d) and MIMO on a
+    time-varying channel (item 11e) run in ``simulate`` and
+    ``make_simulate_fn``; the stream refuses pilots and MIMO as the JAX
+    module does, naming ``link.pipeline``, and impairments naming item
+    11d."""
     kw = dict(kw)
     channel_kw = kw.pop("channel_kw", {})
     ref = jcfg.LinkConfig(modulation=jcfg.Modulation.QPSK,
@@ -397,20 +395,14 @@ def test_unported_options_raise(kw, item):
     cfg = interop.link_config_from_reference(ref)
     calls = (lambda: pipeline.simulate(cfg, 0, device="cpu"),
              lambda: pipeline.make_simulate_fn(cfg, device="cpu")(0))
-    if item in (None, "11d"):
-        for call in calls:
-            res = call()
-            assert int(res.bits_counted[0]) == S * cfg.bits_per_ofdm_symbol
-        with pytest.raises(NotImplementedError, match=r"link\.pipeline"):
-            stream.stream_simulate(cfg, 0, 2, device="cpu")
-        if item is None:
-            return
+    for call in calls:
+        res = call()
+        assert int(res.bits_counted[0]) == S * cfg.bits_per_ofdm_symbol
+    with pytest.raises(NotImplementedError, match=r"link\.pipeline"):
+        stream.stream_simulate(cfg, 0, 2, device="cpu")
+    if item == "11d":
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             stream.stream_simulate(cfg, 0, 2, device="cpu")
-        return
-    for call in (*calls, lambda: stream.stream_simulate(cfg, 0, 2, device="cpu")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            call()
 
 
 def test_stream_blocking_and_defaults():
