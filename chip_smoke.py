@@ -224,6 +224,21 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    the PA, Jakes and SC-FDMA, the walk and I/Q alone) — each with ms
    (median of 3 warm calls), peak memory (under 40 GiB) and launches, the
    window ``launches_mimo_time``;
+   3k. the coded links (``link.coded``): the Viterbi decoder alone at
+   config 2's frame (B × 65536 LLRs) and the polar fast-SSCL decoder
+   alone over B × 256 codewords of (256, 128) CRC-11, L 8, each the median
+   of 3 warm calls with its peak memory and its decisions equal to the
+   CPU's on the first 256 channels of the same LLRs; B off, E's noise and
+   C's plane on the conv link's frame and H on the LDPC link's LLRs
+   against their plain versions; the config-2 links at B × 64 AWGN
+   (``coded_link_cell``): conv at rates 1/2, 2/3 and 3/4, LDPC 1/2
+   flooding 25, polar L 8 — the JAX tests' gates (conv 1/2 under uncoded
+   theory / 10, BER(1/2) ≤ BER(2/3) ≤ BER(3/4), LDPC under 1/12288 —
+   the JAX test's zero errors in 12288 info bits as a rate —, polar under
+   theory / 6.25), each link's ms, peak memory and
+   launches; the JAX tests' SC-FDMA and MIMO compositions and a conv and a
+   polar sweep point at their own sizes; the window
+   ``launches_coded_link``;
    5. the parallel layer: ``parallel.dryrun.dryrun_multichip`` on 4
    gloo ranks sharing the one card (spawned; the library built above is
    only loaded there) — TP at BASELINE config 5's full width (256 × 64,
@@ -234,7 +249,8 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    at N 1024; PP 2 × 2; the time-block stream with its halo exchange
    (2 × 2, n_blocks 4, 1024 × 64, the entry link and MULTIPATH_TIME fd
    0.03; also against ``pipeline.simulate``), the 2 × 2 ML MIMO link on
-   the preamble's DFT estimate (``dryrun.mimo_cfg``) — each bit-exact against
+   the preamble's DFT estimate (``dryrun.mimo_cfg``), the polar CA-SCL
+   coded link (list 2) — each bit-exact against
    the unsharded port, with its wall time (not a scaling figure); 5n. one NCCL rank runs TP at
    N 4096 and DP fast, so that device tensors go to the collectives;
 6. checks that each path launched every kernel and mode of its slice
@@ -262,14 +278,16 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    phase 3m around each MIMO link's call, for A, B off, E (gains, FIR) and
    C's post-FFT mode, ``launches_mimo``; and in phase 3v around each
    time-varying or impaired MIMO link's call, for the same kernels,
-   ``launches_mimo_time``)
+   ``launches_mimo_time``; and in phase 3k around each coded link's call,
+   for B off, E, C's plane and H, ``launches_coded_link``)
    and prints one JSON line per kernel set, with each kernel's bound (bytes over 3.35 TB/s or f32
    operations over 67 TFLOP/s, the H100 SXM data sheet) and its launches
    in each window (``launches_fast``, ``launches_mc``, ``launches_coded``,
    ``launches_terminals``, ``launches_wide`` — the sum of 3i's N
    windows; ``launches_bf16``, ``launches_parallel``, ``launches_nccl``,
    ``launches_pipeline``, ``launches_pilots``, ``launches_impairments``,
-   ``launches_mimo``, ``launches_mimo_time``; ``launches`` is the
+   ``launches_mimo``, ``launches_mimo_time``, ``launches_coded_link``;
+   ``launches`` is the
    window of its own path, the one checked; the entry ``fade_awgn@acquired_stream`` carries
    phase 3r's check of E at the stream's shape and the row's launches in the acquired links' window;
    the entries ``fade_awgn@mimo_pair_plane``, ``fade_awgn_fir@mimo_pair_plane``,
@@ -278,7 +296,8 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    the entries ``fade_awgn@mimo_time_pair_gains``,
    ``fade_awgn_fir@mimo_time_pair_taps``, ``fade_awgn@mimo_time_acquired_plane``,
    ``fade_awgn@mimo_time_stream_noise`` and ``llr_chain@mimo_time_h_per_symbol``
-   phase 3v's;
+   phase 3v's; the entries ``tx_off@coded_link``, ``fade_awgn@coded_link``,
+   ``demod_llr@coded_link`` and ``ldpc_minsum@coded_link`` phase 3k's;
    the entries named ``<counter>@N1024``, ``@N2048`` and ``@N4096`` carry
    phase 2w's numbers, the launches in that N's window and the TPU
    four-step, post-FFT or channels-last kernel they replace there),
@@ -320,6 +339,10 @@ IMUL_PER_S = 132 * 64 * 1.98e9
 PHILOX_IMUL = 40  # ten rounds of two multiply-high/low pairs per Philox-4x32-10 call
 
 SEED = 20261016
+
+# Phase 3k's Eb/N0: uncoded 16-QAM errs at the percent level there while
+# each family's gate (the JAX tests' forms) holds.
+CODED_EBNO_DB = 4.0
 
 # The coded cell's seam × schedule variants (phase 3g times them,
 # ``profile_coded.py`` profiles them).
@@ -371,6 +394,24 @@ def pipeline_cell(n_channels: int = 8192, **kw):
 # LO walk's std is per sample: scaled so that std·√(N + cp) equals the JAX
 # test's at N 64, CP 16 (0.01 → 0.005, 0.008 → 0.004, 2e-3 → 1e-3).
 PN_SCALE = (80 / 320) ** 0.5
+
+
+def coded_link_cell(n_channels: int = 8192):
+    """Phase 3k's coded links' link: BASELINE config 2 (16-QAM, N 256,
+    CP 64), 64 symbols, AWGN at CODED_EBNO_DB (each family's frame at
+    65536 bits: conv 32762 info bits at rate 1/2, LDPC 21 codewords, polar
+    256 codewords)."""
+    from sdr_tpu_torch.core.config import (
+        ChannelConfig,
+        ChannelModel,
+        LinkConfig,
+        Modulation,
+        OFDMConfig,
+    )
+
+    return LinkConfig(modulation=Modulation.QAM16, ofdm=OFDMConfig(n_fft=256, cp_len=64),
+                      channel=ChannelConfig(model=ChannelModel.AWGN, ebno_db=CODED_EBNO_DB),
+                      n_symbols=64, n_channels=n_channels)
 
 
 def impairment_links(n_channels: int = 8192):
@@ -3840,6 +3881,257 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
           f"{max(r['peak_gib'] for r in v_rows):.2f} GiB allocated); window "
           f"{ {k: v for k, v in launches_mimo_time.items() if v} }")
 
+    # ---- phase 3k: the coded links (item 11f), counters zeroed ----------------
+    # First each decoder alone at full width, on the card and, for the first
+    # 256 channels of the same LLR tensor, on the CPU (decisions equal): the
+    # Viterbi decoder at config 2's frame (B, 65536) and the polar fast-SSCL
+    # decoder over B × 256 codewords of (256, 128) CRC-11, L 8, each timed as
+    # the median of 3 warm calls (CUDA events) with its peak memory; then the
+    # kernels the coded links run, at their shapes, against their plain
+    # versions (phase 2's tolerances) and timed beside them — B off on the
+    # conv link's interleaved frame, E's noise over it, C's plane of it, H
+    # on the LDPC link's LLRs; then the config-2 links at B × 64
+    # (``coded_link_cell``) through ``make_family_fn``, each inside
+    # ``in_coded_link()``: its gates, ms of the counted call (CUDA events,
+    # warm: the decoders and kernels ran just before), peak memory and
+    # launches; then the JAX tests' compositions and sweep points at their
+    # own sizes, in the same window.
+    from sdr_tpu_torch.link import coded as coded_k
+    from sdr_tpu_torch.link import pipeline as pipe_k
+    from sdr_tpu_torch.ops import fec as fec_k
+    from sdr_tpu_torch.ops.polar import polar_encode_payload
+
+    t3k = time.perf_counter()
+    launches_coded_link = dict.fromkeys(_lib.LAUNCHES, 0)
+    coded_link_path = ("tx_off", "fade_awgn", "demod_llr", "ldpc_minsum")
+    cfg_k = coded_link_cell(B)
+    n_cmp = min(256, B)
+    gen_k = torch.Generator(device=dev).manual_seed(seed + 23)
+
+    def median3(fn):
+        return sorted(timed(fn, 1) for _ in range(3))[1]
+
+    def noisy_llrs(bits, sigma):
+        """BPSK LLRs 2y/σ² of the coded bits at noise σ."""
+        y = (1.0 - 2.0 * bits.to(torch.float32)) + sigma * torch.randn(
+            bits.shape, device=dev, generator=gen_k)
+        return y * (2.0 / sigma ** 2)
+
+    def decoder_alone(label, decode, llr, sent, n_work):
+        """The decoder at full width: warm call and peak above its input,
+        median of 3 warm calls, the CPU on the first n_cmp channels."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        dec = decode(llr)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        ms = median3(lambda: decode(llr))
+        t_c = time.perf_counter()
+        dec_c = decode(llr[:n_cmp].cpu())
+        t_c = time.perf_counter() - t_c
+        _check(torch.equal(dec_c, dec[:n_cmp].cpu()),
+               f"phase 3k {label}: the card's decisions differ from the CPU's")
+        ber = float((dec != sent).to(torch.float64).mean())
+        print(f"phase 3k {label}: {ms:.3f} ms (median of 3 warm calls, CUDA events), peak "
+              f"{peak:.3f} GiB above its input, {n_work}; decisions equal to the CPU's on the "
+              f"first {n_cmp} channels ({t_c:.1f} s there); BER {ber:.6g} on {card}")
+        return dict(ms=ms, peak_gib=peak, cpu_s=t_c, ber=ber)
+
+    n_info_k = coded_k.info_bits_per_channel(cfg_k)
+    info_v = prng.info_bits(seed, ids, 1, n_info_k)[:, 0]
+    T_v = n_info_k + fec_k.DEFAULT_K - 1
+    llr_v = noisy_llrs(fec_k.conv_encode(info_v), 0.9)
+    k_dec = {"viterbi": decoder_alone(
+        f"viterbi_decode alone ({B} x {2 * T_v} LLRs, K 7 rate 1/2, T {T_v} steps)",
+        lambda x: fec_k.viterbi_decode(x, n_info_k), llr_v, info_v,
+        f"{T_v} forward steps of 3 launches and {T_v} traceback steps of 6")}
+    del llr_v, info_v
+    code_p = coded_k.polar_code_for()
+    n_cw_p = coded_k.polar_codewords_per_channel(cfg_k, code_p.block_len)
+    pay_p = prng.info_bits(seed, ids, n_cw_p, code_p.payload_len)
+    llr_pp = noisy_llrs(polar_encode_payload(pay_p, code_p), 0.8)
+    step_p = coded_k.polar_pass_channels(code_p, n_cw_p, 8)
+    k_dec["polar"] = decoder_alone(
+        f"polar fast-SSCL alone ({B * n_cw_p} codewords of (256, 128) CRC-11, L 8)",
+        lambda x: coded_k.polar_decode_passes(x, code_p, 8), llr_pp, pay_p,
+        f"passes of {step_p} channels ({step_p * n_cw_p} codewords)")
+    del llr_pp, pay_p
+
+    # The kernels at the coded links' shapes.
+    frame_k = torch.zeros((B, coded_k.frame_bits(cfg_k)), dtype=torch.int8, device=dev)
+    cw_k = fec_k.conv_encode(prng.info_bits(seed, ids, 1, n_info_k)[:, 0])
+    frame_k[:, :cw_k.shape[1]] = cw_k
+    del cw_k
+    bits_k = interleave(frame_k).view(B, S, N * bps)
+    del frame_k
+    idx_k = pipe_k._bits_to_ints(bits_k, bps).to(ka.out_dtype(bps))
+    del bits_k
+    got = kb.tx_chain(idx_k, CP, mod)
+    off_err = plane_err(got, kb.tx_channel_plain(idx_k, CP, mod))
+    _check(off_err <= 1e-5 * plane_peak(got), f"3k B off: max abs diff {off_err:g}")
+    del got
+    ms, pms = compare_times(lambda: kb.tx_chain(idx_k, CP, mod),
+                            lambda: kb.tx_channel_plain(idx_k, CP, mod), reps=1)
+    report["tx_off@coded_link"] = dict(
+        b_timed("channel off, the conv link's frame", "tx_off", N, CP, B, S, 1, ms, pms, 0, 0,
+                False), max_abs_err=off_err)
+    print(f"phase 3k B off on the conv link's interleaved frame ({B}x{S}x{N + CP}): max abs "
+          f"diff {off_err:.3g}; kernel {ms:.4f} ms, plain {pms:.3f} ms; "
+          f"{of_bound(report['tx_off@coded_link'])} on {card}")
+    tx_k = kb.tx_chain(idx_k, CP, mod)
+    nv_k = fast.noise_var(cfg_k)
+    rep = check_modes(f"E noise only on the conv link's waveform ({B}x{S}x{N + CP})",
+                      lambda **kw: ke.fade_awgn(*tx_k, noise_var=nv_k / N, **kw),
+                      lambda **kw: ke.fade_awgn_plain(*tx_k, noise_var=nv_k / N, **kw),
+                      (B, S, N + CP), kernel_reps=10)
+    n_tx_k = tx_k[0].numel()
+    rep.update(bound(16 * n_tx_k + 4 * B, 4 * n_tx_k, n_tx_k * PHILOX_IMUL))
+    e_rows.append(dict(rep, mode="noise only, the conv link's waveform", counter="fade_awgn",
+                       window=launches_coded_link))
+    report["fade_awgn@coded_link"] = rep
+    re_k, im_k = ke.fade_awgn(*tx_k, noise_var=nv_k / N, seed=seed, ch_ids=ids)
+    del tx_k
+    hr_k = torch.ones((B, 1, N), device=dev)
+    hi_k = torch.zeros((B, 1, N), device=dev)
+    c_err, c_peak = llr_check("3k C llr plane",
+                              kc.demod_llr(re_k, im_k, hr_k, hi_k, CP, mod, nv_k),
+                              kc.demod_chain(re_k, im_k, hr_k, hi_k, CP, mod, nv_k))
+    ms, pms = compare_times(lambda: kc.demod_llr(re_k, im_k, hr_k, hi_k, CP, mod, nv_k),
+                            lambda: kc.demod_chain(re_k, im_k, hr_k, hi_k, CP, mod, nv_k),
+                            reps=1)
+    report["demod_llr@coded_link"] = dict(
+        max_abs_err=c_err, ms=ms, plain_ms=pms,
+        **bound(8 * nrow * N + 8 * B * N + 4 * nrow * N * bps,
+                nrow * (fft_flops(N) + N * tail_flops(mod))))
+    print(f"phase 3k C llr plane of the conv link ({B}x{S}x{N * bps} f32): max abs diff "
+          f"{c_err:.3g} (peak {c_peak:.3g}, allowed 1e-4 of it); kernel {ms:.4f} ms, plain "
+          f"{pms:.3f} ms; {of_bound(report['demod_llr@coded_link'])} on {card}")
+    del re_k, im_k, hr_k, hi_k, idx_k
+    code_h = ldpc_code_for("1/2")
+    n_cw_h = ldpc_codewords_per_channel(cfg_k, code_h)
+    cw_h = ldpc_encode(code_h, prng.info_bits(seed, ids, n_cw_h, code_h.k)).reshape(B, -1)
+    llr_h = coded_k._carry(cfg_k, seed, ids, cw_h, {}).reshape(B * n_cw_h, code_h.n)
+    del cw_h
+    want = kh.ldpc_decode_plain(code_h, llr_h, 25, 0.5, "flooding")
+    n_diff = int((kh.ldpc_decode(code_h, llr_h, 25, 0.5, "flooding") != want).sum())
+    _check(n_diff == 0, f"3k H on the LDPC link's LLRs: {n_diff} hard bits differ from plain")
+    del want
+    pms = timed(lambda: kh.ldpc_decode_plain(code_h, llr_h, 25, 0.5, "flooding"), 1)
+    ms = timed(lambda: kh.ldpc_decode(code_h, llr_h, 25, 0.5, "flooding"), 3)
+    report["ldpc_minsum@coded_link"] = dict(max_abs_err=float(n_diff), ms=ms, plain_ms=pms,
+                                            **h_bound(code_h, B * n_cw_h, 25))
+    print(f"phase 3k H flooding 25 on the LDPC link's LLRs ({B * n_cw_h} codewords): hard bits "
+          f"identical to plain; kernel {ms:.3f} ms (mean of 3 calls), plain {pms:.3f} ms (1 call); "
+          f"{of_bound(report['ldpc_minsum@coded_link'])} on {card}")
+    del llr_h
+    torch.cuda.empty_cache()
+
+    @contextlib.contextmanager
+    def in_coded_link():
+        _lib.reset_launches()
+        yield
+        for k, v in _lib.LAUNCHES.items():
+            launches_coded_link[k] += v
+
+    def coded_run(label, fn, seed_k=seed):
+        """(errors, counted) of fn(seed_k) inside the window, with its ms
+        (CUDA events), peak memory and launches printed."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with in_coded_link():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            errors, counted = fn(seed_k)
+            end.record()
+            torch.cuda.synchronize()
+            per = {k: v for k, v in _lib.LAUNCHES.items() if v}
+        ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ber = int(errors.sum()) / int(counted.sum())
+        print(f"phase 3k {label}: BER {ber:.6g} ({int(errors.sum())} of {int(counted.sum())} info "
+              f"bits); {ms:.3f} ms (CUDA events), peak {peak:.2f} GiB allocated, launches a call "
+              f"{per} on {card}")
+        return errors, ber, dict(label=label, ms=ms, peak_gib=peak, ber=ber, launches=per)
+
+    th_k = ber_awgn_exact(mod, cfg_k.channel.ebno_db)
+    k_rows, k_ber = [], {}
+    for key, fam, kw in (("conv 1/2", "conv", dict(rate="1/2")),
+                         ("conv 2/3", "conv", dict(rate="2/3")),
+                         ("conv 3/4", "conv", dict(rate="3/4")),
+                         ("LDPC 1/2 flooding 25", "ldpc", dict(iters=25)),
+                         ("polar (256, 128) CRC-11 L 8", "polar", dict(list_size=8))):
+        _, k_ber[key], row = coded_run(
+            f"{key} at {B}x{S} config 2 AWGN {cfg_k.channel.ebno_db:g} dB",
+            coded_k.make_family_fn(cfg_k, fam, device=dev, **kw))
+        k_rows.append(row)
+    k_gates = (
+        ("conv 1/2 < uncoded theory / 10 (tests/test_fec.py:84-100)",
+         k_ber["conv 1/2"] < th_k / 10),
+        ("BER(1/2) <= BER(2/3) <= BER(3/4) (tests/test_fec.py:144-172)",
+         k_ber["conv 1/2"] <= k_ber["conv 2/3"] <= k_ber["conv 3/4"]),
+        ("LDPC 1/2 < 1/12288: the JAX test's zero errors in 8 x 1536 info bits where "
+         "uncoded errs, as a rate (tests/test_ldpc.py:86-95)",
+         k_ber["LDPC 1/2 flooding 25"] < 1.0 / 12288),
+        ("polar < uncoded theory / 6.25 (2e-3 against 1.25e-2, tests/test_polar.py:111-131)",
+         k_ber["polar (256, 128) CRC-11 L 8"] < th_k / 6.25),
+    )
+    for rule, ok in k_gates:
+        _check(ok, f"phase 3k: {rule} fails: {k_ber} (uncoded theory {th_k:g})")
+        print(f"phase 3k gate met: {rule} (uncoded theory {th_k:.6g})")
+    _check(max(r["peak_gib"] for r in k_rows) < 16.0, "phase 3k: a link's peak exceeds 16 GiB")
+
+    # The JAX tests' compositions and sweep points at their own sizes.
+    from sdr_tpu_torch.core.config import Equalizer, MIMOConfig, MIMOScheme
+
+    base_sc = LinkConfig(modulation=Modulation.QPSK, ofdm=OFDMConfig(n_fft=128, cp_len=16),
+                         channel=ChannelConfig(model=ChannelModel.MULTIPATH, ebno_db=14.0,
+                                               pdp=(1.0, 0.3)),
+                         equalizer=Equalizer.MMSE, pilot_spacing=8, n_symbols=32,
+                         n_channels=8, dft_spread=True)
+    for fam in coded_k.CODE_FAMILIES:
+        e_sc, _, _ = coded_run(f"SC-FDMA block pilots {fam} (tests/test_scfdma.py:328-355, 8 x "
+                               f"32)", coded_k.make_family_fn(base_sc, fam, device=dev), 2)
+        clean = int((e_sc == 0).sum())
+        _check(clean >= 6, f"phase 3k SC-FDMA {fam}: {clean} of 8 channels error-free")
+        print(f"phase 3k gate met: SC-FDMA {fam} {clean} of 8 channels error-free (>= 6)")
+    cfg_mm = LinkConfig(modulation=Modulation.QPSK, ofdm=OFDMConfig(n_fft=128, cp_len=16),
+                        channel=ChannelConfig(model=ChannelModel.RAYLEIGH_FLAT, ebno_db=10.0),
+                        mimo=MIMOConfig(MIMOScheme.ALAMOUTI, 2, 2, csi="preamble"),
+                        equalizer=Equalizer.MMSE, n_symbols=16, n_channels=8)
+    e_mm, _, _ = coded_run("polar over Alamouti 2x2 preamble CSI, L 4 (tests/test_scfdma.py:"
+                           "358-380, 8 x 16)",
+                           coded_k.make_polar_fn(cfg_mm, list_size=4, device=dev), 1)
+    _check(int(e_mm.sum()) <= 10, f"phase 3k polar over MIMO: {int(e_mm.sum())} errors > 10")
+    print(f"phase 3k gate met: polar over Alamouti 2x2, {int(e_mm.sum())} payload errors (<= 10)")
+    cfg_sw = LinkConfig(modulation=Modulation.QPSK, ofdm=OFDMConfig(n_fft=128, cp_len=16),
+                        channel=ChannelConfig(model=ChannelModel.AWGN, ebno_db=5.0),
+                        n_symbols=16, n_channels=4)
+    for fam in ("conv", "polar"):
+        with in_coded_link():
+            res_sw = ebno_sweep(cfg_sw, [5.0], seed=1, target_errors=1, max_bits=10_000,
+                                code=fam, device=dev)
+        pt = res_sw.points[0]
+        th_sw = res_sw.theory(Modulation.QPSK)[0]
+        _check(pt.ber < th_sw and res_sw.config_summary.endswith(f"/{fam}-1/2/torch"),
+               f"phase 3k sweep {fam}: BER {pt.ber:g} vs theory {th_sw:g}")
+        print(f"phase 3k sweep point {fam} at 5 dB (tests/test_obs.py:65-91, 4 x 16): BER "
+              f"{pt.ber:.6g} < uncoded theory {th_sw:.6g}, {pt.batches} invocations, summary "
+              f"{res_sw.config_summary}")
+    for name in coded_link_path:
+        _check(launches_coded_link[name] > 0, f"phase 3k: kernel {name} was not launched")
+    print(f"phase 3k the decoders alone against their links: Viterbi "
+          f"{k_dec['viterbi']['ms'] / k_rows[0]['ms']:.3f} of conv 1/2's time, polar "
+          f"{k_dec['polar']['ms'] / k_rows[4]['ms']:.3f} of the polar link's; H "
+          f"{report['ldpc_minsum@coded_link']['ms'] / k_rows[3]['ms']:.3f} of LDPC's")
+    print(f"phase 3k: {len(k_rows)} config-2 links and the compositions in "
+          f"{time.perf_counter() - t3k:.1f} s (the largest peak "
+          f"{max(r['peak_gib'] for r in k_rows):.2f} GiB allocated); window "
+          f"{ {k: v for k, v in launches_coded_link.items() if v} }")
+
     # ---- phase 5: the parallel layer, 4 gloo ranks sharing the one card -----
     # ``dryrun_multichip`` spawns the ranks (the kernel library was built in
     # phase 1; the ranks only load it), runs every row at full width, holds
@@ -3981,7 +4273,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     launches_pilots=launches_pilots[name],
                     launches_impairments=launches_impairments[name],
                     launches_mimo=launches_mimo[name],
-                    launches_mimo_time=launches_mimo_time[name])
+                    launches_mimo_time=launches_mimo_time[name],
+                    launches_coded_link=launches_coded_link[name])
 
     # The form of C, D and F each entry ran (csrc/demod_rows.cuh's plans,
     # demod.cu's tile, csrc/demod_cl.cuh's plans).
@@ -4059,6 +4352,17 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         for key in ("fade_awgn@mimo_time_pair_gains", "fade_awgn_fir@mimo_time_pair_taps",
                     "fade_awgn@mimo_time_acquired_plane", "fade_awgn@mimo_time_stream_noise",
                     "llr_chain@mimo_time_h_per_symbol")
+    ]
+    # The coded links' shapes (phase 3k, config 2 at B × 64): B off, E's
+    # noise and C's plane on the conv link's frame, H on the LDPC link's
+    # LLRs; each with its counter's launches in 3k's window.
+    kernels += [
+        dict(name=key, route="cuda", source=sources[key.split("@")[0]][0],
+             replaces=sources[key.split("@")[0]][1], **cl_form(key.split("@")[0], N),
+             launches=launches_coded_link[key.split("@")[0]], **windows_of(key.split("@")[0]),
+             **{"library_ms": None, **report[key]})
+        for key in ("tx_off@coded_link", "fade_awgn@coded_link", "demod_llr@coded_link",
+                    "ldpc_minsum@coded_link")
     ]
     # Kernel C's modes: form, time, share of the bound, launches in the
     # path's window and launches × (ms − bound ms).

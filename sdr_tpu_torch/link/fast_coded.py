@@ -36,10 +36,9 @@ reproduces the full run. It is a different stream from the JAX
 package's threefry ``bernoulli``; the parity tests inject the info bits
 and the noise.
 
-Pilots, MIMO and SC-FDMA raise ``NotImplementedError``, as in JAX
-(coded links with those run in ``link.coded`` through ``link.pipeline``,
-ROADMAP queue 1, item 11f). The entry points run on the card unless the
-caller asks for the CPU.
+Pilots, MIMO and SC-FDMA raise ``NotImplementedError``, as in JAX:
+coded links with those run in ``link.coded`` through ``link.pipeline``.
+The entry points run on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -71,7 +70,7 @@ def check_supported(cfg: LinkConfig, seam: str = "auto", schedule: str = "floodi
     if cfg.pilot_spacing or cfg.mimo is not None or cfg.dft_spread:
         raise NotImplementedError(
             "the coded fast engine runs full-grid SISO OFDM; pilots/MIMO/SC-FDMA coded links "
-            "run in link.coded through link.pipeline (ROADMAP queue 1, item 11f)"
+            "run in link.coded"
         )
     if seam not in SEAMS:
         raise ValueError(f"seam must be one of {SEAMS}, got {seam!r}")

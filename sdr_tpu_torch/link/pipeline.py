@@ -94,8 +94,8 @@ fading is ``fast.fading_at`` over 2 + S symbols from symbol 0.
   (channel, r, sample) on the acquired streams, the walk at (channel,
   sample) as the SISO link's.
 
-The stream and the fast engines are SISO, and coded MIMO waits for item
-11f. The entry points run on the card (``device="cuda"``) unless the
+The stream and the fast engines are SISO; coded links, MIMO among them,
+run through this module from ``link.coded``. The entry points run on the card (``device="cuda"``) unless the
 caller asks for the CPU; without a card they raise, and a CUDA tensor that
 a kernel refuses raises: nothing falls back to plain torch or to the CPU.
 """

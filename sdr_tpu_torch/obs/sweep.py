@@ -12,9 +12,10 @@ sweep: uncoded links, genie CSI or pilot- or preamble-estimated, MIMO
 among them), ``"fast"``
 (``link.fast``) and ``"mc"`` (``link.mc``, kernel G, ``mc_iters`` passes
 per invocation) run on ``device`` — the card unless the caller asks for
-the CPU. Impaired configs run on the pipeline engine (item 11d); coded
-sweeps (``code=``) are not ported yet and raise ``NotImplementedError``
-naming ROADMAP item 11f.
+the CPU. Impaired configs run on the pipeline engine (item 11d). A coded
+sweep (``code=`` one of ``link.coded.CODE_FAMILIES``, ``code_rate=``) runs
+each point through ``link.coded.make_family_fn`` on the pipeline engine and
+counts decoded information bits; its summary carries ``/{code}-{code_rate}``.
 
 Seeds: the JAX ``key`` becomes an int ``seed``. Invocation ``batch`` of
 point ``i`` runs with
@@ -140,9 +141,14 @@ def invocation_seed(seed: int, i: int, batch: int) -> int:
     return (int(seed) * _SEED_MIX + i * _POINT_STRIDE + batch) & 0x7FFFFFFF
 
 
-def _invoker(engine: str, pt_cfg: LinkConfig, mc_iters: int, device):
+def _invoker(engine: str, pt_cfg: LinkConfig, mc_iters: int, device, code=None,
+             code_rate: str = "1/2"):
     """fn(seed) → (bit errors, bits counted) summed over the channels."""
-    if engine == "mc":
+    if code is not None:
+        from sdr_tpu_torch.link.coded import make_family_fn
+
+        fn = make_family_fn(pt_cfg, code, rate=code_rate, device=device)
+    elif engine == "mc":
         from sdr_tpu_torch.link.mc import make_mc_fn
 
         fn = make_mc_fn(pt_cfg, iters=mc_iters, device=device)
@@ -177,6 +183,7 @@ def ebno_sweep(
     engine: str = "pipeline",
     mc_iters: int = 16,
     code: Optional[str] = None,
+    code_rate: str = "1/2",
     device="cuda",
 ) -> SweepResult:
     """BER over an Eb/N0 grid with stop-at-target-errors accumulation.
@@ -187,7 +194,8 @@ def ebno_sweep(
     its points are loaded: complete ones (under the current targets) are
     reused, incomplete ones topped up from their next batch. Checkpoints
     record the engine, so sweeps of different engines never share state.
-    The default engine is ``"pipeline"``, as in the JAX sweep."""
+    The default engine is ``"pipeline"``, as in the JAX sweep; ``code``
+    (with ``code_rate``) sweeps a coded family on it."""
     if engine not in ENGINES:
         raise ValueError(f"unknown sweep engine {engine!r}")
     if code is not None and engine != "pipeline":
@@ -195,17 +203,15 @@ def ebno_sweep(
             "coded sweeps run on the pipeline engine (the fast/mc engines count "
             "channel bits, not decoded info bits)"
         )
-    if engine == "pipeline" and code is not None:
-        raise NotImplementedError(
-            "coded sweeps run link.coded's families on the pipeline engine (ROADMAP "
-            "queue 1, item 11f)"
-        )
     if engine == "fast" and (cfg.pilot_spacing or cfg.channel.impaired):
         raise ValueError(
             "engine='fast' needs a full-grid config (no pilots or timing/CFO impairments)"
         )
     suffix = {"pipeline": "", "fast": "/fast", "mc": "/mc"}[engine]
-    summary = _cfg_summary(cfg) + suffix + "/torch"
+    summary = _cfg_summary(cfg) + suffix
+    if code is not None:
+        summary += f"/{code}-{code_rate}"
+    summary += "/torch"
     done: dict[float, SweepPoint] = {}
     if checkpoint_path and os.path.exists(checkpoint_path):
         with open(checkpoint_path) as f:
@@ -226,7 +232,7 @@ def ebno_sweep(
             points.append(prev)
             continue
         pt_cfg = dataclasses.replace(cfg, channel=dataclasses.replace(cfg.channel, ebno_db=ebno))
-        invoke = _invoker(engine, pt_cfg, mc_iters, device)
+        invoke = _invoker(engine, pt_cfg, mc_iters, device, code, code_rate)
         errors = prev.bit_errors if prev else 0
         bits = prev.bits_counted if prev else 0
         batch = prev.batches if prev else 0

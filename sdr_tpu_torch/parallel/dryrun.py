@@ -56,7 +56,7 @@ from sdr_tpu_torch.core.config import (
 )
 from sdr_tpu_torch.kernels import _lib
 from sdr_tpu_torch.kernels import demod as _kc
-from sdr_tpu_torch.link import fast, fast_coded, pipeline
+from sdr_tpu_torch.link import coded, fast, fast_coded, pipeline
 from sdr_tpu_torch.link.stream import exact_at_seams, stream_simulate
 from sdr_tpu_torch.link.ber import ber_awgn_exact, ber_given_gain
 from sdr_tpu_torch.link.mc import mc_simulate
@@ -65,7 +65,9 @@ from sdr_tpu_torch.parallel.distributed import init_multihost, resolve_device
 from sdr_tpu_torch.parallel.mesh import make_link_mesh
 from sdr_tpu_torch.parallel.pp import make_pipelined_fast_fn
 from sdr_tpu_torch.parallel.shard import (
+    coded_family_kw,
     make_sharded_coded_fast_fn,
+    make_sharded_coded_fn,
     make_sharded_fast_fn,
     make_sharded_mc_fn,
     make_sharded_mc_inject_fn,
@@ -75,7 +77,6 @@ from sdr_tpu_torch.parallel.shard import (
 from sdr_tpu_torch.parallel.tp import make_tp_demod_fn
 
 SHARED_CARD = "ranks sharing one card, gloo through the host: not a scaling figure"
-NOT_PORTED = (("polar", "11f"),)
 
 
 # ---- the launcher ------------------------------------------------------------
@@ -239,6 +240,18 @@ def _coded_fast(case, mesh, dev):
                                                          device=dev, **kw))
 
 
+def _coded(case, mesh, dev):
+    """A coded link of ``link.coded`` (``code``: conv, ldpc or polar)
+    against the family's unsharded link."""
+    cfg, seed, code, rate = case["cfg"], case["seed"], case["code"], case.get("rate", "1/2")
+    kw = dict(ldpc_iters=case.get("iters", 25), polar_n=case.get("polar_n", 256),
+              polar_list=case.get("polar_list", 8))
+    fn = make_sharded_coded_fn(cfg, mesh, code=code, rate=rate, device=dev, **kw)
+    return _counts(case, mesh, dev, lambda: fn(seed),
+                   lambda: coded.make_family_fn(cfg, code, rate=rate, device=dev,
+                                                **coded_family_kw(code, **kw))(seed))
+
+
 def _mc(case, mesh, dev):
     fn = make_sharded_mc_fn(case["cfg"], mesh, iters=case.get("iters", 1), device=dev)
     return _counts(case, mesh, dev, lambda: fn(case["seed"]), None)
@@ -316,7 +329,8 @@ def _tp(case, mesh, dev):
     return res
 
 
-_KINDS = {"tp": _tp, "fast": _fast, "pp": _pp, "coded_fast": _coded_fast, "mc": _mc,
+_KINDS = {"tp": _tp, "fast": _fast, "pp": _pp, "coded_fast": _coded_fast, "coded": _coded,
+          "mc": _mc,
           "mc_inject": _mc_inject, "simulate": _simulate, "stream": _stream}
 
 
@@ -379,7 +393,10 @@ def dryrun_cases(world: int) -> list:
     exchanged between ranks and one inside each rank), 1024 × 64 at
     ``__graft_entry__.entry()``'s link (config 2, MULTIPATH PDP (1, .5,
     .25, .125), MMSE, 12 dB) and as the TDL (MULTIPATH_TIME, fd 0.03); the
-    MIMO link of ``mimo_cfg`` on 1 × world ranks."""
+    MIMO link of ``mimo_cfg`` on 1 × world ranks; the polar row of
+    ``__graft_entry__.py`` — the CA-SCL (256, 128) CRC-11 link, list 2, at
+    ``entry()``'s link — at 64·world channels × 4 symbols (16 codewords a
+    channel) on 1 × world ranks."""
     dp = (1, world)
     c5 = dict(n_fft=4096, cp=512, pdp=PDP5)
     seed = SEED
@@ -414,6 +431,10 @@ def dryrun_cases(world: int) -> list:
                       doppler_norm=0.03, equalizer=Equalizer.MMSE)),
         dict(name="MIMO 2x2 spatial-mux ML, preamble CSI (DFT)", kind="simulate", mesh=dp,
              seed=seed, cfg=mimo_cfg(world)),
+        dict(name="polar CA-SCL coded link (256, 128) CRC-11, L 2", kind="coded", code="polar",
+             polar_list=2, mesh=dp, seed=seed,
+             cfg=_cfg(ChannelModel.MULTIPATH, 12.0, 64 * world, 4, pdp=PDP4,
+                      equalizer=Equalizer.MMSE)),
     ]
     for row in rows:
         row["warm"] = True
@@ -472,15 +493,12 @@ def check_rows(cases: list, per_rank: list) -> list:
 
 def dryrun_multichip(world: int = 4, device="cuda", timeout: float = 600.0) -> list:
     """Run ``dryrun_cases(world)`` over ``world`` spawned ranks, print one
-    line per row (and one "not ported" line per row that waits for its
-    ROADMAP item, not counted as passing) and return the rows; every
-    row's wall time is from ranks that may share one card."""
+    line per row and return the rows; every row's wall time is from ranks
+    that may share one card."""
     resolve_device(device)
     cases = dryrun_cases(world)
     per_rank = spawn(world, run_cases, (str(device), cases), timeout=timeout)
     rows = check_rows(cases, per_rank)
     for row in rows:
         print(f"{row['line']} ({world} {SHARED_CARD})", flush=True)
-    for name, item in NOT_PORTED:
-        print(f"dryrun_multichip {name}: not ported (item {item})", flush=True)
     return rows

@@ -17,9 +17,9 @@ JAX. The stream builder shards time blocks over "time" and channels over
 clean block tail sent to the next rank along "time" (the JAX
 ``ppermute``), then one reduction of the counts over "time".
 
-``make_sharded_coded_fn`` needs the conv and polar families, which are
-not ported: it raises ``NotImplementedError`` naming ROADMAP queue 1,
-item 11f.
+``make_sharded_coded_fn`` runs ``link.coded``'s families (conv, LDPC,
+polar) the same way: each rank decodes its global channel ids
+device-locally, and the counts are the only communication.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import dataclasses
 import torch
 
 from sdr_tpu_torch.core.config import LinkConfig
-from sdr_tpu_torch.link import fast, fast_coded, pipeline
+from sdr_tpu_torch.link import coded, fast, fast_coded, pipeline
 from sdr_tpu_torch.link import stream as _stream
 from sdr_tpu_torch.link.mc import _wrap_i32, mc_simulate
 from sdr_tpu_torch.parallel import _comm
@@ -37,13 +37,6 @@ from sdr_tpu_torch.parallel.mesh import LinkMesh
 from sdr_tpu_torch.parallel.distributed import resolve_device
 
 _SHARD_STRIDE = 0x5BD1E995 & 0x7FFFFFFF  # the JAX module's per-shard seed step (shard.py:246)
-
-
-def make_sharded_coded_fn(cfg: LinkConfig, mesh: LinkMesh, *args, **kwargs):
-    raise NotImplementedError(
-        "make_sharded_coded_fn needs link.coded's conv and polar families, which are not "
-        "ported yet (ROADMAP queue 1, item 11f)"
-    )
 
 
 def _local_ids(cfg: LinkConfig, n_shards: int, shard: int, dev):
@@ -223,6 +216,37 @@ def make_sharded_coded_fast_fn(cfg: LinkConfig, mesh: LinkMesh, rate: str = "1/2
     def fn(seed: int):
         errors, counted = fast_coded.ldpc_fast_core(cfg, seed, ids, rate=rate, iters=ldpc_iters,
                                                     schedule=schedule, seam=seam)
+        return _gather_pair(errors, counted, mesh.world_group)
+
+    return fn
+
+
+def coded_family_kw(code: str, ldpc_iters: int = 25, polar_n: int = 256,
+                    polar_list: int = 8) -> dict:
+    """``make_sharded_coded_fn``'s knobs as ``link.coded``'s family keywords."""
+    kw = {"conv": {}, "ldpc": dict(iters=ldpc_iters),
+          "polar": dict(block_len=polar_n, list_size=polar_list)}
+    if code not in kw:
+        raise ValueError(f"code must be 'conv', 'ldpc' or 'polar', got {code!r}")
+    return kw[code]
+
+
+def make_sharded_coded_fn(cfg: LinkConfig, mesh: LinkMesh, code: str = "conv",
+                          rate: str = "1/2", ldpc_iters: int = 25, polar_n: int = 256,
+                          polar_list: int = 8, device="cuda"):
+    """DP for the coded links of ``link.coded`` (conv/Viterbi, LDPC/min-sum,
+    polar/CA-SCL) over the flattened mesh, as JAX: rank r decodes its block
+    of global channel ids entirely locally. Returns ``fn(seed) ->
+    (info_bit_errors, info_bits_counted)`` (n_channels,) on every rank,
+    equal to ``simulate_coded`` / ``simulate_ldpc`` / ``simulate_polar``
+    bit for bit."""
+    dev = resolve_device(device)
+    core = coded.family_core(cfg, code, rate, **coded_family_kw(code, ldpc_iters, polar_n,
+                                                                polar_list))
+    ids = _local_ids(cfg, mesh.size, mesh.rank, dev)
+
+    def fn(seed: int):
+        errors, counted = core(seed, ids)
         return _gather_pair(errors, counted, mesh.world_group)
 
     return fn

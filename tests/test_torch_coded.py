@@ -190,7 +190,7 @@ def test_unsupported_configs_raise(kw):
     if kw.pop("mimo", False):
         kw["mimo"] = MIMOConfig()
     cfg = _cfg(n_ch=4, **kw)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match=r"run in link\.coded"):
         fc.ldpc_fast_simulate(cfg, 0, device="cpu")
 
 

@@ -164,7 +164,9 @@ def test_package_imports_no_jax():
         "sdr_tpu_torch.parallel, sdr_tpu_torch.parallel.dryrun, sdr_tpu_torch.link.pipeline, "
         "sdr_tpu_torch.link.stream, sdr_tpu_torch.ops.pilots, sdr_tpu_torch.ops.pa, "
         "sdr_tpu_torch.ops.sync, sdr_tpu_torch.ops.mimo, sdr_tpu_torch.ops.channel, "
-        "sdr_tpu_torch.parallel.shard; "
+        "sdr_tpu_torch.parallel.shard, sdr_tpu_torch.ops.fec, sdr_tpu_torch.ops.polar; "
+        "from sdr_tpu_torch.link import simulate_coded, info_bits_per_channel; "
+        "from sdr_tpu_torch.ops import conv_encode, viterbi_decode; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m == 'sdr_tpu' or m.startswith('sdr_tpu.') for m in sys.modules)"
     )

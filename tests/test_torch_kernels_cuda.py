@@ -1599,3 +1599,85 @@ def test_dft_projections_on_card_stay_full_f32(dev):
     for a, b in ((got, want), (got_b, want_b)):
         err = float(np.abs(a.cpu().numpy() - b).max())
         assert err <= 1e-5 * float(np.abs(b).max()), err
+
+
+@pytest.mark.parametrize("family", ["conv", "ldpc", "polar"])
+def test_coded_links_on_card_match_the_cpu(dev, family):
+    """A coded link (item 11f) on the card against the CPU. The decoder on
+    the card decodes the card's LLRs as the CPU decodes them, bit for bit
+    (Viterbi and polar are plain torch with no reduction whose order could
+    differ; kernel H's decisions are its plain version's). The link's LLRs
+    (``coded.frame_llrs`` on the same frames) are within C's plane
+    tolerance of the CPU's, 1e-4 of the peak; so the counts may differ, per
+    channel, by at most the info bits of the codewords that hold a coded
+    bit whose CPU |LLR| < 1e-3 (C's sure threshold), and not elsewhere. The
+    card's call launches B off, E and C's LLR plane (and H for LDPC)."""
+    from sdr_tpu_torch.core.config import Equalizer
+    from sdr_tpu_torch.link import coded
+    from sdr_tpu_torch.ops.fec import depuncture, viterbi_decode
+    from sdr_tpu_torch.ops.ldpc import ldpc_decode
+
+    cfg = LinkConfig(modulation=Modulation.QAM16, ofdm=OFDMConfig(64, 16),
+                     channel=ChannelConfig(model=ChannelModel.MULTIPATH, ebno_db=5.0,
+                                           pdp=(1.0, 0.5, 0.25)),
+                     equalizer=Equalizer.MMSE, n_symbols=32, n_channels=64)
+    B, fb = cfg.n_channels, coded.frame_bits(cfg)
+    frames = torch.randint(0, 2, (B, fb), dtype=torch.int8,
+                           generator=torch.Generator().manual_seed(3))
+    ids = torch.arange(B, dtype=torch.int32)
+    _lib.reset_launches()
+    llr_d = coded.frame_llrs(cfg, 7, ids.to(dev), frames.to(dev))
+    torch.cuda.synchronize()
+    assert {k for k, v in _lib.LAUNCHES.items() if v} == {"tx_off", "fade_awgn_fir",
+                                                          "demod_llr"}
+    llr_c = coded.frame_llrs(cfg, 7, ids, frames)
+    peak = float(llr_c.abs().max())
+    assert float((llr_d.cpu() - llr_c).abs().max()) <= 1e-4 * peak
+    # The decoder alone on the card's LLRs (the first sent bits of a frame).
+    if family == "conv":
+        n_info = coded.info_bits_per_channel(cfg)
+        x = depuncture(llr_d[:, :2 * (n_info + 6)], "1/2", n_info + 6)
+        got = viterbi_decode(x, n_info)
+        want = viterbi_decode(x.cpu(), n_info)
+    elif family == "ldpc":
+        code = coded.ldpc_code_for("1/2")
+        x = llr_d[:, :code.n * (fb // code.n)].reshape(-1, code.n)
+        got, want = ldpc_decode(code, x, 25), ldpc_decode(code, x.cpu(), 25)
+    else:
+        code = coded.polar_code_for("1/2")
+        x = llr_d.reshape(B, -1, 256)
+        got = coded.polar_decode_passes(x, code, 8)
+        want = coded.polar_decode_passes(x.cpu(), code, 8)
+    assert torch.equal(got.cpu(), want)
+    # The link, keyed, on both devices.
+    core = coded.family_core(cfg, family)
+    _lib.reset_launches()
+    e_d, c_d = core(9, ids.to(dev))
+    torch.cuda.synchronize()
+    launched = {k for k, v in _lib.LAUNCHES.items() if v}
+    assert launched == {"tx_off", "fade_awgn_fir", "demod_llr"} | (
+        {"ldpc_minsum"} if family == "ldpc" else set()), launched
+    e_c, c_c = core(9, ids)
+    assert torch.equal(c_d.cpu(), c_c)
+    # The allowance: the info bits of each codeword with a coded bit whose
+    # CPU |LLR| < 1e-3 (the keyed link's sent bits, in codeword order).
+    from sdr_tpu_torch.core import prng
+    from sdr_tpu_torch.ops.fec import conv_encode
+    from sdr_tpu_torch.ops.ldpc import ldpc_encode
+    from sdr_tpu_torch.ops.polar import polar_encode_payload
+
+    if family == "conv":
+        n_cw, k = 1, coded.info_bits_per_channel(cfg)
+        cw = conv_encode(prng.info_bits(9, ids, 1, k)[:, 0])
+    elif family == "ldpc":
+        code = coded.ldpc_code_for("1/2")
+        n_cw, k = fb // code.n, code.k
+        cw = ldpc_encode(code, prng.info_bits(9, ids, n_cw, k)).reshape(B, -1)
+    else:
+        code = coded.polar_code_for("1/2")
+        n_cw, k = fb // 256, code.payload_len
+        cw = polar_encode_payload(prng.info_bits(9, ids, n_cw, k), code).reshape(B, -1)
+    weak = (coded._carry(cfg, 9, ids, cw, {}).abs() < 1e-3).reshape(B, n_cw, -1).any(dim=-1)
+    allowance = weak.sum(dim=1) * k
+    assert bool(((e_d.cpu() - e_c).abs() <= allowance).all())
+    assert int(e_c.sum()) > 0

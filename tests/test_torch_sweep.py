@@ -7,6 +7,7 @@ checkpoint without the ``/torch`` suffix is recomputed, and ``theory()``
 gives the JAX ``SweepResult.theory`` values.
 """
 
+import dataclasses
 import inspect
 import json
 
@@ -104,7 +105,12 @@ def test_unported_engines_and_options_raise(tmp_path):
     assert [p.ebno_db for p in pilots.points] == list(GRID[:2])
     assert all(p.batches == 1 and p.bits_counted > 0 for p in pilots.points)
     assert "/pilots4:ls" in pilots.config_summary
-    with pytest.raises(NotImplementedError, match="link.coded.*item 11f"):
+    coded = sweep.ebno_sweep(dataclasses.replace(_cfg(), n_symbols=16), GRID[:1],
+                             engine="pipeline", code="ldpc", target_errors=1, max_bits=1,
+                             device="cpu")
+    assert coded.config_summary.endswith("/ldpc-1/2/torch")
+    assert coded.points[0].batches == 1 and coded.points[0].bits_counted == 8 * 1536
+    with pytest.raises(ValueError, match="cannot fit an n=3072 codeword"):
         sweep.ebno_sweep(_cfg(), GRID, engine="pipeline", code="ldpc", device="cpu")
     with pytest.raises(ValueError, match="pipeline engine"):
         sweep.ebno_sweep(_cfg(), GRID, engine="mc", code="ldpc", device="cpu")
