@@ -239,6 +239,31 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    launches; the JAX tests' SC-FDMA and MIMO compositions and a conv and a
    polar sweep point at their own sizes; the window
    ``launches_coded_link``;
+   3x. the packet modem (``link.packet``, ``PacketConfig()``: 64 bytes,
+   QPSK, N 64, CP 16, comb spacing 8; B packets a campaign): B's comb on
+   the bodies, E's channel alone over the (B, 13, 80) burst plane and its
+   noise over the (B, 1, 1077) stream row, C's plane on the tracked comb
+   estimate and H on the LDPC packets' LLRs against their plain versions;
+   then ``simulate_packets`` — conv 1/2, 2/3 and 3/4 under MULTIPATH (1,
+   .5) at 16 dB with CFO 1.3 and delay 37 (crc_ok mean ≥ 0.75), conv at
+   −6 dB AWGN (byte errors), LDPC and polar at 10 dB with CFO 1.3 (PER ≤
+   1 %, and the JAX test's 5 packets) — each with the no-false-accept
+   gate (no packet passes the CRC with a byte error; false alarms, a CRC
+   bit wrong under a right payload, counted), ms
+   (median of 3 warm calls), packets/s, the decoder alone and its share,
+   peak memory and launches; ``receive_stream`` on 1024 captures of three
+   16-byte bursts (each found within cp_len, the extra rounds
+   CRC-rejected); the card's decisions against the CPU's on 64 packets of
+   each family; the window ``launches_packet``;
+   3y. link adaptation (``link.adapt``): ``calibrate`` over
+   ``DEFAULT_LADDER`` and the default grid at config 2's width (N 256, CP
+   64, AWGN; 1024 channels, 8 symbols: a depth cut), target 1e-3, with
+   the JAX tests' gates (every rung at or below the target, thresholds
+   monotone in efficiency per family, QAM64 < QAM256 < QAM1024 at 3/4,
+   QPSK 1/2 LDPC ≤ conv and polar ≤ conv + 1 dB), its wall time, links and
+   seconds by family; ``simulate_adaptive`` over a seeded shadowed profile
+   (1024 channels, N(14, 6) dB) under 5e-3 info BER; the window
+   ``launches_adapt``;
    5. the parallel layer: ``parallel.dryrun.dryrun_multichip`` on 4
    gloo ranks sharing the one card (spawned; the library built above is
    only loaded there) — TP at BASELINE config 5's full width (256 × 64,
@@ -279,15 +304,19 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    C's post-FFT mode, ``launches_mimo``; and in phase 3v around each
    time-varying or impaired MIMO link's call, for the same kernels,
    ``launches_mimo_time``; and in phase 3k around each coded link's call,
-   for B off, E, C's plane and H, ``launches_coded_link``)
+   for B off, E, C's plane and H, ``launches_coded_link``; in phase 3x
+   around each packet campaign, capture and card-side check, for B's
+   comb, E (both modes), C's plane and H, ``launches_packet``; in phase 3y
+   around the calibration and the adaptive run, for B off, E, C's plane
+   and H, ``launches_adapt``)
    and prints one JSON line per kernel set, with each kernel's bound (bytes over 3.35 TB/s or f32
    operations over 67 TFLOP/s, the H100 SXM data sheet) and its launches
    in each window (``launches_fast``, ``launches_mc``, ``launches_coded``,
    ``launches_terminals``, ``launches_wide`` — the sum of 3i's N
    windows; ``launches_bf16``, ``launches_parallel``, ``launches_nccl``,
    ``launches_pipeline``, ``launches_pilots``, ``launches_impairments``,
-   ``launches_mimo``, ``launches_mimo_time``, ``launches_coded_link``;
-   ``launches`` is the
+   ``launches_mimo``, ``launches_mimo_time``, ``launches_coded_link``,
+   ``launches_packet``, ``launches_adapt``; ``launches`` is the
    window of its own path, the one checked; the entry ``fade_awgn@acquired_stream`` carries
    phase 3r's check of E at the stream's shape and the row's launches in the acquired links' window;
    the entries ``fade_awgn@mimo_pair_plane``, ``fade_awgn_fir@mimo_pair_plane``,
@@ -298,6 +327,8 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    ``fade_awgn@mimo_time_stream_noise`` and ``llr_chain@mimo_time_h_per_symbol``
    phase 3v's; the entries ``tx_off@coded_link``, ``fade_awgn@coded_link``,
    ``demod_llr@coded_link`` and ``ldpc_minsum@coded_link`` phase 3k's;
+   ``tx_comb@packet``, ``fade_awgn@packet``, ``fade_awgn_fir@packet``,
+   ``demod_llr@packet`` and ``ldpc_minsum@packet`` phase 3x's;
    the entries named ``<counter>@N1024``, ``@N2048`` and ``@N4096`` carry
    phase 2w's numbers, the launches in that N's window and the TPU
    four-step, post-FFT or channels-last kernel they replace there),
@@ -4132,6 +4163,364 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
           f"{max(r['peak_gib'] for r in k_rows):.2f} GiB allocated); window "
           f"{ {k: v for k, v in launches_coded_link.items() if v} }")
 
+    # ---- phase 3x: the packet modem (item 11g), counters zeroed -----------------
+    # The modem's own numerology (``PacketConfig``'s defaults: 64 bytes, QPSK,
+    # N 64, CP 16, comb spacing 8), B packets a campaign. First the kernels a
+    # campaign runs, at its shapes, against their plain versions (outside the
+    # window): B's comb on the bodies, E's channel alone over the
+    # (B, 3 + S, N+cp) burst plane (static taps), E's keyed noise over the
+    # (B, 1, T) stream row, C's LLR plane on the tracked comb estimate, H on
+    # the LDPC campaign's LLRs. Then each campaign inside ``in_packet()``:
+    # the first call gated (the JAX ``tests/test_packet.py`` forms), then ms
+    # as the median of 3 warm calls (CUDA events), packets/s, and the
+    # decoder alone on the campaign's LLRs (its share); the JAX block-code
+    # test's 5 packets; ``receive_stream`` on 1024 captures of three bursts;
+    # the card's decisions against the CPU's on 64 packets.
+    import numpy as np
+
+    from sdr_tpu_torch.link import packet as pk
+
+    t3x = time.perf_counter()
+    launches_packet = dict.fromkeys(_lib.LAUNCHES, 0)
+    packet_path = ("tx_comb", "fade_awgn", "fade_awgn_fir", "demod_llr", "ldpc_minsum")
+    NP = B
+    pc_x = pk.PacketConfig()
+    S_x, L_x, N_x, CP_x = pc_x.n_symbols, pc_x.ofdm.symbol_len, pc_x.ofdm.n_fft, pc_x.ofdm.cp_len
+    ids_x = torch.arange(NP, dtype=torch.int32, device=dev)
+    mp16 = ChannelConfig(model=ChannelModel.MULTIPATH, ebno_db=16.0, pdp=(1.0, 0.5),
+                         cfo_subcarriers=1.3, timing_offset=37)
+
+    @contextlib.contextmanager
+    def in_packet():
+        _lib.reset_launches()
+        yield
+        for k, v in _lib.LAUNCHES.items():
+            launches_packet[k] += v
+
+    # The kernels at the packet shapes.
+    cfg_x = pc_x._link_cfg()
+    bits_x = torch.randint(0, 2, (NP, S_x, cfg_x.bits_per_ofdm_symbol), dtype=torch.int8,
+                           device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    idx_x = pipeline._grid_of(cfg_x, pipeline._bits_to_ints(bits_x, 2).to(ka.out_dtype(2)))
+    del bits_x
+    got = kb.tx_chain(idx_x, CP_x, Modulation.QPSK, pilot_spacing=8)
+    comb_err = plane_err(got, kb.tx_channel_plain(idx_x, CP_x, Modulation.QPSK, pilot_spacing=8))
+    _check(comb_err <= 1e-5 * plane_peak(got), f"3x B comb: max abs diff {comb_err:g}")
+    del got
+    ms, pms = compare_times(lambda: kb.tx_chain(idx_x, CP_x, Modulation.QPSK, pilot_spacing=8),
+                            lambda: kb.tx_channel_plain(idx_x, CP_x, Modulation.QPSK,
+                                                        pilot_spacing=8), reps=1, kernel_reps=10)
+    report["tx_comb@packet"] = dict(
+        b_timed("comb, channel off, a packet's body", "tx_comb", N_x, CP_x, NP, S_x, 1, ms, pms,
+                0, 0, False), max_abs_err=comb_err)
+    b_rows[-1]["window"] = launches_packet
+    print(f"phase 3x B comb on the packets' bodies ({NP}x{S_x}x{L_x}): max abs diff "
+          f"{comb_err:.3g}; kernel {ms:.4f} ms, plain {pms:.3f} ms; "
+          f"{of_bound(report['tx_comb@packet'])} on {card}")
+    del idx_x
+    burst_x = pk.encode_packet(pc_x, pk.draw_payload(pc_x, seed, ids_x))
+    n_rows_x = burst_x.shape[1] // L_x
+    plane_x = tuple(torch.cat([t, torch.zeros((NP, 1, L_x), device=dev)], dim=1).contiguous()
+                    for t in fast._planar(burst_x.reshape(NP, n_rows_x, L_x)))
+    kw_x = pk._fading(pc_x, mp16, seed, ids_x, None, n_rows_x)
+    want = ke.fade_awgn_plain(*plane_x, **kw_x)
+    err, peak = plane_err(ke.fade_awgn(*plane_x, **kw_x), want), plane_peak(want)
+    del want
+    _check(err <= 1e-5 * peak, f"3x E channel only on the burst plane: max abs diff {err:g}")
+    ms, pms = compare_times(lambda: ke.fade_awgn(*plane_x, **kw_x),
+                            lambda: ke.fade_awgn_plain(*plane_x, **kw_x), reps=1, kernel_reps=10)
+    n_pl = plane_x[0].numel()
+    rep = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+               **bound(16 * n_pl + 8 * kw_x["taps_r"].numel(), 8 * 2 * n_pl))
+    report["fade_awgn_fir@packet"] = rep
+    e_rows.append(dict(rep, mode="channel only, the packets' burst plane, static taps (1, .5)",
+                       counter="fade_awgn_fir", shape=f"{NP}x{n_rows_x + 1}x{L_x}",
+                       n_fft=N_x, window=launches_packet))
+    print(f"phase 3x E channel only on the burst plane ({NP}x{n_rows_x + 1}x{L_x}, static taps "
+          f"(1, .5)): max abs diff {err:.3g} (peak {peak:.3g}); kernel {ms:.4f} ms, plain "
+          f"{pms:.3f} ms; {of_bound(rep)} on {card}")
+    del plane_x, kw_x
+    stream_x, nv_x = pk.transmit_over_channel(pc_x, mp16, seed, burst_x, ids_x)
+    T_x = stream_x.shape[1]
+    row_x = fast._planar(stream_x[:, None, :])
+    rep = check_modes(f"E noise only on the packets' stream row ({NP}x1x{T_x})",
+                      lambda **kw: ke.fade_awgn(*row_x, noise_var=nv_x / N_x, **kw),
+                      lambda **kw: ke.fade_awgn_plain(*row_x, noise_var=nv_x / N_x, **kw),
+                      (NP, 1, T_x), kernel_reps=10)
+    rep.update(bound(16 * NP * T_x + 4 * NP, 4 * NP * T_x, NP * T_x * PHILOX_IMUL))
+    report["fade_awgn@packet"] = rep
+    e_rows.append(dict(rep, mode=f"noise only, the packets' stream row 1 x {T_x}",
+                       counter="fade_awgn", shape=f"{NP}x1x{T_x}", n_fft=N_x,
+                       window=launches_packet))
+    del row_x
+    _, planes_x = pk._acquire(pc_x, stream_x)
+    _, h_x = pipeline._estimate(cfg_x, planes_x, track_phase=True)
+    hr_x, hi_x = fast._planar(h_x.to(torch.complex64))
+    c_err, c_peak = llr_check(
+        "3x C llr plane", kc.demod_llr(*planes_x, hr_x, hi_x, CP_x, Modulation.QPSK, nv_x),
+        kc.demod_chain(*planes_x, hr_x, hi_x, CP_x, Modulation.QPSK, nv_x))
+    ms, pms = compare_times(
+        lambda: kc.demod_llr(*planes_x, hr_x, hi_x, CP_x, Modulation.QPSK, nv_x),
+        lambda: kc.demod_chain(*planes_x, hr_x, hi_x, CP_x, Modulation.QPSK, nv_x), reps=1,
+        kernel_reps=10)
+    rows_x = NP * S_x
+    report["demod_llr@packet"] = dict(
+        max_abs_err=c_err, ms=ms, plain_ms=pms,
+        **bound(8 * rows_x * N_x + 8 * rows_x * N_x + 4 * rows_x * N_x * 2,
+                rows_x * (fft_flops(N_x) + N_x * tail_flops(Modulation.QPSK))))
+    print(f"phase 3x C llr plane on the tracked comb estimate ({NP}x{S_x}x{N_x * 2} f32, h per "
+          f"symbol): max abs diff {c_err:.3g} (peak {c_peak:.3g}, allowed 1e-4 of it); kernel "
+          f"{ms:.4f} ms, plain {pms:.3f} ms; {of_bound(report['demod_llr@packet'])} on {card}")
+    del planes_x, h_x, hr_x, hi_x, stream_x, burst_x
+    pc_l = pk.PacketConfig(fec="ldpc")
+    code_l = pc_l._block_code()
+    stream_l, nv_l = pk.transmit_over_channel(
+        pc_l, mp16, seed, pk.encode_packet(pc_l, pk.draw_payload(pc_l, seed, ids_x)), ids_x)
+    llr_l = pk.sent_llrs(pc_l, pk._acquire(pc_l, stream_l)[1], nv_l).reshape(-1, code_l.n)
+    del stream_l
+    want = kh.ldpc_decode_plain(code_l, llr_l, 25, 0.5, "flooding")
+    n_diff = int((kh.ldpc_decode(code_l, llr_l, 25, 0.5, "flooding") != want).sum())
+    _check(n_diff == 0, f"3x H on the LDPC packets' LLRs: {n_diff} hard bits differ from plain")
+    del want
+    pms = timed(lambda: kh.ldpc_decode_plain(code_l, llr_l, 25, 0.5, "flooding"), 1)
+    ms = timed(lambda: kh.ldpc_decode(code_l, llr_l, 25, 0.5, "flooding"), 3)
+    report["ldpc_minsum@packet"] = dict(max_abs_err=float(n_diff), ms=ms, plain_ms=pms,
+                                        **h_bound(code_l, llr_l.shape[0], 25))
+    print(f"phase 3x H flooding 25 on the LDPC packets' LLRs ({llr_l.shape[0]} codewords): hard "
+          f"bits identical to plain; kernel {ms:.3f} ms (mean of 3 calls), plain {pms:.3f} ms; "
+          f"{of_bound(report['ldpc_minsum@packet'])} on {card}")
+    del llr_l
+    torch.cuda.empty_cache()
+
+    def packet_parts(pc, ch, seed_x):
+        """A campaign's payloads, the decoder's input LLRs and the decoded
+        info words (payload and CRC bits), through the pieces
+        ``simulate_packets`` runs, on the same keys."""
+        pay = pk.draw_payload(pc, seed_x, ids_x)
+        stream, nv = pk.transmit_over_channel(pc, ch, seed_x, pk.encode_packet(pc, pay), ids_x)
+        llr = pk.sent_llrs(pc, pk._acquire(pc, stream)[1], nv)
+        return pay, llr, pk._fec_decode(pc, llr)
+
+    x_rows = []
+
+    def packet_run(label, pc, ch, seed_x):
+        """(byte_errors, crc_ok) of a campaign's first call, inside the
+        window, its no-false-accept gate; then its ms (median of 3 warm calls),
+        packets/s, the decoder alone on its LLRs (median of 3) and its
+        share, and the launches a call printed.
+
+        The CRC gate is the no-false-accept gate: no packet passes the CRC
+        with a byte error (crc_ok ⇒ byte_errors == 0). A CRC failure on a
+        packet whose payload bytes are right (a false alarm: a CRC bit
+        decoded wrong) is counted, not refused: at conv 3/4 the JAX decoder
+        makes the same ones on the same LLRs
+        (``tests/test_torch_packet.py::test_crc_false_alarms_are_the_jax_decoders``).
+        The pieces reproduce the campaign's byte errors and crc_ok exactly."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with in_packet():
+            errs, ok = pk.simulate_packets(pc, ch, seed_x, NP, device=dev)
+            torch.cuda.synchronize()
+            per = {k: v for k, v in _lib.LAUNCHES.items() if v}
+            ms = median3(lambda: pk.simulate_packets(pc, ch, seed_x, NP, device=dev))
+            pay, llr, dec = packet_parts(pc, ch, seed_x)
+            dec_ms = median3(lambda: pk._fec_decode(pc, llr))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rx, ok_p = pk._check_crc(pc, dec)
+        _check(torch.equal(ok_p, ok) and torch.equal((rx != pay).sum(dim=1, dtype=torch.int32),
+                                                     errs), f"3x {label}: the pieces differ")
+        silent = int((ok & (errs > 0)).sum())
+        alarms = int((~ok & (errs == 0)).sum())
+        _check(silent == 0, f"3x {label}: {silent} CRC false accepts")
+        per_s = NP / (ms / 1e3)
+        decoder = {"conv": "Viterbi", "ldpc": "kernel H", "polar": "CA-SCL-8 scan"}[pc.fec]
+        print(f"phase 3x {label}: PER {float((errs > 0).float().mean()):.6g}, crc_ok mean "
+              f"{float(ok.float().mean()):.6g}, no false accept ({alarms} false alarms: the "
+              f"payload right, a CRC bit wrong); "
+              f"{ms:.3f} ms a campaign of {NP} (median of 3 warm calls, CUDA events), "
+              f"{per_s:.6g} packets/s; the {decoder} decoder alone {dec_ms:.3f} ms, share "
+              f"{dec_ms / ms:.4f}; peak {peak:.2f} GiB allocated; launches a call {per} on {card}")
+        x_rows.append(dict(label=label, ms=ms, packets_per_s=per_s, decoder_ms=dec_ms,
+                           decoder_share=dec_ms / ms, false_alarms=alarms, launches=per))
+        return errs, ok
+
+    for rate in ("1/2", "2/3", "3/4"):
+        errs, ok = packet_run(f"conv {rate} MULTIPATH (1, .5) 16 dB CFO 1.3 delay 37",
+                              dataclasses.replace(pc_x, rate=rate), mp16, seed)
+        _check(float(ok.float().mean()) >= 0.75, f"3x conv {rate}: crc_ok mean < 0.75")
+        print(f"phase 3x gate met: conv {rate} crc_ok mean {float(ok.float().mean()):.6g} >= "
+              f"0.75, no false accept (tests/test_packet.py:76-96)")
+    errs, ok = packet_run("conv 1/2 AWGN -6 dB", pc_x,
+                          ChannelConfig(model=ChannelModel.AWGN, ebno_db=-6.0), seed + 1)
+    _check(int(errs.sum()) > 0, "3x low SNR: no byte errors")
+    print(f"phase 3x gate met: AWGN -6 dB, {int(errs.sum())} byte errors > 0, no false "
+          f"accept (tests/test_packet.py:99-104)")
+    awgn10 = ChannelConfig(model=ChannelModel.AWGN, ebno_db=10.0, cfo_subcarriers=1.3,
+                           timing_offset=17)
+    for fec in ("ldpc", "polar"):
+        pc_b = pk.PacketConfig(fec=fec)
+        errs, ok = packet_run(f"{fec} 1/2 AWGN 10 dB CFO 1.3 delay 17", pc_b, awgn10, seed + 2)
+        per = float((errs > 0).float().mean())
+        _check(per <= 0.01, f"3x {fec}: PER {per:g} > 0.01")
+        rng_b = np.random.default_rng(3)
+        n_ok = 0
+        with in_packet():
+            for t in range(5):
+                pay = torch.as_tensor(rng_b.integers(0, 256, (1, 64)).astype(np.uint8), device=dev)
+                ch_t = dataclasses.replace(awgn10, timing_offset=17 + t)
+                e_t, ok_t = pk.simulate_packets(pc_b, ch_t, 50 + t, 1, device=dev, payload=pay)
+                n_ok += int(bool(ok_t[0]) and int(e_t[0]) == 0)
+        _check(n_ok == 5, f"3x {fec}: {n_ok} of the JAX test's 5 packets decode")
+        print(f"phase 3x gate met: {fec} PER {per:.6g} <= 0.01 with no false accept, and the "
+              f"JAX test's 5 packets all decode (tests/test_packet.py:174-206)")
+
+    # receive_stream: 1024 captures of 4096 samples, three 16-byte bursts.
+    pc_s = pk.PacketConfig(payload_bytes=16)
+    n_cap, T_s, max_b = 1024, 4096, 5
+    positions, cfos = (180, 1500, 2890), (0.4, -0.8, 1.2)
+    cap_ids = torch.arange(3 * n_cap, dtype=torch.int32, device=dev)
+    sent_s = pk.draw_payload(pc_s, seed + 3, cap_ids).reshape(n_cap, 3, -1)
+    bursts_s = pk.encode_packet(pc_s, sent_s.reshape(3 * n_cap, -1)).reshape(n_cap, 3, -1)
+    clean_s = torch.zeros((n_cap, T_s), dtype=torch.complex64, device=dev)
+    for j, (pos, cfo) in enumerate(zip(positions, cfos)):
+        clean_s[:, pos:pos + bursts_s.shape[-1]] = sync.apply_cfo(bursts_s[:, j], cfo, 64)
+    nv_s = pk.noise_var(pc_s, ChannelConfig(ebno_db=20.0))
+    with in_packet():
+        re_s, im_s = ke.fade_awgn(*fast._planar(clean_s[:, None, :]), noise_var=nv_s / 64,
+                                  seed=seed, ch_ids=cap_ids[:n_cap])
+        stream_s = torch.complex(re_s[:, 0], im_s[:, 0])
+        del re_s, im_s
+        rx_s, oks_s, starts_s = pk.receive_stream(pc_s, stream_s, nv_s, max_b)
+        ms_s = median3(lambda: pk.receive_stream(pc_s, stream_s, nv_s, max_b))
+    found = []
+    for j, pos in enumerate(positions):
+        hit = oks_s & ((starts_s - pos).abs() <= pc_s.ofdm.cp_len) & (
+            rx_s == sent_s[:, j:j + 1]).all(dim=-1)
+        found.append(hit.any(dim=1))
+    all_found = torch.stack(found, 1).all(dim=1)
+    n_ok_s = oks_s.sum(dim=1)
+    _check(bool(all_found.all()) and bool((n_ok_s == 3).all()),
+           f"3x receive_stream: {int(all_found.sum())} of {n_cap} captures found all three "
+           f"bursts; captures with a count of CRC-passing rounds other than 3: "
+           f"{int((n_ok_s != 3).sum())}")
+    print(f"phase 3x receive_stream ({n_cap} captures of {T_s} samples, 3 bursts of 16 bytes at "
+          f"{positions} with CFOs {cfos}, 20 dB, max_bursts {max_b}): every capture found all "
+          f"three within cp_len with their payloads, its 2 extra rounds CRC-rejected; "
+          f"{ms_s:.3f} ms a call (median of 3 warm calls), "
+          f"{3 * n_cap / (ms_s / 1e3):.6g} bursts/s on {card}")
+    del stream_s, clean_s, bursts_s
+
+    # The card's decisions against the CPU's on 64 packets of each family.
+    n_c = 64
+    ids_c = torch.arange(n_c, dtype=torch.int32)
+    for label, pc_c, ch_c in (("conv 1/2", pc_x, mp16), ("ldpc", pk.PacketConfig(fec="ldpc"),
+                                                          awgn10),
+                              ("polar", pk.PacketConfig(fec="polar"), awgn10)):
+        with in_packet():
+            e_d, ok_d = pk.simulate_packets(pc_c, ch_c, seed, n_c, device=dev)
+        t_c = time.perf_counter()
+        e_c, ok_c = pk.simulate_packets(pc_c, ch_c, seed, n_c, device="cpu")
+        t_c = time.perf_counter() - t_c
+        burst_c = pk.encode_packet(pc_c, pk.draw_payload(pc_c, seed, ids_c))
+        s_c, nv_c = pk.transmit_over_channel(pc_c, ch_c, seed, burst_c, ids_c)
+        llr_c = pk.sent_llrs(pc_c, pk._acquire(pc_c, s_c)[1], nv_c)
+        weak = (llr_c.abs() < 1e-3).any(dim=1)
+        same = (e_d.cpu() == e_c) & (ok_d.cpu() == ok_c)
+        _check(bool((same | weak).all()), f"3x {label}: the card's decisions differ from the "
+                                          f"CPU's beyond the packets with a |LLR| < 1e-3 bit")
+        print(f"phase 3x {label}: decisions on the card equal the CPU's on {int(same.sum())} of "
+              f"{n_c} packets ({int(weak.sum())} hold a coded bit with CPU |LLR| < 1e-3, where "
+              f"they may differ); the CPU run {t_c:.1f} s")
+    for name in packet_path:
+        _check(launches_packet[name] > 0, f"phase 3x: kernel {name} was not launched")
+    print(f"phase 3x: {len(x_rows)} campaigns of {NP} packets, the captures and the CPU checks in "
+          f"{time.perf_counter() - t3x:.1f} s; window "
+          f"{ {k: v for k, v in launches_packet.items() if v} }")
+
+    # ---- phase 3y: link adaptation (item 11g), counters zeroed ------------------
+    # ``adapt.calibrate`` at config 2's width (N 256, CP 64, AWGN, MMSE) over
+    # ``DEFAULT_LADDER`` and the default grid (-2 to 36 dB, step 2), target
+    # 1e-3 (the JAX tests'), 8 symbols (a depth cut: the torch Viterbi's
+    # time grows with the frame, not with the channels) and 1024 channels,
+    # one call a family's rungs (rungs calibrate independently), each timed
+    # on the wall clock (it ends in a host copy) and counted by B's launches
+    # (one a coded link: 1024 channels are one pass); the JAX tests' gates;
+    # then ``simulate_adaptive`` over a seeded shadowed profile (1024
+    # channels, mean 14 dB, std 6 dB).
+    from sdr_tpu_torch.core.config import Equalizer
+    from sdr_tpu_torch.link import adapt as adapt_k
+
+    t3y = time.perf_counter()
+    launches_adapt = dict.fromkeys(_lib.LAUNCHES, 0)
+    base_y = LinkConfig(modulation=Modulation.QAM16, ofdm=OFDMConfig(n_fft=256, cp_len=64),
+                        channel=ChannelConfig(model=ChannelModel.AWGN, ebno_db=10.0),
+                        equalizer=Equalizer.MMSE, n_symbols=8, n_channels=1024)
+    _check(base_y.n_channels <= pipeline.CHUNK, "3y: a coded link runs more than one pass")
+    assert all(len(r) == 3 for r in adapt_k.DEFAULT_LADDER)  # (mod, family, rate) rungs
+    cal_s, cal_n, table_y = {}, {}, []
+    for fam in coded_k.CODE_FAMILIES:
+        _lib.reset_launches()
+        t = time.perf_counter()
+        table_y += adapt_k.calibrate(base_y, seed, 1e-3, None,
+                                     [r for r in adapt_k.DEFAULT_LADDER if r[1] == fam],
+                                     device=dev)
+        cal_s[fam] = time.perf_counter() - t
+        cal_n[fam] = _lib.LAUNCHES["tx_off"]
+        for k, v in _lib.LAUNCHES.items():
+            launches_adapt[k] += v
+    order = [(m, f, r) for m, f, r in adapt_k.DEFAULT_LADDER]
+    table_y.sort(key=lambda t: order.index((t.modulation, t.family, t.rate)))
+    t_cal = sum(cal_s.values())
+    profile = np.random.default_rng(seed).normal(14.0, 6.0, 1024)
+    _lib.reset_launches()
+    t_ad = time.perf_counter()
+    res_y = adapt_k.simulate_adaptive(base_y, seed + 1, profile, table_y, device=dev)
+    t_ad = time.perf_counter() - t_ad
+    n_ad = _lib.LAUNCHES["tx_off"]
+    for k, v in _lib.LAUNCHES.items():
+        launches_adapt[k] += v
+    for t in table_y:
+        print(f"phase 3y rung {t.modulation.value} {t.family} {t.rate}: threshold {t.esno_db:g} dB "
+              f"Es/N0, efficiency {t.efficiency:.6g}, BER there {t.measured_ber:.6g}")
+    _check(all(t.measured_ber <= 1e-3 for t in table_y), "3y: a rung's BER exceeds the target")
+    for fam in coded_k.CODE_FAMILIES:
+        rungs = sorted((t for t in table_y if t.family == fam), key=lambda t: t.efficiency)
+        for a, b in zip(rungs, rungs[1:]):
+            _check(b.efficiency == a.efficiency or b.esno_db >= a.esno_db,
+                   f"3y: {fam} thresholds not monotone in efficiency: {a} then {b}")
+    key = {(t.modulation, t.family, t.rate): t for t in table_y}
+    dense = [key.get(k) for k in ((Modulation.QAM64, "conv", "3/4"),
+                                  (Modulation.QAM256, "ldpc", "3/4"),
+                                  (Modulation.QAM1024, "ldpc", "3/4"))]
+    _check(None not in dense, "3y: a dense 3/4 rung did not calibrate")
+    _check(dense[0].esno_db < dense[1].esno_db < dense[2].esno_db and
+           dense[0].efficiency < dense[1].efficiency < dense[2].efficiency,
+           "3y: QAM64 < QAM256 < QAM1024 fails")
+    q = {f: key.get((Modulation.QPSK, f, "1/2")) for f in coded_k.CODE_FAMILIES}
+    _check(None not in q.values(), "3y: a QPSK 1/2 rung did not calibrate")
+    _check(q["ldpc"].esno_db <= q["conv"].esno_db and q["polar"].esno_db <= q["conv"].esno_db + 1,
+           f"3y: QPSK 1/2 LDPC {q['ldpc'].esno_db} / polar {q['polar'].esno_db} vs conv "
+           f"{q['conv'].esno_db}")
+    ber_y = float(res_y["bit_errors"].sum()) / max(float(res_y["info_bits"].sum()), 1.0)
+    _check(ber_y < 5e-3, f"3y: the adaptive link's info BER {ber_y:g} >= 5e-3")
+    for name in ("tx_off", "fade_awgn", "demod_llr", "ldpc_minsum"):
+        _check(launches_adapt[name] > 0, f"phase 3y: kernel {name} was not launched")
+    print(f"phase 3y gates met: every rung at or below 1e-3, thresholds monotone in efficiency "
+          f"per family, QAM64 < QAM256 < QAM1024 ({[t.esno_db for t in dense]} dB, efficiencies "
+          f"{[round(t.efficiency, 4) for t in dense]}), QPSK 1/2 LDPC {q['ldpc'].esno_db:g} <= conv "
+          f"{q['conv'].esno_db:g}, polar {q['polar'].esno_db:g} <= conv + 1 "
+          f"(tests/test_adapt.py:68-77, 149-156, 188-220)")
+    print(f"phase 3y calibrate ({base_y.n_channels} channels x {base_y.n_symbols} symbols, N 256, "
+          f"{len(adapt_k.DEFAULT_LADDER)} rungs, {len(table_y)} calibrated): {t_cal:.1f} s wall, "
+          f"{sum(cal_n.values())} coded links ({cal_n}); seconds by family "
+          f"{ {k: round(v, 2) for k, v in cal_s.items()} } on {card}")
+    print(f"phase 3y simulate_adaptive (1024 channels, shadowed N(14, 6) dB Es/N0): info BER "
+          f"{ber_y:.6g} < 5e-3, achieved efficiency {res_y['achieved_efficiency']:.6g}, silent "
+          f"{res_y['silent_channels']}, {n_ad} coded links in "
+          f"{t_ad:.1f} s; phase 3y {time.perf_counter() - t3y:.1f} s; window "
+          f"{ {k: v for k, v in launches_adapt.items() if v} }")
+
     # ---- phase 5: the parallel layer, 4 gloo ranks sharing the one card -----
     # ``dryrun_multichip`` spawns the ranks (the kernel library was built in
     # phase 1; the ranks only load it), runs every row at full width, holds
@@ -4274,7 +4663,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     launches_impairments=launches_impairments[name],
                     launches_mimo=launches_mimo[name],
                     launches_mimo_time=launches_mimo_time[name],
-                    launches_coded_link=launches_coded_link[name])
+                    launches_coded_link=launches_coded_link[name],
+                    launches_packet=launches_packet[name], launches_adapt=launches_adapt[name])
 
     # The form of C, D and F each entry ran (csrc/demod_rows.cuh's plans,
     # demod.cu's tile, csrc/demod_cl.cuh's plans).
@@ -4364,6 +4754,18 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         for key in ("tx_off@coded_link", "fade_awgn@coded_link", "demod_llr@coded_link",
                     "ldpc_minsum@coded_link")
     ]
+    # The packet modem's shapes (phase 3x, 8192 packets of N 64 + CP 16):
+    # B's comb on the bodies, E's channel alone over the burst plane and its
+    # noise over the stream row, C's plane on the tracked comb estimate, H on
+    # the LDPC packets' LLRs; each with its counter's launches in 3x's window.
+    kernels += [
+        dict(name=key, route="cuda", source=sources[key.split("@")[0]][0],
+             replaces=sources[key.split("@")[0]][1], **cl_form(key.split("@")[0], 64),
+             launches=launches_packet[key.split("@")[0]], **windows_of(key.split("@")[0]),
+             **{"library_ms": None, **report[key]})
+        for key in ("tx_comb@packet", "fade_awgn@packet", "fade_awgn_fir@packet",
+                    "demod_llr@packet", "ldpc_minsum@packet")
+    ]
     # Kernel C's modes: form, time, share of the bound, launches in the
     # path's window and launches × (ms − bound ms).
     for k in kernels:
@@ -4374,10 +4776,11 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                   f"{k['launches'] * (k['ms'] - k['bound_ms']):.2f}")
     # Kernel B's timed modes: form, time, share of the bound and the
     # launches of its counter in the window of its N (phases 3-4 at N 256,
-    # 3i's window at N 1024-4096).
+    # 3i's window at N 1024-4096) or of its path (3x's comb at N 64).
     for r in b_rows:
         n = r["n_fft"]
-        n_launch = launches[r["counter"]] if n == N else launches_at[n][r["counter"]]
+        n_launch = r["window"][r["counter"]] if "window" in r else (
+            launches[r["counter"]] if n == N else launches_at[n][r["counter"]])
         print(f"phase 6 B {r['mode']} N {n} ({r['shape']}; {b_form(n)}): {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"share {r['bound_ms'] / r['ms']:.4f}, launches of {r['counter']} {n_launch}, "
@@ -4387,7 +4790,7 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     # 3-4: the 24-tap link; the gains and noise in 3d-3f: SC-FDMA).
     for r in e_rows:
         n_launch = r.get("window", own)[r["counter"]]
-        print(f"phase 6 E {r['mode']} N {N} ({r.get('shape', f'{B}x{S}x{N + CP}')}; "
+        print(f"phase 6 E {r['mode']} N {r.get('n_fft', N)} ({r.get('shape', f'{B}x{S}x{N + CP}')}; "
               f"{e_form(r['counter'])}): "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), share {r['bound_ms'] / r['ms']:.4f}, launches of "

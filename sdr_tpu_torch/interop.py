@@ -15,7 +15,11 @@
 - ``mesh_shape_from_reference``: a JAX ``Mesh`` over the ("time",
   "channel") axes → the port's (n_time, n_channel) rank layout;
 - ``tp_inputs``: the numpy inputs of the tensor-parallel demod that both
-  packages are fed (planar samples and the natural-order channel plane).
+  packages are fed (planar samples and the natural-order channel plane);
+- ``packet_config_from_reference``: a ``sdr_tpu`` ``PacketConfig`` → the
+  port's (``link.packet``), field by field, validation again on the way in;
+- ``mcs_table_from_reference``: a list of ``sdr_tpu`` ``MCSThreshold`` →
+  the port's (``link.adapt``), in order.
 """
 
 from __future__ import annotations
@@ -25,7 +29,12 @@ import sys
 import numpy as np
 import torch
 
-from sdr_tpu_torch.core.config import LinkConfig, link_config_from_dict
+from sdr_tpu_torch.core.config import (
+    LinkConfig,
+    Modulation,
+    OFDMConfig,
+    link_config_from_dict,
+)
 from sdr_tpu_torch.ops.ldpc import QcLdpcCode
 
 
@@ -107,3 +116,30 @@ def tp_inputs(seed: int, batch: int, n_syms: int, n_fft: int, cp_len: int, h_sym
     rng = np.random.default_rng(seed)
     shapes = [(batch, n_syms, n_fft + cp_len)] * 2 + [(batch, h_syms, n_fft)] * 2
     return tuple(rng.standard_normal(shape).astype(np.float32) for shape in shapes)
+
+
+def packet_config_from_reference(pcfg):
+    """Carry a reference-package ``PacketConfig`` across (duck-typed: its
+    fields; the modulation by its string value)."""
+    from sdr_tpu_torch.link.packet import PacketConfig
+
+    return PacketConfig(
+        payload_bytes=int(pcfg.payload_bytes),
+        modulation=Modulation(pcfg.modulation.value),
+        ofdm=OFDMConfig(n_fft=int(pcfg.ofdm.n_fft), cp_len=int(pcfg.ofdm.cp_len)),
+        rate=str(pcfg.rate),
+        pilot_spacing=int(pcfg.pilot_spacing),
+        fec=str(pcfg.fec),
+    )
+
+
+def mcs_table_from_reference(table) -> list:
+    """Carry a reference-package MCS table (a list of ``MCSThreshold``)
+    across, entry by entry in order."""
+    from sdr_tpu_torch.link.adapt import MCSThreshold
+
+    return [
+        MCSThreshold(Modulation(t.modulation.value), str(t.rate), float(t.efficiency),
+                     float(t.esno_db), float(t.measured_ber), str(t.family), str(t.waveform))
+        for t in table
+    ]

@@ -1,6 +1,6 @@
 """Link engines of the port: the link pipeline and its coded links, the
-keyed fast engine, the blocked stream, the Monte-Carlo engine and BER
-theory.
+packet modem (``packet``) and link adaptation (``adapt``), the keyed fast
+engine, the blocked stream, the Monte-Carlo engine and BER theory.
 
 The names the JAX package's ``sdr_tpu.link`` exports resolve here on first
 use (PEP 562), so importing the package imports no engine.

@@ -302,11 +302,14 @@ def polar_link(cfg: LinkConfig, seed: int, ch_ids: torch.Tensor, rate: str = "1/
     return polar_decode_passes(llr_cw, code, list_size), info
 
 
-def polar_decode_passes(llr: torch.Tensor, code: PolarCode, list_size: int = 8) -> torch.Tensor:
+def polar_decode_passes(llr: torch.Tensor, code: PolarCode, list_size: int = 8,
+                        decode=None) -> torch.Tensor:
     """The link's decode of (B, n_cw, N) LLRs → (B, n_cw, payload_len)
-    int8, in passes of ``polar_pass_channels`` channels (``polar_decoder``)."""
+    int8, in passes of ``polar_pass_channels`` channels; ``decode``: the
+    decoder (default ``polar_decoder()``; the packet modem passes the
+    bit-serial one)."""
     B, n_cw, _ = llr.shape
-    decode = polar_decoder()
+    decode = decode or polar_decoder()
     step = polar_pass_channels(code, n_cw, list_size)
     decoded = torch.empty((B, n_cw, code.payload_len), dtype=torch.int8, device=llr.device)
     for a in range(0, B, step):

@@ -164,10 +164,18 @@ def test_package_imports_no_jax():
         "sdr_tpu_torch.parallel, sdr_tpu_torch.parallel.dryrun, sdr_tpu_torch.link.pipeline, "
         "sdr_tpu_torch.link.stream, sdr_tpu_torch.ops.pilots, sdr_tpu_torch.ops.pa, "
         "sdr_tpu_torch.ops.sync, sdr_tpu_torch.ops.mimo, sdr_tpu_torch.ops.channel, "
-        "sdr_tpu_torch.parallel.shard, sdr_tpu_torch.ops.fec, sdr_tpu_torch.ops.polar; "
+        "sdr_tpu_torch.parallel.shard, sdr_tpu_torch.ops.fec, sdr_tpu_torch.ops.polar, "
+        "sdr_tpu_torch.link.packet, sdr_tpu_torch.link.adapt, sdr_tpu_torch.app.baseline_configs, "
+        "sdr_tpu_torch.app.demo, sdr_tpu_torch.obs.waveform, sdr_tpu_torch.obs.metrics, "
+        "sdr_tpu_torch.utils.sliding_buffer, sdr_tpu_torch.core.precision; "
         "from sdr_tpu_torch.link import simulate_coded, info_bits_per_channel; "
+        "from sdr_tpu_torch.utils import SlidingBuffer, ring_push; "
+        "from sdr_tpu_torch.obs import Metrics, ebno_sweep; "
+        "from sdr_tpu_torch.core import Precision, LinkConfig; "
+        "from sdr_tpu_torch.interop import packet_config_from_reference; "
         "from sdr_tpu_torch.ops import conv_encode, viterbi_decode; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
+        "assert 'matplotlib' not in sys.modules, 'matplotlib imported'; "
         "assert not any(m == 'sdr_tpu' or m.startswith('sdr_tpu.') for m in sys.modules)"
     )
     root = Path(__file__).resolve().parent.parent

@@ -1681,3 +1681,100 @@ def test_coded_links_on_card_match_the_cpu(dev, family):
     allowance = weak.sum(dim=1) * k
     assert bool(((e_d.cpu() - e_c).abs() <= allowance).all())
     assert int(e_c.sum()) > 0
+
+
+def _packet_case(fec):
+    from sdr_tpu_torch.link import packet
+
+    pc = packet.PacketConfig(fec=fec)  # the modem's defaults: 64 bytes, QPSK, N 64, CP 16
+    ch = ChannelConfig(model=ChannelModel.MULTIPATH, ebno_db=6.0, pdp=(1.0, 0.5),
+                       cfo_subcarriers=1.3, timing_offset=37)
+    return packet, pc, ch
+
+
+@pytest.mark.parametrize("fec", ["conv", "ldpc", "polar"])
+def test_packet_campaign_on_card_matches_the_cpu(dev, fec):
+    """A packet campaign (item 11g) of 256 packets at 6 dB on the card
+    against the CPU. The card's call launches B's comb, E (the channel
+    over the burst plane, the noise row) and C's LLR plane (and H for
+    LDPC). The acquired starts are equal; the decoder's input LLRs within
+    C's plane tolerance, 1e-4 of the peak; the decoder on the card decodes
+    the card's LLRs as the CPU decodes them, bit for bit; so the payloads
+    and crc_ok of the two campaigns differ at most in packets holding a
+    coded bit whose CPU |LLR| < 1e-3 (C's sure threshold)."""
+    packet, pc, ch = _packet_case(fec)
+    n = 256
+    _lib.reset_launches()
+    errs_d, ok_d = packet.simulate_packets(pc, ch, 5, n, device=dev)
+    torch.cuda.synchronize()
+    launched = {k for k, v in _lib.LAUNCHES.items() if v}
+    assert launched == {"tx_comb", "fade_awgn_fir", "fade_awgn", "demod_llr"} | (
+        {"ldpc_minsum"} if fec == "ldpc" else set()), launched
+    errs_c, ok_c = packet.simulate_packets(pc, ch, 5, n, device="cpu")
+    ids = torch.arange(n, dtype=torch.int32)
+    burst = packet.encode_packet(pc, packet.draw_payload(pc, 5, ids))
+    stream_c, nv = packet.transmit_over_channel(pc, ch, 5, burst, ids)
+    stream_d, _ = packet.transmit_over_channel(pc, ch, 5, burst.to(dev), ids.to(dev))
+    assert float((stream_d.cpu() - stream_c).abs().max()) <= 1e-5 * float(stream_c.abs().max())
+    start_c, planes_c = packet._acquire(pc, stream_c)
+    start_d, planes_d = packet._acquire(pc, stream_d)
+    assert torch.equal(start_d.cpu(), start_c)
+    llr_c = packet.sent_llrs(pc, planes_c, nv)
+    llr_d = packet.sent_llrs(pc, planes_d, nv)
+    assert float((llr_d.cpu() - llr_c).abs().max()) <= 1e-4 * float(llr_c.abs().max())
+    assert torch.equal(packet._fec_decode(pc, llr_d).cpu(), packet._fec_decode(pc, llr_d.cpu()))
+    weak = (llr_c.abs() < 1e-3).any(dim=1)
+    same = (errs_d.cpu() == errs_c) & (ok_d.cpu() == ok_c)
+    assert bool((same | weak).all())
+    assert 0 < int(ok_c.sum()) < n  # right and wrong decodes both compared
+
+
+def test_packet_kernels_at_packet_shapes_match_plain(dev):
+    """The kernels a packet campaign runs, at its shapes (64-byte conv 1/2
+    packets, 10 symbols of N 64 + CP 16, B 512): B's comb (1e-5 of the
+    peak), E's channel alone over the (B, 13, 80) burst plane with static
+    taps, per-symbol taps with the last row repeated and flat gains, E's
+    keyed noise over the (B, 1, T) stream row (1e-5 of the peak), C's LLR
+    plane on the tracked comb estimate h (B, S, N) (1e-4 of the peak)."""
+    from sdr_tpu_torch.link import pipeline
+
+    packet, pc, _ = _packet_case("conv")
+    B, S, L = 512, pc.n_symbols, pc.ofdm.symbol_len
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    payload = packet.draw_payload(pc, 3, ids)
+    cfg = pc._link_cfg()
+    bits = torch.randint(0, 2, (B, S, cfg.bits_per_ofdm_symbol), dtype=torch.int8,
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+    idx = pipeline._grid_of(cfg, pipeline._bits_to_ints(bits, 2).to(ka.out_dtype(2)))
+    got = _counted("tx_comb", lambda: kb.tx_chain(idx, 16, Modulation.QPSK, pilot_spacing=8))
+    _tx_close(got, kb.tx_channel_plain(idx, 16, Modulation.QPSK, pilot_spacing=8), True)
+    burst = packet.encode_packet(pc, payload)
+    n_rows = burst.shape[1] // L
+    for model, counter in ((ChannelModel.MULTIPATH, "fade_awgn_fir"),
+                           (ChannelModel.MULTIPATH_TIME, "fade_awgn_fir"),
+                           (ChannelModel.RAYLEIGH_FLAT, "fade_awgn")):
+        ch = ChannelConfig(model=model, ebno_db=10.0, pdp=(1.0, 0.5, 0.25), doppler_norm=0.02)
+        kw = packet._fading(pc, ch, 3, ids, None, n_rows)
+        re, im = fast._planar(burst.reshape(B, n_rows, L))
+        z = torch.zeros((B, 1, L), device=dev)
+        plane = (torch.cat([re, z], 1).contiguous(), torch.cat([im, z], 1).contiguous())
+        got = _counted(counter, lambda: ke.fade_awgn(*plane, **kw))
+        want = ke.fade_awgn_plain(*plane, **kw)
+        peak = max(float(w.abs().max()) for w in want)
+        assert max(float((a - b).abs().max()) for a, b in zip(got, want)) <= 1e-5 * peak
+    ch = ChannelConfig(model=ChannelModel.AWGN, ebno_db=10.0, cfo_subcarriers=1.3,
+                       timing_offset=37)
+    stream, nv = packet.transmit_over_channel(pc, ch, 3, burst, ids)
+    row = fast._planar(stream[:, None, :])
+    got = _counted("fade_awgn", lambda: ke.fade_awgn(*row, noise_var=nv / 64, seed=3,
+                                                     ch_ids=ids))
+    want = ke.fade_awgn_plain(*row, noise_var=nv / 64, seed=3, ch_ids=ids)
+    peak = max(float(w.abs().max()) for w in want)
+    assert max(float((a - b).abs().max()) for a, b in zip(got, want)) <= 1e-5 * peak
+    _, (re, im) = packet._acquire(pc, stream)
+    _, h = pipeline._estimate(cfg, (re, im), track_phase=True)
+    assert h.shape == (B, S, 64)
+    hr, hi = fast._planar(h.to(torch.complex64))
+    got = _counted("demod_llr", lambda: kc.demod_llr(re, im, hr, hi, 16, Modulation.QPSK, nv))
+    want = kc.demod_chain(re, im, hr, hi, 16, Modulation.QPSK, nv)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
