@@ -264,6 +264,34 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    seconds by family; ``simulate_adaptive`` over a seeded shadowed profile
    (1024 channels, N(14, 6) dB) under 5e-3 info BER; the window
    ``launches_adapt``;
+   3z. the command line on the card (``app.cli.main`` in-process, its
+   standard output parsed): ``bench`` on the five BASELINE cases at their
+   published sizes, ``bench --config 1`` with ``--fast``, ``--mc 16`` and
+   ``--coded`` for each family, ``bench --config 0`` acquired (CFO 2.3,
+   delay 37) and with ``--mimo alamouti``, ``sweep --engine mc`` on
+   config 1 and its resume, ``packet`` (8192 packets), ``packet --record``
+   (1024 bursts decoded back from the SC16 file) beside the simulated
+   campaign of the same seed, ``waveform --config 2``, ``adapt --config 0
+   --profile``, ``scale``, ``autotune --demod``, ``bench --sanity`` and
+   ``info``, each with its host wall time and the kernels it launched;
+   the gates: each BASELINE case's per-channel counts equal to the CPU's
+   plain link on the same keys (``pipeline.simulate_core`` on CPU ids)
+   but for bits whose plain |LLR| < 1e-3, its BER within the binomial 5σ
+   of ``ber_theory_awgn`` (configs 0–2) or of the exact BER over the
+   channel the run drew (configs 3, 4); each coded command's link LLRs
+   on the card within 1e-4 of the peak of the CPU's, H's decisions on
+   them equal to its plain version's, and their decode giving the
+   command's count; the Alamouti BER within 5σ of the exact BER over
+   the channel the run drew (and its ratio to ``ber_theory_alamouti``),
+   the kernels of each path launched, the sweep's resume exact with no launch of G, the packet
+   verdicts consistent and the replay's PER within 3σ of the simulated
+   campaign's, the waveform's EVM, PAPR and flatness, a non-empty MCS
+   table and a positive efficiency, one scaling point at efficiency 1,
+   the sanity exit code; ``obs.profile.trace`` around one ``bench
+   --config 1`` call (the trace names A's, B's and C's CUDA kernels);
+   ``obs.health.probe_device`` and ``hbm_bandwidth_gbps`` (at least 0.9
+   of a device copy of the same buffer in the same run); the window
+   ``launches_cli``;
    5. the parallel layer: ``parallel.dryrun.dryrun_multichip`` on 4
    gloo ranks sharing the one card (spawned; the library built above is
    only loaded there) — TP at BASELINE config 5's full width (256 × 64,
@@ -308,7 +336,8 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    around each packet campaign, capture and card-side check, for B's
    comb, E (both modes), C's plane and H, ``launches_packet``; in phase 3y
    around the calibration and the adaptive run, for B off, E, C's plane
-   and H, ``launches_adapt``)
+   and H, ``launches_adapt``; in phase 3z around each command of the
+   command line, for A–H, ``launches_cli``)
    and prints one JSON line per kernel set, with each kernel's bound (bytes over 3.35 TB/s or f32
    operations over 67 TFLOP/s, the H100 SXM data sheet) and its launches
    in each window (``launches_fast``, ``launches_mc``, ``launches_coded``,
@@ -316,7 +345,7 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    windows; ``launches_bf16``, ``launches_parallel``, ``launches_nccl``,
    ``launches_pipeline``, ``launches_pilots``, ``launches_impairments``,
    ``launches_mimo``, ``launches_mimo_time``, ``launches_coded_link``,
-   ``launches_packet``, ``launches_adapt``; ``launches`` is the
+   ``launches_packet``, ``launches_adapt``, ``launches_cli``; ``launches`` is the
    window of its own path, the one checked; the entry ``fade_awgn@acquired_stream`` carries
    phase 3r's check of E at the stream's shape and the row's launches in the acquired links' window;
    the entries ``fade_awgn@mimo_pair_plane``, ``fade_awgn_fir@mimo_pair_plane``,
@@ -350,7 +379,9 @@ device it exits 1 before printing any result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -4521,6 +4552,311 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
           f"{t_ad:.1f} s; phase 3y {time.perf_counter() - t3y:.1f} s; window "
           f"{ {k: v for k, v in launches_adapt.items() if v} }")
 
+    # ---- phase 3z: the command line on the card (item 13), counters zeroed -----
+    # ``app.cli.main(argv)`` in-process, as ``python -m sdr_tpu_torch`` runs
+    # it (on the card by default), its standard output parsed. Each command
+    # is timed on the host clock (what a user of the command line waits
+    # for: the calls, the host copies and the printing) and its launches
+    # are zeroed just before and read just after; their sum is the window
+    # ``launches_cli``. The BASELINE cases run at their published sizes.
+    from sdr_tpu_torch.app import cli as cli_k
+    from sdr_tpu_torch.app.baseline_configs import get_case
+    from sdr_tpu_torch.obs import health as health_k
+    from sdr_tpu_torch.obs.profile import TRACE_FILE, trace as obs_trace
+    from sdr_tpu_torch.obs.roofline import HBM_GBPS_MEASURED_H100
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t3z = time.perf_counter()
+    launches_cli = dict.fromkeys(_lib.LAUNCHES, 0)
+    z_dir = tempfile.mkdtemp(prefix="sdr_cli_")
+    z_walls = {}
+
+    def run_cli(label, argv, rc_want=0):
+        _lib.reset_launches()
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_k.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        _check(rc == rc_want, f"3z {label}: exit code {rc}, {rc_want} expected")
+        text = buf.getvalue().strip()
+        try:
+            out = json.loads(text)
+        except json.JSONDecodeError:
+            out = json.loads(text.splitlines()[-1])
+        own = {k: v for k, v in _lib.LAUNCHES.items() if v}
+        for k, v in _lib.LAUNCHES.items():
+            launches_cli[k] += v
+        z_walls[label] = wall
+        print(f"phase 3z {label}: `python -m sdr_tpu_torch {' '.join(argv)}` exit {rc}, "
+              f"{wall:.3f} s wall (host clock), launches {own}")
+        return out, own
+
+    def launched(label, own, names):
+        for name in names:
+            _check(own.get(name, 0) > 0, f"3z {label}: kernel {name} was not launched")
+
+    def any_c(own):
+        return any(k.startswith("demod_") or k.startswith("llr_chain") for k in own)
+
+    def five_sigma(ber, p, bits):
+        return abs(ber - p) <= 5.0 * math.sqrt(max(p * (1.0 - p), 1.0 / bits) / bits)
+
+    # Each BASELINE case at its published size, held per channel against the
+    # same link on the CPU (``simulate_core`` on CPU ids: every wrapper's
+    # plain version on the same keyed draws; outside the window): the
+    # card's counts equal the CPU's but for bits whose plain |LLR| < 1e-3.
+    # The selective cases (3, 4) are also held to the binomial 5 sigma of
+    # the drawn channel's BER, the AWGN ones to the theory's.
+    pipeline_path = ("payload", "tx_off", "demod_count")
+    cli_seed = 0  # the commands' default --seed
+    for c in range(5):
+        case = get_case(str(c))
+        cfg_z = case.cfg
+        out, own = run_cli(f"bench config {c}", ["bench", "--config", str(c), "--per-channel"])
+        launched(f"bench config {c}", own, pipeline_path)
+        _check(own.get("fade_awgn", 0) + own.get("fade_awgn_fir", 0) > 0,
+               f"3z bench config {c}: kernel E was not launched")
+        _check(out["bits"] == cfg_z.bits_total, f"3z bench config {c}: bits {out['bits']}")
+        t_cpu = time.perf_counter()
+        err_c, cnt_c, llr_c = pipeline.simulate_core(
+            cfg_z, cli_seed, torch.arange(cfg_z.n_channels, dtype=torch.int32), want_llrs=True)
+        t_cpu = time.perf_counter() - t_cpu
+        margin_c = (llr_c.abs() < 1e-3).reshape(cfg_z.n_channels, -1).sum(dim=1)
+        del llr_c
+        err_d = torch.round(torch.tensor(out["per_channel_ber"], dtype=torch.float64)
+                            * cnt_c.to(torch.float64)).to(torch.int64)
+        diff_c = (err_d - err_c.to(torch.int64)).abs()
+        _check(bool((diff_c <= margin_c).all()),
+               f"3z bench config {c}: per-channel counts differ from the CPU's beyond the "
+               f"|LLR| < 1e-3 bits (max diff {int(diff_c.max())})")
+        if "ber_theory_awgn" in out:
+            p_ref, against = out["ber_theory_awgn"], "theory"
+        else:
+            h_z, _ = fast.fade_state(cfg_z, cli_seed, torch.arange(
+                cfg_z.n_channels, dtype=torch.int32, device=dev))
+            p_ref = ber_given_gain(cfg_z.modulation, cfg_z.channel.ebno_db,
+                                   (h_z.abs() ** 2).to(torch.float64))
+            against = "the drawn channel"
+            del h_z
+        _check(five_sigma(out["ber"], p_ref, out["bits"]),
+               f"3z bench config {c}: BER {out['ber']:g} vs {against} {p_ref:g} beyond 5 sigma")
+        print(f"phase 3z bench config {c} {case.name} {cfg_z.n_channels}x{cfg_z.n_symbols} "
+              f"N {cfg_z.ofdm.n_fft}: {out['bits']} bits, BER {out['ber']:.6g}, {against} "
+              f"{p_ref:.6g} (within the binomial 5 sigma); per channel against the CPU's "
+              f"plain link ({int(err_c.sum())} errors there, {t_cpu:.1f} s): max diff "
+              f"{int(diff_c.max())} (allowed {int(margin_c.max())})")
+
+    out, own = run_cli("bench --fast", ["bench", "--config", "1", "--fast"])
+    launched("bench --fast", own, ("payload", "tx", "demod_count"))
+    _check(five_sigma(out["ber"], ber_awgn_exact(Modulation.QAM16, 10.0), out["bits"]),
+           f"3z bench --fast: BER {out['ber']:g}")
+    out, own = run_cli("bench --mc", ["bench", "--config", "1", "--mc", "16"])
+    launched("bench --mc", own, ("mc_count",))
+    _check(five_sigma(out["ber"], ber_awgn_exact(Modulation.QAM16, 10.0), out["bits"]),
+           f"3z bench --mc: BER {out['ber']:g}")
+    print(f"phase 3z bench --mc 16: {out['bits']} bits, BER {out['ber']:.6g} against theory "
+          f"{ber_awgn_exact(Modulation.QAM16, 10.0):.6g}")
+    # The coded commands on config 1, then their pieces on the same keys
+    # (outside the window): each family's sent codewords carried over the
+    # link on the card and on the CPU (B off, E and C's LLR plane against
+    # their plain versions: within 1e-4 of the plane's peak), H's decisions
+    # on the card's LLRs equal to its plain version's, and the pieces'
+    # decode giving the command's count and info bits.
+    cfg1 = get_case("1").cfg
+    B1 = cfg1.n_channels
+    ids1 = torch.arange(B1, dtype=torch.int32, device=dev)
+    n_conv = coded_k.info_bits_per_channel(cfg1)
+    steps_conv = n_conv + fec_k.DEFAULT_K - 1
+    ldpc_z = coded_k.ldpc_code_for("1/2")
+    n_ldpc = coded_k.ldpc_codewords_per_channel(cfg1, ldpc_z)
+    polar_z = coded_k.polar_code_for("1/2", 256)
+    n_polar = coded_k.polar_codewords_per_channel(cfg1, 256)
+
+    def ldpc_z_decode(llr, decode):
+        return decode(ldpc_z, llr.reshape(-1, ldpc_z.n), 25, 0.5, "flooding").reshape(
+            B1, n_ldpc, ldpc_z.n)[:, :, :ldpc_z.k]
+
+    z_codes = {  # family: (info, encode, decode)
+        "conv": (lambda: prng.info_bits(cli_seed, ids1, 1, n_conv)[:, 0],
+                 lambda info: fec_k.puncture(fec_k.conv_encode(info), "1/2"),
+                 lambda llr: fec_k.viterbi_decode(fec_k.depuncture(llr, "1/2", steps_conv),
+                                                  n_conv)),
+        "ldpc": (lambda: prng.info_bits(cli_seed, ids1, n_ldpc, ldpc_z.k),
+                 lambda info: ldpc_encode(ldpc_z, info).reshape(B1, -1),
+                 lambda llr: ldpc_z_decode(llr, kh.ldpc_decode)),
+        "polar": (lambda: prng.info_bits(cli_seed, ids1, n_polar, polar_z.payload_len),
+                  lambda info: polar_encode_payload(info, polar_z).reshape(B1, -1),
+                  lambda llr: coded_k.polar_decode_passes(llr.reshape(B1, n_polar, -1), polar_z,
+                                                          8)),
+    }
+    for code, (z_info, z_encode, z_decode) in z_codes.items():
+        out, own = run_cli(f"bench --coded {code}",
+                           ["bench", "--config", "1", "--coded", "--code", code])
+        launched(f"bench --coded {code}", own,
+                 ("tx_off", "fade_awgn", "demod_llr") + (("ldpc_minsum",) if code == "ldpc"
+                                                          else ()))
+        info_z = z_info()
+        cw_z = z_encode(info_z)
+        llr_z = coded_k._carry(cfg1, cli_seed, ids1, cw_z, {})
+        z_err, z_peak = llr_check(
+            f"3z bench --coded {code}: the link's LLRs on the card against the CPU's",
+            llr_z.cpu(), coded_k._carry(cfg1, cli_seed, ids1.cpu(), cw_z.cpu(), {}))
+        dec_z = z_decode(llr_z)
+        if code == "ldpc":
+            _check(torch.equal(dec_z, ldpc_z_decode(llr_z, kh.ldpc_decode_plain)),
+                   "3z bench --coded ldpc: H's hard bits differ from its plain version's")
+        n_err = int((dec_z != info_z).sum())
+        _check(out["info_bits"] == info_z.numel() and out["bit_errors"] == n_err
+               and out["ber"] < 1e-3,
+               f"3z bench --coded {code}: {out['info_bits']} info bits, {out['bit_errors']} "
+               f"errors; the pieces {info_z.numel()}, {n_err}")
+        print(f"phase 3z bench --coded --code {code}: {out['code']}, {out['info_bits']} info "
+              f"bits, BER {out['ber']:.6g}; the link's LLRs ({tuple(llr_z.shape)}) on the card "
+              f"against the CPU's: max abs diff {z_err:.3g} (peak {z_peak:.3g}, allowed 1e-4 of "
+              f"it){'; H == plain' if code == 'ldpc' else ''}; the pieces' decode: {n_err} "
+              f"errors, as the command")
+        del info_z, cw_z, llr_z, dec_z
+    out, own = run_cli("bench acquired", ["bench", "--config", "0", "--cfo", "2.3",
+                                          "--timing-offset", "37"])
+    launched("bench acquired", own, ("payload", "tx_comb", "fade_awgn"))
+    _check(any_c(own), "3z bench acquired: kernel C was not launched")
+    acq_ref = 1.1 * ber_awgn_exact(Modulation.QPSK, 9.5)
+    _check(out["ber"] <= acq_ref + 5.0 * math.sqrt(acq_ref / out["bits"]),
+           f"3z bench acquired: BER {out['ber']:g} vs 1.1 x theory 0.5 dB lower {acq_ref:g}")
+    print(f"phase 3z bench --cfo 2.3 --timing-offset 37: BER {out['ber']:.6g} <= 1.1 x theory "
+          f"0.5 dB lower {acq_ref:.6g} + 5 sigma")
+    out, own = run_cli("bench --mimo alamouti", ["bench", "--config", "0", "--mimo", "alamouti"])
+    launched("bench --mimo alamouti", own, ("payload", "tx_off", "fade_awgn", "llr_chain"))
+    a_cfg = cli_k._apply_mimo_flag(get_case("0"), argparse.Namespace(
+        mimo="alamouti", ntx=0, nrx=0, csi="genie", detector="linear")).cfg
+    a_fade = pipeline.mimo_fading(a_cfg, 0, ids[:a_cfg.n_channels])
+    a_drawn = ber_given_gain(Modulation.QPSK, a_cfg.channel.ebno_db,
+                             (a_fade.abs() ** 2).sum(dim=(1, 2)).to(torch.float64) * 0.5)
+    _check(five_sigma(out["ber"], a_drawn, out["bits"]),
+           f"3z bench --mimo alamouti: BER {out['ber']:g} vs {a_drawn:g} over the drawn channel")
+    print(f"phase 3z bench --mimo alamouti ({a_cfg.n_channels} frame-static flat Rayleigh "
+          f"channels): BER {out['ber']:.6g}, over the drawn channel {a_drawn:.6g} (within the "
+          f"binomial 5 sigma), ber_theory_alamouti {out['ber_theory_alamouti']:.6g} (ratio "
+          f"{out['ber'] / out['ber_theory_alamouti']:.4f}: the fading average of "
+          f"{a_cfg.n_channels} draws)")
+    del a_fade
+
+    ck = os.path.join(z_dir, "sweep.json")
+    sweep_argv = ["sweep", "--config", "1", "--engine", "mc", "--ebno-grid", "0,4,8",
+                  "--checkpoint", ck]
+    first, own = run_cli("sweep --engine mc", sweep_argv)
+    launched("sweep --engine mc", own, ("mc_count",))
+    with open(ck) as f:
+        pts = json.load(f)["points"]
+    for p, th in zip(pts, first["ber_theory_awgn"]):
+        _check(five_sigma(p["bit_errors"] / p["bits_counted"], th, p["bits_counted"]),
+               f"3z sweep: point {p} vs theory {th:g}")
+    again, own = run_cli("sweep resume", sweep_argv)
+    _check(again == first and own.get("mc_count", 0) == 0,
+           f"3z sweep resume: {again} vs {first}, launches {own}")
+    print(f"phase 3z sweep --engine mc config 1 at {first['ebno_db']} dB: BER {first['ber']} "
+          f"(theory {first['ber_theory_awgn']}, each within 5 sigma); the resume equal, 0 "
+          f"launches of G")
+
+    out, own = run_cli("packet 8192", ["packet", "--n", "8192"])
+    launched("packet 8192", own, ("tx_comb", "fade_awgn", "fade_awgn_fir", "demod_llr"))
+    _check(out["crc_verdicts_consistent"] and out["rate"] == "1/2",
+           f"3z packet: CRC verdicts inconsistent: {out}")
+    print(f"phase 3z packet --n 8192 (conv 1/2, MULTIPATH 14 dB, CFO 1.3, delay 37): PER "
+          f"{out['per']:.6g}, crc_ok {out['crc_ok_rate']:.6g}, verdicts consistent, "
+          f"{8192 / z_walls['packet 8192']:.0f} packets/s of wall time")
+    sim, _ = run_cli("packet 1024", ["packet", "--n", "1024", "--seed", "7"])
+    rec_path = os.path.join(z_dir, "bursts.sc16")
+    rec, own = run_cli("packet --record", ["packet", "--n", "1024", "--seed", "7", "--record",
+                                           rec_path])
+    launched("packet --record", own, ("tx_comb", "demod_llr"))
+    sigma = math.sqrt(max(sim["per"] * (1 - sim["per"]), 1.0 / 1024) / 1024)
+    _check(rec["packets"] == 1024 and rec["per"] <= sim["per"] + 3 * sigma
+           and rec["crc_verdicts_consistent"],
+           f"3z packet --record: replay PER {rec['per']:g} vs simulated {sim['per']:g}")
+    print(f"phase 3z packet --record (1024 bursts through {rec_path.rsplit('/', 1)[-1]}, "
+          f"{os.path.getsize(rec_path)} bytes): replay PER {rec['per']:.6g} <= simulated "
+          f"{sim['per']:.6g} + 3 sigma")
+
+    out, own = run_cli("waveform", ["waveform", "--config", "2"])
+    _check(abs(out["evm_rms_pct"]["data_aided"] / out["evm_theory_pct"] - 1) < 0.05
+           and 5.0 < out["papr_db"]["p99"] < 13.0 and out["psd_inband_flatness_db"] < 2.0,
+           f"3z waveform: {out}")
+    print(f"phase 3z waveform --config 2: EVM {out['evm_rms_pct']['data_aided']:.5g} % "
+          f"(theory {out['evm_theory_pct']:.5g}), p99 PAPR {out['papr_db']['p99']:.4g} dB, "
+          f"flatness {out['psd_inband_flatness_db']:.4g} dB")
+
+    out, own = run_cli("adapt --profile", ["adapt", "--config", "0", "--profile"])
+    launched("adapt --profile", own, ("tx_off", "fade_awgn", "demod_llr", "ldpc_minsum"))
+    _check(len(out["table"]) > 0 and out["adaptive"]["achieved_efficiency"] > 0,
+           f"3z adapt: {out}")
+    print(f"phase 3z adapt --config 0 --profile: {len(out['table'])} rungs calibrated, achieved "
+          f"efficiency {out['adaptive']['achieved_efficiency']:.6g}, info BER "
+          f"{out['adaptive']['info_ber']:.6g}, families {out['adaptive']['families_used']}")
+
+    out, own = run_cli("scale", ["scale", "--config", "3", "--iters", "3"])
+    _check(len(out["points"]) == 1 and out["points"][0]["efficiency"] == 1.0,
+           f"3z scale: {out}")
+    print(f"phase 3z scale --config 3 (one card, no process group): "
+          f"{out['points'][0]['samples_per_s']:.6g} samples/s at "
+          f"{out['points'][0]['n_channels']} channels")
+    out, own = run_cli("autotune --demod", ["autotune", "--demod"])
+    launched("autotune --demod", own, ("demod_sum", "llr_chain_sum", "demod_sum_cl",
+                                       "demod_sum_cl_in_bf16"))
+    _check(all(p["error"] is None for p in out["points"]), f"3z autotune: {out}")
+    print(f"phase 3z autotune --demod (N 4096, CP 512, 256 x 8): "
+          f"{ {p['backend']: round(p['gs_per_s'], 3) for p in out['points']} } GS/s, "
+          f"recommended {out['recommended_demod_route']} on {card}")
+    out, own = run_cli("bench --sanity", ["bench", "--sanity"])
+    print(f"phase 3z bench --sanity: {out} on {card}")
+    out, own = run_cli("info", ["info"])
+    _check(out["devices"] == [torch.cuda.get_device_name(0)], f"3z info: {out['devices']}")
+
+    t_dir = os.path.join(z_dir, "trace")
+    with obs_trace(t_dir, annotate="bench config 1"):
+        run_cli("bench config 1 traced", ["bench", "--config", "1"])
+    with open(os.path.join(t_dir, TRACE_FILE)) as f:
+        trace_text = f.read()
+    names = {k: [n for n in ("payload_kernel", "tx_rows_kernel", "tx_kernel",
+                             "demod_rows_kernel", "demod_count_kernel") if n in trace_text]
+             for k in ("A", "B", "C")}
+    _check("payload_kernel" in trace_text, "3z trace: kernel A's CUDA kernel not in the trace")
+    _check("tx_rows_kernel" in trace_text or "tx_kernel" in trace_text,
+           "3z trace: kernel B's CUDA kernel not in the trace")
+    _check("demod_rows_kernel" in trace_text or "demod_count_kernel" in trace_text,
+           "3z trace: kernel C's CUDA kernel not in the trace")
+    print(f"phase 3z obs.profile.trace around bench config 1: {len(trace_text)} bytes of "
+          f"Chrome trace, kernels named {sorted(set(sum(names.values(), [])))}")
+    rep_h = health_k.probe_device(timeout_s=60.0)
+    _check(rep_h.healthy and rep_h.backend == "cuda", f"3z probe_device: {rep_h}")
+    gbps = health_k.hbm_bandwidth_gbps()
+    # Beside it, a device copy of the same buffer, 12 times (CUDA events).
+    src_z = torch.randn((32 * 1024 * 1024,), device=dev)
+    dst_z = torch.empty_like(src_z)
+    dst_z.copy_(src_z)
+    copy_ms = timed(lambda: dst_z.copy_(src_z), 12)
+    copy_gbps = 2 * src_z.numel() * 4 / (copy_ms * 1e-3) / 1e9
+    del src_z, dst_z
+    _check(gbps >= 0.9 * copy_gbps,
+           f"3z hbm_bandwidth_gbps {gbps:.1f} GB/s under 0.9 of a copy's {copy_gbps:.1f}")
+    print(f"phase 3z probe_device: healthy, {rep_h.latency_s * 1e3:.3f} ms; "
+          f"hbm_bandwidth_gbps (32 Mi floats, 12 chained read+write passes, CUDA events): "
+          f"{gbps:.1f} GB/s; a copy of the same buffer {copy_gbps:.1f} GB/s (ratio "
+          f"{gbps / copy_gbps:.4f}, allowed >= 0.9); roofline.HBM_GBPS_MEASURED_H100 "
+          f"{HBM_GBPS_MEASURED_H100} on {card}")
+    for name in ("payload", "tx", "tx_off", "tx_comb", "fade_awgn", "fade_awgn_fir",
+                 "demod_count", "demod_llr", "llr_chain", "mc_count", "ldpc_minsum",
+                 "demod_sum_cl"):
+        _check(launches_cli[name] > 0, f"phase 3z: kernel {name} was not launched")
+    print(f"phase 3z: {len(z_walls)} commands, wall s "
+          f"{ {k: round(v, 3) for k, v in z_walls.items()} }; phase 3z "
+          f"{time.perf_counter() - t3z:.1f} s; window "
+          f"{ {k: v for k, v in launches_cli.items() if v} }")
+
     # ---- phase 5: the parallel layer, 4 gloo ranks sharing the one card -----
     # ``dryrun_multichip`` spawns the ranks (the kernel library was built in
     # phase 1; the ranks only load it), runs every row at full width, holds
@@ -4664,7 +5000,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
                     launches_mimo=launches_mimo[name],
                     launches_mimo_time=launches_mimo_time[name],
                     launches_coded_link=launches_coded_link[name],
-                    launches_packet=launches_packet[name], launches_adapt=launches_adapt[name])
+                    launches_packet=launches_packet[name], launches_adapt=launches_adapt[name],
+                    launches_cli=launches_cli[name])
 
     # The form of C, D and F each entry ran (csrc/demod_rows.cuh's plans,
     # demod.cu's tile, csrc/demod_cl.cuh's plans).

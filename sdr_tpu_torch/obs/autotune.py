@@ -1,0 +1,163 @@
+"""Demod route autotuner — on-device A/B timing (port of ``tune_demod``
+of ``sdr_tpu/obs/autotune.py``).
+
+Times the port's demod routes at one problem shape on this device and
+reports each route's rate, so a caller picks the fastest. The routes are
+the port's own (the JAX package's chose among Pallas backends through
+``SDR_TPU_DEMOD_BACKEND`` / ``SDR_TPU_FOURSTEP_STAGE``; the port has no
+such knob, so nothing is set or read from the environment):
+
+- ``fused``: ``ops.demod.demod_chain`` — kernel C's sum mode;
+- ``hybrid``: ``ops.demod.demod_chain_hybrid`` — torch's FFT, then kernel
+  C's post-FFT mode ``llr_chain``;
+- ``cl``: ``ops.demod.demod_sum_chain_cl`` — kernel D, after the relayout
+  of the rows planes to channels-last (timed with it);
+- ``cl:bf16``: the same on bfloat16 sample planes (D's bf16 input).
+
+The FFT backend A/B (``tune_fft``, ``recommend_crossover``) is the TPU's
+matmul-DFT crossover and has no counterpart in the port.
+
+CLI: ``python -m sdr_tpu_torch autotune --demod``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from sdr_tpu_torch.core import prng
+from sdr_tpu_torch.core.config import Modulation
+from sdr_tpu_torch.kernels import demod as _kc
+from sdr_tpu_torch.kernels import demod_cl as _kd
+from sdr_tpu_torch.ops import channel as chan
+from sdr_tpu_torch.ops.demod import demod_chain, demod_chain_hybrid, demod_sum_chain_cl
+
+ROUTES = ("fused", "hybrid", "cl", "cl:bf16")
+_GEN_CHUNK = 1024  # channels a draw of the inputs (bounds the Philox temporaries)
+
+
+@dataclasses.dataclass
+class DemodTunePoint:
+    backend: str
+    gs_per_s: float
+    error: str | None = None
+
+
+def _inputs(n_fft: int, cp_len: int, batch: int, n_syms: int, device):
+    """Keyed Philox inputs: samples N(0, 1/(2N)) per component (B, S,
+    N+cp) and a Rayleigh h plane (B, 1, N), seed 0."""
+    dev = torch.device(device)
+    sym_len = n_fft + cp_len
+    scale = (1.0 / (2.0 * n_fft)) ** 0.5
+    planes = ([], [], [], [])
+    for c0 in range(0, batch, _GEN_CHUNK):
+        ids = torch.arange(c0, min(c0 + _GEN_CHUNK, batch), dtype=torch.int32, device=dev)
+        re, im = prng.normal_pair(0, prng.ROLE_NOISE, ids, (n_syms, sym_len))
+        hr, hi = prng.normal_pair(0, prng.ROLE_FADING, ids, (1, n_fft))
+        for out, t in zip(planes, (re * scale, im * scale, hr, hi)):
+            out.append(t)
+    return tuple(torch.cat(p) for p in planes)
+
+
+def _check_route(route: str, shape, n_fft: int, cp_len: int) -> None:
+    """``ValueError`` where the route's kernel does not take the shape
+    (checked on every device, so the CPU reports what the card would)."""
+    B, S, sym_len = shape
+    if route == "fused":
+        ok = _kc.supported(shape, (B, 1, n_fft), (B, S, n_fft), cp_len)
+    elif route == "hybrid":
+        ok = n_fft >= 2 and not n_fft & (n_fft - 1)
+    else:
+        ok = _kd.supported((S * sym_len, B), n_fft, cp_len)
+    if not ok:
+        raise ValueError(f"route {route}: no kernel for samples {tuple(shape)}, "
+                         f"n_fft {n_fft}, cp {cp_len}")
+
+
+def _route_fn(route: str, planes, cp_len: int, mod: Modulation, nv: float):
+    """fn(acc) → the route's float32 LLR sum, with the channel plane
+    perturbed by acc·1e-30 so every call depends on the last."""
+    re, im, hr, hi = planes
+    if route == "fused":
+        return lambda acc: demod_chain(re, im, hr + acc * 1e-30, hi, cp_len, mod, nv,
+                                       reduce_sum=True)
+    if route == "hybrid":
+        return lambda acc: demod_chain_hybrid(re, im, hr + acc * 1e-30, hi, cp_len, mod, nv,
+                                              reduce_sum=True)
+    dtype = torch.bfloat16 if route == "cl:bf16" else torch.float32
+    re_d, im_d = re.to(dtype), im.to(dtype)
+    hr_t, hi_t = hr[:, 0, :].T.contiguous(), hi[:, 0, :].T.contiguous()
+
+    def cl(acc):
+        B, S, L = re_d.shape
+        re_t = re_d.permute(1, 2, 0).reshape(S * L, B).contiguous()
+        im_t = im_d.permute(1, 2, 0).reshape(S * L, B).contiguous()
+        return demod_sum_chain_cl(re_t, im_t, hr_t + acc * 1e-30, hi_t, cp_len, mod, nv)
+
+    return cl
+
+
+def _best_seconds(fn, iters: int, reps: int, dev: torch.device) -> float:
+    """The least time of ``reps`` runs of ``iters`` chained calls, after one
+    warm call: CUDA events on the card, the host clock on the CPU."""
+    acc = torch.zeros((), dtype=torch.float32, device=dev)
+    acc = acc + fn(acc) * 1e-12
+    best = float("inf")
+    for _ in range(reps):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(dev)
+            start.record()
+            for _ in range(iters):
+                acc = acc + fn(acc) * 1e-12
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                acc = acc + fn(acc) * 1e-12
+            float(acc)
+            best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def tune_demod(
+    n_fft: int = 4096,
+    cp_len: int = 512,
+    batch: int = 256,
+    n_syms: int = 8,
+    iters: int = 6,
+    reps: int = 2,
+    backends=ROUTES,
+    device="cuda",
+):
+    """A/B the demod routes at one problem shape on ``device`` (the card
+    unless the caller asks for the CPU): 16-QAM at 12 dB Eb/N0, each
+    route timed over ``iters`` warm chained calls, best of ``reps``.
+    A route that does not take the shape reports an error string instead
+    of a rate; an error of a route's run (a build or a launch) propagates.
+    Returns [DemodTunePoint...] in ``backends`` order; the rate counts
+    samples with their CP (batch·n_syms·(N+cp)·iters / seconds)."""
+    unknown = [spec for spec in backends if spec not in ROUTES]
+    if unknown:
+        raise ValueError(f"unknown demod route(s) {unknown}; the routes are {ROUTES}")
+    dev = torch.device(device)
+    mod = Modulation.QAM16
+    nv = float(chan.ebno_db_to_noise_var(12.0, mod.bits_per_symbol))
+    shape = (batch, n_syms, n_fft + cp_len)
+    planes = _inputs(n_fft, cp_len, batch, n_syms, dev)
+    points = []
+    for spec in backends:
+        try:
+            _check_route(spec, shape, n_fft, cp_len)
+        except ValueError as e:
+            points.append(DemodTunePoint(backend=spec, gs_per_s=0.0, error=str(e)[:200]))
+            continue
+        best = _best_seconds(_route_fn(spec, planes, cp_len, mod, nv), iters, reps, dev)
+        rate = batch * n_syms * (n_fft + cp_len) * iters / best / 1e9
+        points.append(DemodTunePoint(backend=spec, gs_per_s=rate))
+    return points

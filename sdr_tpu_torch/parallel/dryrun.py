@@ -32,6 +32,9 @@ about scaling: their wall times are marked so.
 
 from __future__ import annotations
 
+import contextlib
+import io
+import json
 import math
 import multiprocessing as _mp
 import os
@@ -329,9 +332,22 @@ def _tp(case, mesh, dev):
     return res
 
 
+def _cli(case, mesh, dev):
+    """The command line on every rank (``app.cli.main(argv)`` on ``dev``):
+    its exit code and the JSON of its last line. Under a process group of
+    more than one rank, ``bench --fast`` and ``bench`` on a sharded case
+    run their sharded builders."""
+    from sdr_tpu_torch.app import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([*case["argv"], "--device", dev.type])
+    return dict(rc=rc, out=json.loads(buf.getvalue().strip().splitlines()[-1]))
+
+
 _KINDS = {"tp": _tp, "fast": _fast, "pp": _pp, "coded_fast": _coded_fast, "coded": _coded,
           "mc": _mc,
-          "mc_inject": _mc_inject, "simulate": _simulate, "stream": _stream}
+          "mc_inject": _mc_inject, "simulate": _simulate, "stream": _stream, "cli": _cli}
 
 
 def run_cases(rank: int, world: int, device, cases: list) -> list:

@@ -167,10 +167,14 @@ def test_package_imports_no_jax():
         "sdr_tpu_torch.parallel.shard, sdr_tpu_torch.ops.fec, sdr_tpu_torch.ops.polar, "
         "sdr_tpu_torch.link.packet, sdr_tpu_torch.link.adapt, sdr_tpu_torch.app.baseline_configs, "
         "sdr_tpu_torch.app.demo, sdr_tpu_torch.obs.waveform, sdr_tpu_torch.obs.metrics, "
-        "sdr_tpu_torch.utils.sliding_buffer, sdr_tpu_torch.core.precision; "
+        "sdr_tpu_torch.utils.sliding_buffer, sdr_tpu_torch.core.precision, "
+        "sdr_tpu_torch.app.cli, sdr_tpu_torch.native, sdr_tpu_torch.native.host, "
+        "sdr_tpu_torch.native.iq, sdr_tpu_torch.obs.health, sdr_tpu_torch.obs.roofline, "
+        "sdr_tpu_torch.obs.profile, sdr_tpu_torch.obs.autotune, sdr_tpu_torch.obs.scaling, "
+        "sdr_tpu_torch.obs.plot; "
         "from sdr_tpu_torch.link import simulate_coded, info_bits_per_channel; "
         "from sdr_tpu_torch.utils import SlidingBuffer, ring_push; "
-        "from sdr_tpu_torch.obs import Metrics, ebno_sweep; "
+        "from sdr_tpu_torch.obs import Metrics, ebno_sweep, trace, probe_device, demod_roofline; "
         "from sdr_tpu_torch.core import Precision, LinkConfig; "
         "from sdr_tpu_torch.interop import packet_config_from_reference; "
         "from sdr_tpu_torch.ops import conv_encode, viterbi_decode; "

@@ -1778,3 +1778,74 @@ def test_packet_kernels_at_packet_shapes_match_plain(dev):
     got = _counted("demod_llr", lambda: kc.demod_llr(re, im, hr, hi, 16, Modulation.QPSK, nv))
     want = kc.demod_chain(re, im, hr, hi, 16, Modulation.QPSK, nv)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# ---- the command line on the card ------------------------------------------------------------
+
+def _cli_on(dev, argv):
+    """``app.cli.main(argv)`` on the card: its last JSON line and the
+    launches it made."""
+    import contextlib
+    import io
+    import json
+
+    from sdr_tpu_torch.app import cli
+
+    _lib.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    assert rc == 0
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), dict(_lib.LAUNCHES)
+
+
+@pytest.fixture
+def small_cases(monkeypatch):
+    import sdr_tpu_torch.app.baseline_configs as bc
+
+    orig = bc.baseline_cases
+    monkeypatch.setattr(bc, "baseline_cases", lambda: [
+        dataclasses.replace(c, cfg=dataclasses.replace(c.cfg, n_channels=8, n_symbols=16))
+        for c in orig()])
+
+
+@pytest.mark.parametrize("argv,kernels", [
+    (["bench", "--config", "1"], ("payload", "tx_off", "fade_awgn", "demod_count")),
+    (["bench", "--config", "3"], ("payload", "tx_off", "fade_awgn_fir", "demod_count")),
+    (["bench", "--config", "1", "--fast"], ("payload", "tx", "demod_count")),
+    (["bench", "--config", "1", "--mc", "2"], ("mc_count",)),
+    (["bench", "--config", "1", "--coded", "--code", "ldpc"], ("ldpc_minsum", "demod_llr")),
+], ids=["pipeline", "pipeline-multipath", "fast", "mc", "ldpc"])
+def test_cli_bench_on_card_matches_the_cpu(dev, small_cases, argv, kernels):
+    """The command runs on the card by default through the path's kernels,
+    and counts what ``--device cpu`` counts (the bits exactly, the errors
+    within a few bits whose |LLR| is near 0)."""
+    out, launches = _cli_on(dev, argv)
+    for name in kernels:
+        assert launches[name] > 0, (name, launches)
+    ref, _ = _cli_on(dev, argv + ["--device", "cpu"])
+    bits = "info_bits" if "info_bits" in ref else "bits"
+    assert out[bits] == ref[bits]
+    assert abs(out["bit_errors"] - ref["bit_errors"]) <= max(2, ref["bit_errors"] // 100)
+
+
+def test_cli_sweep_packet_autotune_on_card(dev, small_cases, tmp_path):
+    ck = str(tmp_path / "ck.json")
+    argv = ["sweep", "--config", "1", "--engine", "mc", "--ebno-grid", "0,4", "--checkpoint", ck,
+            "--max-bits", "100000"]
+    first, launches = _cli_on(dev, argv)
+    assert launches["mc_count"] > 0
+    again, launches = _cli_on(dev, argv)
+    assert again == first and launches["mc_count"] == 0
+    path = str(tmp_path / "b.sc16")
+    rec, launches = _cli_on(dev, ["packet", "--n", "64", "--ebno", "16", "--record", path])
+    assert launches["tx_comb"] > 0 and launches["demod_llr"] > 0
+    assert rec["crc_verdicts_consistent"] and rec["packets"] == 64
+    rep, _ = _cli_on(dev, ["packet", "--n", "64", "--ebno", "16", "--replay", path])
+    assert rep == rec
+    tune, launches = _cli_on(dev, ["autotune", "--demod", "--demod-nfft", "256", "--demod-cp",
+                                   "64", "--iters", "2"])
+    assert all(p["error"] is None and p["gs_per_s"] > 0 for p in tune["points"])
+    for name in ("demod_sum", "llr_chain_sum", "demod_sum_cl", "demod_sum_cl_in_bf16"):
+        assert launches[name] > 0, name

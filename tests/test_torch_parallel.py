@@ -43,6 +43,8 @@ from sdr_tpu.core import config as jcfg
 from sdr_tpu.parallel import make_link_mesh as j_make_link_mesh
 from sdr_tpu.parallel.shard import make_sharded_mc_inject_fn as j_sharded_mc_inject
 from sdr_tpu_torch import interop
+from sdr_tpu_torch.app import cli as tcli
+from sdr_tpu_torch.app.baseline_configs import get_case
 from sdr_tpu_torch.core.config import (
     ChannelEstimator,
     ChannelModel,
@@ -159,6 +161,18 @@ CASES = {
                                 cfg=_cfg(ChannelModel.AWGN, -1.0, 8, 16, n_fft=128,
                                          mod=Modulation.QPSK, equalizer=Equalizer.NONE))
        for code in ("conv", "ldpc", "polar")},
+    # The command line under 4 ranks: bench on a sharded case (config 3,
+    # 64 × 32: a 2 × 2 mesh, two time blocks) and bench --fast (config 1,
+    # 16 × 64 over 1 × 4), each beside the direct sharded call it makes.
+    "cli_bench_sharded": dict(kind="cli", mesh=(1, 4),
+                              argv=["bench", "--config", "3", "--per-channel", "--seed",
+                                    str(SEED)]),
+    "cli_direct_stream": dict(kind="stream", mesh=(2, 2), n_blocks=2, cfg=get_case("3").cfg),
+    "cli_bench_fast": dict(kind="cli", mesh=(1, 4),
+                           argv=["bench", "--config", "1", "--fast", "--seed", str(SEED)]),
+    "cli_direct_fast": dict(kind="fast", mesh=(1, 4), cfg=get_case("1").cfg),
+    "cli_scale": dict(kind="cli", mesh=(1, 4),
+                      argv=["scale", "--config", "3", "--iters", "1"]),
     "stream": dict(kind="stream", mesh=(2, 2), n_blocks=4,
                    cfg=_small(ChannelModel.MULTIPATH, n_symbols=8, pdp=PDP3,
                               equalizer=Equalizer.MMSE)),
@@ -166,7 +180,7 @@ CASES = {
                        cfg=_small(ChannelModel.MULTIPATH_TIME, n_symbols=8, pdp=PDP3,
                                   doppler_norm=0.03, equalizer=Equalizer.MMSE)),
 }
-EXACT = [name for name, c in CASES.items() if c["kind"] != "mc"]
+EXACT = [name for name, c in CASES.items() if c["kind"] not in ("mc", "cli")]
 
 
 @pytest.fixture(scope="module")
@@ -203,6 +217,39 @@ def test_sharded_stream_equals_simulate(ranks, name):
     for n_blocks in (1, 2, 8):
         errors, _ = stream_simulate(cfg, SEED, n_blocks, device="cpu")
         np.testing.assert_array_equal(errors.numpy(), res["errors"])
+
+
+def test_cli_bench_runs_the_sharded_builders(ranks):
+    """``bench`` on a sharded case and ``bench --fast`` under 4 ranks take
+    the sharded stream (a 2 × 2 mesh, the JAX cli's shape rule) and the
+    sharded fast link (1 × 4): every rank prints the same JSON, whose
+    counts equal the direct sharded calls'; ``scale`` runs over 1, 2 and 4
+    ranks."""
+    for name, direct in (("cli_bench_sharded", "cli_direct_stream"),
+                         ("cli_bench_fast", "cli_direct_fast")):
+        outs = ranks[name]
+        assert all(r["rc"] == 0 and r["out"] == outs[0]["out"] for r in outs)
+        out, ref = outs[0]["out"], ranks[direct][0]
+        assert ref["exact"] is True
+        assert out["bits"] == int(ref["counted"].sum())
+        assert out["bit_errors"] == int(ref["errors"].sum()) > 0
+    # scale: weak scaling over ranks 0 … k−1 for k in 1, 2, 4 (16 channels
+    # a rank); the other ranks sit the smaller counts out.
+    scale = [r["out"]["points"] for r in ranks["cli_scale"]]
+    assert [(p["n_devices"], p["n_channels"]) for p in scale[0]] == [(1, 16), (2, 32), (4, 64)]
+    assert scale[0][0]["efficiency"] == 1.0 and all(p["samples_per_s"] > 0 for p in scale[0])
+    assert [len(s) for s in scale] == [3, 2, 1, 1]
+    # Every rank's efficiencies are relative to rank 0's first rate.
+    base = scale[0][0]["samples_per_s"]
+    for pts in scale[1:]:
+        for p in pts:
+            assert p["efficiency"] == pytest.approx(
+                p["samples_per_s"] / (base * p["n_devices"]), rel=1e-12)
+    per_channel = ranks["cli_direct_stream"][0]
+    np.testing.assert_array_equal(ranks["cli_bench_sharded"][0]["out"]["per_channel_ber"],
+                                  per_channel["errors"] / per_channel["counted"])
+    assert tcli._stream_mesh(get_case("3").cfg, WORLD) == (2, 2)
+    assert tcli._stream_mesh(get_case("3").cfg, 6) is None  # a mesh that leaves ranks out
 
 
 def test_sharded_mc_keyed_uses_the_per_shard_seeds(ranks):
