@@ -57,12 +57,29 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    warp-group form: within 1e-4 of the peak, equal signs where
    |LLR| ≥ 1e-3, times, bound and share;
    2b. kernels D and F on bfloat16 sample planes against their plain
-   versions (D at 32768 × 64, F's count and plane at 8192 × 64), then,
-   with the counters zeroed, the BER gate of bf16 input through
-   ``demod_count_chain_cl`` on identical synthetic links (per-tone
-   Rayleigh, N 256, B/4 × 64): 16-QAM at 8 and 14 dB and 64-QAM at
-   18 dB within 0.5 % of the f32 input's errors, 1024-QAM at 30 dB
-   printed and within 10.1 % (the JAX gate's rows);
+   versions (D at 32768 × 64, F's count and plane at 8192 × 64); kernel C
+   on bf16 sample planes (rows #4, #8, #14, #15): in every mode (the count
+   with h per link, per symbol, taps= and the pilot comb, the despread
+   count, the plane, the sum and their despread forms) bit for bit equal
+   to C on the same planes widened to f32 at N 16, 64, 256, 1024 and 4096,
+   each launch under its ``_in_bf16`` counter; against its plain version
+   on the same bf16 planes as phase 2 holds the f32 modes and timed beside
+   C's f32 run on the unrounded planes (in turns) and the plain version,
+   with its bound and share — config 2 at B × 64 for the eight modes,
+   config 3's N 1024 at B/4 × 64 and 16-QAM N 2048 and 4096 at B/2 × 16
+   for the count, plane, sum and their despread forms (on synthetic
+   links; the sums on noise planes); its plane against its f32 plane at
+   the JAX test's bounds (2e-2 of the peak, flips below 5e-2); then, with
+   the counters zeroed, the BER gate of bf16 input on identical synthetic
+   links (per-tone Rayleigh, N 256, B/4 × 64) through
+   ``demod_count_chain_cl`` (F) and ``demod_count_chain`` (C), C's comb
+   count on the same links, its taps= count on a 3-tap per-symbol twin
+   and its despread count on an SC-FDMA twin: 16-QAM at 8 and 14 dB and
+   64-QAM at 18 dB within 0.5 % of the f32 input's errors, 1024-QAM at
+   30 dB within 10.1 % (the JAX gate's rows); C's plane and sums on bf16
+   planes of 64 links finite; and C alone at config 3's N 1024 (64-QAM
+   18 dB) and 16-QAM 14 dB at N 2048 and 4096 (count and despread count
+   within 0.5 %), one counter window per N;
 3. drives the keyed fast link (``fast_simulate``) at BASELINE config-2
    numerology (16-QAM, N = 256, CP = 64) with 8192 channels × 64
    symbols: AWGN at 10 dB against exact theory (within 5 %), flat
@@ -272,8 +289,11 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    config 1 and its resume, ``packet`` (8192 packets), ``packet --record``
    (1024 bursts decoded back from the SC16 file) beside the simulated
    campaign of the same seed, ``waveform --config 2``, ``adapt --config 0
-   --profile``, ``scale``, ``autotune --demod``, ``bench --sanity`` and
-   ``info``, each with its host wall time and the kernels it launched;
+   --profile``, ``scale``, ``autotune --demod``, ``autotune`` (the FFT
+   backends' crossover, torch.fft against the matmul DFT at N 128–16384:
+   each size's Gelem/s and the recommended ``matmul_min_n``), ``bench
+   --sanity`` and ``info``, each with its host wall time and the kernels it
+   launched;
    the gates: each BASELINE case's per-channel counts equal to the CPU's
    plain link on the same keys (``pipeline.simulate_core`` on CPU ids)
    but for bits whose plain |LLR| < 1e-3, its BER within the binomial 5σ
@@ -316,8 +336,10 @@ It builds the kernel library from ``sdr_tpu_torch/csrc`` and then:
    (C's sum and despread, F's bf16), and in 3i around each main-path call
    of the wideband link, into one window per N: C's post-FFT mode there,
    and every kernel and mode phase 2w held at an N, in that N's window;
-   before 2b's gate and read after it for F on bf16 planes (D's bf16
-   mode is in phase 4's window); and in phase 5's ranks around each
+   before 2b's gate and read after it for F and C on bf16 planes (D's
+   bf16 mode is in phase 4's window), and around each of 2b's wideband
+   rows for C's bf16 modes at that N (the entries ``<counter>@N1024`` …
+   ``@N4096``); and in phase 5's ranks around each
    sharded call, summed, for kernel #20 — phase 5n's window holds its
    launches at n2 = 4096; and in phase 3p around each pipeline and
    stream call, for A, B off, E (both modes) and C's count, despread
@@ -964,9 +986,12 @@ def despread_flops(mod, n: int, rows: int, h_rows: int, count: bool = False) -> 
 # Kernel C's modes: those the warp-group form (csrc/demod_rows.cuh) takes
 # at N 128-4096 (below that the shared-memory tile, demod.cu), and those
 # of the post-FFT mode's streaming form (csrc/llr_chain.cu), at every N.
+C_BF16_MODES = ("demod_count_in_bf16", "demod_count_taps_in_bf16", "demod_count_comb_in_bf16",
+                "demod_count_despread_in_bf16", "demod_llr_in_bf16", "demod_sum_in_bf16",
+                "demod_llr_despread_in_bf16", "demod_sum_despread_in_bf16")
 C_ROWS_MODES = ("demod_count", "demod_count_taps", "demod_llr", "demod_sum",
                 "demod_count_despread", "demod_llr_despread", "demod_sum_despread",
-                "tp_stage2_llr", "demod_count_comb")
+                "tp_stage2_llr", "demod_count_comb") + C_BF16_MODES
 C_STREAM_MODES = ("llr_chain", "llr_chain_sum")
 
 
@@ -2288,54 +2313,344 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     del bf_re, bf_im, bf_hr, bf_hi, bf_idx, cnt, cnt_p
     torch.cuda.empty_cache()
 
+    # ---- phase 2b C: kernel C on bf16 sample planes (rows #4, #8, #14, #15) --
+    # (a) Bit for bit against C on the same planes widened to f32 (the kernel
+    # widens each sample as it loads it, and runs the f32 code after), every
+    # mode at N 16 and 64 (the tile) and 256, 1024 and 4096 (the warp-group
+    # form), 16-QAM on noise-like planes, each launch under its _in_bf16
+    # counter.
+    from sdr_tpu_torch.ops.pilots import data_tones
+
+    BF = torch.bfloat16
+    SP_C = 8  # the pilot comb's spacing (phase 3q's)
+
+    def c_bf16_modes(planes, h, hs, taps, idx_c, cp_c, mod_c, nv_c):
+        """Kernel C's modes on ``planes``: label -> (counter, call)."""
+        r, i = planes
+        a = (cp_c, mod_c, nv_c)
+        return {
+            "count": ("demod_count", lambda: kc.demod_count(r, i, *h, idx_c, *a)),
+            "count h per symbol": ("demod_count", lambda: kc.demod_count(r, i, *hs, idx_c, *a)),
+            "count taps=": ("demod_count_taps",
+                            lambda: kc.demod_count(r, i, None, None, idx_c, *a, taps=taps)),
+            "count comb": ("demod_count_comb",
+                           lambda: kc.demod_count(r, i, *h, idx_c, *a, pilot_spacing=SP_C)),
+            "count despread": ("demod_count_despread",
+                               lambda: kc.demod_count(r, i, *h, idx_c, *a, despread=True)),
+            "plane": ("demod_llr", lambda: kc.demod_llr(r, i, *h, *a)),
+            "plane h per symbol": ("demod_llr", lambda: kc.demod_llr(r, i, *hs, *a)),
+            "sum": ("demod_sum", lambda: kc.demod_llr(r, i, *h, *a, reduce_sum=True)),
+            "plane despread": ("demod_llr_despread",
+                               lambda: kc.demod_llr(r, i, *h, *a, despread=True)),
+            "sum despread": ("demod_sum_despread",
+                             lambda: kc.demod_llr(r, i, *h, *a, reduce_sum=True, despread=True)),
+        }
+
+    def noise_planes(gen_c, b_c, s_c, n_c, cp_c):
+        """bench.py-style planes: samples N(0, 1/(2N)) a component, Rayleigh h
+        one row a channel."""
+        re_c, im_c = (torch.randn((b_c, s_c, n_c + cp_c), device=dev, generator=gen_c)
+                      * (1.0 / (2 * n_c)) ** 0.5 for _ in range(2))
+        h_c = tuple(torch.randn((b_c, 1, n_c), device=dev, generator=gen_c) * 0.5 ** 0.5
+                    for _ in range(2))
+        return (re_c, im_c), h_c
+
+    for n_x in (16, 64, 256, 1024, 4096):
+        b_x, s_x, cp_x = (256 if n_x < 4096 else 64), 16, n_x // 4
+        gen_x = torch.Generator(device=dev).manual_seed(seed + 23 + n_x)
+        planes, h_x = noise_planes(gen_x, b_x, s_x, n_x, cp_x)
+        hs_x = tuple(torch.randn((b_x, s_x, n_x), device=dev, generator=gen_x) * 0.5 ** 0.5
+                     for _ in range(2))
+        taps_x = tuple(torch.randn((b_x, s_x, 3), device=dev, generator=gen_x) / 6 ** 0.5
+                       for _ in range(2))
+        idx_x = torch.randint(0, 1 << bps, (b_x, s_x, n_x), device=dev, generator=gen_x,
+                              dtype=torch.int8)
+        half = tuple(p.to(BF) for p in planes)
+        wide = tuple(p.float() for p in half)
+        m_half = c_bf16_modes(half, h_x, hs_x, taps_x, idx_x, cp_x, mod, nv12)
+        m_wide = c_bf16_modes(wide, h_x, hs_x, taps_x, idx_x, cp_x, mod, nv12)
+        for label, (name, fn) in m_half.items():
+            before = _lib.LAUNCHES[name + "_in_bf16"]
+            got = fn()
+            _check(_lib.LAUNCHES[name + "_in_bf16"] == before + 1,
+                   f"kernel C bf16 {label} at N {n_x}: not counted under {name}_in_bf16")
+            _check(torch.equal(got, m_wide[label][1]()),
+                   f"kernel C bf16 {label} at N {n_x}: not the f32 kernel's bits on the widened "
+                   f"planes")
+        print(f"phase 2b C bf16 samples at N {n_x} ({b_x}x{s_x}x{n_x + cp_x}, "
+              f"{c_form('demod_count', n_x)['form']}): {len(m_half)} modes ({', '.join(m_half)}) "
+              f"equal C on the planes widened to f32, bit for bit")
+        del planes, h_x, hs_x, taps_x, idx_x, half, wide, m_half, m_wide
+
+    def bf16_link(kind, mod_g, ebno_g, b_g, s_g, n_g, cp_g, gen_g):
+        """A synthetic link at ``ebno_g`` dB (scripts/gate_cl.py's
+        construction): per-tone Rayleigh h, one row a channel (``kind``
+        "taps": the response of three per-symbol taps of power 1/3 each),
+        AWGN of the demod's nv per tone; the time plane is the IFFT of the
+        tones with the CP ("scfdma": the tones are the DFT of the
+        time-domain symbols, unit power a tone). Returns the rows planes,
+        the channel (h or taps pair), the indices and nv."""
+        bps_g = mod_g.bits_per_symbol
+        idx_g = torch.randint(0, 1 << bps_g, (b_g, s_g, n_g), device=dev, generator=gen_g)
+        pts = constellation(mod_g, dev)[idx_g]
+        if kind == "scfdma":
+            pts = torch.fft.fft(pts, dim=-1) * n_g ** -0.5
+        if kind == "taps":
+            ch = tuple(torch.randn((b_g, s_g, 3), device=dev, generator=gen_g) / 6 ** 0.5
+                       for _ in range(2))
+            hg = chan.freq_response(torch.complex(*ch), n_g)
+        else:
+            hg = torch.complex(*(torch.randn((b_g, 1, n_g), device=dev, generator=gen_g)
+                                 * 0.5 ** 0.5 for _ in range(2)))
+            ch = (hg.real.contiguous(), hg.imag.contiguous())
+        nv_g = 1.0 / (10.0 ** (ebno_g / 10.0) * bps_g)
+        y = pts * hg + torch.complex(
+            *(torch.randn((b_g, s_g, n_g), device=dev, generator=gen_g) for _ in range(2))) * (
+            (nv_g / 2) ** 0.5)
+        del pts, hg
+        xt = torch.fft.ifft(y, dim=-1)
+        del y
+        xt = torch.cat([xt[..., n_g - cp_g:], xt], dim=-1)
+        planes = (xt.real.contiguous(), xt.imag.contiguous())
+        del xt
+        return planes, ch, idx_g.to(torch.int8 if bps_g <= 7 else torch.int16), nv_g
+
+    def count_check(got, llr, idx_c, bps_c, comb=0):
+        """Counts against the plain plane's, within its |LLR| < 1e-3 bits."""
+        if comb:
+            llr, idx_c = data_tones(llr, comb, bps_c), data_tones(idx_c, comb)
+        diff = (got - kc.count_errors(llr, idx_c, bps_c)).abs()
+        _check(bool((diff <= count_margin(llr)).all()),
+               "kernel C bf16 counts differ beyond the |LLR| < 1e-3 bits")
+        return float(diff.max())
+
+    def sum_check(got, want):
+        err = abs(float(got) - float(want))
+        _check(err <= 1e-5 * abs(float(want)), f"kernel C bf16 sum {float(got)!r} vs plain "
+                                               f"{float(want)!r}")
+        return err
+
+    c_bf16_rows = {}  # (counter, N) -> its report: the N 1024-4096 rows for phase 6
+
+    def c_bf16_time(label, name, n_c, shape, fn_half, fn_wide, fn_plain, err, byts, flops):
+        """Time one mode on bf16 planes beside C's f32 run on the unrounded
+        planes (in turns f32, bf16, bf16, f32, ten calls a turn) and its
+        plain version (one call); record its bound."""
+        fn_half()
+        fn_wide()
+        f1 = timed(fn_wide, 10)
+        k1 = timed(fn_half, 10)
+        k2 = timed(fn_half, 10)
+        f2 = timed(fn_wide, 10)
+        fn_plain()
+        pms = timed(fn_plain, 1)
+        rep = dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=pms, f32_ms=(f1 + f2) / 2,
+                   n_fft=n_c, shape=shape, **bound(byts, flops))
+        print(f"phase 2b C {label} bf16 in ({shape}, N {n_c}): max diff vs plain {err:.3g}; "
+              f"kernel {rep['ms']:.4f} ms beside the f32 run's {rep['f32_ms']:.4f} (bf16/f32 "
+              f"{rep['ms'] / rep['f32_ms']:.4f}), plain {pms:.3f} ms; {of_bound(rep)}")
+        c_bf16_rows[(name + "_in_bf16", n_c)] = rep
+        return rep
+
+    # (b) Against the plain version on the same bf16 planes, as phase 2 holds
+    # the f32 modes, and timed: config 2 (N 256, B x S) and the wideband
+    # rows (#14, #15: config 3's 64-QAM N 1024 at B/4 x 64, 16-QAM N 2048
+    # and 4096 at B/2 x 16). Counts and planes on synthetic links (an
+    # SC-FDMA one for the despread, a 3-tap per-symbol one for taps=), the
+    # sums on bench-style noise planes, whose sum does not cancel. (c) The
+    # bf16 run against the f32 run on the unrounded planes at the JAX test's
+    # bounds (tests/test_demod.py:269-292): within 2e-2 of the f32 peak,
+    # sign flips only where |LLR| < 5e-2 of the peak.
+    for n_c, mod_c, b_c, s_c, ebno_c in ((N, mod, B, S, 8.0),
+                                         (1024, Modulation.QAM64, B // 4, S, 18.0),
+                                         (2048, mod, B // 2, 16, 8.0),
+                                         (4096, mod, B // 2, 16, 8.0)):
+        cp_c, bps_c = n_c // 4 if n_c == N else n_c // 8, mod_c.bits_per_symbol
+        rows_c = b_c * s_c
+        shape_c = f"{b_c}x{s_c}x{n_c + cp_c}"
+        gen_c = torch.Generator(device=dev).manual_seed(seed + 24 + n_c)
+        fl_c = rows_c * (fft_flops(n_c) + n_c * tail_flops(mod_c))
+        h_bytes = 8 * b_c * n_c
+        for kind in ("ofdm", "scfdma") + (("taps",) if n_c == N else ()):
+            planes, ch, idx_c, nv_c = bf16_link(kind, mod_c, ebno_c, b_c, s_c, n_c, cp_c, gen_c)
+            half = tuple(p.to(BF) for p in planes)
+            a = (cp_c, mod_c, nv_c)
+            if kind == "taps":
+                plain = kc.demod_chain(*half, *kc.taps_plane(ch, n_c), *a)
+                cnt = kc.demod_count(*half, None, None, idx_c, *a, taps=ch)
+                c_bf16_time("count taps= (3 per symbol)", "demod_count_taps", n_c, shape_c,
+                            lambda: kc.demod_count(*half, None, None, idx_c, *a, taps=ch),
+                            lambda: kc.demod_count(*planes, None, None, idx_c, *a, taps=ch),
+                            lambda: kc.demod_count_plain(*half, None, None, idx_c, *a, taps=ch),
+                            count_check(cnt, plain, idx_c, bps_c),
+                            4 * rows_c * n_c + 24 * rows_c + rows_c * n_c + 4 * b_c,
+                            rows_c * (fft_flops(n_c) + n_c * (tail_flops(mod_c) + 8 * 3)))
+                del planes, half, ch, idx_c, plain, cnt
+                continue
+            desp = kind == "scfdma"
+            tag = " despread" if desp else ""
+            plain = kc.demod_chain(*half, *ch, *a, despread=desp)
+            k16 = kc.demod_llr(*half, *ch, *a, despread=desp)
+            p_err, _ = llr_check(f"kernel C bf16 plane{tag} at N {n_c}", k16, plain)
+            k32 = kc.demod_llr(*planes, *ch, *a, despread=desp)
+            peak = float(k32.abs().max())
+            j_err = float((k16 - k32).abs().max())
+            flips = (k16 < 0) != (k32 < 0)
+            j_flip = float(k32[flips].abs().max()) if bool(flips.any()) else 0.0
+            _check(j_err < 2e-2 * peak and j_flip < 5e-2 * peak,
+                   f"C bf16{tag} at N {n_c} against f32: {j_err:g} / {j_flip:g} of peak {peak:g}")
+            print(f"phase 2b C bf16{tag} at N {n_c} ({mod_c.value} {ebno_c:g} dB, {shape_c}): "
+                  f"the plane against C's f32 plane on the unrounded planes: max diff "
+                  f"{j_err / peak:.3g} of the peak (allowed 2e-2), {int(flips.sum())} sign flips, "
+                  f"the largest at {j_flip / peak:.3g} of the peak (allowed 5e-2)")
+            del k16, k32, flips
+            cnt = kc.demod_count(*half, *ch, idx_c, *a, despread=desp)
+            name = "demod_count_despread" if desp else "demod_count"
+            c_bf16_time(f"count{tag}", name, n_c, shape_c,
+                        lambda: kc.demod_count(*half, *ch, idx_c, *a, despread=desp),
+                        lambda: kc.demod_count(*planes, *ch, idx_c, *a, despread=desp),
+                        lambda: kc.demod_count_plain(*half, *ch, idx_c, *a, despread=desp),
+                        count_check(cnt, plain, idx_c, bps_c),
+                        4 * rows_c * n_c + h_bytes + idx_c.element_size() * rows_c * n_c
+                        + 4 * b_c,
+                        despread_flops(mod_c, n_c, rows_c, b_c, count=True) if desp else fl_c)
+            if n_c == N and not desp:
+                n_data = n_c - n_c // SP_C
+                cnt = kc.demod_count(*half, *ch, idx_c, *a, pilot_spacing=SP_C)
+                c_bf16_time(f"count comb (spacing {SP_C})", "demod_count_comb", n_c, shape_c,
+                            lambda: kc.demod_count(*half, *ch, idx_c, *a, pilot_spacing=SP_C),
+                            lambda: kc.demod_count(*planes, *ch, idx_c, *a, pilot_spacing=SP_C),
+                            lambda: kc.demod_count_plain(*half, *ch, idx_c, *a,
+                                                         pilot_spacing=SP_C),
+                            count_check(cnt, plain, idx_c, bps_c, comb=SP_C),
+                            4 * rows_c * n_c + h_bytes + rows_c * n_data + 4 * b_c,
+                            rows_c * (fft_flops(n_c) + n_data * tail_flops(mod_c)))
+            del cnt
+            c_bf16_time(f"plane{tag}", kc.llr_counter(False, desp), n_c, shape_c,
+                        lambda: kc.demod_llr(*half, *ch, *a, despread=desp),
+                        lambda: kc.demod_llr(*planes, *ch, *a, despread=desp),
+                        lambda: kc.demod_chain(*half, *ch, *a, despread=desp), p_err,
+                        4 * rows_c * n_c + h_bytes + 4 * rows_c * n_c * bps_c,
+                        despread_flops(mod_c, n_c, rows_c, b_c) if desp else fl_c)
+            del planes, half, ch, idx_c, plain
+            sp, sh = noise_planes(gen_c, b_c, s_c, n_c, cp_c)
+            s_half = tuple(p.to(BF) for p in sp)
+            s_err = sum_check(kc.demod_llr(*s_half, *sh, *a, reduce_sum=True, despread=desp),
+                              kc.demod_chain(*s_half, *sh, *a, reduce_sum=True, despread=desp))
+            _check(float(kc.demod_llr(*s_half, *sh, *a, reduce_sum=True, despread=desp))
+                   == float(kc.demod_llr(*s_half, *sh, *a, reduce_sum=True, despread=desp)),
+                   f"kernel C bf16 sum{tag} at N {n_c} is not deterministic")
+            c_bf16_time(f"sum{tag} (deterministic)", kc.llr_counter(True, desp), n_c, shape_c,
+                        lambda: kc.demod_llr(*s_half, *sh, *a, reduce_sum=True, despread=desp),
+                        lambda: kc.demod_llr(*sp, *sh, *a, reduce_sum=True, despread=desp),
+                        lambda: kc.demod_chain(*s_half, *sh, *a, reduce_sum=True,
+                                               despread=desp), s_err,
+                        4 * rows_c * n_c + h_bytes + 4,
+                        despread_flops(mod_c, n_c, rows_c, b_c) if desp else fl_c)
+            del sp, sh, s_half
+        torch.cuda.empty_cache()
+    for key in list(c_bf16_rows):
+        if key[1] == N:  # config 2's rows: the kernels line's own entries
+            report[key[0]] = c_bf16_rows.pop(key)
+
     # The BER gate of bf16 input (the JAX gate, docs/PERF.md:538-553, and
-    # scripts/gate_cl.py's construction): identical synthetic links (per-tone
-    # Rayleigh H, AWGN in the frequency domain, time plane = IFFT + CP),
-    # counted through ``demod_count_chain_cl`` on the f32 planes and on the
-    # same planes rounded to bf16. The counters are zeroed just before: this
-    # is the bf16 path's window (F's count and plane on bf16 planes).
+    # scripts/gate_cl.py's construction, ``bf16_link``): identical synthetic
+    # links (per-tone Rayleigh H, AWGN in the frequency domain, time plane =
+    # IFFT + CP), counted on the f32 planes and on the same planes rounded to
+    # bf16 through ``demod_count_chain_cl`` (F) and ``demod_count_chain`` (C),
+    # and C's comb count on the same links; C's taps= count on a twin link
+    # through three per-symbol taps and its despread count on an SC-FDMA
+    # twin; C's plane and sum (and their despread forms) on bf16 planes of
+    # 64 of the links, finite. The counters are zeroed just before: this is
+    # the bf16 path's window (F's and C's modes on bf16 planes). Then the
+    # wideband rows (#14, #15), C alone, one window per N: config 3's N 1024
+    # (64-QAM 18 dB) and 16-QAM 14 dB at N 2048 and 4096.
     _lib.reset_launches()
     b_g = B // 4  # 2048 links of 64 symbols at B = 8192
-    gates = []
+    sl_g = slice(0, 64)
+
+    def finite_terminals(planes, h, a, despread=False):
+        for red in (False, True):
+            v = demod_chain(planes[0][sl_g], planes[1][sl_g], h[0][sl_g], h[1][sl_g], *a,
+                            reduce_sum=red, despread=despread)
+            _check(bool(torch.isfinite(v).all()), "bf16-in C plane or sum not finite")
+
+    def gate_lines(rows_g, mod_g, ebno_g, b_g, s_g, n_g, limit):
+        for label, (e32, e16, bits_g) in rows_g.items():
+            delta = (e16 - e32) / max(e32, 1)
+            print(f"phase 2b BER gate {label} {mod_g.value} {ebno_g:g} dB ({b_g}x{s_g}, N {n_g}): "
+                  f"f32 in {e32} errors (BER {e32 / bits_g:.4e}), bf16 in {e16} "
+                  f"({delta * 100:+.3f} %, allowed {limit * 100:.1f} %)")
+            _check(abs(delta) <= limit,
+                   f"bf16 BER gate {label} {mod_g.value} {ebno_g:g} dB N {n_g}: {delta:+.4%}")
+
     for mod_g, ebno_g, limit in ((Modulation.QAM16, 8.0, 0.005), (Modulation.QAM16, 14.0, 0.005),
                                  (Modulation.QAM64, 18.0, 0.005),
                                  (Modulation.QAM1024, 30.0, 0.101)):
         bps_g = mod_g.bits_per_symbol
         gen_g = torch.Generator(device=dev).manual_seed(seed + 22)
-        idx_g = torch.randint(0, 1 << bps_g, (b_g, S, N), device=dev, generator=gen_g)
-        hg = torch.complex(*(torch.randn((b_g, 1, N), device=dev, generator=gen_g) * 0.5 ** 0.5
-                             for _ in range(2)))
-        nv_g = 1.0 / (10.0 ** (ebno_g / 10.0) * bps_g)
-        y = constellation(mod_g, dev)[idx_g] * hg + torch.complex(
-            *(torch.randn((b_g, S, N), device=dev, generator=gen_g) for _ in range(2))) * (
-            (nv_g / 2) ** 0.5)
-        xt = torch.fft.ifft(y, dim=-1)
-        del y
-        xt = torch.cat([xt[..., N - CP:], xt], dim=-1)
-        g_re, g_im = fast._to_cl(xt.real.contiguous(), xt.imag.contiguous())
-        del xt
-        g_hr, g_hi = hg[:, 0, :].real.T.contiguous(), hg[:, 0, :].imag.T.contiguous()
-        g_idx = idx_g.permute(1, 2, 0).reshape(S * N, b_g).to(
-            torch.int8 if bps_g <= 7 else torch.int16).contiguous()
-        del idx_g, hg
-        e_f32 = int(demod_count_chain_cl(g_re, g_im, g_hr, g_hi, g_idx, CP, mod_g, nv_g).sum())
-        e_bf16 = int(demod_count_chain_cl(g_re.to(torch.bfloat16), g_im.to(torch.bfloat16), g_hr,
-                                          g_hi, g_idx, CP, mod_g, nv_g).sum())
+        (g_r, g_i), g_h, idx_g, nv_g = bf16_link("ofdm", mod_g, ebno_g, b_g, S, N, CP, gen_g)
+        a = (CP, mod_g, nv_g)
+        g_re, g_im = fast._to_cl(g_r, g_i)
+        g_hr, g_hi = g_h[0][:, 0, :].T.contiguous(), g_h[1][:, 0, :].T.contiguous()
+        g_idx = idx_g.permute(1, 2, 0).reshape(S * N, b_g).contiguous()
+        bits_g = b_g * S * N * bps_g
+        rows_g = {"F": (int(demod_count_chain_cl(g_re, g_im, g_hr, g_hi, g_idx, *a).sum()),
+                        int(demod_count_chain_cl(g_re.to(BF), g_im.to(BF), g_hr, g_hi, g_idx,
+                                                 *a).sum()), bits_g)}
         for out_g in (torch.float32, torch.bfloat16):
-            plane_bf = demod_llr_chain_cl(g_re[:, :64].to(torch.bfloat16).contiguous(),
-                                          g_im[:, :64].to(torch.bfloat16).contiguous(),
+            plane_bf = demod_llr_chain_cl(g_re[:, :64].to(BF).contiguous(),
+                                          g_im[:, :64].to(BF).contiguous(),
                                           g_hr[:, :64].contiguous(), g_hi[:, :64].contiguous(),
-                                          CP, mod_g, nv_g, out_dtype=out_g)
+                                          *a, out_dtype=out_g)
             _check(bool(torch.isfinite(plane_bf).all()), "bf16-in LLR plane not finite")
         del g_re, g_im, g_hr, g_hi, g_idx, plane_bf
-        delta = (e_bf16 - e_f32) / max(e_f32, 1)
-        bits_g = b_g * S * N * bps_g
-        gates.append((mod_g, ebno_g, e_f32, e_bf16, delta, limit))
-        print(f"phase 2b BER gate {mod_g.value} {ebno_g:g} dB ({b_g}x{S}, N {N}): f32 in "
-              f"{e_f32} errors (BER {e_f32 / bits_g:.4e}), bf16 in {e_bf16} ({delta * 100:+.3f} "
-              f"%, allowed {limit * 100:.1f} %)")
-        _check(abs(delta) <= limit, f"bf16 BER gate {mod_g.value} {ebno_g:g} dB: {delta:+.4%}")
-    launches_bf16 = dict(_lib.LAUNCHES)  # phase 2b's gate: the bf16-input path
+        half = (g_r.to(BF), g_i.to(BF))
+        rows_g["C"] = (int(demod_count_chain(g_r, g_i, *g_h, idx_g, *a).sum()),
+                       int(demod_count_chain(*half, *g_h, idx_g, *a).sum()), bits_g)
+        rows_g["C comb"] = (
+            int(kc.demod_count(g_r, g_i, *g_h, idx_g, *a, pilot_spacing=SP_C).sum()),
+            int(kc.demod_count(*half, *g_h, idx_g, *a, pilot_spacing=SP_C).sum()),
+            b_g * S * (N - N // SP_C) * bps_g)
+        finite_terminals(half, g_h, a)
+        del g_r, g_i, half, g_h, idx_g
+        for kind, label in (("taps", "C taps="), ("scfdma", "C despread")):
+            (t_r, t_i), t_ch, t_idx, _ = bf16_link(kind, mod_g, ebno_g, b_g, S, N, CP, gen_g)
+            kw = dict(taps=t_ch) if kind == "taps" else dict(despread=True)
+            hh = (None, None) if kind == "taps" else t_ch
+            half = (t_r.to(BF), t_i.to(BF))
+            rows_g[label] = (int(demod_count_chain(t_r, t_i, *hh, t_idx, *a, **kw).sum()),
+                             int(demod_count_chain(*half, *hh, t_idx, *a, **kw).sum()), bits_g)
+            if kind == "scfdma":
+                finite_terminals(half, t_ch, a, despread=True)
+            del t_r, t_i, t_ch, t_idx, half
+        gate_lines(rows_g, mod_g, ebno_g, b_g, S, N, limit)
+    launches_bf16 = dict(_lib.LAUNCHES)  # phase 2b's gate: the bf16-input path at N 256
+    launches_bf16_at = {}
+    for n_w, mod_w, b_w, s_w, ebno_w in ((1024, Modulation.QAM64, B // 4, S, 18.0),
+                                         (2048, mod, B // 2, 16, 14.0),
+                                         (4096, mod, B // 2, 16, 14.0)):
+        torch.cuda.empty_cache()
+        cp_w, bps_w = n_w // 8, mod_w.bits_per_symbol
+        gen_w = torch.Generator(device=dev).manual_seed(seed + 25 + n_w)
+        (w_r, w_i), w_h, w_idx, nv_w = bf16_link("ofdm", mod_w, ebno_w, b_w, s_w, n_w, cp_w,
+                                                 gen_w)
+        (d_r, d_i), d_h, d_idx, _ = bf16_link("scfdma", mod_w, ebno_w, b_w, s_w, n_w, cp_w,
+                                              gen_w)
+        a = (cp_w, mod_w, nv_w)
+        w_half, d_half = (w_r.to(BF), w_i.to(BF)), (d_r.to(BF), d_i.to(BF))
+        _lib.reset_launches()
+        e16 = int(demod_count_chain(*w_half, *w_h, w_idx, *a).sum())
+        d16 = int(demod_count_chain(*d_half, *d_h, d_idx, *a, despread=True).sum())
+        finite_terminals(w_half, w_h, a)
+        finite_terminals(d_half, d_h, a, despread=True)
+        launches_bf16_at[n_w] = dict(_lib.LAUNCHES)
+        bits_w = b_w * s_w * n_w * bps_w
+        gate_lines({"C": (int(demod_count_chain(w_r, w_i, *w_h, w_idx, *a).sum()), e16, bits_w),
+                    "C despread": (int(demod_count_chain(d_r, d_i, *d_h, d_idx, *a,
+                                                         despread=True).sum()), d16, bits_w)},
+                   mod_w, ebno_w, b_w, s_w, n_w, 0.005)
+        del w_r, w_i, w_h, w_idx, d_r, d_i, d_h, d_idx, w_half, d_half
     torch.cuda.empty_cache()
 
     # ---- phase 3: the slice, counters zeroed just before ------------------
@@ -4805,16 +5120,33 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
           f"{out['points'][0]['samples_per_s']:.6g} samples/s at "
           f"{out['points'][0]['n_channels']} channels")
     out, own = run_cli("autotune --demod", ["autotune", "--demod"])
-    launched("autotune --demod", own, ("demod_sum", "llr_chain_sum", "demod_sum_cl",
-                                       "demod_sum_cl_in_bf16"))
+    launched("autotune --demod", own, ("demod_sum", "demod_sum_in_bf16", "llr_chain_sum",
+                                       "demod_sum_cl", "demod_sum_cl_in_bf16"))
     _check(all(p["error"] is None for p in out["points"]), f"3z autotune: {out}")
     print(f"phase 3z autotune --demod (N 4096, CP 512, 256 x 8): "
           f"{ {p['backend']: round(p['gs_per_s'], 3) for p in out['points']} } GS/s, "
           f"recommended {out['recommended_demod_route']} on {card}")
+    # The FFT backends' crossover: torch.fft (cuFFT) against the matmul DFT,
+    # the JAX cli's default sizes 128-16384 and 20 iterations.
+    from sdr_tpu_torch.ops.fft import get_default_backend
+
+    fft_sizes = [128, 256, 512, 1024, 2048, 4096, 8192, 16384]
+    out, own = run_cli("autotune", ["autotune"])
+    _check(set(out) == {"matmul_min_n", "points"}
+           and [p["n"] for p in out["points"]] == fft_sizes
+           and all(set(p) == {"n", "xla", "matmul"} and p["xla"] > 0 and p["matmul"] > 0
+                   for p in out["points"]), f"3z autotune: {out}")
+    _check(get_default_backend() == "auto", "3z autotune changed the FFT backend")
+    print(f"phase 3z autotune (FFT backends, batches of 2^22 elements, 20 chained calls, best "
+          f"of 3, CUDA events): "
+          + "; ".join(f"N {p['n']} xla (torch.fft) {p['xla']:.3f}, matmul {p['matmul']:.3f}"
+                      for p in out["points"])
+          + f" Gelem/s; recommended matmul_min_n {out['matmul_min_n']} on {card}")
     out, own = run_cli("bench --sanity", ["bench", "--sanity"])
     print(f"phase 3z bench --sanity: {out} on {card}")
     out, own = run_cli("info", ["info"])
     _check(out["devices"] == [torch.cuda.get_device_name(0)], f"3z info: {out['devices']}")
+    _check(out["fft_backend"] == "auto", f"3z info: fft_backend {out['fft_backend']}")
 
     t_dir = os.path.join(z_dir, "trace")
     with obs_trace(t_dir, annotate="bench config 1"):
@@ -4906,7 +5238,8 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
     terminal_path = ("demod_sum", "demod_llr_despread", "demod_sum_despread",
                      "demod_llr_cl_bf16")
     wide_path = ("llr_chain", "llr_chain_sum")
-    bf16_path = ("demod_count_cl_in_bf16", "demod_llr_cl_in_bf16", "demod_llr_cl_bf16_in_bf16")
+    bf16_path = ("demod_count_cl_in_bf16", "demod_llr_cl_in_bf16", "demod_llr_cl_bf16_in_bf16",
+                 *C_BF16_MODES)
     parallel_path = ("tp_stage2_llr",)
     windows = ((coded_path, launches_coded), (terminal_path, launches_terminals),
                (mc_path, launches_mc), (wide_path, launches_wide), (bf16_path, launches_bf16),
@@ -4965,6 +5298,19 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
         "tx_comb": ("sdr_tpu_torch/csrc/tx.cu", "sdr_tpu/kernels/tx_pallas.py:265"),
         "demod_count_comb": ("sdr_tpu_torch/csrc/demod_count.cu",
                              "sdr_tpu/kernels/demod_pallas.py:500"),
+        # C on bf16 sample planes (N 2-64: demod_tile_bf16.cu).
+        "demod_count_in_bf16": ("sdr_tpu_torch/csrc/demod_count_bf16.cu",
+                                "sdr_tpu/kernels/demod_pallas.py:500"),
+        "demod_count_taps_in_bf16": ("sdr_tpu_torch/csrc/demod_count_bf16.cu",
+                                     "sdr_tpu/kernels/demod_pallas.py:500"),
+        "demod_count_comb_in_bf16": ("sdr_tpu_torch/csrc/demod_count_bf16.cu",
+                                     "sdr_tpu/kernels/demod_pallas.py:500"),
+        "demod_count_despread_in_bf16": ("sdr_tpu_torch/csrc/demod_despread_count_bf16.cu",
+                                         "sdr_tpu/kernels/demod_pallas.py:500"),
+        "demod_llr_in_bf16": ("sdr_tpu_torch/csrc/demod_llr_bf16.cu", c_rows),
+        "demod_sum_in_bf16": ("sdr_tpu_torch/csrc/demod_llr_bf16.cu", c_rows),
+        "demod_llr_despread_in_bf16": ("sdr_tpu_torch/csrc/demod_despread_llr_bf16.cu", c_rows),
+        "demod_sum_despread_in_bf16": ("sdr_tpu_torch/csrc/demod_despread_sum_bf16.cu", c_rows),
     }
     # The wideband entries: each counter at N 1024, 2048 and 4096, with its
     # launches in that N's window of phase 3i, against the TPU kernel it
@@ -5052,6 +5398,18 @@ def smoke(dev, B: int = 8192, BD: int = 32768) -> int:
              **windows_of("tp_stage2_llr"), **{"library_ms": None, **tp_report[label]})
         for label, n2 in (("n2=4096", 4096), ("n2=4096 h per symbol", 4096), ("n2=512", 512))
     ]
+    # C on bf16 sample planes at N 1024-4096 (phase 2b's wideband rows, #14
+    # and #15), each with its launches in that N's bf16 window.
+    c_wide_src = {"demod_count_despread_in_bf16": "sdr_tpu/kernels/fourstep_split_pallas.py:376",
+                  "demod_sum_despread_in_bf16": "sdr_tpu/kernels/fourstep_split_pallas.py:376"}
+    for (name, n_w), rep in c_bf16_rows.items():
+        _check(launches_bf16_at[n_w][name] > 0,
+               f"kernel {name} was not launched at N {n_w} in phase 2b's window")
+        kernels.append(dict(
+            name=f"{name}@N{n_w}", route="cuda", source=sources[name][0],
+            replaces=c_wide_src.get(name, "sdr_tpu/kernels/fourstep_split_pallas.py:175"),
+            **cl_form(name, n_w), launches=launches_bf16_at[n_w][name], **windows_of(name),
+            **{"library_ms": None, **rep}))
     # The MIMO link's shapes (phase 3m, one pass of CHUNK channels): E over
     # the pair plane (gains, static taps) and the RX planes' noise, C's
     # post-FFT mode on whitened tones; each with its counter's launches in

@@ -7,7 +7,7 @@
   python -m sdr_tpu_torch packet    # packet-modem campaign, IQ record/replay
   python -m sdr_tpu_torch adapt     # MCS calibration and an adaptive link
   python -m sdr_tpu_torch waveform  # PAPR/EVM/PSD report
-  python -m sdr_tpu_torch autotune  # A/B the demod routes on this device
+  python -m sdr_tpu_torch autotune  # FFT backend crossover (--demod: the demod routes)
   python -m sdr_tpu_torch scale     # weak scaling over the ranks
   python -m sdr_tpu_torch info      # devices, versions, component inventory
 
@@ -20,9 +20,9 @@ package's. The differences: a seed (``--seed``) keys the port's Philox
 draws where the JAX cli builds a ``PRNGKey``; ``packet --record`` sends
 its bursts as one batch and ``--replay`` decodes the frames as one batch;
 ``info`` reports torch's version, CUDA and the cards in place of the JAX
-backend; ``autotune`` times the port's demod routes (``--demod``) and has
-no FFT backend to tune. Under ``torchrun`` (more than one rank) ``bench
---fast`` and ``bench`` on a sharded case run over the ranks.
+backend; ``autotune --demod`` times the port's demod routes. Under
+``torchrun`` (more than one rank) ``bench --fast`` and ``bench`` on a
+sharded case run over the ranks.
 """
 
 from __future__ import annotations
@@ -639,26 +639,44 @@ def _cmd_sweep(args) -> int:
 
 
 def _cmd_autotune(args) -> int:
-    if not getattr(args, "demod", False):
+    from sdr_tpu_torch.obs.autotune import recommend_crossover, tune_fft
+
+    if getattr(args, "demod", False):
+        import dataclasses as _dc
+
+        from sdr_tpu_torch.obs.autotune import tune_demod
+
+        pts = tune_demod(
+            n_fft=args.demod_nfft, cp_len=args.demod_cp, iters=args.iters, device=_dev(args)
+        )
+        ok = [p for p in pts if p.error is None]
+        winner = max(ok, key=lambda p: p.gs_per_s).backend if ok else None
+        print(json.dumps({
+            "recommended_demod_route": winner,
+            "points": [_dc.asdict(p) for p in pts],
+        }))
+        return 0
+
+    sizes = [int(s) for s in args.sizes.split(",")]
+    points = tune_fft(sizes=sizes, iters=args.iters, device=_dev(args))
+    for p in points:
         print(
-            "error: the port has no FFT backend to tune (torch.fft and the kernels' own "
-            "FFTs; the TPU matmul-DFT crossover has no counterpart): use --demod",
+            f"# n={p.n:6d}  xla={p.xla_gelems:7.1f}  matmul={p.matmul_gelems:7.1f} "
+            f"Gelem/s  -> {p.winner}",
             file=sys.stderr,
         )
-        return 2
-    import dataclasses as _dc
-
-    from sdr_tpu_torch.obs.autotune import tune_demod
-
-    pts = tune_demod(
-        n_fft=args.demod_nfft, cp_len=args.demod_cp, iters=args.iters, device=_dev(args)
+    cross = recommend_crossover(points)
+    print(
+        json.dumps(
+            {
+                "matmul_min_n": cross,
+                "points": [
+                    {"n": p.n, "xla": p.xla_gelems, "matmul": p.matmul_gelems}
+                    for p in points
+                ],
+            }
+        )
     )
-    ok = [p for p in pts if p.error is None]
-    winner = max(ok, key=lambda p: p.gs_per_s).backend if ok else None
-    print(json.dumps({
-        "recommended_demod_route": winner,
-        "points": [_dc.asdict(p) for p in pts],
-    }))
     return 0
 
 
@@ -955,6 +973,7 @@ def _cmd_info(args) -> int:
 
     from sdr_tpu_torch import __version__
     from sdr_tpu_torch.core.config import Modulation
+    from sdr_tpu_torch.ops.fft import get_default_backend
 
     cards = ([torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
              if _dev(args) == "cuda" else [])
@@ -963,9 +982,10 @@ def _cmd_info(args) -> int:
         "torch_version": torch.__version__,
         "cuda": torch.version.cuda,
         "devices": cards or ["cpu"],
-        "fft_backend": "torch.fft, and the kernels' own FFTs",
+        "fft_backend": get_default_backend(),
         "modulations": [m.value for m in Modulation],
-        "demod_backends": ["fused (kernel C)", "hybrid (torch FFT + kernel C post-FFT)",
+        "demod_backends": ["fused (kernel C)", "fused:bf16 (bf16 sample planes)",
+                           "hybrid (torch FFT + kernel C post-FFT)",
                            "cl (kernel D/F, channels-last)", "cl:bf16 (bf16 sample planes)"],
         "channels": ["identity", "awgn", "rayleigh_flat", "rician (K-factor)",
                      "multipath", "rayleigh_time (Jakes)", "multipath_time (TDL)",
@@ -1271,10 +1291,11 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(wf)
     wf.set_defaults(fn=_cmd_waveform)
 
-    a = sub.add_parser("autotune", help="A/B the demod routes on this device")
+    a = sub.add_parser("autotune", help="measure FFT backend crossover on this device")
+    a.add_argument("--sizes", default="128,256,512,1024,2048,4096,8192,16384")
     a.add_argument("--iters", type=int, default=20)
     a.add_argument("--demod", action="store_true",
-                   help="A/B the demod routes (the port has no FFT backend to tune)")
+                   help="A/B the demod routes instead of the FFT backends")
     a.add_argument("--demod-nfft", type=int, default=4096)
     a.add_argument("--demod-cp", type=int, default=512)
     _add_device(a)

@@ -6,6 +6,7 @@
 
 int demod_despread_plane(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
                          int bpsk, cudaStream_t st) {
-  SDR_DISPATCH_MOD(bits_per_axis, bpsk, return rows_launch_n<M, BPSK, kPlane, true>(a, tab, st))
+  SDR_DISPATCH_MOD(bits_per_axis, bpsk,
+                   return rows_launch_n<float, M, BPSK, kPlane, true>(a, tab, st))
   return (int)cudaErrorInvalidValue;
 }

@@ -6,9 +6,20 @@
 // holds the count's instantiations and entry point, demod_llr.cu the
 // plane's and the sum's, demod_despread_count.cu, demod_despread_llr.cu
 // and demod_despread_sum.cu those of the three despread modes, and
-// demod_tp.cu the TP mode's, so that nvcc builds them in parallel. The
-// post-FFT mode (llr_chain) has no transform: its streaming form is
-// llr_chain.cu.
+// demod_tp.cu the TP mode's; the same modes on bfloat16 sample planes (all
+// but TP) sit in twins with the _bf16 suffix (demod_count_bf16.cu, ...,
+// demod_tile_bf16.cu for the tile), so that nvcc builds them all in
+// parallel and no one source grows. The post-FFT mode (llr_chain) has no
+// transform: its streaming form is llr_chain.cu.
+//
+// Sample planes. re/im are float32, or bfloat16 (the JAX kernels' x_bf16
+// mode, demod_pallas.py:443, :568, and the four-step kernels' stage 1,
+// fourstep_split_pallas.py:126-131): the sample type T is a template
+// parameter of the kernel, each load widens a bf16 sample to f32 exactly
+// (ld_sample), and everything after the load is the f32 kernel's code, so
+// a bf16 plane gives the bits of the f32 kernel on the widened plane. h,
+// the taps, the noise variance and the outputs stay f32. The bound's
+// bytes fall by 4 a sample.
 //
 // Replaces, at these N, sdr_tpu/kernels/demod_pallas.py::demod_count_pallas
 // (the count, with taps=) and ::demod_chain_pallas (the plane and the sum),
@@ -105,22 +116,48 @@
 // keep the form under the byte bound. The despread adds a second
 // transform and keeps the same bytes.
 #pragma once
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 #include "warpfft.cuh"
 
-// The shared-memory tile (demod.cu): kernel C's form at N = 2 to 64, the
-// despread and TP modes included. Arguments as the extern "C" entry points.
-int demod_count_tile(const float* re, const float* im, const float* hr, const float* hi,
+namespace sdr {
+
+// One sample of a plane, widened to f32 (exact for bf16: its bits are the
+// high half of the f32's).
+__device__ __forceinline__ float ld_sample(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_sample(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+}  // namespace sdr
+
+// The shared-memory tile (demod.cu; on bf16 planes demod_tile_bf16.cu):
+// kernel C's form at N = 2 to 64, the despread and TP modes included.
+// Arguments as the extern "C" entry points; re/im float32, or bfloat16 in
+// the _bf16 twins.
+int demod_count_tile(const void* re, const void* im, const float* hr, const float* hi,
                      int h_syms, const float* taps_r, const float* taps_i, int n_taps,
                      const void* idx, int idx_bytes, int32_t* out, int B, int S, int log_n,
                      int cp, int bits_per_axis, int bpsk, const sdr::AxisTables& tab,
                      float inv_nv, float nv, int despread, int pilot, const float* twr,
                      const float* twi, cudaStream_t st);
-int demod_llr_tile(const float* re, const float* im, const float* hr, const float* hi,
+int demod_count_tile_bf16(const void* re, const void* im, const float* hr, const float* hi,
+                          int h_syms, const float* taps_r, const float* taps_i, int n_taps,
+                          const void* idx, int idx_bytes, int32_t* out, int B, int S, int log_n,
+                          int cp, int bits_per_axis, int bpsk, const sdr::AxisTables& tab,
+                          float inv_nv, float nv, int despread, int pilot, const float* twr,
+                          const float* twi, cudaStream_t st);
+int demod_llr_tile(const void* re, const void* im, const float* hr, const float* hi,
                    int h_syms, float* out, float* partials, int B, int S, int log_n, int cp,
                    int bits_per_axis, int bpsk, const sdr::AxisTables& tab, float inv_nv,
                    float nv, int despread, int reduce_sum, const float* twr, const float* twi,
                    cudaStream_t st);
+int demod_llr_tile_bf16(const void* re, const void* im, const float* hr, const float* hi,
+                        int h_syms, float* out, float* partials, int B, int S, int log_n, int cp,
+                        int bits_per_axis, int bpsk, const sdr::AxisTables& tab, float inv_nv,
+                        float nv, int despread, int reduce_sum, const float* twr,
+                        const float* twi, cudaStream_t st);
 int demod_llr_tile_partials(int B, int S, int log_n);
 int demod_tp_tile(const float* tr, const float* ti, const float* hr, const float* hi, int h_syms,
                   const float* nv, float* out, int B, int S, int n1d, int log_n,
@@ -130,8 +167,8 @@ int demod_tp_tile(const float* tr, const float* ti, const float* hr, const float
 // One launch of the warp-group form, by value. At namespace scope, so
 // that the functions that take it keep external linkage.
 struct RowsArgs {
-  const float* re;      // (B, S, N+cp) sample planes
-  const float* im;
+  const void* re;       // (B, S, N+cp) sample planes, float32 or bfloat16 (the kernel's T)
+  const void* im;
   const float* hr;      // (B, h_syms, N), or null with taps
   const float* hi;
   const float* taps_r;  // (B, S, L) per-symbol taps, or null
@@ -154,15 +191,31 @@ struct RowsArgs {
 constexpr int kRowsMinLog = 7;
 using sdr::kRun;
 
-// The despread modes of the warp-group form (demod_despread_count.cu,
-// demod_despread_llr.cu, demod_despread_sum.cu); the caller has checked
-// the shape (rows_bad_shape, no taps).
+// The modes of the warp-group form built in translation units of their
+// own: the despread modes (demod_despread_count.cu, demod_despread_llr.cu,
+// demod_despread_sum.cu) and every mode but TP on bf16 sample planes
+// (demod_count_bf16.cu, demod_llr_bf16.cu, demod_despread_*_bf16.cu); the
+// caller has checked the shape (rows_bad_shape; no taps with the despread).
+using RowsMode = int (*)(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
+                         int bpsk, cudaStream_t st);
 int demod_despread_count(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
                          int bpsk, cudaStream_t st);
 int demod_despread_plane(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
                          int bpsk, cudaStream_t st);
 int demod_despread_sum(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
                        int bpsk, cudaStream_t st);
+int demod_count_bf16(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
+                     int bpsk, cudaStream_t st);
+int demod_plane_bf16(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
+                     int bpsk, cudaStream_t st);
+int demod_sum_bf16(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis, int bpsk,
+                   cudaStream_t st);
+int demod_despread_count_bf16(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
+                              int bpsk, cudaStream_t st);
+int demod_despread_plane_bf16(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
+                              int bpsk, cudaStream_t st);
+int demod_despread_sum_bf16(const RowsArgs& a, const sdr::AxisTables& tab, int bits_per_axis,
+                            int bpsk, cudaStream_t st);
 
 // Blocks of a launch over `runs` channels (B, or B·n1d with TP) of S
 // symbols; the sum's per-block partials, one a block.
@@ -221,10 +274,12 @@ __host__ __device__ inline RowsCarve rows_carve(int R, int G, const RowsArgs& a,
   return c;
 }
 
-template <int M, bool BPSK, int MODE, int R, int G, bool DESP, bool TP>
+template <typename T, int M, bool BPSK, int MODE, int R, int G, bool DESP, bool TP>
 __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
     demod_rows_kernel(RowsArgs a, sdr::AxisTables tab) {
   static_assert(!TP || (MODE == kPlane && !DESP), "the TP mode stores the plane");
+  const T* __restrict__ xre = static_cast<const T*>(a.re);
+  const T* __restrict__ xim = static_cast<const T*>(a.im);
   using C = sdr::Ctx<R, G>;
   // At 16 points a lane (two blocks an SM) a group loads its next symbol
   // into registers while this one runs; at 4 and 8 (three blocks an SM,
@@ -300,8 +355,8 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
     for (int j = 0; j < R / G; ++j) {
 #pragma unroll
       for (int d = 0; d < G; ++d) {
-        xr[j * G + d] = __ldg(a.re + o + 32 * (G * j + R * d));
-        xi[j * G + d] = __ldg(a.im + o + 32 * (G * j + R * d));
+        xr[j * G + d] = sdr::ld_sample(xre + o + 32 * (G * j + R * d));
+        xi[j * G + d] = sdr::ld_sample(xim + o + 32 * (G * j + R * d));
       }
     }
   };
@@ -456,10 +511,10 @@ __global__ void __launch_bounds__(sdr::kThreads, R <= 8 ? 3 : 2)
   }
 }
 
-template <int M, bool BPSK, int MODE, bool DESP, bool TP, int R, int G>
+template <typename T, int M, bool BPSK, int MODE, bool DESP, bool TP, int R, int G>
 int rows_launch(const RowsArgs& a, const sdr::AxisTables& tab, cudaStream_t st) {
   const RowsCarve cv = rows_carve(R, G, a, MODE == kCount ? a.idx_bytes : 0, DESP);
-  const auto kernel = demod_rows_kernel<M, BPSK, MODE, R, G, DESP, TP>;
+  const auto kernel = demod_rows_kernel<T, M, BPSK, MODE, R, G, DESP, TP>;
   if (cv.total > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cv.total);
@@ -475,16 +530,16 @@ int rows_launch(const RowsArgs& a, const sdr::AxisTables& tab, cudaStream_t st) 
 }
 
 // The plan of N = 2^log_n, 128 to 4096: one warp a symbol to N 512, then
-// 2, 4 and 8.
-template <int M, bool BPSK, int MODE, bool DESP = false, bool TP = false>
+// 2, 4 and 8. T: the sample planes' type.
+template <typename T, int M, bool BPSK, int MODE, bool DESP = false, bool TP = false>
 int rows_launch_n(const RowsArgs& a, const sdr::AxisTables& tab, cudaStream_t st) {
   switch (a.log_n) {
-    case 7: return rows_launch<M, BPSK, MODE, DESP, TP, 4, 1>(a, tab, st);
-    case 8: return rows_launch<M, BPSK, MODE, DESP, TP, 8, 1>(a, tab, st);
-    case 9: return rows_launch<M, BPSK, MODE, DESP, TP, 16, 1>(a, tab, st);
-    case 10: return rows_launch<M, BPSK, MODE, DESP, TP, 16, 2>(a, tab, st);
-    case 11: return rows_launch<M, BPSK, MODE, DESP, TP, 16, 4>(a, tab, st);
-    case 12: return rows_launch<M, BPSK, MODE, DESP, TP, 16, 8>(a, tab, st);
+    case 7: return rows_launch<T, M, BPSK, MODE, DESP, TP, 4, 1>(a, tab, st);
+    case 8: return rows_launch<T, M, BPSK, MODE, DESP, TP, 8, 1>(a, tab, st);
+    case 9: return rows_launch<T, M, BPSK, MODE, DESP, TP, 16, 1>(a, tab, st);
+    case 10: return rows_launch<T, M, BPSK, MODE, DESP, TP, 16, 2>(a, tab, st);
+    case 11: return rows_launch<T, M, BPSK, MODE, DESP, TP, 16, 4>(a, tab, st);
+    case 12: return rows_launch<T, M, BPSK, MODE, DESP, TP, 16, 8>(a, tab, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

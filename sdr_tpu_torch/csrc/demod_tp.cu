@@ -30,6 +30,6 @@ extern "C" int sdr_tp_stage2_llr(const float* tr, const float* ti, const float* 
                    B,   S,   log_n, 0, h_syms, 0,     0,       0.0f, 0.0f,    n1d, nv};
   if (rows_bad_shape(a)) return (int)cudaErrorInvalidValue;
   SDR_DISPATCH_MOD(bits_per_axis, bpsk,
-    return rows_launch_n<M, BPSK, kPlane, false, true>(a, tab, st))
+    return rows_launch_n<float, M, BPSK, kPlane, false, true>(a, tab, st))
   return (int)cudaErrorInvalidValue;
 }

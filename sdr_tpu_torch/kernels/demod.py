@@ -68,7 +68,7 @@ the bias built once a block for one h row a channel, or per symbol in one
 shared-memory pass for one a symbol. The TP mode is the plane over
 digit rows (b, k1) with no CP and the noise variance read on the card.
 N = 2 to 64 of every mode stays on the shared-memory tile
-(``csrc/demod.cu``): a block's symbols bit-reversed in shared memory and
+(``csrc/demod_tile.cuh``, built in ``demod.cu``): a block's symbols bit-reversed in shared memory and
 radix-2 stages a barrier each. The post-FFT mode has no transform and its
 own streaming form (``csrc/llr_chain.cu``): a block takes a run of
 symbols of one channel, a thread four consecutive tones of a row at the
@@ -85,6 +85,16 @@ equaliser and the LLR tail, and stores (B, S, n1d, n2·bps)
 subcarrier-major; the noise variance is a 0-d float32 tensor on the
 card, read by the kernel (counter ``tp_stage2_llr``). Its plain version
 is ``stage2_llr_plain``: torch's FFT, then ``post_fft_llr``.
+
+Sample planes: re/im float32, or both bfloat16 (the JAX kernels'
+``x_bf16`` mode, ``demod_pallas.py:443``, ``:568``, and the four-step
+kernels' stage 1, ``fourstep_split_pallas.py:126-131``) in every mode but
+the post-FFT and TP ones; h, the taps and the outputs stay float32, and
+any other mix raises, on the CPU as on the card (``check_dtypes``). On the
+card each bf16 sample is widened to float32 as it is loaded
+(``csrc/demod_rows.cuh``, ``demod_tile.cuh``), so a bf16 plane gives the
+bits of the f32 kernel on the widened plane; its launches count under the
+mode's counter with ``_in_bf16`` appended. The plain versions widen first.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the CUDA
 kernel runs, or the call raises. GPU tests of the post-FFT and TP modes:
@@ -111,6 +121,26 @@ MAX_N_FFT = 4096  # the warp-group form's widest: 8 warps of 16 points a lane
 MAX_TAPS = 8  # the taps= mode's budget (demod_pallas.py:541)
 
 
+_IN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_dtypes(name: str, re, im, *chan, names=("re/im", "hr/hi")) -> bool:
+    """Raise unless re/im are both float32 or both bfloat16 and each
+    channel tensor (h planes or taps) is float32; True for bf16 samples.
+    The plain versions hold the kernels' contract too."""
+    if re.dtype not in _IN_DTYPES or im.dtype != re.dtype:
+        raise ValueError(f"{name}: {names[0]} must both be float32 or both bfloat16, "
+                         f"got {re.dtype} and {im.dtype}")
+    if any(t.dtype != torch.float32 for t in chan):
+        raise ValueError(f"{name}: {names[1]} must be float32")
+    return re.dtype == torch.bfloat16
+
+
+def counter(name: str, in_bf16: bool) -> str:
+    """Launch counter of a demod mode for its sample type."""
+    return name + "_in_bf16" if in_bf16 else name
+
+
 def inv_noise_var(noise_var: float) -> float:
     """1/max(nv, 1e-12), the clamp every demod terminal applies."""
     return 1.0 / max(float(noise_var), 1e-12)
@@ -123,7 +153,9 @@ def demod_chain(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
     float32 in the public order (per subcarrier, or per time symbol with
     ``despread``; I bits then Q bits, MSB first), or its float32 sum when
     ``reduce_sum``. ``despread``: the SC-FDE receive
-    (``equalize_mmse_fde``), as the JAX package's ``demod_chain_jnp``."""
+    (``equalize_mmse_fde``), as the JAX package's ``demod_chain_jnp``.
+    re/im both float32 or both bfloat16 (widened first), h float32."""
+    check_dtypes("demod_chain", re, im, hr, hi)
     y = ofdm_rx(torch.complex(re.to(torch.float32), im.to(torch.float32)), cp_len)
     return post_fft_llr(y, hr, hi, mod, noise_var, reduce_sum, despread)
 
@@ -194,6 +226,7 @@ def _check_comb(pilot_spacing: int, n_fft: int, despread: bool) -> None:
 def demod_count_plain(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: float,
                       taps=None, despread: bool = False, pilot_spacing: int = 0):
     """Plain torch version of the count."""
+    check_dtypes("demod_count", re, im, *((hr, hi) if taps is None else taps))
     _check_comb(pilot_spacing, idx.shape[-1], despread)
     if taps is not None:
         hr, hi = taps_plane(taps, idx.shape[-1])
@@ -208,17 +241,19 @@ def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: fl
                 taps=None, despread: bool = False, pilot_spacing: int = 0):
     """Per-channel (B,) int32 bit-error counts.
 
-    re/im (B, S, N+cp) float32; hr/hi (B, 1, N) or (B, S, N) float32, or
-    None with ``taps=(taps_r, taps_i)`` float32 (B, S, L ≤ 8); idx
-    (B, S, N) int8/int16/int32 transmitted symbol indices (time-domain
-    symbols with ``despread``, which takes the h plane, not taps);
-    ``pilot_spacing``: count the data tones of the comb alone."""
+    re/im (B, S, N+cp) float32, or both bfloat16; hr/hi (B, 1, N) or
+    (B, S, N) float32, or None with ``taps=(taps_r, taps_i)`` float32
+    (B, S, L ≤ 8); idx (B, S, N) int8/int16/int32 transmitted symbol
+    indices (time-domain symbols with ``despread``, which takes the h
+    plane, not taps); ``pilot_spacing``: count the data tones of the comb
+    alone."""
     if despread and taps is not None:
         raise ValueError("demod count: despread takes the h plane, not taps=")
+    chan = (hr, hi) if taps is None else tuple(taps)
+    in_bf16 = check_dtypes("demod count", re, im, *chan)
     if re.device.type == "cpu":
         return demod_count_plain(re, im, hr, hi, idx, cp_len, mod, noise_var, taps, despread,
                                  pilot_spacing)
-    chan = (hr, hi) if taps is None else tuple(taps)
     if not supported(re.shape, chan[0].shape, idx.shape, cp_len):
         raise ValueError(
             f"demod count kernel: unsupported shapes re {tuple(re.shape)}, "
@@ -226,9 +261,8 @@ def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: fl
         )
     if taps is None and hr.shape[-1] != re.shape[-1] - cp_len:
         raise ValueError("demod count kernel: h must be (B, 1 | S, N) without taps=")
-    if (any(t.dtype != torch.float32 for t in (re, im, *chan))
-            or chan[1].shape != chan[0].shape or im.shape != re.shape):
-        raise ValueError("demod count kernel: sample and channel planes must be float32 pairs")
+    if chan[1].shape != chan[0].shape or im.shape != re.shape:
+        raise ValueError("demod count kernel: sample and channel planes must be pairs")
     if idx.dtype not in _IDX_DTYPES:
         raise ValueError(f"demod count kernel: indices must be int8/16/32, got {idx.dtype}")
     _check_comb(pilot_spacing, idx.shape[-1], despread)
@@ -242,14 +276,14 @@ def demod_count(re, im, hr, hi, idx, cp_len: int, mod: Modulation, noise_var: fl
     else:
         h_args = (None, None, 0, chan[0].data_ptr(), chan[1].data_ptr(), chan[0].shape[2])
     rc = _lib.lib().sdr_demod_count(
-        re.data_ptr(), im.data_ptr(), *h_args,
+        re.data_ptr(), im.data_ptr(), int(in_bf16), *h_args,
         idx.data_ptr(), idx.element_size(), out.data_ptr(), B, S, _lib.log2_exact(N),
         cp_len, mod.bits_per_axis, int(mod is Modulation.BPSK), _lib.axis_tables(mod),
         inv_noise_var(noise_var), max(float(noise_var), 1e-12), int(despread),
         pilot_spacing, twr.data_ptr(), twi.data_ptr(), _lib.stream(),
     )
-    name = "demod_count_comb" if pilot_spacing else "demod_count_taps" if taps is not None else (
-        "demod_count_despread" if despread else "demod_count")
+    name = counter("demod_count_comb" if pilot_spacing else "demod_count_taps" if taps is not None
+                   else "demod_count_despread" if despread else "demod_count", in_bf16)
     _lib.check(rc, name)
     _lib.LAUNCHES[name] += 1
     return out
@@ -324,11 +358,12 @@ def demod_llr(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
     """The LLR plane (B, S, N·bps) float32 in the public order, or its
     float32 sum (0-d) with ``reduce_sum`` (port of ``demod_chain_pallas``).
 
-    re/im (B, S, N+cp) float32; hr/hi (B, 1, N) or (B, S, N) float32.
-    ``despread``: the SC-FDE receive (LLRs per time symbol). The plain
-    version is ``demod_chain``; on a CUDA tensor kernel C's LLR or sum
-    mode runs (the sum deterministic: per-block partials added in a fixed
-    order), or the call raises."""
+    re/im (B, S, N+cp) float32, or both bfloat16; hr/hi (B, 1, N) or
+    (B, S, N) float32. ``despread``: the SC-FDE receive (LLRs per time
+    symbol). The plain version is ``demod_chain``; on a CUDA tensor kernel
+    C's LLR or sum mode runs (the sum deterministic: per-block partials
+    added in a fixed order), or the call raises."""
+    in_bf16 = check_dtypes("demod llr", re, im, hr, hi)
     if re.device.type == "cpu":
         return demod_chain(re, im, hr, hi, cp_len, mod, noise_var, reduce_sum, despread)
     if re.ndim != 3 or hr is None or hr.ndim != 3:
@@ -340,9 +375,8 @@ def demod_llr(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
             f"demod llr kernel: unsupported shapes re {tuple(re.shape)}, h {tuple(hr.shape)}, "
             f"cp {cp_len}"
         )
-    if (any(t.dtype != torch.float32 for t in (re, im, hr, hi))
-            or hi.shape != hr.shape or im.shape != re.shape):
-        raise ValueError("demod llr kernel: sample and channel planes must be float32 pairs")
+    if hi.shape != hr.shape or im.shape != re.shape:
+        raise ValueError("demod llr kernel: sample and channel planes must be pairs")
     _lib.require_cuda("demod_llr", re, im, hr, hi)
     lib = _lib.lib()
     log_n = _lib.log2_exact(N)
@@ -356,12 +390,13 @@ def demod_llr(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
         out = torch.empty((B, S, N * bps), dtype=torch.float32, device=re.device)
     twr, twi = _lib.twiddles(N, re.device)
     rc = lib.sdr_demod_llr(
-        re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(), hr.shape[1], out.data_ptr(),
-        _lib.ptr(partials), B, S, log_n, cp_len, mod.bits_per_axis, int(mod is Modulation.BPSK),
-        _lib.axis_tables(mod), inv_noise_var(noise_var), max(float(noise_var), 1e-12),
-        int(despread), int(reduce_sum), twr.data_ptr(), twi.data_ptr(), _lib.stream(),
+        re.data_ptr(), im.data_ptr(), int(in_bf16), hr.data_ptr(), hi.data_ptr(), hr.shape[1],
+        out.data_ptr(), _lib.ptr(partials), B, S, log_n, cp_len, mod.bits_per_axis,
+        int(mod is Modulation.BPSK), _lib.axis_tables(mod), inv_noise_var(noise_var),
+        max(float(noise_var), 1e-12), int(despread), int(reduce_sum), twr.data_ptr(),
+        twi.data_ptr(), _lib.stream(),
     )
-    name = llr_counter(reduce_sum, despread)
+    name = counter(llr_counter(reduce_sum, despread), in_bf16)
     _lib.check(rc, name)
     _lib.LAUNCHES[name] += 1
     return out[0] if reduce_sum else out

@@ -60,7 +60,13 @@ import torch
 
 from sdr_tpu_torch.core.config import Modulation
 from sdr_tpu_torch.kernels import _lib
-from sdr_tpu_torch.kernels.demod import count_errors, demod_chain, inv_noise_var
+from sdr_tpu_torch.kernels.demod import (
+    check_dtypes,
+    count_errors,
+    counter,
+    demod_chain,
+    inv_noise_var,
+)
 
 _BASE = 128  # the TPU kernel's leaf DFT size, which fixes its DIF order
 MAX_N_FFT = 4096  # the wideband radix plan 32 · 32 · N/1024 ends at N/1024 = 4
@@ -95,24 +101,9 @@ def h_natural(hr_t, hi_t, h_in_dif_order: bool):
     return hr_t[inv], hi_t[inv]
 
 
-_IN_DTYPES = (torch.float32, torch.bfloat16)
-
-
 def _check_dtypes(name: str, re_t, im_t, hr_t, hi_t) -> bool:
-    """Raise unless re_t/im_t are both float32 or both bfloat16 and h is
-    float32 (the plain versions hold the kernels' contract too); True for
-    bf16 samples."""
-    if re_t.dtype not in _IN_DTYPES or im_t.dtype != re_t.dtype:
-        raise ValueError(f"{name}: re_t/im_t must both be float32 or both bfloat16, "
-                         f"got {re_t.dtype} and {im_t.dtype}")
-    if hr_t.dtype != torch.float32 or hi_t.dtype != torch.float32:
-        raise ValueError(f"{name}: hr_t/hi_t must be float32")
-    return re_t.dtype == torch.bfloat16
-
-
-def _counter(name: str, in_bf16: bool) -> str:
-    """Launch counter of a channels-last kernel for its sample type."""
-    return name + "_in_bf16" if in_bf16 else name
+    """``kernels.demod.check_dtypes`` under the channels-last names."""
+    return check_dtypes(name, re_t, im_t, hr_t, hi_t, names=("re_t/im_t", "hr_t/hi_t"))
 
 
 def supported(shape, n_fft: int, cp_len: int) -> bool:
@@ -176,7 +167,7 @@ def demod_sum_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation, noise_var
         mod.bits_per_axis, int(mod is Modulation.BPSK), _lib.axis_tables(mod),
         inv_noise_var(noise_var), twr.data_ptr(), twi.data_ptr(), _lib.stream(),
     )
-    name = _counter("demod_sum_cl", in_bf16)
+    name = counter("demod_sum_cl", in_bf16)
     _lib.check(rc, name)
     _lib.LAUNCHES[name] += 1
     return out[0]
@@ -245,7 +236,7 @@ def demod_llr_cl(re_t, im_t, hr_t, hi_t, cp_len: int, mod: Modulation, noise_var
         int(mod is Modulation.BPSK), _lib.axis_tables(mod), inv_noise_var(noise_var),
         twr.data_ptr(), twi.data_ptr(), _lib.stream(),
     )
-    name = _counter("demod_llr_cl_bf16" if bf16 else "demod_llr_cl", in_bf16)
+    name = counter("demod_llr_cl_bf16" if bf16 else "demod_llr_cl", in_bf16)
     _lib.check(rc, name)
     _lib.LAUNCHES[name] += 1
     return out
@@ -302,7 +293,7 @@ def demod_count_cl(re_t, im_t, hr_t, hi_t, idx_t, cp_len: int, mod: Modulation,
         _lib.axis_tables(mod), inv_noise_var(noise_var), twr.data_ptr(), twi.data_ptr(),
         _lib.stream(),
     )
-    name = _counter("demod_count_cl", in_bf16)
+    name = counter("demod_count_cl", in_bf16)
     _lib.check(rc, name)
     _lib.LAUNCHES[name] += 1
     return out

@@ -25,7 +25,10 @@ call raises ``ValueError`` — nothing falls back.
 
 Layouts: rows (B, S, N+cp) planar samples with h (B, 1|S, N); channels-
 last (S·(N+cp), B) samples with h (N, B) in natural bin order and, for
-the count, indices (S·N, B).
+the count, indices (S·N, B). Sample planes are float32 or both bfloat16
+(the JAX bench's input) on every route but the hybrid one, whose
+post-FFT mode reads float32 bins; h stays float32, and a mix raises.
+``demod_chain_plain`` is the plain composition on any device.
 """
 
 from __future__ import annotations
@@ -106,10 +109,21 @@ def demod_chain(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
     """LLR plane (B, S, N·bps) float32 in the public order (per
     subcarrier, or per time symbol with ``despread``; I bits then Q bits,
     MSB first), or its float32 sum with ``reduce_sum``. re/im (B, S,
-    N+cp); hr/hi (B, 1 | S, N). Plain torch on a CPU tensor, kernel C on a
-    CUDA tensor (or ``ValueError``)."""
+    N+cp) float32 or both bfloat16; hr/hi (B, 1 | S, N) float32. Plain
+    torch on a CPU tensor, kernel C on a CUDA tensor (or ``ValueError``)."""
     return _kc.demod_llr(re, im, hr, hi, cp_len, mod, noise_var, reduce_sum=reduce_sum,
                          despread=despread)
+
+
+def demod_chain_plain(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,
+                      reduce_sum: bool = False, despread: bool = False) -> torch.Tensor:
+    """The plain composition, always available (the JAX package's
+    ``ops.demod.demod_chain_jnp``): ``ofdm_rx``, the one-tap or SC-FDE
+    equaliser and the max-log LLRs in torch on whatever device the tensors
+    are on — kernel C's plain version, ``kernels.demod.demod_chain``.
+    Arguments and result as ``demod_chain``."""
+    return _kc.demod_chain(re, im, hr, hi, cp_len, mod, noise_var, reduce_sum=reduce_sum,
+                           despread=despread)
 
 
 def demod_chain_hybrid(re, im, hr, hi, cp_len: int, mod: Modulation, noise_var: float,

@@ -6,13 +6,15 @@ Port of ``sdr_tpu/ops/ofdm.py``:
   time samples, samples[cp_len:] = ifft(input) and samples[:cp_len] a
   copy of the LAST cp_len time-domain samples;
 - ``ofdm_rx``: drop the first cp_len samples, forward-FFT the rest.
+
+Both take ``backend=`` and hand it to ``ops.fft`` (None: its default).
 """
 
 from __future__ import annotations
 
 import torch
 
-from sdr_tpu_torch.ops.fft import fft, ifft
+from sdr_tpu_torch.ops.fft import Backend, fft, ifft
 
 
 def cp_insert(time_symbols: torch.Tensor, cp_len: int) -> torch.Tensor:
@@ -32,11 +34,14 @@ def cp_remove(samples: torch.Tensor, cp_len: int) -> torch.Tensor:
     return samples[..., cp_len:]
 
 
-def ofdm_tx(freq_symbols: torch.Tensor, cp_len: int) -> torch.Tensor:
-    """Frequency-domain subcarriers → CP-prefixed time samples."""
-    return cp_insert(ifft(freq_symbols), cp_len)
+def ofdm_tx(freq_symbols: torch.Tensor, cp_len: int,
+            backend: Backend | None = None) -> torch.Tensor:
+    """Frequency-domain subcarriers → CP-prefixed time samples: the
+    1/N-scaled IFFT, then the CP."""
+    return cp_insert(ifft(freq_symbols, backend=backend), cp_len)
 
 
-def ofdm_rx(samples: torch.Tensor, cp_len: int) -> torch.Tensor:
-    """CP-prefixed time samples → frequency-domain subcarriers."""
-    return fft(cp_remove(samples, cp_len))
+def ofdm_rx(samples: torch.Tensor, cp_len: int, backend: Backend | None = None) -> torch.Tensor:
+    """CP-prefixed time samples → frequency-domain subcarriers: strip the
+    CP, then the unscaled FFT."""
+    return fft(cp_remove(samples, cp_len), backend=backend)

@@ -30,6 +30,8 @@ import functools
 import numpy as np
 import torch
 
+from sdr_tpu_torch.ops.fft_matmul import full_f32_matmul
+
 # Unit-power pilot point (45° QPSK corner), known at both ends.
 PILOT_VALUE = complex(2 ** -0.5, 2 ** -0.5)
 
@@ -145,13 +147,8 @@ def _pilot(like: torch.Tensor) -> torch.Tensor:
 
 def _project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """h @ w in full float32: on the card with TF32 held off for the call."""
-    if not h.is_cuda or not torch.backends.cuda.matmul.allow_tf32:
+    with full_f32_matmul(h):
         return h @ w
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return h @ w
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = True
 
 
 def _phase(phi: torch.Tensor) -> torch.Tensor:

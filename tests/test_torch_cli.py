@@ -7,8 +7,7 @@ record what they are given, and its ``_run_sanity`` on stubbed timings.
 
 (a) Parser parity: the same subcommands, and for each the same option
     strings, defaults and choices, but ``--device`` (the port's, on every
-    subcommand) and ``autotune --sizes`` (the JAX FFT-backend tuner, which
-    the port has no counterpart for).
+    subcommand).
 (b) Case parity: on each argv of ``CASES`` the port's cli hands its entry
     point the LinkConfig (or PacketConfig and ChannelConfig) that the JAX
     cli hands its own, field by field (enums by value), with the same
@@ -89,7 +88,6 @@ def test_parser_parity():
     assert sorted(mine) == sorted(ref)
     for cmd in ref:
         assert mine[cmd].pop(("--device",)) == ("cuda", ["cuda", "cpu"])
-    del ref["autotune"][("--sizes",)]
     assert mine == ref
 
 
@@ -329,9 +327,35 @@ def test_guard_parity(name, monkeypatch, tmp_path):
     assert err_t.startswith("error: ")
 
 
-def test_autotune_without_demod_exits_2():
-    rc, _, err = _run(tcli.main, ["autotune", "--device", "cpu"])
-    assert rc == 2 and "no FFT backend" in err
+def test_autotune_fft_crossover_json(monkeypatch):
+    """``autotune`` without ``--demod`` measures the FFT backends and
+    prints the JAX cli's JSON: on the same planted points both clis print
+    the same stdout and stderr; a real run on the CPU (its batch cut to
+    2^12 elements) has a positive rate per size and backend."""
+    import sdr_tpu.obs.autotune as j_auto
+    import sdr_tpu_torch.obs.autotune as t_auto
+    from sdr_tpu.app import cli as jcli
+
+    planted = [(64, 2.0, 1.0), (128, 1.0, 3.0)]
+    monkeypatch.setattr(j_auto, "tune_fft",
+                        lambda sizes, iters: [j_auto.TunePoint(*p) for p in planted])
+    monkeypatch.setattr(t_auto, "tune_fft",
+                        lambda sizes, iters, device: [t_auto.TunePoint(*p) for p in planted])
+    argv = ["autotune", "--sizes", "64,128", "--iters", "1"]
+    rc_j, out_j, err_j = _run(jcli.main, argv)
+    rc_t, out_t, err_t = _run(tcli.main, argv + ["--device", "cpu"])
+    assert rc_j == rc_t == 0 and out_t == out_j and err_t == err_j
+    assert _last_json(out_t)["matmul_min_n"] == 128
+    monkeypatch.undo()
+    real = t_auto._time_backend
+    monkeypatch.setattr(t_auto, "_time_backend",
+                        lambda backend, n, _elems, iters, reps, dev:
+                        real(backend, n, 1 << 12, iters, reps, dev))
+    out = _last_json(_cpu(argv)[0])
+    assert set(out) == set(_last_json(out_j)) == {"matmul_min_n", "points"}
+    assert [p["n"] for p in out["points"]] == [64, 128]
+    assert all(set(p) == {"n", "xla", "matmul"} and p["xla"] > 0 and p["matmul"] > 0
+               for p in out["points"])
 
 
 # ---- (d) bench --sanity --------------------------------------------------------------------
@@ -420,6 +444,7 @@ def test_info_and_list_on_cpu():
     rc_j, text_j, _ = _run(jcli.main, ["info"])
     keys_j = set(json.loads(text_j)) - {"jax_backend"}
     assert set(info) == keys_j | {"torch_version", "cuda"}
+    assert info["fft_backend"] == json.loads(text_j)["fft_backend"] == "auto"
     rc_j, list_j, _ = _run(jcli.main, ["bench", "--list"])
     assert rc_j == 0 and _cpu(["bench", "--list"])[0] == list_j
 
@@ -507,8 +532,9 @@ def test_scale_and_autotune(small_cases):
     assert out["points"][0]["n_channels"] == 4 and out["points"][0]["efficiency"] == 1.0
     tune = _last_json(_cpu(["autotune", "--demod", "--demod-nfft", "256", "--demod-cp", "64",
                             "--iters", "1"])[0])
-    assert [p["backend"] for p in tune["points"]] == ["fused", "hybrid", "cl", "cl:bf16"]
-    assert tune["recommended_demod_route"] in ("fused", "hybrid", "cl", "cl:bf16")
+    routes = ["fused", "fused:bf16", "hybrid", "cl", "cl:bf16"]
+    assert [p["backend"] for p in tune["points"]] == routes
+    assert tune["recommended_demod_route"] in routes
 
 
 # ---- (f) the card by default ---------------------------------------------------------------

@@ -171,7 +171,10 @@ def test_package_imports_no_jax():
         "sdr_tpu_torch.app.cli, sdr_tpu_torch.native, sdr_tpu_torch.native.host, "
         "sdr_tpu_torch.native.iq, sdr_tpu_torch.obs.health, sdr_tpu_torch.obs.roofline, "
         "sdr_tpu_torch.obs.profile, sdr_tpu_torch.obs.autotune, sdr_tpu_torch.obs.scaling, "
-        "sdr_tpu_torch.obs.plot; "
+        "sdr_tpu_torch.obs.plot, sdr_tpu_torch.ops.fft_matmul; "
+        "from sdr_tpu_torch.ops.fft import Backend, set_default_backend, set_matmul_min_n; "
+        "from sdr_tpu_torch.obs.autotune import TunePoint, tune_fft, recommend_crossover; "
+        "from sdr_tpu_torch.ops.demod import demod_chain_plain; "
         "from sdr_tpu_torch.link import simulate_coded, info_bits_per_channel; "
         "from sdr_tpu_torch.utils import SlidingBuffer, ring_push; "
         "from sdr_tpu_torch.obs import Metrics, ebno_sweep, trace, probe_device, demod_roofline; "

@@ -20,7 +20,12 @@ channels-last kernels run at N 2 to 4096 (the narrow plan to N = 512,
 the wideband one above), with ragged B and S, B and C at configs 3 and
 5's N, and C's post-FFT mode (``llr_chain``) as C's LLR and sum modes, C's TP stage-2
 mode (``tp_stage2_llr``, #20) as C's LLR mode; D and F on bfloat16 sample
-planes as on float32 ones.
+planes as on float32 ones. C on bfloat16 sample planes: bit for bit the
+same counts, planes and sums as C on the planes widened to float32 (the
+kernel widens each sample as it loads it), and against its plain version
+as on float32 planes. The matmul DFT (``ops.fft_matmul``): the reference's
+float tolerance (abs 1e-5·√n or rel 1e-6) against a float64 FFT, with
+TF32 switched on globally.
 """
 
 import dataclasses
@@ -1847,5 +1852,170 @@ def test_cli_sweep_packet_autotune_on_card(dev, small_cases, tmp_path):
     tune, launches = _cli_on(dev, ["autotune", "--demod", "--demod-nfft", "256", "--demod-cp",
                                    "64", "--iters", "2"])
     assert all(p["error"] is None and p["gs_per_s"] > 0 for p in tune["points"])
-    for name in ("demod_sum", "llr_chain_sum", "demod_sum_cl", "demod_sum_cl_in_bf16"):
+    for name in ("demod_sum", "demod_sum_in_bf16", "llr_chain_sum", "demod_sum_cl",
+                 "demod_sum_cl_in_bf16"):
         assert launches[name] > 0, name
+    fft_tune, _ = _cli_on(dev, ["autotune", "--sizes", "256,8192", "--iters", "2"])
+    assert set(fft_tune) == {"matmul_min_n", "points"}
+    assert [p["n"] for p in fft_tune["points"]] == [256, 8192]
+    assert all(p["xla"] > 0 and p["matmul"] > 0 for p in fft_tune["points"])
+
+
+# ---- kernel C on bf16 sample planes ----------------------------------------------------------
+
+C_BF16_N = [16, 64, 256, 1024, 4096]
+# Each mode: its counter, and the call on (re, im, hr, hi, taps, idx).
+_C_BF16_MODES = {
+    "count": ("demod_count", lambda a, k: kc.demod_count(*a[:4], a[5], *k)),
+    "count_h_per_symbol": ("demod_count", lambda a, k: kc.demod_count(*a[:2], *a[6:8], a[5], *k)),
+    "count_taps": ("demod_count_taps",
+                   lambda a, k: kc.demod_count(*a[:2], None, None, a[5], *k, taps=a[4])),
+    "count_comb": ("demod_count_comb",
+                   lambda a, k: kc.demod_count(*a[:4], a[5], *k, pilot_spacing=4)),
+    "count_despread": ("demod_count_despread",
+                       lambda a, k: kc.demod_count(*a[:4], a[5], *k, despread=True)),
+    "plane": ("demod_llr", lambda a, k: kc.demod_llr(*a[:4], *k)),
+    "plane_h_per_symbol": ("demod_llr", lambda a, k: kc.demod_llr(*a[:2], *a[6:8], *k)),
+    "sum": ("demod_sum", lambda a, k: kc.demod_llr(*a[:4], *k, reduce_sum=True)),
+    "plane_despread": ("demod_llr_despread", lambda a, k: kc.demod_llr(*a[:4], *k, despread=True)),
+    "sum_despread": ("demod_sum_despread",
+                     lambda a, k: kc.demod_llr(*a[:4], *k, reduce_sum=True, despread=True)),
+}
+
+
+def _c_bf16_inputs(dev, mod, n_fft, B=37, S=33):
+    """Noise-like sample planes (unrounded f32), h one row a channel and
+    one a symbol, 3 per-symbol taps and random indices."""
+    cp = n_fft // 4
+    g = torch.Generator(device=dev).manual_seed(n_fft + mod.bits_per_symbol)
+    re, im = (torch.randn((B, S, n_fft + cp), device=dev, generator=g) / (2 * n_fft) ** 0.5
+              for _ in range(2))
+    hr, hi = (torch.randn((B, 1, n_fft), device=dev, generator=g) * 0.5 ** 0.5 for _ in range(2))
+    hsr, hsi = (torch.randn((B, S, n_fft), device=dev, generator=g) * 0.5 ** 0.5
+                for _ in range(2))
+    taps = tuple(torch.randn((B, S, 3), device=dev, generator=g) / 6 ** 0.5 for _ in range(2))
+    idx = torch.randint(0, 1 << mod.bits_per_symbol, (B, S, n_fft), device=dev, generator=g,
+                        dtype=torch.int16)
+    return [re, im, hr, hi, taps, idx, hsr, hsi], cp
+
+
+@pytest.mark.parametrize("mode", list(_C_BF16_MODES))
+@pytest.mark.parametrize("n_fft", C_BF16_N)
+@pytest.mark.parametrize("mod", [Modulation.BPSK, Modulation.QAM16, Modulation.QAM1024],
+                         ids=lambda m: m.value)
+def test_demod_kernel_on_bf16_equals_f32_on_widened_planes(dev, mod, n_fft, mode):
+    """C on bf16 sample planes gives the bits of C on the same planes
+    widened to f32 (the tile at N 16 and 64, the warp-group form at 256,
+    1024 and 4096), counted under the mode's ``_in_bf16`` counter; and it
+    meets its plain version on the same bf16 planes as the f32 modes do
+    (counts within the |LLR| < 1e-3 bits, planes 1e-4 of the peak, sums
+    1e-5 of the sum of |LLR|)."""
+    name, call = _C_BF16_MODES[mode]
+    args, cp = _c_bf16_inputs(dev, mod, n_fft)
+    k = (cp, mod, 1.0 / (10 ** 1.2 * mod.bits_per_symbol))
+    half = args[:]
+    half[0], half[1] = args[0].to(torch.bfloat16), args[1].to(torch.bfloat16)
+    wide = args[:]
+    wide[0], wide[1] = half[0].float(), half[1].float()
+    got = _counted(name + "_in_bf16", lambda: call(half, k))
+    want = _counted(name, lambda: call(wide, k))
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    despread = mode.endswith("despread")
+    h = (args[6], args[7]) if mode.endswith("per_symbol") else (
+        kc.taps_plane(args[4], n_fft) if mode == "count_taps" else (args[2], args[3]))
+    plain = kc.demod_chain(half[0], half[1], *h, *k, despread=despread)
+    if mode.startswith("count"):
+        want_plain = (kc.demod_count_plain(*half[:4], half[5], *k, despread=despread,
+                                           pilot_spacing=4) if mode == "count_comb" else
+                      kc.count_errors(plain, half[5], mod.bits_per_symbol))
+        _within_margin(got, plain, want_plain)
+    elif mode.startswith("sum"):
+        assert abs(float(got) - float(plain.double().sum())) <= \
+            1e-5 * float(plain.abs().double().sum())
+    else:
+        _llr_close(got, plain)
+
+
+def test_demod_kernel_on_bf16_meets_the_jax_bounds_against_f32(dev):
+    """C's bf16 run against its f32 run on the unrounded planes, at the
+    JAX test's bounds (tests/test_demod.py:269-292): within 2e-2 of the f32
+    peak, sign flips only where |LLR| < 5e-2 of the peak; 16-QAM at 8 dB,
+    N 256 and 4096."""
+    mod = Modulation.QAM16
+    nv = 1.0 / (10 ** 0.8 * mod.bits_per_symbol)
+    for n_fft in (256, 4096):
+        args, cp = _c_bf16_inputs(dev, mod, n_fft, B=16, S=8)
+        for despread in (False, True):
+            l32 = kc.demod_llr(*args[:4], cp, mod, nv, despread=despread)
+            l16 = kc.demod_llr(args[0].to(torch.bfloat16), args[1].to(torch.bfloat16),
+                               *args[2:4], cp, mod, nv, despread=despread)
+            peak = float(l32.abs().max())
+            assert float((l16 - l32).abs().max()) < 2e-2 * peak
+            flips = (l16 < 0) != (l32 < 0)
+            assert float(l32[flips].abs().max()) < 5e-2 * peak if bool(flips.any()) else True
+
+
+def test_demod_routes_run_kernel_c_on_bf16_planes(dev):
+    """``ops.demod.demod_chain`` and ``demod_count_chain`` on bf16 planes
+    launch C's bf16 modes (no widening in torch, no CPU); a mixed pair of
+    planes raises on the card as on the CPU."""
+    from sdr_tpu_torch.ops import demod as od
+
+    mod = Modulation.QAM16
+    args, cp = _c_bf16_inputs(dev, mod, 256, B=8, S=4)
+    rb, ib = args[0].to(torch.bfloat16), args[1].to(torch.bfloat16)
+    k = (cp, mod, 0.05)
+    _counted("demod_llr_in_bf16", lambda: od.demod_chain(rb, ib, *args[2:4], *k))
+    _counted("demod_sum_in_bf16", lambda: od.demod_chain(rb, ib, *args[2:4], *k, reduce_sum=True))
+    _counted("demod_count_in_bf16", lambda: od.demod_count_chain(rb, ib, *args[2:4], args[5], *k))
+    _counted("demod_count_despread_in_bf16",
+             lambda: od.demod_count_chain(rb, ib, *args[2:4], args[5], *k, despread=True))
+    for planes in ((args[0], ib), (rb, args[1]), (args[0].half(), args[1].half())):
+        with pytest.raises(ValueError, match="float32 or both bfloat16"):
+            od.demod_chain(*planes, *args[2:4], *k)
+        with pytest.raises(ValueError, match="float32 or both bfloat16"):
+            od.demod_count_chain(*planes, *args[2:4], args[5], *k)
+    with pytest.raises(ValueError, match="hr/hi must be float32"):
+        kc.demod_llr(rb, ib, args[2].to(torch.bfloat16), args[3], *k)
+
+
+# ---- the matmul DFT on the card --------------------------------------------------------------
+
+def _ref_float_close(got, want, magnitude):
+    """abs 1e-5·magnitude or rel 1e-6, per component (tests/test_fft.py)."""
+    for part in (torch.real, torch.imag):
+        a, b = part(got).double(), part(want)
+        d = (a - b).abs()
+        ok = (d <= 1e-5 * magnitude) | (d <= 1e-6 * torch.maximum(a.abs(), b.abs()))
+        assert bool(ok.all()), float(d.max())
+
+
+@pytest.mark.parametrize("n", [64, 128, 512, 8192])
+def test_matmul_fft_on_card_is_full_f32_with_tf32_on(dev, n):
+    """``matmul_fft`` and ``fft(backend="matmul")`` on the card at the
+    reference tolerance against a float64 FFT, with TF32 switched on
+    globally by the test: the products are pinned to full f32 (the same
+    products left to TF32 miss the tolerance), and the setting is
+    restored after each call."""
+    from sdr_tpu_torch.ops import fft as F
+    from sdr_tpu_torch.ops import fft_matmul
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.complex(*(torch.randn((6, n), device=dev, generator=g) for _ in range(2)))
+    want = torch.fft.fft(x.cpu().to(torch.complex128), dim=-1).to(dev)
+    want_i = torch.fft.ifft(x.cpu().to(torch.complex128), dim=-1).to(dev)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = fft_matmul.matmul_fft(x)
+        assert torch.backends.cuda.matmul.allow_tf32
+        via = F.fft(x, backend="matmul")
+        inv = F.ifft(x, backend="matmul")
+        loose = torch.complex(*fft_matmul._dft_planar(x.real, x.imag, False))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    _ref_float_close(got, want, n ** 0.5)
+    assert torch.equal(via, got)
+    _ref_float_close(inv, want_i, 1.0)
+    err = float((loose.to(torch.complex128) - want).abs().max())
+    assert err > 1e-5 * n ** 0.5, err  # TF32 was on: unpinned products miss the bound

@@ -2,9 +2,9 @@
 
 At N = 1024 and 4096 the JAX package runs its four-step kernels (the TX
 ``tx_chain_fourstep2`` / ``tx_chain_fourstep``, the demod
-``demod_chain_fourstep2`` with its SC-FDE form and
-``demod_chain_fourstep``), the post-FFT LLR kernel ``llr_chain_pallas``
-behind ``demod_chain_hybrid``, and the channels-last kernels (through
+``demod_chain_fourstep2`` with its SC-FDE form, on float32 and on
+bfloat16 sample planes, and ``demod_chain_fourstep``), the post-FFT LLR
+kernel ``llr_chain_pallas`` behind ``demod_chain_hybrid``, and the channels-last kernels (through
 their jnp twin ``demod_cl_jnp``, which has the kernels' math and no
 interpret lowering of its own). The port serves all of them with kernels
 B, C (with its post-FFT mode ``llr_chain``), D and F; here their plain
@@ -172,6 +172,16 @@ def _reference(name):
                                                        interpret=True))
         ref["fde_count"] = _np(demod_chain_fourstep2_fde(*sc_args, cp, jm, nv, interpret=True,
                                                          count_idx=jidx))
+        # The same on the sample planes rounded to bf16 (the kernels' bf16
+        # mode: stage 1 widens them in registers).
+        bf = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+        b_wave = (bf(ref["multipath"][0]), bf(ref["multipath"][1]), wave[2], wave[3])
+        ref["d2_plane_bf16"] = _np(demod_chain_fourstep2(*b_wave, cp, jm, nv, interpret=True))
+        ref["d2_count_bf16"] = _np(demod_chain_fourstep2(*b_wave, cp, jm, nv, interpret=True,
+                                                         count_idx=jidx))
+        ref["fde_count_bf16"] = _np(demod_chain_fourstep2_fde(
+            bf(ref["scfdma"][0]), bf(ref["scfdma"][1]), *sc_args[2:], cp, jm, nv,
+            interpret=True, count_idx=jidx))
         if name == "config5":
             ref["fde_sum"] = float(demod_chain_fourstep2_fde(*noisy, cp, jm, nv, reduce_sum=True,
                                                              interpret=True))
@@ -328,6 +338,34 @@ def test_demod_despread_sum_matches_jax_fourstep2_fde(wide5):
     total = kc.demod_llr(*_t(*w["bench"]), w["cp"], w["mod"], w["nv"], reduce_sum=True,
                          despread=True)
     _assert_sums_close(total, w["ref"]["fde_sum"])
+
+
+def _bf16_planes(w, key):
+    return tuple(torch.from_numpy(a).to(torch.bfloat16) for a in w["ref"][key])
+
+
+def test_demod_on_bf16_matches_jax_fourstep2(wide):
+    """Kernel C's plane and count (plain versions) on the waveform's
+    sample planes rounded to bf16 against demod_chain_fourstep2 on the
+    same bf16 planes."""
+    w = wide
+    planes = (*_bf16_planes(w, "multipath"), *_t(w["hr"], w["hi"]))
+    plane = kc.demod_llr(*planes, w["cp"], w["mod"], w["nv"])
+    _assert_planes_close(plane.numpy(), w["ref"]["d2_plane_bf16"])
+    got = kc.demod_count(*planes, *_t(w["idx"]), w["cp"], w["mod"], w["nv"])
+    assert int(got.sum()) > 0
+    _assert_counts_agree(got, w["ref"]["d2_count_bf16"], plane)
+
+
+def test_demod_despread_count_on_bf16_matches_jax_fourstep2_fde(wide):
+    """Kernel C's despread count (plain version) on the SC-FDMA waveform
+    rounded to bf16 against the SC-FDE kernel on the same bf16 planes."""
+    w = wide
+    sc = (*_bf16_planes(w, "scfdma"), *_t(w["hr"], w["hi"]))
+    got = kc.demod_count(*sc, *_t(w["idx"]), w["cp"], w["mod"], w["nv"], despread=True)
+    assert int(got.sum()) > 0
+    _assert_counts_agree(got, w["ref"]["fde_count_bf16"],
+                         kc.demod_chain(*sc, w["cp"], w["mod"], w["nv"], despread=True))
 
 
 @pytest.mark.parametrize("layout", ["planes", "interleaved"])
